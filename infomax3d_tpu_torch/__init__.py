@@ -1,0 +1,14 @@
+"""PyTorch + CUDA port of `infomax3d_tpu` for NVIDIA Hopper (H100).
+
+The JAX package `infomax3d_tpu` is the reference; this package reproduces
+it module by module and never imports it (nor `jax` / `flax`).  Plain tensor
+code is PyTorch; each Pallas kernel of the reference becomes a hand-written
+CUDA C++ kernel under `csrc/`, bound with ctypes (`ops/kernels/`).  Every
+kernel wrapper runs its plain PyTorch twin on CPU tensors and launches the
+kernel (or raises) on CUDA tensors.
+
+Ported so far: the PNA fingerprint-serving forward (`cli.inference`).
+"""
+from infomax3d_tpu_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

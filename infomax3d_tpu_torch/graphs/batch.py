@@ -1,0 +1,203 @@
+"""Padded, receiver-sorted CSR graph batches (port of
+`infomax3d_tpu/graphs/batch.py`).
+
+`batch_graphs` is a numpy host batcher: it concatenates per-molecule dicts
+into one flat graph padded to a `BucketSpec` and returns numpy arrays with
+the JAX package's names and values.  `to_graph_batch` wraps them as a
+`GraphBatch` of torch tensors on a device.
+
+Padding conventions (as in the reference): padding edges have sender and
+receiver N, padding nodes have graph id G.  With ``csr=True`` the edges are
+sorted by receiver (stable, padding last) and `csr_row_ptr` indexes each
+node's incoming edges — the layout the aggregation kernels walk.  The TPU
+DMA-window markers, the mailbox arrays and the CSC arrays (backward only)
+are not emitted.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketSpec:
+    """Static shape of a batch: graphs, nodes, edges; `max_deg` bounds the
+    in-degree (the aggregation kernels' slot count), `csr` sorts edges by
+    receiver, `nmax > 0` emits the dense readout regroup."""
+    n_graphs: int
+    n_nodes: int
+    n_edges: int
+    max_deg: int = 0
+    csr: bool = False
+    nmax: int = 0
+
+
+def _check_degree(indices: np.ndarray, num_nodes: int, max_deg: int):
+    """The kernels' contract: no node has more than `max_deg` edges."""
+    valid = indices[(indices >= 0) & (indices < num_nodes)]
+    deg_max = int(np.bincount(valid, minlength=1).max()) if len(valid) else 1
+    if deg_max > max_deg:
+        raise ValueError(f"degree {deg_max} exceeds mailbox width {max_deg}")
+
+
+def batch_graphs(graphs: Sequence[Dict[str, np.ndarray]],
+                 bucket: BucketSpec) -> Dict[str, np.ndarray]:
+    """Concatenate per-molecule numpy graphs (``node_feat``, ``senders``,
+    ``receivers``, optional ``edge_feat``) into one padded flat batch."""
+    G, N, E = bucket.n_graphs, bucket.n_nodes, bucket.n_edges
+    g_real = len(graphs)
+    if g_real == 0:
+        raise ValueError("batch_graphs needs at least one graph")
+    if g_real > G:
+        raise ValueError(f"{g_real} graphs > bucket {G}")
+
+    n_per = np.array([g["node_feat"].shape[0] for g in graphs], dtype=np.int32)
+    e_per = np.array([g["senders"].shape[0] for g in graphs], dtype=np.int32)
+    n_tot, e_tot = int(n_per.sum()), int(e_per.sum())
+    if n_tot > N or e_tot > E:
+        raise ValueError(f"batch needs ({n_tot} nodes, {e_tot} edges) > "
+                         f"bucket ({N}, {E})")
+    node_off = np.concatenate([[0], np.cumsum(n_per)[:-1]]).astype(np.int32)
+
+    nf = graphs[0]["node_feat"]
+    node_feat = np.zeros((N,) + nf.shape[1:], dtype=nf.dtype)
+    node_feat[:n_tot] = np.concatenate([g["node_feat"] for g in graphs])
+
+    senders = np.full(E, N, dtype=np.int32)
+    receivers = np.full(E, N, dtype=np.int32)
+    if e_tot:
+        senders[:e_tot] = np.concatenate(
+            [g["senders"].astype(np.int32) + node_off[i]
+             for i, g in enumerate(graphs)])
+        receivers[:e_tot] = np.concatenate(
+            [g["receivers"].astype(np.int32) + node_off[i]
+             for i, g in enumerate(graphs)])
+
+    node_graph = np.full(N, G, dtype=np.int32)
+    node_graph[:n_tot] = np.repeat(np.arange(g_real, dtype=np.int32), n_per)
+    node_mask = np.zeros(N, dtype=bool)
+    node_mask[:n_tot] = True
+    edge_mask = np.zeros(E, dtype=bool)
+    edge_mask[:e_tot] = True
+    graph_mask = np.zeros(G, dtype=bool)
+    graph_mask[:g_real] = True
+    n_nodes = np.zeros(G, dtype=np.int32)
+    n_nodes[:g_real] = n_per
+
+    out: Dict[str, np.ndarray] = dict(
+        node_feat=node_feat, senders=senders, receivers=receivers,
+        node_graph=node_graph, node_mask=node_mask, edge_mask=edge_mask,
+        graph_mask=graph_mask, n_nodes=n_nodes)
+    if "edge_feat" in graphs[0] and graphs[0]["edge_feat"] is not None:
+        ef = graphs[0]["edge_feat"]
+        buf = np.zeros((E,) + ef.shape[1:], dtype=ef.dtype)
+        if e_tot:
+            buf[:e_tot] = np.concatenate([g["edge_feat"] for g in graphs])
+        out["edge_feat"] = buf
+
+    if bucket.csr:
+        if bucket.max_deg <= 0:
+            raise ValueError("csr buckets need max_deg > 0")
+        # receiver-sorted edge order (stable; padding receivers == N last)
+        order = np.argsort(receivers, kind="stable")
+        for key in ("senders", "receivers", "edge_mask", "edge_feat"):
+            if key in out:
+                out[key] = out[key][order]
+        senders, receivers = out["senders"], out["receivers"]
+        row_ptr = np.zeros(N + 1, np.int32)
+        np.cumsum(np.bincount(receivers.clip(0, N), minlength=N + 1)[:N],
+                  out=row_ptr[1:])
+        out["csr_row_ptr"] = row_ptr
+        # each edge's slot within its receiver's CSR range; -1 on padding
+        pos = (np.arange(receivers.shape[0], dtype=np.int32)
+               - row_ptr[np.minimum(receivers, N)])
+        out["csr_pos"] = np.where(receivers < N, pos, -1).astype(np.int16)
+
+    if bucket.max_deg > 0:
+        _check_degree(receivers, N, bucket.max_deg)
+        _check_degree(senders, N, bucket.max_deg)
+
+    out["in_degree"] = np.bincount(receivers.clip(0, N),
+                                   minlength=N + 1)[:N].astype(np.float32)
+
+    if bucket.nmax > 0:
+        # dense readout regroup: node row -> (graph, slot)
+        nm = int(bucket.nmax)
+        if int(n_per.max()) > nm:
+            raise ValueError(
+                f"bucket.nmax={nm} < largest graph ({int(n_per.max())} nodes)")
+        idx2 = np.full((G, nm), N, np.int32)          # pad -> node row N
+        inv = np.full(N, G * nm, np.int32)            # pad -> G*nmax
+        slot = np.arange(n_tot, dtype=np.int32) - np.repeat(node_off, n_per)
+        gid = node_graph[:n_tot]
+        idx2[gid, slot] = np.arange(n_tot, dtype=np.int32)
+        inv[:n_tot] = gid * nm + slot
+        out["rd_node_idx"] = idx2
+        out["rd_inv_flat"] = inv
+    return out
+
+
+def bucket_for(graphs: Sequence[Dict[str, np.ndarray]],
+               n_graphs: int) -> BucketSpec:
+    """The CSR bucket a batch of molecules needs: nodes rounded up to 256,
+    edges to 512, `max_deg` and `nmax` taken from the data (the JAX
+    package's bench shapes, `bench.py`)."""
+    n_tot = sum(g["node_feat"].shape[0] for g in graphs)
+    e_tot = sum(g["senders"].shape[0] for g in graphs)
+    max_deg = max(int(np.bincount(g["receivers"], minlength=1).max())
+                  for g in graphs)
+    nmax = max(g["node_feat"].shape[0] for g in graphs)
+    return BucketSpec(n_graphs, -(-n_tot // 256) * 256,
+                      max(512, -(-e_tot // 512) * 512),
+                      max_deg=max(max_deg, 1), csr=True, nmax=nmax)
+
+
+_TENSOR_FIELDS = ("node_feat", "edge_feat", "senders", "receivers",
+                  "node_graph", "node_mask", "edge_mask", "graph_mask",
+                  "n_nodes", "csr_row_ptr", "csr_pos", "in_degree",
+                  "rd_node_idx", "rd_inv_flat")
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphBatch:
+    """A padded CSR batch as torch tensors.  `max_deg` and `nmax` are the
+    bucket's static bounds (Python ints)."""
+    node_feat: torch.Tensor       # [N, 9] int32 atom codes
+    edge_feat: torch.Tensor       # [E, 3] int32 bond codes
+    senders: torch.Tensor         # [E] int32 (pad -> N)
+    receivers: torch.Tensor       # [E] int32, ascending (pad -> N)
+    node_graph: torch.Tensor      # [N] int32 (pad -> G)
+    node_mask: torch.Tensor       # [N] bool
+    edge_mask: torch.Tensor       # [E] bool
+    graph_mask: torch.Tensor      # [G] bool
+    n_nodes: torch.Tensor         # [G] int32
+    csr_row_ptr: torch.Tensor     # [N + 1] int32
+    csr_pos: torch.Tensor         # [E] int16 slot in the receiver's range
+    in_degree: torch.Tensor       # [N] float32
+    rd_node_idx: torch.Tensor     # [G, nmax] int32 (pad -> N)
+    rd_inv_flat: torch.Tensor     # [N] int32 (pad -> G * nmax)
+    max_deg: int
+    nmax: int
+
+    @property
+    def num_nodes(self) -> int:
+        return self.node_feat.shape[0]
+
+    def to(self, device) -> "GraphBatch":
+        return dataclasses.replace(
+            self, **{k: getattr(self, k).to(device) for k in _TENSOR_FIELDS})
+
+
+def to_graph_batch(arrays: Dict[str, np.ndarray], bucket: BucketSpec,
+                   device) -> GraphBatch:
+    """Host arrays of a ``csr=True``, ``nmax > 0`` bucket -> `GraphBatch`
+    on `device`."""
+    if not bucket.csr or bucket.nmax <= 0:
+        raise ValueError("the port's batches are CSR buckets with nmax > 0")
+    return GraphBatch(
+        **{k: torch.from_numpy(np.ascontiguousarray(arrays[k])).to(device)
+           for k in _TENSOR_FIELDS},
+        max_deg=bucket.max_deg, nmax=bucket.nmax)

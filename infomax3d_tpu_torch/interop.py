@@ -1,0 +1,153 @@
+"""Parameters between the JAX package's flax trees and the port's modules
+(the name table of `infomax3d_tpu/train/torch_interop.py`).
+
+`params_from_jax` turns the flax `params` / `batch_stats` trees (nested
+dicts of numpy arrays) into a state_dict in the reference repository's
+names, which the port's modules use — ``load_state_dict(strict=True)``
+takes it:
+
+==========================  ===========================================
+flax component              torch component
+==========================  ===========================================
+``mp_{i}``                  ``mp_layers.{i}``
+``FCLayer_{i}``             ``fully_connected.{i}``
+``Dense_0/kernel``          ``linear.weight`` (transposed to [out, in])
+``Dense_0/bias``            ``linear.bias``
+``MaskedBatchNorm_0``       ``batch_norm`` (scale -> weight, mean / var
+                            -> running_mean / running_var)
+``<kind>_encoder/encoder/   ``<kind>_encoder.<kind>_embedding_list.{i}.
+emb_{i}``                   weight``
+==========================  ===========================================
+
+`init_jax_variables` makes seeded numpy trees in the flax layout of a PNA
+configuration, for serving without a checkpoint and for tests.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from infomax3d_tpu_torch.data.synthetic import (FULL_ATOM_FEATURE_DIMS,
+                                                FULL_BOND_FEATURE_DIMS)
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _component(c: str) -> str:
+    if c.startswith("mp_") and c[3:].isdigit():
+        return f"mp_layers.{c[3:]}"
+    if c.startswith("FCLayer_") and c[8:].isdigit():
+        return f"fully_connected.{c[8:]}"
+    return {"Dense_0": "linear", "MaskedBatchNorm_0": "batch_norm"}.get(c, c)
+
+
+_LEAVES = {("params", "kernel"): "weight", ("params", "bias"): "bias",
+           ("params", "scale"): "weight",
+           ("batch_stats", "mean"): "running_mean",
+           ("batch_stats", "var"): "running_var"}
+
+
+def _torch_name(collection: str, path: Tuple[str, ...]) -> str:
+    *mods, leaf = path
+    if leaf.startswith("emb_") and mods and mods[-1] == "encoder":
+        kind = mods[-2].split("_")[0]                       # atom / bond
+        base = ".".join(_component(c) for c in mods[:-1])
+        return f"{base}.{kind}_embedding_list.{leaf[4:]}.weight"
+    if (collection, leaf) not in _LEAVES:
+        raise KeyError(f"no torch name for {collection}/{'/'.join(path)}")
+    return ".".join([_component(c) for c in mods]
+                    + [_LEAVES[(collection, leaf)]])
+
+
+def params_from_jax(params: Mapping, batch_stats: Mapping
+                    ) -> Dict[str, torch.Tensor]:
+    """Flax `params` / `batch_stats` trees (numpy leaves) -> a state_dict in
+    the reference names; Dense kernels are transposed to [out, in] and every
+    BatchNorm gets its `num_batches_tracked` (0).  Shapes are kept as they
+    are: `load_state_dict(strict=True)` rejects any that differ."""
+    sd: Dict[str, torch.Tensor] = {}
+    for collection, tree in (("params", params), ("batch_stats", batch_stats)):
+        for path, value in _flatten(tree):
+            v = np.asarray(value, dtype=np.float32)
+            if path[-1] == "kernel":
+                v = v.T
+            name = _torch_name(collection, path)
+            sd[name] = torch.from_numpy(np.ascontiguousarray(v).copy())
+            if collection == "batch_stats" and path[-1] == "mean":
+                sd[name.rsplit(".", 1)[0] + ".num_batches_tracked"] = \
+                    torch.tensor(0, dtype=torch.long)
+    return sd
+
+
+def _mlp_tree(rng, in_dim, out_dim, layers, hidden, mid_bn, last_bn):
+    dims = [in_dim] + [hidden] * (layers - 1) + [out_dim]
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for j in range(layers):
+        fi, fo = dims[j], dims[j + 1]
+        bound = np.sqrt(6.0 / (fi + fo))
+        p = {"Dense_0": {"kernel": rng.uniform(-bound, bound, (fi, fo)),
+                         "bias": rng.normal(0.0, 0.1, fo)}}
+        if (last_bn if j == layers - 1 else mid_bn):
+            p["MaskedBatchNorm_0"] = {"scale": rng.uniform(0.5, 1.5, fo),
+                                      "bias": rng.normal(0.0, 0.1, fo)}
+            stats[f"FCLayer_{j}"] = {"MaskedBatchNorm_0": {
+                "mean": rng.normal(0.0, 0.2, fo),
+                "var": rng.uniform(0.5, 2.0, fo)}}
+        params[f"FCLayer_{j}"] = p
+    return params, stats
+
+
+def init_jax_variables(model_parameters: Mapping, seed: int = 0):
+    """Seeded numpy (params, batch_stats) trees in the flax layout of
+    `PNA(**model_parameters)`: Xavier-uniform weights, small random biases,
+    BatchNorm scales in [0.5, 1.5] and non-trivial running statistics (so
+    an eval forward exercises every fold).  float32 leaves."""
+    mp = dict(model_parameters)
+    rng = np.random.default_rng(seed)
+    d = mp["hidden_dim"]
+    n_aggs = len(mp["aggregators"]) * len(mp["scalers"])
+
+    def emb(dims):
+        return {f"emb_{i}": rng.uniform(-1, 1, (v, d)) * np.sqrt(6.0 / (v + d))
+                for i, v in enumerate(dims)}
+
+    gnn = {"atom_encoder": {"encoder": emb(FULL_ATOM_FEATURE_DIMS)},
+           "bond_encoder": {"encoder": emb(FULL_BOND_FEATURE_DIMS)}}
+    gnn_stats: Dict[str, Any] = {}
+    bn = (mp.get("mid_batch_norm", False), mp.get("last_batch_norm", False))
+    for i in range(mp.get("propagation_depth", 5)):
+        pre_p, pre_s = _mlp_tree(rng, 3 * d, d, mp.get("pretrans_layers", 1),
+                                 d, *bn)
+        post_p, post_s = _mlp_tree(rng, (n_aggs + 1) * d, d,
+                                   mp.get("posttrans_layers", 1), d, *bn)
+        gnn[f"mp_{i}"] = {"pretrans": pre_p, "posttrans": post_p}
+        gnn_stats[f"mp_{i}"] = {"pretrans": pre_s, "posttrans": post_s}
+    out_p, out_s = _mlp_tree(
+        rng, d * len(mp["readout_aggregators"]), mp["target_dim"],
+        mp.get("readout_layers", 2), mp.get("readout_hidden_dim") or d,
+        mp.get("readout_batchnorm", True), False)
+    return (_f32({"node_gnn": gnn, "output": out_p}),
+            _f32({"node_gnn": gnn_stats, "output": out_s}))
+
+
+def _f32(tree: Mapping) -> Dict[str, Any]:
+    """float32 leaves; sub-trees without leaves are dropped (flax has no
+    `batch_stats` entry for a module without BatchNorm)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            v = _f32(v)
+            if v:
+                out[k] = v
+        else:
+            out[k] = np.asarray(v, np.float32)
+    return out

@@ -1,0 +1,124 @@
+"""Build, load and call the port's CUDA kernels.
+
+Each source `csrc/<name>.cu` (with the shared `csrc/common.cuh`) is compiled
+by `nvcc` for `sm_90a` into its own shared library with a plain C interface
+and loaded with ctypes.  The libraries go to `build/infomax3d_tpu_torch/` at
+the root of the checkout, named by a hash of their sources and flags, so a
+changed source is rebuilt and an unchanged one is built once.  The build
+happens at first use, all missing libraries at once (one `nvcc` process per
+source, started together).  Nothing is compiled when the module is imported:
+the CPU path needs no `nvcc`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+KERNELS = ("edge_combine", "pna_stats", "multi_reduce")
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "infomax3d_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit's nvcc (on PATH or under CUDA_HOME)")
+
+
+def library_path(name: str) -> Path:
+    """Where `csrc/<name>.cu` is built: keyed by its sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every kernel library that is not built yet, all in parallel.
+    Returns nvcc's output (ptxas register / spill report) per built name;
+    raises with nvcc's output if any build fails."""
+    todo = {n: library_path(n) for n in KERNELS
+            if not library_path(n).exists()}
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name, path in todo.items():
+        tmp = path.with_suffix(f".so.tmp{os.getpid()}")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, path)
+    logs, failed = {}, []
+    for name, (proc, tmp, path) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(name)
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n" +
+                           "\n".join(logs[n] for n in failed))
+    return logs
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    build_all()
+    lib = ctypes.CDLL(str(library_path(name)))
+    lib.port_error_string.argtypes = [ctypes.c_int]
+    lib.port_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def launcher(name: str, symbol: str, argtypes: tuple):
+    """The C launcher `symbol` of `csrc/<name>.cu`: pointers and the stream
+    are `c_void_p`, integers `c_int`; it returns a cudaError_t."""
+    fn = getattr(library(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_launch(name: str, err: int):
+    if err != 0:
+        msg = library(name).port_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t: torch.Tensor, what: str, dtype: torch.dtype, shape: tuple,
+            device: torch.device):
+    """Raise unless `t` is a contiguous tensor of this dtype, shape and
+    device."""
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{what}: expected device {device}, got {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: must be contiguous")

@@ -1,0 +1,78 @@
+"""CSR multi-reduce (sum, sumsq, max, min) in float32 (port of `_kernel` /
+`_csr_reduce_raw` / `csr_multi_reduce`, infomax3d_tpu/ops/pallas/spmm.py).
+Kernel: `csrc/multi_reduce.cu`."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from infomax3d_tpu_torch.ops.kernels._build import (check_launch, launcher,
+                                                    require, stream_of)
+from infomax3d_tpu_torch.ops.kernels.pna_stats import (NEG_BIG, POS_BIG,
+                                                        csr_mailbox)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = (_P,) * 3 + (_I,) * 3 + (_P,)
+_SYMBOLS = {torch.float32: "multi_reduce_f32",
+            torch.bfloat16: "multi_reduce_bf16"}
+
+
+def _check(messages, max_deg):
+    if messages.dtype not in _SYMBOLS:
+        raise TypeError(f"multi_reduce: float32 or bf16 messages, got "
+                        f"{messages.dtype}")
+    if max_deg <= 0:
+        raise ValueError(f"multi_reduce: max_deg must be > 0, got {max_deg}")
+
+
+def multi_reduce_reference(messages, row_ptr, max_deg: int):
+    """Plain PyTorch version: gather each node's first `max_deg` CSR rows
+    into [N, K, D] and reduce slot by slot in float32, in the kernel's
+    order.  Returns (sum, sumsq, max, min), each float32 [N, D]; 0 where a
+    node has no edges."""
+    _check(messages, max_deg)
+    mail, valid, deg = csr_mailbox(messages, row_ptr, max_deg)
+    N, D = deg.shape[0], messages.shape[1]
+    s1 = torch.zeros(N, D, device=messages.device)
+    s2 = torch.zeros_like(s1)
+    mx = torch.full_like(s1, NEG_BIG)
+    mn = torch.full_like(s1, POS_BIG)
+    for k in range(max_deg):
+        m = mail[:, k]
+        v = valid[:, k, None]
+        s1 = torch.where(v, s1 + m, s1)
+        s2 = torch.where(v, s2 + m * m, s2)
+        mx = torch.where(v, torch.maximum(mx, m), mx)
+        mn = torch.where(v, torch.minimum(mn, m), mn)
+    has = (deg > 0)[:, None]
+    zero = torch.zeros((), device=messages.device)
+    return s1, s2, torch.where(has, mx, zero), torch.where(has, mn, zero)
+
+
+def multi_reduce(messages, row_ptr, max_deg: int):
+    """`messages [E, D]` float32 or bf16, `row_ptr [N + 1]` int32 ->
+    (sum, sumsq, max, min), each float32 [N, D].  CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    _check(messages, max_deg)
+    if messages.device.type == "cpu":
+        return multi_reduce_reference(messages, row_ptr, max_deg)
+    if messages.device.type != "cuda":
+        raise ValueError(f"multi_reduce: unsupported device "
+                         f"{messages.device}")
+    E, D = messages.shape
+    N = row_ptr.shape[0] - 1
+    dev = messages.device
+    require(messages, "messages", messages.dtype, (E, D), dev)
+    require(row_ptr, "row_ptr", torch.int32, (N + 1,), dev)
+    out = torch.empty(4, N, D, dtype=torch.float32, device=dev)
+    if N > 0 and D > 0:
+        fn = launcher("multi_reduce", _SYMBOLS[messages.dtype], _ARGTYPES)
+        err = fn(messages.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
+                 N, D, max_deg, stream_of(messages))
+        check_launch("multi_reduce", err)
+        multi_reduce.launches += 1
+    return tuple(out.unbind(0))
+
+
+multi_reduce.launches = 0

@@ -1,0 +1,122 @@
+"""Fused bf16 PNA statistics over a CSR batch (port of `_stats_kernel` /
+`_stats_kernel_aff` / `_csr_stats_raw`, infomax3d_tpu/ops/pallas/spmm.py).
+Kernel: `csrc/pna_stats.cu`."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from infomax3d_tpu_torch.ops.kernels._build import (check_launch, launcher,
+                                                    require, stream_of)
+from infomax3d_tpu_torch.ops.segment import EPS
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = (_P,) * 4 + (_I,) * 4 + (_P,)
+NEG_BIG = -3.0e38
+POS_BIG = 3.0e38
+# the winner slots pack as amax + 16 * amin, exact in bf16 for K <= 16
+MAX_SLOTS = 16
+
+
+def _check(messages, max_deg):
+    if messages.dtype != torch.bfloat16:
+        raise TypeError(f"pna_stats: bf16 messages, got {messages.dtype}")
+    if not 0 < max_deg <= MAX_SLOTS:
+        raise ValueError(f"pna_stats: max_deg must be in [1, {MAX_SLOTS}], "
+                         f"got {max_deg}")
+
+
+def csr_mailbox(messages, row_ptr, max_deg: int):
+    """Each node's first `max_deg` CSR rows gathered into [N, K, D] float32
+    (0 in empty slots), the [N, K] slot mask and the [N] in-degrees."""
+    E, D = messages.shape
+    rp = row_ptr.long()
+    deg = rp[1:] - rp[:-1]
+    slots = torch.arange(max_deg, device=messages.device)
+    valid = slots[None, :] < deg[:, None]
+    idx = torch.where(valid, rp[:-1, None] + slots[None, :], E)
+    padded = torch.cat([messages, messages.new_zeros(1, D)])
+    return padded[idx].float(), valid, deg
+
+
+def pna_stats_reference(messages, row_ptr, max_deg: int, affine=None,
+                        want_sum: bool = True):
+    """Plain PyTorch version (the mailbox form of the JAX package's
+    `_csr_stats_mailbox_raw`): gather each node's first `max_deg` CSR rows
+    into [N, K, D] and reduce slot by slot, in the kernel's order.
+    Returns (sum | None, mean, std, max, min, enc), each bf16 [N, D]."""
+    _check(messages, max_deg)
+    mail, valid, deg = csr_mailbox(messages, row_ptr, max_deg)
+    if affine is not None:
+        a, b = affine
+        mail = (mail * a.float() + b.float()).to(torch.bfloat16).float()
+    N, D = deg.shape[0], messages.shape[1]
+    s1 = torch.zeros(N, D, device=messages.device)
+    s2 = torch.zeros_like(s1)
+    mx = torch.full_like(s1, NEG_BIG)
+    mn = torch.full_like(s1, POS_BIG)
+    amax = torch.zeros_like(s1)
+    amin = torch.zeros_like(s1)
+    for k in range(max_deg):
+        m = mail[:, k]
+        v = valid[:, k, None]
+        s1 = torch.where(v, s1 + m, s1)
+        s2 = torch.where(v, s2 + m * m, s2)
+        gt = v & (m > mx)
+        lt = v & (m < mn)
+        amax = torch.where(gt, float(k), amax)
+        amin = torch.where(lt, float(k), amin)
+        mx = torch.where(gt, m, mx)
+        mn = torch.where(lt, m, mn)
+    degf = deg.float()[:, None]
+    dsafe = degf.clamp(min=1.0)
+    has = degf > 0
+    mean = s1 / dsafe
+    std = torch.sqrt(torch.relu(s2 / dsafe - mean * mean) + EPS)
+    zero = torch.zeros((), device=messages.device)
+    bf = torch.bfloat16
+    return (s1.to(bf) if want_sum else None,
+            torch.where(has, mean, zero).to(bf),
+            torch.where(has, std, zero).to(bf),
+            torch.where(has, mx, zero).to(bf),
+            torch.where(has, mn, zero).to(bf),
+            (amax + 16.0 * amin).to(bf))
+
+
+def pna_stats(messages, row_ptr, max_deg: int, affine=None,
+              want_sum: bool = True):
+    """`messages [E, D]` bf16, `row_ptr [N + 1]` int32, `affine` an optional
+    pair of [D] column scale / shift applied as ``bf16(x * a + b)`` first.
+    Returns (sum | None, mean, std, max, min, enc), each bf16 [N, D]; `enc`
+    packs the first-winner slots as ``amax + 16 * amin``.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise."""
+    _check(messages, max_deg)
+    if messages.device.type == "cpu":
+        return pna_stats_reference(messages, row_ptr, max_deg, affine,
+                                   want_sum)
+    if messages.device.type != "cuda":
+        raise ValueError(f"pna_stats: unsupported device {messages.device}")
+    E, D = messages.shape
+    N = row_ptr.shape[0] - 1
+    dev = messages.device
+    require(messages, "messages", torch.bfloat16, (E, D), dev)
+    require(row_ptr, "row_ptr", torch.int32, (N + 1,), dev)
+    aff = None
+    if affine is not None:
+        aff = torch.stack([affine[0].float(), affine[1].float()]).contiguous()
+        require(aff, "affine", torch.float32, (2, D), dev)
+    nsec = 6 if want_sum else 5
+    out = torch.empty(nsec, N, D, dtype=torch.bfloat16, device=dev)
+    if N > 0 and D > 0:
+        fn = launcher("pna_stats", "pna_stats_bf16", _ARGTYPES)
+        err = fn(messages.data_ptr(), row_ptr.data_ptr(),
+                 None if aff is None else aff.data_ptr(), out.data_ptr(),
+                 N, D, max_deg, int(want_sum), stream_of(messages))
+        check_launch("pna_stats", err)
+        pna_stats.launches += 1
+    secs = tuple(out.unbind(0))
+    return secs if want_sum else (None,) + secs
+
+
+pna_stats.launches = 0

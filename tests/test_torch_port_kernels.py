@@ -1,0 +1,157 @@
+"""Each kernel's plain PyTorch version against the JAX package's Pallas
+kernel, run in interpret mode on the CPU.
+
+Tolerances: a bf16 "ulp" tolerance is rtol = 2**-7 — one unit in the last
+place of bf16 (8 significant bits) relative to the value, the most two
+correctly rounded results of the same f32 statistic can differ by when the
+f32 sums are taken in another order (the Pallas kernel sums through a 0/1
+incidence matmul and splits sumsq into bf16 hi/lo halves).  Max, min and
+the winner slots select existing values, so they must agree exactly.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from infomax3d_tpu.ops.pallas.spmm import (_csr_edge_combine_raw,
+                                           _csr_reduce_raw, _csr_stats_raw)
+from infomax3d_tpu_torch.data.synthetic import SyntheticMolecules
+from infomax3d_tpu_torch.graphs.batch import batch_graphs, bucket_for
+from infomax3d_tpu_torch.ops.kernels import (edge_combine_reference,
+                                             multi_reduce_reference,
+                                             pna_stats_reference)
+
+BF16_ULP = 2.0 ** -7
+D = 56
+
+
+@pytest.fixture(scope="module")
+def csr():
+    """A real CSR batch: 24 molecules padded to 32 graphs (padding nodes
+    and padding edges present)."""
+    graphs = [SyntheticMolecules(24, seed=9, n_min=5, n_max=16).graph2d(i)
+              for i in range(24)]
+    b = bucket_for(graphs, 32)
+    return batch_graphs(graphs, b), b, graphs
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _bf16(x):
+    return np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+
+
+def test_edge_combine_bf16_matches_pallas(csr):
+    from infomax3d_tpu.graphs.batch import BucketSpec, batch_graphs as jbg
+    arr, b, graphs = csr
+    rng = np.random.default_rng(0)
+    N, E = b.n_nodes, b.n_edges
+    hd, hs = (_bf16(rng.normal(size=(N, D))) for _ in range(2))
+    pe = _bf16(rng.normal(size=(E, D)))
+    # the Pallas kernel's node window comes from the JAX batcher's marker
+    jarr = jbg(graphs, BucketSpec(b.n_graphs, N, E, max_deg=b.max_deg,
+                                  csr=True, nmax=b.nmax))
+    want = _csr_edge_combine_raw(
+        jnp.asarray(hd, jnp.bfloat16), jnp.asarray(hs, jnp.bfloat16),
+        jnp.asarray(pe, jnp.bfloat16), jnp.asarray(arr["receivers"]),
+        jnp.asarray(arr["senders"]), jarr["csr_cmb_span"].shape[0], True)
+    got = edge_combine_reference(
+        _t(hd).bfloat16(), _t(hs).bfloat16(), _t(pe).bfloat16(),
+        _t(arr["receivers"]), _t(arr["senders"]))
+    e_real = int(arr["csr_row_ptr"][-1])
+    assert got.dtype == torch.bfloat16 and got.shape == (E, D)
+    # one f32 sum rounded once on both sides: bit-exact on real edges
+    np.testing.assert_array_equal(got.float().numpy()[:e_real],
+                                  np.asarray(want, np.float32)[:e_real])
+    # padding edges carry pe alone
+    np.testing.assert_array_equal(got.float().numpy()[e_real:], pe[e_real:])
+
+
+def test_edge_combine_f32_matches_gather_add(csr):
+    """float32: the JAX package's f32 path is take + take + add."""
+    arr, b, _ = csr
+    rng = np.random.default_rng(1)
+    N, E = b.n_nodes, b.n_edges
+    hd, hs = (rng.normal(size=(N, D)).astype(np.float32) for _ in range(2))
+    pe = rng.normal(size=(E, D)).astype(np.float32)
+    r, s = arr["receivers"], arr["senders"]
+    want = (jnp.take(hd, np.clip(r, 0, N - 1), axis=0)
+            + jnp.take(hs, np.clip(s, 0, N - 1), axis=0) + pe)
+    got = edge_combine_reference(_t(hd), _t(hs), _t(pe), _t(r), _t(s))
+    e_real = int(arr["csr_row_ptr"][-1])
+    np.testing.assert_array_equal(got.numpy()[:e_real],
+                                  np.asarray(want)[:e_real])
+
+
+@pytest.mark.parametrize("with_affine", [False, True])
+@pytest.mark.parametrize("want_sum", [True, False])
+def test_pna_stats_matches_pallas(csr, with_affine, want_sum):
+    arr, b, _ = csr
+    rng = np.random.default_rng(2)
+    E, K = b.n_edges, b.max_deg
+    x = _bf16(rng.normal(size=(E, D)) * 2.0)
+    affine = None
+    if with_affine:
+        affine = (rng.uniform(0.5, 1.5, D).astype(np.float32),
+                  rng.normal(0.0, 0.3, D).astype(np.float32))
+    want = _csr_stats_raw(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(arr["csr_row_ptr"]), K,
+        True, 0, want_sum,
+        None if affine is None else tuple(jnp.asarray(a) for a in affine))
+    got = pna_stats_reference(
+        _t(x).bfloat16(), _t(arr["csr_row_ptr"]), K,
+        None if affine is None else tuple(_t(a) for a in affine), want_sum)
+    assert (got[0] is None) == (not want_sum)
+    names = ("sum", "mean", "std", "max", "min", "enc")
+    for name, g, w in zip(names, got, want):
+        if g is None:
+            continue
+        assert g.dtype == torch.bfloat16 and g.shape == (b.n_nodes, D)
+        g, w = g.float().numpy(), np.asarray(w, np.float32)
+        if name in ("max", "min", "enc"):
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        else:
+            np.testing.assert_allclose(g, w, rtol=BF16_ULP, atol=1e-6,
+                                       err_msg=name)
+    # every statistic of a node without edges (padding nodes) is 0
+    deg = np.diff(arr["csr_row_ptr"])
+    for g in got[1:5]:
+        assert (g.float().numpy()[deg == 0] == 0).all()
+
+
+def test_pna_stats_rejects_wide_slots_and_f32():
+    msgs = torch.zeros(4, 8, dtype=torch.bfloat16)
+    rp = torch.tensor([0, 2, 4], dtype=torch.int32)
+    with pytest.raises(ValueError, match="max_deg"):
+        pna_stats_reference(msgs, rp, 17)
+    with pytest.raises(TypeError, match="bf16"):
+        pna_stats_reference(msgs.float(), rp, 2)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_multi_reduce_matches_pallas(csr, dtype):
+    arr, b, _ = csr
+    rng = np.random.default_rng(3)
+    E, K = b.n_edges, b.max_deg
+    x = rng.normal(size=(E, D)).astype(np.float32)
+    if dtype == "bfloat16":
+        x = _bf16(x)
+        jx, tx = jnp.asarray(x, jnp.bfloat16), _t(x).bfloat16()
+    else:
+        jx, tx = jnp.asarray(x), _t(x)
+    want = _csr_reduce_raw(jx, jnp.asarray(arr["csr_row_ptr"]), K, True)
+    got = multi_reduce_reference(tx, _t(arr["csr_row_ptr"]), K)
+    for name, g, w in zip(("sum", "sumsq", "max", "min"), got, want):
+        assert g.dtype == torch.float32 and g.shape == (b.n_nodes, D)
+        g, w = g.numpy(), np.asarray(w)
+        if name in ("max", "min"):
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        else:
+            # f32 sums in another order (incidence matmul on the JAX side)
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5,
+                                       err_msg=name)
+    deg = np.diff(arr["csr_row_ptr"])
+    for g in got:
+        assert (g.numpy()[deg == 0] == 0).all()

@@ -1,0 +1,132 @@
+"""Rules the port lives by: no JAX (nor the JAX package, nor YAML or
+msgpack) at run time, no silent CPU fallback, kernels dispatch by device,
+and `chip_smoke.py` serves the model of `configs_clean/pre-train_QM9.yml`."""
+import ast
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+import yaml
+
+from infomax3d_tpu_torch.cli.inference import inference
+from infomax3d_tpu_torch.graphs.batch import batch_graphs, bucket_for
+from infomax3d_tpu_torch.data.synthetic import SyntheticMolecules
+from infomax3d_tpu_torch.ops.kernels import (WRAPPERS, edge_combine,
+                                             edge_combine_reference,
+                                             multi_reduce,
+                                             multi_reduce_reference,
+                                             pna_stats, pna_stats_reference)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "infomax3d_tpu_torch"
+FORBIDDEN = ("jax", "flax", "infomax3d_tpu", "yaml", "msgpack")
+
+TINY = dict(target_dim=4, hidden_dim=8, mid_batch_norm=True,
+            last_batch_norm=True, readout_batchnorm=True,
+            readout_hidden_dim=8, readout_layers=2, propagation_depth=1,
+            aggregators=["mean", "max", "min", "std"],
+            scalers=["identity", "amplification", "attenuation"],
+            readout_aggregators=["min", "max", "mean"], pretrans_layers=2,
+            posttrans_layers=1)
+
+
+def _forbidden(name: str) -> bool:
+    # dotted prefixes: the port's own name starts with "infomax3d_tpu"
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_runtime_imports_no_jax(tmp_path):
+    code = f"""
+import json, sys
+import infomax3d_tpu_torch
+from infomax3d_tpu_torch.cli.inference import inference
+fp = inference({{"model_parameters": {TINY!r}, "batch_size": 4,
+                "dataset_params": {{"num": 6, "seed": 0}},
+                "output_dir": {str(tmp_path)!r}}}, device="cpu")
+assert fp.shape == (6, 4), fp.shape
+print(json.dumps(sorted(sys.modules)))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
+                         capture_output=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "infomax3d_tpu_torch.ops.kernels.pna_stats" in mods
+    assert [m for m in mods if _forbidden(m)] == []
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax(path):
+    bad = [m for m in _imports(path) if _forbidden(m)]
+    assert bad == [], f"{path.name} imports {bad}"
+
+
+def test_inference_without_device_raises_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        inference({"model_parameters": TINY})
+
+
+def _csr(num=5, D=16):
+    graphs = [SyntheticMolecules(num, seed=1).graph2d(i) for i in range(num)]
+    b = bucket_for(graphs, num)
+    arr = batch_graphs(graphs, b)
+    gen = torch.Generator().manual_seed(0)
+    N, E = b.n_nodes, b.n_edges
+    return (torch.from_numpy(arr["receivers"]),
+            torch.from_numpy(arr["senders"]),
+            torch.from_numpy(arr["csr_row_ptr"]), b.max_deg,
+            lambda *s: torch.randn(*s, generator=gen), N, E, D)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wrappers_on_cpu_use_plain_version(dtype):
+    recv, send, rp, K, randn, N, E, D = _csr()
+    before = {n: w.launches for n, w in WRAPPERS.items()}
+    hd, hs, pe = (randn(N, D).to(dtype), randn(N, D).to(dtype),
+                  randn(E, D).to(dtype))
+    assert torch.equal(edge_combine(hd, hs, pe, recv, send),
+                       edge_combine_reference(hd, hs, pe, recv, send))
+    x = randn(E, D).to(dtype)
+    for k, r in zip(multi_reduce(x, rp, K), multi_reduce_reference(x, rp, K)):
+        assert torch.equal(k, r)
+    if dtype == torch.bfloat16:
+        aff = (torch.ones(D), torch.zeros(D))
+        for k, r in zip(pna_stats(x, rp, K, aff, False),
+                        pna_stats_reference(x, rp, K, aff, False)):
+            assert (k is None and r is None) or torch.equal(k, r)
+    assert {n: w.launches for n, w in WRAPPERS.items()} == before
+
+
+def test_wrappers_reject_other_devices():
+    recv, send, rp, K, randn, N, E, D = _csr()
+    meta = torch.empty(E, D, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        edge_combine(meta[:N], meta[:N], meta, recv, send)
+    with pytest.raises(ValueError, match="unsupported device"):
+        multi_reduce(meta, rp, K)
+
+
+def test_chip_smoke_serves_the_flagship_config():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    with open(ROOT / "configs_clean" / "pre-train_QM9.yml") as f:
+        cfg = yaml.safe_load(f)
+    assert chip_smoke.MODEL_PARAMETERS == cfg["model_parameters"]
+    assert cfg["model_type"] == "PNA"
