@@ -3,15 +3,18 @@
 
     python3 chip_smoke.py            # needs one CUDA card (an H100)
 
-Phases — each raises on failure, so any failure exits non-zero:
+Phases — each raises on failure, so any failure exits non-zero; each prints
+its seconds:
 1. device: a CUDA card must be present; prints `nvidia-smi`'s name and
    power limit.
 2. build: compiles the kernels from `infomax3d_tpu_torch/csrc` (nvcc,
-   sm_90a) and prints the build time and ptxas's register report.
-3. kernels: each kernel against its plain PyTorch version on the same CUDA
-   tensors, at the bench shapes of the port's own batcher (500 synthetic
-   QM9-like molecules, seed 0: N = 9216, E = 18432, max_deg 4, D = 200).
-4. the slice: `inference()` serves 3 requests of 500 molecules through the
+   sm_90a, one process per source in parallel) and prints the build time
+   and ptxas's register report.
+3. kernels: each forward kernel against its plain PyTorch version on the
+   same CUDA tensors, at the bench shapes of the port's own batcher (500
+   synthetic QM9-like molecules, seed 0: N = 9216, E = 18432, max_deg 4,
+   D = 200).
+4. serving: `inference()` serves 2 requests of 500 molecules through the
    PNA 200x7 model of `configs_clean/pre-train_QM9.yml` (seeded numpy
    weights in the JAX layout, through `params_from_jax`) in bf16 and in
    float32; each fingerprint matrix is held against the same model and
@@ -20,14 +23,26 @@ Phases — each raises on failure, so any failure exits non-zero:
 5. profile: torch.profiler's kernel records of warm forwards — device-busy
    time per forward, its idle share and the top kernels.
 6. kernel times: device times (CUDA events, the host's launches kept out
-   of them) of each kernel — cold-L2 and warm — and of its plain version at
-   the bench shapes, beside the least time the card could take (bytes over
-   the H100's memory rate, operations over its float32 rate).
+   of them) of each forward kernel — cold-L2 and warm — and of its plain
+   version at the bench shapes, beside the least time the card could take
+   (bytes over the H100's memory rate, operations over its float32 rate).
+7. training kernels: the pair segment sum (bf16, float32) and the stats
+   backward (with and without the affine) against their plain versions.
+8. training: the pre-training step of `configs_clean/pre-train_QM9.yml`
+   (PNA 200x7 + Net3DDense hidden 20, NT-Xent tau 0.1, Adam lr 8e-5) on the
+   port's bench batch through `pretrain()`: launches per step, loss over
+   the steps; one bf16 and one float32 step on the card against the same
+   step on the CPU (loss, every gradient, running statistics); ms per
+   step, graphs/s and edges/s.
+9. training profile: torch.profiler over warm bf16 steps.
+10. training kernel times: the two backward kernels as in phase 6, with
+   the nearest PyTorch call where there is one.
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
@@ -46,8 +61,14 @@ from infomax3d_tpu_torch.ops.kernels import (WRAPPERS, edge_combine,
                                              edge_combine_reference,
                                              multi_reduce,
                                              multi_reduce_reference,
-                                             pna_stats, pna_stats_reference)
+                                             pair_segment_sum,
+                                             pair_segment_sum_reference,
+                                             pna_stats, pna_stats_bwd,
+                                             pna_stats_bwd_reference,
+                                             pna_stats_reference)
 from infomax3d_tpu_torch.ops.kernels._build import build_all
+from infomax3d_tpu_torch.train.pretrain import (build_step, flagship_batches,
+                                                pretrain)
 
 # configs_clean/pre-train_QM9.yml `model_parameters` (no YAML on the card)
 MODEL_PARAMETERS = {
@@ -68,8 +89,30 @@ MODEL_PARAMETERS = {
     "posttrans_layers": 1,
     "residual": True,
 }
+# ... and its `model3d_parameters`, `loss_params` and `optimizer_params`
+MODEL3D_PARAMETERS = {
+    "target_dim": 256,
+    "hidden_dim": 20,
+    "hidden_edge_dim": 20,
+    "node_wise_output_layers": 0,
+    "message_net_layers": 1,
+    "update_net_layers": 1,
+    "reduce_func": "mean",
+    "fourier_encodings": 4,
+    "propagation_depth": 1,
+    "dropout": 0.0,
+    "batch_norm": True,
+    "readout_batchnorm": True,
+    "batch_norm_momentum": 0.93,
+    "readout_hidden_dim": 20,
+    "readout_layers": 1,
+    "readout_aggregators": ["min", "max", "mean"],
+}
+LOSS_PARAMS = {"tau": 0.1}
+OPTIMIZER_PARAMS = {"lr": 8.0e-5}
 BATCH = 500
 DATA = {"num": BATCH, "n_min": 10, "n_max": 26}
+TRAIN_STEPS = 20
 WIDTH = MODEL_PARAMETERS["hidden_dim"]
 DEPTH = MODEL_PARAMETERS["propagation_depth"]
 
@@ -95,9 +138,20 @@ F32_REL = 1e-6
 SLICE_TOL = {True: 3e-2, False: 1e-4}
 # launches per forward, from the model's depth
 EXPECTED = {True: {"edge_combine": DEPTH, "pna_stats": DEPTH,
-                   "multi_reduce": 0},
+                   "multi_reduce": 0, "pair_segment_sum": 0,
+                   "pna_stats_bwd": 0},
             False: {"edge_combine": DEPTH, "pna_stats": 0,
-                    "multi_reduce": DEPTH}}
+                    "multi_reduce": DEPTH, "pair_segment_sum": 0,
+                    "pna_stats_bwd": 0}}
+# launches per training step: each PNA layer runs the combine and its
+# backward, and the bf16 stats and their backward or the float32
+# multi-reduce (whose backward is plain PyTorch)
+EXPECTED_STEP = {True: {"edge_combine": DEPTH, "pna_stats": DEPTH,
+                        "multi_reduce": 0, "pair_segment_sum": DEPTH,
+                        "pna_stats_bwd": DEPTH},
+                 False: {"edge_combine": DEPTH, "pna_stats": 0,
+                         "multi_reduce": DEPTH, "pair_segment_sum": DEPTH,
+                         "pna_stats_bwd": 0}}
 
 KERNEL_INFO = {
     "edge_combine": ("infomax3d_tpu_torch/csrc/edge_combine.cu",
@@ -106,8 +160,12 @@ KERNEL_INFO = {
                   "infomax3d_tpu/ops/pallas/spmm.py:458"),
     "multi_reduce": ("infomax3d_tpu_torch/csrc/multi_reduce.cu",
                      "infomax3d_tpu/ops/pallas/spmm.py:64"),
+    "pair_segment_sum": ("infomax3d_tpu_torch/csrc/pair_segment_sum.cu",
+                         "infomax3d_tpu/ops/pallas/spmm.py:1006"),
+    "pna_stats_bwd": ("infomax3d_tpu_torch/csrc/pna_stats_bwd.cu",
+                      "infomax3d_tpu/ops/pallas/spmm.py:1408"),
 }
-# No single PyTorch call computes any of the three functions: the combine
+# No single PyTorch call computes the three forward functions: the combine
 # is two row gathers plus adds, the stats and the multi-reduce are 4-6
 # reductions per call (torch.segment_reduce does one at a time).
 LIBRARY_MS = None
@@ -231,14 +289,19 @@ def _counts():
     return {n: w.launches for n, w in WRAPPERS.items()}
 
 
-def phase_slice(out_dir: Path) -> dict:
-    """The main path: 3 requests x {bf16, f32} through `inference()`."""
-    jax_vars = dict(zip(("params", "batch_stats"),
-                        init_jax_variables(MODEL_PARAMETERS, seed=0)))
+def _reset_counts():
     for w in WRAPPERS.values():
         w.launches = 0
+
+
+def phase_slice(out_dir: Path) -> dict:
+    """The serving main path: 2 requests x {bf16, f32} through
+    `inference()`; the counts are set to 0 first and read at the end."""
+    jax_vars = dict(zip(("params", "batch_stats"),
+                        init_jax_variables(MODEL_PARAMETERS, seed=0)))
+    _reset_counts()
     for bf16 in (True, False):
-        for seed in (0, 1, 2):
+        for seed in (0, 1):
             args = {"model_parameters": MODEL_PARAMETERS,
                     "bf16_compute": bf16, "batch_size": BATCH,
                     "dataset_params": dict(DATA, seed=seed),
@@ -262,7 +325,7 @@ def phase_slice(out_dir: Path) -> dict:
                   f"max|ref|={np.abs(ref).max():.4g} card-vs-CPU rel "
                   f"{rel:.3g} (tol {SLICE_TOL[bf16]}); launches {delta}")
     launches = _counts()
-    print(f"[slice] main-path launches: {launches}")
+    print(f"[slice] serving main-path launches: {launches}")
     return launches
 
 
@@ -337,7 +400,7 @@ def phase_profile(g, fwd_ms: dict, n: int = 5):
     """Where a forward's time goes: torch.profiler's CUDA kernel records
     over `n` warm forwards -> device-busy ms per forward, the idle share of
     the CUDA-event forward time, kernels per forward, the top kernels."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile
     for bf16 in (True, False):
         model = build_model({"model_parameters": MODEL_PARAMETERS,
                              "bf16_compute": bf16}, torch.device("cuda"))
@@ -350,11 +413,7 @@ def phase_profile(g, fwd_ms: dict, n: int = 5):
                 for _ in range(n):
                     model(g)
                 torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                us, cnt = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (us + e.time_range.elapsed_us(), cnt + 1)
+        by_name = _profile_kernels(prof)
         if not by_name:
             print(f"[profile] bf16={bf16}: the profiler recorded no device "
                   f"activity; not measured")
@@ -365,13 +424,9 @@ def phase_profile(g, fwd_ms: dict, n: int = 5):
               f"{fwd_ms[bf16]:.4f} ms per forward (idle share "
               f"{1 - busy / fwd_ms[bf16]:.3f}), {kernels:.0f} kernels per "
               f"forward")
-        for kname in KERNEL_INFO:
-            hits = [(us, c) for nm, (us, c) in by_name.items()
-                    if f"{kname}_kernel" in nm]
-            if hits:
-                us, c = map(sum, zip(*hits))
-                print(f"[profile]   {kname}: {us / c:.2f} us per launch in "
-                      f"the forward, {c / n:.0f} launches per forward")
+        for kname, (us, launches) in _port_kernels(by_name).items():
+            print(f"[profile]   {kname}: {us / launches:.2f} us per launch "
+                  f"in the forward, {launches / n:.0f} launches per forward")
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
         for name, (us, cnt) in top:
             print(f"[profile]   {us / n:9.2f} us/fwd  {cnt / n:5.0f}x  "
@@ -453,17 +508,476 @@ def phase_kernel_times(g, launches: dict, errs: dict) -> list:
     return rows
 
 
+def _stats_bwd_inputs(g, gen):
+    """The stats backward's inputs at the bench shapes: bf16 messages, an
+    affine, the forward's mean / enc on the card and bf16 cotangent
+    combinations A, B, d_max, d_min."""
+    E, N, D, K = g.senders.shape[0], g.num_nodes, WIDTH, g.max_deg
+    x = (torch.randn(E, D, generator=gen, device="cuda") * 2).bfloat16()
+    aff = (torch.rand(D, generator=gen, device="cuda") + 0.5,
+           torch.randn(D, generator=gen, device="cuda") * 0.3)
+    with torch.no_grad():
+        _, mean, _, _, _, enc = pna_stats(x, g.csr_row_ptr, K, aff, False)
+    cts = [torch.randn(N, D, generator=gen, device="cuda").bfloat16()
+           for _ in range(4)]
+    return x, aff, (cts[0], cts[1], mean, cts[2], cts[3], enc)
+
+
+def phase_train_kernels(g) -> dict:
+    """Phase 7: the backward kernels against their plain versions on the
+    same CUDA tensors.  pair_segment_sum: both sum the same rows in float32
+    in slot order and round once -> bit-exact.  pna_stats_bwd: d_x has the
+    same rounding points -> bit-exact; d_a / d_b are float32 column sums in
+    the kernel's order -> within 1e-6 of max|plain| (reported when exact)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    E, N, D = g.senders.shape[0], g.num_nodes, WIDTH
+    errs = {}
+    pairs = []
+    for dt in (torch.bfloat16, torch.float32):
+        ct = torch.randn(E, D, generator=gen, device="cuda").to(dt)
+        args = (ct, g.csr_row_ptr, g.csc_row_ptr, g.csc_perm)
+        k, r = pair_segment_sum(*args), pair_segment_sum_reference(*args)
+        torch.cuda.synchronize()
+        for name, kk, rr in zip(("d_hd", "d_hs"), k, r):
+            _check(torch.equal(kk, rr),
+                   f"pair_segment_sum {dt} {name}: not bit-exact")
+            pairs.append((kk, rr))
+    errs["pair_segment_sum"] = _max_err(pairs)
+
+    pairs = []
+    x, aff, ops = _stats_bwd_inputs(g, gen)
+    for affine in (None, aff):
+        args = (x, g.receivers, g.csr_pos, ops, affine)
+        k, r = pna_stats_bwd(*args), pna_stats_bwd_reference(*args)
+        torch.cuda.synchronize()
+        tag = f"pna_stats_bwd affine={affine is not None}"
+        _check(torch.equal(k[0], r[0]), f"{tag}: d_x not bit-exact")
+        pairs.append((k[0], r[0]))
+        if affine is None:
+            _check(k[1] is None and k[2] is None, f"{tag}: column sums")
+            continue
+        for name, kk, rr in zip(("d_a", "d_b"), k[1:], r[1:]):
+            err = float((kk - rr).abs().max())
+            _check(err <= 1e-6 * float(rr.abs().max()),
+                   f"{tag}: {name} off by {err:.3g}")
+            print(f"[train-kernels] {tag} {name}: "
+                  f"{'bit-exact' if torch.equal(kk, rr) else f'{err:.3g}'}")
+            pairs.append((kk, rr))
+    errs["pna_stats_bwd"] = _max_err(pairs)
+    for name, err in errs.items():
+        print(f"[train-kernels] {name}: agrees with its plain version "
+              f"(max |kernel - plain| = {err:.3g})")
+    return errs
+
+
+def _train_args(bf16: bool) -> dict:
+    return {"model_parameters": MODEL_PARAMETERS,
+            "model3d_parameters": MODEL3D_PARAMETERS,
+            "loss_params": LOSS_PARAMS, "optimizer_params": OPTIMIZER_PARAMS,
+            "batch_size": BATCH, "bf16_compute": bf16, "seed": 0,
+            "dataset_params": {"seed": 0, "n_min": DATA["n_min"],
+                               "n_max": DATA["n_max"]}}
+
+
+def _step_state(step) -> dict:
+    """Every parameter's gradient (None where it got none) and every
+    running statistic, on the CPU, by name."""
+    out = {n: None if p.grad is None else p.grad.float().cpu()
+           for n, p in step.named_parameters()}
+    for pre, m in (("model", step.model), ("model3d", step.model3d)):
+        out.update({f"{pre}.{n}": b.float().cpu()
+                    for n, b in m.named_buffers() if "running" in n})
+    return out
+
+
+# The card against the CPU, one step from the same weights and batch.  Both
+# run the port; they differ in summation order (cuBLAS against the CPU's
+# GEMMs, the CUDA reductions) and, in bf16, in where those sums round.
+# Errors are relative to each leaf's max|cpu|; the gradient's L2 is taken
+# over each model.  Every leaf but the zero-gradient ones (below) must have
+# a non-zero gradient on both sides.  The bf16 step's gradient is sensitive
+# to rounding itself: the witness is the card's own bf16 step from master
+# weights perturbed by 2**-16 relative (below bf16 resolution), and the
+# card-vs-CPU L2 is held to WITNESS_FACTOR times that witness's L2.
+# Readings (H100 80GB HBM3, 700 W): bf16 loss 2.0e-5, worst leaf 0.46,
+# zero-gradient leaves 3.0e-3, L2 0.248 (PNA) and 0.0275 (Net3DDense)
+# against a witness of 0.279 and 0.0674, statistics 5.1e-3; a planted fault
+# (zeroed d_a, d_b) leaves 14 leaves without gradient and the zero-gradient
+# leaves at 3.4e-2; float32 loss 0, worst leaf 6.9e-3, L2 8.8e-4,
+# statistics 3.3e-6.
+STEP_TOL = {True: {"loss": 1e-3, "leaf": 0.6, "stats": 2e-2},
+            False: {"loss": 1e-5, "leaf": 5e-2, "l2": 5e-3, "stats": 1e-4}}
+WITNESS_REL = 2.0 ** -16
+WITNESS_FACTOR = 1.5
+# Leaves with an exactly zero gradient: a Linear bias or BatchNorm shift
+# feeding a BatchNorm with no nonlinearity between (the normalization
+# removes any per-column constant).  Both sides hold rounding noise there,
+# held below ZERO_FLOOR of the model's largest gradient.
+ZERO_GRADIENT = ("pretrans.fully_connected.0.batch_norm.bias",
+                 "pretrans.fully_connected.1.linear.bias",
+                 "posttrans.fully_connected.0.linear.bias",
+                 "update_network.fully_connected.0.linear.bias")
+ZERO_FLOOR = {True: 1e-2, False: 1e-4}
+
+
+def _readings(card: dict, cpu: dict) -> dict:
+    """Per model: the worst leaf error, the worst zero-gradient leaf (of
+    the model's max gradient), the gradient's L2, the worst running
+    statistic, and the leaves whose gradient is missing, non-finite or
+    zero on either side."""
+    out = {}
+    for side in ("model", "model3d"):
+        keys = [k for k in cpu if k.startswith(side + ".")
+                and "running" not in k]
+        gmax = max(float(cpu[k].abs().max()) for k in keys)
+        leaf, zero, dead = (0.0, None), (0.0, None), []
+        for k in keys:
+            for which in (card, cpu):
+                g = which[k]
+                if g is None or not bool(torch.isfinite(g).all()) or not (
+                        k.endswith(ZERO_GRADIENT) or float(g.abs().max()) > 0):
+                    dead.append(k)
+            if k in dead:
+                continue
+            if k.endswith(ZERO_GRADIENT):
+                zero = max(zero, (max(float(card[k].abs().max()),
+                                      float(cpu[k].abs().max())) / gmax, k),
+                           key=lambda e: e[0])
+                continue
+            leaf = max(leaf, (float((card[k] - cpu[k]).abs().max())
+                              / float(cpu[k].abs().max()), k),
+                       key=lambda e: e[0])
+        live = [k for k in keys if k not in dead]
+        fc = torch.cat([card[k].flatten() for k in live])
+        fr = torch.cat([cpu[k].flatten() for k in live])
+        skeys = [k for k in cpu if k.startswith(side + ".") and "running" in k]
+        out[side] = {
+            "leaf": leaf, "zero": zero, "dead": sorted(set(dead)),
+            "l2": float((fc - fr).norm() / fr.norm()),
+            "stats": max(float((card[k] - cpu[k]).abs().max())
+                         / max(float(cpu[k].abs().max()), 1.0)
+                         for k in skeys)}
+    return out
+
+
+def _violations(r: dict, bf16: bool, l2_tol: dict) -> list:
+    """What the readings `r` break of the step check."""
+    tol, bad = STEP_TOL[bf16], []
+    for side, d in r.items():
+        bad += [f"{k}: no finite non-zero gradient" for k in d["dead"]]
+        if d["leaf"][0] > tol["leaf"]:
+            bad.append(f"{d['leaf'][1]}: {d['leaf'][0]:.3g}")
+        if d["zero"][0] > ZERO_FLOOR[bf16]:
+            bad.append(f"{d['zero'][1]}: zero-gradient leaf at "
+                       f"{d['zero'][0]:.3g}")
+        if d["l2"] > l2_tol[side]:
+            bad.append(f"{side} gradient L2 {d['l2']:.3g}")
+        if d["stats"] > tol["stats"]:
+            bad.append(f"{side} running statistics {d['stats']:.3g}")
+    return bad
+
+
+def _print_readings(tag: str, r: dict, l2_tol: dict):
+    for side, d in r.items():
+        print(f"[train] {tag} {side}: worst leaf {d['leaf'][0]:.3g} "
+              f"({d['leaf'][1]}), zero-gradient leaves {d['zero'][0]:.3g}, "
+              f"gradient L2 {d['l2']:.3g} (tol {l2_tol[side]:.3g}), running "
+              f"statistics {d['stats']:.3g}, leaves without gradient "
+              f"{len(d['dead'])}")
+
+
+def _one_step(bf16: bool, dev: str, g2, g3, perturb: bool = False):
+    """(loss, gradients and running statistics) of one step from the
+    seeded weights; with `perturb`, every master weight is scaled by
+    1 + WITNESS_REL * U(-1, 1) first."""
+    step = build_step(_train_args(bf16), torch.device(dev))
+    if perturb:
+        gen = torch.Generator().manual_seed(7)
+        with torch.no_grad():
+            for _, p in step.named_parameters():
+                u = torch.rand(p.shape, generator=gen) * 2 - 1
+                p.mul_(1 + WITNESS_REL * u.to(p.device))
+    loss = float(step.loss_and_grads(*step.prepare(g2, g3)))
+    return loss, _step_state(step)
+
+
+def _zeroed_affine_cotangents():
+    """A planted fault for the step check's own test: the stats backward
+    returns zero affine cotangents (d_a, d_b).  Returns the undo."""
+    mod = importlib.import_module("infomax3d_tpu_torch.ops.kernels.pna_stats")
+    real = mod.pna_stats_bwd
+
+    def zeroed(*args):
+        d_x, d_a, d_b = real(*args)
+        return d_x, *(None if d is None else torch.zeros_like(d)
+                      for d in (d_a, d_b))
+    mod.pna_stats_bwd = zeroed
+    return lambda: setattr(mod, "pna_stats_bwd", real)
+
+
+def phase_train(smi: str) -> dict:
+    """Phase 8: the training main path and its checks.  Returns the
+    main-path launches, the step times and the batch sizes."""
+    _reset_counts()
+    runs = {}
+    for bf16 in (True, False):
+        before = _counts()
+        out = pretrain(_train_args(bf16), steps=TRAIN_STEPS)   # on the card
+        after = _counts()
+        per_step = {n: (after[n] - before[n]) / TRAIN_STEPS for n in after}
+        _check(per_step == EXPECTED_STEP[bf16],
+               f"launches per step {per_step} != {EXPECTED_STEP[bf16]}")
+        losses = out["losses"]
+        _check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+        _check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+        print(f"[train] bf16={bf16}: {TRAIN_STEPS} steps through pretrain(), "
+              f"loss {losses[0]:.6f} -> {losses[-1]:.6f}; launches per step "
+              f"{per_step}")
+        runs[bf16] = out
+    launches = _counts()
+    print(f"[train] training main-path launches: {launches}")
+
+    # one step on the card and on the CPU from the same weights and batch
+    sizes = runs[True]["sizes"]
+    g2, g3, _ = flagship_batches(BATCH, seed=0, n_min=DATA["n_min"],
+                                 n_max=DATA["n_max"])
+    for bf16 in (True, False):
+        (loss_card, card), (loss_cpu, cpu) = (
+            _one_step(bf16, dev, g2, g3) for dev in ("cuda", "cpu"))
+        rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        print(f"[train] bf16={bf16}: loss card {loss_card:.6f} vs CPU "
+              f"{loss_cpu:.6f}, {rel:.3g} (tol {STEP_TOL[bf16]['loss']})")
+        _check(rel <= STEP_TOL[bf16]["loss"], f"loss card vs CPU {rel:.3g}")
+        if bf16:
+            witness = _readings(_one_step(True, "cuda", g2, g3, True)[1],
+                                card)
+            _print_readings(f"bf16 witness (card, masters x (1 + "
+                            f"{WITNESS_REL:g} U(-1, 1)) vs card)", witness,
+                            {s: float("inf") for s in witness})
+            l2_tol = {s: WITNESS_FACTOR * d["l2"] for s, d in witness.items()}
+        else:
+            l2_tol = {s: STEP_TOL[False]["l2"] for s in ("model", "model3d")}
+        r = _readings(card, cpu)
+        _print_readings(f"bf16={bf16} card vs CPU", r, l2_tol)
+        bad = _violations(r, bf16, l2_tol)
+        _check(not bad, f"bf16={bf16} step card vs CPU: {bad}")
+        if bf16:
+            # the check's own test: a planted fault must fail it
+            undo = _zeroed_affine_cotangents()
+            try:
+                planted = _readings(_one_step(True, "cuda", g2, g3)[1], cpu)
+            finally:
+                undo()
+            _print_readings("planted fault (zeroed d_a, d_b) card vs CPU",
+                            planted, l2_tol)
+            bad = _violations(planted, True, l2_tol)
+            print(f"[train] planted fault: {len(bad)} violations, e.g. "
+                  f"{bad[:2]}")
+            _check(bool(bad), "the step check passed a planted fault")
+
+    # warm steps on the card: CUDA events around back-to-back steps
+    step_ms = {}
+    for bf16 in (True, False):
+        step = build_step(_train_args(bf16), torch.device("cuda"))
+        a, b = step.prepare(g2.to("cuda"), g3.to("cuda"))
+        t = cuda_ms(lambda: step.step(a, b), iters=20)
+        step_ms[bf16] = t
+        print(f"[train] step bf16={bf16}: {t:.4f} ms, "
+              f"{BATCH / t * 1e3:.1f} graphs/s, "
+              f"{(sizes['edges_2d'] + sizes['edges_3d']) / t * 1e3:.1f} "
+              f"edges/s ({sizes['edges_2d']} 2D bond + {sizes['edges_3d']} "
+              f"3D complete-graph edges per step; CUDA events over 20 warm "
+              f"steps; {smi})")
+    return {"launches": launches, "step_ms": step_ms, "sizes": sizes,
+            "batches": (g2, g3)}
+
+
+def _profile_kernels(prof):
+    from torch.profiler import DeviceType
+    by_name = {}
+    for e in prof.events():
+        # device records only: kernels and copies, not the spans of
+        # annotated host ranges (such as the optimizer's step)
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            us, cnt = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), cnt + 1)
+    return by_name
+
+
+# kernel names of each wrapper in a profile
+PROFILE_NAMES = {"edge_combine": ("edge_combine_kernel",),
+                 "pna_stats": ("pna_stats_kernel",),
+                 "multi_reduce": ("multi_reduce_kernel",),
+                 "pair_segment_sum": ("pair_segment_sum_kernel",),
+                 "pna_stats_bwd": ("pna_stats_bwd_kernel",
+                                   "column_sums_kernel")}
+
+
+def _port_kernels(by_name: dict) -> dict:
+    """{wrapper: (device us, launches)} of the port's kernels in a
+    profile."""
+    out = {}
+    for kname, needles in PROFILE_NAMES.items():
+        hits = [(us, c) for nm, (us, c) in by_name.items()
+                if any(nd in nm for nd in needles)]
+        if hits:
+            us, c = map(sum, zip(*hits))
+            out[kname] = (us, c / len(needles))
+    return out
+
+
+def phase_train_profile(train: dict, n: int = 5) -> dict:
+    """Phase 9: torch.profiler's CUDA kernel records over `n` warm bf16
+    steps -> device-busy ms per step, the idle share of the CUDA-event step
+    time, kernels per step, the port's kernels and the top kernels.
+    Returns each port kernel's in-step us per launch."""
+    from torch.profiler import ProfilerActivity, profile
+    g2, g3 = train["batches"]
+    step = build_step(_train_args(True), torch.device("cuda"))
+    a, b = step.prepare(g2.to("cuda"), g3.to("cuda"))
+    for _ in range(3):
+        step.step(a, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step.step(a, b)
+        torch.cuda.synchronize()
+    by_name = _profile_kernels(prof)
+    in_step = {}
+    if not by_name:
+        print("[train-profile] the profiler recorded no device activity; "
+              "not measured")
+        return in_step
+    busy = sum(us for us, _ in by_name.values()) / n / 1e3
+    kernels = sum(c for _, c in by_name.values()) / n
+    ms = train["step_ms"][True]
+    print(f"[train-profile] bf16 step: device busy {busy:.4f} ms of "
+          f"{ms:.4f} ms per step (idle share {1 - busy / ms:.3f}), "
+          f"{kernels:.0f} kernels per step")
+    for kname, (us, launches) in _port_kernels(by_name).items():
+        in_step[kname] = us / launches / 1e3
+        print(f"[train-profile]   {kname}: {us / launches:.2f} us per "
+              f"launch in the step, {launches / n:.0f} launches per step")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    for name, (us, cnt) in top:
+        print(f"[train-profile]   {us / n:9.2f} us/step  {cnt / n:5.0f}x  "
+              f"{name[:90]}")
+    return in_step
+
+
+def phase_train_kernel_times(g, launches: dict, errs: dict,
+                             in_step: dict) -> list:
+    """Phase 10: the backward kernels' main-path variants at the bench
+    shapes (bf16 pair segment sum; stats backward with the affine)."""
+    N, E, D = g.num_nodes, g.senders.shape[0], WIDTH
+    e_real = int(g.csr_row_ptr[-1])
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ct = torch.randn(E, D, generator=gen, device="cuda").bfloat16()
+    x, aff, ops = _stats_bwd_inputs(g, gen)
+    # the nearest PyTorch call for the pair sum: two float32 index_add_
+    # (one per half) on float32 rows, ids prepared outside the timing
+    ctf = ct.float()
+    recv = g.receivers.long().clamp(max=N)
+    send = g.senders.long().clamp(max=N)
+    acc = torch.zeros(N + 1, D, device="cuda")
+
+    def library_pair():
+        acc.zero_().index_add_(0, recv, ctf)
+        acc.zero_().index_add_(0, send, ctf)
+
+    cases = {
+        # the real ct rows, two row-pointer arrays, csc_perm, 2 outputs;
+        # one add per real element and half
+        "pair_segment_sum": (
+            lambda: pair_segment_sum(ct, g.csr_row_ptr, g.csc_row_ptr,
+                                     g.csc_perm),
+            lambda: pair_segment_sum_reference(ct, g.csr_row_ptr,
+                                               g.csc_row_ptr, g.csc_perm),
+            e_real * D * 2 + 2 * (N + 1) * 4 + e_real * 4 + 2 * N * D * 2,
+            2.0 * e_real * D, "bf16", library_pair,
+            "two float32 index_add_ calls, one per half"),
+        # x, receivers, pos, the six node operands, the affine, d_x and
+        # the column sums; ~15 flops per element
+        "pna_stats_bwd": (
+            lambda: pna_stats_bwd(x, g.receivers, g.csr_pos, ops, aff),
+            lambda: pna_stats_bwd_reference(x, g.receivers, g.csr_pos, ops,
+                                            aff),
+            E * D * 2 + E * 4 + E * 2 + 6 * N * D * 2 + 2 * D * 4
+            + E * D * 2 + 2 * D * 4,
+            15.0 * E * D, "bf16, affine", None,
+            "no PyTorch call computes the extremum routing by winner slot "
+            "with the affine's column sums"),
+    }
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows = []
+    for name, (kern, plain, nbytes, flops, variant, lib, lib_note) in \
+            cases.items():
+        warm = device_ms(kern, iters=100, warmup=10)
+        ms = device_ms(kern, iters=20, flush=flush)
+        plain_ms = device_ms(plain, iters=10)
+        lib_ms = device_ms(lib, iters=100, warmup=10) if lib else None
+        bound_ms, bound_by = _bound(nbytes, flops)
+        src, replaces = KERNEL_INFO[name]
+        step_us = in_step.get(name)
+        print(f"[times] {name} ({variant}): device {ms:.5f} ms cold-L2 "
+              f"median, {warm:.5f} ms warm, "
+              f"{'not measured' if step_us is None else f'{step_us:.5f} ms'}"
+              f" in the step; plain {plain_ms:.5f} ms; library "
+              f"{'null' if lib_ms is None else f'{lib_ms:.5f} ms'} "
+              f"({lib_note}); bound {bound_ms:.5f} ms by {bound_by} "
+              f"({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP f32)")
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": errs[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms})
+    return rows
+
+
+class _Phase:
+    """Prints a phase's seconds when it ends (and lets its error pass)."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        print(f"[phase] {self.name}: {time.perf_counter() - self.t0:.1f} s")
+        return False
+
+
 def main() -> int:
-    smi = phase_device()
-    phase_build()
+    with _Phase("1 device"):
+        smi = phase_device()
+    with _Phase("2 build"):
+        phase_build()
     g = bench_batch()
-    errs = phase_kernels(g)
+    with _Phase("3 kernels"):
+        errs = phase_kernels(g)
     out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
-    launches = phase_slice(out_dir)
-    fwd_ms = phase_forward_time(g)
-    phase_profile(g, fwd_ms)
-    rows = phase_kernel_times(g, launches, errs)
+    with _Phase("4 serving"):
+        serve_launches = phase_slice(out_dir)
+        fwd_ms = phase_forward_time(g)
+    with _Phase("5 profile"):
+        phase_profile(g, fwd_ms)
+    with _Phase("7 training kernels"):
+        errs.update(phase_train_kernels(g))
+    with _Phase("8 training"):
+        train = phase_train(smi)
+    # every kernel's launches over both main paths (serving, training)
+    launches = {n: serve_launches[n] + train["launches"][n]
+                for n in serve_launches}
+    with _Phase("6 kernel times"):
+        rows = phase_kernel_times(g, launches, errs)
+    with _Phase("9 training profile"):
+        in_step = phase_train_profile(train)
+    with _Phase("10 training kernel times"):
+        rows += phase_train_kernel_times(g, launches, errs, in_step)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

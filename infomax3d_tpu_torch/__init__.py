@@ -7,7 +7,8 @@ CUDA C++ kernel under `csrc/`, bound with ctypes (`ops/kernels/`).  Every
 kernel wrapper runs its plain PyTorch twin on CPU tensors and launches the
 kernel (or raises) on CUDA tensors.
 
-Ported so far: the PNA fingerprint-serving forward (`cli.inference`).
+Ported so far: the PNA fingerprint-serving forward (`cli.inference`) and
+the contrastive pre-training step of PNA and Net3DDense (`train.pretrain`).
 """
 from infomax3d_tpu_torch.device import resolve_device
 

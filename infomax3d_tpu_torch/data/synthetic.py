@@ -2,11 +2,12 @@
 
 Same generator, same draws: for one seed the molecules are identical, bit
 for bit, to the JAX package's — OGB-coded atom features [n, 9], bond
-features [e, 3], both edge directions, and 3D coordinates.  numpy only.
+features [e, 3], both edge directions, 3D coordinates (and conformers), and
+the complete-graph 3D view (`graph3d`).  numpy only.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -68,6 +69,22 @@ def random_molecule(rng: np.random.Generator, n_min: int = 4, n_max: int = 28,
     return out
 
 
+def complete_graph_from_coords(mol: Dict[str, np.ndarray]
+                               ) -> Dict[str, np.ndarray]:
+    """The 3D complete-graph view of a molecule: every ordered pair of
+    distinct atoms, sender-major, with its distance (`edge_dist`)."""
+    coords = mol["coords"]
+    n = coords.shape[0]
+    idx = np.arange(n)
+    src = np.repeat(idx, n)
+    dst = np.tile(idx, n)
+    keep = src != dst
+    src, dst = src[keep].astype(np.int32), dst[keep].astype(np.int32)
+    d = np.linalg.norm(coords[src] - coords[dst], axis=-1).astype(np.float32)
+    return dict(node_feat=mol["node_feat"], senders=src, receivers=dst,
+                edge_dist=d, coords=coords)
+
+
 class SyntheticMolecules:
     """In-memory dataset of random molecules with deterministic seeding."""
 
@@ -91,3 +108,10 @@ class SyntheticMolecules:
 
     def graph2d(self, i: int) -> Dict[str, np.ndarray]:
         return self.mols[i]
+
+    def graph3d(self, i: int, conformer: Optional[int] = None
+                ) -> Dict[str, np.ndarray]:
+        mol = self.mols[i]
+        if conformer is not None and "conformers" in mol:
+            mol = dict(mol, coords=mol["conformers"][conformer])
+        return complete_graph_from_coords(mol)

@@ -9,8 +9,9 @@ the JAX package's names and values.  `to_graph_batch` wraps them as a
 Padding conventions (as in the reference): padding edges have sender and
 receiver N, padding nodes have graph id G.  With ``csr=True`` the edges are
 sorted by receiver (stable, padding last) and `csr_row_ptr` indexes each
-node's incoming edges — the layout the aggregation kernels walk.  The TPU
-DMA-window markers, the mailbox arrays and the CSC arrays (backward only)
+node's incoming edges — the layout the aggregation kernels walk;
+`csc_perm` / `csc_row_ptr` give the same edges in sender order, which the
+combine backward walks.  The TPU DMA-window markers and the mailbox arrays
 are not emitted.
 """
 from __future__ import annotations
@@ -111,6 +112,13 @@ def batch_graphs(graphs: Sequence[Dict[str, np.ndarray]],
         np.cumsum(np.bincount(receivers.clip(0, N), minlength=N + 1)[:N],
                   out=row_ptr[1:])
         out["csr_row_ptr"] = row_ptr
+        # sender-sorted edge order (stable; padding senders == N last) and
+        # its row pointers: the sender half of the combine backward
+        out["csc_perm"] = np.argsort(senders, kind="stable").astype(np.int32)
+        csc_ptr = np.zeros(N + 1, np.int32)
+        np.cumsum(np.bincount(senders.clip(0, N), minlength=N + 1)[:N],
+                  out=csc_ptr[1:])
+        out["csc_row_ptr"] = csc_ptr
         # each edge's slot within its receiver's CSR range; -1 on padding
         pos = (np.arange(receivers.shape[0], dtype=np.int32)
                - row_ptr[np.minimum(receivers, N)])
@@ -157,8 +165,8 @@ def bucket_for(graphs: Sequence[Dict[str, np.ndarray]],
 
 _TENSOR_FIELDS = ("node_feat", "edge_feat", "senders", "receivers",
                   "node_graph", "node_mask", "edge_mask", "graph_mask",
-                  "n_nodes", "csr_row_ptr", "csr_pos", "in_degree",
-                  "rd_node_idx", "rd_inv_flat")
+                  "n_nodes", "csr_row_ptr", "csr_pos", "csc_perm",
+                  "csc_row_ptr", "in_degree", "rd_node_idx", "rd_inv_flat")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,6 +184,8 @@ class GraphBatch:
     n_nodes: torch.Tensor         # [G] int32
     csr_row_ptr: torch.Tensor     # [N + 1] int32
     csr_pos: torch.Tensor         # [E] int16 slot in the receiver's range
+    csc_perm: torch.Tensor        # [E] int32 edges in sender order
+    csc_row_ptr: torch.Tensor     # [N + 1] int32 sender ranges of csc_perm
     in_degree: torch.Tensor       # [N] float32
     rd_node_idx: torch.Tensor     # [G, nmax] int32 (pad -> N)
     rd_inv_flat: torch.Tensor     # [N] int32 (pad -> G * nmax)

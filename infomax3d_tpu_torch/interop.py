@@ -17,10 +17,13 @@ flax component              torch component
                             -> running_mean / running_var)
 ``<kind>_encoder/encoder/   ``<kind>_encoder.<kind>_embedding_list.{i}.
 emb_{i}``                   weight``
+``<dense>/kernel``          ``<dense>.weight`` (a bare Dense, transposed)
+``node_embedding``          ``node_embedding`` (a bare parameter)
 ==========================  ===========================================
 
 `init_jax_variables` makes seeded numpy trees in the flax layout of a PNA
-configuration, for serving without a checkpoint and for tests.
+or Net3DDense configuration, for serving and training without a checkpoint
+and for tests.
 """
 from __future__ import annotations
 
@@ -55,8 +58,14 @@ _LEAVES = {("params", "kernel"): "weight", ("params", "bias"): "bias",
            ("batch_stats", "var"): "running_var"}
 
 
+# parameters that are leaves of their module, not of a Dense or BatchNorm
+_BARE = ("node_embedding",)
+
+
 def _torch_name(collection: str, path: Tuple[str, ...]) -> str:
     *mods, leaf = path
+    if collection == "params" and leaf in _BARE:
+        return ".".join([_component(c) for c in mods] + [leaf])
     if leaf.startswith("emb_") and mods and mods[-1] == "encoder":
         kind = mods[-2].split("_")[0]                       # atom / bond
         base = ".".join(_component(c) for c in mods[:-1])
@@ -106,13 +115,19 @@ def _mlp_tree(rng, in_dim, out_dim, layers, hidden, mid_bn, last_bn):
     return params, stats
 
 
-def init_jax_variables(model_parameters: Mapping, seed: int = 0):
+def init_jax_variables(model_parameters: Mapping, seed: int = 0,
+                       model_type: str = "PNA"):
     """Seeded numpy (params, batch_stats) trees in the flax layout of
-    `PNA(**model_parameters)`: Xavier-uniform weights, small random biases,
+    `PNA(**model_parameters)` (or of `Net3DDense` for `model_type`
+    "Net3DDense" / "Net3D"): Xavier-uniform weights, small random biases,
     BatchNorm scales in [0.5, 1.5] and non-trivial running statistics (so
     an eval forward exercises every fold).  float32 leaves."""
     mp = dict(model_parameters)
     rng = np.random.default_rng(seed)
+    if model_type in ("Net3D", "Net3DDense"):
+        return _init_net3d_dense(mp, rng)
+    if model_type != "PNA":
+        raise ValueError(f"no numpy init for model_type {model_type!r}")
     d = mp["hidden_dim"]
     n_aggs = len(mp["aggregators"]) * len(mp["scalers"])
 
@@ -137,6 +152,39 @@ def init_jax_variables(model_parameters: Mapping, seed: int = 0):
         mp.get("readout_batchnorm", True), False)
     return (_f32({"node_gnn": gnn, "output": out_p}),
             _f32({"node_gnn": gnn_stats, "output": out_s}))
+
+
+def _init_net3d_dense(mp: Dict[str, Any], rng):
+    d = mp["hidden_dim"]
+    bn = mp.get("batch_norm", False)
+    k = mp.get("fourier_encodings", 0)
+    params: Dict[str, Any] = {"node_embedding": rng.normal(0.0, 1.0, d)}
+    stats: Dict[str, Any] = {}
+    params["edge_input"], stats["edge_input"] = _mlp_tree(
+        rng, 2 * k + 1 if k > 0 else 1, d, 1, d, bn, bn)
+    for i in range(mp.get("propagation_depth", 4)):
+        msg_p, msg_s = _mlp_tree(rng, 3 * d, d,
+                                 mp.get("message_net_layers", 2), d, bn, bn)
+        bound = np.sqrt(6.0 / (d + 1))
+        gate = {"kernel": rng.uniform(-bound, bound, (d, 1)),
+                "bias": rng.normal(0.0, 0.1, 1)}
+        upd_p, upd_s = _mlp_tree(rng, d, d, mp.get("update_net_layers", 2),
+                                 d, bn, bn)
+        params[f"mp_{i}"] = {"message_network": msg_p,
+                             "soft_edge_network": gate,
+                             "update_network": upd_p}
+        stats[f"mp_{i}"] = {"message_network": msg_s,
+                            "update_network": upd_s}
+    nwo = mp.get("node_wise_output_layers", 2)
+    if nwo > 0:
+        (params["node_wise_output_network"],
+         stats["node_wise_output_network"]) = _mlp_tree(rng, d, d, nwo, d,
+                                                        bn, bn)
+    params["output"], stats["output"] = _mlp_tree(
+        rng, d * len(mp["readout_aggregators"]), mp["target_dim"],
+        mp.get("readout_layers", 2), mp.get("readout_hidden_dim") or d,
+        mp.get("readout_batchnorm", True), False)
+    return _f32(params), _f32(stats)
 
 
 def _f32(tree: Mapping) -> Dict[str, Any]:

@@ -1,12 +1,13 @@
 """Shared model blocks (port of `infomax3d_tpu/models/base.py`): activations,
-eval-mode masked BatchNorm, `FCLayer` / `MLP` with the JAX package's lazy
-BatchNorm folds, and the atom / bond encoders.
+masked BatchNorm, `FCLayer` / `MLP` with the JAX package's lazy BatchNorm
+folds, and the atom / bond encoders.
 
 Module and attribute names follow the reference repository's state_dict
 (`fully_connected.{i}.linear`, `batch_norm`, `atom_embedding_list.{i}`), so
 `load_state_dict(strict=True)` takes its checkpoints and `interop.
-params_from_jax` output alike.  BatchNorm here normalizes with the running
-statistics only (serving); batch-statistics mode comes with training.
+params_from_jax` output alike.  BatchNorm normalizes with the batch
+statistics of the rows its mask selects in training mode (and updates its
+running statistics), and with the running statistics in eval mode.
 """
 from __future__ import annotations
 
@@ -42,12 +43,22 @@ def get_activation(act: str) -> Callable:
     return ACTIVATIONS[act.lower()]
 
 
+def _stats_dtype(x: torch.Tensor) -> torch.dtype:
+    """BatchNorm arithmetic: float32, or float64 for float64 inputs."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over rows, in eval mode: ``y = (x - running_mean) /
-    sqrt(running_var + eps) * weight + bias`` computed in float32 and
-    returned in x's dtype.  The running statistics stay float32 under the
-    bf16 recipe.  `momentum` is kept for the training slice (batch
-    statistics, padding rows excluded), which this module does not run."""
+    """BatchNorm over rows with padding rows excluded from the statistics
+    (torch semantics, as the JAX package's `MaskedBatchNorm`).
+
+    Training: mean and biased variance of the rows where `mask` is true
+    normalize; the running statistics move to ``(1 - m) · running + m ·
+    batch`` with the unbiased variance (count / (count - 1)), outside
+    autograd.  Eval: the running statistics normalize.  ``y = (x - mean) ·
+    rsqrt(var + eps) · weight + bias`` is computed in float32 (float64 for
+    float64 inputs) and returned in x's dtype; the running statistics stay
+    float32 under the bf16 recipe."""
 
     def __init__(self, num_features: int, momentum: float = 0.1,
                  eps: float = 1e-5):
@@ -61,39 +72,81 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
 
-    def _require_eval(self):
-        if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm runs in eval mode (running statistics) "
-                "only; call .eval() — batch statistics come with training")
+    def _statistics(self, x: torch.Tensor, mask: Optional[torch.Tensor]):
+        """(mean, var) that normalize x: the masked batch statistics in
+        training (updating the running ones), else the running ones."""
+        if not self.training:
+            return self.running_mean, self.running_var
+        xf = x.to(_stats_dtype(x))
+        red = tuple(range(xf.ndim - 1))
+        if mask is not None:
+            m = mask.float()
+            while m.ndim < xf.ndim:
+                m = m[..., None]
+            count = m.sum()
+            s1 = (xf * m).sum(dim=red)
+            s2 = (xf * xf * m).sum(dim=red)
+        else:
+            count = torch.tensor(float(x.numel() // x.shape[-1]),
+                                 device=x.device)
+            s1 = xf.sum(dim=red)
+            s2 = (xf * xf).sum(dim=red)
+        count = count.clamp(min=1.0)
+        mean = s1 / count
+        var = (s2 / count - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            mom = self.momentum
+            unbiased = var * count / (count - 1.0).clamp(min=1.0)
+            self.running_mean.copy_((1 - mom) * self.running_mean
+                                    + mom * mean)
+            self.running_var.copy_((1 - mom) * self.running_var
+                                   + mom * unbiased)
+            self.num_batches_tracked.add_(1)
+        return mean, var
 
-    def affine(self):
-        """(a, b), float32 [D], with ``BN(x) == x * a + b``."""
-        self._require_eval()
-        a = self.weight.float() * torch.rsqrt(self.running_var + self.eps)
-        return a, self.bias.float() - self.running_mean * a
+    def affine(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
+        """(a, b), float32 [D], with ``BN(x) == x * a + b`` (the JAX
+        package's ``affine_out``); in training both depend on x's batch
+        statistics and carry their gradients back to x."""
+        mean, var = self._statistics(x, mask)
+        dt = _stats_dtype(x)
+        a = self.weight.to(dt) * torch.rsqrt(var + self.eps)
+        return a, self.bias.to(dt) - mean * a
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        self._require_eval()
-        y = (x.float() - self.running_mean) * torch.rsqrt(
-            self.running_var + self.eps)
-        return (y * self.weight.float() + self.bias.float()).to(x.dtype)
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        mean, var = self._statistics(x, mask)
+        dt = _stats_dtype(x)
+        y = (x.to(dt) - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.weight.to(dt) + self.bias.to(dt)).to(x.dtype)
 
 
 class EdgeInput(NamedTuple):
     """The message-MLP input ``[h[senders] ‖ h[receivers] ‖ e]`` of a PNA
     layer, never concatenated: `FCLayer` projects h in node space and the
     edge-combine kernel sums the gathered rows (`ops/kernels/
-    edge_combine.py`)."""
+    edge_combine.py`); the CSR and CSC arrays carry its backward."""
     h: torch.Tensor           # [N, Dh]
     senders: torch.Tensor     # [E] int32 (pad -> N)
     receivers: torch.Tensor   # [E] int32 (pad -> N)
     e: torch.Tensor           # [E, De]
+    row_ptr: Optional[torch.Tensor] = None       # [N + 1] int32
+    csc_row_ptr: Optional[torch.Tensor] = None   # [N + 1] int32
+    csc_perm: Optional[torch.Tensor] = None      # [E] int32
+
+
+class PairGridInput(NamedTuple):
+    """The Net3DDense message-MLP input ``[h_i ‖ h_j ‖ e_ij]`` on the dense
+    [G, n, n] pair grid, never concatenated: `FCLayer` projects h in node
+    space and broadcasts the sender (axis 1) and receiver (axis 2) blocks
+    into the grid."""
+    h: torch.Tensor           # [G, n, Dh]
+    e: torch.Tensor           # [G, n, n, De]
 
 
 class FCLayer(nn.Module):
-    """Linear -> activation -> BatchNorm (reference FCLayer order).  Dropout
-    is the identity in eval mode and is not applied."""
+    """Linear -> activation -> BatchNorm (reference FCLayer order).  The
+    port has no dropout (the ported configurations set it to 0)."""
 
     def __init__(self, in_dim: int, out_dim: int, activation: str = "relu",
                  batch_norm: bool = False, batch_norm_momentum: float = 0.1):
@@ -111,7 +164,15 @@ class FCLayer(nn.Module):
             hs = F.linear(x.h, w[:, :dh])
             hd = F.linear(x.h, w[:, dh:2 * dh])
             pe = F.linear(x.e, w[:, 2 * dh:], bias)
-            return edge_combine(hd, hs, pe, x.receivers, x.senders)
+            return edge_combine(hd, hs, pe, x.receivers, x.senders,
+                                x.row_ptr, x.csc_row_ptr, x.csc_perm)
+        if isinstance(x, PairGridInput):
+            # the JAX package's order: sender + receiver, + edge, + bias
+            dh = x.h.shape[-1]
+            hs = F.linear(x.h, w[:, :dh])
+            hd = F.linear(x.h, w[:, dh:2 * dh])
+            pe = F.linear(x.e, w[:, 2 * dh:])
+            return hs[:, :, None] + hd[:, None] + pe + bias
         if isinstance(x, AffinePart):
             # fold the column affine into the weights:
             # (x * a + b) @ W^T == x @ (W * a)^T + W @ b
@@ -120,16 +181,17 @@ class FCLayer(nn.Module):
             return (F.linear(x.x, wf).float() + row).to(x.x.dtype) + bias
         return F.linear(x, w, bias)
 
-    def forward(self, x, lazy_out: bool = False):
-        """`x`: a tensor, an `AffinePart` or an `EdgeInput`.  With
-        `lazy_out`, the BatchNorm comes back as an `AffinePart` for the
-        consumer to fold."""
+    def forward(self, x, mask: Optional[torch.Tensor] = None,
+                lazy_out: bool = False):
+        """`x`: a tensor, an `AffinePart` or an `EdgeInput`; `mask` selects
+        the rows of the BatchNorm statistics.  With `lazy_out`, the
+        BatchNorm comes back as an `AffinePart` for the consumer to fold."""
         h = self.activation(self.dense(x))
         if self.batch_norm is None:
             return h
         if lazy_out:
-            return AffinePart(h, *self.batch_norm.affine())
-        return self.batch_norm(h)
+            return AffinePart(h, *self.batch_norm.affine(h, mask))
+        return self.batch_norm(h, mask)
 
 
 class MLP(nn.Module):
@@ -153,19 +215,22 @@ class MLP(nn.Module):
                     batch_norm_momentum=batch_norm_momentum)
             for j in range(n))
 
-    def forward(self, x, lazy_out: bool = False):
+    def forward(self, x, mask: Optional[torch.Tensor] = None,
+                lazy_out: bool = False):
         for fc in self.fully_connected[:-1]:
-            x = fc(x, lazy_out=True)
-        return self.fully_connected[-1](x, lazy_out=lazy_out)
+            x = fc(x, mask, lazy_out=True)
+        return self.fully_connected[-1](x, mask, lazy_out=lazy_out)
 
 
 def _embedding_sum(tables: nn.ModuleList, codes: torch.Tensor) -> torch.Tensor:
     """Sum of one lookup per categorical column, codes clipped to each
-    table's vocabulary; summed in float32 and rounded once."""
+    table's vocabulary; summed in float32 and rounded once.  The lookup
+    reads a float32 view of the table, so its gradient accumulates in
+    float32 (the JAX package's multi-hot matmul does the same)."""
     out = None
     for i, emb in enumerate(tables):
         idx = codes[:, i].long().clamp(0, emb.num_embeddings - 1)
-        t = emb.weight[idx].float()
+        t = F.embedding(idx, emb.weight.float())
         out = t if out is None else out + t
     return out.to(tables[0].weight.dtype)
 

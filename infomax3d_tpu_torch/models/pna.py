@@ -1,5 +1,6 @@
 """PNA — Principal Neighbourhood Aggregation 2D encoder (port of
-`infomax3d_tpu/models/pna.py`), eval-mode forward on CSR batches.
+`infomax3d_tpu/models/pna.py`) on CSR batches, in training mode (batch
+statistics, masked to real edges / nodes / graphs) and in eval mode.
 
 Per layer: the pretrans MLP on ``[h[src] ‖ h[dst] ‖ e]`` (its first layer
 through the edge-combine kernel, its BatchNorms folded), the PNA
@@ -48,11 +49,13 @@ class PNALayer(nn.Module):
 
     def forward(self, g, h: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
         # the pretrans last BatchNorm stays lazy: the stats kernel folds it
-        msg = self.pretrans(EdgeInput(h, g.senders, g.receivers, e),
-                            lazy_out=True)
+        msg = self.pretrans(EdgeInput(h, g.senders, g.receivers, e,
+                                      g.csr_row_ptr, g.csc_row_ptr,
+                                      g.csc_perm),
+                            g.edge_mask, lazy_out=True)
         parts = pna_aggregate_parts(g, msg, self.aggregators, self.scalers,
                                     self.avg_d_log)
-        h_new = self.posttrans(torch.cat([h] + parts, dim=-1))
+        h_new = self.posttrans(torch.cat([h] + parts, dim=-1), g.node_mask)
         return h_new + h if self.residual else h_new
 
 
@@ -92,8 +95,8 @@ class PNAGNN(nn.Module):
 class PNA(nn.Module):
     """GNN + multi-aggregator readout + output MLP (reference
     `models/pna.py:90-135`).  Keyword arguments are the `model_parameters`
-    of the reference configs; `dropout` is accepted and, in eval mode,
-    the identity."""
+    of the reference configs; the port has no dropout, so training with
+    `dropout` > 0 raises."""
 
     def __init__(self, hidden_dim: int, target_dim: int,
                  aggregators: Sequence[str], scalers: Sequence[str],
@@ -108,6 +111,7 @@ class PNA(nn.Module):
                  batch_norm_momentum: float = 0.1):
         super().__init__()
         self.readout_aggregators = tuple(readout_aggregators)
+        self.dropout = dropout
         self.node_gnn = PNAGNN(
             hidden_dim, aggregators, scalers, residual=residual,
             activation=activation, last_activation=last_activation,
@@ -123,5 +127,8 @@ class PNA(nn.Module):
                           batch_norm_momentum=batch_norm_momentum)
 
     def forward(self, g) -> torch.Tensor:
+        if self.training and self.dropout > 0:
+            raise NotImplementedError("dropout > 0 is not ported")
         h = self.node_gnn(g)
-        return self.output(batch_readout(g, h, self.readout_aggregators))
+        return self.output(batch_readout(g, h, self.readout_aggregators),
+                           g.graph_mask)

@@ -20,9 +20,10 @@ from infomax3d_tpu_torch.ops.segment import EPS
 
 
 class AffinePart(NamedTuple):
-    """A lazy column affine ``x * scale + shift`` (a BatchNorm apply in eval
-    mode): consumers fold it into their weights or their kernel instead of
-    materializing it."""
+    """A lazy column affine ``x * scale + shift`` (a BatchNorm apply; in
+    training its scale and shift come from the batch statistics and carry
+    gradients): consumers fold it into their weights or their kernel
+    instead of materializing it."""
     x: torch.Tensor          # [rows, D]
     scale: torch.Tensor      # [D] float32
     shift: torch.Tensor      # [D] float32
@@ -36,18 +37,21 @@ def use_stats_kernel(messages: torch.Tensor, max_deg: int) -> bool:
     return messages.dtype == torch.bfloat16 and max_deg <= MAX_SLOTS
 
 
-def _stats_outs(x, row_ptr, max_deg, aggregators, has, affine):
+def _stats_outs(g, x, aggregators, has, affine):
     # the sum section is written only when an aggregator reads it
-    s1, mean, std, mx, mn, _ = pna_stats(x, row_ptr, max_deg, affine,
-                                         "sum" in aggregators)
+    s1, mean, std, mx, mn, _ = pna_stats(x, g.csr_row_ptr, g.max_deg, affine,
+                                         "sum" in aggregators,
+                                         receivers=g.receivers,
+                                         pos=g.csr_pos)
     outs = {"sum": s1, "mean": mean, "std": std, "max": mx, "min": mn}
     if "var" in aggregators:
         outs["var"] = torch.where(has, std.float() ** 2 - EPS, 0.0)
     return outs
 
 
-def _reduce_outs(x, row_ptr, max_deg, deg, has):
-    s1, s2, mx, mn = multi_reduce(x, row_ptr, max_deg)
+def _reduce_outs(g, x, deg, has):
+    s1, s2, mx, mn = multi_reduce(x, g.csr_row_ptr, g.max_deg,
+                                  receivers=g.receivers)
     deg_safe = deg.clamp(min=1.0)
     mean = s1 / deg_safe
     var = torch.relu(s2 / deg_safe - mean * mean)
@@ -74,11 +78,11 @@ def pna_aggregate_parts(g, messages, aggregators: Sequence[str],
     deg = (rp[1:] - rp[:-1]).float()[:, None]
     has = deg > 0
     if use_stats_kernel(x, g.max_deg):
-        outs = _stats_outs(x, rp, g.max_deg, aggregators, has, affine)
+        outs = _stats_outs(g, x, aggregators, has, affine)
     else:
         if affine is not None:
             x = messages.materialize()
-        outs = _reduce_outs(x, rp, g.max_deg, deg, has)
+        outs = _reduce_outs(g, x, deg, has)
     dt = x.dtype
     aggs = [outs[a].to(dt) for a in aggregators]
     if len(scalers) <= 1:

@@ -2,19 +2,29 @@
 
 Every wrapper dispatches on its tensors' device: CPU tensors run the plain
 version (`*_reference`), CUDA tensors launch the kernel or raise — there is
-no fallback.  `<wrapper>.launches` counts the kernel launches, and only
-them.
+no fallback.  The forward wrappers are `torch.autograd.Function`s on both
+devices, whose backwards are the backward wrappers (`pair_segment_sum`,
+`pna_stats_bwd`) or, for `multi_reduce`, plain PyTorch.  A launch that gets
+a tensor requiring grad outside its Function raises.  `<wrapper>.launches`
+counts the kernel launches, and only them.
 """
 from infomax3d_tpu_torch.ops.kernels.edge_combine import (
     edge_combine, edge_combine_reference)
 from infomax3d_tpu_torch.ops.kernels.multi_reduce import (
     multi_reduce, multi_reduce_reference)
+from infomax3d_tpu_torch.ops.kernels.pair_segment_sum import (
+    pair_segment_sum, pair_segment_sum_reference)
 from infomax3d_tpu_torch.ops.kernels.pna_stats import (
     pna_stats, pna_stats_reference)
+from infomax3d_tpu_torch.ops.kernels.pna_stats_bwd import (
+    pna_stats_bwd, pna_stats_bwd_reference)
 
 WRAPPERS = {"edge_combine": edge_combine, "pna_stats": pna_stats,
-            "multi_reduce": multi_reduce}
+            "multi_reduce": multi_reduce,
+            "pair_segment_sum": pair_segment_sum,
+            "pna_stats_bwd": pna_stats_bwd}
 
 __all__ = ["WRAPPERS", "edge_combine", "edge_combine_reference",
-           "multi_reduce", "multi_reduce_reference", "pna_stats",
-           "pna_stats_reference"]
+           "multi_reduce", "multi_reduce_reference", "pair_segment_sum",
+           "pair_segment_sum_reference", "pna_stats", "pna_stats_bwd",
+           "pna_stats_bwd_reference", "pna_stats_reference"]

@@ -22,7 +22,8 @@ from typing import Dict
 
 import torch
 
-KERNELS = ("edge_combine", "pna_stats", "multi_reduce")
+KERNELS = ("edge_combine", "pna_stats", "multi_reduce", "pair_segment_sum",
+           "pna_stats_bwd")
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "infomax3d_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -103,6 +104,29 @@ def check_launch(name: str, err: int):
     if err != 0:
         msg = library(name).port_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+def on_card(t: torch.Tensor, name: str) -> bool:
+    """The dispatch of every wrapper: True for a CUDA tensor (launch the
+    kernel), False for a CPU tensor (run the plain version); any other
+    device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type == "cuda":
+        return True
+    raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def refuse_grad(name: str, *tensors):
+    """A kernel launch records nothing for autograd, so a launch that gets
+    a tensor requiring grad while grad mode is on would drop its gradient:
+    raise instead.  The wrappers launch inside their `autograd.Function`,
+    where grad mode is off."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: a kernel launch is not differentiable; call it through "
+            f"its wrapper, whose autograd.Function carries the gradient")
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -1,14 +1,19 @@
 """Fused edge combine `z[e] = hd[recv[e]] + hs[send[e]] + pe[e]` (port of
 `_edge_combine_kernel` / `csr_edge_combine`, infomax3d_tpu/ops/pallas/
-spmm.py).  Kernel: `csrc/edge_combine.cu`."""
+spmm.py), differentiable: its backward is the pair segment sum
+(`d_hd, d_hs`) and ``d_pe = ct``, as in the JAX package's custom VJP.
+Kernel: `csrc/edge_combine.cu`."""
 from __future__ import annotations
 
 import ctypes
 
 import torch
 
+from infomax3d_tpu_torch.ops.kernels import _build
 from infomax3d_tpu_torch.ops.kernels._build import (check_launch, launcher,
-                                                    require, stream_of)
+                                                    refuse_grad, require,
+                                                    stream_of)
+from infomax3d_tpu_torch.ops.kernels.pair_segment_sum import pair_segment_sum
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P,) * 6 + (_I,) * 3 + (_P,)
@@ -30,14 +35,8 @@ def edge_combine_reference(hd, hs, pe, receivers, senders):
     return (zd + zs + pe.float()).to(pe.dtype)
 
 
-def edge_combine(hd, hs, pe, receivers, senders):
-    """`hd, hs [N, D]`, `pe [E, D]` (bf16 or float32), `receivers, senders
-    [E]` int32 -> `[E, D]`.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
-    if pe.device.type == "cpu":
-        return edge_combine_reference(hd, hs, pe, receivers, senders)
-    if pe.device.type != "cuda":
-        raise ValueError(f"edge_combine: unsupported device {pe.device}")
+def _launch(hd, hs, pe, receivers, senders):
+    refuse_grad("edge_combine", hd, hs, pe)
     if pe.dtype not in _SYMBOLS:
         raise TypeError(f"edge_combine: bf16 or float32, got {pe.dtype}")
     N, D = hd.shape
@@ -58,6 +57,40 @@ def edge_combine(hd, hs, pe, receivers, senders):
     check_launch("edge_combine", err)
     edge_combine.launches += 1
     return out
+
+
+class EdgeCombine(torch.autograd.Function):
+    """Forward: the kernel on CUDA, the plain version on the CPU.  Backward
+    (`spmm.py::_combine_bwd`): ``d_hd, d_hs = pair_segment_sum(ct)`` over
+    the CSR and CSC ranges, ``d_pe = ct``."""
+
+    @staticmethod
+    def forward(ctx, hd, hs, pe, receivers, senders, row_ptr, csc_row_ptr,
+                csc_perm):
+        ctx.save_for_backward(row_ptr, csc_row_ptr, csc_perm)
+        if _build.on_card(pe, "edge_combine"):
+            return _launch(hd, hs, pe, receivers, senders)
+        return edge_combine_reference(hd, hs, pe, receivers, senders)
+
+    @staticmethod
+    def backward(ctx, ct):
+        row_ptr, csc_row_ptr, csc_perm = ctx.saved_tensors
+        if row_ptr is None or csc_row_ptr is None or csc_perm is None:
+            raise ValueError("edge_combine: the gradient needs row_ptr, "
+                             "csc_row_ptr and csc_perm")
+        d_hd, d_hs = pair_segment_sum(ct.contiguous(), row_ptr, csc_row_ptr,
+                                      csc_perm)
+        return d_hd, d_hs, ct, None, None, None, None, None
+
+
+def edge_combine(hd, hs, pe, receivers, senders, row_ptr=None,
+                 csc_row_ptr=None, csc_perm=None):
+    """`hd, hs [N, D]`, `pe [E, D]` (bf16 or float32), `receivers, senders
+    [E]` int32 -> `[E, D]`.  The gradient needs the batch's `row_ptr`,
+    `csc_row_ptr` and `csc_perm` (int32).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    return EdgeCombine.apply(hd, hs, pe, receivers, senders, row_ptr,
+                             csc_row_ptr, csc_perm)
 
 
 edge_combine.launches = 0

@@ -1,14 +1,17 @@
 """CSR multi-reduce (sum, sumsq, max, min) in float32 (port of `_kernel` /
-`_csr_reduce_raw` / `csr_multi_reduce`, infomax3d_tpu/ops/pallas/spmm.py).
-Kernel: `csrc/multi_reduce.cu`."""
+`_csr_reduce_raw` / `csr_multi_reduce`, infomax3d_tpu/ops/pallas/spmm.py),
+differentiable: its backward is plain PyTorch on both devices, as the JAX
+package's `_bwd` is plain XLA.  Kernel: `csrc/multi_reduce.cu`."""
 from __future__ import annotations
 
 import ctypes
 
 import torch
 
+from infomax3d_tpu_torch.ops.kernels import _build
 from infomax3d_tpu_torch.ops.kernels._build import (check_launch, launcher,
-                                                    require, stream_of)
+                                                    refuse_grad, require,
+                                                    stream_of)
 from infomax3d_tpu_torch.ops.kernels.pna_stats import (NEG_BIG, POS_BIG,
                                                         csr_mailbox)
 
@@ -50,16 +53,8 @@ def multi_reduce_reference(messages, row_ptr, max_deg: int):
     return s1, s2, torch.where(has, mx, zero), torch.where(has, mn, zero)
 
 
-def multi_reduce(messages, row_ptr, max_deg: int):
-    """`messages [E, D]` float32 or bf16, `row_ptr [N + 1]` int32 ->
-    (sum, sumsq, max, min), each float32 [N, D].  CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
-    _check(messages, max_deg)
-    if messages.device.type == "cpu":
-        return multi_reduce_reference(messages, row_ptr, max_deg)
-    if messages.device.type != "cuda":
-        raise ValueError(f"multi_reduce: unsupported device "
-                         f"{messages.device}")
+def _launch(messages, row_ptr, max_deg):
+    refuse_grad("multi_reduce", messages)
     E, D = messages.shape
     N = row_ptr.shape[0] - 1
     dev = messages.device
@@ -73,6 +68,59 @@ def multi_reduce(messages, row_ptr, max_deg: int):
         check_launch("multi_reduce", err)
         multi_reduce.launches += 1
     return tuple(out.unbind(0))
+
+
+def multi_reduce_bwd(messages, receivers, mx, mn, cts):
+    """The JAX package's `_bwd` (spmm.py), plain PyTorch: each edge gets
+    its receiver's sum cotangent, ``2·m`` times the sumsq one, and the
+    max / min ones where it ties the extremum — compared against the
+    message and its bf16 rounding, so every tie gets the full cotangent.
+    Padding edges get 0."""
+    d_s, d_s2, d_mx, d_mn = cts
+    N = mx.shape[0]
+    r = receivers.long().clamp(0, N - 1)
+    m = messages.float()
+    m_r = messages.to(torch.bfloat16).float()
+    d = d_s[r] + 2.0 * m * d_s2[r]
+    mx_e, mn_e = mx[r], mn[r]
+    d = d + d_mx[r] * ((m_r == mx_e) | (m == mx_e)).float()
+    d = d + d_mn[r] * ((m_r == mn_e) | (m == mn_e)).float()
+    valid = (receivers < N)[:, None]
+    return torch.where(valid, d, torch.zeros((), device=d.device)).to(
+        messages.dtype)
+
+
+class MultiReduce(torch.autograd.Function):
+    """Forward: the multi-reduce kernel on CUDA, the plain version on the
+    CPU.  Backward: `multi_reduce_bwd` on both."""
+
+    @staticmethod
+    def forward(ctx, messages, row_ptr, receivers, max_deg):
+        if _build.on_card(messages, "multi_reduce"):
+            outs = _launch(messages, row_ptr, max_deg)
+        else:
+            outs = multi_reduce_reference(messages, row_ptr, max_deg)
+        ctx.save_for_backward(messages, receivers, outs[2], outs[3])
+        return outs
+
+    @staticmethod
+    def backward(ctx, *cts):
+        messages, receivers, mx, mn = ctx.saved_tensors
+        if receivers is None:
+            raise ValueError("multi_reduce: the gradient needs the batch's "
+                             "receivers")
+        cts = tuple(torch.zeros_like(mx) if c is None else c for c in cts)
+        return (multi_reduce_bwd(messages, receivers, mx, mn, cts), None,
+                None, None)
+
+
+def multi_reduce(messages, row_ptr, max_deg: int, receivers=None):
+    """`messages [E, D]` float32 or bf16, `row_ptr [N + 1]` int32 ->
+    (sum, sumsq, max, min), each float32 [N, D].  The gradient needs the
+    batch's `receivers` [E].  CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
+    _check(messages, max_deg)
+    return MultiReduce.apply(messages, row_ptr, receivers, max_deg)
 
 
 multi_reduce.launches = 0

@@ -1,0 +1,81 @@
+"""Receiver- and sender-keyed segment sums of edge rows in one call, the
+backward of the fused edge combine (port of `_snd_seg_sum_kernel` through
+`_snd_kernel_pair` / `pair_segment_sum_bf16`, infomax3d_tpu/ops/pallas/
+spmm.py).  Kernel: `csrc/pair_segment_sum.cu`."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from infomax3d_tpu_torch.ops.kernels import _build
+from infomax3d_tpu_torch.ops.kernels._build import (check_launch, launcher,
+                                                    refuse_grad, require,
+                                                    stream_of)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = (_P,) * 6 + (_I,) * 2 + (_P,)
+_SYMBOLS = {torch.bfloat16: "pair_segment_sum_bf16",
+            torch.float32: "pair_segment_sum_f32"}
+
+
+def _slot_sums(ct, row_ptr, perm=None):
+    """Each node's range of `row_ptr` summed slot by slot in float32 (rows
+    through `perm` when given), rounded to ct's type once."""
+    E, D = ct.shape
+    rp = row_ptr.long()
+    deg = rp[1:] - rp[:-1]
+    padded = torch.cat([ct, ct.new_zeros(1, D)])
+    rows = None if perm is None else torch.cat(
+        [perm.long(), perm.new_full((1,), E).long()])
+    acc = torch.zeros(deg.shape[0], D, device=ct.device)
+    for k in range(int(deg.max()) if deg.numel() else 0):
+        valid = k < deg
+        idx = torch.where(valid, rp[:-1] + k, E)
+        if rows is not None:
+            idx = rows[idx]
+        acc = torch.where(valid[:, None], acc + padded[idx].float(), acc)
+    return acc.to(ct.dtype)
+
+
+def pair_segment_sum_reference(ct, row_ptr, csc_row_ptr, csc_perm):
+    """Plain PyTorch version, in the kernel's order: ``(d_hd, d_hs)`` with
+    d_hd[n] the sum of ct over n's receiver-sorted range and d_hs[n] the sum
+    of ct[csc_perm[j]] over n's sender-sorted range, each accumulated in
+    float32 slot by slot and rounded once."""
+    return _slot_sums(ct, row_ptr), _slot_sums(ct, csc_row_ptr, csc_perm)
+
+
+def _launch(ct, row_ptr, csc_row_ptr, csc_perm):
+    refuse_grad("pair_segment_sum", ct)
+    if ct.dtype not in _SYMBOLS:
+        raise TypeError(f"pair_segment_sum: bf16 or float32, got {ct.dtype}")
+    E, D = ct.shape
+    N = row_ptr.shape[0] - 1
+    dev = ct.device
+    require(ct, "ct", ct.dtype, (E, D), dev)
+    require(row_ptr, "row_ptr", torch.int32, (N + 1,), dev)
+    require(csc_row_ptr, "csc_row_ptr", torch.int32, (N + 1,), dev)
+    require(csc_perm, "csc_perm", torch.int32, (E,), dev)
+    out = torch.empty(2, N, D, dtype=ct.dtype, device=dev)
+    if N > 0 and D > 0:
+        fn = launcher("pair_segment_sum", _SYMBOLS[ct.dtype], _ARGTYPES)
+        err = fn(ct.data_ptr(), row_ptr.data_ptr(), csc_row_ptr.data_ptr(),
+                 csc_perm.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                 N, D, stream_of(ct))
+        check_launch("pair_segment_sum", err)
+        pair_segment_sum.launches += 1
+    return out[0], out[1]
+
+
+def pair_segment_sum(ct, row_ptr, csc_row_ptr, csc_perm):
+    """`ct [E, D]` (bf16 or float32), `row_ptr`, `csc_row_ptr [N + 1]` and
+    `csc_perm [E]` int32 -> ``(d_hd, d_hs)``, each [N, D] of ct's type.
+    Used as a backward, so it is not differentiable itself.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise."""
+    if _build.on_card(ct, "pair_segment_sum"):
+        return _launch(ct, row_ptr, csc_row_ptr, csc_perm)
+    return pair_segment_sum_reference(ct, row_ptr, csc_row_ptr, csc_perm)
+
+
+pair_segment_sum.launches = 0

@@ -1,14 +1,20 @@
 """Fused bf16 PNA statistics over a CSR batch (port of `_stats_kernel` /
-`_stats_kernel_aff` / `_csr_stats_raw`, infomax3d_tpu/ops/pallas/spmm.py).
+`_stats_kernel_aff` / `_csr_stats_raw` and the custom VJP of
+`csr_pna_stats`, infomax3d_tpu/ops/pallas/spmm.py), differentiable: its
+backward is the stats-backward kernel (`pna_stats_bwd`).
 Kernel: `csrc/pna_stats.cu`."""
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
+from infomax3d_tpu_torch.ops.kernels import _build
 from infomax3d_tpu_torch.ops.kernels._build import (check_launch, launcher,
-                                                    require, stream_of)
+                                                    refuse_grad, require,
+                                                    stream_of)
+from infomax3d_tpu_torch.ops.kernels.pna_stats_bwd import pna_stats_bwd
 from infomax3d_tpu_torch.ops.segment import EPS
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -84,19 +90,8 @@ def pna_stats_reference(messages, row_ptr, max_deg: int, affine=None,
             (amax + 16.0 * amin).to(bf))
 
 
-def pna_stats(messages, row_ptr, max_deg: int, affine=None,
-              want_sum: bool = True):
-    """`messages [E, D]` bf16, `row_ptr [N + 1]` int32, `affine` an optional
-    pair of [D] column scale / shift applied as ``bf16(x * a + b)`` first.
-    Returns (sum | None, mean, std, max, min, enc), each bf16 [N, D]; `enc`
-    packs the first-winner slots as ``amax + 16 * amin``.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise."""
-    _check(messages, max_deg)
-    if messages.device.type == "cpu":
-        return pna_stats_reference(messages, row_ptr, max_deg, affine,
-                                   want_sum)
-    if messages.device.type != "cuda":
-        raise ValueError(f"pna_stats: unsupported device {messages.device}")
+def _launch(messages, row_ptr, max_deg, affine, want_sum):
+    refuse_grad("pna_stats", messages, *(() if affine is None else affine))
     E, D = messages.shape
     N = row_ptr.shape[0] - 1
     dev = messages.device
@@ -117,6 +112,74 @@ def pna_stats(messages, row_ptr, max_deg: int, affine=None,
         pna_stats.launches += 1
     secs = tuple(out.unbind(0))
     return secs if want_sum else (None,) + secs
+
+
+def _zeros_if_none(ct, like):
+    return torch.zeros_like(like) if ct is None else ct
+
+
+class PNAStats(torch.autograd.Function):
+    """Forward: the stats kernel on CUDA, the plain version on the CPU.
+    Backward (`spmm.py::_stats_bwd`): the node-side combinations
+    ``A = d_sum + d_mean / deg`` and ``B = d_std / (deg · max(std,
+    √eps))`` in float32, rounded to bf16, then the stats-backward kernel,
+    which also gives the affine's cotangents."""
+
+    @staticmethod
+    def forward(ctx, messages, row_ptr, receivers, pos, a, b, max_deg,
+                want_sum):
+        affine = None if a is None else (a, b)
+        if _build.on_card(messages, "pna_stats"):
+            outs = _launch(messages, row_ptr, max_deg, affine, want_sum)
+        else:
+            outs = pna_stats_reference(messages, row_ptr, max_deg, affine,
+                                       want_sum)
+        _, mean, std, _, _, enc = outs
+        ctx.save_for_backward(messages, row_ptr, receivers, pos, mean, std,
+                              enc, a, b)
+        ctx.mark_non_differentiable(enc)
+        return outs
+
+    @staticmethod
+    def backward(ctx, d_sum, d_mean, d_std, d_mx, d_mn, _d_enc):
+        messages, row_ptr, receivers, pos, mean, std, enc, a, b = \
+            ctx.saved_tensors
+        if receivers is None or pos is None:
+            raise ValueError("pna_stats: the gradient needs the batch's "
+                             "receivers and csr_pos")
+        rp = row_ptr.long()
+        deg = (rp[1:] - rp[:-1]).float()[:, None]
+        inv = 1.0 / deg.clamp(min=1.0)
+        std_safe = std.float().clamp(min=math.sqrt(EPS))
+        bf = torch.bfloat16
+        B = _zeros_if_none(d_std, mean).float() * inv / std_safe
+        A = _zeros_if_none(d_mean, mean).float() * inv
+        if d_sum is not None:
+            A = d_sum.float() + A
+        ops = (A.to(bf), B.to(bf), mean, _zeros_if_none(d_mx, mean).to(bf),
+               _zeros_if_none(d_mn, mean).to(bf), enc)
+        d_x, d_a, d_b = pna_stats_bwd(
+            messages, receivers, pos, tuple(t.contiguous() for t in ops),
+            None if a is None else (a, b))
+        return d_x, None, None, None, d_a, d_b, None, None
+
+
+def pna_stats(messages, row_ptr, max_deg: int, affine=None,
+              want_sum: bool = True, receivers=None, pos=None):
+    """`messages [E, D]` bf16, `row_ptr [N + 1]` int32, `affine` an optional
+    pair of [D] column scale / shift applied as ``bf16(x * a + b)`` first.
+    Returns (sum | None, mean, std, max, min, enc), each bf16 [N, D]; `enc`
+    packs the first-winner slots as ``amax + 16 * amin`` and has no
+    gradient.  Without `want_sum` no sum is returned (the JAX package
+    rebuilds it as mean·deg for a caller that does not read it, so its
+    cotangent is zero).  The gradient (to `messages` and the affine) needs
+    the batch's `receivers` [E] int32 and `pos` [E] int16, each edge's slot
+    in its receiver's range (`csr_pos`).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    _check(messages, max_deg)
+    a, b = (None, None) if affine is None else affine
+    return PNAStats.apply(messages, row_ptr, receivers, pos, a, b, max_deg,
+                          want_sum)
 
 
 pna_stats.launches = 0

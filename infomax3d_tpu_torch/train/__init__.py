@@ -1,4 +1,6 @@
-from infomax3d_tpu_torch.train.precision import (cast_parameters,
+from infomax3d_tpu_torch.train.precision import (cast_batch, cast_parameters,
+                                                 compute_params,
                                                  resolve_compute_dtype)
 
-__all__ = ["cast_parameters", "resolve_compute_dtype"]
+__all__ = ["cast_batch", "cast_parameters", "compute_params",
+           "resolve_compute_dtype"]

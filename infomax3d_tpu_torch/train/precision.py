@@ -4,10 +4,18 @@ The recipe: parameters are cast to bf16, BatchNorm running statistics stay
 float32, integer inputs (atom and bond codes) stay integers.  Config key
 ``bf16_compute: auto|true|false``; ``auto`` is bf16 on the card and float32
 on the CPU.
+
+Serving casts the module's parameters in place (`cast_parameters`).
+Training keeps float32 master parameters and runs the forward on bf16
+copies made inside the differentiated function (`compute_params` with
+`torch.func.functional_call`), so the gradients reach the masters through
+the cast, as the JAX package's `cast_floats` around `apply` does; the batch's
+float fields are cast too (`cast_batch`).
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -35,3 +43,26 @@ def resolve_compute_dtype(setting, device: torch.device
     if setting is True or setting in ("bf16", "bfloat16"):
         return torch.bfloat16
     return None
+
+
+def compute_params(module: nn.Module, dtype: Optional[torch.dtype]
+                   ) -> Dict[str, torch.Tensor]:
+    """The module's parameters as the forward should see them: float32
+    ones cast to `dtype` (differentiably, so gradients flow back to the
+    float32 masters), the others as they are.  For
+    `torch.func.functional_call`; the buffers stay the module's own, so the
+    BatchNorm running statistics stay float32 and update in place."""
+    return {n: (p.to(dtype) if dtype is not None and p.dtype == torch.float32
+                else p) for n, p in module.named_parameters()}
+
+
+def cast_batch(batch, dtype: Optional[torch.dtype]):
+    """A batch dataclass with its float32 tensor fields cast to `dtype`
+    (integer and bool fields untouched); `None` keeps float32."""
+    if dtype is None:
+        return batch
+    return dataclasses.replace(batch, **{
+        f.name: getattr(batch, f.name).to(dtype)
+        for f in dataclasses.fields(batch)
+        if isinstance(getattr(batch, f.name), torch.Tensor)
+        and getattr(batch, f.name).dtype == torch.float32})

@@ -1,0 +1,161 @@
+"""The contrastive pre-training step (port of `bench.py`'s step at the
+`configs_clean/pre-train_QM9.yml` architecture): the PNA 2D encoder on a
+receiver-sorted CSR batch and Net3DDense on the dense complete-graph batch
+of the same molecules, NT-Xent between their outputs, grouped Adam.
+
+Precision follows the JAX package's recipe: float32 master parameters and
+optimizer state, the forward on bf16 copies of the parameters and of the
+batches' float fields (`train/precision.py`), model outputs cast to
+float32 before the loss.  BatchNorm normalizes with masked batch statistics
+and updates its float32 running statistics in place.
+
+`pretrain()` is the entry point: it runs a few steps on one fixed
+synthetic batch, on the CUDA card unless asked for the CPU.  The trainer
+classes, schedulers and the CLI come later.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from infomax3d_tpu_torch.data.synthetic import SyntheticMolecules
+from infomax3d_tpu_torch.device import resolve_device
+from infomax3d_tpu_torch.graphs.batch import (GraphBatch, batch_graphs,
+                                              bucket_for, to_graph_batch)
+from infomax3d_tpu_torch.graphs.dense import (DenseBatch, dense_batch,
+                                              to_dense_batch)
+from infomax3d_tpu_torch.interop import init_jax_variables, params_from_jax
+from infomax3d_tpu_torch.losses.contrastive import NTXent
+from infomax3d_tpu_torch.models.net3d import Net3DDense
+from infomax3d_tpu_torch.models.pna import PNA
+from infomax3d_tpu_torch.train.optim import build_adam
+from infomax3d_tpu_torch.train.precision import (cast_batch, compute_params,
+                                                 resolve_compute_dtype)
+
+
+def _load(model: nn.Module, variables: Mapping) -> nn.Module:
+    """Weights from flax numpy trees (`params`, `batch_stats`)."""
+    model.load_state_dict(params_from_jax(variables["params"],
+                                          variables.get("batch_stats", {})),
+                          strict=True)
+    return model
+
+
+class PretrainStep:
+    """Forward, backward and Adam update of the PNA / Net3DDense pair on
+    one batch of molecules.  `variables` holds flax numpy trees for
+    ``model`` and ``model3d`` (`interop.init_jax_variables` layout);
+    `compute_dtype` bf16 runs the bf16 recipe, None float32."""
+
+    def __init__(self, model_parameters: Mapping,
+                 model3d_parameters: Mapping, variables: Mapping,
+                 device: torch.device,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 loss_params: Optional[Mapping] = None,
+                 optimizer_params: Optional[Mapping] = None):
+        self.device = torch.device(device)
+        self.compute_dtype = compute_dtype
+        self.model = _load(PNA(**model_parameters), variables["model"])
+        self.model3d = _load(Net3DDense.from_config(model3d_parameters),
+                             variables["model3d"])
+        self.model.to(self.device).train()
+        self.model3d.to(self.device).train()
+        self.loss_fn = NTXent(**dict(loss_params or {}))
+        self.optimizer = build_adam(self.named_parameters(),
+                                    **dict(optimizer_params or {}))
+
+    def named_parameters(self):
+        """(name, parameter) of both models: ``model.*``, ``model3d.*``."""
+        for prefix, m in (("model", self.model), ("model3d", self.model3d)):
+            for n, p in m.named_parameters():
+                yield f"{prefix}.{n}", p
+
+    def prepare(self, g2: GraphBatch, g3: DenseBatch
+                ) -> Tuple[GraphBatch, DenseBatch]:
+        """The batches as the forward reads them: on the step's device,
+        float fields in the compute dtype (`bench.py` casts them once)."""
+        return (cast_batch(g2.to(self.device), self.compute_dtype),
+                cast_batch(g3.to(self.device), self.compute_dtype))
+
+    def _outputs(self, model: nn.Module, g) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return model(g)
+        return functional_call(model, compute_params(model,
+                                                     self.compute_dtype),
+                               (g,)).float()
+
+    def loss_and_grads(self, g2: GraphBatch, g3: DenseBatch) -> torch.Tensor:
+        """Forward and backward on prepared batches: fills each master
+        parameter's `.grad` (float32), updates the running statistics and
+        returns the float32 loss (detached)."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.loss_fn(self._outputs(self.model, g2),
+                            self._outputs(self.model3d, g3))
+        loss.backward()
+        return loss.detach()
+
+    def step(self, g2: GraphBatch, g3: DenseBatch) -> torch.Tensor:
+        """One training step on prepared batches; returns the loss."""
+        loss = self.loss_and_grads(g2, g3)
+        self.optimizer.step()
+        return loss
+
+
+def flagship_batches(batch_size: int, seed: int = 0, n_min: int = 10,
+                     n_max: int = 26, device="cpu"
+                     ) -> Tuple[GraphBatch, DenseBatch, Dict[str, int]]:
+    """`bench.py`'s batch: `batch_size` synthetic QM9-like molecules as a
+    CSR 2D batch and a dense 3D batch, plus their sizes: graphs, 2D bond
+    edges and 3D complete-graph edges (the edges of `bench.py`'s
+    edges/s)."""
+    ds = SyntheticMolecules(batch_size, seed=seed, n_min=n_min, n_max=n_max)
+    mols2 = [ds.graph2d(i) for i in range(batch_size)]
+    mols3 = [ds.graph3d(i) for i in range(batch_size)]
+    b2 = bucket_for(mols2, batch_size)
+    g2 = to_graph_batch(batch_graphs(mols2, b2), b2, device)
+    nmax3 = max(m["node_feat"].shape[0] for m in mols3)
+    g3 = to_dense_batch(dense_batch(mols3, batch_size, nmax3), device)
+    sizes = {"graphs": batch_size,
+             "edges_2d": sum(m["senders"].shape[0] for m in mols2),
+             "edges_3d": sum(m["senders"].shape[0] for m in mols3)}
+    return g2, g3, sizes
+
+
+def build_step(args: Mapping[str, Any], device: torch.device) -> PretrainStep:
+    """`PretrainStep` from a config-like dict: `model_parameters`,
+    `model3d_parameters`, `loss_params`, `optimizer_params` (the YAML
+    keys), `bf16_compute` (default "auto"), and seeded numpy weights in the
+    flax layout (`seed`, default 0; Net3DDense takes `seed + 1`)."""
+    seed = args.get("seed", 0)
+    variables = {
+        "model": dict(zip(("params", "batch_stats"), init_jax_variables(
+            args["model_parameters"], seed))),
+        "model3d": dict(zip(("params", "batch_stats"), init_jax_variables(
+            args["model3d_parameters"], seed + 1, "Net3DDense")))}
+    return PretrainStep(
+        args["model_parameters"], args["model3d_parameters"], variables,
+        device, resolve_compute_dtype(args.get("bf16_compute", "auto"),
+                                      device),
+        args.get("loss_params"), args.get("optimizer_params"))
+
+
+def pretrain(args: Dict[str, Any], steps: int = 1,
+             device: Optional[str] = None) -> Dict[str, Any]:
+    """Run `steps` pre-training steps on one fixed batch of
+    `args["batch_size"]` (default 500) synthetic molecules
+    (`args["dataset_params"]`: seed, n_min, n_max).  Runs on the CUDA card
+    unless `device` says otherwise (and raises when there is none).
+    Returns the float32 losses, the step object and the batch sizes."""
+    device = resolve_device(device)
+    step = build_step(args, device)
+    data = {"seed": 0, "n_min": 10, "n_max": 26,
+            **args.get("dataset_params", {})}
+    g2, g3, sizes = flagship_batches(args.get("batch_size", 500),
+                                     device=device, **data)
+    g2, g3 = step.prepare(g2, g3)
+    losses = [step.step(g2, g3) for _ in range(steps)]
+    return {"losses": [float(x) for x in losses], "step": step,
+            "sizes": sizes}

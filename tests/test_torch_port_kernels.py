@@ -1,5 +1,6 @@
 """Each kernel's plain PyTorch version against the JAX package's Pallas
-kernel, run in interpret mode on the CPU.
+kernel, run in interpret mode on the CPU (the forward kernels, the pair
+segment sum and the stats backward).
 
 Tolerances: a bf16 "ulp" tolerance is rtol = 2**-7 — one unit in the last
 place of bf16 (8 significant bits) relative to the value, the most two
@@ -19,6 +20,8 @@ from infomax3d_tpu_torch.data.synthetic import SyntheticMolecules
 from infomax3d_tpu_torch.graphs.batch import batch_graphs, bucket_for
 from infomax3d_tpu_torch.ops.kernels import (edge_combine_reference,
                                              multi_reduce_reference,
+                                             pair_segment_sum_reference,
+                                             pna_stats_bwd_reference,
                                              pna_stats_reference)
 
 BF16_ULP = 2.0 ** -7
@@ -155,3 +158,112 @@ def test_multi_reduce_matches_pallas(csr, dtype):
     deg = np.diff(arr["csr_row_ptr"])
     for g in got:
         assert (g.numpy()[deg == 0] == 0).all()
+
+
+# --- the training kernels: the pair segment sum and the stats backward -----
+
+@pytest.fixture(scope="module")
+def jax_csr(csr):
+    """The JAX batcher's arrays for the same molecules (its TPU window
+    markers size the Pallas kernels' windows)."""
+    from infomax3d_tpu.graphs.batch import BucketSpec, batch_graphs as jbg
+    arr, b, graphs = csr
+    return jbg(graphs, BucketSpec(b.n_graphs, b.n_nodes, b.n_edges,
+                                  max_deg=b.max_deg, csr=True, nmax=b.nmax))
+
+
+def test_pair_segment_sum_matches_pallas(csr, jax_csr):
+    """bf16: the Pallas pair kernel (interpret mode) and the plain version
+    both sum at most max_deg bf16 rows in float32 and round once: equal."""
+    from infomax3d_tpu.ops.pallas.spmm import pair_segment_sum_bf16
+    arr, b, _ = csr
+    rng = np.random.default_rng(4)
+    ct = _bf16(rng.normal(size=(b.n_edges, D)))
+    want_hd, want_hs = pair_segment_sum_bf16(
+        jnp.asarray(ct, jnp.bfloat16), jnp.asarray(arr["senders"]),
+        jnp.asarray(arr["csr_row_ptr"]), jnp.asarray(jax_csr["csr_pair_base"]),
+        jax_csr["csr_pair_win"].shape[0], True)
+    got_hd, got_hs = pair_segment_sum_reference(
+        _t(ct).bfloat16(), _t(arr["csr_row_ptr"]), _t(arr["csc_row_ptr"]),
+        _t(arr["csc_perm"]))
+    for g, w in ((got_hd, want_hd), (got_hs, want_hs)):
+        assert g.dtype == torch.bfloat16 and g.shape == (b.n_nodes, D)
+        np.testing.assert_array_equal(g.float().numpy(),
+                                      np.asarray(w, np.float32))
+
+
+def test_pair_segment_sum_f32_matches_segment_sum(csr):
+    """float32 (the float32 step's combine backward, where the JAX package
+    runs XLA segment sums): the same sums, 1e-6 relative (order)."""
+    import jax
+    arr, b, _ = csr
+    rng = np.random.default_rng(5)
+    N = b.n_nodes
+    ct = rng.normal(size=(b.n_edges, D)).astype(np.float32)
+    got = pair_segment_sum_reference(
+        _t(ct), _t(arr["csr_row_ptr"]), _t(arr["csc_row_ptr"]),
+        _t(arr["csc_perm"]))
+    for g, ids in zip(got, (arr["receivers"], arr["senders"])):
+        want = jax.ops.segment_sum(ct, np.minimum(ids, N),
+                                   num_segments=N + 1)[:N]
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def _stats_bwd_case(arr, b, seed, with_affine):
+    """Forward residuals and node-side operands as the JAX package's
+    `_stats_bwd` forms them (tests/test_pallas_spmm.py's recipe)."""
+    from infomax3d_tpu.ops.pallas import spmm
+    rng = np.random.default_rng(seed)
+    N, E, K = b.n_nodes, b.n_edges, b.max_deg
+    x = _bf16(rng.normal(size=(E, D)) * 2.0)
+    affine = None
+    if with_affine:
+        affine = (rng.uniform(0.5, 1.5, D).astype(np.float32),
+                  rng.normal(0.0, 0.3, D).astype(np.float32))
+    rp = jnp.asarray(arr["csr_row_ptr"])
+    _, mean, std, _, _, enc = spmm._csr_stats_raw(
+        jnp.asarray(x, jnp.bfloat16), rp, K, True, 0, True,
+        None if affine is None else tuple(jnp.asarray(a) for a in affine))
+    cts = [jnp.asarray(rng.normal(size=(N, D)).astype(np.float32),
+                       jnp.bfloat16) for _ in range(4)]
+    d_mean, d_std, d_mx, d_mn = cts
+    deg = (rp[1:] - rp[:-1]).astype(jnp.float32)[:, None]
+    inv = 1.0 / jnp.maximum(deg, 1.0)
+    std_safe = jnp.maximum(std.astype(jnp.float32), jnp.sqrt(spmm.EPS))
+    B = (d_std.astype(jnp.float32) * inv / std_safe).astype(jnp.bfloat16)
+    A = (d_mean.astype(jnp.float32) * inv).astype(jnp.bfloat16)
+    return x, affine, (A, B, mean, d_mx, d_mn, enc)
+
+
+@pytest.mark.parametrize("with_affine", [False, True])
+def test_pna_stats_bwd_matches_pallas(csr, jax_csr, with_affine):
+    """The plain version against `_csr_stats_bwd_raw` in interpret mode.
+    d_x: bit-equal (both form d in float32 with the same rounding points
+    and round once).  d_a, d_b: 1e-5 relative (float32 column sums in
+    another order: the Pallas kernel sums 128-edge blocks, then the
+    blocks)."""
+    from infomax3d_tpu.ops.pallas import spmm
+    arr, b, _ = csr
+    x, affine, ops = _stats_bwd_case(arr, b, 7, with_affine)
+    want = spmm._csr_stats_bwd_raw(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(arr["receivers"]),
+        jnp.asarray(arr["csr_row_ptr"]), jnp.asarray(arr["csr_pos"]), ops,
+        jax_csr["csr_bwd_span"].shape[0], True,
+        None if affine is None else tuple(jnp.asarray(a) for a in affine))
+    got = pna_stats_bwd_reference(
+        _t(x).bfloat16(), _t(arr["receivers"]), _t(arr["csr_pos"]),
+        tuple(_t(np.asarray(o, np.float32)).bfloat16() for o in ops),
+        None if affine is None else tuple(_t(a) for a in affine))
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == x.shape
+    np.testing.assert_array_equal(got[0].float().numpy(),
+                                  np.asarray(want[0], np.float32))
+    e_real = int(arr["csr_row_ptr"][-1])
+    assert (got[0].float().numpy()[e_real:] == 0).all()
+    if not with_affine:
+        assert got[1] is None and got[2] is None
+        return
+    for g, w in zip(got[1:], want[1:]):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5,
+                                   atol=1e-5 * np.abs(w).max())

@@ -174,7 +174,8 @@ def test_readout_matches_jax(slice_case, aggs):
                                 jnp.asarray(arr["rd_inv_flat"]), aggs,
                                 jnp.asarray(arr["n_nodes"]))
     got = graph_readout_dense(torch.from_numpy(h),
-                              torch.from_numpy(arr["rd_node_idx"]), aggs,
+                              torch.from_numpy(arr["rd_node_idx"]),
+                              torch.from_numpy(arr["rd_inv_flat"]), aggs,
                               torch.from_numpy(arr["n_nodes"]))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)

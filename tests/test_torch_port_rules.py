@@ -1,6 +1,7 @@
 """Rules the port lives by: no JAX (nor the JAX package, nor YAML or
 msgpack) at run time, no silent CPU fallback, kernels dispatch by device,
-and `chip_smoke.py` serves the model of `configs_clean/pre-train_QM9.yml`."""
+and `chip_smoke.py` serves and trains the models of
+`configs_clean/pre-train_QM9.yml`."""
 import ast
 import importlib.util
 import json
@@ -39,22 +40,37 @@ def _forbidden(name: str) -> bool:
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
 
+TINY3D = dict(target_dim=4, hidden_dim=4, hidden_edge_dim=4,
+              node_wise_output_layers=0, message_net_layers=1,
+              update_net_layers=1, reduce_func="mean", fourier_encodings=2,
+              propagation_depth=1, batch_norm=True, readout_layers=1,
+              readout_aggregators=["min", "max", "mean"])
+
+
 def test_runtime_imports_no_jax(tmp_path):
     code = f"""
 import json, sys
 import infomax3d_tpu_torch
 from infomax3d_tpu_torch.cli.inference import inference
+from infomax3d_tpu_torch.train.pretrain import pretrain
 fp = inference({{"model_parameters": {TINY!r}, "batch_size": 4,
                 "dataset_params": {{"num": 6, "seed": 0}},
                 "output_dir": {str(tmp_path)!r}}}, device="cpu")
 assert fp.shape == (6, 4), fp.shape
+out = pretrain({{"model_parameters": {TINY!r},
+                "model3d_parameters": {TINY3D!r}, "batch_size": 6,
+                "bf16_compute": True}}, steps=1, device="cpu")
+assert len(out["losses"]) == 1, out
 print(json.dumps(sorted(sys.modules)))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
                          capture_output=True, timeout=300)
     assert out.returncode == 0, out.stderr
     mods = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "infomax3d_tpu_torch.ops.kernels.pna_stats" in mods
+    for m in ("ops.kernels.pna_stats", "ops.kernels.pna_stats_bwd",
+              "ops.kernels.pair_segment_sum", "models.net3d",
+              "losses.contrastive", "train.optim", "train.pretrain"):
+        assert f"infomax3d_tpu_torch.{m}" in mods, m
     assert [m for m in mods if _forbidden(m)] == []
 
 
@@ -130,3 +146,10 @@ def test_chip_smoke_serves_the_flagship_config():
         cfg = yaml.safe_load(f)
     assert chip_smoke.MODEL_PARAMETERS == cfg["model_parameters"]
     assert cfg["model_type"] == "PNA"
+    assert chip_smoke.MODEL3D_PARAMETERS == cfg["model3d_parameters"]
+    assert cfg["model3d_type"] == "Net3D"
+    assert chip_smoke.LOSS_PARAMS == cfg["loss_params"]
+    assert cfg["loss_func"] == "NTXent"
+    assert chip_smoke.OPTIMIZER_PARAMS == cfg["optimizer_params"]
+    assert cfg["optimizer"] == "Adam"
+    assert chip_smoke.BATCH == cfg["batch_size"]
