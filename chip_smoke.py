@@ -37,6 +37,17 @@ its seconds:
 9. training profile: torch.profiler over warm bf16 steps.
 10. training kernel times: the two backward kernels as in phase 6, with
    the nearest PyTorch call where there is one.
+11. GIN kernels: the CSR sum and the sender-keyed segment sum (bf16,
+   float32) against their plain versions at the GIN slice's batch (128
+   synthetic molhiv-like molecules, seed 0: N = 3328, E = 7168, D = 300),
+   and at D = 302, a width that takes the other vector paths.
+12. GIN training: the supervised step of `configs/30.yml` (OGBGNN, GIN
+   5x300 without a virtual node, sum pooling, BCEWithLogitsLoss, Adam lr
+   1e-3, batch 128) through `supervised()`, 20 steps in bf16 and in
+   float32: launches per step, loss over the steps; one step on the card
+   against the same step on the CPU; ms per step and graphs/s.
+13. GIN profile and kernel times: torch.profiler over warm steps, then the
+   two GIN kernels as in phase 10.
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 """
@@ -57,7 +68,8 @@ from infomax3d_tpu_torch.data.synthetic import SyntheticMolecules
 from infomax3d_tpu_torch.graphs.batch import (batch_graphs, bucket_for,
                                               to_graph_batch)
 from infomax3d_tpu_torch.interop import init_jax_variables
-from infomax3d_tpu_torch.ops.kernels import (WRAPPERS, edge_combine,
+from infomax3d_tpu_torch.ops.kernels import (WRAPPERS, csr_sum,
+                                             csr_sum_reference, edge_combine,
                                              edge_combine_reference,
                                              multi_reduce,
                                              multi_reduce_reference,
@@ -65,10 +77,14 @@ from infomax3d_tpu_torch.ops.kernels import (WRAPPERS, edge_combine,
                                              pair_segment_sum_reference,
                                              pna_stats, pna_stats_bwd,
                                              pna_stats_bwd_reference,
-                                             pna_stats_reference)
+                                             pna_stats_reference,
+                                             snd_segment_sum,
+                                             snd_segment_sum_reference)
 from infomax3d_tpu_torch.ops.kernels._build import build_all
 from infomax3d_tpu_torch.train.pretrain import (build_step, flagship_batches,
                                                 pretrain)
+from infomax3d_tpu_torch.train.supervised import (build_supervised_step,
+                                                  labelled_batch, supervised)
 
 # configs_clean/pre-train_QM9.yml `model_parameters` (no YAML on the card)
 MODEL_PARAMETERS = {
@@ -116,6 +132,27 @@ TRAIN_STEPS = 20
 WIDTH = MODEL_PARAMETERS["hidden_dim"]
 DEPTH = MODEL_PARAMETERS["propagation_depth"]
 
+# configs/30.yml `model_type`, `model_parameters`, `loss_func`,
+# `optimizer_params` and `batch_size` (no YAML on the card).  `emb_dim` is
+# no field of OGBGNN and is dropped, as the JAX package drops it; the width
+# is the model's default `hidden_dim`, 300.
+GIN_MODEL_TYPE = "OGBGNN"
+GIN_MODEL_PARAMETERS = {
+    "target_dim": 1,
+    "num_layers": 5,
+    "dropout": 0.0,
+    "batch_norm_momentum": 0.1,
+    "emb_dim": 300,
+    "virtual_node": False,
+}
+GIN_LOSS = "BCEWithLogitsLoss"
+GIN_OPTIMIZER_PARAMS = {"lr": 1.0e-3}
+GIN_BATCH = 128
+# synthetic molhiv-like molecules: 10 to 41 atoms, 25.5 on average
+GIN_DATA = {"seed": 0, "n_min": 10, "n_max": 41}
+GIN_WIDTH = 300
+GIN_DEPTH = GIN_MODEL_PARAMETERS["num_layers"]
+
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth and
 # float32 outside the tensor cores (the kernels' arithmetic is float32).
 PEAK_BYTES_PER_S = 3.35e12
@@ -137,21 +174,22 @@ F32_REL = 1e-6
 # layers -> 3e-2.
 SLICE_TOL = {True: 3e-2, False: 1e-4}
 # launches per forward, from the model's depth
-EXPECTED = {True: {"edge_combine": DEPTH, "pna_stats": DEPTH,
-                   "multi_reduce": 0, "pair_segment_sum": 0,
-                   "pna_stats_bwd": 0},
-            False: {"edge_combine": DEPTH, "pna_stats": 0,
-                    "multi_reduce": DEPTH, "pair_segment_sum": 0,
-                    "pna_stats_bwd": 0}}
+NONE = {"edge_combine": 0, "pna_stats": 0, "multi_reduce": 0,
+        "pair_segment_sum": 0, "pna_stats_bwd": 0, "csr_sum": 0,
+        "snd_segment_sum": 0}
+EXPECTED = {True: dict(NONE, edge_combine=DEPTH, pna_stats=DEPTH),
+            False: dict(NONE, edge_combine=DEPTH, multi_reduce=DEPTH)}
 # launches per training step: each PNA layer runs the combine and its
 # backward, and the bf16 stats and their backward or the float32
 # multi-reduce (whose backward is plain PyTorch)
-EXPECTED_STEP = {True: {"edge_combine": DEPTH, "pna_stats": DEPTH,
-                        "multi_reduce": 0, "pair_segment_sum": DEPTH,
-                        "pna_stats_bwd": DEPTH},
-                 False: {"edge_combine": DEPTH, "pna_stats": 0,
-                         "multi_reduce": DEPTH, "pair_segment_sum": DEPTH,
-                         "pna_stats_bwd": 0}}
+EXPECTED_STEP = {True: dict(NONE, edge_combine=DEPTH, pna_stats=DEPTH,
+                            pair_segment_sum=DEPTH, pna_stats_bwd=DEPTH),
+                 False: dict(NONE, edge_combine=DEPTH, multi_reduce=DEPTH,
+                             pair_segment_sum=DEPTH)}
+# launches per GIN step, in bf16 and float32 alike: each layer sums its
+# messages (forward) and sums the gathered rows' cotangents by sender (the
+# gather's backward; the atom encoder needs layer 0's too)
+EXPECTED_GIN_STEP = dict(NONE, csr_sum=GIN_DEPTH, snd_segment_sum=GIN_DEPTH)
 
 KERNEL_INFO = {
     "edge_combine": ("infomax3d_tpu_torch/csrc/edge_combine.cu",
@@ -164,6 +202,10 @@ KERNEL_INFO = {
                          "infomax3d_tpu/ops/pallas/spmm.py:1006"),
     "pna_stats_bwd": ("infomax3d_tpu_torch/csrc/pna_stats_bwd.cu",
                       "infomax3d_tpu/ops/pallas/spmm.py:1408"),
+    "csr_sum": ("infomax3d_tpu_torch/csrc/csr_sum.cu",
+                "infomax3d_tpu/ops/pallas/spmm.py:1310"),
+    "snd_segment_sum": ("infomax3d_tpu_torch/csrc/snd_segment_sum.cu",
+                        "infomax3d_tpu/ops/pallas/spmm.py:1001"),
 }
 # No single PyTorch call computes the three forward functions: the combine
 # is two row gathers plus adds, the stats and the multi-reduce are 4-6
@@ -579,15 +621,28 @@ def _train_args(bf16: bool) -> dict:
                                "n_max": DATA["n_max"]}}
 
 
-def _step_state(step) -> dict:
-    """Every parameter's gradient (None where it got none) and every
-    running statistic, on the CPU, by name."""
-    out = {n: None if p.grad is None else p.grad.float().cpu()
-           for n, p in step.named_parameters()}
-    for pre, m in (("model", step.model), ("model3d", step.model3d)):
+def _measure_step(step, models: dict, batches: tuple, perturb: bool):
+    """(loss, every parameter's gradient (None where it got none) and
+    every running statistic, on the CPU, named ``<model>.<name>``) of one
+    step of `step` on prepared `batches`; `models` maps each model's name
+    to the module.  With `perturb`, every master weight is scaled by
+    1 + WITNESS_REL * U(-1, 1) first."""
+    if perturb:
+        gen = torch.Generator().manual_seed(7)
+        with torch.no_grad():
+            for m in models.values():
+                for p in m.parameters():
+                    u = torch.rand(p.shape, generator=gen) * 2 - 1
+                    p.mul_(1 + WITNESS_REL * u.to(p.device))
+    loss = float(step.loss_and_grads(*batches))
+    out = {}
+    for pre, m in models.items():
+        out.update({f"{pre}.{n}": None if p.grad is None
+                    else p.grad.float().cpu()
+                    for n, p in m.named_parameters()})
         out.update({f"{pre}.{n}": b.float().cpu()
                     for n, b in m.named_buffers() if "running" in n})
-    return out
+    return loss, out
 
 
 # The card against the CPU, one step from the same weights and batch.  Both
@@ -604,7 +659,11 @@ def _step_state(step) -> dict:
 # against a witness of 0.279 and 0.0674, statistics 5.1e-3; a planted fault
 # (zeroed d_a, d_b) leaves 14 leaves without gradient and the zero-gradient
 # leaves at 3.4e-2; float32 loss 0, worst leaf 6.9e-3, L2 8.8e-4,
-# statistics 3.3e-6.
+# statistics 3.3e-6.  The GIN step (phase 12) is held by the same bounds:
+# bf16 loss 2.5e-7, worst leaf 0.020, L2 2.7e-3 against a witness of
+# 0.040, statistics 3.7e-7; its planted fault (a zeroed gather backward)
+# reads a leaf at 1.08 and L2 0.88; float32 loss 6.3e-8, worst leaf
+# 4.9e-3, L2 9.2e-5, statistics 3.7e-7.
 STEP_TOL = {True: {"loss": 1e-3, "leaf": 0.6, "stats": 2e-2},
             False: {"loss": 1e-5, "leaf": 5e-2, "l2": 5e-3, "stats": 1e-4}}
 WITNESS_REL = 2.0 ** -16
@@ -616,17 +675,18 @@ WITNESS_FACTOR = 1.5
 ZERO_GRADIENT = ("pretrans.fully_connected.0.batch_norm.bias",
                  "pretrans.fully_connected.1.linear.bias",
                  "posttrans.fully_connected.0.linear.bias",
-                 "update_network.fully_connected.0.linear.bias")
+                 "update_network.fully_connected.0.linear.bias",
+                 "mlp.0.bias", "mlp.3.bias")
 ZERO_FLOOR = {True: 1e-2, False: 1e-4}
 
 
-def _readings(card: dict, cpu: dict) -> dict:
+def _readings(card: dict, cpu: dict, sides: tuple) -> dict:
     """Per model: the worst leaf error, the worst zero-gradient leaf (of
     the model's max gradient), the gradient's L2, the worst running
     statistic, and the leaves whose gradient is missing, non-finite or
     zero on either side."""
     out = {}
-    for side in ("model", "model3d"):
+    for side in sides:
         keys = [k for k in cpu if k.startswith(side + ".")
                 and "running" not in k]
         gmax = max(float(cpu[k].abs().max()) for k in keys)
@@ -677,28 +737,64 @@ def _violations(r: dict, bf16: bool, l2_tol: dict) -> list:
     return bad
 
 
-def _print_readings(tag: str, r: dict, l2_tol: dict):
+def _print_readings(tag: str, r: dict, l2_tol: dict, phase: str):
     for side, d in r.items():
-        print(f"[train] {tag} {side}: worst leaf {d['leaf'][0]:.3g} "
+        print(f"[{phase}] {tag} {side}: worst leaf {d['leaf'][0]:.3g} "
               f"({d['leaf'][1]}), zero-gradient leaves {d['zero'][0]:.3g}, "
               f"gradient L2 {d['l2']:.3g} (tol {l2_tol[side]:.3g}), running "
               f"statistics {d['stats']:.3g}, leaves without gradient "
               f"{len(d['dead'])}")
 
 
-def _one_step(bf16: bool, dev: str, g2, g3, perturb: bool = False):
-    """(loss, gradients and running statistics) of one step from the
-    seeded weights; with `perturb`, every master weight is scaled by
-    1 + WITNESS_REL * U(-1, 1) first."""
+def _one_step(bf16: bool, dev: str, g2, g3, perturb: bool):
+    """`_measure_step` of one pre-training step from the seeded
+    weights."""
     step = build_step(_train_args(bf16), torch.device(dev))
-    if perturb:
-        gen = torch.Generator().manual_seed(7)
-        with torch.no_grad():
-            for _, p in step.named_parameters():
-                u = torch.rand(p.shape, generator=gen) * 2 - 1
-                p.mul_(1 + WITNESS_REL * u.to(p.device))
-    loss = float(step.loss_and_grads(*step.prepare(g2, g3)))
-    return loss, _step_state(step)
+    return _measure_step(step, {"model": step.model,
+                                "model3d": step.model3d},
+                         step.prepare(g2, g3), perturb)
+
+
+def _hold_step_against_cpu(one_step, sides: tuple, plant, fault: str,
+                           phase: str):
+    """One bf16 and one float32 step on the card against the same step on
+    the CPU (`one_step(bf16, device, perturb)`): the loss, every leaf, the
+    L2 of each model's gradient (bf16: against WITNESS_FACTOR times the
+    witness, the card's own step from perturbed masters) and the running
+    statistics.  Then the check's own test: with the planted fault
+    (`plant()` returns its undo) the bf16 step must fail it."""
+    for bf16 in (True, False):
+        (loss_card, card), (loss_cpu, cpu) = (
+            one_step(bf16, dev, False) for dev in ("cuda", "cpu"))
+        rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        print(f"[{phase}] bf16={bf16}: loss card {loss_card:.6f} vs CPU "
+              f"{loss_cpu:.6f}, {rel:.3g} (tol {STEP_TOL[bf16]['loss']})")
+        _check(rel <= STEP_TOL[bf16]["loss"], f"loss card vs CPU {rel:.3g}")
+        if bf16:
+            witness = _readings(one_step(True, "cuda", True)[1], card, sides)
+            _print_readings(f"bf16 witness (card, masters x (1 + "
+                            f"{WITNESS_REL:g} U(-1, 1)) vs card)", witness,
+                            {s: float("inf") for s in witness}, phase)
+            l2_tol = {s: WITNESS_FACTOR * d["l2"] for s, d in witness.items()}
+        else:
+            l2_tol = {s: STEP_TOL[False]["l2"] for s in sides}
+        r = _readings(card, cpu, sides)
+        _print_readings(f"bf16={bf16} card vs CPU", r, l2_tol, phase)
+        bad = _violations(r, bf16, l2_tol)
+        _check(not bad, f"bf16={bf16} step card vs CPU: {bad}")
+        if bf16:
+            undo = plant()
+            try:
+                planted = _readings(one_step(True, "cuda", False)[1], cpu,
+                                    sides)
+            finally:
+                undo()
+            _print_readings(f"planted fault ({fault}) card vs CPU", planted,
+                            l2_tol, phase)
+            bad = _violations(planted, True, l2_tol)
+            print(f"[{phase}] planted fault: {len(bad)} violations, e.g. "
+                  f"{bad[:2]}")
+            _check(bool(bad), "the step check passed a planted fault")
 
 
 def _zeroed_affine_cotangents():
@@ -741,39 +837,10 @@ def phase_train(smi: str) -> dict:
     sizes = runs[True]["sizes"]
     g2, g3, _ = flagship_batches(BATCH, seed=0, n_min=DATA["n_min"],
                                  n_max=DATA["n_max"])
-    for bf16 in (True, False):
-        (loss_card, card), (loss_cpu, cpu) = (
-            _one_step(bf16, dev, g2, g3) for dev in ("cuda", "cpu"))
-        rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
-        print(f"[train] bf16={bf16}: loss card {loss_card:.6f} vs CPU "
-              f"{loss_cpu:.6f}, {rel:.3g} (tol {STEP_TOL[bf16]['loss']})")
-        _check(rel <= STEP_TOL[bf16]["loss"], f"loss card vs CPU {rel:.3g}")
-        if bf16:
-            witness = _readings(_one_step(True, "cuda", g2, g3, True)[1],
-                                card)
-            _print_readings(f"bf16 witness (card, masters x (1 + "
-                            f"{WITNESS_REL:g} U(-1, 1)) vs card)", witness,
-                            {s: float("inf") for s in witness})
-            l2_tol = {s: WITNESS_FACTOR * d["l2"] for s, d in witness.items()}
-        else:
-            l2_tol = {s: STEP_TOL[False]["l2"] for s in ("model", "model3d")}
-        r = _readings(card, cpu)
-        _print_readings(f"bf16={bf16} card vs CPU", r, l2_tol)
-        bad = _violations(r, bf16, l2_tol)
-        _check(not bad, f"bf16={bf16} step card vs CPU: {bad}")
-        if bf16:
-            # the check's own test: a planted fault must fail it
-            undo = _zeroed_affine_cotangents()
-            try:
-                planted = _readings(_one_step(True, "cuda", g2, g3)[1], cpu)
-            finally:
-                undo()
-            _print_readings("planted fault (zeroed d_a, d_b) card vs CPU",
-                            planted, l2_tol)
-            bad = _violations(planted, True, l2_tol)
-            print(f"[train] planted fault: {len(bad)} violations, e.g. "
-                  f"{bad[:2]}")
-            _check(bool(bad), "the step check passed a planted fault")
+    _hold_step_against_cpu(
+        lambda bf16, dev, perturb: _one_step(bf16, dev, g2, g3, perturb),
+        ("model", "model3d"), _zeroed_affine_cotangents, "zeroed d_a, d_b",
+        "train")
 
     # warm steps on the card: CUDA events around back-to-back steps
     step_ms = {}
@@ -811,7 +878,9 @@ PROFILE_NAMES = {"edge_combine": ("edge_combine_kernel",),
                  "multi_reduce": ("multi_reduce_kernel",),
                  "pair_segment_sum": ("pair_segment_sum_kernel",),
                  "pna_stats_bwd": ("pna_stats_bwd_kernel",
-                                   "column_sums_kernel")}
+                                   "column_sums_kernel"),
+                 "csr_sum": ("csr_sum_kernel",),
+                 "snd_segment_sum": ("snd_segment_sum_kernel",)}
 
 
 def _port_kernels(by_name: dict) -> dict:
@@ -936,6 +1005,236 @@ def phase_train_kernel_times(g, launches: dict, errs: dict,
     return rows
 
 
+# --- the GIN slice: phases 11 to 13 -----------------------------------------
+
+def gin_batch(device="cuda"):
+    """The GIN slice's labelled batch (128 molhiv-like molecules, seed 0)
+    and its sizes."""
+    return labelled_batch(GIN_BATCH, GIN_MODEL_PARAMETERS["target_dim"],
+                          device=device, **GIN_DATA)
+
+
+def _vector_path(dtype: torch.dtype, D: int) -> str:
+    """Which vector path the GIN kernels take for rows of D elements
+    (`vec_width` in csrc/common.cuh; the wrappers' tensors are 16-byte
+    aligned)."""
+    row = D * (2 if dtype == torch.bfloat16 else 4)
+    return ("16-byte" if row % 16 == 0 else "8-byte" if row % 8 == 0
+            else "element-wise")
+
+
+def phase_gin_kernels(g) -> dict:
+    """Phase 11: the CSR sum and the sender-keyed segment sum against their
+    plain versions on the same CUDA tensors, at the slice's width (300: the
+    8-byte path in bf16, 16-byte in float32) and at 302 (element-wise in
+    bf16, 8-byte in float32).  Both sum the same rows in float32 in slot
+    order (and the segment sum rounds once) -> bit-exact."""
+    N, E = g.num_nodes, g.senders.shape[0]
+    print(f"[gin-kernels] N={N} E={E} (real {int(g.csr_row_ptr[-1])}) "
+          f"max in-degree {g.max_deg}")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    deg0 = (g.csr_row_ptr[1:] - g.csr_row_ptr[:-1]) == 0
+    sent0 = (g.csc_row_ptr[1:] - g.csc_row_ptr[:-1]) == 0
+    _check(bool(deg0.any()) and bool(sent0.any()),
+           "GIN batch has padding nodes")
+    pairs = {"csr_sum": [], "snd_segment_sum": []}
+    for D in (GIN_WIDTH, GIN_WIDTH + 2):
+        for dt in (torch.bfloat16, torch.float32):
+            m = torch.randn(E, D, generator=gen, device="cuda").to(dt)
+            k, r = csr_sum(m, g.csr_row_ptr), csr_sum_reference(
+                m, g.csr_row_ptr)
+            torch.cuda.synchronize()
+            tag = f"D={D} {dt} ({_vector_path(dt, D)} path)"
+            _check(k.dtype == torch.float32 and torch.equal(k, r),
+                   f"csr_sum {tag}: not bit-exact")
+            _check(bool((k[deg0] == 0).all()), f"csr_sum {tag}: degree 0")
+            pairs["csr_sum"].append((k, r))
+            args = (m, g.csc_row_ptr, g.csc_perm)
+            k, r = snd_segment_sum(*args), snd_segment_sum_reference(*args)
+            torch.cuda.synchronize()
+            _check(k.dtype == dt and torch.equal(k, r),
+                   f"snd_segment_sum {tag}: not bit-exact")
+            _check(bool((k[sent0] == 0).all()),
+                   f"snd_segment_sum {tag}: nothing sent")
+            pairs["snd_segment_sum"].append((k, r))
+            print(f"[gin-kernels] {tag}: both bit-exact")
+    errs = {n: _max_err(p) for n, p in pairs.items()}
+    for name, err in errs.items():
+        print(f"[gin-kernels] {name}: agrees with its plain version "
+              f"(max |kernel - plain| = {err:.3g})")
+    return errs
+
+
+def _gin_args(bf16: bool) -> dict:
+    return {"model_type": GIN_MODEL_TYPE,
+            "model_parameters": GIN_MODEL_PARAMETERS, "loss_func": GIN_LOSS,
+            "optimizer_params": GIN_OPTIMIZER_PARAMS, "batch_size": GIN_BATCH,
+            "bf16_compute": bf16, "seed": 0, "dataset_params": GIN_DATA}
+
+
+def _gin_one_step(bf16: bool, dev: str, g, perturb: bool):
+    """`_measure_step` of one GIN step from the seeded weights."""
+    step = build_supervised_step(_gin_args(bf16), torch.device(dev))
+    return _measure_step(step, {"model": step.model}, (step.prepare(g),),
+                         perturb)
+
+
+def _zeroed_gather_backward():
+    """The GIN step check's planted fault: the sender gather's backward
+    returns zeros.  Returns the undo."""
+    mod = importlib.import_module("infomax3d_tpu_torch.ops.segment")
+    real = mod.snd_segment_sum
+    mod.snd_segment_sum = lambda ct, crp, perm: torch.zeros(
+        crp.shape[0] - 1, ct.shape[1], dtype=ct.dtype, device=ct.device)
+    return lambda: setattr(mod, "snd_segment_sum", real)
+
+
+def phase_gin_train(smi: str) -> dict:
+    """Phase 12: the GIN training main path and its checks.  Returns the
+    main-path launches, the step times, the batch and its sizes."""
+    _reset_counts()
+    sizes = None
+    for bf16 in (True, False):
+        before = _counts()
+        out = supervised(_gin_args(bf16), steps=TRAIN_STEPS)   # on the card
+        after = _counts()
+        per_step = {n: (after[n] - before[n]) / TRAIN_STEPS for n in after}
+        _check(per_step == EXPECTED_GIN_STEP,
+               f"launches per step {per_step} != {EXPECTED_GIN_STEP}")
+        losses = out["losses"]
+        _check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+        _check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+        print(f"[gin] bf16={bf16}: {TRAIN_STEPS} steps through supervised(), "
+              f"loss {losses[0]:.6f} -> {losses[-1]:.6f}; launches per step "
+              f"{per_step}")
+        sizes = out["sizes"]
+    launches = _counts()
+    print(f"[gin] GIN training main-path launches: {launches}")
+
+    # one step on the card and on the CPU from the same weights and batch,
+    # held as the pre-training step is (STEP_TOL, the zero-gradient floor,
+    # the bf16 witness)
+    g, _ = gin_batch("cpu")
+    _hold_step_against_cpu(
+        lambda bf16, dev, perturb: _gin_one_step(bf16, dev, g, perturb),
+        ("model",), _zeroed_gather_backward, "zeroed gather backward", "gin")
+
+    step_ms, steps = {}, {}
+    for bf16 in (True, False):
+        step = build_supervised_step(_gin_args(bf16), torch.device("cuda"))
+        gp = step.prepare(g)
+        t = cuda_ms(lambda: step.step(gp), iters=20)
+        step_ms[bf16], steps[bf16] = t, (step, gp)
+        print(f"[gin] step bf16={bf16}: {t:.4f} ms, "
+              f"{GIN_BATCH / t * 1e3:.1f} graphs/s ({sizes['nodes']} nodes, "
+              f"{sizes['edges']} edges per step; CUDA events over 20 warm "
+              f"steps; {smi})")
+    return {"launches": launches, "step_ms": step_ms, "steps": steps,
+            "batch": g.to("cuda")}
+
+
+def phase_gin_profile(gin: dict, n: int = 5) -> dict:
+    """Phase 13a: torch.profiler's CUDA kernel records over `n` warm GIN
+    steps in bf16 and float32 -> device-busy ms per step, the idle share
+    of the CUDA-event step time, kernels per step, the GIN kernels.
+    Returns each GIN kernel's in-step us per launch (bf16 step)."""
+    from torch.profiler import ProfilerActivity, profile
+    in_step = {}
+    for bf16 in (True, False):
+        step, gp = gin["steps"][bf16]
+        for _ in range(3):
+            step.step(gp)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step.step(gp)
+            torch.cuda.synchronize()
+        by_name = _profile_kernels(prof)
+        if not by_name:
+            print(f"[gin-profile] bf16={bf16}: the profiler recorded no "
+                  f"device activity; not measured")
+            continue
+        busy = sum(us for us, _ in by_name.values()) / n / 1e3
+        kernels = sum(c for _, c in by_name.values()) / n
+        ms = gin["step_ms"][bf16]
+        print(f"[gin-profile] bf16={bf16} step: device busy {busy:.4f} ms of "
+              f"{ms:.4f} ms per step (idle share {1 - busy / ms:.3f}), "
+              f"{kernels:.0f} kernels per step")
+        for kname, (us, launches) in _port_kernels(by_name).items():
+            if bf16:
+                in_step[kname] = us / launches / 1e3
+            print(f"[gin-profile]   {kname}: {us / launches:.2f} us per "
+                  f"launch in the step, {launches / n:.0f} launches per step")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+        for name, (us, cnt) in top:
+            print(f"[gin-profile]   {us / n:9.2f} us/step  {cnt / n:5.0f}x  "
+                  f"{name[:90]}")
+    return in_step
+
+
+def phase_gin_kernel_times(g, launches: dict, errs: dict,
+                           in_step: dict) -> list:
+    """Phase 13b: the GIN kernels at the slice's shapes, in float32 (4 of
+    each kernel's 5 launches per bf16 step, all 5 in float32) for the
+    kernels line, and in bf16 (layer 0's launch of a bf16 step)."""
+    N, E, D = g.num_nodes, g.senders.shape[0], GIN_WIDTH
+    e_real = int(g.csr_row_ptr[-1])
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    recv = g.receivers.long().clamp(max=N)
+    send = g.senders.long().clamp(max=N)
+    acc = torch.zeros(N + 1, D, device="cuda")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows = []
+    for name in ("csr_sum", "snd_segment_sum"):
+        row = None
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(E, D, generator=gen, device="cuda").to(dt)
+            xf = x.float()
+            esz = 2 if dt == torch.bfloat16 else 4
+            if name == "csr_sum":
+                # the real message rows, row_ptr, [N, D] float32 out
+                kern = lambda: csr_sum(x, g.csr_row_ptr)  # noqa: E731
+                plain = lambda: csr_sum_reference(  # noqa: E731
+                    x, g.csr_row_ptr)
+                ids = recv
+                nbytes = e_real * D * esz + (N + 1) * 4 + N * D * 4
+            else:
+                # the real ct rows through csc_perm, csc_row_ptr, [N, D] of
+                # ct's type out
+                kern = lambda: snd_segment_sum(  # noqa: E731
+                    x, g.csc_row_ptr, g.csc_perm)
+                plain = lambda: snd_segment_sum_reference(  # noqa: E731
+                    x, g.csc_row_ptr, g.csc_perm)
+                ids = send
+                nbytes = (e_real * D * esz + e_real * 4 + (N + 1) * 4
+                          + N * D * esz)
+            warm = device_ms(kern, iters=100, warmup=10)
+            ms = device_ms(kern, iters=20, flush=flush)
+            plain_ms = device_ms(plain, iters=10)
+            # the nearest PyTorch call: one float32 index_add_ of the rows
+            # by receiver (csr_sum) or sender (snd_segment_sum)
+            lib_ms = device_ms(lambda: acc.zero_().index_add_(0, ids, xf),
+                               iters=100, warmup=10)
+            bound_ms, bound_by = _bound(nbytes, float(e_real * D))
+            step_us = in_step.get(name)
+            print(f"[times] {name} ({dt}, D={D}, {_vector_path(dt, D)} path):"
+                  f" device {ms:.5f} ms cold-L2 median, {warm:.5f} ms warm, "
+                  f"{'not measured' if step_us is None else f'{step_us:.5f} ms'}"
+                  f" in the bf16 step (mean of its launches); plain "
+                  f"{plain_ms:.5f} ms; library {lib_ms:.5f} ms (float32 "
+                  f"index_add_); bound {bound_ms:.5f} ms by {bound_by} "
+                  f"({nbytes / 1e6:.2f} MB, {e_real * D / 1e6:.1f} MFLOP f32)")
+            src, replaces = KERNEL_INFO[name]
+            row = {"name": name, "route": "cuda", "source": src,
+                   "replaces": replaces, "launches": launches[name],
+                   "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": lib_ms}
+        rows.append(row)      # the float32 variant
+    return rows
+
+
 class _Phase:
     """Prints a phase's seconds when it ends (and lets its error pass)."""
 
@@ -969,15 +1268,24 @@ def main() -> int:
         errs.update(phase_train_kernels(g))
     with _Phase("8 training"):
         train = phase_train(smi)
-    # every kernel's launches over both main paths (serving, training)
+    gg, _ = gin_batch()
+    with _Phase("11 GIN kernels"):
+        errs.update(phase_gin_kernels(gg))
+    with _Phase("12 GIN training"):
+        gin = phase_gin_train(smi)
+    # every kernel's launches over the three main paths (serving,
+    # pre-training, GIN training)
     launches = {n: serve_launches[n] + train["launches"][n]
-                for n in serve_launches}
+                + gin["launches"][n] for n in serve_launches}
     with _Phase("6 kernel times"):
         rows = phase_kernel_times(g, launches, errs)
     with _Phase("9 training profile"):
         in_step = phase_train_profile(train)
     with _Phase("10 training kernel times"):
         rows += phase_train_kernel_times(g, launches, errs, in_step)
+    with _Phase("13 GIN profile and kernel times"):
+        gin_in_step = phase_gin_profile(gin)
+        rows += phase_gin_kernel_times(gg, launches, errs, gin_in_step)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

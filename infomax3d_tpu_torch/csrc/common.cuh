@@ -1,6 +1,6 @@
-// Shared helpers of the port's CUDA kernels: 16-byte vector loads and
-// stores of float32 / bfloat16 rows converted to float registers, and the
-// C entry point that turns a cudaError_t into its message.
+// Shared helpers of the port's CUDA kernels: 16- and 8-byte vector loads
+// and stores of float32 / bfloat16 rows converted to float registers, and
+// the C entry point that turns a cudaError_t into its message.
 //
 // Rounding: every kernel computes with explicit _rn intrinsics where the
 // plain PyTorch twin rounds after each operation, so nvcc's default FMA
@@ -36,21 +36,45 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// VEC consecutive elements moved as W-byte words (W = 16 or 8), W / sizeof(T)
+// elements per word
+template <typename T, int VEC, typename Word>
+__device__ __forceinline__ void load_words(const T* __restrict__ p,
+                                           float (&v)[VEC]) {
+  constexpr int PER = sizeof(Word) / sizeof(T);
+#pragma unroll
+  for (int ch = 0; ch < VEC / PER; ++ch) {
+    const Word raw = reinterpret_cast<const Word*>(p)[ch];
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) v[ch * PER + i] = to_float(e[i]);
+  }
+}
+
+template <typename T, int VEC, typename Word>
+__device__ __forceinline__ void store_words(T* __restrict__ p,
+                                            const float (&v)[VEC]) {
+  constexpr int PER = sizeof(Word) / sizeof(T);
+#pragma unroll
+  for (int ch = 0; ch < VEC / PER; ++ch) {
+    Word raw;
+    T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) e[i] = from_float<T>(v[ch * PER + i]);
+    reinterpret_cast<Word*>(p)[ch] = raw;
+  }
+}
+
 // VEC consecutive elements; 16-byte transactions when VEC * sizeof(T) is a
-// multiple of 16 (the caller guarantees 16-byte alignment then),
-// element-wise otherwise
+// multiple of 16, 8-byte ones when it is a multiple of 8 (the caller
+// guarantees that alignment then), element-wise otherwise
 template <typename T, int VEC>
 __device__ __forceinline__ void load_vec(const T* __restrict__ p,
                                          float (&v)[VEC]) {
   if constexpr (VEC * sizeof(T) % 16 == 0) {
-    constexpr int PER = 16 / sizeof(T);
-#pragma unroll
-    for (int ch = 0; ch < VEC / PER; ++ch) {
-      const uint4 raw = reinterpret_cast<const uint4*>(p)[ch];
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int i = 0; i < PER; ++i) v[ch * PER + i] = to_float(e[i]);
-    }
+    load_words<T, VEC, uint4>(p, v);
+  } else if constexpr (VEC * sizeof(T) % 8 == 0) {
+    load_words<T, VEC, uint2>(p, v);
   } else {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) v[i] = to_float(p[i]);
@@ -61,15 +85,9 @@ template <typename T, int VEC>
 __device__ __forceinline__ void store_vec(T* __restrict__ p,
                                           const float (&v)[VEC]) {
   if constexpr (VEC * sizeof(T) % 16 == 0) {
-    constexpr int PER = 16 / sizeof(T);
-#pragma unroll
-    for (int ch = 0; ch < VEC / PER; ++ch) {
-      uint4 raw;
-      T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-      for (int i = 0; i < PER; ++i) e[i] = from_float<T>(v[ch * PER + i]);
-      reinterpret_cast<uint4*>(p)[ch] = raw;
-    }
+    store_words<T, VEC, uint4>(p, v);
+  } else if constexpr (VEC * sizeof(T) % 8 == 0) {
+    store_words<T, VEC, uint2>(p, v);
   } else {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) p[i] = from_float<T>(v[i]);
@@ -85,4 +103,19 @@ __host__ inline bool vec16_ok(int D, int elem, const void* const* ptrs,
   for (int i = 0; i < n; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
   return true;
+}
+
+// The elements per thread of a kernel that walks rows of D elements of T
+// (and writes rows of D float32 or T): a 16-byte vector of T when a row is
+// a whole number of them, else an 8-byte one (D = 300 in bf16: 600-byte
+// rows, 75 vectors of 4), else 1.  Every pointer must be 16-byte aligned
+// for either vector path; a float32 output row then splits into whole
+// 16-byte words as well.
+template <typename T>
+__host__ inline int vec_width(int D, const void* const* ptrs, int n) {
+  for (int i = 0; i < n; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return 1;
+  if ((D * sizeof(T)) % 16 == 0) return 16 / sizeof(T);
+  if ((D * sizeof(T)) % 8 == 0) return 8 / sizeof(T);
+  return 1;
 }

@@ -17,7 +17,7 @@ are not emitted.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -47,7 +47,9 @@ def _check_degree(indices: np.ndarray, num_nodes: int, max_deg: int):
 def batch_graphs(graphs: Sequence[Dict[str, np.ndarray]],
                  bucket: BucketSpec) -> Dict[str, np.ndarray]:
     """Concatenate per-molecule numpy graphs (``node_feat``, ``senders``,
-    ``receivers``, optional ``edge_feat``) into one padded flat batch."""
+    ``receivers``, optional ``edge_feat`` and ``targets``) into one padded
+    flat batch.  ``targets`` (per graph, [T]) become [G, T] float32 with
+    zero padding rows, as the JAX batcher stacks its per-graph extras."""
     G, N, E = bucket.n_graphs, bucket.n_nodes, bucket.n_edges
     g_real = len(graphs)
     if g_real == 0:
@@ -98,6 +100,10 @@ def batch_graphs(graphs: Sequence[Dict[str, np.ndarray]],
         if e_tot:
             buf[:e_tot] = np.concatenate([g["edge_feat"] for g in graphs])
         out["edge_feat"] = buf
+    if "targets" in graphs[0]:
+        tg = np.stack([np.asarray(g["targets"], np.float32) for g in graphs])
+        out["targets"] = np.zeros((G,) + tg.shape[1:], np.float32)
+        out["targets"][:g_real] = tg
 
     if bucket.csr:
         if bucket.max_deg <= 0:
@@ -191,6 +197,7 @@ class GraphBatch:
     rd_inv_flat: torch.Tensor     # [N] int32 (pad -> G * nmax)
     max_deg: int
     nmax: int
+    targets: Optional[torch.Tensor] = None   # [G, T] float32 graph labels
 
     @property
     def num_nodes(self) -> int:
@@ -198,16 +205,20 @@ class GraphBatch:
 
     def to(self, device) -> "GraphBatch":
         return dataclasses.replace(
-            self, **{k: getattr(self, k).to(device) for k in _TENSOR_FIELDS})
+            self, **{k: getattr(self, k).to(device) for k in _TENSOR_FIELDS},
+            targets=None if self.targets is None else self.targets.to(device))
 
 
 def to_graph_batch(arrays: Dict[str, np.ndarray], bucket: BucketSpec,
                    device) -> GraphBatch:
     """Host arrays of a ``csr=True``, ``nmax > 0`` bucket -> `GraphBatch`
-    on `device`."""
+    on `device` (with `targets` when the arrays carry them)."""
     if not bucket.csr or bucket.nmax <= 0:
         raise ValueError("the port's batches are CSR buckets with nmax > 0")
+
+    def tensor(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return GraphBatch(
-        **{k: torch.from_numpy(np.ascontiguousarray(arrays[k])).to(device)
-           for k in _TENSOR_FIELDS},
-        max_deg=bucket.max_deg, nmax=bucket.nmax)
+        **{k: tensor(arrays[k]) for k in _TENSOR_FIELDS},
+        max_deg=bucket.max_deg, nmax=bucket.nmax,
+        targets=tensor(arrays["targets"]) if "targets" in arrays else None)

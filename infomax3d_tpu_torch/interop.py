@@ -11,19 +11,24 @@ flax component              torch component
 ==========================  ===========================================
 ``mp_{i}``                  ``mp_layers.{i}``
 ``FCLayer_{i}``             ``fully_connected.{i}``
+``conv_{i}``                ``convs.{i}`` (OGBGNN)
+``batch_norm_{i}``          ``batch_norms.{i}`` (OGBGNN; a bare BatchNorm)
 ``Dense_0/kernel``          ``linear.weight`` (transposed to [out, in])
 ``Dense_0/bias``            ``linear.bias``
 ``MaskedBatchNorm_0``       ``batch_norm`` (scale -> weight, mean / var
                             -> running_mean / running_var)
+``conv_{i}/Dense_0``,       ``convs.{i}.mlp.0``, ``.mlp.1``, ``.mlp.3``
+``MaskedBatchNorm_0``,      (a GINConv's Sequential(Linear, BatchNorm1d,
+``Dense_1``                 ReLU, Linear))
 ``<kind>_encoder/encoder/   ``<kind>_encoder.<kind>_embedding_list.{i}.
 emb_{i}``                   weight``
 ``<dense>/kernel``          ``<dense>.weight`` (a bare Dense, transposed)
-``node_embedding``          ``node_embedding`` (a bare parameter)
+``node_embedding``, ``eps`` the same name (a bare parameter)
 ==========================  ===========================================
 
-`init_jax_variables` makes seeded numpy trees in the flax layout of a PNA
-or Net3DDense configuration, for serving and training without a checkpoint
-and for tests.
+`init_jax_variables` makes seeded numpy trees in the flax layout of a PNA,
+Net3DDense or OGBGNN configuration, for serving and training without a
+checkpoint and for tests; `load_variables` loads such trees into a module.
 """
 from __future__ import annotations
 
@@ -44,12 +49,30 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
             yield prefix + (k,), v
 
 
-def _component(c: str) -> str:
-    if c.startswith("mp_") and c[3:].isdigit():
-        return f"mp_layers.{c[3:]}"
-    if c.startswith("FCLayer_") and c[8:].isdigit():
-        return f"fully_connected.{c[8:]}"
+def _indexed(c: str, stem: str) -> bool:
+    return c.startswith(stem) and c[len(stem):].isdigit()
+
+
+# a GINConv's auto-named submodules are the reference's
+# Sequential(Linear, BatchNorm1d, ReLU, Linear)
+_GIN_MLP = {"Dense_0": "mlp.0", "MaskedBatchNorm_0": "mlp.1",
+            "Dense_1": "mlp.3"}
+_INDEXED = (("mp_", "mp_layers"), ("FCLayer_", "fully_connected"),
+            ("conv_", "convs"), ("batch_norm_", "batch_norms"))
+
+
+def _component(c: str, parent: str = "") -> str:
+    if _indexed(parent, "conv_") and c in _GIN_MLP:
+        return _GIN_MLP[c]
+    for stem, name in _INDEXED:
+        if _indexed(c, stem):
+            return f"{name}.{c[len(stem):]}"
     return {"Dense_0": "linear", "MaskedBatchNorm_0": "batch_norm"}.get(c, c)
+
+
+def _components(mods) -> list:
+    return [_component(c, mods[i - 1] if i else "")
+            for i, c in enumerate(mods)]
 
 
 _LEAVES = {("params", "kernel"): "weight", ("params", "bias"): "bias",
@@ -59,21 +82,20 @@ _LEAVES = {("params", "kernel"): "weight", ("params", "bias"): "bias",
 
 
 # parameters that are leaves of their module, not of a Dense or BatchNorm
-_BARE = ("node_embedding",)
+_BARE = ("node_embedding", "eps")
 
 
 def _torch_name(collection: str, path: Tuple[str, ...]) -> str:
     *mods, leaf = path
     if collection == "params" and leaf in _BARE:
-        return ".".join([_component(c) for c in mods] + [leaf])
+        return ".".join(_components(mods) + [leaf])
     if leaf.startswith("emb_") and mods and mods[-1] == "encoder":
         kind = mods[-2].split("_")[0]                       # atom / bond
-        base = ".".join(_component(c) for c in mods[:-1])
+        base = ".".join(_components(mods[:-1]))
         return f"{base}.{kind}_embedding_list.{leaf[4:]}.weight"
     if (collection, leaf) not in _LEAVES:
         raise KeyError(f"no torch name for {collection}/{'/'.join(path)}")
-    return ".".join([_component(c) for c in mods]
-                    + [_LEAVES[(collection, leaf)]])
+    return ".".join(_components(mods) + [_LEAVES[(collection, leaf)]])
 
 
 def params_from_jax(params: Mapping, batch_stats: Mapping
@@ -96,21 +118,39 @@ def params_from_jax(params: Mapping, batch_stats: Mapping
     return sd
 
 
+def load_variables(model: torch.nn.Module, variables: Mapping
+                   ) -> torch.nn.Module:
+    """`model` with the weights of flax numpy trees (`params`,
+    `batch_stats`), loaded strictly."""
+    model.load_state_dict(params_from_jax(variables["params"],
+                                          variables.get("batch_stats", {})),
+                          strict=True)
+    return model
+
+
+def _dense_tree(rng, fi, fo):
+    bound = np.sqrt(6.0 / (fi + fo))
+    return {"kernel": rng.uniform(-bound, bound, (fi, fo)),
+            "bias": rng.normal(0.0, 0.1, fo)}
+
+
+def _bn_tree(rng, d):
+    params = {"scale": rng.uniform(0.5, 1.5, d),
+              "bias": rng.normal(0.0, 0.1, d)}
+    return params, {"mean": rng.normal(0.0, 0.2, d),
+                    "var": rng.uniform(0.5, 2.0, d)}
+
+
 def _mlp_tree(rng, in_dim, out_dim, layers, hidden, mid_bn, last_bn):
     dims = [in_dim] + [hidden] * (layers - 1) + [out_dim]
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
     for j in range(layers):
-        fi, fo = dims[j], dims[j + 1]
-        bound = np.sqrt(6.0 / (fi + fo))
-        p = {"Dense_0": {"kernel": rng.uniform(-bound, bound, (fi, fo)),
-                         "bias": rng.normal(0.0, 0.1, fo)}}
+        fo = dims[j + 1]
+        p = {"Dense_0": _dense_tree(rng, dims[j], fo)}
         if (last_bn if j == layers - 1 else mid_bn):
-            p["MaskedBatchNorm_0"] = {"scale": rng.uniform(0.5, 1.5, fo),
-                                      "bias": rng.normal(0.0, 0.1, fo)}
-            stats[f"FCLayer_{j}"] = {"MaskedBatchNorm_0": {
-                "mean": rng.normal(0.0, 0.2, fo),
-                "var": rng.uniform(0.5, 2.0, fo)}}
+            p["MaskedBatchNorm_0"], bn_stats = _bn_tree(rng, fo)
+            stats[f"FCLayer_{j}"] = {"MaskedBatchNorm_0": bn_stats}
         params[f"FCLayer_{j}"] = p
     return params, stats
 
@@ -119,24 +159,24 @@ def init_jax_variables(model_parameters: Mapping, seed: int = 0,
                        model_type: str = "PNA"):
     """Seeded numpy (params, batch_stats) trees in the flax layout of
     `PNA(**model_parameters)` (or of `Net3DDense` for `model_type`
-    "Net3DDense" / "Net3D"): Xavier-uniform weights, small random biases,
-    BatchNorm scales in [0.5, 1.5] and non-trivial running statistics (so
-    an eval forward exercises every fold).  float32 leaves."""
+    "Net3DDense" / "Net3D", of `OGBGNN` without a virtual node for
+    "OGBGNN"): Xavier-uniform weights, small random biases, BatchNorm
+    scales in [0.5, 1.5] and non-trivial running statistics (so an eval
+    forward exercises every fold), a non-zero GIN `eps`.  float32 leaves."""
     mp = dict(model_parameters)
     rng = np.random.default_rng(seed)
     if model_type in ("Net3D", "Net3DDense"):
         return _init_net3d_dense(mp, rng)
+    if model_type == "OGBGNN":
+        return _init_ogbgnn(mp, rng)
     if model_type != "PNA":
         raise ValueError(f"no numpy init for model_type {model_type!r}")
     d = mp["hidden_dim"]
     n_aggs = len(mp["aggregators"]) * len(mp["scalers"])
-
-    def emb(dims):
-        return {f"emb_{i}": rng.uniform(-1, 1, (v, d)) * np.sqrt(6.0 / (v + d))
-                for i, v in enumerate(dims)}
-
-    gnn = {"atom_encoder": {"encoder": emb(FULL_ATOM_FEATURE_DIMS)},
-           "bond_encoder": {"encoder": emb(FULL_BOND_FEATURE_DIMS)}}
+    gnn = {"atom_encoder": {"encoder": _emb_tree(rng, FULL_ATOM_FEATURE_DIMS,
+                                                 d)},
+           "bond_encoder": {"encoder": _emb_tree(rng, FULL_BOND_FEATURE_DIMS,
+                                                 d)}}
     gnn_stats: Dict[str, Any] = {}
     bn = (mp.get("mid_batch_norm", False), mp.get("last_batch_norm", False))
     for i in range(mp.get("propagation_depth", 5)):
@@ -152,6 +192,34 @@ def init_jax_variables(model_parameters: Mapping, seed: int = 0,
         mp.get("readout_batchnorm", True), False)
     return (_f32({"node_gnn": gnn, "output": out_p}),
             _f32({"node_gnn": gnn_stats, "output": out_s}))
+
+
+def _emb_tree(rng, dims, d):
+    return {f"emb_{i}": rng.uniform(-1, 1, (v, d)) * np.sqrt(6.0 / (v + d))
+            for i, v in enumerate(dims)}
+
+
+def _init_ogbgnn(mp: Dict[str, Any], rng):
+    """`OGBGNN(hidden_dim, num_layers, target_dim, virtual_node=False)`:
+    the JAX module's defaults (width 300, 5 layers) where the config is
+    silent."""
+    d, layers = mp.get("hidden_dim", 300), mp.get("num_layers", 5)
+    gnn: Dict[str, Any] = {
+        "atom_encoder": {"encoder": _emb_tree(rng, FULL_ATOM_FEATURE_DIMS, d)}}
+    stats: Dict[str, Any] = {}
+    for i in range(layers):
+        bn_p, bn_s = _bn_tree(rng, d)
+        gnn[f"conv_{i}"] = {
+            "bond_encoder": {"encoder": _emb_tree(rng, FULL_BOND_FEATURE_DIMS,
+                                                  d)},
+            "eps": rng.normal(0.0, 0.1, 1),
+            "Dense_0": _dense_tree(rng, d, d), "MaskedBatchNorm_0": bn_p,
+            "Dense_1": _dense_tree(rng, d, d)}
+        gnn[f"batch_norm_{i}"], stats[f"batch_norm_{i}"] = _bn_tree(rng, d)
+        stats[f"conv_{i}"] = {"MaskedBatchNorm_0": bn_s}
+    params = {"node_gnn": gnn, "graph_pred_linear": _dense_tree(
+        rng, d, mp.get("target_dim", 1))}
+    return _f32(params), _f32({"node_gnn": stats})
 
 
 def _init_net3d_dense(mp: Dict[str, Any], rng):

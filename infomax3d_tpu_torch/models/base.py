@@ -121,6 +121,18 @@ class MaskedBatchNorm(nn.Module):
         return (y * self.weight.to(dt) + self.bias.to(dt)).to(x.dtype)
 
 
+class PromotingLinear(nn.Linear):
+    """`nn.Linear` with flax `Dense`'s dtype promotion: the input, weight
+    and bias are cast to their common type first, so a float32 input meets
+    bf16 weights (the bf16 recipe) in float32 where PyTorch's `Linear`
+    would refuse the mix.  Under `functional_call` the gradient reaches the
+    float32 master through both casts."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
 class EdgeInput(NamedTuple):
     """The message-MLP input ``[h[senders] ‖ h[receivers] ‖ e]`` of a PNA
     layer, never concatenated: `FCLayer` projects h in node space and the

@@ -1,6 +1,7 @@
-"""PNA aggregation over receiver-sorted CSR batches (port of
-`pna_csr_aggregate_parts` and its dispatch, infomax3d_tpu/ops/pallas/
-spmm.py, and `pna_aggregate_parts`, infomax3d_tpu/ops/mailbox.py).
+"""Aggregation over receiver-sorted CSR batches: the PNA aggregates (port
+of `pna_csr_aggregate_parts` and its dispatch, infomax3d_tpu/ops/pallas/
+spmm.py, and `pna_aggregate_parts`, infomax3d_tpu/ops/mailbox.py) and the
+GIN pair `gather_src` / `edge_aggregate` (`ops/mailbox.py`).
 
 Dispatch as in the JAX package: bf16 messages with max_deg <= 16 go to the
 fused stats kernel (`pna_stats`, with the pretrans BatchNorm folded in as a
@@ -14,9 +15,10 @@ from typing import List, NamedTuple, Sequence
 
 import torch
 
-from infomax3d_tpu_torch.ops.kernels import multi_reduce, pna_stats
+from infomax3d_tpu_torch.ops.kernels import (csr_mean, csr_sum,
+                                             multi_reduce, pna_stats)
 from infomax3d_tpu_torch.ops.kernels.pna_stats import MAX_SLOTS
-from infomax3d_tpu_torch.ops.segment import EPS
+from infomax3d_tpu_torch.ops.segment import EPS, take_rows
 
 
 class AffinePart(NamedTuple):
@@ -102,3 +104,21 @@ def pna_aggregate_parts(g, messages, aggregators: Sequence[str],
         scale = scale.to(dt)
         parts.extend(a * scale for a in aggs)
     return parts
+
+
+def gather_src(g, h: torch.Tensor) -> torch.Tensor:
+    """``h[senders]``; its backward is the sender-keyed segment sum over the
+    batch's CSC arrays (`ops/segment.py::take_rows`), as the JAX package's
+    `gather_src` on CSR batches."""
+    return take_rows(h, g.senders, g.csc_row_ptr, g.csc_perm)
+
+
+def edge_aggregate(g, messages: torch.Tensor, op: str) -> torch.Tensor:
+    """Edge messages reduced at each receiver: "sum" is `csr_sum` (float32
+    whatever the messages' dtype), "mean" is `csr_mean` (the messages'
+    dtype); nodes without edges give 0."""
+    if op == "sum":
+        return csr_sum(messages, g.csr_row_ptr, g.receivers)
+    if op == "mean":
+        return csr_mean(messages, g.csr_row_ptr, g.receivers)
+    raise ValueError(f"unsupported edge aggregation: {op!r}")

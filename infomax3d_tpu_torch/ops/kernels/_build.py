@@ -23,7 +23,7 @@ from typing import Dict
 import torch
 
 KERNELS = ("edge_combine", "pna_stats", "multi_reduce", "pair_segment_sum",
-           "pna_stats_bwd")
+           "pna_stats_bwd", "csr_sum", "snd_segment_sum")
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "infomax3d_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

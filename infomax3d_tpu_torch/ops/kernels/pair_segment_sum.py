@@ -12,6 +12,7 @@ from infomax3d_tpu_torch.ops.kernels import _build
 from infomax3d_tpu_torch.ops.kernels._build import (check_launch, launcher,
                                                     refuse_grad, require,
                                                     stream_of)
+from infomax3d_tpu_torch.ops.kernels.csr_sum import slot_sums
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P,) * 6 + (_I,) * 2 + (_P,)
@@ -19,31 +20,13 @@ _SYMBOLS = {torch.bfloat16: "pair_segment_sum_bf16",
             torch.float32: "pair_segment_sum_f32"}
 
 
-def _slot_sums(ct, row_ptr, perm=None):
-    """Each node's range of `row_ptr` summed slot by slot in float32 (rows
-    through `perm` when given), rounded to ct's type once."""
-    E, D = ct.shape
-    rp = row_ptr.long()
-    deg = rp[1:] - rp[:-1]
-    padded = torch.cat([ct, ct.new_zeros(1, D)])
-    rows = None if perm is None else torch.cat(
-        [perm.long(), perm.new_full((1,), E).long()])
-    acc = torch.zeros(deg.shape[0], D, device=ct.device)
-    for k in range(int(deg.max()) if deg.numel() else 0):
-        valid = k < deg
-        idx = torch.where(valid, rp[:-1] + k, E)
-        if rows is not None:
-            idx = rows[idx]
-        acc = torch.where(valid[:, None], acc + padded[idx].float(), acc)
-    return acc.to(ct.dtype)
-
-
 def pair_segment_sum_reference(ct, row_ptr, csc_row_ptr, csc_perm):
     """Plain PyTorch version, in the kernel's order: ``(d_hd, d_hs)`` with
     d_hd[n] the sum of ct over n's receiver-sorted range and d_hs[n] the sum
     of ct[csc_perm[j]] over n's sender-sorted range, each accumulated in
     float32 slot by slot and rounded once."""
-    return _slot_sums(ct, row_ptr), _slot_sums(ct, csc_row_ptr, csc_perm)
+    return (slot_sums(ct, row_ptr).to(ct.dtype),
+            slot_sums(ct, csc_row_ptr, csc_perm).to(ct.dtype))
 
 
 def _launch(ct, row_ptr, csc_row_ptr, csc_perm):

@@ -1,12 +1,44 @@
-"""Graph readout (port of `infomax3d_tpu/ops/segment.py`, the dense-regroup
-path `_regroup` / `_graph_readout_dense` / `batch_readout`)."""
+"""Graph readout and the sender gather (port of `infomax3d_tpu/ops/
+segment.py`: the dense-regroup path `_regroup` / `_graph_readout_dense` /
+`batch_readout`, and `take_rows` over the senders)."""
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
 
+from infomax3d_tpu_torch.ops.kernels.snd_segment_sum import snd_segment_sum
+
 EPS = 1e-5  # reference models/pna.py:14
+
+
+class TakeRows(torch.autograd.Function):
+    """``nodes[idx.clamp(0, N - 1)]`` for the batch's senders `idx`; the
+    backward sums each node's sent rows through the CSC order
+    (`snd_segment_sum`: the sender-keyed segment-sum kernel on the card),
+    so no scatter runs.  Padding edges (sender N) lie past
+    ``csc_row_ptr[N]``: their cotangent is dropped, as the JAX package's
+    `take_rows` drops it (padding edges never reach the loss)."""
+
+    @staticmethod
+    def forward(ctx, nodes, idx, csc_row_ptr, csc_perm):
+        ctx.save_for_backward(csc_row_ptr, csc_perm)
+        return nodes[idx.clamp(0, nodes.shape[0] - 1).long()]
+
+    @staticmethod
+    def backward(ctx, ct):
+        csc_row_ptr, csc_perm = ctx.saved_tensors
+        return (snd_segment_sum(ct.contiguous(), csc_row_ptr, csc_perm),
+                None, None, None)
+
+
+def take_rows(nodes: torch.Tensor, senders: torch.Tensor,
+              csc_row_ptr: torch.Tensor, csc_perm: torch.Tensor
+              ) -> torch.Tensor:
+    """`nodes [N, D]` gathered at `senders [E]` (padding -> N) -> [E, D];
+    the gradient is the sender-keyed segment sum over `csc_row_ptr` /
+    `csc_perm` (the batch's CSC arrays), in bf16 and float32 alike."""
+    return TakeRows.apply(nodes, senders, csc_row_ptr, csc_perm)
 
 
 class Regroup(torch.autograd.Function):

@@ -19,6 +19,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 
 def cast_parameters(module: nn.Module, dtype: Optional[torch.dtype]
@@ -54,6 +55,18 @@ def compute_params(module: nn.Module, dtype: Optional[torch.dtype]
     BatchNorm running statistics stay float32 and update in place."""
     return {n: (p.to(dtype) if dtype is not None and p.dtype == torch.float32
                 else p) for n, p in module.named_parameters()}
+
+
+def forward_in(model: nn.Module, dtype: Optional[torch.dtype], *inputs
+               ) -> torch.Tensor:
+    """`model(*inputs)` under the training recipe: with `dtype` (bf16) on
+    copies of the float32 master parameters cast to it (`compute_params`),
+    the output cast to float32 for the loss; `None` runs float32 as it
+    is."""
+    if dtype is None:
+        return model(*inputs)
+    return functional_call(model, compute_params(model, dtype),
+                           inputs).float()
 
 
 def cast_batch(batch, dtype: Optional[torch.dtype]):

@@ -18,8 +18,6 @@ from __future__ import annotations
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
-from torch import nn
-from torch.func import functional_call
 
 from infomax3d_tpu_torch.data.synthetic import SyntheticMolecules
 from infomax3d_tpu_torch.device import resolve_device
@@ -27,21 +25,13 @@ from infomax3d_tpu_torch.graphs.batch import (GraphBatch, batch_graphs,
                                               bucket_for, to_graph_batch)
 from infomax3d_tpu_torch.graphs.dense import (DenseBatch, dense_batch,
                                               to_dense_batch)
-from infomax3d_tpu_torch.interop import init_jax_variables, params_from_jax
+from infomax3d_tpu_torch.interop import init_jax_variables, load_variables
 from infomax3d_tpu_torch.losses.contrastive import NTXent
 from infomax3d_tpu_torch.models.net3d import Net3DDense
 from infomax3d_tpu_torch.models.pna import PNA
 from infomax3d_tpu_torch.train.optim import build_adam
-from infomax3d_tpu_torch.train.precision import (cast_batch, compute_params,
+from infomax3d_tpu_torch.train.precision import (cast_batch, forward_in,
                                                  resolve_compute_dtype)
-
-
-def _load(model: nn.Module, variables: Mapping) -> nn.Module:
-    """Weights from flax numpy trees (`params`, `batch_stats`)."""
-    model.load_state_dict(params_from_jax(variables["params"],
-                                          variables.get("batch_stats", {})),
-                          strict=True)
-    return model
 
 
 class PretrainStep:
@@ -58,9 +48,10 @@ class PretrainStep:
                  optimizer_params: Optional[Mapping] = None):
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
-        self.model = _load(PNA(**model_parameters), variables["model"])
-        self.model3d = _load(Net3DDense.from_config(model3d_parameters),
-                             variables["model3d"])
+        self.model = load_variables(PNA(**model_parameters),
+                                    variables["model"])
+        self.model3d = load_variables(
+            Net3DDense.from_config(model3d_parameters), variables["model3d"])
         self.model.to(self.device).train()
         self.model3d.to(self.device).train()
         self.loss_fn = NTXent(**dict(loss_params or {}))
@@ -80,20 +71,13 @@ class PretrainStep:
         return (cast_batch(g2.to(self.device), self.compute_dtype),
                 cast_batch(g3.to(self.device), self.compute_dtype))
 
-    def _outputs(self, model: nn.Module, g) -> torch.Tensor:
-        if self.compute_dtype is None:
-            return model(g)
-        return functional_call(model, compute_params(model,
-                                                     self.compute_dtype),
-                               (g,)).float()
-
     def loss_and_grads(self, g2: GraphBatch, g3: DenseBatch) -> torch.Tensor:
         """Forward and backward on prepared batches: fills each master
         parameter's `.grad` (float32), updates the running statistics and
         returns the float32 loss (detached)."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_fn(self._outputs(self.model, g2),
-                            self._outputs(self.model3d, g3))
+        loss = self.loss_fn(forward_in(self.model, self.compute_dtype, g2),
+                            forward_in(self.model3d, self.compute_dtype, g3))
         loss.backward()
         return loss.detach()
 

@@ -1,0 +1,156 @@
+"""The supervised training step (port of the JAX package's `Trainer` step,
+`infomax3d_tpu/train/trainer.py`: `loss_fn`, `_apply` and the jitted
+update, with `_elementwise_supervised_loss`), here for `OGBGNN` at the
+architecture of `configs/30.yml`: GIN 5x300 without a virtual node, sum
+pooling, masked `BCEWithLogitsLoss`, Adam at lr 1e-3, batches of 128.
+
+Precision follows the JAX package's recipe: float32 master parameters and
+optimizer state, the forward on bf16 copies of the parameters and of the
+batch's float fields, the model output cast to float32 for the loss.  The
+labels reach the loss in float32 (the JAX trainer reads them from the
+uncast batch).  The cross-replica sum of the loss belongs to the parallel
+layer and is not here.
+
+`supervised()` is the entry point: it runs a few steps on one fixed
+labelled synthetic batch, on the CUDA card unless asked for the CPU.  The
+`Trainer` class, its schedulers and the CLI come later.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from infomax3d_tpu_torch.data.synthetic import SyntheticMolecules
+from infomax3d_tpu_torch.device import resolve_device
+from infomax3d_tpu_torch.graphs.batch import (GraphBatch, batch_graphs,
+                                              bucket_for, to_graph_batch)
+from infomax3d_tpu_torch.interop import init_jax_variables, load_variables
+from infomax3d_tpu_torch.models.gin import OGBGNN
+from infomax3d_tpu_torch.train.optim import build_adam
+from infomax3d_tpu_torch.train.precision import (cast_batch, forward_in,
+                                                 resolve_compute_dtype)
+
+
+def supervised_loss(name: str, pred: torch.Tensor, target: torch.Tensor,
+                    valid: torch.Tensor) -> torch.Tensor:
+    """The mean of the per-element loss `name` over the entries where
+    `valid` is true (padding graphs and NaN labels excluded), the JAX
+    package's `_elementwise_supervised_loss` on one device."""
+    t = torch.where(valid, target, torch.zeros((), device=target.device))
+    if name in ("L1Loss", "MAE"):
+        per = (pred - t).abs()
+    elif name in ("MSELoss", "OGBNanLabelMSELoss"):
+        per = (pred - t) ** 2
+    elif name in ("BCEWithLogitsLoss", "OGBNanLabelBCEWithLogitsLoss"):
+        per = F.relu(pred) - pred * t + torch.log1p(torch.exp(-pred.abs()))
+    else:
+        raise KeyError(f"unsupported supervised loss '{name}'")
+    total = torch.where(valid, per, torch.zeros((), device=per.device)).sum()
+    return total / valid.sum().clamp(min=1)
+
+
+class SupervisedStep:
+    """Forward, masked loss, backward and Adam update of one model on one
+    labelled batch.  `variables` holds the model's flax numpy trees
+    (`interop.init_jax_variables` layout); `compute_dtype` bf16 runs the
+    bf16 recipe, None float32."""
+
+    def __init__(self, model_type: str, model_parameters: Mapping,
+                 variables: Mapping, device: torch.device,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 loss_func: str = "MSELoss",
+                 optimizer_params: Optional[Mapping] = None):
+        if model_type != "OGBGNN":
+            raise NotImplementedError(
+                f"supervised step for model_type {model_type!r} not ported")
+        self.device = torch.device(device)
+        self.compute_dtype = compute_dtype
+        self.loss_func = loss_func
+        self.model = load_variables(OGBGNN.from_config(model_parameters),
+                                    variables)
+        self.model.to(self.device).train()
+        self.optimizer = build_adam(self.model.named_parameters(),
+                                    **dict(optimizer_params or {}))
+
+    def prepare(self, g: GraphBatch) -> GraphBatch:
+        """The batch as the forward reads it: on the step's device, float
+        fields in the compute dtype, the labels kept float32."""
+        g = g.to(self.device)
+        return dataclasses.replace(cast_batch(g, self.compute_dtype),
+                                   targets=g.targets)
+
+    def loss_and_grads(self, g: GraphBatch) -> torch.Tensor:
+        """Forward and backward on a prepared batch: fills each master
+        parameter's `.grad` (float32), updates the running statistics and
+        returns the float32 loss (detached)."""
+        self.optimizer.zero_grad(set_to_none=True)
+        pred = forward_in(self.model, self.compute_dtype, g)
+        valid = ~torch.isnan(g.targets) & g.graph_mask[:, None]
+        loss = supervised_loss(self.loss_func, pred, g.targets, valid)
+        loss.backward()
+        return loss.detach()
+
+    def step(self, g: GraphBatch) -> torch.Tensor:
+        """One training step on a prepared batch; returns the loss."""
+        loss = self.loss_and_grads(g)
+        self.optimizer.step()
+        return loss
+
+
+def labelled_batch(batch_size: int, num_targets: int = 1, seed: int = 0,
+                   n_min: int = 10, n_max: int = 41, device="cpu"
+                   ) -> Tuple[GraphBatch, Dict[str, int]]:
+    """`batch_size` synthetic molecules as a CSR batch with binary labels
+    (their `targets` > 0, float32 0/1, [G, num_targets]), plus its sizes:
+    graphs, real nodes and real edges.  The defaults are molhiv-like: 10 to
+    41 atoms, 25.5 on average."""
+    ds = SyntheticMolecules(batch_size, seed=seed, n_min=n_min, n_max=n_max,
+                            num_targets=num_targets)
+    labels = (ds.targets > 0).astype(np.float32)
+    mols = [dict(ds.graph2d(i), targets=labels[i]) for i in range(batch_size)]
+    b = bucket_for(mols, batch_size)
+    g = to_graph_batch(batch_graphs(mols, b), b, device)
+    sizes = {"graphs": batch_size,
+             "nodes": sum(m["node_feat"].shape[0] for m in mols),
+             "edges": sum(m["senders"].shape[0] for m in mols)}
+    return g, sizes
+
+
+def build_supervised_step(args: Mapping[str, Any], device: torch.device
+                          ) -> SupervisedStep:
+    """`SupervisedStep` from a config-like dict with the YAML keys
+    `model_type`, `model_parameters`, `loss_func`, `optimizer_params`,
+    `bf16_compute` (default "auto"), and seeded numpy weights in the flax
+    layout (`seed`, default 0)."""
+    mp = args["model_parameters"]
+    params, stats = init_jax_variables(mp, args.get("seed", 0),
+                                       args["model_type"])
+    return SupervisedStep(
+        args["model_type"], mp, {"params": params, "batch_stats": stats},
+        device, resolve_compute_dtype(args.get("bf16_compute", "auto"),
+                                      device),
+        args.get("loss_func", "MSELoss"), args.get("optimizer_params"))
+
+
+def supervised(args: Dict[str, Any], steps: int = 1,
+               device: Optional[str] = None) -> Dict[str, Any]:
+    """Run `steps` supervised steps on one fixed labelled batch of
+    `args["batch_size"]` (default 128) synthetic molecules
+    (`args["dataset_params"]`: seed, n_min, n_max; `labelled_batch`'s
+    molhiv-like defaults where absent).  Runs on the CUDA card
+    unless `device` says otherwise (and raises when there is none).
+    Returns the float32 losses, the step object and the batch sizes."""
+    device = resolve_device(device)
+    step = build_supervised_step(args, device)
+    g, sizes = labelled_batch(
+        args.get("batch_size", 128),
+        args["model_parameters"].get("target_dim", 1), device=device,
+        **args.get("dataset_params", {}))
+    g = step.prepare(g)
+    losses = [step.step(g) for _ in range(steps)]
+    return {"losses": [float(x) for x in losses], "step": step,
+            "sizes": sizes}

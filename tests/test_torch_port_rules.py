@@ -1,7 +1,7 @@
 """Rules the port lives by: no JAX (nor the JAX package, nor YAML or
 msgpack) at run time, no silent CPU fallback, kernels dispatch by device,
 and `chip_smoke.py` serves and trains the models of
-`configs_clean/pre-train_QM9.yml`."""
+`configs_clean/pre-train_QM9.yml` and trains the one of `configs/30.yml`."""
 import ast
 import importlib.util
 import json
@@ -16,11 +16,14 @@ import yaml
 from infomax3d_tpu_torch.cli.inference import inference
 from infomax3d_tpu_torch.graphs.batch import batch_graphs, bucket_for
 from infomax3d_tpu_torch.data.synthetic import SyntheticMolecules
-from infomax3d_tpu_torch.ops.kernels import (WRAPPERS, edge_combine,
+from infomax3d_tpu_torch.ops.kernels import (WRAPPERS, csr_sum,
+                                             csr_sum_reference, edge_combine,
                                              edge_combine_reference,
                                              multi_reduce,
                                              multi_reduce_reference,
-                                             pna_stats, pna_stats_reference)
+                                             pna_stats, pna_stats_reference,
+                                             snd_segment_sum,
+                                             snd_segment_sum_reference)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "infomax3d_tpu_torch"
@@ -39,6 +42,9 @@ def _forbidden(name: str) -> bool:
     # dotted prefixes: the port's own name starts with "infomax3d_tpu"
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
+
+TINY_GIN = dict(target_dim=1, num_layers=2, hidden_dim=8, dropout=0.0,
+                emb_dim=8, virtual_node=False)
 
 TINY3D = dict(target_dim=4, hidden_dim=4, hidden_edge_dim=4,
               node_wise_output_layers=0, message_net_layers=1,
@@ -61,6 +67,11 @@ out = pretrain({{"model_parameters": {TINY!r},
                 "model3d_parameters": {TINY3D!r}, "batch_size": 6,
                 "bf16_compute": True}}, steps=1, device="cpu")
 assert len(out["losses"]) == 1, out
+from infomax3d_tpu_torch.train.supervised import supervised
+out = supervised({{"model_type": "OGBGNN", "model_parameters": {TINY_GIN!r},
+                   "loss_func": "BCEWithLogitsLoss", "batch_size": 6,
+                   "bf16_compute": True}}, steps=1, device="cpu")
+assert len(out["losses"]) == 1, out
 print(json.dumps(sorted(sys.modules)))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
@@ -69,7 +80,9 @@ print(json.dumps(sorted(sys.modules)))
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     for m in ("ops.kernels.pna_stats", "ops.kernels.pna_stats_bwd",
               "ops.kernels.pair_segment_sum", "models.net3d",
-              "losses.contrastive", "train.optim", "train.pretrain"):
+              "losses.contrastive", "train.optim", "train.pretrain",
+              "ops.kernels.csr_sum", "ops.kernels.snd_segment_sum",
+              "models.gin", "train.supervised"):
         assert f"infomax3d_tpu_torch.{m}" in mods, m
     assert [m for m in mods if _forbidden(m)] == []
 
@@ -109,6 +122,13 @@ def _csr(num=5, D=16):
             lambda *s: torch.randn(*s, generator=gen), N, E, D)
 
 
+def _csc(num=5):
+    graphs = [SyntheticMolecules(num, seed=1).graph2d(i) for i in range(num)]
+    arr = batch_graphs(graphs, bucket_for(graphs, num))
+    return (torch.from_numpy(arr["csc_row_ptr"]),
+            torch.from_numpy(arr["csc_perm"]))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wrappers_on_cpu_use_plain_version(dtype):
     recv, send, rp, K, randn, N, E, D = _csr()
@@ -120,6 +140,10 @@ def test_wrappers_on_cpu_use_plain_version(dtype):
     x = randn(E, D).to(dtype)
     for k, r in zip(multi_reduce(x, rp, K), multi_reduce_reference(x, rp, K)):
         assert torch.equal(k, r)
+    assert torch.equal(csr_sum(x, rp), csr_sum_reference(x, rp))
+    crp, perm = _csc()
+    assert torch.equal(snd_segment_sum(x, crp, perm),
+                       snd_segment_sum_reference(x, crp, perm))
     if dtype == torch.bfloat16:
         aff = (torch.ones(D), torch.zeros(D))
         for k, r in zip(pna_stats(x, rp, K, aff, False),
@@ -135,6 +159,10 @@ def test_wrappers_reject_other_devices():
         edge_combine(meta[:N], meta[:N], meta, recv, send)
     with pytest.raises(ValueError, match="unsupported device"):
         multi_reduce(meta, rp, K)
+    with pytest.raises(ValueError, match="unsupported device"):
+        csr_sum(meta, rp)
+    with pytest.raises(ValueError, match="unsupported device"):
+        snd_segment_sum(meta, *_csc())
 
 
 def test_chip_smoke_serves_the_flagship_config():
@@ -153,3 +181,20 @@ def test_chip_smoke_serves_the_flagship_config():
     assert chip_smoke.OPTIMIZER_PARAMS == cfg["optimizer_params"]
     assert cfg["optimizer"] == "Adam"
     assert chip_smoke.BATCH == cfg["batch_size"]
+
+
+def test_chip_smoke_trains_config_30():
+    """Phase 12 trains `configs/30.yml`'s model, loss, optimizer and batch
+    size as the file states them."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    with open(ROOT / "configs" / "30.yml") as f:
+        cfg = yaml.safe_load(f)
+    assert chip_smoke.GIN_MODEL_PARAMETERS == cfg["model_parameters"]
+    assert chip_smoke.GIN_MODEL_TYPE == cfg["model_type"] == "OGBGNN"
+    assert chip_smoke.GIN_LOSS == cfg["loss_func"]
+    assert chip_smoke.GIN_OPTIMIZER_PARAMS == cfg["optimizer_params"]
+    assert cfg["optimizer"] == "Adam"
+    assert chip_smoke.GIN_BATCH == cfg["batch_size"]
