@@ -48,6 +48,23 @@ its seconds:
    against the same step on the CPU; ms per step and graphs/s.
 13. GIN profile and kernel times: torch.profiler over warm steps, then the
    two GIN kernels as in phase 10.
+14. OT kernel: the CSR segment sum (bf16, float32) against its plain
+   version at the OT slice's batch (16 synthetic QM9-like molecules with 10
+   conformers, seed 0, D = 50), at the bench shapes (D = 200) and at
+   D = 300 and 302, which together take every vector path.
+15. OT training: the optimal-transport step of
+   `configs_clean/pre-train_Optimal_Transport_baseline.yml`
+   (OptimalTransportModel over PNAGNNRandomEdgeUpdate 50x3, 10 model and
+   10 true conformers, exact EMD, Adam lr 1e-3, clip 10, batch 16) through
+   `ot()`, 20 float32 steps: launches per step, loss over the steps; one
+   step on the card against the same step on the CPU with the same draws
+   and plans (cost, loss, every gradient leaf), and two planted faults (a
+   zeroed receiver-gather backward; the torsion head's gradient alone
+   scaled) that must each fail that check; ms per step split into cost
+   pass, host EMD and gradient pass plus update; graphs/s; the step with
+   its noise drawn on the card against the same step drawing on the host.
+16. OT profile and kernel times: torch.profiler over warm steps, then the
+   CSR segment sum as in phase 13.
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 """
@@ -68,7 +85,11 @@ from infomax3d_tpu_torch.data.synthetic import SyntheticMolecules
 from infomax3d_tpu_torch.graphs.batch import (batch_graphs, bucket_for,
                                               to_graph_batch)
 from infomax3d_tpu_torch.interop import init_jax_variables
-from infomax3d_tpu_torch.ops.kernels import (WRAPPERS, csr_sum,
+from infomax3d_tpu_torch.models.random_variants import (GeneratorNoise,
+                                                        ReplayNoise)
+from infomax3d_tpu_torch.ops.kernels import (WRAPPERS, csr_segment_sum,
+                                             csr_segment_sum_reference,
+                                             csr_sum,
                                              csr_sum_reference, edge_combine,
                                              edge_combine_reference,
                                              multi_reduce,
@@ -83,6 +104,7 @@ from infomax3d_tpu_torch.ops.kernels import (WRAPPERS, csr_sum,
 from infomax3d_tpu_torch.ops.kernels._build import build_all
 from infomax3d_tpu_torch.train.pretrain import (build_step, flagship_batches,
                                                 pretrain)
+from infomax3d_tpu_torch.train.ot import OTStep, build_ot_step, ot, ot_batch
 from infomax3d_tpu_torch.train.supervised import (build_supervised_step,
                                                   labelled_batch, supervised)
 
@@ -153,6 +175,52 @@ GIN_DATA = {"seed": 0, "n_min": 10, "n_max": 41}
 GIN_WIDTH = 300
 GIN_DEPTH = GIN_MODEL_PARAMETERS["num_layers"]
 
+# configs_clean/pre-train_Optimal_Transport_baseline.yml `model_parameters`,
+# `optimizer_params` and `batch_size` (no YAML on the card).  The dataset
+# (GEOM-QM9 pickles) is not in the repo: synthetic QM9-like molecules with
+# 10 conformers each stand in; the WarmUpWrapper schedule belongs to the
+# trainer, which is not ported, so the step takes the config's lr.
+OT_MODEL_PARAMETERS = {
+    "gnn_model": "PNAGNNRandomEdgeUpdate",
+    "gnn_params": {
+        "hidden_dim": 50,
+        "mid_batch_norm": False,
+        "last_batch_norm": False,
+        "readout_batchnorm": True,
+        "batch_norm_momentum": 0.1,
+        "dropout": 0.0,
+        "propagation_depth": 3,
+        "aggregators": ["sum"],
+        "scalers": ["identity"],
+        "pretrans_layers": 2,
+        "posttrans_layers": 2,
+        "residual": False,
+    },
+    "hyperparams": {
+        "alpha_mlp": {"n_layers": 2},
+        "c_mlp": {"n_layers": 1},
+        "coord_pred": {"n_layers": 2},
+        "d_mlp": {"n_layers": 1},
+        "encoder": {"n_head": 2},
+        "global_transformer": False,
+        "h_mol_mlp": {"n_layers": 1},
+        "loss_type": "ot_emd",
+        "hidden_dim": 50,
+        "n_model_confs": 10,
+        "n_true_confs": 10,
+        "random_alpha": False,
+        "random_vec_dim": 10,
+        "random_vec_std": 1.0,
+        "teacher_force": False,
+    },
+}
+OT_OPTIMIZER_PARAMS = {"lr": 1.0e-3}
+OT_BATCH = 16
+OT_DATA = {"seed": 0, "n_min": 10, "n_max": 26}
+OT_WIDTH = OT_MODEL_PARAMETERS["gnn_params"]["hidden_dim"]
+OT_DEPTH = OT_MODEL_PARAMETERS["gnn_params"]["propagation_depth"]
+OT_CONFS = OT_MODEL_PARAMETERS["hyperparams"]["n_model_confs"]
+
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth and
 # float32 outside the tensor cores (the kernels' arithmetic is float32).
 PEAK_BYTES_PER_S = 3.35e12
@@ -176,7 +244,7 @@ SLICE_TOL = {True: 3e-2, False: 1e-4}
 # launches per forward, from the model's depth
 NONE = {"edge_combine": 0, "pna_stats": 0, "multi_reduce": 0,
         "pair_segment_sum": 0, "pna_stats_bwd": 0, "csr_sum": 0,
-        "snd_segment_sum": 0}
+        "snd_segment_sum": 0, "csr_segment_sum": 0}
 EXPECTED = {True: dict(NONE, edge_combine=DEPTH, pna_stats=DEPTH),
             False: dict(NONE, edge_combine=DEPTH, multi_reduce=DEPTH)}
 # launches per training step: each PNA layer runs the combine and its
@@ -190,6 +258,12 @@ EXPECTED_STEP = {True: dict(NONE, edge_combine=DEPTH, pna_stats=DEPTH,
 # messages (forward) and sums the gathered rows' cotangents by sender (the
 # gather's backward; the atom encoder needs layer 0's too)
 EXPECTED_GIN_STEP = dict(NONE, csr_sum=GIN_DEPTH, snd_segment_sum=GIN_DEPTH)
+# launches per OT step: 2 backbones x 10 conformers x 3 layers run in the
+# cost pass (the float32 aggregate, multi_reduce) and again in the gradient
+# pass, whose backward sums each layer's sender and receiver gathers
+OT_PASS = 2 * OT_CONFS * OT_DEPTH
+EXPECTED_OT_STEP = dict(NONE, multi_reduce=2 * OT_PASS,
+                        snd_segment_sum=OT_PASS, csr_segment_sum=OT_PASS)
 
 KERNEL_INFO = {
     "edge_combine": ("infomax3d_tpu_torch/csrc/edge_combine.cu",
@@ -206,6 +280,8 @@ KERNEL_INFO = {
                 "infomax3d_tpu/ops/pallas/spmm.py:1310"),
     "snd_segment_sum": ("infomax3d_tpu_torch/csrc/snd_segment_sum.cu",
                         "infomax3d_tpu/ops/pallas/spmm.py:1001"),
+    "csr_segment_sum": ("infomax3d_tpu_torch/csrc/csr_sum.cu",
+                        "infomax3d_tpu/ops/pallas/spmm.py:837"),
 }
 # No single PyTorch call computes the three forward functions: the combine
 # is two row gathers plus adds, the stats and the multi-reduce are 4-6
@@ -621,19 +697,19 @@ def _train_args(bf16: bool) -> dict:
                                "n_max": DATA["n_max"]}}
 
 
-def _measure_step(step, models: dict, batches: tuple, perturb: bool):
+def _measure_step(step, models: dict, batches: tuple, perturb: float = 0.0):
     """(loss, every parameter's gradient (None where it got none) and
     every running statistic, on the CPU, named ``<model>.<name>``) of one
     step of `step` on prepared `batches`; `models` maps each model's name
     to the module.  With `perturb`, every master weight is scaled by
-    1 + WITNESS_REL * U(-1, 1) first."""
+    1 + perturb * U(-1, 1) first."""
     if perturb:
         gen = torch.Generator().manual_seed(7)
         with torch.no_grad():
             for m in models.values():
                 for p in m.parameters():
                     u = torch.rand(p.shape, generator=gen) * 2 - 1
-                    p.mul_(1 + WITNESS_REL * u.to(p.device))
+                    p.mul_(1 + perturb * u.to(p.device))
     loss = float(step.loss_and_grads(*batches))
     out = {}
     for pre, m in models.items():
@@ -664,70 +740,81 @@ def _measure_step(step, models: dict, batches: tuple, perturb: bool):
 # 0.040, statistics 3.7e-7; its planted fault (a zeroed gather backward)
 # reads a leaf at 1.08 and L2 0.88; float32 loss 6.3e-8, worst leaf
 # 4.9e-3, L2 9.2e-5, statistics 3.7e-7.
-STEP_TOL = {True: {"loss": 1e-3, "leaf": 0.6, "stats": 2e-2},
-            False: {"loss": 1e-5, "leaf": 5e-2, "l2": 5e-3, "stats": 1e-4}}
+# "zero": the zero-gradient leaves (below), of the model's largest gradient
+STEP_TOL = {True: {"loss": 1e-3, "leaf": 0.6, "zero": 1e-2, "stats": 2e-2},
+            False: {"loss": 1e-5, "leaf": 5e-2, "l2": 5e-3, "zero": 1e-4,
+                    "stats": 1e-4}}
 WITNESS_REL = 2.0 ** -16
 WITNESS_FACTOR = 1.5
 # Leaves with an exactly zero gradient: a Linear bias or BatchNorm shift
 # feeding a BatchNorm with no nonlinearity between (the normalization
 # removes any per-column constant).  Both sides hold rounding noise there,
-# held below ZERO_FLOOR of the model's largest gradient.
+# held below STEP_TOL's "zero" share of the model's largest gradient.
 ZERO_GRADIENT = ("pretrans.fully_connected.0.batch_norm.bias",
                  "pretrans.fully_connected.1.linear.bias",
                  "posttrans.fully_connected.0.linear.bias",
                  "update_network.fully_connected.0.linear.bias",
                  "mlp.0.bias", "mlp.3.bias")
-ZERO_FLOOR = {True: 1e-2, False: 1e-4}
 
 
-def _readings(card: dict, cpu: dict, sides: tuple) -> dict:
-    """Per model: the worst leaf error, the worst zero-gradient leaf (of
-    the model's max gradient), the gradient's L2, the worst running
-    statistic, and the leaves whose gradient is missing, non-finite or
-    zero on either side."""
+def _readings(card: dict, cpu: dict, sides: tuple,
+              zero_leaves: tuple = ZERO_GRADIENT) -> dict:
+    """Per model: each leaf's error (of its max) and the worst, the worst
+    leaf of `zero_leaves` (of the model's max gradient), the gradient's
+    L2, the worst running statistic (0 without any), and the leaves whose
+    gradient is missing, non-finite or zero on either side."""
     out = {}
     for side in sides:
         keys = [k for k in cpu if k.startswith(side + ".")
                 and "running" not in k]
         gmax = max(float(cpu[k].abs().max()) for k in keys)
-        leaf, zero, dead = (0.0, None), (0.0, None), []
+        leaves, zero, dead = {}, (0.0, None), []
         for k in keys:
             for which in (card, cpu):
                 g = which[k]
                 if g is None or not bool(torch.isfinite(g).all()) or not (
-                        k.endswith(ZERO_GRADIENT) or float(g.abs().max()) > 0):
+                        k.endswith(zero_leaves) or float(g.abs().max()) > 0):
                     dead.append(k)
             if k in dead:
                 continue
-            if k.endswith(ZERO_GRADIENT):
+            if k.endswith(zero_leaves):
                 zero = max(zero, (max(float(card[k].abs().max()),
                                       float(cpu[k].abs().max())) / gmax, k),
                            key=lambda e: e[0])
                 continue
-            leaf = max(leaf, (float((card[k] - cpu[k]).abs().max())
-                              / float(cpu[k].abs().max()), k),
-                       key=lambda e: e[0])
+            leaves[k] = (float((card[k] - cpu[k]).abs().max())
+                         / float(cpu[k].abs().max()))
         live = [k for k in keys if k not in dead]
         fc = torch.cat([card[k].flatten() for k in live])
         fr = torch.cat([cpu[k].flatten() for k in live])
         skeys = [k for k in cpu if k.startswith(side + ".") and "running" in k]
         out[side] = {
-            "leaf": leaf, "zero": zero, "dead": sorted(set(dead)),
+            "leaves": leaves,
+            "leaf": max(((e, k) for k, e in leaves.items()),
+                        default=(0.0, None)),
+            "zero": zero, "dead": sorted(set(dead)),
             "l2": float((fc - fr).norm() / fr.norm()),
-            "stats": max(float((card[k] - cpu[k]).abs().max())
-                         / max(float(cpu[k].abs().max()), 1.0)
-                         for k in skeys)}
+            "stats": max((float((card[k] - cpu[k]).abs().max())
+                          / max(float(cpu[k].abs().max()), 1.0)
+                          for k in skeys), default=0.0)}
     return out
 
 
-def _violations(r: dict, bf16: bool, l2_tol: dict) -> list:
-    """What the readings `r` break of the step check."""
-    tol, bad = STEP_TOL[bf16], []
+def _violations(r: dict, tol: dict, l2_tol: dict, leaf_tol=None) -> list:
+    """What the readings `r` break of a step check: the worst leaf against
+    tol["leaf"] (or, given `leaf_tol`, each leaf against its own bound),
+    the zero-gradient leaves against tol["zero"], each side's L2 against
+    `l2_tol` and the running statistics against tol["stats"]."""
+    bad = []
     for side, d in r.items():
         bad += [f"{k}: no finite non-zero gradient" for k in d["dead"]]
-        if d["leaf"][0] > tol["leaf"]:
-            bad.append(f"{d['leaf'][1]}: {d['leaf'][0]:.3g}")
-        if d["zero"][0] > ZERO_FLOOR[bf16]:
+        if leaf_tol is None:
+            if d["leaf"][0] > tol["leaf"]:
+                bad.append(f"{d['leaf'][1]}: {d['leaf'][0]:.3g}")
+        else:
+            bad += [f"{k}: {e:.3g} > {leaf_tol[k]:.3g}"
+                    for k, e in d["leaves"].items() if e > leaf_tol[k]]
+        if d["zero"][0] > tol["zero"]:
             bad.append(f"{d['zero'][1]}: zero-gradient leaf at "
                        f"{d['zero'][0]:.3g}")
         if d["l2"] > l2_tol[side]:
@@ -752,7 +839,7 @@ def _one_step(bf16: bool, dev: str, g2, g3, perturb: bool):
     step = build_step(_train_args(bf16), torch.device(dev))
     return _measure_step(step, {"model": step.model,
                                 "model3d": step.model3d},
-                         step.prepare(g2, g3), perturb)
+                         step.prepare(g2, g3), WITNESS_REL if perturb else 0)
 
 
 def _hold_step_against_cpu(one_step, sides: tuple, plant, fault: str,
@@ -780,7 +867,7 @@ def _hold_step_against_cpu(one_step, sides: tuple, plant, fault: str,
             l2_tol = {s: STEP_TOL[False]["l2"] for s in sides}
         r = _readings(card, cpu, sides)
         _print_readings(f"bf16={bf16} card vs CPU", r, l2_tol, phase)
-        bad = _violations(r, bf16, l2_tol)
+        bad = _violations(r, STEP_TOL[bf16], l2_tol)
         _check(not bad, f"bf16={bf16} step card vs CPU: {bad}")
         if bf16:
             undo = plant()
@@ -791,7 +878,7 @@ def _hold_step_against_cpu(one_step, sides: tuple, plant, fault: str,
                 undo()
             _print_readings(f"planted fault ({fault}) card vs CPU", planted,
                             l2_tol, phase)
-            bad = _violations(planted, True, l2_tol)
+            bad = _violations(planted, STEP_TOL[True], l2_tol)
             print(f"[{phase}] planted fault: {len(bad)} violations, e.g. "
                   f"{bad[:2]}")
             _check(bool(bad), "the step check passed a planted fault")
@@ -880,7 +967,8 @@ PROFILE_NAMES = {"edge_combine": ("edge_combine_kernel",),
                  "pna_stats_bwd": ("pna_stats_bwd_kernel",
                                    "column_sums_kernel"),
                  "csr_sum": ("csr_sum_kernel",),
-                 "snd_segment_sum": ("snd_segment_sum_kernel",)}
+                 "snd_segment_sum": ("snd_segment_sum_kernel",),
+                 "csr_segment_sum": ("csr_segment_sum_kernel",)}
 
 
 def _port_kernels(by_name: dict) -> dict:
@@ -1076,7 +1164,7 @@ def _gin_one_step(bf16: bool, dev: str, g, perturb: bool):
     """`_measure_step` of one GIN step from the seeded weights."""
     step = build_supervised_step(_gin_args(bf16), torch.device(dev))
     return _measure_step(step, {"model": step.model}, (step.prepare(g),),
-                         perturb)
+                         WITNESS_REL if perturb else 0)
 
 
 def _zeroed_gather_backward():
@@ -1235,6 +1323,376 @@ def phase_gin_kernel_times(g, launches: dict, errs: dict,
     return rows
 
 
+# --- the OT slice: phases 14 to 16 ------------------------------------------
+
+def ot_slice_batch(device="cuda"):
+    """The OT slice's batch (16 QM9-like molecules with 10 conformers,
+    seed 0) and its sizes."""
+    return ot_batch(OT_BATCH, OT_MODEL_PARAMETERS["hyperparams"][
+        "n_true_confs"], device=device, **OT_DATA)
+
+
+def phase_ot_kernels(ob, g) -> dict:
+    """Phase 14: the CSR segment sum against its plain version on the same
+    CUDA tensors: at the OT batch `ob` (D = 50: element-wise in bf16,
+    8-byte in float32), at the bench batch `g` (D = 200: 16-byte), and on
+    the OT batch at D = 300 (8-byte bf16, 16-byte float32) and 302
+    (element-wise bf16, 8-byte float32).  Both sum the same rows in
+    float32 in slot order and round once -> bit-exact.  Rows past
+    row_ptr[N] (padding edges) must not count."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    pairs = []
+    for name, gr, widths in (("OT batch", ob.graph, (OT_WIDTH, 300, 302)),
+                             ("bench batch", g, (WIDTH,))):
+        rp = gr.csr_row_ptr
+        N, E, e_real = gr.num_nodes, gr.senders.shape[0], int(rp[-1])
+        deg0 = (rp[1:] - rp[:-1]) == 0
+        _check(bool(deg0.any()) and e_real < E,
+               f"{name} has padding nodes and padding edges")
+        print(f"[ot-kernels] {name}: N={N} E={E} (real {e_real}) max "
+              f"in-degree {gr.max_deg}")
+        for D in widths:
+            for dt in (torch.bfloat16, torch.float32):
+                ct = torch.randn(E, D, generator=gen, device="cuda").to(dt)
+                k, r = csr_segment_sum(ct, rp), csr_segment_sum_reference(
+                    ct, rp)
+                torch.cuda.synchronize()
+                tag = f"{name} D={D} {dt} ({_vector_path(dt, D)} path)"
+                _check(k.dtype == dt and torch.equal(k, r),
+                       f"csr_segment_sum {tag}: not bit-exact")
+                _check(bool((k[deg0] == 0).all()),
+                       f"csr_segment_sum {tag}: degree 0")
+                ct[e_real:] = 1e4
+                _check(torch.equal(csr_segment_sum(ct, rp), k),
+                       f"csr_segment_sum {tag}: a padding edge counted")
+                pairs.append((k, r))
+                print(f"[ot-kernels] {tag}: bit-exact")
+    err = _max_err(pairs)
+    print(f"[ot-kernels] csr_segment_sum: agrees with its plain version "
+          f"(max |kernel - plain| = {err:.3g})")
+    return {"csr_segment_sum": err}
+
+
+def _ot_args() -> dict:
+    return {"model_parameters": OT_MODEL_PARAMETERS,
+            "optimizer_params": OT_OPTIMIZER_PARAMS, "batch_size": OT_BATCH,
+            "seed": 0, "dataset_params": OT_DATA}
+
+
+def _ot_one_step(dev: str, draws: list, plans=None, perturb: float = 0.0):
+    """One OT step's passes from the seeded weights on `dev` with the
+    given draws: (cost on the CPU, plans, `_measure_step` of the gradient
+    pass: the loss and every clipped gradient).  Without `plans`, the
+    step's own plans of its cost.  `perturb` scales the weights after the
+    cost pass, as `_measure_step` does."""
+    step = build_ot_step(_ot_args(), torch.device(dev))
+    batch, _ = ot_slice_batch(dev)
+    on_dev = [(k, t.to(dev)) for k, t in draws]
+    cost = step.cost(batch, ReplayNoise(on_dev))
+    if plans is None:
+        plans = step.plans(cost, batch).cpu()
+    return cost.cpu(), plans, _measure_step(
+        step, {"model": step.model},
+        (batch, ReplayNoise(on_dev), plans.to(dev)), perturb)
+
+
+# The OT step on the card against the same step on the CPU, float32, with
+# the same draws and plans: both run the port and differ in summation
+# order.  The torsion head magnifies float32 rounding: `c_mlp`'s
+# coefficients reach the loss through each pair's 2x2 inverse, divided by
+# its determinant, and the min / max over permutations switch under it (the
+# CPU port against the JAX package at the test size: worst leaf 6.4e-4, L2
+# 1.4e-6, tests/test_torch_port_ot.py; the card against the CPU at full
+# size: 1.2e-2 in c_mlp.Dense_0.weight, L2 1.7e-5, the same 1.2e-2 in the
+# float32 witness below, and no leaf the witness bounds above 1.12x its
+# witness; NVIDIA H100 80GB HBM3, 700.00 W).  So each leaf is held to
+# OT_WITNESS_FACTOR times the witness, the CPU step's own move under
+# weights perturbed by 2**-20 relative (8 float32 ulps), or OT_TOL["leaf"]
+# where that is larger; the loss, the cost and the gradient's L2 to
+# OT_TOL.  The model has neither zero-gradient leaves nor running
+# statistics ("zero", "stats").  Two planted faults must fail the check:
+# a zeroed receiver-gather backward (every backbone leaf) and the torsion
+# head's gradient alone scaled by 1 + OT_HEAD_FAULT (it read 6.25e-2
+# against c_mlp's bounds of 4.7e-2, 3.4e-2, 1e-3, 1e-3, and L2 2.2e-4).
+OT_TOL = {"cost": 1e-5, "loss": 1e-5, "leaf": 1e-3, "l2": 1e-4, "zero": 0.0,
+          "stats": 0.0}
+OT_WITNESS_REL = 2.0 ** -20
+OT_WITNESS_FACTOR = 4.0
+OT_HEAD_FAULT = 1.0 / 16
+OT_HEAD = ("model.c_mlp.", "model.alpha_mlp.")
+
+
+def _ot_violations(one: tuple, ref: tuple, leaf_tol: dict):
+    """An `_ot_one_step` result against the CPU's `ref`: (the cost's and
+    loss's relative errors, `_readings` of the gradients, what breaks the
+    check)."""
+    (cost, _, (loss, grads)), (rcost, _, (rloss, rgrads)) = one, ref
+    real = rcost < 1e8
+    c = {"cost": float((cost - rcost)[real].abs().max()
+                       / rcost[real].abs().max()),
+         "loss": abs(loss - rloss) / abs(rloss)}
+    r = _readings(grads, rgrads, ("model",), zero_leaves=())
+    bad = [] if torch.equal(cost >= 1e8, ~real) else [
+        "masked cost entries differ"]
+    bad += [f"{k} {c[k]:.3g}" for k in c if c[k] > OT_TOL[k]]
+    return c, r, bad + _violations(r, OT_TOL, {"model": OT_TOL["l2"]},
+                                   leaf_tol)
+
+
+def _print_ot_leaves(tag: str, r: dict, leaf_tol: dict):
+    """The leaf nearest its bound and the torsion head's leaves."""
+    leaves = r["model"]["leaves"]
+    k = max(leaves, key=lambda k: leaves[k] / leaf_tol[k])
+    head = ", ".join(f"{n[6:]} {e:.3g} of {leaf_tol[n]:.3g}"
+                     for n, e in leaves.items() if n.startswith(OT_HEAD))
+    print(f"[ot] {tag}: nearest its bound {leaves[k]:.3g} of "
+          f"{leaf_tol[k]:.3g} ({k}); the torsion head: {head}")
+
+
+def _zeroed_receiver_gather_backward():
+    """The OT step check's first planted fault: the receiver gather's
+    backward returns zeros.  Returns the undo."""
+    mod = importlib.import_module("infomax3d_tpu_torch.ops.segment")
+    real = mod.csr_segment_sum
+    mod.csr_segment_sum = lambda ct, rp: torch.zeros(
+        rp.shape[0] - 1, ct.shape[1], dtype=ct.dtype, device=ct.device)
+    return lambda: setattr(mod, "csr_segment_sum", real)
+
+
+def _skewed_torsion_head():
+    """The OT step check's second planted fault, confined to the torsion
+    head: the clipped gradient of `c_mlp` is scaled by 1 + OT_HEAD_FAULT.
+    Returns the undo."""
+    real = OTStep.loss_and_grads
+
+    def skewed(self, *args):
+        loss = real(self, *args)
+        for p in self.model.c_mlp.parameters():
+            p.grad.mul_(1 + OT_HEAD_FAULT)
+        return loss
+    OTStep.loss_and_grads = skewed
+    return lambda: setattr(OTStep, "loss_and_grads", real)
+
+
+class _HostNoise(GeneratorNoise):
+    """Noise drawn on the host and copied to the card one draw at a time,
+    each copy waiting for the stream; phase 15 times the step with it
+    against the step drawing on the card, to show what host draws cost."""
+
+    def _draw(self, kind: str, shape) -> torch.Tensor:
+        t = super()._draw(kind, shape).to("cuda")
+        self.draws[-1] = (kind, t)
+        return t
+
+
+def phase_ot_train(smi: str) -> dict:
+    """Phase 15: the OT training main path and its checks.  Returns the
+    main-path launches, the step and batch, the step times and sizes."""
+    _reset_counts()
+    out = ot(_ot_args(), steps=TRAIN_STEPS)                     # on the card
+    launches = _counts()
+    per_step = {n: c / TRAIN_STEPS for n, c in launches.items()}
+    _check(per_step == EXPECTED_OT_STEP,
+           f"launches per step {per_step} != {EXPECTED_OT_STEP}")
+    losses = out["losses"]
+    _check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    print(f"[ot] {TRAIN_STEPS} float32 steps through ot(), loss "
+          f"{' '.join(f'{x:.4f}' for x in losses)}; launches per step "
+          f"{per_step}")
+    print(f"[ot] OT training main-path launches: {launches}")
+
+    # one step on the card and on the CPU: the same draws, the CPU's plans
+    batch_cpu, _ = ot_slice_batch("cpu")
+    noise = GeneratorNoise(torch.Generator().manual_seed(99))
+    build_ot_step(_ot_args(), torch.device("cpu")).cost(batch_cpu, noise)
+    ref = _ot_one_step("cpu", noise.draws)
+    plans = ref[1]
+    card = _ot_one_step("cuda", noise.draws, plans)
+    own = _ot_one_step("cuda", noise.draws)[1]
+    print(f"[ot] card plans from the card's own cost vs the CPU's: max "
+          f"|diff| {float((own - plans).abs().max()):.3g}")
+    witness = _readings(_ot_one_step("cpu", noise.draws, plans,
+                                     OT_WITNESS_REL)[2][1], ref[2][1],
+                        ("model",), zero_leaves=())
+    leaf_tol = {k: max(OT_TOL["leaf"], OT_WITNESS_FACTOR * e)
+                for k, e in witness["model"]["leaves"].items()}
+    _print_readings(f"float32 witness (CPU, weights x (1 + "
+                    f"{OT_WITNESS_REL:g} U(-1, 1)) vs CPU)", witness,
+                    {"model": float("inf")}, "ot")
+    c, r, bad = _ot_violations(card, ref, leaf_tol)
+    print(f"[ot] card vs CPU: loss {card[2][0]:.6f} vs {ref[2][0]:.6f} "
+          f"({c['loss']:.3g}), cost {c['cost']:.3g} (tol {OT_TOL})")
+    _print_readings("card vs CPU", r, {"model": OT_TOL["l2"]}, "ot")
+    _print_ot_leaves("card vs CPU", r, leaf_tol)
+    w = witness["model"]["leaves"]
+    ratio = max((e / w[k] for k, e in r["model"]["leaves"].items()
+                 if OT_WITNESS_FACTOR * w[k] > OT_TOL["leaf"]), default=0.0)
+    print(f"[ot] card vs CPU: largest leaf error over its witness, among "
+          f"the leaves the witness bounds, {ratio:.3g} (factor "
+          f"{OT_WITNESS_FACTOR:g})")
+    _check(not bad, f"OT step card vs CPU: {bad}")
+    for fault, plant in (
+            ("zeroed receiver-gather backward",
+             _zeroed_receiver_gather_backward),
+            (f"c_mlp gradient x (1 + {OT_HEAD_FAULT:g})",
+             _skewed_torsion_head)):
+        undo = plant()
+        try:
+            planted = _ot_one_step("cuda", noise.draws, plans)
+        finally:
+            undo()
+        _, rp, bad = _ot_violations(planted, ref, leaf_tol)
+        _print_readings(f"planted fault ({fault}) card vs CPU", rp,
+                        {"model": OT_TOL["l2"]}, "ot")
+        _print_ot_leaves(f"planted fault ({fault})", rp, leaf_tol)
+        print(f"[ot] planted fault ({fault}): {len(bad)} violations, e.g. "
+              f"{bad[:3]}")
+        _check(bool(bad), f"the OT step check passed a planted fault "
+                          f"({fault})")
+
+    # warm steps: each part timed on the host clock around synchronized
+    # work, then whole steps back to back with CUDA events
+    step, batch = out["step"], out["batch"]
+    parts = {"cost pass": 0.0, "host EMD": 0.0, "gradient pass + update": 0.0}
+    n = 10
+    for i in range(n + 2):
+        noise = GeneratorNoise(torch.Generator("cuda").manual_seed(1000 + i))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cost = step.cost(batch, noise)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        plans = step.plans(cost, batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        step.loss_and_grads(batch, ReplayNoise(noise.draws), plans)
+        step.optimizer.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if i >= 2:
+            for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+                parts[key] += dt * 1e3 / n
+    seeds = iter(range(2000, 3000))
+    step_ms = cuda_ms(lambda: step.step(
+        batch, torch.Generator("cuda").manual_seed(next(seeds))), iters=10)
+    sizes = out["sizes"]
+    print(f"[ot] step: {step_ms:.4f} ms, {OT_BATCH / step_ms * 1e3:.2f} "
+          f"graphs/s (CUDA events over 10 warm steps); parts (host clock, "
+          f"mean of {n}): " + ", ".join(f"{k} {v:.4f} ms"
+                                        for k, v in parts.items())
+          + f"; batch {sizes}; {smi}")
+
+    # what the host's draws cost: whole steps with the noise drawn on the
+    # card against steps whose noise is drawn on the host and copied, in
+    # alternating blocks of 4
+    mod = importlib.import_module("infomax3d_tpu_torch.train.ot")
+    times = {"card": [], "host": []}
+    for _ in range(3):
+        for where in times:
+            if where == "host":
+                mod.GeneratorNoise = _HostNoise
+            try:
+                times[where].append(cuda_ms(lambda: step.step(
+                    batch, torch.Generator(
+                        "cuda" if where == "card" else "cpu").manual_seed(
+                            next(seeds))), iters=4, warmup=1))
+            finally:
+                mod.GeneratorNoise = GeneratorNoise
+    card_ms, host_ms = (float(np.mean(v)) for v in times.values())
+    print(f"[ot] noise drawn on the card {card_ms:.4f} ms per step, on the "
+          f"host with {2 * 2 * OT_CONFS + 2} copies {host_ms:.4f} ms "
+          f"(difference {host_ms - card_ms:.4f} ms; CUDA events, 3 "
+          f"alternating blocks of 4 warm steps each: card "
+          f"{', '.join(f'{t:.4f}' for t in times['card'])}, host "
+          f"{', '.join(f'{t:.4f}' for t in times['host'])})")
+    return {"launches": launches, "step": step, "batch": batch,
+            "step_ms": step_ms, "parts": parts}
+
+
+def phase_ot_profile(ot_run: dict, n: int = 3) -> dict:
+    """Phase 16a: torch.profiler's CUDA kernel records over `n` warm OT
+    steps -> device-busy ms per step, the idle share of the CUDA-event
+    step time, kernels per step, the port's kernels and the top kernels.
+    Returns each port kernel's in-step ms per launch."""
+    from torch.profiler import ProfilerActivity, profile
+    step, batch = ot_run["step"], ot_run["batch"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            step.step(batch, torch.Generator("cuda").manual_seed(3000 + i))
+        torch.cuda.synchronize()
+    by_name = _profile_kernels(prof)
+    in_step = {}
+    if not by_name:
+        print("[ot-profile] the profiler recorded no device activity; not "
+              "measured")
+        return in_step
+    busy = sum(us for us, _ in by_name.values()) / n / 1e3
+    kernels = sum(c for _, c in by_name.values()) / n
+    ms = ot_run["step_ms"]
+    print(f"[ot-profile] step: device busy {busy:.4f} ms of {ms:.4f} ms per "
+          f"step (idle share {1 - busy / ms:.3f}), {kernels:.0f} kernels per "
+          f"step")
+    for kname, (us, launches) in _port_kernels(by_name).items():
+        in_step[kname] = us / launches / 1e3
+        print(f"[ot-profile]   {kname}: {us / launches:.2f} us per launch in "
+              f"the step, {launches / n:.0f} launches per step")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    for name, (us, cnt) in top:
+        print(f"[ot-profile]   {us / n:9.2f} us/step  {cnt / n:5.0f}x  "
+              f"{name[:90]}")
+    return in_step
+
+
+def phase_ot_kernel_times(ob, launches: dict, errs: dict,
+                          in_step: dict) -> list:
+    """Phase 16b: the CSR segment sum at the OT batch's shapes (D = 50), in
+    float32 (the step's variant, in the kernels line) and in bf16."""
+    gr = ob.graph
+    rp = gr.csr_row_ptr
+    N, E, D = gr.num_nodes, gr.senders.shape[0], OT_WIDTH
+    e_real = int(rp[-1])
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    recv = gr.receivers.long().clamp(max=N)
+    acc = torch.zeros(N + 1, D, device="cuda")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    row = None
+    for dt in (torch.bfloat16, torch.float32):
+        ct = torch.randn(E, D, generator=gen, device="cuda").to(dt)
+        ctf = ct.float()
+        esz = 2 if dt == torch.bfloat16 else 4
+        # the real ct rows, row_ptr, [N, D] of ct's type out; one add per
+        # real element
+        nbytes = e_real * D * esz + (N + 1) * 4 + N * D * esz
+        warm = device_ms(lambda: csr_segment_sum(ct, rp), iters=100,
+                         warmup=10)
+        ms = device_ms(lambda: csr_segment_sum(ct, rp), iters=20,
+                       flush=flush)
+        plain_ms = device_ms(lambda: csr_segment_sum_reference(ct, rp),
+                             iters=10)
+        # the nearest PyTorch call: one float32 index_add_ by receiver
+        lib_ms = device_ms(lambda: acc.zero_().index_add_(0, recv, ctf),
+                           iters=100, warmup=10)
+        bound_ms, bound_by = _bound(nbytes, float(e_real * D))
+        step_ms = in_step.get("csr_segment_sum")
+        in_step_ms = ("not measured" if step_ms is None
+                      else f"{step_ms:.5f} ms")
+        print(f"[times] csr_segment_sum ({dt}, D={D}, {_vector_path(dt, D)} "
+              f"path): device {ms:.5f} ms cold-L2 median, {warm:.5f} ms "
+              f"warm, {in_step_ms} in the float32 step (mean of its launches); plain "
+              f"{plain_ms:.5f} ms; library {lib_ms:.5f} ms (float32 "
+              f"index_add_); bound {bound_ms:.5f} ms by {bound_by} "
+              f"({nbytes / 1e6:.3f} MB, {e_real * D / 1e6:.3f} MFLOP f32)")
+        src, replaces = KERNEL_INFO["csr_segment_sum"]
+        row = {"name": "csr_segment_sum", "route": "cuda", "source": src,
+               "replaces": replaces, "launches": launches["csr_segment_sum"],
+               "max_abs_err": errs["csr_segment_sum"], "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": lib_ms}
+    return [row]      # the float32 variant
+
+
 class _Phase:
     """Prints a phase's seconds when it ends (and lets its error pass)."""
 
@@ -1273,10 +1731,16 @@ def main() -> int:
         errs.update(phase_gin_kernels(gg))
     with _Phase("12 GIN training"):
         gin = phase_gin_train(smi)
-    # every kernel's launches over the three main paths (serving,
-    # pre-training, GIN training)
+    ob, _ = ot_slice_batch()
+    with _Phase("14 OT kernel"):
+        errs.update(phase_ot_kernels(ob, g))
+    with _Phase("15 OT training"):
+        ot_run = phase_ot_train(smi)
+    # every kernel's launches over the four main paths (serving,
+    # pre-training, GIN training, OT training)
     launches = {n: serve_launches[n] + train["launches"][n]
-                + gin["launches"][n] for n in serve_launches}
+                + gin["launches"][n] + ot_run["launches"][n]
+                for n in serve_launches}
     with _Phase("6 kernel times"):
         rows = phase_kernel_times(g, launches, errs)
     with _Phase("9 training profile"):
@@ -1286,6 +1750,9 @@ def main() -> int:
     with _Phase("13 GIN profile and kernel times"):
         gin_in_step = phase_gin_profile(gin)
         rows += phase_gin_kernel_times(gg, launches, errs, gin_in_step)
+    with _Phase("16 OT profile and kernel times"):
+        ot_in_step = phase_ot_profile(ot_run)
+        rows += phase_ot_kernel_times(ob, launches, errs, ot_in_step)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,35 +1,43 @@
-// CSR sum: per node n, the float32 sum of its incoming edge messages
-//   out[n] = sum of msg[e] over its CSR (receiver-sorted) range
-//            e in [row_ptr[n], row_ptr[n+1])
+// Two kernels on one CSR walk: per node n, the sum of its receiver-sorted
+// edge rows e in [row_ptr[n], row_ptr[n+1]),
+//   csr_sum:          out[n] = sum, float32 whatever the rows' type
+//   csr_segment_sum:  out[n] = the sum rounded once to the rows' own type
 //
-// Replaces: the Pallas kernel `_sum_kernel` of infomax3d_tpu/ops/pallas/
-//   spmm.py (wrapper `_csr_sum_raw`, public `csr_sum` / `csr_mean`), the
-//   aggregation of every GIN layer (`edge_aggregate(g, msg, "sum")`).
-// Contract: messages float32 or bf16, output float32 whatever the input
-//   type (as the TPU kernel's); each sum is accumulated in float32 in range
-//   order (slot 0 first).  Padding edges lie past row_ptr[N] and nodes
-//   without edges (padding nodes included) get 0.
-// Bound on the card: device-memory bytes: it reads each real message row
-//   once and writes [N, D] float32, one add per element read; at the GIN
-//   slice's shapes (E_real = 6680, N = 3328, D = 300) 4.0 MB read + 4.0 MB
-//   written in bf16, 8.0 + 4.0 MB in float32.
+// Replaces: the Pallas kernels of infomax3d_tpu/ops/pallas/spmm.py
+//   `_sum_kernel` (wrapper `_csr_sum_raw`, public `csr_sum` / `csr_mean`),
+//   the aggregation of every GIN layer (`edge_aggregate(g, msg, "sum")`),
+//   and `_seg_sum_kernel` (wrapper `_csr_seg_sum_raw`, public
+//   `csr_segment_sum_bf16`), the backward of the receiver gather
+//   (`take_rows` with `row_ptr` and no `perm`, i.e. `gather_dst`), run once
+//   per `PNALayerEdgeUpdate` layer.  Each keeps its own `__global__` and
+//   exported symbols, so a profile tells them apart.
+// Contract: rows float32 or bf16; each sum is accumulated in float32 in
+//   range order (slot 0 first), and csr_segment_sum rounds it once
+//   (__float2bfloat16_rn for bf16).  Padding edges lie past row_ptr[N] and
+//   never enter a sum; nodes without edges (padding nodes included) get 0.
+// Bound on the card: device-memory bytes: each real row is read once and
+//   [N, D] written, one add per element read; at the GIN slice's shapes
+//   (E_real = 6680, N = 3328, D = 300) 4.0 MB read + 4.0 MB written in bf16
+//   for csr_sum; at the OT slice's (E_real ~ 600, N = 512, D = 50) well
+//   under 1 MB, so a launch's latency sets csr_segment_sum's time there.
 // Design: the CSR walk of multi_reduce.cu without its other statistics: one
 //   thread per (node, column vector), the node's rows read in order (a
 //   warp's threads cover neighbouring vectors of one row, so its loads
-//   coalesce), the sum in registers, no atomics, deterministic.  The vector
-//   is 16 bytes where a row holds whole 16-byte vectors and 8 bytes where
-//   it holds whole 8-byte ones (D = 300 in bf16: 600-byte rows, 75 vectors
-//   of 4), else one element (`vec_width`).
+//   coalesce), the sum in registers, one owner per output, no atomics,
+//   deterministic.  The vector is 16 bytes where a row holds whole 16-byte
+//   vectors and 8 bytes where it holds whole 8-byte ones (D = 300 in bf16:
+//   600-byte rows, 75 vectors of 4; D = 50 in float32: 200-byte rows, 25
+//   vectors of 2), else one element (D = 50 in bf16) (`vec_width`).
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 
-template <typename T, int VEC>
-__global__ void __launch_bounds__(THREADS)
-csr_sum_kernel(const T* __restrict__ msg, const int* __restrict__ row_ptr,
-               float* __restrict__ out, int N, int D) {
+template <typename T, typename O, int VEC>
+__device__ __forceinline__ void csr_walk(const T* __restrict__ rows,
+                                         const int* __restrict__ row_ptr,
+                                         O* __restrict__ out, int N, int D) {
   const int nvec = D / VEC;
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
@@ -41,38 +49,60 @@ csr_sum_kernel(const T* __restrict__ msg, const int* __restrict__ row_ptr,
   for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
   for (int e = row_ptr[n]; e < row_ptr[n + 1]; ++e) {
     float m[VEC];
-    load_vec<T, VEC>(msg + static_cast<int64_t>(e) * D + c, m);
+    load_vec<T, VEC>(rows + static_cast<int64_t>(e) * D + c, m);
 #pragma unroll
     for (int k = 0; k < VEC; ++k) acc[k] = __fadd_rn(acc[k], m[k]);
   }
-  store_vec<float, VEC>(out + static_cast<int64_t>(n) * D + c, acc);
+  store_vec<O, VEC>(out + static_cast<int64_t>(n) * D + c, acc);
 }
 
 template <typename T, int VEC>
-void launch_width(const T* m, const int* rp, float* o, int N, int D,
+__global__ void __launch_bounds__(THREADS)
+csr_sum_kernel(const T* __restrict__ msg, const int* __restrict__ row_ptr,
+               float* __restrict__ out, int N, int D) {
+  csr_walk<T, float, VEC>(msg, row_ptr, out, N, D);
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(THREADS)
+csr_segment_sum_kernel(const T* __restrict__ ct,
+                       const int* __restrict__ row_ptr, T* __restrict__ out,
+                       int N, int D) {
+  csr_walk<T, T, VEC>(ct, row_ptr, out, N, D);
+}
+
+// SEGMENT: csr_segment_sum_kernel (output of the rows' type), else
+// csr_sum_kernel (float32 output).
+template <bool SEGMENT, typename T, int VEC>
+void launch_width(const T* r, const int* rp, void* o, int N, int D,
                   cudaStream_t st) {
   const int64_t items = static_cast<int64_t>(N) * (D / VEC);
   const dim3 grid(static_cast<unsigned>((items + THREADS - 1) / THREADS));
-  csr_sum_kernel<T, VEC><<<grid, THREADS, 0, st>>>(m, rp, o, N, D);
+  if constexpr (SEGMENT) {
+    csr_segment_sum_kernel<T, VEC><<<grid, THREADS, 0, st>>>(
+        r, rp, static_cast<T*>(o), N, D);
+  } else {
+    csr_sum_kernel<T, VEC><<<grid, THREADS, 0, st>>>(
+        r, rp, static_cast<float*>(o), N, D);
+  }
 }
 
-template <typename T>
-cudaError_t launch(const void* msg, const void* row_ptr, void* out, int N,
+template <bool SEGMENT, typename T>
+cudaError_t launch(const void* rows, const void* row_ptr, void* out, int N,
                    int D, void* stream) {
   if (N <= 0 || D <= 0) return cudaSuccess;
   auto st = static_cast<cudaStream_t>(stream);
-  const auto* m = static_cast<const T*>(msg);
+  const auto* r = static_cast<const T*>(rows);
   const auto* rp = static_cast<const int*>(row_ptr);
-  auto* o = static_cast<float*>(out);
-  const void* ptrs[2] = {msg, out};
+  const void* ptrs[2] = {rows, out};
   constexpr int V16 = 16 / sizeof(T), V8 = 8 / sizeof(T);
   const int vec = vec_width<T>(D, ptrs, 2);
   if (vec == V16) {
-    launch_width<T, V16>(m, rp, o, N, D, st);
+    launch_width<SEGMENT, T, V16>(r, rp, out, N, D, st);
   } else if (vec == V8) {
-    launch_width<T, V8>(m, rp, o, N, D, st);
+    launch_width<SEGMENT, T, V8>(r, rp, out, N, D, st);
   } else {
-    launch_width<T, 1>(m, rp, o, N, D, st);
+    launch_width<SEGMENT, T, 1>(r, rp, out, N, D, st);
   }
   return cudaGetLastError();
 }
@@ -82,10 +112,23 @@ cudaError_t launch(const void* msg, const void* row_ptr, void* out, int N,
 // msg [E, D] (float32 or bf16), row_ptr [N + 1] int32, out [N, D] float32.
 PORT_API cudaError_t csr_sum_f32(const void* msg, const void* row_ptr,
                                  void* out, int N, int D, void* stream) {
-  return launch<float>(msg, row_ptr, out, N, D, stream);
+  return launch<false, float>(msg, row_ptr, out, N, D, stream);
 }
 
 PORT_API cudaError_t csr_sum_bf16(const void* msg, const void* row_ptr,
                                   void* out, int N, int D, void* stream) {
-  return launch<__nv_bfloat16>(msg, row_ptr, out, N, D, stream);
+  return launch<false, __nv_bfloat16>(msg, row_ptr, out, N, D, stream);
+}
+
+// ct [E, D], row_ptr [N + 1] int32, out [N, D] of ct's type.
+PORT_API cudaError_t csr_segment_sum_f32(const void* ct, const void* row_ptr,
+                                         void* out, int N, int D,
+                                         void* stream) {
+  return launch<true, float>(ct, row_ptr, out, N, D, stream);
+}
+
+PORT_API cudaError_t csr_segment_sum_bf16(const void* ct, const void* row_ptr,
+                                          void* out, int N, int D,
+                                          void* stream) {
+  return launch<true, __nv_bfloat16>(ct, row_ptr, out, N, D, stream);
 }

@@ -23,12 +23,25 @@ flax component              torch component
 ``<kind>_encoder/encoder/   ``<kind>_encoder.<kind>_embedding_list.{i}.
 emb_{i}``                   weight``
 ``<dense>/kernel``          ``<dense>.weight`` (a bare Dense, transposed)
-``node_embedding``, ``eps`` the same name (a bare parameter)
+``node_embedding``, ``eps``, the same name (a bare parameter)
+``edge_eps``, ``node_eps``
 ==========================  ===========================================
 
+``Dense_0`` and ``MaskedBatchNorm_0`` become ``linear`` and ``batch_norm``
+only inside an ``FCLayer_{i}``.  Where the reference's names are not in
+that table, the port's modules carry flax's own submodule names, which
+therefore pass through unchanged: the OT model's ``gnn``, ``gnn2``,
+``encoder`` (``self_attn/in_proj``, ``out_proj``, ``norm1``, ``linear1``,
+``linear2``, ``norm2``; a LayerNorm's ``scale`` -> ``weight``),
+``coord_pred``, ``d_mlp``, ``h_mol_mlp``, ``alpha_mlp``, ``c_mlp`` and the
+backbone's ``node_init`` / ``edge_init`` (GeoMol MLPs whose Linears are
+``Dense_{k}``), and the edge-update layer's ``edge``, ``node_in``,
+``node_out``, ``pretrans``, ``posttrans_1``, ``posttrans_2``.
+
 `init_jax_variables` makes seeded numpy trees in the flax layout of a PNA,
-Net3DDense or OGBGNN configuration, for serving and training without a
-checkpoint and for tests; `load_variables` loads such trees into a module.
+Net3DDense, OGBGNN or OptimalTransportModel configuration, for serving and
+training without a checkpoint and for tests; `load_variables` loads such
+trees into a module.
 """
 from __future__ import annotations
 
@@ -67,7 +80,10 @@ def _component(c: str, parent: str = "") -> str:
     for stem, name in _INDEXED:
         if _indexed(c, stem):
             return f"{name}.{c[len(stem):]}"
-    return {"Dense_0": "linear", "MaskedBatchNorm_0": "batch_norm"}.get(c, c)
+    if _indexed(parent, "FCLayer_"):
+        return {"Dense_0": "linear",
+                "MaskedBatchNorm_0": "batch_norm"}.get(c, c)
+    return c
 
 
 def _components(mods) -> list:
@@ -82,7 +98,7 @@ _LEAVES = {("params", "kernel"): "weight", ("params", "bias"): "bias",
 
 
 # parameters that are leaves of their module, not of a Dense or BatchNorm
-_BARE = ("node_embedding", "eps")
+_BARE = ("node_embedding", "eps", "edge_eps", "node_eps")
 
 
 def _torch_name(collection: str, path: Tuple[str, ...]) -> str:
@@ -160,15 +176,19 @@ def init_jax_variables(model_parameters: Mapping, seed: int = 0,
     """Seeded numpy (params, batch_stats) trees in the flax layout of
     `PNA(**model_parameters)` (or of `Net3DDense` for `model_type`
     "Net3DDense" / "Net3D", of `OGBGNN` without a virtual node for
-    "OGBGNN"): Xavier-uniform weights, small random biases, BatchNorm
-    scales in [0.5, 1.5] and non-trivial running statistics (so an eval
-    forward exercises every fold), a non-zero GIN `eps`.  float32 leaves."""
+    "OGBGNN", of the OT model with the `PNAGNNRandomEdgeUpdate` backbone
+    for "OptimalTransportModel"): Xavier-uniform weights, small random
+    biases, BatchNorm and LayerNorm scales in [0.5, 1.5] and non-trivial
+    running statistics (so an eval forward exercises every fold), non-zero
+    GIN `eps` and edge-update `edge_eps` / `node_eps`.  float32 leaves."""
     mp = dict(model_parameters)
     rng = np.random.default_rng(seed)
     if model_type in ("Net3D", "Net3DDense"):
         return _init_net3d_dense(mp, rng)
     if model_type == "OGBGNN":
         return _init_ogbgnn(mp, rng)
+    if model_type == "OptimalTransportModel":
+        return _init_optimal_transport(mp, rng)
     if model_type != "PNA":
         raise ValueError(f"no numpy init for model_type {model_type!r}")
     d = mp["hidden_dim"]
@@ -220,6 +240,79 @@ def _init_ogbgnn(mp: Dict[str, Any], rng):
     params = {"node_gnn": gnn, "graph_pred_linear": _dense_tree(
         rng, d, mp.get("target_dim", 1))}
     return _f32(params), _f32({"node_gnn": stats})
+
+
+def _geomol_mlp_tree(rng, in_dim, out_dim, num_layers):
+    """A GeoMol MLP: `num_layers` hidden Denses of width in_dim when
+    out_dim < 10, else out_dim, then the output Dense."""
+    h = in_dim if out_dim < 10 else out_dim
+    dims = [in_dim] + [h] * num_layers + [out_dim]
+    return {f"Dense_{k}": _dense_tree(rng, dims[k], dims[k + 1])
+            for k in range(num_layers + 1)}
+
+
+def _norm_tree(rng, d):
+    return {"scale": rng.uniform(0.5, 1.5, d), "bias": rng.normal(0.0, 0.1, d)}
+
+
+def _init_edge_update_gnn(gp: Mapping, rng):
+    """`PNAGNNRandomEdgeUpdate(**gp)` (no BatchNorm in its MLPs)."""
+    d, rvd = gp["hidden_dim"], gp["random_vec_dim"]
+    parts = len(gp["aggregators"]) * (len(gp["scalers"])
+                                      if len(gp["scalers"]) > 1 else 1)
+    pre, post = gp.get("pretrans_layers", 1), gp.get("posttrans_layers", 1)
+    gnn: Dict[str, Any] = {
+        "atom_encoder": {"encoder": _emb_tree(rng, FULL_ATOM_FEATURE_DIMS,
+                                              d)},
+        "bond_encoder": {"encoder": _emb_tree(rng, FULL_BOND_FEATURE_DIMS,
+                                              d)},
+        "node_init": _geomol_mlp_tree(rng, d + rvd, d, 2),
+        "edge_init": _geomol_mlp_tree(rng, d + rvd, d, 2)}
+    for i in range(gp.get("propagation_depth", 5)):
+        gnn[f"mp_{i}"] = {
+            "edge": _dense_tree(rng, d, d),
+            "node_in": {"kernel": _dense_tree(rng, d, d)["kernel"]},
+            "node_out": {"kernel": _dense_tree(rng, d, d)["kernel"]},
+            "pretrans": _mlp_tree(rng, d, d, pre, d, False, False)[0],
+            "edge_eps": rng.normal(0.0, 0.1, 1),
+            "posttrans_1": _mlp_tree(rng, d, d, post, d, False, False)[0],
+            "node_eps": rng.normal(0.0, 0.1, 1),
+            "posttrans_2": _mlp_tree(rng, parts * d, d, post, d, False,
+                                     False)[0]}
+    return gnn
+
+
+def _init_optimal_transport(mp: Dict[str, Any], rng):
+    """`OptimalTransportModel(hyperparams, gnn_params, gnn_model=
+    "PNAGNNRandomEdgeUpdate")`: two backbones, the neighbourhood
+    transformer and the five GeoMol MLPs, with the JAX module's default
+    layer counts where the hyperparameters are silent.  No BatchNorm, so
+    the batch_stats tree is empty."""
+    hp = mp["hyperparams"]
+    gp = dict(mp["gnn_params"])
+    gp.setdefault("random_vec_dim", hp["random_vec_dim"])
+    H = hp["hidden_dim"]
+
+    def layers(name, default):
+        return hp.get(name, {}).get("n_layers", default)
+    params = {"gnn": _init_edge_update_gnn(gp, rng),
+              "gnn2": _init_edge_update_gnn(gp, rng),
+              "encoder": {
+                  "self_attn": {"in_proj": _dense_tree(rng, 2 * H, 6 * H),
+                                "out_proj": _dense_tree(rng, 2 * H, 2 * H)},
+                  "norm1": _norm_tree(rng, 2 * H),
+                  "linear1": _dense_tree(rng, 2 * H, 3 * H),
+                  "linear2": _dense_tree(rng, 3 * H, 2 * H),
+                  "norm2": _norm_tree(rng, 2 * H)},
+              "coord_pred": _geomol_mlp_tree(rng, 2 * H, 3,
+                                             layers("coord_pred", 2)),
+              "d_mlp": _geomol_mlp_tree(rng, 2 * H, 1, layers("d_mlp", 1)),
+              "h_mol_mlp": _geomol_mlp_tree(rng, H, H,
+                                            layers("h_mol_mlp", 1)),
+              "alpha_mlp": _geomol_mlp_tree(rng, 3 * H, 1,
+                                            layers("alpha_mlp", 2)),
+              "c_mlp": _geomol_mlp_tree(rng, 4 * H, 1, layers("c_mlp", 1))}
+    return _f32(params), {}
 
 
 def _init_net3d_dense(mp: Dict[str, Any], rng):

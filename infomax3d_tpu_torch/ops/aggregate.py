@@ -1,7 +1,8 @@
 """Aggregation over receiver-sorted CSR batches: the PNA aggregates (port
 of `pna_csr_aggregate_parts` and its dispatch, infomax3d_tpu/ops/pallas/
-spmm.py, and `pna_aggregate_parts`, infomax3d_tpu/ops/mailbox.py) and the
-GIN pair `gather_src` / `edge_aggregate` (`ops/mailbox.py`).
+spmm.py, and `pna_aggregate_parts`, infomax3d_tpu/ops/mailbox.py), the
+node gathers `gather_src` / `gather_dst` and `edge_aggregate`
+(`ops/mailbox.py`).
 
 Dispatch as in the JAX package: bf16 messages with max_deg <= 16 go to the
 fused stats kernel (`pna_stats`, with the pretrans BatchNorm folded in as a
@@ -18,7 +19,7 @@ import torch
 from infomax3d_tpu_torch.ops.kernels import (csr_mean, csr_sum,
                                              multi_reduce, pna_stats)
 from infomax3d_tpu_torch.ops.kernels.pna_stats import MAX_SLOTS
-from infomax3d_tpu_torch.ops.segment import EPS, take_rows
+from infomax3d_tpu_torch.ops.segment import EPS, take_rows, take_rows_recv
 
 
 class AffinePart(NamedTuple):
@@ -111,6 +112,13 @@ def gather_src(g, h: torch.Tensor) -> torch.Tensor:
     batch's CSC arrays (`ops/segment.py::take_rows`), as the JAX package's
     `gather_src` on CSR batches."""
     return take_rows(h, g.senders, g.csc_row_ptr, g.csc_perm)
+
+
+def gather_dst(g, h: torch.Tensor) -> torch.Tensor:
+    """``h[receivers]``; its backward is the CSR segment sum over the
+    batch's `csr_row_ptr` (`ops/segment.py::take_rows_recv`), as the JAX
+    package's `gather_dst` on CSR batches."""
+    return take_rows_recv(h, g.receivers, g.csr_row_ptr)
 
 
 def edge_aggregate(g, messages: torch.Tensor, op: str) -> torch.Tensor:

@@ -1,15 +1,64 @@
-"""Graph readout and the sender gather (port of `infomax3d_tpu/ops/
-segment.py`: the dense-regroup path `_regroup` / `_graph_readout_dense` /
-`batch_readout`, and `take_rows` over the senders)."""
+"""Graph readout, the node gathers and plain segment reductions (port of
+`infomax3d_tpu/ops/segment.py`: the dense-regroup path `_regroup` /
+`_graph_readout_dense` / `batch_readout`, `take_rows` over the senders and
+over the receivers, `segment_sum` / `segment_mean`)."""
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
 
+from infomax3d_tpu_torch.ops.kernels.csr_segment_sum import csr_segment_sum
 from infomax3d_tpu_torch.ops.kernels.snd_segment_sum import snd_segment_sum
 
 EPS = 1e-5  # reference models/pna.py:14
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """``[num_segments, ...]``: the rows of `data` summed by segment id
+    (`index_add_`); ids outside [0, num_segments) are dropped, as XLA's
+    scatter drops them (padding rows carry id ``num_segments``)."""
+    ids = segment_ids.long()
+    ids = torch.where((ids >= 0) & (ids < num_segments), ids, num_segments)
+    out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
+    return out.index_add(0, ids, data)[:num_segments]
+
+
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """`segment_sum` over each segment's row count (at least 1)."""
+    ones = torch.ones(segment_ids.shape[0], device=data.device)
+    deg = segment_sum(ones, segment_ids, num_segments).clamp(min=1.0)
+    return segment_sum(data, segment_ids, num_segments) / deg.reshape(
+        (-1,) + (1,) * (data.ndim - 1))
+
+
+class TakeRowsRecv(torch.autograd.Function):
+    """``nodes[idx.clamp(0, N - 1)]`` for the batch's receivers `idx`
+    (receiver-sorted, padding last); the backward sums each node's CSR range
+    of the cotangent (`csr_segment_sum`: the CSR segment-sum kernel on the
+    card), so no scatter runs.  Padding edges lie past ``row_ptr[N]``: their
+    cotangent is dropped, as the JAX package's `take_rows` drops it."""
+
+    @staticmethod
+    def forward(ctx, nodes, idx, row_ptr):
+        ctx.save_for_backward(row_ptr)
+        return nodes[idx.clamp(0, nodes.shape[0] - 1).long()]
+
+    @staticmethod
+    def backward(ctx, ct):
+        row_ptr, = ctx.saved_tensors
+        return csr_segment_sum(ct.contiguous(), row_ptr), None, None
+
+
+def take_rows_recv(nodes: torch.Tensor, receivers: torch.Tensor,
+                   row_ptr: torch.Tensor) -> torch.Tensor:
+    """`nodes [N, D]` gathered at the receiver-sorted `receivers [E]`
+    (padding -> N) -> [E, D]; the gradient is the CSR segment sum over
+    `row_ptr` (the JAX package's `take_rows(..., row_ptr, perm=None)`), in
+    bf16 and float32 alike."""
+    return TakeRowsRecv.apply(nodes, receivers, row_ptr)
 
 
 class TakeRows(torch.autograd.Function):

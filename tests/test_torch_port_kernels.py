@@ -267,3 +267,55 @@ def test_pna_stats_bwd_matches_pallas(csr, jax_csr, with_affine):
         w = np.asarray(w)
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-5,
                                    atol=1e-5 * np.abs(w).max())
+
+
+# --- the receiver-gather backward: the CSR segment sum ----------------------
+
+@pytest.mark.parametrize("width", [50, 200, 300])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_csr_segment_sum_bf16_matches_pallas(csr, width, seed):
+    """bf16: the plain version and `csr_segment_sum_bf16` (interpret mode)
+    both sum at most max_deg bf16 rows in float32 and round once: equal,
+    at the OT width (50), the pre-training width (200) and the GIN width
+    (300).  Rows past row_ptr[N] (padding edges) never count."""
+    from infomax3d_tpu.ops.pallas.spmm import csr_segment_sum_bf16
+    from infomax3d_tpu_torch.ops.kernels import csr_segment_sum_reference
+    arr, b, _ = csr
+    rng = np.random.default_rng(10 + seed)
+    ct = _bf16(rng.normal(size=(b.n_edges, width)) * 3.0)
+    want = csr_segment_sum_bf16(jnp.asarray(ct, jnp.bfloat16),
+                                jnp.asarray(arr["csr_row_ptr"]), b.max_deg,
+                                interpret=True)
+    got = csr_segment_sum_reference(_t(ct).bfloat16(),
+                                    _t(arr["csr_row_ptr"]))
+    assert got.dtype == torch.bfloat16 and got.shape == (b.n_nodes, width)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+    deg = np.diff(arr["csr_row_ptr"])
+    assert (got.float().numpy()[deg == 0] == 0).all()
+    e_real = int(arr["csr_row_ptr"][-1])
+    assert e_real < b.n_edges
+    ct = ct.copy()
+    ct[e_real:] = 1e4
+    again = csr_segment_sum_reference(_t(ct).bfloat16(),
+                                      _t(arr["csr_row_ptr"]))
+    assert torch.equal(again, got)
+
+
+def test_csr_segment_sum_f32_matches_segment_sum(csr):
+    """float32 (the OT step's receiver-gather backward, where the JAX
+    package runs `sorted_segment_sum` on the CPU and XLA's segment sum is
+    the plain reference): the receiver sums of `jax.ops.segment_sum`
+    within 1e-6 relative (order)."""
+    import jax
+    from infomax3d_tpu_torch.ops.kernels import csr_segment_sum_reference
+    arr, b, _ = csr
+    N = b.n_nodes
+    ct = np.random.default_rng(13).normal(size=(b.n_edges, 50)).astype(
+        np.float32)
+    got = csr_segment_sum_reference(_t(ct), _t(arr["csr_row_ptr"]))
+    want = jax.ops.segment_sum(ct, np.minimum(arr["receivers"], N),
+                               num_segments=N + 1)[:N]
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)

@@ -1,7 +1,8 @@
-"""Rules the port lives by: no JAX (nor the JAX package, nor YAML or
-msgpack) at run time, no silent CPU fallback, kernels dispatch by device,
-and `chip_smoke.py` serves and trains the models of
-`configs_clean/pre-train_QM9.yml` and trains the one of `configs/30.yml`."""
+"""Rules the port lives by: no JAX (nor the JAX package, nor YAML, msgpack
+or networkx) at run time, no silent CPU fallback, kernels dispatch by
+device, and `chip_smoke.py` serves and trains the models of
+`configs_clean/pre-train_QM9.yml` and trains those of `configs/30.yml` and
+`configs_clean/pre-train_Optimal_Transport_baseline.yml`."""
 import ast
 import importlib.util
 import json
@@ -16,7 +17,9 @@ import yaml
 from infomax3d_tpu_torch.cli.inference import inference
 from infomax3d_tpu_torch.graphs.batch import batch_graphs, bucket_for
 from infomax3d_tpu_torch.data.synthetic import SyntheticMolecules
-from infomax3d_tpu_torch.ops.kernels import (WRAPPERS, csr_sum,
+from infomax3d_tpu_torch.ops.kernels import (WRAPPERS, csr_segment_sum,
+                                             csr_segment_sum_reference,
+                                             csr_sum,
                                              csr_sum_reference, edge_combine,
                                              edge_combine_reference,
                                              multi_reduce,
@@ -27,7 +30,7 @@ from infomax3d_tpu_torch.ops.kernels import (WRAPPERS, csr_sum,
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "infomax3d_tpu_torch"
-FORBIDDEN = ("jax", "flax", "infomax3d_tpu", "yaml", "msgpack")
+FORBIDDEN = ("jax", "flax", "infomax3d_tpu", "yaml", "msgpack", "networkx")
 
 TINY = dict(target_dim=4, hidden_dim=8, mid_batch_norm=True,
             last_batch_norm=True, readout_batchnorm=True,
@@ -45,6 +48,14 @@ def _forbidden(name: str) -> bool:
 
 TINY_GIN = dict(target_dim=1, num_layers=2, hidden_dim=8, dropout=0.0,
                 emb_dim=8, virtual_node=False)
+
+TINY_OT = {"gnn_model": "PNAGNNRandomEdgeUpdate",
+           "gnn_params": dict(hidden_dim=8, propagation_depth=1,
+                              aggregators=["sum"], scalers=["identity"],
+                              pretrans_layers=2, posttrans_layers=2),
+           "hyperparams": dict(hidden_dim=8, random_vec_dim=2,
+                               random_vec_std=1.0, loss_type="ot_emd",
+                               n_model_confs=2, n_true_confs=2)}
 
 TINY3D = dict(target_dim=4, hidden_dim=4, hidden_edge_dim=4,
               node_wise_output_layers=0, message_net_layers=1,
@@ -72,6 +83,11 @@ out = supervised({{"model_type": "OGBGNN", "model_parameters": {TINY_GIN!r},
                    "loss_func": "BCEWithLogitsLoss", "batch_size": 6,
                    "bf16_compute": True}}, steps=1, device="cpu")
 assert len(out["losses"]) == 1, out
+from infomax3d_tpu_torch.train.ot import ot
+out = ot({{"model_parameters": {TINY_OT!r}, "batch_size": 3,
+          "dataset_params": {{"n_min": 5, "n_max": 9}}}}, steps=1,
+         device="cpu")
+assert len(out["losses"]) == 1, out
 print(json.dumps(sorted(sys.modules)))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
@@ -82,7 +98,9 @@ print(json.dumps(sorted(sys.modules)))
               "ops.kernels.pair_segment_sum", "models.net3d",
               "losses.contrastive", "train.optim", "train.pretrain",
               "ops.kernels.csr_sum", "ops.kernels.snd_segment_sum",
-              "models.gin", "train.supervised"):
+              "models.gin", "train.supervised",
+              "ops.kernels.csr_segment_sum", "data.geomol_featurize",
+              "data.loader", "models.optimal_transport", "train.ot"):
         assert f"infomax3d_tpu_torch.{m}" in mods, m
     assert [m for m in mods if _forbidden(m)] == []
 
@@ -144,6 +162,8 @@ def test_wrappers_on_cpu_use_plain_version(dtype):
     crp, perm = _csc()
     assert torch.equal(snd_segment_sum(x, crp, perm),
                        snd_segment_sum_reference(x, crp, perm))
+    assert torch.equal(csr_segment_sum(x, rp),
+                       csr_segment_sum_reference(x, rp))
     if dtype == torch.bfloat16:
         aff = (torch.ones(D), torch.zeros(D))
         for k, r in zip(pna_stats(x, rp, K, aff, False),
@@ -163,6 +183,8 @@ def test_wrappers_reject_other_devices():
         csr_sum(meta, rp)
     with pytest.raises(ValueError, match="unsupported device"):
         snd_segment_sum(meta, *_csc())
+    with pytest.raises(ValueError, match="unsupported device"):
+        csr_segment_sum(meta, rp)
 
 
 def test_chip_smoke_serves_the_flagship_config():
@@ -198,3 +220,21 @@ def test_chip_smoke_trains_config_30():
     assert chip_smoke.GIN_OPTIMIZER_PARAMS == cfg["optimizer_params"]
     assert cfg["optimizer"] == "Adam"
     assert chip_smoke.GIN_BATCH == cfg["batch_size"]
+
+
+def test_chip_smoke_trains_the_ot_config():
+    """Phase 15 trains `configs_clean/pre-train_Optimal_Transport_baseline.
+    yml`'s model, optimizer and batch size as the file states them."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    with open(ROOT / "configs_clean" /
+              "pre-train_Optimal_Transport_baseline.yml") as f:
+        cfg = yaml.safe_load(f)
+    assert chip_smoke.OT_MODEL_PARAMETERS == cfg["model_parameters"]
+    assert cfg["model_type"] == "OptimalTransportModel"
+    assert cfg["trainer"] == "optimal_transport"
+    assert chip_smoke.OT_OPTIMIZER_PARAMS == cfg["optimizer_params"]
+    assert cfg["optimizer"] == "Adam"
+    assert chip_smoke.OT_BATCH == cfg["batch_size"]
