@@ -13,7 +13,8 @@ its seconds:
 3. kernels: each forward kernel against its plain PyTorch version on the
    same CUDA tensors, at the bench shapes of the port's own batcher (500
    synthetic QM9-like molecules, seed 0: N = 9216, E = 18432, max_deg 4,
-   D = 200).
+   D = 200); the stats kernel also at D = 50 and 300 (its element-wise and
+   8-byte paths) and on a batch with nodes of degree 16.
 4. serving: `inference()` serves 2 requests of 500 molecules through the
    PNA 200x7 model of `configs_clean/pre-train_QM9.yml` (seeded numpy
    weights in the JAX layout, through `params_from_jax`) in bf16 and in
@@ -27,14 +28,18 @@ its seconds:
    version at the bench shapes, beside the least time the card could take
    (bytes over the H100's memory rate, operations over its float32 rate).
 7. training kernels: the pair segment sum (bf16, float32) and the stats
-   backward (with and without the affine) against their plain versions.
+   backward (with and without the affine, with every cotangent or some
+   missing, on phase 3's cases) against their plain versions.
 8. training: the pre-training step of `configs_clean/pre-train_QM9.yml`
    (PNA 200x7 + Net3DDense hidden 20, NT-Xent tau 0.1, Adam lr 8e-5) on the
    port's bench batch through `pretrain()`: launches per step, loss over
    the steps; one bf16 and one float32 step on the card against the same
-   step on the CPU (loss, every gradient, running statistics); ms per
+   step on the CPU (loss, every gradient, running statistics), and two
+   planted faults in the stats backward (zeroed affine cotangents; the
+   d_max / d_min routing dropped) that must each fail that check; ms per
    step, graphs/s and edges/s.
-9. training profile: torch.profiler over warm bf16 steps.
+9. training profile: torch.profiler over warm bf16 steps, the port's
+   kernels split by `__global__`.
 10. training kernel times: the two backward kernels as in phase 6, with
    the nearest PyTorch call where there is one.
 11. GIN kernels: the CSR sum and the sender-keyed segment sum (bf16,
@@ -64,12 +69,15 @@ its seconds:
    pass, host EMD and gradient pass plus update; graphs/s; the step with
    its noise drawn on the card against the same step drawing on the host.
 16. OT profile and kernel times: torch.profiler over warm steps, then the
-   CSR segment sum as in phase 13.
+   CSR segment sum as in phase 13; then the card's launch floor (an empty
+   kernel on the OT step's grid) beside the byte bounds of rows 1, 3 and 4
+   at the OT shapes, and each row's closable gap.
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import ctypes
 import importlib
 import json
 import subprocess
@@ -101,7 +109,8 @@ from infomax3d_tpu_torch.ops.kernels import (WRAPPERS, csr_segment_sum,
                                              pna_stats_reference,
                                              snd_segment_sum,
                                              snd_segment_sum_reference)
-from infomax3d_tpu_torch.ops.kernels._build import build_all
+from infomax3d_tpu_torch.ops.kernels._build import build_all, launcher
+from infomax3d_tpu_torch.ops.kernels.pna_stats_bwd import COTANGENTS
 from infomax3d_tpu_torch.train.pretrain import (build_step, flagship_batches,
                                                 pretrain)
 from infomax3d_tpu_torch.train.ot import OTStep, build_ot_step, ot, ot_batch
@@ -229,11 +238,9 @@ PEAK_F32_FLOPS = 67e12
 # Tolerances of the kernels against their plain versions on the card:
 # edge_combine: both sum the same three float32 terms in the same order and
 #   round once -> bit-exact.
-# pna_stats: max / min / enc select existing values -> exact; sum / mean /
-#   std are float32 statistics rounded to bf16 -> within one bf16 ulp
-#   (rtol 2**-7 bounds one ulp at any magnitude; atol covers exact zeros).
+# pna_stats: the same float32 statistics in the same slot order with the
+#   same rounding points, each rounded once -> bit-exact in every section.
 # multi_reduce: max / min exact; sum / sumsq float32 within 1e-6 relative.
-BF16_ULP = 2.0 ** -7
 F32_REL = 1e-6
 # Fingerprints on the card against the same model and batch on the CPU,
 # relative to max|cpu|: float32 matmuls in full float32 on both (TF32 off,
@@ -330,6 +337,28 @@ def _max_err(pairs) -> float:
     return max(float((k.float() - r.float()).abs().max()) for k, r in pairs)
 
 
+def degree16_csr(N: int = 4096, seed: int = 0):
+    """A receiver-sorted CSR batch on the card with in-degrees 0 to 4 and
+    every 61st node of degree 16, the most the stats kernels take (K =
+    16), then 24 padding edges: (row_ptr, edges with padding)."""
+    deg = np.random.default_rng(seed).integers(0, 5, N)
+    deg[::61] = 16
+    rp = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    return torch.from_numpy(rp).cuda(), int(rp[-1]) + 24
+
+
+def _stats_cases(g):
+    """(name, row_ptr, K, edges, D) on which phases 3 and 7 hold the two
+    statistics kernels: the bench batch at its width (16-byte vectors), at
+    D = 50 (bf16 rows of 100 bytes: one element per thread, 4-byte copies)
+    and at D = 300 (8-byte vectors), and the degree-16 batch."""
+    E = g.senders.shape[0]
+    rp16, e16 = degree16_csr()
+    return [("bench batch", g.csr_row_ptr, g.max_deg, E, D)
+            for D in (WIDTH, OT_WIDTH, 300)] + [
+        ("degree-16 batch", rp16, 16, e16, WIDTH)]
+
+
 def phase_kernels(g) -> dict:
     N, E, D, K = g.num_nodes, g.senders.shape[0], WIDTH, g.max_deg
     print(f"[kernels] N={N} E={E} (real {int(g.csr_row_ptr[-1])}) D={D} "
@@ -355,30 +384,32 @@ def phase_kernels(g) -> dict:
     errs["edge_combine"] = _max_err(pairs)
 
     pairs = []
-    x = randn(E, D, dtype=torch.bfloat16) * 2
-    aff = (torch.rand(D, generator=gen, device="cuda") + 0.5,
-           randn(D) * 0.3)
-    for affine in (None, aff):
-        for want_sum in (True, False):
-            k = pna_stats(x, g.csr_row_ptr, K, affine, want_sum)
-            r = pna_stats_reference(x, g.csr_row_ptr, K, affine, want_sum)
-            torch.cuda.synchronize()
-            tag = f"pna_stats affine={affine is not None} sum={want_sum}"
-            _check((k[0] is None) == (not want_sum), tag + ": sum section")
-            for name, kk, rr in zip(("sum", "mean", "std", "max", "min",
-                                     "enc"), k, r):
-                if kk is None:
-                    continue
-                if name in ("max", "min", "enc"):
-                    _check(torch.equal(kk, rr), f"{tag}: {name} not exact")
-                else:
-                    diff = (kk.float() - rr.float()).abs()
-                    _check(bool((diff <= BF16_ULP * rr.float().abs()
-                                 + 1e-6).all()), f"{tag}: {name} > 1 ulp")
-                if name != "enc":
-                    _check(bool((kk[deg0] == 0).all()),
-                           f"{tag}: {name} nonzero on degree-0 nodes")
-                pairs.append((kk, rr))
+    for name, rp, k_deg, e_all, width in _stats_cases(g):
+        x = randn(e_all, width, dtype=torch.bfloat16) * 2
+        aff = (torch.rand(width, generator=gen, device="cuda") + 0.5,
+               randn(width) * 0.3)
+        empty = (rp[1:] - rp[:-1]) == 0
+        for affine in (None, aff):
+            for want_sum in (True, False):
+                k = pna_stats(x, rp, k_deg, affine, want_sum)
+                r = pna_stats_reference(x, rp, k_deg, affine, want_sum)
+                torch.cuda.synchronize()
+                tag = (f"pna_stats {name} D={width} "
+                       f"({_vector_path(torch.bfloat16, width)} path) "
+                       f"affine={affine is not None} sum={want_sum}")
+                _check((k[0] is None) == (not want_sum),
+                       tag + ": sum section")
+                for sec, kk, rr in zip(("sum", "mean", "std", "max", "min",
+                                        "enc"), k, r):
+                    if kk is None:
+                        continue
+                    _check(torch.equal(kk, rr), f"{tag}: {sec} not exact")
+                    if sec != "enc":
+                        _check(bool((kk[empty] == 0).all()),
+                               f"{tag}: {sec} nonzero on degree-0 nodes")
+                    pairs.append((kk, rr))
+        print(f"[kernels] pna_stats {name} D={width} (K={k_deg}): every "
+              f"section bit-exact, with and without the affine and the sum")
     errs["pna_stats"] = _max_err(pairs)
 
     pairs = []
@@ -611,7 +642,8 @@ def phase_kernel_times(g, launches: dict, errs: dict) -> list:
         host_ms = cuda_ms(kern, iters=100)
         bound_ms, bound_by = _bound(nbytes, flops)
         src, replaces = KERNEL_INFO[name]
-        print(f"[times] {name} ({variant}): device {ms:.5f} ms cold-L2 "
+        print(f"[times] {name} ({variant}; __global__ "
+              f"{PROFILE_NAMES[name][0]}): device {ms:.5f} ms cold-L2 "
               f"median, {warm:.5f} ms warm; back-to-back with the host's "
               f"launch {host_ms:.5f} ms; plain {plain_ms:.5f} ms; bound {bound_ms:.5f} ms by {bound_by} "
               f"({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP f32; "
@@ -626,29 +658,39 @@ def phase_kernel_times(g, launches: dict, errs: dict) -> list:
     return rows
 
 
-def _stats_bwd_inputs(g, gen):
-    """The stats backward's inputs at the bench shapes: bf16 messages, an
-    affine, the forward's mean / enc on the card and bf16 cotangent
-    combinations A, B, d_max, d_min."""
-    E, N, D, K = g.senders.shape[0], g.num_nodes, WIDTH, g.max_deg
+def _stats_bwd_inputs(rp, K, E, D, gen, missing=()):
+    """The stats backward's inputs on the card: bf16 messages, an affine,
+    the forward's mean / std / enc (the stats kernel's, with the affine and
+    no sum section, as the flagship step runs it) and the five cotangents
+    of (sum, mean, std, max, min), bf16, None where `missing` names them."""
+    N = rp.shape[0] - 1
     x = (torch.randn(E, D, generator=gen, device="cuda") * 2).bfloat16()
     aff = (torch.rand(D, generator=gen, device="cuda") + 0.5,
            torch.randn(D, generator=gen, device="cuda") * 0.3)
     with torch.no_grad():
-        _, mean, _, _, _, enc = pna_stats(x, g.csr_row_ptr, K, aff, False)
-    cts = [torch.randn(N, D, generator=gen, device="cuda").bfloat16()
-           for _ in range(4)]
-    return x, aff, (cts[0], cts[1], mean, cts[2], cts[3], enc)
+        _, mean, std, _, _, enc = pna_stats(x, rp, K, aff, False)
+    cts = {n: None if n in missing else torch.randn(
+        N, D, generator=gen, device="cuda").bfloat16() for n in COTANGENTS}
+    return x, aff, (mean, std, enc), cts
+
+
+# cotangent sets of phase 7: all five, the flagship's (no sum section), and
+# the std and extremum terms alone
+BWD_MISSING = {"all": (), "no sum": ("d_sum",),
+               "std, max, min": ("d_sum", "d_mean")}
 
 
 def phase_train_kernels(g) -> dict:
     """Phase 7: the backward kernels against their plain versions on the
     same CUDA tensors.  pair_segment_sum: both sum the same rows in float32
-    in slot order and round once -> bit-exact.  pna_stats_bwd: d_x has the
-    same rounding points -> bit-exact; d_a / d_b are float32 column sums in
-    the kernel's order -> within 1e-6 of max|plain| (reported when exact)."""
+    in slot order and round once -> bit-exact.  pna_stats_bwd (on the cases
+    of phase 3, with the forward kernel's residuals): d_x has the same
+    rounding points -> bit-exact, padding edges 0; d_a / d_b are float32
+    column sums in the kernel's order -> within 1e-6 of max|plain|
+    (reported when exact); the kernel leaves its counters at 0."""
+    from infomax3d_tpu_torch.ops.kernels.pna_stats_bwd import _COUNTERS
     gen = torch.Generator(device="cuda").manual_seed(2)
-    E, N, D = g.senders.shape[0], g.num_nodes, WIDTH
+    E, D = g.senders.shape[0], WIDTH
     errs = {}
     pairs = []
     for dt in (torch.bfloat16, torch.float32):
@@ -663,24 +705,37 @@ def phase_train_kernels(g) -> dict:
     errs["pair_segment_sum"] = _max_err(pairs)
 
     pairs = []
-    x, aff, ops = _stats_bwd_inputs(g, gen)
-    for affine in (None, aff):
-        args = (x, g.receivers, g.csr_pos, ops, affine)
-        k, r = pna_stats_bwd(*args), pna_stats_bwd_reference(*args)
-        torch.cuda.synchronize()
-        tag = f"pna_stats_bwd affine={affine is not None}"
-        _check(torch.equal(k[0], r[0]), f"{tag}: d_x not bit-exact")
-        pairs.append((k[0], r[0]))
-        if affine is None:
-            _check(k[1] is None and k[2] is None, f"{tag}: column sums")
-            continue
-        for name, kk, rr in zip(("d_a", "d_b"), k[1:], r[1:]):
-            err = float((kk - rr).abs().max())
-            _check(err <= 1e-6 * float(rr.abs().max()),
-                   f"{tag}: {name} off by {err:.3g}")
-            print(f"[train-kernels] {tag} {name}: "
-                  f"{'bit-exact' if torch.equal(kk, rr) else f'{err:.3g}'}")
-            pairs.append((kk, rr))
+    for name, rp, k_deg, e_all, width in _stats_cases(g):
+        e_real = int(rp[-1])
+        for cset, missing in BWD_MISSING.items():
+            x, aff, res, cts = _stats_bwd_inputs(rp, k_deg, e_all, width, gen,
+                                                 missing)
+            for affine in (None, aff):
+                args = (x, rp, k_deg, *res, *cts.values(), affine)
+                k, r = pna_stats_bwd(*args), pna_stats_bwd_reference(*args)
+                torch.cuda.synchronize()
+                tag = (f"pna_stats_bwd {name} D={width} "
+                       f"({_vector_path(torch.bfloat16, width)} path) "
+                       f"cotangents {cset} affine={affine is not None}")
+                _check(torch.equal(k[0], r[0]), f"{tag}: d_x not bit-exact")
+                _check(bool((k[0][e_real:] == 0).all()),
+                       f"{tag}: padding edges not 0")
+                pairs.append((k[0], r[0]))
+                if affine is None:
+                    _check(k[1] is None and k[2] is None,
+                           f"{tag}: column sums")
+                    continue
+                for sec, kk, rr in zip(("d_a", "d_b"), k[1:], r[1:]):
+                    err = float((kk - rr).abs().max())
+                    _check(err <= 1e-6 * float(rr.abs().max()),
+                           f"{tag}: {sec} off by {err:.3g}")
+                    pairs.append((kk, rr))
+                print(f"[train-kernels] {tag}: d_x bit-exact, d_a / d_b "
+                      + ("bit-exact" if all(torch.equal(kk, rr) for kk, rr
+                                            in zip(k[1:], r[1:]))
+                         else f"within {_max_err(zip(k[1:], r[1:])):.3g}"))
+    _check(all(int(c.abs().sum()) == 0 for c in _COUNTERS.values()),
+           "pna_stats_bwd left a counter non-zero")
     errs["pna_stats_bwd"] = _max_err(pairs)
     for name, err in errs.items():
         print(f"[train-kernels] {name}: agrees with its plain version "
@@ -842,14 +897,15 @@ def _one_step(bf16: bool, dev: str, g2, g3, perturb: bool):
                          step.prepare(g2, g3), WITNESS_REL if perturb else 0)
 
 
-def _hold_step_against_cpu(one_step, sides: tuple, plant, fault: str,
+def _hold_step_against_cpu(one_step, sides: tuple, faults: dict,
                            phase: str):
     """One bf16 and one float32 step on the card against the same step on
     the CPU (`one_step(bf16, device, perturb)`): the loss, every leaf, the
     L2 of each model's gradient (bf16: against WITNESS_FACTOR times the
     witness, the card's own step from perturbed masters) and the running
-    statistics.  Then the check's own test: with the planted fault
-    (`plant()` returns its undo) the bf16 step must fail it."""
+    statistics.  Then the check's own test: with each planted fault
+    (`faults` maps its name to a `plant()` that returns its undo) the bf16
+    step must fail it."""
     for bf16 in (True, False):
         (loss_card, card), (loss_cpu, cpu) = (
             one_step(bf16, dev, False) for dev in ("cuda", "cpu"))
@@ -869,7 +925,9 @@ def _hold_step_against_cpu(one_step, sides: tuple, plant, fault: str,
         _print_readings(f"bf16={bf16} card vs CPU", r, l2_tol, phase)
         bad = _violations(r, STEP_TOL[bf16], l2_tol)
         _check(not bad, f"bf16={bf16} step card vs CPU: {bad}")
-        if bf16:
+        if not bf16:
+            continue
+        for fault, plant in faults.items():
             undo = plant()
             try:
                 planted = _readings(one_step(True, "cuda", False)[1], cpu,
@@ -879,9 +937,10 @@ def _hold_step_against_cpu(one_step, sides: tuple, plant, fault: str,
             _print_readings(f"planted fault ({fault}) card vs CPU", planted,
                             l2_tol, phase)
             bad = _violations(planted, STEP_TOL[True], l2_tol)
-            print(f"[{phase}] planted fault: {len(bad)} violations, e.g. "
-                  f"{bad[:2]}")
-            _check(bool(bad), "the step check passed a planted fault")
+            print(f"[{phase}] planted fault ({fault}): {len(bad)} "
+                  f"violations, e.g. {bad[:2]}")
+            _check(bool(bad), f"the step check passed a planted fault "
+                              f"({fault})")
 
 
 def _zeroed_affine_cotangents():
@@ -895,6 +954,21 @@ def _zeroed_affine_cotangents():
         return d_x, *(None if d is None else torch.zeros_like(d)
                       for d in (d_a, d_b))
     mod.pna_stats_bwd = zeroed
+    return lambda: setattr(mod, "pna_stats_bwd", real)
+
+
+def _dropped_extremum_routing():
+    """The second planted fault: the stats backward drops only the d_max /
+    d_min terms (their cotangents passed as None, the kernel's "missing"),
+    so no edge receives the max and min aggregators' gradient.  Returns
+    the undo."""
+    mod = importlib.import_module("infomax3d_tpu_torch.ops.kernels.pna_stats")
+    real = mod.pna_stats_bwd
+    at = 6 + COTANGENTS.index("d_max")        # x, row_ptr, K, 3 residuals
+
+    def dropped(*args):
+        return real(*args[:at], None, None, *args[at + 2:])
+    mod.pna_stats_bwd = dropped
     return lambda: setattr(mod, "pna_stats_bwd", real)
 
 
@@ -926,7 +1000,9 @@ def phase_train(smi: str) -> dict:
                                  n_max=DATA["n_max"])
     _hold_step_against_cpu(
         lambda bf16, dev, perturb: _one_step(bf16, dev, g2, g3, perturb),
-        ("model", "model3d"), _zeroed_affine_cotangents, "zeroed d_a, d_b",
+        ("model", "model3d"),
+        {"zeroed d_a, d_b": _zeroed_affine_cotangents,
+         "d_max / d_min routing dropped": _dropped_extremum_routing},
         "train")
 
     # warm steps on the card: CUDA events around back-to-back steps
@@ -964,8 +1040,7 @@ PROFILE_NAMES = {"edge_combine": ("edge_combine_kernel",),
                  "pna_stats": ("pna_stats_kernel",),
                  "multi_reduce": ("multi_reduce_kernel",),
                  "pair_segment_sum": ("pair_segment_sum_kernel",),
-                 "pna_stats_bwd": ("pna_stats_bwd_kernel",
-                                   "column_sums_kernel"),
+                 "pna_stats_bwd": ("pna_stats_bwd_kernel",),
                  "csr_sum": ("csr_sum_kernel",),
                  "snd_segment_sum": ("snd_segment_sum_kernel",),
                  "csr_segment_sum": ("csr_segment_sum_kernel",)}
@@ -982,6 +1057,16 @@ def _port_kernels(by_name: dict) -> dict:
             us, c = map(sum, zip(*hits))
             out[kname] = (us, c / len(needles))
     return out
+
+
+def _print_globals(by_name: dict, n: int, phase: str):
+    """Each `__global__` of the port's kernels in a profile on its own
+    line (a wrapper's time split by kernel)."""
+    needles = [nd for nds in PROFILE_NAMES.values() for nd in nds]
+    for name, (us, cnt) in sorted(by_name.items()):
+        if any(nd in name for nd in needles):
+            print(f"[{phase}]     __global__ {name[:80]}: {us / cnt:.2f} us "
+                  f"per launch, {cnt / n:.0f} per step")
 
 
 def phase_train_profile(train: dict, n: int = 5) -> dict:
@@ -1017,6 +1102,7 @@ def phase_train_profile(train: dict, n: int = 5) -> dict:
         in_step[kname] = us / launches / 1e3
         print(f"[train-profile]   {kname}: {us / launches:.2f} us per "
               f"launch in the step, {launches / n:.0f} launches per step")
+    _print_globals(by_name, n, "train-profile")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (us, cnt) in top:
         print(f"[train-profile]   {us / n:9.2f} us/step  {cnt / n:5.0f}x  "
@@ -1028,11 +1114,14 @@ def phase_train_kernel_times(g, launches: dict, errs: dict,
                              in_step: dict) -> list:
     """Phase 10: the backward kernels' main-path variants at the bench
     shapes (bf16 pair segment sum; stats backward with the affine)."""
-    N, E, D = g.num_nodes, g.senders.shape[0], WIDTH
+    N, E, D, K = g.num_nodes, g.senders.shape[0], WIDTH, g.max_deg
     e_real = int(g.csr_row_ptr[-1])
     gen = torch.Generator(device="cuda").manual_seed(3)
     ct = torch.randn(E, D, generator=gen, device="cuda").bfloat16()
-    x, aff, ops = _stats_bwd_inputs(g, gen)
+    # the flagship's backward: no sum section, so no d_sum
+    x, aff, res, cts = _stats_bwd_inputs(g.csr_row_ptr, K, E, D, gen,
+                                         ("d_sum",))
+    bwd_args = (x, g.csr_row_ptr, K, *res, *cts.values(), aff)
     # the nearest PyTorch call for the pair sum: two float32 index_add_
     # (one per half) on float32 rows, ids prepared outside the timing
     ctf = ct.float()
@@ -1055,15 +1144,16 @@ def phase_train_kernel_times(g, launches: dict, errs: dict,
             e_real * D * 2 + 2 * (N + 1) * 4 + e_real * 4 + 2 * N * D * 2,
             2.0 * e_real * D, "bf16", library_pair,
             "two float32 index_add_ calls, one per half"),
-        # x, receivers, pos, the six node operands, the affine, d_x and
-        # the column sums; ~15 flops per element
+        # each byte once: the real x rows, the d_x rows (padding
+        # included), seven [N, D] node arrays (mean, std, enc, d_mean,
+        # d_std, d_max, d_min), row_ptr, the affine in and its cotangents
+        # out; per edge element ~20 flops (affine, d, routing, column sums)
         "pna_stats_bwd": (
-            lambda: pna_stats_bwd(x, g.receivers, g.csr_pos, ops, aff),
-            lambda: pna_stats_bwd_reference(x, g.receivers, g.csr_pos, ops,
-                                            aff),
-            E * D * 2 + E * 4 + E * 2 + 6 * N * D * 2 + 2 * D * 4
-            + E * D * 2 + 2 * D * 4,
-            15.0 * E * D, "bf16, affine", None,
+            lambda: pna_stats_bwd(*bwd_args),
+            lambda: pna_stats_bwd_reference(*bwd_args),
+            e_real * D * 2 + E * D * 2 + 7 * N * D * 2 + (N + 1) * 4
+            + 2 * D * 4 + 2 * D * 4,
+            20.0 * e_real * D, "bf16, affine, no d_sum", None,
             "no PyTorch call computes the extremum routing by winner slot "
             "with the affine's column sums"),
     }
@@ -1078,7 +1168,8 @@ def phase_train_kernel_times(g, launches: dict, errs: dict,
         bound_ms, bound_by = _bound(nbytes, flops)
         src, replaces = KERNEL_INFO[name]
         step_us = in_step.get(name)
-        print(f"[times] {name} ({variant}): device {ms:.5f} ms cold-L2 "
+        print(f"[times] {name} ({variant}; __global__ "
+              f"{PROFILE_NAMES[name][0]}): device {ms:.5f} ms cold-L2 "
               f"median, {warm:.5f} ms warm, "
               f"{'not measured' if step_us is None else f'{step_us:.5f} ms'}"
               f" in the step; plain {plain_ms:.5f} ms; library "
@@ -1090,6 +1181,15 @@ def phase_train_kernel_times(g, launches: dict, errs: dict,
                      "max_abs_err": errs[name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_ms})
+    # what the in-kernel column sums cost: the same launch without the
+    # affine (no tile partials, counters or chunk sums), warm
+    bare = device_ms(lambda: pna_stats_bwd(*bwd_args[:-1], None), iters=100,
+                     warmup=10)
+    with_sums = device_ms(lambda: pna_stats_bwd(*bwd_args), iters=100,
+                          warmup=10)
+    print(f"[times] pna_stats_bwd warm with the affine {with_sums:.5f} ms, "
+          f"without it {bare:.5f} ms: the column sums cost "
+          f"{with_sums - bare:.5f} ms")
     return rows
 
 
@@ -1205,7 +1305,8 @@ def phase_gin_train(smi: str) -> dict:
     g, _ = gin_batch("cpu")
     _hold_step_against_cpu(
         lambda bf16, dev, perturb: _gin_one_step(bf16, dev, g, perturb),
-        ("model",), _zeroed_gather_backward, "zeroed gather backward", "gin")
+        ("model",), {"zeroed gather backward": _zeroed_gather_backward},
+        "gin")
 
     step_ms, steps = {}, {}
     for bf16 in (True, False):
@@ -1693,6 +1794,65 @@ def phase_ot_kernel_times(ob, launches: dict, errs: dict,
     return [row]      # the float32 variant
 
 
+# the OT step's grid for the launch floor: ~52 blocks of 256 threads (the
+# row-3 walk at N = 512, D = 50 float32 runs 50; row 1 element-wise 100)
+FLOOR_GRID = (52, 256)
+
+
+def phase_launch_floor(ob, launches: dict, in_step: dict):
+    """Phase 16c: the card's launch floor, an empty `__global__` on the OT
+    step's grid (warm device time, CUDA events, and its device time in a
+    profile), and beside it the byte bound of rows 1, 3 and 4 at the OT
+    batch's shapes (float32, D = 50) and each row's closable gap: launches
+    x (in-step time - max(bound, floor)), per OT step and over the main
+    paths' launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn = launcher("csr_sum", "launch_floor", (ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_void_p))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def floor():
+        _check(fn(*FLOOR_GRID, stream) == 0, "launch_floor: launch failed")
+
+    warm = device_ms(floor, iters=200, warmup=10)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(50):
+            floor()
+        torch.cuda.synchronize()
+    rec = [v for k, v in _profile_kernels(prof).items()
+           if "launch_floor_kernel" in k]
+    prof_ms = rec[0][0] / rec[0][1] / 1e3 if rec else None
+    print(f"[floor] empty kernel on {FLOOR_GRID[0]} blocks of "
+          f"{FLOOR_GRID[1]}: {warm:.5f} ms warm (CUDA events), "
+          + ("not measured" if prof_ms is None else f"{prof_ms:.5f} ms")
+          + " in a profile")
+    gr = ob.graph
+    N, D, e_real = gr.num_nodes, OT_WIDTH, int(gr.csr_row_ptr[-1])
+    nbytes = {
+        # the real rows, row_ptr, 4 float32 [N, D] sections out
+        "multi_reduce": e_real * D * 4 + (N + 1) * 4 + 4 * N * D * 4,
+        # the real rows, row_ptr, one [N, D] out
+        "csr_segment_sum": e_real * D * 4 + (N + 1) * 4 + N * D * 4,
+        # the real rows through csc_perm, csc_row_ptr, one [N, D] out
+        "snd_segment_sum": (e_real * D * 4 + e_real * 4 + (N + 1) * 4
+                            + N * D * 4)}
+    fl = warm if prof_ms is None else prof_ms
+    for name, b in nbytes.items():
+        bound = b / PEAK_BYTES_PER_S * 1e3
+        t = in_step.get(name)
+        per_step = EXPECTED_OT_STEP[name]
+        over = None if t is None else t - max(bound, fl)
+        gap = "not measured" if t is None else (
+            f"{per_step * over:.5f} ms per OT step ({per_step} launches), "
+            f"{launches[name] * over:.5f} ms over the main paths' "
+            f"{launches[name]} launches")
+        print(f"[floor] {name} at the OT shape (N={N}, E real {e_real}, D={D},"
+              f" float32): bound {bound:.5f} ms ({b / 1e6:.3f} MB), in the "
+              f"OT step " + ("not measured" if t is None else f"{t:.5f} ms")
+              + f"; closable gap {gap}")
+
+
 class _Phase:
     """Prints a phase's seconds when it ends (and lets its error pass)."""
 
@@ -1753,6 +1913,7 @@ def main() -> int:
     with _Phase("16 OT profile and kernel times"):
         ot_in_step = phase_ot_profile(ot_run)
         rows += phase_ot_kernel_times(ob, launches, errs, ot_in_step)
+        phase_launch_floor(ob, launches, ot_in_step)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -71,6 +71,12 @@ csr_segment_sum_kernel(const T* __restrict__ ct,
   csr_walk<T, T, VEC>(ct, row_ptr, out, N, D);
 }
 
+// An empty kernel: its device time on a given grid is what any launch of
+// that grid costs before it does work (start, one wave, drain).  Used by
+// chip_smoke.py as the card's launch floor, beside the port's kernels at the
+// OT slice's grid (52 blocks of 256); no wrapper of the port calls it.
+__global__ void launch_floor_kernel() {}
+
 // SEGMENT: csr_segment_sum_kernel (output of the rows' type), else
 // csr_sum_kernel (float32 output).
 template <bool SEGMENT, typename T, int VEC>
@@ -131,4 +137,11 @@ PORT_API cudaError_t csr_segment_sum_bf16(const void* ct, const void* row_ptr,
                                           void* out, int N, int D,
                                           void* stream) {
   return launch<true, __nv_bfloat16>(ct, row_ptr, out, N, D, stream);
+}
+
+// the empty kernel on `blocks` blocks of `threads`
+PORT_API cudaError_t launch_floor(int blocks, int threads, void* stream) {
+  launch_floor_kernel<<<blocks, threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>();
+  return cudaGetLastError();
 }

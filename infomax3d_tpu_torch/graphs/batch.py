@@ -171,7 +171,7 @@ def bucket_for(graphs: Sequence[Dict[str, np.ndarray]],
 
 _TENSOR_FIELDS = ("node_feat", "edge_feat", "senders", "receivers",
                   "node_graph", "node_mask", "edge_mask", "graph_mask",
-                  "n_nodes", "csr_row_ptr", "csr_pos", "csc_perm",
+                  "n_nodes", "csr_row_ptr", "csc_perm",
                   "csc_row_ptr", "in_degree", "rd_node_idx", "rd_inv_flat")
 
 
@@ -189,7 +189,6 @@ class GraphBatch:
     graph_mask: torch.Tensor      # [G] bool
     n_nodes: torch.Tensor         # [G] int32
     csr_row_ptr: torch.Tensor     # [N + 1] int32
-    csr_pos: torch.Tensor         # [E] int16 slot in the receiver's range
     csc_perm: torch.Tensor        # [E] int32 edges in sender order
     csc_row_ptr: torch.Tensor     # [N + 1] int32 sender ranges of csc_perm
     in_degree: torch.Tensor       # [N] float32

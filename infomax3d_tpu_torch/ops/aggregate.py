@@ -43,9 +43,7 @@ def use_stats_kernel(messages: torch.Tensor, max_deg: int) -> bool:
 def _stats_outs(g, x, aggregators, has, affine):
     # the sum section is written only when an aggregator reads it
     s1, mean, std, mx, mn, _ = pna_stats(x, g.csr_row_ptr, g.max_deg, affine,
-                                         "sum" in aggregators,
-                                         receivers=g.receivers,
-                                         pos=g.csr_pos)
+                                         "sum" in aggregators)
     outs = {"sum": s1, "mean": mean, "std": std, "max": mx, "min": mn}
     if "var" in aggregators:
         outs["var"] = torch.where(has, std.float() ** 2 - EPS, 0.0)

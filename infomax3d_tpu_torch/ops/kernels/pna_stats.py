@@ -6,7 +6,6 @@ Kernel: `csrc/pna_stats.cu`."""
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
@@ -14,11 +13,12 @@ from infomax3d_tpu_torch.ops.kernels import _build
 from infomax3d_tpu_torch.ops.kernels._build import (check_launch, launcher,
                                                     refuse_grad, require,
                                                     stream_of)
-from infomax3d_tpu_torch.ops.kernels.pna_stats_bwd import pna_stats_bwd
+from infomax3d_tpu_torch.ops.kernels.pna_stats_bwd import (pna_stats_bwd,
+                                                           tile_nodes)
 from infomax3d_tpu_torch.ops.segment import EPS
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P,) * 4 + (_I,) * 4 + (_P,)
+_ARGTYPES = (_P,) * 5 + (_I,) * 5 + (_P,)
 NEG_BIG = -3.0e38
 POS_BIG = 3.0e38
 # the winner slots pack as amax + 16 * amin, exact in bf16 for K <= 16
@@ -97,37 +97,34 @@ def _launch(messages, row_ptr, max_deg, affine, want_sum):
     dev = messages.device
     require(messages, "messages", torch.bfloat16, (E, D), dev)
     require(row_ptr, "row_ptr", torch.int32, (N + 1,), dev)
-    aff = None
+    aff = (None, None)
     if affine is not None:
-        aff = torch.stack([affine[0].float(), affine[1].float()]).contiguous()
-        require(aff, "affine", torch.float32, (2, D), dev)
+        aff = tuple(t.float().contiguous() for t in affine)
+        for name, t in zip(("scale", "shift"), aff):
+            require(t, name, torch.float32, (D,), dev)
     nsec = 6 if want_sum else 5
     out = torch.empty(nsec, N, D, dtype=torch.bfloat16, device=dev)
     if N > 0 and D > 0:
         fn = launcher("pna_stats", "pna_stats_bf16", _ARGTYPES)
         err = fn(messages.data_ptr(), row_ptr.data_ptr(),
-                 None if aff is None else aff.data_ptr(), out.data_ptr(),
-                 N, D, max_deg, int(want_sum), stream_of(messages))
+                 *(None if t is None else t.data_ptr() for t in aff),
+                 out.data_ptr(), N, D, max_deg, int(want_sum), tile_nodes(D),
+                 stream_of(messages))
         check_launch("pna_stats", err)
         pna_stats.launches += 1
     secs = tuple(out.unbind(0))
     return secs if want_sum else (None,) + secs
 
 
-def _zeros_if_none(ct, like):
-    return torch.zeros_like(like) if ct is None else ct
-
-
 class PNAStats(torch.autograd.Function):
     """Forward: the stats kernel on CUDA, the plain version on the CPU.
-    Backward (`spmm.py::_stats_bwd`): the node-side combinations
-    ``A = d_sum + d_mean / deg`` and ``B = d_std / (deg · max(std,
-    √eps))`` in float32, rounded to bf16, then the stats-backward kernel,
-    which also gives the affine's cotangents."""
+    Backward (`spmm.py::_stats_bwd`): one call of the stats backward, which
+    forms the node-side combinations of the cotangents itself and gives the
+    affine's cotangents too.  Cotangents of unused outputs stay None (no
+    zero arrays)."""
 
     @staticmethod
-    def forward(ctx, messages, row_ptr, receivers, pos, a, b, max_deg,
-                want_sum):
+    def forward(ctx, messages, row_ptr, a, b, max_deg, want_sum):
         affine = None if a is None else (a, b)
         if _build.on_card(messages, "pna_stats"):
             outs = _launch(messages, row_ptr, max_deg, affine, want_sum)
@@ -135,51 +132,37 @@ class PNAStats(torch.autograd.Function):
             outs = pna_stats_reference(messages, row_ptr, max_deg, affine,
                                        want_sum)
         _, mean, std, _, _, enc = outs
-        ctx.save_for_backward(messages, row_ptr, receivers, pos, mean, std,
-                              enc, a, b)
+        ctx.save_for_backward(messages, row_ptr, mean, std, enc, a, b)
+        ctx.max_deg = max_deg
         ctx.mark_non_differentiable(enc)
+        ctx.set_materialize_grads(False)
         return outs
 
     @staticmethod
     def backward(ctx, d_sum, d_mean, d_std, d_mx, d_mn, _d_enc):
-        messages, row_ptr, receivers, pos, mean, std, enc, a, b = \
-            ctx.saved_tensors
-        if receivers is None or pos is None:
-            raise ValueError("pna_stats: the gradient needs the batch's "
-                             "receivers and csr_pos")
-        rp = row_ptr.long()
-        deg = (rp[1:] - rp[:-1]).float()[:, None]
-        inv = 1.0 / deg.clamp(min=1.0)
-        std_safe = std.float().clamp(min=math.sqrt(EPS))
-        bf = torch.bfloat16
-        B = _zeros_if_none(d_std, mean).float() * inv / std_safe
-        A = _zeros_if_none(d_mean, mean).float() * inv
-        if d_sum is not None:
-            A = d_sum.float() + A
-        ops = (A.to(bf), B.to(bf), mean, _zeros_if_none(d_mx, mean).to(bf),
-               _zeros_if_none(d_mn, mean).to(bf), enc)
+        messages, row_ptr, mean, std, enc, a, b = ctx.saved_tensors
+        cots = (None if c is None else c.contiguous()
+                for c in (d_sum, d_mean, d_std, d_mx, d_mn))
         d_x, d_a, d_b = pna_stats_bwd(
-            messages, receivers, pos, tuple(t.contiguous() for t in ops),
+            messages, row_ptr, ctx.max_deg, mean, std, enc, *cots,
             None if a is None else (a, b))
-        return d_x, None, None, None, d_a, d_b, None, None
+        return d_x, None, d_a, d_b, None, None
 
 
 def pna_stats(messages, row_ptr, max_deg: int, affine=None,
-              want_sum: bool = True, receivers=None, pos=None):
+              want_sum: bool = True):
     """`messages [E, D]` bf16, `row_ptr [N + 1]` int32, `affine` an optional
     pair of [D] column scale / shift applied as ``bf16(x * a + b)`` first.
     Returns (sum | None, mean, std, max, min, enc), each bf16 [N, D]; `enc`
     packs the first-winner slots as ``amax + 16 * amin`` and has no
     gradient.  Without `want_sum` no sum is returned (the JAX package
     rebuilds it as mean·deg for a caller that does not read it, so its
-    cotangent is zero).  The gradient (to `messages` and the affine) needs
-    the batch's `receivers` [E] int32 and `pos` [E] int16, each edge's slot
-    in its receiver's range (`csr_pos`).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    cotangent is zero).  Differentiable to `messages` and the affine.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     _check(messages, max_deg)
     a, b = (None, None) if affine is None else affine
-    return PNAStats.apply(messages, row_ptr, receivers, pos, a, b, max_deg,
-                          want_sum)
+    return PNAStats.apply(messages, row_ptr, a, b, max_deg, want_sum)
 
 
 pna_stats.launches = 0

@@ -1,6 +1,7 @@
 """Each kernel's plain PyTorch version against the JAX package's Pallas
 kernel, run in interpret mode on the CPU (the forward kernels, the pair
-segment sum and the stats backward).
+segment sum and the stats backward, the latter with `_stats_bwd`'s
+node-side combination through `jax.vjp`).
 
 Tolerances: a bf16 "ulp" tolerance is rtol = 2**-7 — one unit in the last
 place of bf16 (8 significant bits) relative to the value, the most two
@@ -23,6 +24,7 @@ from infomax3d_tpu_torch.ops.kernels import (edge_combine_reference,
                                              pair_segment_sum_reference,
                                              pna_stats_bwd_reference,
                                              pna_stats_reference)
+from infomax3d_tpu_torch.ops.kernels.pna_stats_bwd import COTANGENTS
 
 BF16_ULP = 2.0 ** -7
 D = 56
@@ -210,56 +212,90 @@ def test_pair_segment_sum_f32_matches_segment_sum(csr):
                                    atol=1e-6)
 
 
-def _stats_bwd_case(arr, b, seed, with_affine):
-    """Forward residuals and node-side operands as the JAX package's
-    `_stats_bwd` forms them (tests/test_pallas_spmm.py's recipe)."""
+def _stats_bwd_case(arr, b, seed, with_affine, want_sum=True, missing=()):
+    """bf16 messages, an optional affine, the forward's residuals (mean,
+    std, enc of the JAX package's Pallas forward in interpret mode) and the
+    five cotangents of (sum, mean, std, max, min), each bf16 [N, D] or None
+    where `missing` names it (and the sum's without `want_sum`).  The
+    affine's scales are powers of two: XLA on the CPU contracts the
+    interpreted kernels' ``x * a + b`` into one FMA, where the card's
+    kernels and their twins round the product first; with an exact product
+    both round once (an arbitrary scale put one element of seed 8 on the
+    other side of a bf16 tie)."""
     from infomax3d_tpu.ops.pallas import spmm
     rng = np.random.default_rng(seed)
     N, E, K = b.n_nodes, b.n_edges, b.max_deg
     x = _bf16(rng.normal(size=(E, D)) * 2.0)
     affine = None
     if with_affine:
-        affine = (rng.uniform(0.5, 1.5, D).astype(np.float32),
+        affine = ((2.0 ** rng.integers(-1, 2, D)).astype(np.float32),
                   rng.normal(0.0, 0.3, D).astype(np.float32))
-    rp = jnp.asarray(arr["csr_row_ptr"])
     _, mean, std, _, _, enc = spmm._csr_stats_raw(
-        jnp.asarray(x, jnp.bfloat16), rp, K, True, 0, True,
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(arr["csr_row_ptr"]), K,
+        True, 0, True,
         None if affine is None else tuple(jnp.asarray(a) for a in affine))
-    cts = [jnp.asarray(rng.normal(size=(N, D)).astype(np.float32),
-                       jnp.bfloat16) for _ in range(4)]
-    d_mean, d_std, d_mx, d_mn = cts
-    deg = (rp[1:] - rp[:-1]).astype(jnp.float32)[:, None]
-    inv = 1.0 / jnp.maximum(deg, 1.0)
-    std_safe = jnp.maximum(std.astype(jnp.float32), jnp.sqrt(spmm.EPS))
-    B = (d_std.astype(jnp.float32) * inv / std_safe).astype(jnp.bfloat16)
-    A = (d_mean.astype(jnp.float32) * inv).astype(jnp.bfloat16)
-    return x, affine, (A, B, mean, d_mx, d_mn, enc)
+    cts = {n: _bf16(rng.normal(size=(N, D))) for n in COTANGENTS}
+    if not want_sum:
+        missing = tuple(missing) + ("d_sum",)
+    for n in missing:
+        cts[n] = None
+    res = tuple(np.asarray(r, np.float32) for r in (mean, std, enc))
+    return x, affine, res, cts
 
 
-@pytest.mark.parametrize("with_affine", [False, True])
-def test_pna_stats_bwd_matches_pallas(csr, jax_csr, with_affine):
-    """The plain version against `_csr_stats_bwd_raw` in interpret mode.
-    d_x: bit-equal (both form d in float32 with the same rounding points
-    and round once).  d_a, d_b: 1e-5 relative (float32 column sums in
-    another order: the Pallas kernel sums 128-edge blocks, then the
-    blocks)."""
-    from infomax3d_tpu.ops.pallas import spmm
-    arr, b, _ = csr
-    x, affine, ops = _stats_bwd_case(arr, b, 7, with_affine)
-    want = spmm._csr_stats_bwd_raw(
-        jnp.asarray(x, jnp.bfloat16), jnp.asarray(arr["receivers"]),
-        jnp.asarray(arr["csr_row_ptr"]), jnp.asarray(arr["csr_pos"]), ops,
-        jax_csr["csr_bwd_span"].shape[0], True,
-        None if affine is None else tuple(jnp.asarray(a) for a in affine))
-    got = pna_stats_bwd_reference(
-        _t(x).bfloat16(), _t(arr["receivers"]), _t(arr["csr_pos"]),
-        tuple(_t(np.asarray(o, np.float32)).bfloat16() for o in ops),
+def _bwd_twin(arr, b, x, affine, res, cts):
+    return pna_stats_bwd_reference(
+        _t(x).bfloat16(), _t(arr["csr_row_ptr"]), b.max_deg,
+        *(_t(r).bfloat16() for r in res),
+        *(None if cts[n] is None else _t(cts[n]).bfloat16()
+          for n in COTANGENTS),
         None if affine is None else tuple(_t(a) for a in affine))
-    assert got[0].dtype == torch.bfloat16 and got[0].shape == x.shape
+
+
+def _pallas_in_interpret_mode(monkeypatch):
+    """Route the JAX package's Pallas stats forward and backward
+    (`_csr_stats_raw`, `_csr_stats_bwd_raw`) through interpret mode, so
+    that `csr_pna_stats(..., interpret=False, bwd_span > 0)` runs its TPU
+    configuration on the CPU: the Pallas forward, `_stats_bwd`'s node-side
+    combination and the Pallas backward kernel."""
+    from infomax3d_tpu.ops.pallas import spmm
+    fwd, bwd = spmm._csr_stats_raw, spmm._csr_stats_bwd_raw
+    monkeypatch.setattr(spmm, "_csr_stats_raw",
+                        lambda m, rp, K, _interp, *rest: fwd(m, rp, K, True,
+                                                             *rest))
+    monkeypatch.setattr(
+        spmm, "_csr_stats_bwd_raw",
+        lambda m, r, rp, pos, ops, span, _interp, aff=None: bwd(
+            m, r, rp, pos, ops, span, True, aff))
+
+
+def _jax_stats_vjp(arr, jax_csr, b, x, affine, cts, want_sum):
+    """d_x (and d_a, d_b with an affine) of `jax.vjp` of `csr_pna_stats`
+    in its TPU configuration; a missing cotangent is zero there."""
+    import jax
+    from infomax3d_tpu.ops.pallas import spmm
+    rp, recv, pos = (jnp.asarray(arr[k]) for k in
+                     ("csr_row_ptr", "receivers", "csr_pos"))
+    span = jax_csr["csr_bwd_span"].shape[0]
+    args = [jnp.asarray(x, jnp.bfloat16)]
+    if affine is not None:
+        args += [jnp.asarray(a) for a in affine]
+
+    def f(m, *aff):
+        return spmm.csr_pna_stats(m, rp, recv, pos, b.max_deg, False, 0,
+                                  span, want_sum, tuple(aff) or None)
+
+    _, vjp = jax.vjp(f, *args)
+    zero = np.zeros((b.n_nodes, D), np.float32)
+    return vjp(tuple(jnp.asarray(zero if cts[n] is None else cts[n],
+                                 jnp.bfloat16) for n in COTANGENTS))
+
+
+def _hold_to_jax(got, want, with_affine):
+    """d_x bit-equal; d_a, d_b within 1e-5 relative (the Pallas kernel
+    sums 128-edge blocks, then the blocks; the port tiles of nodes)."""
     np.testing.assert_array_equal(got[0].float().numpy(),
                                   np.asarray(want[0], np.float32))
-    e_real = int(arr["csr_row_ptr"][-1])
-    assert (got[0].float().numpy()[e_real:] == 0).all()
     if not with_affine:
         assert got[1] is None and got[2] is None
         return
@@ -267,6 +303,122 @@ def test_pna_stats_bwd_matches_pallas(csr, jax_csr, with_affine):
         w = np.asarray(w)
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-5,
                                    atol=1e-5 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("with_affine", [False, True])
+def test_pna_stats_bwd_matches_pallas(csr, jax_csr, with_affine,
+                                      monkeypatch):
+    """The plain version against the JAX package's whole stats backward in
+    its TPU configuration: `_stats_bwd`'s node-side combination (float32,
+    rounded to bf16) and `_csr_stats_bwd_raw`, in interpret mode, from the
+    same residuals and cotangents.  Both form d in float32 with the same
+    rounding points and round once: d_x bit-equal, padding edges 0."""
+    arr, b, _ = csr
+    x, affine, res, cts = _stats_bwd_case(arr, b, 7, with_affine)
+    _pallas_in_interpret_mode(monkeypatch)
+    want = _jax_stats_vjp(arr, jax_csr, b, x, affine, cts, True)
+    got = _bwd_twin(arr, b, x, affine, res, cts)
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == x.shape
+    _hold_to_jax(got, want, with_affine)
+    e_real = int(arr["csr_row_ptr"][-1])
+    assert e_real < b.n_edges and (got[0].float().numpy()[e_real:] == 0).all()
+
+
+@pytest.mark.parametrize("missing", [(), ("d_std",), ("d_mean", "d_max")],
+                         ids=["all", "no-std", "no-mean-max"])
+@pytest.mark.parametrize("want_sum", [True, False])
+@pytest.mark.parametrize("with_affine", [False, True])
+def test_pna_stats_bwd_matches_jax_vjp(csr, jax_csr, with_affine, want_sum,
+                                       missing, monkeypatch):
+    """`jax.vjp` of `csr_pna_stats` (Pallas forward and backward, interpret
+    mode) against the plain version, with and without the affine and the
+    sum section, and with cotangents missing (None in the port, zero in the
+    JAX package): d_x bit-equal, d_a / d_b within 1e-5 relative."""
+    arr, b, _ = csr
+    x, affine, res, cts = _stats_bwd_case(arr, b, 8, with_affine, want_sum,
+                                          missing)
+    _pallas_in_interpret_mode(monkeypatch)
+    want = _jax_stats_vjp(arr, jax_csr, b, x, affine, cts, want_sum)
+    _hold_to_jax(_bwd_twin(arr, b, x, affine, res, cts), want, with_affine)
+
+
+def test_pna_stats_bwd_degenerate_nodes():
+    """Nodes of degree 0 route nothing: changing their cotangents changes
+    no d_x.  At a node of degree 1 the message is its own mean, so the std
+    term cancels exactly: with d_std alone, d_x is 0 on those edges (and
+    non-zero elsewhere).  Padding edges (past row_ptr[N]) get 0.  A
+    hand-built CSR batch (degrees 0 to 4, then padding edges), with the
+    residuals of the port's own forward twin."""
+    rng = np.random.default_rng(15)
+    N, Dd, K = 40, 24, 4
+    deg = rng.integers(0, K + 1, N)
+    deg[:3] = (0, 1, K)
+    rp = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    E = int(rp[-1]) + 5
+    x = _t(_bf16(rng.normal(size=(E, Dd)) * 2.0)).bfloat16()
+    affine = (_t(rng.uniform(0.5, 1.5, Dd).astype(np.float32)),
+              _t(rng.normal(0.0, 0.3, Dd).astype(np.float32)))
+    _, mean, std, _, _, enc = pna_stats_reference(x, _t(rp), K, affine,
+                                                  False)
+    cts = {n: _t(_bf16(rng.normal(size=(N, Dd)))).bfloat16()
+           for n in COTANGENTS}
+
+    def twin(c):
+        return pna_stats_bwd_reference(x, _t(rp), K, mean, std, enc,
+                                       *(c[n] for n in COTANGENTS), affine)
+
+    base = twin(cts)
+    moved = {n: c.clone() for n, c in cts.items()}
+    for c in moved.values():
+        c[_t(deg == 0)] = 7.0
+    for g, w in zip(twin(moved), base):
+        assert torch.equal(g, w)
+    d_x = twin({n: (cts[n] if n == "d_std" else None)
+                for n in COTANGENTS})[0].float().numpy()
+    ones = np.repeat(deg == 1, deg)
+    e_real = int(rp[-1])
+    assert ones.any() and (d_x[:e_real][ones] == 0).all()
+    assert (np.abs(d_x[:e_real][~ones]).max(axis=1) > 0).all()
+    assert (base[0].float().numpy()[e_real:] == 0).all()
+    assert (d_x[e_real:] == 0).all()
+
+
+def test_pna_stats_bwd_column_sum_order():
+    """The twin's column sums take the order the kernel documents (csrc/
+    pna_stats_bwd.cu): nodes in order within a tile of `tile_nodes(D)`
+    nodes, tiles in order within a chunk of CHUNK_TILES tiles, chunks in
+    order, each level from 0.  Hand-built: 2**24 absorbs a following 1.0
+    (ties round to even), so summing these node values in one sequence
+    gives another float32 result than the grouped order."""
+    from infomax3d_tpu_torch.ops.kernels.pna_stats_bwd import (
+        CHUNK_TILES, column_sums, tile_nodes)
+    Dw = 200
+    tn = tile_nodes(Dw)
+    assert tn == 10 and CHUNK_TILES == 32
+    chunk = tn * CHUNK_TILES
+    N = 2 * chunk + 3                             # 2 full chunks and a third
+    vals = np.zeros(N, np.float32)
+    vals[tn - 1] = 2.0 ** 24                      # the end of tile 0
+    vals[tn:2 * tn] = 1.0                         # tile 1: 10
+    vals[chunk:chunk + tn] = 1.0                  # chunk 1, tile 0: 10
+    vals[-1] = 3.0                                # chunk 2
+    node_sums = np.zeros((N, 2 * Dw), np.float32)
+    node_sums[:, 7] = vals
+    f32 = np.float32
+    want = f32(0)
+    for c0 in range(0, N, chunk):
+        csum = f32(0)
+        for t0 in range(c0, min(c0 + chunk, N), tn):
+            tsum = f32(0)
+            for v in vals[t0:min(t0 + tn, N)]:
+                tsum = f32(tsum + v)
+            csum = f32(csum + tsum)
+        want = f32(want + csum)
+    got = column_sums(torch.from_numpy(node_sums))
+    assert got.shape == (2 * Dw,)
+    assert float(got[7]) == float(want) == 2 ** 24 + 24
+    assert float(np.cumsum(vals, dtype=np.float32)[-1]) == 2 ** 24 + 4
+    assert (got.numpy()[np.arange(2 * Dw) != 7] == 0).all()
 
 
 # --- the receiver-gather backward: the CSR segment sum ----------------------

@@ -114,7 +114,8 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py",
+                            ROOT / "tools" / "torch_stats_ab.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
     bad = [m for m in _imports(path) if _forbidden(m)]

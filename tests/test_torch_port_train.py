@@ -249,8 +249,7 @@ def test_pna_stats_grad_matches_jax_vjp(csr, want_sum):
     want = vjp(tuple(jcts))
     tx = _t(x).bfloat16().requires_grad_()
     ta, ts = _t(a).requires_grad_(), _t(s).requires_grad_()
-    outs = pna_stats(tx, _t(arr["csr_row_ptr"]), K, (ta, ts), want_sum,
-                     receivers=_t(arr["receivers"]), pos=_t(arr["csr_pos"]))
+    outs = pna_stats(tx, _t(arr["csr_row_ptr"]), K, (ta, ts), want_sum)
     assert outs[5].requires_grad is False             # enc has no gradient
     sum((o.float() * _t(c)).sum() for o, c in zip(outs[:5], cts)
         if o is not None).backward()
@@ -285,7 +284,7 @@ def test_multi_reduce_grad_matches_jax_vjp(csr):
 
 def _csr_torch(arr):
     return {k: _t(arr[k]) for k in ("receivers", "senders", "csr_row_ptr",
-                                    "csc_row_ptr", "csc_perm", "csr_pos")}
+                                    "csc_row_ptr", "csc_perm")}
 
 
 def test_functions_pass_their_backward_twins(csr):
@@ -311,18 +310,12 @@ def test_functions_pass_their_backward_twins(csr):
     x = randn(E, D).bfloat16().requires_grad_()
     a, s = (torch.rand(D, generator=gen) + 0.5).requires_grad_(), \
         randn(D).requires_grad_()
-    outs = pna_stats(x, g["csr_row_ptr"], K, (a, s), False,
-                     receivers=g["receivers"], pos=g["csr_pos"])
+    outs = pna_stats(x, g["csr_row_ptr"], K, (a, s), False)
     cts = [randn(N, D).bfloat16() for _ in range(4)]
     torch.autograd.backward(outs[1:5], cts)
     mean, std, enc = outs[1].detach(), outs[2].detach(), outs[5]
-    rp = g["csr_row_ptr"].long()
-    deg = (rp[1:] - rp[:-1]).float()[:, None]
-    inv = 1.0 / deg.clamp(min=1.0)
-    A = (cts[0].float() * inv).bfloat16()
-    Bn = (cts[1].float() * inv / std.float().clamp(min=1e-5 ** 0.5)).bfloat16()
-    want = pna_stats_bwd_reference(x.detach(), g["receivers"], g["csr_pos"],
-                                   (A, Bn, mean, cts[2], cts[3], enc),
+    want = pna_stats_bwd_reference(x.detach(), g["csr_row_ptr"], K, mean,
+                                   std, enc, None, *cts,
                                    (a.detach(), s.detach()))
     for got, w in zip((x.grad, a.grad, s.grad), want):
         assert torch.equal(got, w) and got.float().abs().max() > 0
@@ -352,7 +345,7 @@ def test_cuda_paths_refuse_grad_outside_their_function(csr, monkeypatch):
     x = torch.zeros(E, D, requires_grad=True)
     xb = torch.zeros(E, D, dtype=torch.bfloat16, requires_grad=True)
     nd = torch.zeros(N, D, requires_grad=True)
-    ops = tuple(torch.zeros(N, D, dtype=torch.bfloat16) for _ in range(6))
+    nd_b = torch.zeros(N, D, dtype=torch.bfloat16)
     raw = {
         "edge_combine": lambda: mods["edge_combine"]._launch(
             nd, nd, x, g["receivers"], g["senders"]),
@@ -363,7 +356,8 @@ def test_cuda_paths_refuse_grad_outside_their_function(csr, monkeypatch):
         "pair_segment_sum": lambda: mods["pair_segment_sum"]._launch(
             x, g["csr_row_ptr"], g["csc_row_ptr"], g["csc_perm"]),
         "pna_stats_bwd": lambda: mods["pna_stats_bwd"]._launch(
-            xb, g["receivers"], g["csr_pos"], ops, None),
+            xb, g["csr_row_ptr"], K, nd_b, nd_b, nd_b, (None, nd_b) * 2 +
+            (nd_b,), None),
     }
     for name, call in raw.items():
         with pytest.raises(RuntimeError, match="not differentiable"):
@@ -380,8 +374,7 @@ def test_cuda_paths_refuse_grad_outside_their_function(csr, monkeypatch):
     z = edge_combine(nd, nd, x, g["receivers"], g["senders"],
                      g["csr_row_ptr"], g["csc_row_ptr"], g["csc_perm"])
     z.sum().backward()
-    outs = pna_stats(xb, g["csr_row_ptr"], K, None, True,
-                     receivers=g["receivers"], pos=g["csr_pos"])
+    outs = pna_stats(xb, g["csr_row_ptr"], K, None, True)
     sum(o.float().sum() for o in outs[:5]).backward()
     outs = multi_reduce(x, g["csr_row_ptr"], K, receivers=g["receivers"])
     sum(o.sum() for o in outs).backward()
@@ -390,11 +383,10 @@ def test_cuda_paths_refuse_grad_outside_their_function(csr, monkeypatch):
                         "multi_reduce_f32"]
     with_affine = pna_stats(xb, g["csr_row_ptr"], K,
                             (torch.ones(D, requires_grad=True),
-                             torch.zeros(D)), True, receivers=g["receivers"],
-                            pos=g["csr_pos"])
+                             torch.zeros(D)), True)
     launched.clear()
     with_affine[1].float().sum().backward()
-    assert launched == ["pna_stats_bwd_tiles", "pna_stats_bwd_bf16"]
+    assert launched == ["pna_stats_bwd_bf16"]    # one launch, nothing else
     assert ec_mod.launches >= 1 and pair_segment_sum.launches >= 1
     assert pna_stats_bwd.launches >= 1
 
