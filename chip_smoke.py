@@ -14,7 +14,12 @@ its seconds:
    same CUDA tensors, at the bench shapes of the port's own batcher (500
    synthetic QM9-like molecules, seed 0: N = 9216, E = 18432, max_deg 4,
    D = 200); the stats kernel also at D = 50 and 300 (its element-wise and
-   8-byte paths) and on a batch with nodes of degree 16.
+   8-byte paths) and on a batch with nodes of degree 16.  The two small
+   CSR walks (the multi-reduce and the sender-keyed segment sum) bit for
+   bit at D = 200, 300 and 302, and on batches with in- and out-degree 16
+   at D = 200 and 50, the multi-reduce also cut at K = 3, each through
+   its public wrapper and with 64-bit indices forced, padding edges
+   ignored (`_hold_walks`).
 4. serving: `inference()` serves 2 requests of 500 molecules through the
    PNA 200x7 model of `configs_clean/pre-train_QM9.yml` (seeded numpy
    weights in the JAX layout, through `params_from_jax`) in bf16 and in
@@ -29,7 +34,9 @@ its seconds:
    (bytes over the H100's memory rate, operations over its float32 rate).
 7. training kernels: the pair segment sum (bf16, float32) and the stats
    backward (with and without the affine, with every cotangent or some
-   missing, on phase 3's cases) against their plain versions.
+   missing, on phase 3's cases) against their plain versions; the stats
+   backward also on two streams at once, each stream with its own chunk
+   counters.
 8. training: the pre-training step of `configs_clean/pre-train_QM9.yml`
    (PNA 200x7 + Net3DDense hidden 20, NT-Xent tau 0.1, Adam lr 8e-5) on the
    port's bench batch through `pretrain()`: launches per step, loss over
@@ -45,7 +52,8 @@ its seconds:
 11. GIN kernels: the CSR sum and the sender-keyed segment sum (bf16,
    float32) against their plain versions at the GIN slice's batch (128
    synthetic molhiv-like molecules, seed 0: N = 3328, E = 7168, D = 300),
-   and at D = 302, a width that takes the other vector paths.
+   and at D = 302, a width that takes the other vector paths; the
+   multi-reduce on the same batch (`_hold_walks`).
 12. GIN training: the supervised step of `configs/30.yml` (OGBGNN, GIN
    5x300 without a virtual node, sum pooling, BCEWithLogitsLoss, Adam lr
    1e-3, batch 128) through `supervised()`, 20 steps in bf16 and in
@@ -56,7 +64,9 @@ its seconds:
 14. OT kernel: the CSR segment sum (bf16, float32) against its plain
    version at the OT slice's batch (16 synthetic QM9-like molecules with 10
    conformers, seed 0, D = 50), at the bench shapes (D = 200) and at
-   D = 300 and 302, which together take every vector path.
+   D = 300 and 302, which together take every vector path; the OT step's
+   other two kernels, the multi-reduce and the sender-keyed segment sum,
+   on the OT batch at D = 50, 300 and 302 (`_hold_walks`).
 15. OT training: the optimal-transport step of
    `configs_clean/pre-train_Optimal_Transport_baseline.yml`
    (OptimalTransportModel over PNAGNNRandomEdgeUpdate 50x3, 10 model and
@@ -69,9 +79,11 @@ its seconds:
    pass, host EMD and gradient pass plus update; graphs/s; the step with
    its noise drawn on the card against the same step drawing on the host.
 16. OT profile and kernel times: torch.profiler over warm steps, then the
-   CSR segment sum as in phase 13; then the card's launch floor (an empty
-   kernel on the OT step's grid) beside the byte bounds of rows 1, 3 and 4
-   at the OT shapes, and each row's closable gap.
+   CSR segment sum as in phase 13 and the multi-reduce and the sender-keyed
+   segment sum at the OT shape; then the ladder of the OT step's small CSR
+   walks (the empty kernel, the index round trip, each walk alone and in
+   the step) beside the byte bounds of rows 1, 3 and 4 at the OT shapes,
+   and each row's closable gap.
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 """
@@ -240,8 +252,8 @@ PEAK_F32_FLOPS = 67e12
 #   round once -> bit-exact.
 # pna_stats: the same float32 statistics in the same slot order with the
 #   same rounding points, each rounded once -> bit-exact in every section.
-# multi_reduce: max / min exact; sum / sumsq float32 within 1e-6 relative.
-F32_REL = 1e-6
+# multi_reduce, snd_segment_sum: the same float32 sums in the same slot
+#   order, max / min exact -> bit-exact in every section (`_hold_walks`).
 # Fingerprints on the card against the same model and batch on the CPU,
 # relative to max|cpu|: float32 matmuls in full float32 on both (TF32 off,
 # set below), so only summation order differs -> 1e-4; bf16 matmuls
@@ -347,6 +359,92 @@ def degree16_csr(N: int = 4096, seed: int = 0):
     return torch.from_numpy(rp).cuda(), int(rp[-1]) + 24
 
 
+def degree16_csc(N: int = 4096, seed: int = 1):
+    """A sender-sorted CSC on the card with out-degrees 0 to 4 and every
+    61st node of degree 16, its positions a random permutation of the real
+    edges, then 24 padding edges: (csc_row_ptr, csc_perm, edges with
+    padding)."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 5, N)
+    deg[::61] = 16
+    crp = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    e_real = int(crp[-1])
+    perm = np.concatenate([rng.permutation(e_real),
+                           np.arange(e_real, e_real + 24)]).astype(np.int32)
+    return (torch.from_numpy(crp).cuda(), torch.from_numpy(perm).cuda(),
+            e_real + 24)
+
+
+def _hold_walks(phase: str, gen, recv_cases, send_cases) -> dict:
+    """Rows 1 (`multi_reduce`) and 4 (`snd_segment_sum`) against their
+    plain versions on the same CUDA tensors, in float32 and bf16 at each
+    case's widths: the public wrapper (the main paths' call, 32-bit
+    indices at these shapes), then the raw launch with 64-bit indices
+    forced; both sum the same rows in float32 in slot order (and the
+    segment sum rounds once), max / min select -> bit-exact.  Nodes
+    without edges get 0; rows past the ranges (padding edges, and for row
+    1 the slots past K) never count.  recv_cases: (name, row_ptr, K,
+    edges, widths); send_cases: (name, csc_row_ptr, csc_perm, edges,
+    widths).  Returns the max |kernel - plain| of each."""
+    mods = {n: importlib.import_module(f"infomax3d_tpu_torch.ops.kernels.{n}")
+            for n in ("multi_reduce", "snd_segment_sum")}
+    public = {"multi_reduce": multi_reduce, "snd_segment_sum": snd_segment_sum}
+    pairs = {n: [] for n in mods}
+    cases = [("multi_reduce", name, (rp, K), rp, E, widths)
+             for name, rp, K, E, widths in recv_cases]
+    cases += [("snd_segment_sum", name, (crp, perm), crp, E, widths)
+              for name, crp, perm, E, widths in send_cases]
+    for kern, name, idx, ptr, E, widths in cases:
+        empty = (ptr[1:] - ptr[:-1]) == 0
+        e_end = int(ptr[-1])
+        _check(bool(empty.any()) and e_end < E,
+               f"{kern} {name}: padding nodes and padding edges")
+        if kern == "snd_segment_sum":
+            _check(int(idx[1][:e_end].max()) < e_end,
+                   f"{name}: a real sender position names a padding edge")
+        paths = (("public wrapper", public[kern]),
+                 ("64-bit indices", lambda *a, k=kern: mods[k]._launch(
+                     *a, wide=True)))
+        plain = (multi_reduce_reference if kern == "multi_reduce"
+                 else snd_segment_sum_reference)
+        for D in widths:
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn(E, D, generator=gen, device="cuda").to(dt)
+                ref = plain(x, *idx)
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                tag = f"{kern} {name} D={D} {dt} ({_vector_path(dt, D)} path)"
+                for path, fn in paths:
+                    got = fn(x, *idx)
+                    got = got if isinstance(got, tuple) else (got,)
+                    torch.cuda.synchronize()
+                    for kk, rr in zip(got, ref):
+                        _check(kk.dtype == rr.dtype and torch.equal(kk, rr),
+                               f"{tag} {path}: not bit-exact")
+                        _check(bool((kk[empty] == 0).all()),
+                               f"{tag} {path}: nonzero on nodes without "
+                               f"edges")
+                        pairs[kern].append((kk, rr))
+                x[e_end:] = 1e4
+                again = public[kern](x, *idx)
+                again = again if isinstance(again, tuple) else (again,)
+                _check(all(torch.equal(a, r) for a, r in zip(again, ref)),
+                       f"{tag}: a padding edge counted")
+                print(f"[{phase}] {tag}: bit-exact through the "
+                      + " and ".join(p for p, _ in paths)
+                      + ", padding edges ignored")
+    errs = {n: _max_err(p) for n, p in pairs.items() if p}
+    for n, err in errs.items():
+        print(f"[{phase}] {n}: agrees with its plain version (max |kernel - "
+              f"plain| = {err:.3g})")
+    return errs
+
+
+def _merge_errs(errs: dict, new: dict):
+    """Each kernel's largest max |kernel - plain| over the phases."""
+    for n, err in new.items():
+        errs[n] = max(errs.get(n, 0.0), err)
+
+
 def _stats_cases(g):
     """(name, row_ptr, K, edges, D) on which phases 3 and 7 hold the two
     statistics kernels: the bench batch at its width (16-byte vectors), at
@@ -412,22 +510,15 @@ def phase_kernels(g) -> dict:
               f"section bit-exact, with and without the affine and the sum")
     errs["pna_stats"] = _max_err(pairs)
 
-    pairs = []
-    for dt in (torch.float32, torch.bfloat16):
-        x = randn(E, D, dtype=dt)
-        k = multi_reduce(x, g.csr_row_ptr, K)
-        r = multi_reduce_reference(x, g.csr_row_ptr, K)
-        torch.cuda.synchronize()
-        for name, kk, rr in zip(("sum", "sumsq", "max", "min"), k, r):
-            if name in ("max", "min"):
-                _check(torch.equal(kk, rr), f"multi_reduce {dt}: {name}")
-            else:
-                _check(bool(((kk - rr).abs() <= F32_REL * rr.abs()
-                             + 1e-6).all()), f"multi_reduce {dt}: {name}")
-            _check(bool((kk[deg0] == 0).all()),
-                   f"multi_reduce {dt}: {name} nonzero on degree-0 nodes")
-            pairs.append((kk, rr))
-    errs["multi_reduce"] = _max_err(pairs)
+    rp16, e16 = degree16_csr()
+    crp16, perm16, s16 = degree16_csc()
+    errs.update(_hold_walks(
+        "kernels", gen,
+        [("bench batch", g.csr_row_ptr, K, E, (WIDTH, 300, 302)),
+         ("degree-16 batch", rp16, 16, e16, (WIDTH, OT_WIDTH)),
+         ("degree-16 batch cut at K=3", rp16, 3, e16, (WIDTH, OT_WIDTH))],
+        [("bench batch", g.csc_row_ptr, g.csc_perm, E, (WIDTH, 300, 302)),
+         ("out-degree-16 batch", crp16, perm16, s16, (WIDTH, OT_WIDTH))]))
     for name, err in errs.items():
         print(f"[kernels] {name}: agrees with its plain version "
               f"(max |kernel - plain| = {err:.3g})")
@@ -687,7 +778,8 @@ def phase_train_kernels(g) -> dict:
     of phase 3, with the forward kernel's residuals): d_x has the same
     rounding points -> bit-exact, padding edges 0; d_a / d_b are float32
     column sums in the kernel's order -> within 1e-6 of max|plain|
-    (reported when exact); the kernel leaves its counters at 0."""
+    (reported when exact); the kernel leaves its counters at 0.  Then the
+    stats backward on two streams at once (`_stats_bwd_on_two_streams`)."""
     from infomax3d_tpu_torch.ops.kernels.pna_stats_bwd import _COUNTERS
     gen = torch.Generator(device="cuda").manual_seed(2)
     E, D = g.senders.shape[0], WIDTH
@@ -734,13 +826,58 @@ def phase_train_kernels(g) -> dict:
                       + ("bit-exact" if all(torch.equal(kk, rr) for kk, rr
                                             in zip(k[1:], r[1:]))
                          else f"within {_max_err(zip(k[1:], r[1:])):.3g}"))
+    errs_two = _stats_bwd_on_two_streams(g, gen)
     _check(all(int(c.abs().sum()) == 0 for c in _COUNTERS.values()),
            "pna_stats_bwd left a counter non-zero")
+    pairs += errs_two
     errs["pna_stats_bwd"] = _max_err(pairs)
     for name, err in errs.items():
         print(f"[train-kernels] {name}: agrees with its plain version "
               f"(max |kernel - plain| = {err:.3g})")
     return errs
+
+
+def _stats_bwd_on_two_streams(g, gen, rounds: int = 8) -> list:
+    """The stats backward with the affine on two streams of the card at
+    once: two cases at the bench shapes, launched `rounds` times each in
+    turns, one stream each.  Every result is held as in phase 7 (d_x bit
+    for bit, d_a / d_b within 1e-6 of max|plain|) against its plain
+    version, and each stream must have had counters of its own: shared
+    ones would let one launch's blocks count the other's chunks.  Returns
+    the (kernel, plain) pairs."""
+    from infomax3d_tpu_torch.ops.kernels.pna_stats_bwd import _COUNTERS
+    rp, K, E, D = g.csr_row_ptr, g.max_deg, g.senders.shape[0], WIDTH
+    cases = []
+    for _ in range(2):
+        x, aff, res, cts = _stats_bwd_inputs(rp, K, E, D, gen, ("d_sum",))
+        args = (x, rp, K, *res, *cts.values(), aff)
+        cases.append((args, pna_stats_bwd_reference(*args)))
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    torch.cuda.synchronize()
+    outs = ([], [])
+    for _ in range(rounds):
+        for (args, _), s, out in zip(cases, streams, outs):
+            with torch.cuda.stream(s):
+                out.append(pna_stats_bwd(*args))
+    torch.cuda.synchronize()
+    pairs = []
+    for i, ((_, ref), out) in enumerate(zip(cases, outs)):
+        for k in out:
+            _check(torch.equal(k[0], ref[0]),
+                   f"pna_stats_bwd on stream {i}: d_x not bit-exact")
+            for sec, kk, rr in zip(("d_a", "d_b"), k[1:], ref[1:]):
+                err = float((kk - rr).abs().max())
+                _check(err <= 1e-6 * float(rr.abs().max()),
+                       f"pna_stats_bwd on stream {i}: {sec} off by {err:.3g}")
+            pairs += list(zip(k, ref))
+    handles = {s.cuda_stream for s in streams}
+    _check(len({key for key in _COUNTERS if key[1] in handles}) == 2,
+           "pna_stats_bwd: the two streams did not get counters of their own")
+    print(f"[train-kernels] pna_stats_bwd on two streams at once ({rounds} "
+          f"launches each, in turns): every result agrees with its plain "
+          f"version (max |kernel - plain| = {_max_err(pairs):.3g}), one set "
+          f"of counters per stream")
+    return pairs
 
 
 def _train_args(bf16: bool) -> dict:
@@ -1202,6 +1339,14 @@ def gin_batch(device="cuda"):
                           device=device, **GIN_DATA)
 
 
+def _vec_elems(dtype: torch.dtype, D: int) -> int:
+    """Elements per thread of a walk over rows of D elements (`vec_width`
+    in csrc/common.cuh, for 16-byte aligned tensors)."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    row = D * elem
+    return 16 // elem if row % 16 == 0 else 8 // elem if row % 8 == 0 else 1
+
+
 def _vector_path(dtype: torch.dtype, D: int) -> str:
     """Which vector path the GIN kernels take for rows of D elements
     (`vec_width` in csrc/common.cuh; the wrappers' tensors are 16-byte
@@ -1215,18 +1360,18 @@ def phase_gin_kernels(g) -> dict:
     """Phase 11: the CSR sum and the sender-keyed segment sum against their
     plain versions on the same CUDA tensors, at the slice's width (300: the
     8-byte path in bf16, 16-byte in float32) and at 302 (element-wise in
-    bf16, 8-byte in float32).  Both sum the same rows in float32 in slot
-    order (and the segment sum rounds once) -> bit-exact."""
+    bf16, 8-byte in float32).  The CSR sum sums the same rows in float32 in
+    slot order -> bit-exact; the segment sum and the multi-reduce (on the
+    same batch) are held by `_hold_walks`."""
     N, E = g.num_nodes, g.senders.shape[0]
     print(f"[gin-kernels] N={N} E={E} (real {int(g.csr_row_ptr[-1])}) "
           f"max in-degree {g.max_deg}")
     gen = torch.Generator(device="cuda").manual_seed(4)
     deg0 = (g.csr_row_ptr[1:] - g.csr_row_ptr[:-1]) == 0
-    sent0 = (g.csc_row_ptr[1:] - g.csc_row_ptr[:-1]) == 0
-    _check(bool(deg0.any()) and bool(sent0.any()),
-           "GIN batch has padding nodes")
-    pairs = {"csr_sum": [], "snd_segment_sum": []}
-    for D in (GIN_WIDTH, GIN_WIDTH + 2):
+    _check(bool(deg0.any()), "GIN batch has padding nodes")
+    widths = (GIN_WIDTH, GIN_WIDTH + 2)
+    pairs = []
+    for D in widths:
         for dt in (torch.bfloat16, torch.float32):
             m = torch.randn(E, D, generator=gen, device="cuda").to(dt)
             k, r = csr_sum(m, g.csr_row_ptr), csr_sum_reference(
@@ -1236,20 +1381,15 @@ def phase_gin_kernels(g) -> dict:
             _check(k.dtype == torch.float32 and torch.equal(k, r),
                    f"csr_sum {tag}: not bit-exact")
             _check(bool((k[deg0] == 0).all()), f"csr_sum {tag}: degree 0")
-            pairs["csr_sum"].append((k, r))
-            args = (m, g.csc_row_ptr, g.csc_perm)
-            k, r = snd_segment_sum(*args), snd_segment_sum_reference(*args)
-            torch.cuda.synchronize()
-            _check(k.dtype == dt and torch.equal(k, r),
-                   f"snd_segment_sum {tag}: not bit-exact")
-            _check(bool((k[sent0] == 0).all()),
-                   f"snd_segment_sum {tag}: nothing sent")
-            pairs["snd_segment_sum"].append((k, r))
-            print(f"[gin-kernels] {tag}: both bit-exact")
-    errs = {n: _max_err(p) for n, p in pairs.items()}
-    for name, err in errs.items():
-        print(f"[gin-kernels] {name}: agrees with its plain version "
-              f"(max |kernel - plain| = {err:.3g})")
+            pairs.append((k, r))
+            print(f"[gin-kernels] csr_sum {tag}: bit-exact")
+    errs = {"csr_sum": _max_err(pairs)}
+    print(f"[gin-kernels] csr_sum: agrees with its plain version (max "
+          f"|kernel - plain| = {errs['csr_sum']:.3g})")
+    errs.update(_hold_walks(
+        "gin-kernels", gen,
+        [("GIN batch", g.csr_row_ptr, g.max_deg, E, widths)],
+        [("GIN batch", g.csc_row_ptr, g.csc_perm, E, widths)]))
     return errs
 
 
@@ -1440,7 +1580,9 @@ def phase_ot_kernels(ob, g) -> dict:
     the OT batch at D = 300 (8-byte bf16, 16-byte float32) and 302
     (element-wise bf16, 8-byte float32).  Both sum the same rows in
     float32 in slot order and round once -> bit-exact.  Rows past
-    row_ptr[N] (padding edges) must not count."""
+    row_ptr[N] (padding edges) must not count.  Then the OT step's two
+    other kernels, rows 1 and 4, on the OT batch at the same widths
+    (`_hold_walks`)."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     pairs = []
     for name, gr, widths in (("OT batch", ob.graph, (OT_WIDTH, 300, 302)),
@@ -1471,7 +1613,13 @@ def phase_ot_kernels(ob, g) -> dict:
     err = _max_err(pairs)
     print(f"[ot-kernels] csr_segment_sum: agrees with its plain version "
           f"(max |kernel - plain| = {err:.3g})")
-    return {"csr_segment_sum": err}
+    gr, widths = ob.graph, (OT_WIDTH, 300, 302)
+    E = gr.senders.shape[0]
+    return dict(_hold_walks(
+        "ot-kernels", gen,
+        [("OT batch", gr.csr_row_ptr, gr.max_deg, E, widths)],
+        [("OT batch", gr.csc_row_ptr, gr.csc_perm, E, widths)]),
+        csr_segment_sum=err)
 
 
 def _ot_args() -> dict:
@@ -1791,44 +1939,155 @@ def phase_ot_kernel_times(ob, launches: dict, errs: dict,
                "max_abs_err": errs["csr_segment_sum"], "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": lib_ms}
+    _ot_walk_times(ob, in_step, flush)
     return [row]      # the float32 variant
 
 
-# the OT step's grid for the launch floor: ~52 blocks of 256 threads (the
-# row-3 walk at N = 512, D = 50 float32 runs 50; row 1 element-wise 100)
+def _ot_walk_times(ob, in_step: dict, flush):
+    """Rows 1 and 4 at the OT step's shapes (float32, D = 50, the step's
+    variant; the kernels line keeps their larger main-path shapes, phases 6
+    and 13): cold-L2, warm, in the step, plain, the library call for row 4
+    (float32 `index_add_` by sender) and the byte bound."""
+    gr = ob.graph
+    N, E, D = gr.num_nodes, gr.senders.shape[0], OT_WIDTH
+    e_real = int(gr.csr_row_ptr[-1])
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn(E, D, generator=gen, device="cuda")
+    send = gr.senders.long().clamp(max=N)
+    acc = torch.zeros(N + 1, D, device="cuda")
+    K, rp, crp, perm = gr.max_deg, gr.csr_row_ptr, gr.csc_row_ptr, gr.csc_perm
+    cases = {
+        # the real rows, row_ptr, 4 float32 [N, D] sections out
+        "multi_reduce": (lambda: multi_reduce(x, rp, K),
+                         lambda: multi_reduce_reference(x, rp, K), None,
+                         e_real * D * 4 + (N + 1) * 4 + 4 * N * D * 4),
+        # the real rows through csc_perm, csc_row_ptr, one [N, D] out
+        "snd_segment_sum": (
+            lambda: snd_segment_sum(x, crp, perm),
+            lambda: snd_segment_sum_reference(x, crp, perm),
+            lambda: acc.zero_().index_add_(0, send, x),
+            e_real * D * 4 + e_real * 4 + (N + 1) * 4 + N * D * 4)}
+    for name, (kern, plain, lib, nbytes) in cases.items():
+        warm = device_ms(kern, iters=100, warmup=10)
+        ms = device_ms(kern, iters=20, flush=flush)
+        plain_ms = device_ms(plain, iters=10)
+        lib_ms = None if lib is None else device_ms(lib, iters=100,
+                                                    warmup=10)
+        bound_ms, bound_by = _bound(nbytes, 5.0 * e_real * D
+                                    if name == "multi_reduce"
+                                    else float(e_real * D))
+        t = in_step.get(name)
+        print(f"[times] {name} at the OT shape (float32, D={D}, "
+              f"{_vector_path(torch.float32, D)} path): device "
+              f"{ms:.5f} ms cold-L2 "
+              f"median, {warm:.5f} ms warm, "
+              + ("not measured" if t is None else f"{t:.5f} ms")
+              + f" in the OT step (mean of its launches); plain "
+              f"{plain_ms:.5f} ms; library "
+              + ("null" if lib_ms is None else f"{lib_ms:.5f} ms (float32 "
+                                               f"index_add_ by sender)")
+              + f"; bound {bound_ms:.5f} ms by {bound_by} "
+              f"({nbytes / 1e6:.3f} MB)")
+
+
+# the row-3 walk's grid for the launch floor: ~52 blocks of 256 threads
+# (it runs 50 at N = 512, D = 50 float32)
 FLOOR_GRID = (52, 256)
+# the block of rows 1 and 4 (WALK_THREADS in csrc/common.cuh)
+WALK_THREADS = 256
+
+
+def _profiled_ms(fn, needle: str, n: int = 50):
+    """Mean device ms of the kernels named like `needle` over `n`
+    back-to-back calls of `fn`, in a profile; a profile that recorded none
+    of them (it happens) is taken again, up to three times, then None."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rec = [v for k, v in _profile_kernels(prof).items() if needle in k]
+        if rec:
+            us, cnt = map(sum, zip(*rec))
+            return us / cnt / 1e3
+    return None
+
+
+def _fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.5f} ms"
 
 
 def phase_launch_floor(ob, launches: dict, in_step: dict):
-    """Phase 16c: the card's launch floor, an empty `__global__` on the OT
-    step's grid (warm device time, CUDA events, and its device time in a
-    profile), and beside it the byte bound of rows 1, 3 and 4 at the OT
-    batch's shapes (float32, D = 50) and each row's closable gap: launches
-    x (in-step time - max(bound, floor)), per OT step and over the main
-    paths' launches."""
-    from torch.profiler import ProfilerActivity, profile
-    fn = launcher("csr_sum", "launch_floor", (ctypes.c_int, ctypes.c_int,
-                                              ctypes.c_void_p))
+    """Phase 16c: the ladder of the OT step's small CSR walks, each rung's
+    device time in a profile of back-to-back launches: the card's launch
+    floor (an empty `__global__`) on row 3's grid and on the grid of rows 1
+    and 4 at the OT shape, the index round trip on that grid
+    (`index_probe_kernel`: row_ptr[n] and row_ptr[n + 1] loaded, one value
+    stored per thread), rows 1 and 4 alone, and rows 1, 3 and 4 in the
+    step.  Beside them each row's byte bound at the OT batch's shapes
+    (float32, D = 50) and its closable gap: launches x (in-step time -
+    max(bound, floor on its grid)), per OT step and over the main paths'
+    launches."""
+    floor_fn = launcher("csr_sum", "launch_floor",
+                        (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+    probe_fn = launcher("csr_sum", "index_probe",
+                        (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 3
+                        + (ctypes.c_void_p,))
     stream = torch.cuda.current_stream().cuda_stream
-
-    def floor():
-        _check(fn(*FLOOR_GRID, stream) == 0, "launch_floor: launch failed")
-
-    warm = device_ms(floor, iters=200, warmup=10)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(50):
-            floor()
-        torch.cuda.synchronize()
-    rec = [v for k, v in _profile_kernels(prof).items()
-           if "launch_floor_kernel" in k]
-    prof_ms = rec[0][0] / rec[0][1] / 1e3 if rec else None
-    print(f"[floor] empty kernel on {FLOOR_GRID[0]} blocks of "
-          f"{FLOOR_GRID[1]}: {warm:.5f} ms warm (CUDA events), "
-          + ("not measured" if prof_ms is None else f"{prof_ms:.5f} ms")
-          + " in a profile")
     gr = ob.graph
-    N, D, e_real = gr.num_nodes, OT_WIDTH, int(gr.csr_row_ptr[-1])
+    N, E, D = gr.num_nodes, gr.senders.shape[0], OT_WIDTH
+    e_real = int(gr.csr_row_ptr[-1])
+    x = torch.randn(E, D, generator=torch.Generator(device="cuda")
+                    .manual_seed(9), device="cuda")
+    nvec = D // _vec_elems(torch.float32, D)
+    walk_grid = (-(-N * nvec // WALK_THREADS), WALK_THREADS)
+    probe_out = torch.empty(N * nvec, device="cuda")
+
+    def floor(grid):
+        _check(floor_fn(*grid, stream) == 0, "launch_floor: launch failed")
+
+    def probe():
+        _check(probe_fn(gr.csr_row_ptr.data_ptr(), probe_out.data_ptr(), N,
+                        nvec, WALK_THREADS, stream) == 0,
+               "index_probe: launch failed")
+
+    floors = {grid: _profiled_ms(lambda: floor(grid), "launch_floor_kernel")
+              for grid in (FLOOR_GRID, walk_grid)}
+    for grid, ms in floors.items():
+        print(f"[floor] empty kernel on {grid[0]} blocks of {grid[1]}: "
+              f"{_fmt(ms)} in a profile")
+    probe()
+    torch.cuda.synchronize()
+    deg = (gr.csr_row_ptr[1:] - gr.csr_row_ptr[:-1]).float()
+    _check(torch.equal(probe_out.view(N, nvec),
+                       deg[:, None].expand(N, nvec)),
+           "index_probe: wrong degrees")
+    probe_ms = _profiled_ms(probe, "index_probe_kernel")
+    alone = {"multi_reduce": _profiled_ms(
+                 lambda: multi_reduce(x, gr.csr_row_ptr, gr.max_deg),
+                 "multi_reduce_kernel"),
+             "snd_segment_sum": _profiled_ms(
+                 lambda: snd_segment_sum(x, gr.csc_row_ptr, gr.csc_perm),
+                 "snd_segment_sum_kernel")}
+    fl = floors[walk_grid]
+    print(f"[floor] ladder on the walks' grid ({walk_grid[0]} blocks of "
+          f"{walk_grid[1]}): floor {_fmt(fl)}; index "
+          f"round trip (index_probe_kernel) {_fmt(probe_ms)}"
+          + ("" if None in (fl, probe_ms)
+             else f" (+{probe_ms - fl:.5f} over the floor)"))
+    for name, ms in alone.items():
+        t = in_step.get(name)
+        print(f"[floor] ladder: {name} alone {_fmt(ms)}"
+              + ("" if None in (ms, probe_ms)
+                 else f" (+{ms - probe_ms:.5f} over the index round trip: "
+                      f"its rows, adds and stores)")
+              + f", in the OT step {_fmt(t)}"
+              + ("" if None in (t, ms) else f" (+{t - ms:.5f} over alone)"))
     nbytes = {
         # the real rows, row_ptr, 4 float32 [N, D] sections out
         "multi_reduce": e_real * D * 4 + (N + 1) * 4 + 4 * N * D * 4,
@@ -1837,20 +2096,21 @@ def phase_launch_floor(ob, launches: dict, in_step: dict):
         # the real rows through csc_perm, csc_row_ptr, one [N, D] out
         "snd_segment_sum": (e_real * D * 4 + e_real * 4 + (N + 1) * 4
                             + N * D * 4)}
-    fl = warm if prof_ms is None else prof_ms
     for name, b in nbytes.items():
         bound = b / PEAK_BYTES_PER_S * 1e3
         t = in_step.get(name)
+        grid = FLOOR_GRID if name == "csr_segment_sum" else walk_grid
+        fl = floors[grid]
         per_step = EXPECTED_OT_STEP[name]
-        over = None if t is None else t - max(bound, fl)
-        gap = "not measured" if t is None else (
+        over = None if None in (t, fl) else t - max(bound, fl)
+        gap = "not measured" if over is None else (
             f"{per_step * over:.5f} ms per OT step ({per_step} launches), "
             f"{launches[name] * over:.5f} ms over the main paths' "
             f"{launches[name]} launches")
         print(f"[floor] {name} at the OT shape (N={N}, E real {e_real}, D={D},"
-              f" float32): bound {bound:.5f} ms ({b / 1e6:.3f} MB), in the "
-              f"OT step " + ("not measured" if t is None else f"{t:.5f} ms")
-              + f"; closable gap {gap}")
+              f" float32, {grid[0]} blocks of {grid[1]}): bound {bound:.5f} "
+              f"ms ({b / 1e6:.3f} MB), floor {_fmt(fl)}, in the OT step "
+              f"{_fmt(t)}; closable gap {gap}")
 
 
 class _Phase:
@@ -1883,17 +2143,17 @@ def main() -> int:
     with _Phase("5 profile"):
         phase_profile(g, fwd_ms)
     with _Phase("7 training kernels"):
-        errs.update(phase_train_kernels(g))
+        _merge_errs(errs, phase_train_kernels(g))
     with _Phase("8 training"):
         train = phase_train(smi)
     gg, _ = gin_batch()
     with _Phase("11 GIN kernels"):
-        errs.update(phase_gin_kernels(gg))
+        _merge_errs(errs, phase_gin_kernels(gg))
     with _Phase("12 GIN training"):
         gin = phase_gin_train(smi)
     ob, _ = ot_slice_batch()
     with _Phase("14 OT kernel"):
-        errs.update(phase_ot_kernels(ob, g))
+        _merge_errs(errs, phase_ot_kernels(ob, g))
     with _Phase("15 OT training"):
         ot_run = phase_ot_train(smi)
     # every kernel's launches over the four main paths (serving,

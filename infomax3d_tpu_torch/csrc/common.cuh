@@ -120,6 +120,92 @@ __host__ inline int vec_width(int D, const void* const* ptrs, int n) {
   return 1;
 }
 
+// --- small CSR walks: one thread per (node, column vector) -----------------
+//
+// The CSR multi-reduce (multi_reduce.cu) and the sender-keyed segment sum
+// (snd_segment_sum.cu) give each (node, VEC-element column vector) of an
+// [N, D] output one thread, which walks the node's range of edge rows.  At
+// the OT slice's shapes (~640 real edges, D = 50) a launch moves well under
+// a megabyte, so its time is the launch plus the chain of dependent memory
+// round trips each thread waits on.  `walk_rows` keeps that chain short:
+// it takes the slots U at a time, issues the chunk's U index loads (through
+// a permutation), then its U row loads, and only then adds them in slot
+// order, so a node of degree <= U costs one round trip for its rows (two
+// through a permutation) after its range.
+
+// U: the slots a chunk takes.  One chunk covers every node of degree <= 4,
+// which is every atom of a QM9-like or molhiv-like molecule; U = 8 and
+// blocks of 128 threads were measured slower or no faster on the H100.
+constexpr int WALK_UNROLL = 4;
+constexpr int WALK_THREADS = 256;
+
+// 64-bit index arithmetic where max(N, E) * D reaches 2^31 (whatever the
+// vector width), or where the caller forces it; else 32-bit.
+__host__ inline bool walk_wide(int N, int E, int D, int force_wide) {
+  return force_wide ||
+         static_cast<int64_t>(N > E ? N : E) * D >= (int64_t{1} << 31);
+}
+
+__host__ inline unsigned walk_blocks(int64_t items) {
+  return static_cast<unsigned>((items + WALK_THREADS - 1) / WALK_THREADS);
+}
+
+// This thread's node n and first column c for an [N, D] output walked in
+// vectors of VEC elements; false past the last item.  Idx is uint32_t
+// where `walk_wide` allows 32-bit indices (a 32-bit division), else
+// int64_t.
+template <typename Idx, int VEC>
+__device__ __forceinline__ bool node_column(int N, int D, int& n, int& c) {
+  const Idx nvec = static_cast<Idx>(D / VEC);
+  const Idx idx = static_cast<Idx>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<Idx>(N) * nvec) return false;
+  const Idx q = idx / nvec;
+  n = static_cast<int>(q);
+  c = static_cast<int>(idx - q * nvec) * VEC;
+  return true;
+}
+
+// The rows of slots 0, 1, ..., cnt - 1 of a range starting at `first` of
+// an [*, D] array of T, at column c: row first + s, or with PERM row
+// perm[first + s], each handed to add(v, valid) as VEC floats, in slot
+// order, U slots at a time; row offsets in Idx.  A chunk's slots past cnt
+// load the range's last row again (a valid address, already on its way)
+// and come with valid false.  add uses every slot it is handed, and the
+// first chunk is straight-line code ahead of the loop over the others:
+// only so does nvcc issue all of a chunk's loads before its first add (a
+// load used only under `valid`, or a chunk inside a loop, was scheduled
+// load, add, load, add: one round trip per slot).  A sum adds 0 in place
+// of an invalid slot, which leaves it bit for bit as it was (a float32 sum
+// that starts at +0 never reaches -0 without flush to zero, and s + 0 == s
+// for every other s); an extremum may take the repeated row, which it
+// holds already.
+template <typename T, int VEC, int U, bool PERM, typename Idx, typename Add>
+__device__ __forceinline__ void walk_rows(const T* __restrict__ rows, int D,
+                                          int c, const int* __restrict__ perm,
+                                          int first, int cnt, Add&& add) {
+  const T* base = PERM ? rows + c : rows + static_cast<Idx>(first) * D + c;
+  auto chunk = [&](int s0) {
+    Idx r[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int s = min(s0 + u, cnt - 1);
+      if constexpr (PERM) {
+        r[u] = static_cast<Idx>(perm[first + s]);
+      } else {
+        r[u] = static_cast<Idx>(s);
+      }
+    }
+    float v[U][VEC];
+#pragma unroll
+    for (int u = 0; u < U; ++u) load_vec<T, VEC>(base + r[u] * D, v[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) add(v[u], s0 + u < cnt);
+  };
+  if (cnt > 0) chunk(0);
+#pragma unroll 1
+  for (int s0 = U; s0 < cnt; s0 += U) chunk(s0);
+}
+
 // --- node tiles of a CSR batch, staged in shared memory -------------------
 //
 // The two PNA-statistics kernels (pna_stats.cu, pna_stats_bwd.cu) walk

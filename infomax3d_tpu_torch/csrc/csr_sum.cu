@@ -77,6 +77,19 @@ csr_segment_sum_kernel(const T* __restrict__ ct,
 // OT slice's grid (52 blocks of 256); no wrapper of the port calls it.
 __global__ void launch_floor_kernel() {}
 
+// The next rung above the floor: the index round trip of the small CSR
+// walks without their rows.  Thread idx of N * nvec (node n = idx / nvec)
+// loads row_ptr[n] and row_ptr[n + 1] and stores their difference, so its
+// time less the floor's is what a walk waits for its range.  Used by
+// chip_smoke.py on the grid of the OT step's walks; no wrapper calls it.
+__global__ void index_probe_kernel(const int* __restrict__ row_ptr,
+                                   float* __restrict__ out, int N, int nvec) {
+  const uint32_t idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<uint32_t>(N) * nvec) return;
+  const uint32_t n = idx / static_cast<uint32_t>(nvec);
+  out[idx] = static_cast<float>(row_ptr[n + 1] - row_ptr[n]);
+}
+
 // SEGMENT: csr_segment_sum_kernel (output of the rows' type), else
 // csr_sum_kernel (float32 output).
 template <bool SEGMENT, typename T, int VEC>
@@ -137,6 +150,18 @@ PORT_API cudaError_t csr_segment_sum_bf16(const void* ct, const void* row_ptr,
                                           void* out, int N, int D,
                                           void* stream) {
   return launch<true, __nv_bfloat16>(ct, row_ptr, out, N, D, stream);
+}
+
+// the index probe on the grid of N * nvec threads in blocks of `threads`;
+// out [N * nvec] float32
+PORT_API cudaError_t index_probe(const void* row_ptr, void* out, int N,
+                                 int nvec, int threads, void* stream) {
+  const int64_t items = static_cast<int64_t>(N) * nvec;
+  if (items <= 0 || items >= (int64_t{1} << 31)) return cudaErrorInvalidValue;
+  index_probe_kernel<<<static_cast<unsigned>((items + threads - 1) / threads),
+                       threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(row_ptr), static_cast<float*>(out), N, nvec);
+  return cudaGetLastError();
 }
 
 // the empty kernel on `blocks` blocks of `threads`

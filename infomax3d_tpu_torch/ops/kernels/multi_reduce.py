@@ -16,7 +16,7 @@ from infomax3d_tpu_torch.ops.kernels.pna_stats import (NEG_BIG, POS_BIG,
                                                         csr_mailbox)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P,) * 3 + (_I,) * 3 + (_P,)
+_ARGTYPES = (_P,) * 3 + (_I,) * 5 + (_P,)
 _SYMBOLS = {torch.float32: "multi_reduce_f32",
             torch.bfloat16: "multi_reduce_bf16"}
 
@@ -53,7 +53,9 @@ def multi_reduce_reference(messages, row_ptr, max_deg: int):
     return s1, s2, torch.where(has, mx, zero), torch.where(has, mn, zero)
 
 
-def _launch(messages, row_ptr, max_deg):
+def _launch(messages, row_ptr, max_deg, wide: bool = False):
+    """The kernel on CUDA tensors; `wide` forces 64-bit index arithmetic
+    (the kernel takes it by itself where max(N, E) * D >= 2^31)."""
     refuse_grad("multi_reduce", messages)
     E, D = messages.shape
     N = row_ptr.shape[0] - 1
@@ -64,7 +66,7 @@ def _launch(messages, row_ptr, max_deg):
     if N > 0 and D > 0:
         fn = launcher("multi_reduce", _SYMBOLS[messages.dtype], _ARGTYPES)
         err = fn(messages.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
-                 N, D, max_deg, stream_of(messages))
+                 N, E, D, max_deg, int(wide), stream_of(messages))
         check_launch("multi_reduce", err)
         multi_reduce.launches += 1
     return tuple(out.unbind(0))

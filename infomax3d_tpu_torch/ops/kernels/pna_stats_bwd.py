@@ -23,7 +23,9 @@ _ARGTYPES = (_P,) * 17 + (_I,) * 6 + (_P,)
 THREADS = 256
 CHUNK_TILES = 32
 COTANGENTS = ("d_sum", "d_mean", "d_std", "d_max", "d_min")
-# the kernels' device counters, per device: zero between launches
+# the kernels' device counters, per (device, stream): zero between
+# launches.  Launches on one stream run one after another; two streams (or
+# two replayed graphs) may run at once and would race on shared counters.
 _COUNTERS: dict = {}
 
 
@@ -112,13 +114,15 @@ def pna_stats_bwd_reference(x, row_ptr, max_deg, mean, std, enc, d_sum,
     return d_x, sums[:D], sums[D:]
 
 
-def _counters(device, n: int) -> torch.Tensor:
-    """At least `n` zeroed int32 counters on `device`; the kernel leaves
-    them at 0, so they are allocated (and zeroed) once."""
-    c = _COUNTERS.get(device)
+def _counters(device, stream: int, n: int) -> torch.Tensor:
+    """At least `n` zeroed int32 counters of `stream` on `device`,
+    allocated and zeroed on that stream; the kernel leaves them at 0, so
+    they are allocated once per stream."""
+    key = (device, stream)
+    c = _COUNTERS.get(key)
     if c is None or c.numel() < n:
-        c = _COUNTERS[device] = torch.zeros(max(n, 64), dtype=torch.int32,
-                                            device=device)
+        c = _COUNTERS[key] = torch.zeros(max(n, 64), dtype=torch.int32,
+                                         device=device)
     return c
 
 
@@ -149,7 +153,7 @@ def _launch(x, row_ptr, max_deg, mean, std, enc, cots, affine):
                                 device=dev)
         chunk_part = torch.empty(max(chunks, 1), 2, D, dtype=torch.float32,
                                  device=dev)
-        counters = _counters(dev, chunks + 1)
+        counters = _counters(dev, stream_of(x), chunks + 1)
     if D > 0:
         fn = launcher("pna_stats_bwd", "pna_stats_bwd_bf16", _ARGTYPES)
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731

@@ -15,7 +15,7 @@ from infomax3d_tpu_torch.ops.kernels._build import (check_launch, launcher,
 from infomax3d_tpu_torch.ops.kernels.csr_sum import slot_sums
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P,) * 4 + (_I,) * 2 + (_P,)
+_ARGTYPES = (_P,) * 4 + (_I,) * 4 + (_P,)
 _SYMBOLS = {torch.bfloat16: "snd_segment_sum_bf16",
             torch.float32: "snd_segment_sum_f32"}
 
@@ -27,7 +27,9 @@ def snd_segment_sum_reference(ct, csc_row_ptr, csc_perm):
     return slot_sums(ct, csc_row_ptr, csc_perm).to(ct.dtype)
 
 
-def _launch(ct, csc_row_ptr, csc_perm):
+def _launch(ct, csc_row_ptr, csc_perm, wide: bool = False):
+    """The kernel on CUDA tensors; `wide` forces 64-bit index arithmetic
+    (the kernel takes it by itself where max(N, E) * D >= 2^31)."""
     refuse_grad("snd_segment_sum", ct)
     if ct.dtype not in _SYMBOLS:
         raise TypeError(f"snd_segment_sum: bf16 or float32, got {ct.dtype}")
@@ -41,7 +43,7 @@ def _launch(ct, csc_row_ptr, csc_perm):
     if N > 0 and D > 0:
         fn = launcher("snd_segment_sum", _SYMBOLS[ct.dtype], _ARGTYPES)
         err = fn(ct.data_ptr(), csc_row_ptr.data_ptr(), csc_perm.data_ptr(),
-                 out.data_ptr(), N, D, stream_of(ct))
+                 out.data_ptr(), N, E, D, int(wide), stream_of(ct))
         check_launch("snd_segment_sum", err)
         snd_segment_sum.launches += 1
     return out

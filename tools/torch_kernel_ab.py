@@ -1,0 +1,246 @@
+#!/usr/bin/env python3
+"""The two small CSR walks of the PyTorch/CUDA port, rows 1
+(`multi_reduce`) and 4 (`snd_segment_sum`), measured in two trees of the
+repository on one card.
+
+    python3 tools/torch_kernel_ab.py PARENT_ROOT CHANGE_ROOT [SUMMARY_JSON]
+
+runs, in the order parent, change, U = 8, 128 threads, change, parent and
+each in a process of its own (the two variants are copies of the change
+tree under `CHANGE_ROOT/build/ab_variants/`, with `WALK_UNROLL` or
+`WALK_THREADS` of csrc/common.cuh patched: the knobs that the shipped
+kernels fix at 4 and 256), that tree's `chip_smoke.py` phases 1 to 3, 11
+and 14 (the kernels built and held against their plain versions); then the OT step of
+phase 15 (`ot()`, float32) timed by CUDA events over 10 warm steps and
+profiled over 3 (kernels and device time per step, each port kernel's
+mean device time per launch in the step); then rows 1 and 4 alone at the
+OT shape (float32, D = 50), at the bench shape (row 1, float32, D = 200)
+and at the GIN shape (row 4, float32 and bf16, D = 300): cold-L2 and warm
+device times (CUDA events) and the mean device time in a profile of 50
+back-to-back launches; then the tree's phase 16c (the launch floor and,
+where the tree has it, the ladder of the OT step's walks).  Each run also
+prints
+the order of loads (L), float ops (F), stores (S) and branches (b) in the
+SASS of every instantiation of the two kernels.  Each run's numbers end in
+one JSON line; the summary goes to SUMMARY_JSON (default
+`CHANGE_ROOT/build/kernel_ab.json`).  Needs one CUDA card; the kernels of
+each tree build into that tree's `build/`.
+"""
+from __future__ import annotations
+
+import glob
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROWS = ("multi_reduce", "snd_segment_sum")
+# (tag, files, text, replacement): the change tree with one knob of the
+# walks patched in each of `files` (the kernels' header; for the block
+# size also the ladder's grid in chip_smoke.py)
+_CUH = "infomax3d_tpu_torch/csrc/common.cuh"
+VARIANTS = (("U=8", (_CUH,), "WALK_UNROLL = 4;", "WALK_UNROLL = 8;"),
+            ("128 threads", (_CUH, "chip_smoke.py"), "WALK_THREADS = 256",
+             "WALK_THREADS = 128"))
+STEP_KERNELS = ("multi_reduce", "snd_segment_sum", "csr_segment_sum")
+
+
+def _sass_orders(name: str) -> dict:
+    """{instantiation: the order of its first 40 loads / float ops /
+    stores / branches} of kernel library `name` (cuobjdump -sass)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = glob.glob(f"build/infomax3d_tpu_torch/{name}-*.so")
+    if not lib or not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", lib[0]], capture_output=True,
+                          text=True, timeout=120).stdout
+    orders = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        head, body = fn.split("\n", 1)
+        toks = []
+        for line in body.splitlines():
+            if "LDG" in line:
+                toks.append("L")
+            elif re.search(r"\b(FADD|FSEL|FMNMX|FMUL)\b", line):
+                toks.append("F")
+            elif "STG" in line:
+                toks.append("S")
+            elif re.search(r"\bBRA\b", line):
+                toks.append("b")
+        orders[head.strip()[-48:]] = "".join(toks)[:40]
+    return orders
+
+
+def one(root: str) -> dict:
+    """One tree's measurements (run in a process of its own)."""
+    root = str(Path(root).resolve())
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke as cs
+    from infomax3d_tpu_torch.ops.kernels import (multi_reduce,
+                                                 snd_segment_sum)
+    from infomax3d_tpu_torch.train.ot import ot
+
+    smi = cs.phase_device()
+    cs.phase_build()
+    sass = {n: _sass_orders(n) for n in ROWS}
+    for n, orders in sass.items():
+        for fn, order in orders.items():
+            print(f"[ab] sass {n} {fn}: {order}")
+    g = cs.bench_batch()
+    gg, _ = cs.gin_batch()
+    ob, _ = cs.ot_slice_batch()
+    cs.phase_kernels(g)
+    cs.phase_gin_kernels(gg)
+    cs.phase_ot_kernels(ob, g)
+
+    out = ot(cs._ot_args(), steps=2)
+    step, batch = out["step"], out["batch"]
+    seeds = iter(range(5000, 6000))
+
+    def one_step():
+        step.step(batch, torch.Generator("cuda").manual_seed(next(seeds)))
+
+    step_ms = cs.cuda_ms(one_step, iters=10)
+    n = 3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            one_step()
+        torch.cuda.synchronize()
+    by_name = cs._profile_kernels(prof)
+    ported = cs._port_kernels(by_name)
+    in_step = {k: us / c / 1e3 for k, (us, c) in ported.items()}
+
+    def profiled(fn, needle, reps=50):
+        """Mean device ms per launch of the kernels named like `needle` in
+        a profile of `reps` back-to-back calls; a profile that recorded
+        none of them (it happens) is taken again, up to three times."""
+        for _ in range(3):
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as p:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            rec = [v for k, v in cs._profile_kernels(p).items()
+                   if needle in k]
+            if rec:
+                return (sum(us for us, _ in rec) / sum(c for _, c in rec)
+                        / 1e3)
+        return None
+
+    def fmt(ms):
+        return "not measured" if ms is None else f"{ms:.5f}"
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    cases = []
+    for shape, gr, D, dt, rows in (
+            ("OT", ob.graph, cs.OT_WIDTH, torch.float32, ROWS),
+            ("bench", g, cs.WIDTH, torch.float32, ("multi_reduce",)),
+            ("GIN", gg, cs.GIN_WIDTH, torch.float32, ("snd_segment_sum",)),
+            ("GIN", gg, cs.GIN_WIDTH, torch.bfloat16, ("snd_segment_sum",))):
+        x = torch.randn(gr.senders.shape[0], D, generator=gen,
+                        device="cuda").to(dt)
+        for row in rows:
+            cases.append((shape, gr, D, dt, row, x))
+    times = []
+    for shape, gr, D, dt, row, x in cases:
+        if row == "multi_reduce":
+            fn = lambda: multi_reduce(x, gr.csr_row_ptr,  # noqa: E731
+                                      gr.max_deg)
+        else:
+            fn = lambda: snd_segment_sum(x, gr.csc_row_ptr,  # noqa: E731
+                                         gr.csc_perm)
+        rec = {"shape": shape, "row": row, "dtype": str(dt), "D": D,
+               "cold_ms": cs.device_ms(fn, iters=20, flush=flush),
+               "warm_ms": cs.device_ms(fn, iters=100, warmup=10),
+               "alone_ms": profiled(fn, f"{row}_kernel")}
+        times.append(rec)
+        print(f"[ab] {row} at the {shape} shape ({dt}, D={D}): cold-L2 "
+              f"{rec['cold_ms']:.5f} ms, warm {rec['warm_ms']:.5f} ms, "
+              f"alone in a profile {fmt(rec['alone_ms'])} ms")
+
+    cs.phase_launch_floor(ob, {k: 0 for k in cs.NONE}, in_step)
+    return {"tree": root, "card": smi, "ot_step_ms": step_ms,
+            "kernels_per_ot_step": sum(c for _, c in by_name.values()) / n,
+            "busy_ms_per_ot_step": sum(us for us, _ in by_name.values())
+            / n / 1e3,
+            "in_step_ms": {k: in_step.get(k) for k in STEP_KERNELS},
+            "times": times, "sass": sass}
+
+
+def _variant(change: str, tag: str, files, text: str, new: str) -> str:
+    """A copy of the change tree (without its `build/` and `.git/`) under
+    `build/ab_variants/`, with `text` replaced by `new` in each of
+    `files`; returns its root."""
+    root = Path(change, "build", "ab_variants",
+                re.sub(r"\W+", "_", tag)).resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(change, root,
+                    ignore=shutil.ignore_patterns("build", ".git"))
+    for rel in files:
+        f = root / rel
+        src = f.read_text()
+        if src.count(text) != 1:
+            raise SystemExit(f"{rel}: `{text}` is not there once")
+        f.write_text(src.replace(text, new))
+    return str(root)
+
+
+def main(argv) -> int:
+    if len(argv) == 3 and argv[1] == "--one":
+        print(json.dumps(one(argv[2])))
+        return 0
+    if len(argv) not in (3, 4):
+        print(__doc__)
+        return 2
+    parent, change = argv[1:3]
+    summary = Path(argv[3] if len(argv) == 4
+                   else Path(change) / "build" / "kernel_ab.json")
+    runs = []
+    trees = [("parent", parent), ("change", change)]
+    trees += [(tag, _variant(change, tag, *patch))
+              for tag, *patch in VARIANTS]
+    trees += [("change", change), ("parent", parent)]
+    for tag, root in trees:
+        print(f"[ab] === {tag}: {root}", flush=True)
+        proc = subprocess.run([sys.executable, __file__, "--one", root],
+                              capture_output=True, text=True, timeout=900)
+        print("\n".join(line for line in proc.stdout.splitlines()
+                        if line.startswith(("[ab]", "[floor]", "NVIDIA"))),
+              flush=True)
+        if proc.returncode != 0:
+            print(proc.stdout[-6000:])
+            print(proc.stderr[-6000:])
+            return proc.returncode
+        runs.append(dict(json.loads(proc.stdout.strip().splitlines()[-1]),
+                         tag=tag))
+    for r in runs:
+        t = {(x["row"], x["shape"], x["dtype"]): x for x in r["times"]}
+        print(f"[ab] {r['tag']}: OT step {r['ot_step_ms']:.4f} ms, "
+              f"{r['kernels_per_ot_step']:.1f} kernels and "
+              f"{r['busy_ms_per_ot_step']:.4f} ms busy per step; in the "
+              "step " + ", ".join(
+                  f"{k} {'not measured' if v is None else f'{v:.6f}'} ms"
+                  for k, v in r["in_step_ms"].items()) + "; cold / warm / "
+              "alone " + ", ".join(
+                  f"{row} {shape} {dt.split('.')[-1]} {x['cold_ms']:.5f} / "
+                  f"{x['warm_ms']:.5f} / {x['alone_ms']} ms"
+                  for (row, shape, dt), x in t.items()) + f"; {r['card']}")
+    summary.parent.mkdir(parents=True, exist_ok=True)
+    summary.write_text(json.dumps(runs, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
