@@ -61,12 +61,14 @@ its seconds:
    against the same step on the CPU; ms per step and graphs/s.
 13. GIN profile and kernel times: torch.profiler over warm steps, then the
    two GIN kernels as in phase 10.
-14. OT kernel: the CSR segment sum (bf16, float32) against its plain
-   version at the OT slice's batch (16 synthetic QM9-like molecules with 10
-   conformers, seed 0, D = 50), at the bench shapes (D = 200) and at
-   D = 300 and 302, which together take every vector path; the OT step's
-   other two kernels, the multi-reduce and the sender-keyed segment sum,
-   on the OT batch at D = 50, 300 and 302 (`_hold_walks`).
+14. OT kernels: the CSR segment sum (bf16, float32) bit for bit against
+   its plain version at the OT slice's batch (16 synthetic QM9-like
+   molecules with 10 conformers, seed 0) at D = 50, 300 and 302, at the
+   bench shapes (D = 200) and on a batch with in-degree-16 nodes, which
+   together take every vector path; the OT step's other two kernels, the
+   multi-reduce and the sender-keyed segment sum, on the OT batch at
+   D = 50, 300 and 302; each through its public wrapper and with 64-bit
+   indices forced, padding edges ignored (`_hold_walks`).
 15. OT training: the optimal-transport step of
    `configs_clean/pre-train_Optimal_Transport_baseline.yml`
    (OptimalTransportModel over PNAGNNRandomEdgeUpdate 50x3, 10 model and
@@ -82,8 +84,8 @@ its seconds:
    CSR segment sum as in phase 13 and the multi-reduce and the sender-keyed
    segment sum at the OT shape; then the ladder of the OT step's small CSR
    walks (the empty kernel, the index round trip, each walk alone and in
-   the step) beside the byte bounds of rows 1, 3 and 4 at the OT shapes,
-   and each row's closable gap.
+   the step, on the walks' grid) beside the byte bounds of rows 1, 3 and 4
+   at the OT shapes, and each row's closable gap.
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 """
@@ -375,25 +377,33 @@ def degree16_csc(N: int = 4096, seed: int = 1):
             e_real + 24)
 
 
-def _hold_walks(phase: str, gen, recv_cases, send_cases) -> dict:
-    """Rows 1 (`multi_reduce`) and 4 (`snd_segment_sum`) against their
-    plain versions on the same CUDA tensors, in float32 and bf16 at each
-    case's widths: the public wrapper (the main paths' call, 32-bit
-    indices at these shapes), then the raw launch with 64-bit indices
-    forced; both sum the same rows in float32 in slot order (and the
-    segment sum rounds once), max / min select -> bit-exact.  Nodes
-    without edges get 0; rows past the ranges (padding edges, and for row
-    1 the slots past K) never count.  recv_cases: (name, row_ptr, K,
-    edges, widths); send_cases: (name, csc_row_ptr, csc_perm, edges,
-    widths).  Returns the max |kernel - plain| of each."""
+def _hold_walks(phase: str, gen, recv_cases, send_cases,
+                seg_cases=()) -> dict:
+    """Rows 1 (`multi_reduce`), 4 (`snd_segment_sum`) and 3
+    (`csr_segment_sum`) against their plain versions on the same CUDA
+    tensors, in float32 and bf16 at each case's widths: the public wrapper
+    (the main paths' call, 32-bit indices at these shapes), then the raw
+    launch with 64-bit indices forced; both sum the same rows in float32 in
+    slot order (and the segment sums round once), max / min select ->
+    bit-exact.  Nodes without edges get 0; rows past the ranges (padding
+    edges, and for row 1 the slots past K) never count.  recv_cases:
+    (name, row_ptr, K, edges, widths); send_cases: (name, csc_row_ptr,
+    csc_perm, edges, widths); seg_cases: (name, row_ptr, edges, widths).
+    Returns the max |kernel - plain| of each."""
+    public = {"multi_reduce": multi_reduce, "snd_segment_sum": snd_segment_sum,
+              "csr_segment_sum": csr_segment_sum}
+    plain = {"multi_reduce": multi_reduce_reference,
+             "snd_segment_sum": snd_segment_sum_reference,
+             "csr_segment_sum": csr_segment_sum_reference}
     mods = {n: importlib.import_module(f"infomax3d_tpu_torch.ops.kernels.{n}")
-            for n in ("multi_reduce", "snd_segment_sum")}
-    public = {"multi_reduce": multi_reduce, "snd_segment_sum": snd_segment_sum}
+            for n in public}
     pairs = {n: [] for n in mods}
     cases = [("multi_reduce", name, (rp, K), rp, E, widths)
              for name, rp, K, E, widths in recv_cases]
     cases += [("snd_segment_sum", name, (crp, perm), crp, E, widths)
               for name, crp, perm, E, widths in send_cases]
+    cases += [("csr_segment_sum", name, (rp,), rp, E, widths)
+              for name, rp, E, widths in seg_cases]
     for kern, name, idx, ptr, E, widths in cases:
         empty = (ptr[1:] - ptr[:-1]) == 0
         e_end = int(ptr[-1])
@@ -405,12 +415,10 @@ def _hold_walks(phase: str, gen, recv_cases, send_cases) -> dict:
         paths = (("public wrapper", public[kern]),
                  ("64-bit indices", lambda *a, k=kern: mods[k]._launch(
                      *a, wide=True)))
-        plain = (multi_reduce_reference if kern == "multi_reduce"
-                 else snd_segment_sum_reference)
         for D in widths:
             for dt in (torch.float32, torch.bfloat16):
                 x = torch.randn(E, D, generator=gen, device="cuda").to(dt)
-                ref = plain(x, *idx)
+                ref = plain[kern](x, *idx)
                 ref = ref if isinstance(ref, tuple) else (ref,)
                 tag = f"{kern} {name} D={D} {dt} ({_vector_path(dt, D)} path)"
                 for path, fn in paths:
@@ -1574,52 +1582,28 @@ def ot_slice_batch(device="cuda"):
 
 
 def phase_ot_kernels(ob, g) -> dict:
-    """Phase 14: the CSR segment sum against its plain version on the same
-    CUDA tensors: at the OT batch `ob` (D = 50: element-wise in bf16,
-    8-byte in float32), at the bench batch `g` (D = 200: 16-byte), and on
-    the OT batch at D = 300 (8-byte bf16, 16-byte float32) and 302
-    (element-wise bf16, 8-byte float32).  Both sum the same rows in
-    float32 in slot order and round once -> bit-exact.  Rows past
-    row_ptr[N] (padding edges) must not count.  Then the OT step's two
-    other kernels, rows 1 and 4, on the OT batch at the same widths
-    (`_hold_walks`)."""
+    """Phase 14: the OT step's three kernels against their plain versions
+    on the same CUDA tensors (`_hold_walks`): the CSR segment sum (row 3)
+    at the OT batch `ob` at D = 50 (element-wise in bf16, 8-byte in
+    float32), 300 (8-byte bf16, 16-byte float32) and 302 (element-wise
+    bf16, 8-byte float32), at the bench batch `g` (D = 200: 16-byte) and
+    on a batch with in-degree-16 nodes (D = 50 and 200); the multi-reduce
+    and the sender-keyed segment sum (rows 1 and 4) on the OT batch at
+    D = 50, 300 and 302."""
     gen = torch.Generator(device="cuda").manual_seed(6)
-    pairs = []
-    for name, gr, widths in (("OT batch", ob.graph, (OT_WIDTH, 300, 302)),
-                             ("bench batch", g, (WIDTH,))):
-        rp = gr.csr_row_ptr
-        N, E, e_real = gr.num_nodes, gr.senders.shape[0], int(rp[-1])
-        deg0 = (rp[1:] - rp[:-1]) == 0
-        _check(bool(deg0.any()) and e_real < E,
-               f"{name} has padding nodes and padding edges")
-        print(f"[ot-kernels] {name}: N={N} E={E} (real {e_real}) max "
-              f"in-degree {gr.max_deg}")
-        for D in widths:
-            for dt in (torch.bfloat16, torch.float32):
-                ct = torch.randn(E, D, generator=gen, device="cuda").to(dt)
-                k, r = csr_segment_sum(ct, rp), csr_segment_sum_reference(
-                    ct, rp)
-                torch.cuda.synchronize()
-                tag = f"{name} D={D} {dt} ({_vector_path(dt, D)} path)"
-                _check(k.dtype == dt and torch.equal(k, r),
-                       f"csr_segment_sum {tag}: not bit-exact")
-                _check(bool((k[deg0] == 0).all()),
-                       f"csr_segment_sum {tag}: degree 0")
-                ct[e_real:] = 1e4
-                _check(torch.equal(csr_segment_sum(ct, rp), k),
-                       f"csr_segment_sum {tag}: a padding edge counted")
-                pairs.append((k, r))
-                print(f"[ot-kernels] {tag}: bit-exact")
-    err = _max_err(pairs)
-    print(f"[ot-kernels] csr_segment_sum: agrees with its plain version "
-          f"(max |kernel - plain| = {err:.3g})")
     gr, widths = ob.graph, (OT_WIDTH, 300, 302)
     E = gr.senders.shape[0]
-    return dict(_hold_walks(
+    for name, b in (("OT batch", gr), ("bench batch", g)):
+        print(f"[ot-kernels] {name}: N={b.num_nodes} E={b.senders.shape[0]} "
+              f"(real {int(b.csr_row_ptr[-1])}) max in-degree {b.max_deg}")
+    rp16, e16 = degree16_csr()
+    return _hold_walks(
         "ot-kernels", gen,
         [("OT batch", gr.csr_row_ptr, gr.max_deg, E, widths)],
-        [("OT batch", gr.csc_row_ptr, gr.csc_perm, E, widths)]),
-        csr_segment_sum=err)
+        [("OT batch", gr.csc_row_ptr, gr.csc_perm, E, widths)],
+        [("OT batch", gr.csr_row_ptr, E, widths),
+         ("bench batch", g.csr_row_ptr, g.senders.shape[0], (WIDTH,)),
+         ("degree-16 batch", rp16, e16, (OT_WIDTH, WIDTH))])
 
 
 def _ot_args() -> dict:
@@ -1990,10 +1974,7 @@ def _ot_walk_times(ob, in_step: dict, flush):
               f"({nbytes / 1e6:.3f} MB)")
 
 
-# the row-3 walk's grid for the launch floor: ~52 blocks of 256 threads
-# (it runs 50 at N = 512, D = 50 float32)
-FLOOR_GRID = (52, 256)
-# the block of rows 1 and 4 (WALK_THREADS in csrc/common.cuh)
+# the block of rows 1, 3 and 4 (WALK_THREADS in csrc/common.cuh)
 WALK_THREADS = 256
 
 
@@ -2025,14 +2006,13 @@ def _fmt(ms) -> str:
 def phase_launch_floor(ob, launches: dict, in_step: dict):
     """Phase 16c: the ladder of the OT step's small CSR walks, each rung's
     device time in a profile of back-to-back launches: the card's launch
-    floor (an empty `__global__`) on row 3's grid and on the grid of rows 1
-    and 4 at the OT shape, the index round trip on that grid
-    (`index_probe_kernel`: row_ptr[n] and row_ptr[n + 1] loaded, one value
-    stored per thread), rows 1 and 4 alone, and rows 1, 3 and 4 in the
-    step.  Beside them each row's byte bound at the OT batch's shapes
-    (float32, D = 50) and its closable gap: launches x (in-step time -
-    max(bound, floor on its grid)), per OT step and over the main paths'
-    launches."""
+    floor (an empty `__global__`) on the grid of rows 1, 3 and 4 at the OT
+    shape, the index round trip on that grid (`index_probe_kernel`:
+    row_ptr[n] and row_ptr[n + 1] loaded, one value stored per thread),
+    and rows 1, 3 and 4 alone and in the step.  Beside them each row's
+    byte bound at the OT batch's shapes (float32, D = 50) and its closable
+    gap: launches x (in-step time - max(bound, floor)), per OT step and
+    over the main paths' launches."""
     floor_fn = launcher("csr_sum", "launch_floor",
                         (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
     probe_fn = launcher("csr_sum", "index_probe",
@@ -2048,19 +2028,16 @@ def phase_launch_floor(ob, launches: dict, in_step: dict):
     walk_grid = (-(-N * nvec // WALK_THREADS), WALK_THREADS)
     probe_out = torch.empty(N * nvec, device="cuda")
 
-    def floor(grid):
-        _check(floor_fn(*grid, stream) == 0, "launch_floor: launch failed")
+    def floor():
+        _check(floor_fn(*walk_grid, stream) == 0,
+               "launch_floor: launch failed")
 
     def probe():
         _check(probe_fn(gr.csr_row_ptr.data_ptr(), probe_out.data_ptr(), N,
                         nvec, WALK_THREADS, stream) == 0,
                "index_probe: launch failed")
 
-    floors = {grid: _profiled_ms(lambda: floor(grid), "launch_floor_kernel")
-              for grid in (FLOOR_GRID, walk_grid)}
-    for grid, ms in floors.items():
-        print(f"[floor] empty kernel on {grid[0]} blocks of {grid[1]}: "
-              f"{_fmt(ms)} in a profile")
+    fl = _profiled_ms(floor, "launch_floor_kernel")
     probe()
     torch.cuda.synchronize()
     deg = (gr.csr_row_ptr[1:] - gr.csr_row_ptr[:-1]).float()
@@ -2071,10 +2048,12 @@ def phase_launch_floor(ob, launches: dict, in_step: dict):
     alone = {"multi_reduce": _profiled_ms(
                  lambda: multi_reduce(x, gr.csr_row_ptr, gr.max_deg),
                  "multi_reduce_kernel"),
+             "csr_segment_sum": _profiled_ms(
+                 lambda: csr_segment_sum(x, gr.csr_row_ptr),
+                 "csr_segment_sum_kernel"),
              "snd_segment_sum": _profiled_ms(
                  lambda: snd_segment_sum(x, gr.csc_row_ptr, gr.csc_perm),
                  "snd_segment_sum_kernel")}
-    fl = floors[walk_grid]
     print(f"[floor] ladder on the walks' grid ({walk_grid[0]} blocks of "
           f"{walk_grid[1]}): floor {_fmt(fl)}; index "
           f"round trip (index_probe_kernel) {_fmt(probe_ms)}"
@@ -2099,8 +2078,6 @@ def phase_launch_floor(ob, launches: dict, in_step: dict):
     for name, b in nbytes.items():
         bound = b / PEAK_BYTES_PER_S * 1e3
         t = in_step.get(name)
-        grid = FLOOR_GRID if name == "csr_segment_sum" else walk_grid
-        fl = floors[grid]
         per_step = EXPECTED_OT_STEP[name]
         over = None if None in (t, fl) else t - max(bound, fl)
         gap = "not measured" if over is None else (
@@ -2108,9 +2085,9 @@ def phase_launch_floor(ob, launches: dict, in_step: dict):
             f"{launches[name] * over:.5f} ms over the main paths' "
             f"{launches[name]} launches")
         print(f"[floor] {name} at the OT shape (N={N}, E real {e_real}, D={D},"
-              f" float32, {grid[0]} blocks of {grid[1]}): bound {bound:.5f} "
-              f"ms ({b / 1e6:.3f} MB), floor {_fmt(fl)}, in the OT step "
-              f"{_fmt(t)}; closable gap {gap}")
+              f" float32, {walk_grid[0]} blocks of {walk_grid[1]}): bound "
+              f"{bound:.5f} ms ({b / 1e6:.3f} MB), floor {_fmt(fl)}, in the "
+              f"OT step {_fmt(t)}; closable gap {gap}")
 
 
 class _Phase:

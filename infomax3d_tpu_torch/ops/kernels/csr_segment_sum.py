@@ -1,14 +1,22 @@
 """CSR segment sum of receiver-sorted edge rows, the backward of the
 receiver gather (port of `_seg_sum_kernel` / `_csr_seg_sum_raw` /
 `csr_segment_sum_bf16`, infomax3d_tpu/ops/pallas/spmm.py).  Kernel:
-`csr_segment_sum_kernel` of `csrc/csr_sum.cu`, on the CSR sum's walk."""
+`csr_segment_sum_kernel` of `csrc/csr_sum.cu`, on the small CSR walks'
+`walk_rows`."""
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from infomax3d_tpu_torch.ops.kernels import _build
-from infomax3d_tpu_torch.ops.kernels.csr_sum import launch_walk, slot_sums
+from infomax3d_tpu_torch.ops.kernels._build import (check_launch, launcher,
+                                                    refuse_grad, require,
+                                                    stream_of)
+from infomax3d_tpu_torch.ops.kernels.csr_sum import slot_sums
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = (_P,) * 3 + (_I,) * 4 + (_P,)
 _SYMBOLS = {torch.bfloat16: "csr_segment_sum_bf16",
             torch.float32: "csr_segment_sum_f32"}
 
@@ -26,9 +34,25 @@ def csr_segment_sum_reference(ct, row_ptr):
     return slot_sums(ct, row_ptr).to(ct.dtype)
 
 
-def _launch(ct, row_ptr):
-    return launch_walk(csr_segment_sum, _SYMBOLS[ct.dtype], ct, row_ptr,
-                       ct.dtype)
+def _launch(ct, row_ptr, wide: bool = False):
+    """The kernel on CUDA tensors; `wide` forces 64-bit index arithmetic
+    (the kernel takes it by itself where max(N, E) * D >= 2^31)."""
+    refuse_grad("csr_segment_sum", ct)
+    _check(ct)
+    E, D = ct.shape
+    N = row_ptr.shape[0] - 1
+    dev = ct.device
+    require(ct, "ct", ct.dtype, (E, D), dev)
+    require(row_ptr, "row_ptr", torch.int32, (N + 1,), dev)
+    out = torch.empty(N, D, dtype=ct.dtype, device=dev)
+    if N > 0 and D > 0:
+        # the kernels of csrc/csr_sum.cu build into the library "csr_sum"
+        fn = launcher("csr_sum", _SYMBOLS[ct.dtype], _ARGTYPES)
+        err = fn(ct.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), N, E, D,
+                 int(wide), stream_of(ct))
+        check_launch("csr_sum", err)
+        csr_segment_sum.launches += 1
+    return out
 
 
 def csr_segment_sum(ct, row_ptr):

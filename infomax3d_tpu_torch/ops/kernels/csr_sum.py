@@ -54,30 +54,23 @@ def csr_sum_reference(messages, row_ptr):
     return slot_sums(messages, row_ptr)
 
 
-def launch_walk(owner, symbol: str, rows, row_ptr, out_dtype):
-    """Launch `symbol` of `csrc/csr_sum.cu`, the CSR walk that the CSR sum
-    (float32 out) and the CSR segment sum (out in the rows' type) share:
-    `rows [E, D]`, `row_ptr [N + 1]` int32 -> [N, D] of `out_dtype`.  The
-    launch is counted on `owner.launches`, the wrapper `owner`'s counter."""
-    refuse_grad(owner.__name__, rows)
-    E, D = rows.shape
-    N = row_ptr.shape[0] - 1
-    dev = rows.device
-    require(rows, "rows", rows.dtype, (E, D), dev)
-    require(row_ptr, "row_ptr", torch.int32, (N + 1,), dev)
-    out = torch.empty(N, D, dtype=out_dtype, device=dev)
-    if N > 0 and D > 0:
-        fn = launcher("csr_sum", symbol, _ARGTYPES)
-        err = fn(rows.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), N, D,
-                 stream_of(rows))
-        check_launch("csr_sum", err)
-        owner.launches += 1
-    return out
-
-
 def _launch(messages, row_ptr):
-    return launch_walk(csr_sum, _SYMBOLS[messages.dtype], messages, row_ptr,
-                       torch.float32)
+    """The kernel on CUDA tensors: `messages [E, D]`, `row_ptr [N + 1]`
+    int32 -> float32 [N, D]."""
+    refuse_grad("csr_sum", messages)
+    E, D = messages.shape
+    N = row_ptr.shape[0] - 1
+    dev = messages.device
+    require(messages, "messages", messages.dtype, (E, D), dev)
+    require(row_ptr, "row_ptr", torch.int32, (N + 1,), dev)
+    out = torch.empty(N, D, dtype=torch.float32, device=dev)
+    if N > 0 and D > 0:
+        fn = launcher("csr_sum", _SYMBOLS[messages.dtype], _ARGTYPES)
+        err = fn(messages.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), N,
+                 D, stream_of(messages))
+        check_launch("csr_sum", err)
+        csr_sum.launches += 1
+    return out
 
 
 class CsrSum(torch.autograd.Function):

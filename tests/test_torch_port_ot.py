@@ -248,8 +248,9 @@ def test_gather_dst_takes_the_card_path(data, monkeypatch):
     """With the device check stubbed to take the CUDA path on CPU tensors:
     a raw launch given a tensor that requires grad raises before anything
     is built; the receiver gather's backward launches the CSR segment sum
-    once (from the CSR sum's library), in the cotangent's type, and counts
-    it."""
+    once (from the CSR sum's library), in the cotangent's type, with its C
+    signature's arguments (N, E, D, then 0: the kernel picks its index
+    width), and counts it."""
     import importlib
     from infomax3d_tpu_torch.ops.kernels import _build
     _, b, batch, _ = data
@@ -260,14 +261,20 @@ def test_gather_dst_takes_the_card_path(data, monkeypatch):
     with pytest.raises(RuntimeError, match="not differentiable"):
         mod._launch(torch.zeros(b.n_edges, 8, requires_grad=True), rp)
     launched = []
-    walk = importlib.import_module("infomax3d_tpu_torch.ops.kernels.csr_sum")
-    monkeypatch.setattr(walk, "launcher", lambda name, symbol, argtypes:
-                        lambda *args: launched.append((name, symbol)) or 0)
-    monkeypatch.setattr(walk, "stream_of", lambda t: 0)
+
+    def fake_launcher(name, symbol, argtypes):
+        def fn(*args):
+            assert len(args) == len(argtypes)
+            launched.append((name, symbol, args[3:]))
+            return 0
+        return fn
+    monkeypatch.setattr(mod, "launcher", fake_launcher)
+    monkeypatch.setattr(mod, "stream_of", lambda t: 0)
     before = csr_segment_sum.launches
     h = torch.zeros(b.n_nodes, 8, requires_grad=True)
     gather_dst(batch.graph, h).sum().backward()
-    assert launched == [("csr_sum", "csr_segment_sum_f32")]
+    assert launched == [("csr_sum", "csr_segment_sum_f32",
+                         (b.n_nodes, b.n_edges, 8, 0, 0))]
     assert csr_segment_sum.launches == before + 1
 
 

@@ -1,9 +1,9 @@
-"""The two small CSR walks, rows 1 (`multi_reduce`) and 4
-(`snd_segment_sum`), at the OT slice's batch: each plain twin against the
-JAX package's Pallas kernel in interpret mode (and row 4 in float32
-against `jax.ops.segment_sum`), also at the other widths and on batches
-with nodes of degree 16 that the card checks use, and the arguments the
-wrappers pass to the kernels.
+"""The three small CSR walks, rows 1 (`multi_reduce`), 3
+(`csr_segment_sum`) and 4 (`snd_segment_sum`), at the OT slice's batch:
+each plain twin against the JAX package's Pallas kernel in interpret mode
+(and rows 3 and 4 in float32 against `jax.ops.segment_sum`), also at the
+other widths and on batches with nodes of degree 16 that the card checks
+use, and the arguments the wrappers pass to the kernels.
 
 The batch is the OT step's own (`train/ot.py::ot_batch(16, 10)`: 16
 QM9-like molecules, seed 0, 308 real nodes and 638 real edges in a bucket
@@ -11,8 +11,10 @@ of N = 512, E = 1024), built by both batchers, at the slice's width
 D = 50.  Tolerances as in `test_torch_port_kernels.py::
 test_multi_reduce_matches_pallas`: max and min select, so they are equal;
 the float32 sums of the Pallas multi-reduce run through an incidence
-matmul in another order, 1e-5.  Row 4's bf16 kernel sums at most a node's
-sent rows in float32 and rounds once, as the twin does: equal.
+matmul in another order, 1e-5.  The bf16 Pallas kernels of rows 3 and 4
+sum a node's rows in float32 (a 0/1 incidence matmul) and round once, as
+the twins do: equal.  In float32 the twins sum in slot order and XLA's
+segment sum in its own: 1e-6.
 """
 import jax
 import jax.numpy as jnp
@@ -25,7 +27,9 @@ from infomax3d_tpu.graphs.batch import batch_graphs as jax_batch_graphs
 from infomax3d_tpu.ops.pallas import spmm
 from infomax3d_tpu_torch.data.synthetic import SyntheticMolecules
 from infomax3d_tpu_torch.graphs.batch import batch_graphs, bucket_for
-from infomax3d_tpu_torch.ops.kernels import (_build, multi_reduce,
+from infomax3d_tpu_torch.ops.kernels import (_build, csr_segment_sum,
+                                             csr_segment_sum_reference,
+                                             multi_reduce,
                                              multi_reduce_reference,
                                              snd_segment_sum,
                                              snd_segment_sum_reference)
@@ -273,6 +277,67 @@ def test_snd_segment_sum_matches_segment_sum_with_degree16_senders(width):
     assert (got.numpy()[np.diff(crp) == 0] == 0).all()
 
 
+# --- row 3: the receiver-gather backward ----------------------------------
+
+
+def _csr_segment_sum_against(ct, rp, K, bf16: bool):
+    """Row 3's twin on rows `ct` (numpy float32) over the CSR `rp`: in bf16
+    against `csr_segment_sum_bf16` (interpret mode, window for max_deg K),
+    equal; in float32 against `jax.ops.segment_sum` over the receivers,
+    1e-6 (order).  Nodes without edges get 0, and rows past rp[N]
+    (padding edges, set to 1e4) never count."""
+    from infomax3d_tpu.ops.pallas.spmm import csr_segment_sum_bf16
+    N, D = rp.shape[0] - 1, ct.shape[1]
+    e_real = int(rp[-1])
+    assert e_real < ct.shape[0]
+    if bf16:
+        ct = _bf16(ct)
+        want = np.asarray(csr_segment_sum_bf16(
+            jnp.asarray(ct, jnp.bfloat16), jnp.asarray(rp), K,
+            interpret=True), np.float32)
+        tct = _t(ct).bfloat16()
+    else:
+        recv = np.full(ct.shape[0], N, np.int32)
+        recv[:e_real] = np.repeat(np.arange(N), np.diff(rp))
+        want = np.asarray(jax.ops.segment_sum(ct, recv,
+                                              num_segments=N + 1)[:N])
+        tct = _t(ct)
+    got = csr_segment_sum_reference(tct, _t(rp))
+    assert got.dtype == tct.dtype and got.shape == (N, D)
+    if bf16:
+        np.testing.assert_array_equal(got.float().numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    assert (got.float().numpy()[np.diff(rp) == 0] == 0).all()
+    tct[e_real:] = 1e4
+    assert torch.equal(csr_segment_sum_reference(tct, _t(rp)), got)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("width", [D, 300, 302])
+def test_csr_segment_sum_matches_at_the_ot_batch(ot_csr, width, dtype):
+    """Row 3 on the OT batch (the JAX batcher's row_ptr, equal to the
+    port's) at the OT width and the other widths of the card check: bf16
+    equal to the Pallas kernel, float32 within 1e-6 of the receivers'
+    `jax.ops.segment_sum`."""
+    arr, b, jarr = ot_csr
+    np.testing.assert_array_equal(jarr["csr_row_ptr"], arr["csr_row_ptr"])
+    ct = np.random.default_rng(36).normal(size=(b.n_edges, width)).astype(
+        np.float32)
+    _csr_segment_sum_against(ct, np.asarray(jarr["csr_row_ptr"]), b.max_deg,
+                             dtype == "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_csr_segment_sum_matches_with_degree16_nodes(dtype):
+    """A CSR batch of 256 nodes with in-degree-16 nodes (more than one
+    chunk of the card's walk) and 24 padding edges, at D = 50."""
+    rp, e_real, _ = _degree16(256, 0)
+    ct = np.random.default_rng(37).normal(size=(e_real + 24, 50)).astype(
+        np.float32)
+    _csr_segment_sum_against(ct, rp, 16, dtype == "bfloat16")
+
+
 # --- the card path's arguments ----------------------------------------------
 
 
@@ -283,7 +348,7 @@ def _fake_launches(monkeypatch):
     import importlib
     monkeypatch.setattr(_build, "on_card", lambda t, name: True)
     calls = []
-    for name in ("multi_reduce", "snd_segment_sum"):
+    for name in ("multi_reduce", "csr_segment_sum", "snd_segment_sum"):
         m = importlib.import_module(f"infomax3d_tpu_torch.ops.kernels.{name}")
 
         def fake_launcher(name, symbol, argtypes):
@@ -308,19 +373,24 @@ def test_walks_pass_their_plan_to_the_kernel(ot_csr, monkeypatch, dtype):
     x = torch.zeros(b.n_edges, D, dtype=dtype)
     rp, crp, perm = (_t(arr[k]) for k in ("csr_row_ptr", "csc_row_ptr",
                                           "csc_perm"))
-    before = (multi_reduce.launches, snd_segment_sum.launches)
+    counters = (multi_reduce, csr_segment_sum, snd_segment_sum)
+    before = [w.launches for w in counters]
     multi_reduce(x, rp, b.max_deg)
+    csr_segment_sum(x, rp)
     snd_segment_sum(x, crp, perm)
     suffix = "f32" if dtype == torch.float32 else "bf16"
-    (s1, a1), (s4, a4) = calls
-    assert (s1, s4) == (f"multi_reduce_{suffix}", f"snd_segment_sum_{suffix}")
+    (s1, a1), (s3, a3), (s4, a4) = calls
+    assert (s1, s3, s4) == (f"multi_reduce_{suffix}",
+                            f"csr_segment_sum_{suffix}",
+                            f"snd_segment_sum_{suffix}")
     assert a1[3:] == (b.n_nodes, b.n_edges, D, b.max_deg, 0, 7)
+    assert a3[3:] == (b.n_nodes, b.n_edges, D, 0, 7)
     assert a4[4:] == (b.n_nodes, b.n_edges, D, 0, 7)
-    assert (multi_reduce.launches, snd_segment_sum.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert [w.launches for w in counters] == [n + 1 for n in before]
 
 
-@pytest.mark.parametrize("row", ["multi_reduce", "snd_segment_sum"])
+@pytest.mark.parametrize("row", ["multi_reduce", "csr_segment_sum",
+                                 "snd_segment_sum"])
 def test_walk_launch_forces_64bit_indices(ot_csr, monkeypatch, row):
     """`_launch(..., wide=True)`, the card check's way to the 64-bit path,
     passes 1 in the index-width argument."""
@@ -331,6 +401,8 @@ def test_walk_launch_forces_64bit_indices(ot_csr, monkeypatch, row):
     x = torch.zeros(b.n_edges, D)
     if row == "multi_reduce":
         mod._launch(x, _t(arr["csr_row_ptr"]), b.max_deg, wide=True)
+    elif row == "csr_segment_sum":
+        mod._launch(x, _t(arr["csr_row_ptr"]), wide=True)
     else:
         mod._launch(x, _t(arr["csc_row_ptr"]), _t(arr["csc_perm"]),
                     wide=True)

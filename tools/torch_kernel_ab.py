@@ -1,33 +1,33 @@
 #!/usr/bin/env python3
-"""The two small CSR walks of the PyTorch/CUDA port, rows 1
-(`multi_reduce`) and 4 (`snd_segment_sum`), measured in two trees of the
-repository on one card.
+"""The three small CSR walks of the PyTorch/CUDA port, rows 1
+(`multi_reduce`), 3 (`csr_segment_sum`) and 4 (`snd_segment_sum`), and row
+7 (`csr_sum`, the control that shares row 3's source), measured in two
+trees of the repository on one card.
 
     python3 tools/torch_kernel_ab.py PARENT_ROOT CHANGE_ROOT [SUMMARY_JSON]
 
-runs, in the order parent, change, U = 8, 128 threads, change, parent and
-each in a process of its own (the two variants are copies of the change
-tree under `CHANGE_ROOT/build/ab_variants/`, with `WALK_UNROLL` or
-`WALK_THREADS` of csrc/common.cuh patched: the knobs that the shipped
-kernels fix at 4 and 256), that tree's `chip_smoke.py` phases 1 to 3, 11
-and 14 (the kernels built and held against their plain versions); then the OT step of
-phase 15 (`ot()`, float32) timed by CUDA events over 10 warm steps and
-profiled over 3 (kernels and device time per step, each port kernel's
-mean device time per launch in the step); then rows 1 and 4 alone at the
-OT shape (float32, D = 50), at the bench shape (row 1, float32, D = 200)
-and at the GIN shape (row 4, float32 and bf16, D = 300): cold-L2 and warm
-device times (CUDA events) and the mean device time in a profile of 50
-back-to-back launches; then the tree's phase 16c (the launch floor and,
-where the tree has it, the ladder of the OT step's walks).  Each run also
-prints
-the order of loads (L), float ops (F), stores (S) and branches (b) in the
-SASS of every instantiation of the two kernels.  Each run's numbers end in
-one JSON line; the summary goes to SUMMARY_JSON (default
+runs, in the order parent, change, change, parent and each in a process of
+its own, that tree's `chip_smoke.py` phases 1 to 3, 11 and 14 (the kernels
+built and held against their plain versions); then the OT step of phase 15
+(`ot()`, float32) timed by CUDA events over 10 warm steps and profiled
+over 3 (kernels and device time per step, each port kernel's mean device
+time per launch in the step); then each row alone: rows 1, 3 and 4 at the
+OT shape (float32, D = 50), row 3 also in bf16 there, rows 1 and 3 at the
+bench shape (float32, D = 200), rows 3 (bf16), 4 and 7 (float32 and bf16)
+at the GIN shape (D = 300): cold-L2 and warm device times (CUDA events)
+and the mean device time in a profile of 50 back-to-back launches; then
+the tree's phase 16c (the launch floor and the ladder of the OT step's
+walks).  Each run also prints the order of loads (L), float ops (F),
+stores (S) and branches (b) in the SASS of every instantiation in the
+three kernels' libraries (`csr_sum` holds rows 7 and 3).  Each run's
+numbers end in one JSON line; the summary, with each run's printed lines
+(the SASS orders only there), goes to SUMMARY_JSON (default
 `CHANGE_ROOT/build/kernel_ab.json`).  Needs one CUDA card; the kernels of
 each tree build into that tree's `build/`.
 """
 from __future__ import annotations
 
+import functools
 import glob
 import json
 import os
@@ -37,15 +37,17 @@ import subprocess
 import sys
 from pathlib import Path
 
-ROWS = ("multi_reduce", "snd_segment_sum")
-# (tag, files, text, replacement): the change tree with one knob of the
-# walks patched in each of `files` (the kernels' header; for the block
-# size also the ladder's grid in chip_smoke.py)
-_CUH = "infomax3d_tpu_torch/csrc/common.cuh"
-VARIANTS = (("U=8", (_CUH,), "WALK_UNROLL = 4;", "WALK_UNROLL = 8;"),
-            ("128 threads", (_CUH, "chip_smoke.py"), "WALK_THREADS = 256",
-             "WALK_THREADS = 128"))
+# the kernel libraries whose SASS is read: rows 1, 4, and 7 with 3
+LIBRARIES = ("multi_reduce", "snd_segment_sum", "csr_sum")
 STEP_KERNELS = ("multi_reduce", "snd_segment_sum", "csr_segment_sum")
+# (shape, dtype name, rows) of the alone times
+CASES = (("OT", "float32", ("multi_reduce", "csr_segment_sum",
+                            "snd_segment_sum")),
+         ("OT", "bfloat16", ("csr_segment_sum",)),
+         ("bench", "float32", ("multi_reduce", "csr_segment_sum")),
+         ("GIN", "float32", ("snd_segment_sum", "csr_sum")),
+         ("GIN", "bfloat16", ("snd_segment_sum", "csr_segment_sum",
+                              "csr_sum")))
 
 
 def _sass_orders(name: str) -> dict:
@@ -82,13 +84,14 @@ def one(root: str) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
     import chip_smoke as cs
-    from infomax3d_tpu_torch.ops.kernels import (multi_reduce,
+    from infomax3d_tpu_torch.ops.kernels import (csr_segment_sum, csr_sum,
+                                                 multi_reduce,
                                                  snd_segment_sum)
     from infomax3d_tpu_torch.train.ot import ot
 
     smi = cs.phase_device()
     cs.phase_build()
-    sass = {n: _sass_orders(n) for n in ROWS}
+    sass = {n: _sass_orders(n) for n in LIBRARIES}
     for n, orders in sass.items():
         for fn, order in orders.items():
             print(f"[ab] sass {n} {fn}: {order}")
@@ -143,32 +146,31 @@ def one(root: str) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    cases = []
-    for shape, gr, D, dt, rows in (
-            ("OT", ob.graph, cs.OT_WIDTH, torch.float32, ROWS),
-            ("bench", g, cs.WIDTH, torch.float32, ("multi_reduce",)),
-            ("GIN", gg, cs.GIN_WIDTH, torch.float32, ("snd_segment_sum",)),
-            ("GIN", gg, cs.GIN_WIDTH, torch.bfloat16, ("snd_segment_sum",))):
+    shapes = {"OT": (ob.graph, cs.OT_WIDTH), "bench": (g, cs.WIDTH),
+              "GIN": (gg, cs.GIN_WIDTH)}
+    calls = {
+        "multi_reduce": lambda x, gr: multi_reduce(x, gr.csr_row_ptr,
+                                                   gr.max_deg),
+        "csr_segment_sum": lambda x, gr: csr_segment_sum(x, gr.csr_row_ptr),
+        "snd_segment_sum": lambda x, gr: snd_segment_sum(x, gr.csc_row_ptr,
+                                                         gr.csc_perm),
+        "csr_sum": lambda x, gr: csr_sum(x, gr.csr_row_ptr)}
+    times = []
+    for shape, dname, rows in CASES:
+        gr, D = shapes[shape]
+        dt = getattr(torch, dname)
         x = torch.randn(gr.senders.shape[0], D, generator=gen,
                         device="cuda").to(dt)
         for row in rows:
-            cases.append((shape, gr, D, dt, row, x))
-    times = []
-    for shape, gr, D, dt, row, x in cases:
-        if row == "multi_reduce":
-            fn = lambda: multi_reduce(x, gr.csr_row_ptr,  # noqa: E731
-                                      gr.max_deg)
-        else:
-            fn = lambda: snd_segment_sum(x, gr.csc_row_ptr,  # noqa: E731
-                                         gr.csc_perm)
-        rec = {"shape": shape, "row": row, "dtype": str(dt), "D": D,
-               "cold_ms": cs.device_ms(fn, iters=20, flush=flush),
-               "warm_ms": cs.device_ms(fn, iters=100, warmup=10),
-               "alone_ms": profiled(fn, f"{row}_kernel")}
-        times.append(rec)
-        print(f"[ab] {row} at the {shape} shape ({dt}, D={D}): cold-L2 "
-              f"{rec['cold_ms']:.5f} ms, warm {rec['warm_ms']:.5f} ms, "
-              f"alone in a profile {fmt(rec['alone_ms'])} ms")
+            fn = functools.partial(calls[row], x, gr)
+            rec = {"shape": shape, "row": row, "dtype": str(dt), "D": D,
+                   "cold_ms": cs.device_ms(fn, iters=20, flush=flush),
+                   "warm_ms": cs.device_ms(fn, iters=100, warmup=10),
+                   "alone_ms": profiled(fn, f"{row}_kernel")}
+            times.append(rec)
+            print(f"[ab] {row} at the {shape} shape ({dt}, D={D}): cold-L2 "
+                  f"{rec['cold_ms']:.5f} ms, warm {rec['warm_ms']:.5f} ms, "
+                  f"alone in a profile {fmt(rec['alone_ms'])} ms")
 
     cs.phase_launch_floor(ob, {k: 0 for k in cs.NONE}, in_step)
     return {"tree": root, "card": smi, "ot_step_ms": step_ms,
@@ -177,24 +179,6 @@ def one(root: str) -> dict:
             / n / 1e3,
             "in_step_ms": {k: in_step.get(k) for k in STEP_KERNELS},
             "times": times, "sass": sass}
-
-
-def _variant(change: str, tag: str, files, text: str, new: str) -> str:
-    """A copy of the change tree (without its `build/` and `.git/`) under
-    `build/ab_variants/`, with `text` replaced by `new` in each of
-    `files`; returns its root."""
-    root = Path(change, "build", "ab_variants",
-                re.sub(r"\W+", "_", tag)).resolve()
-    shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(change, root,
-                    ignore=shutil.ignore_patterns("build", ".git"))
-    for rel in files:
-        f = root / rel
-        src = f.read_text()
-        if src.count(text) != 1:
-            raise SystemExit(f"{rel}: `{text}` is not there once")
-        f.write_text(src.replace(text, new))
-    return str(root)
 
 
 def main(argv) -> int:
@@ -208,23 +192,21 @@ def main(argv) -> int:
     summary = Path(argv[3] if len(argv) == 4
                    else Path(change) / "build" / "kernel_ab.json")
     runs = []
-    trees = [("parent", parent), ("change", change)]
-    trees += [(tag, _variant(change, tag, *patch))
-              for tag, *patch in VARIANTS]
-    trees += [("change", change), ("parent", parent)]
-    for tag, root in trees:
+    for tag, root in (("parent", parent), ("change", change),
+                      ("change", change), ("parent", parent)):
         print(f"[ab] === {tag}: {root}", flush=True)
         proc = subprocess.run([sys.executable, __file__, "--one", root],
                               capture_output=True, text=True, timeout=900)
-        print("\n".join(line for line in proc.stdout.splitlines()
-                        if line.startswith(("[ab]", "[floor]", "NVIDIA"))),
-              flush=True)
+        log = [line for line in proc.stdout.splitlines()
+               if line.startswith(("[ab]", "[floor]", "NVIDIA"))]
+        print("\n".join(line for line in log
+                        if not line.startswith("[ab] sass")), flush=True)
         if proc.returncode != 0:
             print(proc.stdout[-6000:])
             print(proc.stderr[-6000:])
             return proc.returncode
         runs.append(dict(json.loads(proc.stdout.strip().splitlines()[-1]),
-                         tag=tag))
+                         tag=tag, log=log))
     for r in runs:
         t = {(x["row"], x["shape"], x["dtype"]): x for x in r["times"]}
         print(f"[ab] {r['tag']}: OT step {r['ot_step_ms']:.4f} ms, "
