@@ -86,6 +86,17 @@ its seconds:
    walks (the empty kernel, the index round trip, each walk alone and in
    the step, on the walks' grid) beside the byte bounds of rows 1, 3 and 4
    at the OT shapes, and each row's closable gap.
+17. trainer CLI: `load_config` + `train` of `configs_clean/pre-train_QM9.yml`
+   (bf16, 2 epochs of 2 steps on 5000 synthetic molecules) and then of
+   `configs_clean/tune_QM9_homo.yml` (bf16, 2 epochs of 8 steps,
+   transferring from the pre-training's best checkpoint), with launches
+   per run from the steps and eval forwards, the transfer count from the
+   module, the best checkpoint reloaded bit for bit (in the run and in a
+   new trainer) with a planted fault that must fail (a checkpoint without
+   running statistics), and a float32 1-epoch pre-training held to the
+   same run on the CPU; per run the ms per epoch, steps/s, the step inside
+   the loop against the bare step and the host seconds in the loader,
+   metrics, checkpoints and logging.
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 """
@@ -2090,6 +2101,315 @@ def phase_launch_floor(ob, launches: dict, in_step: dict):
               f"OT step {_fmt(t)}; closable gap {gap}")
 
 
+# --- phase 17: the trainer CLI ---------------------------------------------
+
+TRAINER_PRE = "configs_clean/pre-train_QM9.yml"
+TRAINER_TUNE = "configs_clean/tune_QM9_homo.yml"
+# Overrides of both configs: 5000 synthetic molecules (a model pool of
+# 4000, validation 500, test 500); the pre-training takes 1000 of the pool
+# (2 steps an epoch at batch 500), the fine-tune 1024 (8 steps at batch
+# 128) and transfers from the pre-training's best checkpoint.
+TRAINER_COMMON = {"dataset": "synthetic", "dataset_params": {"num": 5000},
+                  "num_epochs": 2, "use_tensorboard": False}
+TRAINER_RUNS = {
+    "pre": (TRAINER_PRE, dict(TRAINER_COMMON, num_train=1000)),
+    "tune": (TRAINER_TUNE, dict(TRAINER_COMMON, num_train=1024,
+                                targets=["t0"], eval_on_test=True)),
+}
+# None: the CLI's default device, the card
+TRAINER_DEVICE = None
+# train steps and eval forwards of each run: 2 epochs of 2 (8) steps; a
+# validation per epoch, the best checkpoint's and the test set's, each of
+# 500 molecules: 1 batch of 500 (contrastive, full batches), 4 of 128
+TRAINER_STEPS = {"pre": 4, "tune": 16, "pre_f32": 2}
+TRAINER_EVALS = {"pre": 4, "tune": 16, "pre_f32": 3}
+# The float32 pre-training of 1 epoch on the card against the same run on
+# the CPU: the validation loss within phase 8's float32 loss bound (1e-5
+# relative, STEP_TOL); the other probes within 1e-4 of max(|CPU|, 1), the
+# threshold probes within one count of a batch of 500 (1/500).  The two
+# steps barely move the weights (the warmup's lrs are 0 and 8e-5 / 700),
+# so this holds the forward of a whole loop, its metrics and its batches.
+F32_RUN_TOL = {"loss": STEP_TOL[False]["loss"], "probe": 1e-4,
+               "count": 1 / 500}
+THRESHOLD_PROBES = ("contrastive_accuracy", "true_negative_rate",
+                    "true_positive_rate")
+
+
+def _trainer_args(kind: str, logdir: Path, **extra) -> dict:
+    from infomax3d_tpu_torch.cli.config import load_config
+    config, overrides = TRAINER_RUNS[kind]
+    return load_config(config, dict(overrides, logdir=str(logdir), **extra))
+
+
+def _run_dir(logdir: Path) -> Path:
+    dirs = sorted(p for p in logdir.iterdir() if p.is_dir())
+    _check(len(dirs) == 1, f"{logdir}: run dirs {dirs}")
+    return dirs[0]
+
+
+def _val_records(run_dir: Path) -> list:
+    recs = [json.loads(line) for line in open(run_dir / "metrics.jsonl")]
+    return [r for r in recs if r["split"] == "val"]
+
+
+_NOT_METRICS = ("split", "step", "epoch", "time")
+
+
+def _expected_run(bf16: bool, kind: str) -> dict:
+    return {n: EXPECTED_STEP[bf16][n] * TRAINER_STEPS[kind]
+            + EXPECTED[bf16][n] * TRAINER_EVALS[kind] for n in NONE}
+
+
+def _cli_run(kind: str, logdir: Path, device, **extra):
+    """`load_config` + `train` as a user runs them; returns the result,
+    the run dir, the printed text, the launches and the wall seconds."""
+    import contextlib
+    import io
+    from infomax3d_tpu_torch.cli.train import train
+    args = _trainer_args(kind, logdir, **extra)
+    text = io.StringIO()
+    before = _counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        result = train(args, device=device)
+    wall = time.perf_counter() - t0
+    after = _counts()
+    print(text.getvalue(), end="")
+    run_dir = _run_dir(logdir)
+    for name in ("best_checkpoint.pt", "last_checkpoint.pt",
+                 "train_arguments.yaml", "metrics.jsonl",
+                 "evaluation_val_best_checkpoint.txt", "timing.json"):
+        _check((run_dir / name).exists(), f"{kind}: no {name}")
+    _check(all(np.isfinite(v) for v in result.values()),
+           f"{kind}: non-finite metrics {result}")
+    return {"result": result, "dir": run_dir, "text": text.getvalue(),
+            "launches": {n: after[n] - before[n] for n in after},
+            "wall_s": wall, "args": args}
+
+
+def _fresh_trainer(kind: str, logdir: Path, dataset, device):
+    """A new trainer of run `kind` with weights from another seed, and
+    its validation loader."""
+    from infomax3d_tpu_torch.cli import train as cli
+    from infomax3d_tpu_torch.losses import SUPERVISED_LOSSES, get_loss
+    from infomax3d_tpu_torch.train.trainer import get_trainer_class
+    args = _trainer_args(kind, logdir, seed=7)
+    cli.seed_all(args["seed"])
+    cli.resolve_collate(args)
+    cli.apply_dataset_protocol(args, dataset)
+    cli.resolve_fast_paths(args)
+    name = "contrastive" if args.get("model3d_type") else "default"
+    loss = args["loss_func"]
+    tr = get_trainer_class(name)(
+        cli.build_models(args, dataset), args,
+        cli.build_metrics(args, dataset), args["main_metric"], str(logdir),
+        None if loss in SUPERVISED_LOSSES else
+        get_loss(loss, **(args.get("loss_params") or {})), loss,
+        args["main_metric_goal"], args["scheduler_step_per_batch"],
+        device=device, use_tensorboard=False)
+    tr.init_state()
+    return tr, cli.make_loaders(args, dataset)
+
+
+def _best_epoch_metrics(run_dir: Path, goal_min: bool, key: str) -> dict:
+    """The validation record of the best epoch (ties: the later, as the
+    trainer's `<=` keeps it)."""
+    best = None
+    for r in _val_records(run_dir):
+        if best is None or (r[key] <= best[key] if goal_min
+                            else r[key] >= best[key]):
+            best = r
+    return {k: v for k, v in best.items() if k not in _NOT_METRICS}
+
+
+def _reload_mismatches(want: dict, got: dict) -> list:
+    return [(k, want[k], got.get(k)) for k in want if got.get(k) != want[k]]
+
+
+def _no_running_stats_checkpoint():
+    """The reload check's planted fault: checkpoints saved without the
+    running statistics, loaded without complaint.  Returns the undo."""
+    ck = importlib.import_module("infomax3d_tpu_torch.train.checkpoint")
+    real_save, real_load = ck.state_dicts, ck.load_state_dicts
+
+    def save(models):
+        return {k: {n: t for n, t in sd.items() if "running" not in n}
+                for k, sd in real_save(models).items()}
+
+    def load(models, payload):
+        for k, m in models.items():
+            m.load_state_dict(payload[ck.STATE_DICT_KEYS[k]], strict=False)
+    ck.state_dicts, ck.load_state_dicts = save, load
+
+    def undo():
+        ck.state_dicts, ck.load_state_dicts = real_save, real_load
+    return undo
+
+
+def _hold_reload(kind: str, run: dict, logdir: Path):
+    """The best checkpoint reloaded gives the best epoch's validation
+    metrics bit for bit: the trainer's own `val_best_checkpoint`
+    evaluation, and a new trainer (weights from another seed) that loads
+    `best_checkpoint.pt`.  The planted fault (a checkpoint saved without
+    the running statistics) must fail the same check."""
+    from infomax3d_tpu_torch.cli.train import build_dataset, resolve_collate
+    args = run["args"]
+    goal_min = args["main_metric_goal"] == "min"
+    key = args["loss_func"] if args["main_metric"] == "loss" \
+        else args["main_metric"]
+    want = _best_epoch_metrics(run["dir"], goal_min, key)
+    bad = _reload_mismatches(want, run["result"])
+    _check(not bad, f"{kind}: val_best_checkpoint != best epoch: {bad}")
+    a = dict(args)
+    resolve_collate(a)
+    dataset = build_dataset(a)
+    tr, (_, val_loader, _) = _fresh_trainer(kind, logdir / "fresh", dataset,
+                                            run["device"])
+    tr._load(str(run["dir"] / "best_checkpoint.pt"), restore_host=False)
+    bad = _reload_mismatches(want, tr.evaluate_epoch(val_loader))
+    _check(not bad, f"{kind}: reloaded best checkpoint != best epoch: {bad}")
+    undo = _no_running_stats_checkpoint()
+    try:
+        tr.save_checkpoint(0, "no_running_stats.pt")
+        tr2, _ = _fresh_trainer(kind, logdir / "fault", dataset,
+                                run["device"])
+        tr2._load(str(logdir / "fresh" / "no_running_stats.pt"),
+                  restore_host=False)
+        caught = _reload_mismatches(want, tr2.evaluate_epoch(val_loader))
+    finally:
+        undo()
+    _check(bool(caught), f"{kind}: the reload check passed a checkpoint "
+           f"without running statistics")
+    print(f"[trainer] {kind}: the best checkpoint (epoch of the best "
+          f"{key}) reloaded gives its validation metrics bit for bit, in "
+          f"the run and in a new trainer; planted fault (saved without "
+          f"running statistics) caught: {len(caught)} of {len(want)} "
+          f"metrics differ")
+
+
+def _bare_step_ms(kind: str, args: dict, device) -> float:
+    """Device ms of the bare step (`PretrainStep` / `SupervisedStep`) on
+    the run's first train batch: CUDA events over warm steps."""
+    from infomax3d_tpu_torch.cli import train as cli
+    from infomax3d_tpu_torch.data.loader import to_device
+    from infomax3d_tpu_torch.models.registry import build_model
+    from infomax3d_tpu_torch.train.optim import build_adam
+    from infomax3d_tpu_torch.train.supervised import SupervisedStep
+    a = dict(args)
+    cli.resolve_collate(a)
+    dataset = cli.build_dataset(a)
+    cli.resolve_fast_paths(a)
+    batch = next(iter(cli.make_loaders(a, dataset)[0]))
+    if kind == "pre":
+        step = build_step(dict(_train_args(True), seed=0), device)
+        b = step.prepare(to_device(batch["graph2d"], device),
+                         to_device(batch["graph3d"], device))
+    else:
+        model = build_model("PNA", a["model_parameters"])
+        step = SupervisedStep.from_modules(
+            model, device, torch.bfloat16, a["loss_func"],
+            build_adam(model.named_parameters(),
+                       **a["optimizer_params"]))
+        b = (step.prepare(to_device(batch["graph"], device)),)
+    return cuda_ms(lambda: step.step(*b), iters=10)
+
+
+def _print_loop(kind: str, run: dict, bare_ms, smi: str):
+    t = json.load(open(run["dir"] / "timing.json"))
+    steps = TRAINER_STEPS[kind]
+    ms = np.asarray(t["step_ms"])
+    epoch_ms = [round(x * 1e3, 3) for x in t["train_epoch_s"]]
+    eval_ms = [round(x * 1e3, 3) for x in t["eval_s"]]
+    print(f"[trainer] {kind} loop: wall {run['wall_s']:.3f} s for the run; "
+          f"ms per epoch (training) {epoch_ms}, (validation) {eval_ms}; "
+          f"{steps / sum(t['train_epoch_s']):.3f} steps/s in the loop "
+          f"({steps} steps); {smi}")
+    if ms.size:
+        print(f"[trainer] {kind} step inside train_epoch (CUDA events, "
+              f"{ms.size} steps): median {np.median(ms):.4f} ms, mean "
+              f"{ms.mean():.4f} ms, first {ms[0]:.4f} ms; bare step at the "
+              f"same batch {_fmt(bare_ms)}; {smi}")
+    host = {k: round(t[k], 4) for k in ("loader", "to_device", "step",
+                                         "device_wait", "metrics",
+                                         "checkpoint", "logging")}
+    print(f"[trainer] {kind} host seconds: {host} (loader = waiting on the "
+          f"prefetch thread; step = the steps' host launches; device_wait = "
+          f"synchronizing before metrics); {smi}")
+
+
+def phase_trainer(smi: str, out_dir: Path) -> dict:
+    """Phase 17: the trainer CLI's main path (bf16 pre-training, then the
+    fine-tune from its best checkpoint), its checks and its loop timing.
+    Returns the main path's launches."""
+    import shutil
+    from infomax3d_tpu_torch.models.registry import build_model
+    root = out_dir / "trainer"
+    shutil.rmtree(root, ignore_errors=True)
+    device = torch.device("cuda" if TRAINER_DEVICE is None
+                          else TRAINER_DEVICE)
+    _reset_counts()
+    pre = _cli_run("pre", root / "pre", TRAINER_DEVICE)
+    tune = _cli_run("tune", root / "tune", TRAINER_DEVICE,
+                    pretrain_checkpoint=str(pre["dir"] / "best_checkpoint.pt"))
+    f32 = _cli_run("pre", root / "pre_f32", TRAINER_DEVICE, num_epochs=1,
+                   bf16_compute=False)
+    launches = _counts()
+    for kind, run, bf16 in (("pre", pre, True), ("tune", tune, True),
+                            ("pre_f32", f32, False)):
+        want = (_expected_run(bf16, kind) if device.type == "cuda"
+                else dict(NONE))
+        _check(run["launches"] == want,
+               f"{kind}: launches {run['launches']} != {want}")
+        run["device"] = device
+        print(f"[trainer] {kind}: result {run['result']}; launches "
+              f"{run['launches']} ({TRAINER_STEPS[kind]} steps, "
+              f"{TRAINER_EVALS[kind]} eval forwards)")
+    print(f"[trainer] trainer main-path launches: {launches}")
+
+    # the transfer: PNA 200x7's node_gnn tensors that are not BatchNorm's
+    model = build_model("PNA", tune["args"]["model_parameters"])
+    n_want = sum(1 for n, _ in model.named_parameters()
+                 if n.startswith("node_gnn.") and "batch_norm" not in n)
+    line = next(x for x in tune["text"].splitlines()
+                if x.startswith("transferred "))
+    _check(int(line.split()[1]) == n_want,
+           f"transfer count {line} != {n_want}")
+    print(f"[trainer] tune: {line.split(' from ')[0]} (node_gnn tensors "
+          f"that are not BatchNorm's in PNA 200x7: {n_want})")
+    _check((tune["dir"] / "evaluation_test.txt").exists(),
+           "tune: no evaluation_test.txt")
+
+    for kind, run in (("pre", pre), ("tune", tune)):
+        _hold_reload(kind, run, root / f"{kind}_reload")
+
+    # float32: the same 1-epoch pre-training on the CPU
+    cpu = _cli_run("pre", root / "pre_f32_cpu", "cpu", num_epochs=1,
+                   bf16_compute=False)
+    card_val, cpu_val = (_val_records(r["dir"])[0] for r in (f32, cpu))
+    worst = {}
+    for k, v in cpu_val.items():
+        if k in _NOT_METRICS:
+            continue
+        d = abs(card_val[k] - v)
+        if k == f32["args"]["loss_func"]:
+            tol = F32_RUN_TOL["loss"] * abs(v)
+        elif k in THRESHOLD_PROBES:
+            tol = F32_RUN_TOL["count"]
+        else:
+            tol = F32_RUN_TOL["probe"] * max(abs(v), 1.0)
+        worst[k] = (d, tol)
+    print(f"[trainer] float32 1-epoch pre-training, card vs CPU "
+          f"(|card - CPU|, tolerance): {worst}")
+    bad = {k: v for k, v in worst.items() if not v[0] <= v[1]}
+    _check(not bad, f"float32 run card vs CPU: {bad}")
+
+    for kind, run in (("pre", pre), ("tune", tune)):
+        bare = _bare_step_ms(kind, run["args"], device) \
+            if device.type == "cuda" else None
+        _print_loop(kind, run, bare, smi)
+    return {"launches": launches}
+
+
 class _Phase:
     """Prints a phase's seconds when it ends (and lets its error pass)."""
 
@@ -2133,11 +2453,13 @@ def main() -> int:
         _merge_errs(errs, phase_ot_kernels(ob, g))
     with _Phase("15 OT training"):
         ot_run = phase_ot_train(smi)
-    # every kernel's launches over the four main paths (serving,
-    # pre-training, GIN training, OT training)
+    with _Phase("17 trainer CLI"):
+        trainer = phase_trainer(smi, out_dir)
+    # every kernel's launches over the five main paths (serving,
+    # pre-training, GIN training, OT training, the trainer CLI)
     launches = {n: serve_launches[n] + train["launches"][n]
                 + gin["launches"][n] + ot_run["launches"][n]
-                for n in serve_launches}
+                + trainer["launches"][n] for n in serve_launches}
     with _Phase("6 kernel times"):
         rows = phase_kernel_times(g, launches, errs)
     with _Phase("9 training profile"):

@@ -7,8 +7,15 @@ CUDA C++ kernel under `csrc/`, bound with ctypes (`ops/kernels/`).  Every
 kernel wrapper runs its plain PyTorch twin on CPU tensors and launches the
 kernel (or raises) on CUDA tensors.
 
-Ported so far: the PNA fingerprint-serving forward (`cli.inference`) and
-the contrastive pre-training step of PNA and Net3DDense (`train.pretrain`).
+Ported so far: the PNA fingerprint-serving forward (`cli.inference`); four
+training steps: contrastive pre-training of PNA and Net3DDense
+(`train.pretrain`), the supervised step (`train.supervised`; OGBGNN and the
+trainer's PNA fine-tune), the GeoMol optimal-transport step (`train.ot`);
+and the training CLI for pre-train -> fine-tune (`cli.train`, `cli.config`
+with its own YAML reader `cli.yaml_lite`): `train.trainer`'s `Trainer` and
+`SelfSupervisedTrainer` over those steps, the schedulers, metrics, grouped
+optimizers, checkpoints in the reference's `.pt` payload, run logging, the
+synthetic dataset, splits and `data.loader.GraphDataLoader`.
 """
 from infomax3d_tpu_torch.device import resolve_device
 

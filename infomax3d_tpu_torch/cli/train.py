@@ -1,0 +1,522 @@
+"""Training entry point (port of `infomax3d_tpu/cli/train.py`, the
+reference's `train.py` CLI).
+
+    python -m infomax3d_tpu_torch.cli.train --config=configs_clean/pre-train_synthetic.yml --device=cpu
+
+Reference parity: the YAML schema, dataset dispatch, the split protocol
+(`get_random_indices` with numpy seed 123, first 100k model pool, 10%
+test), metric names, trainer selection, pre-trained-weight transfer with
+substring filtering, multi-seed runs and test evaluation.  `dataset:
+synthetic` runs everything without chemistry data.
+
+The run goes to the CUDA card unless `--device` (or the config's `device`)
+says "cpu"; with neither set and no card, it raises.  What the port has
+not ported yet raises `NotImplementedError` naming its ROADMAP queue 1
+item: datasets other than `synthetic` (item 4), the flat Net3D (item 3),
+non-CSR batches (item 7), trainer flavours other than `default` and
+`contrastive` (item 8), shards (item 9).
+"""
+from __future__ import annotations
+
+import argparse
+import ast
+import os
+from concurrent.futures import ThreadPoolExecutor
+from datetime import datetime
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from infomax3d_tpu_torch.cli.config import check_device, load_config
+from infomax3d_tpu_torch.data.splits import (get_idx_split,
+                                             get_random_indices,
+                                             reference_split_indices)
+from infomax3d_tpu_torch.device import resolve_device
+from infomax3d_tpu_torch.interop import flax_paths
+from infomax3d_tpu_torch.utils.setup import seed_all
+
+
+def build_metrics(args: Dict[str, Any], dataset=None) -> Dict[str, Any]:
+    """Reference metrics_dict (train.py:237-269) + dataset-specific
+    additions."""
+    from infomax3d_tpu_torch.train import metrics as M
+    table = {
+        "rsquared": M.Rsquared(),
+        "mae": M.MAE(),
+        "pearsonr": M.PearsonR(),
+        "pcqm4m": M.PCQM4MEvaluatorWrapper(),
+        "conformer_3d_variance": M.Conformer3DVariance(),
+        "conformer_2d_variance": M.Conformer2DVariance(),
+        "positive_similarity": M.PositiveSimilarity(),
+        "positive_similarity_multiple_positives_separate2d":
+            M.PositiveSimilarityMultiplePositivesSeparate2d(),
+        "positive_prob": M.PositiveProb(),
+        "negative_prob": M.NegativeProb(),
+        "negative_similarity": M.NegativeSimilarity(),
+        "negative_similarity_multiple_positives_separate2d":
+            M.NegativeSimilarityMultiplePositivesSeparate2d(),
+        "contrastive_accuracy": M.ContrastiveAccuracy(threshold=0.5009),
+        "true_negative_rate": M.TrueNegativeRate(threshold=0.5009),
+        "true_positive_rate": M.TruePositiveRate(threshold=0.5009),
+        "uniformity": M.Uniformity(t=2),
+        "alignment": M.Alignment(alpha=2),
+        "batch_variance": M.BatchVariance(),
+        "dimension_covariance": M.DimensionCovariance(),
+    }
+    ogb_metrics = {
+        "ogbg-molhiv": ("rocauc", 1), "ogbg-molpcba": ("ap", 128),
+        "ogbg-molbace": ("rocauc", 1), "ogbg-molbbbp": ("rocauc", 1),
+        "ogbg-molclintox": ("rocauc", 2), "ogbg-moltoxcast": ("rocauc", 617),
+        "ogbg-moltox21": ("rocauc", 12), "ogbg-mollipo": ("rmse", 1),
+        "ogbg-molmuv": ("ap", 17), "ogbg-molsider": ("rocauc", 27),
+        "ogbg-molfreesolv": ("rmse", 1), "ogbg-molesol": ("rmse", 1),
+    }
+    for name, (metric, tasks) in ogb_metrics.items():
+        table[name] = M.OGBEvaluator(d_name=name, metric=metric,
+                                     num_tasks=tasks)
+    has_stats = dataset is not None and \
+        getattr(dataset, "targets_mean", None) is not None
+
+    def _denorm(cls, **kw):
+        return cls(means=dataset.targets_mean, stds=dataset.targets_std,
+                   ev2mev=getattr(dataset, "ev2mev", None), **kw)
+    wanted = {}
+    for name in args["metrics"]:
+        if name == "mean_predictor_loss":
+            # reference train.py:265: MeanPredictorLoss(loss_func(**params))
+            from infomax3d_tpu_torch.losses import get_loss
+            wanted[name] = M.MeanPredictorLoss(
+                get_loss(args["loss_func"], **(args.get("loss_params") or {})))
+        elif name == "qm9_properties" and has_stats:
+            # reference train.py:600-605: one denormalized-L1 per target
+            for ti, task in enumerate(getattr(dataset, "target_tasks", [])):
+                wanted[task] = _denorm(M.QM9SingleTargetDenormalizedL1,
+                                       task_index=ti)
+        elif name in table:
+            wanted[name] = table[name]
+        elif name == "mae_denormalized" and has_stats:
+            wanted[name] = _denorm(M.QM9DenormalizedL1)
+        elif name == "mse_denormalized" and has_stats:
+            wanted[name] = _denorm(M.QM9DenormalizedL2)
+    if args["main_metric"] == "mae_denormalized" and \
+            "mae_denormalized" not in wanted and has_stats:
+        wanted["mae_denormalized"] = _denorm(M.QM9DenormalizedL1)
+    return wanted
+
+
+# all geomol fine-tune dataset names the reference dispatches
+# (train.py:290-312)
+GEOMOL_FINETUNE_SETS = (
+    "bace_geomol", "bbbp_geomol", "bace_geomol_random", "bbbp_geomol_random",
+    "esol_geomol", "lipo_geomol", "bace_geomol_qm9_featurization",
+    "bbbp_geomol_qm9_featurization", "esol_geomol_qm9_featurization",
+    "lipo_geomol_qm9_featurization",
+)
+
+
+def build_dataset(args: Dict[str, Any]):
+    """Dataset dispatch, name-compatible with the reference.  `synthetic`
+    only; the cached datasets are ROADMAP queue 1, item 4."""
+    from infomax3d_tpu_torch.data.cached import SyntheticDataset
+    name = args["dataset"]
+    if name == "molhiv":
+        name = args["dataset"] = "ogbg-molhiv"
+    params = dict(args.get("dataset_params") or {})
+    needs_conformers = any("conform" in str(r) for r in args["required_data"]) \
+        or "conformer" in args["collate_function"].lower()
+    n_conf = args["num_conformers"] if needs_conformers else 1
+    if needs_conformers:
+        n_conf = max(n_conf,
+                     int((args.get("collate_params") or {})
+                         .get("num_conformers", 0)))
+    if any(str(r) == "complete_graph_random_conformer"
+           for r in args["required_data"]):
+        params.setdefault("random_conformer", True)
+        n_conf = 1
+    if name == "synthetic":
+        params.setdefault("num", 2000)
+        params.setdefault("num_targets", max(len(args["targets"]), 1))
+        params.setdefault("num_conformers", n_conf)
+        return SyntheticDataset(**params)
+    raise NotImplementedError(
+        f"dataset '{name}' is not ported yet (ROADMAP queue 1, item 4); "
+        f"dataset: synthetic runs every config")
+
+
+def apply_dataset_protocol(args: Dict[str, Any], dataset) -> None:
+    """Per-family arg mutations the reference drivers perform before
+    building the trainer (ogbg: `train.py:448-452`; geomol fine-tune sets:
+    `train.py:340-344`; pcqm4m: `train.py:419-421`)."""
+    name = args["dataset"]
+    if name.startswith("ogbg"):
+        if name not in args["metrics"]:
+            args["metrics"] = list(args["metrics"]) + [name]
+        args["main_metric"] = name
+        args["val_per_batch"] = False
+        rmse = name in ("ogbg-mollipo", "ogbg-molfreesolv", "ogbg-molesol")
+        args["main_metric_goal"] = "min" if rmse else "max"
+    elif name in GEOMOL_FINETUNE_SETS:
+        metric_name = dataset.ogb_metric_name
+        if metric_name not in args["metrics"]:
+            args["metrics"] = list(args["metrics"]) + [metric_name]
+        args["main_metric"] = metric_name
+        args["val_per_batch"] = False
+        rmse = metric_name in ("ogbg-mollipo", "ogbg-molfreesolv",
+                               "ogbg-molesol")
+        args["main_metric_goal"] = "min" if rmse else "max"
+    elif name == "pcqm4m":
+        if "pcqm4m" not in args["metrics"]:
+            args["metrics"] = list(args["metrics"]) + ["pcqm4m"]
+        args["main_metric"] = "pcqm4m"
+        args["main_metric_goal"] = "min"
+
+
+FLAT_COLLATES = {
+    "graph_collate", "graph_only_collate", "contrastive_collate",
+    "contrastive_collate_ae", "conformer_collate", "graphcl_collate",
+    "node_drop_3d_collate", "node_drop_2d3d_collate",
+    "noised_distances_collate", "noised_coordinates_collate",
+}
+
+
+def resolve_fast_paths(args: Dict[str, Any]) -> None:
+    """Resolve the batch-layout knobs once (read by build_models and
+    make_loaders).  The port has only receiver-sorted CSR batches and the
+    dense Net3DDense, so on every device:
+
+    * ``_csr`` is on for the flat collates; ``csr_buckets: False`` (the
+      non-CSR batch) is ROADMAP queue 1, item 7, and raises;
+    * ``_dense_3d`` is on for a Net3D / Net3DDense 3D model with
+      `contrastive_collate`; ``dense_3d: False`` there (the flat Net3D) is
+      item 3 and raises.
+    Graph- and node-sharded modes (item 9) raise."""
+    if args.get("graph_shards", 1) > 1 or args.get("node_shards", 1) > 1:
+        raise NotImplementedError(
+            "graph_shards / node_shards are not ported yet (ROADMAP queue "
+            "1, item 9)")
+    if args.get("csr_buckets", "auto") is False:
+        raise NotImplementedError(
+            "csr_buckets: False (the non-CSR batch) is not ported yet "
+            "(ROADMAP queue 1, item 7)")
+    args["_csr"] = args.get("collate_function") in FLAT_COLLATES
+    eligible = (args.get("model3d_type") in ("Net3D", "Net3DDense") and
+                args.get("collate_function") == "contrastive_collate")
+    if eligible and args.get("dense_3d", "auto") is False:
+        raise NotImplementedError(
+            "dense_3d: False (the flat Net3D) is not ported yet (ROADMAP "
+            "queue 1, item 3)")
+    args["_dense_3d"] = eligible
+
+
+def build_models(args: Dict[str, Any], dataset=None
+                 ) -> Dict[str, torch.nn.Module]:
+    """The config's models as the port's modules (`models/registry.py`),
+    built with torch's default initialization under the seeded global
+    generator."""
+    from infomax3d_tpu_torch.models.registry import build_model
+    if args["model_type"] == "BYOLwrapper" or args["trainer"] == "byol":
+        raise NotImplementedError(
+            "BYOL is not ported yet (ROADMAP queue 1, item 8)")
+    models = {"model": build_model(args["model_type"],
+                                   args.get("model_parameters") or {})}
+    if args.get("model3d_type"):
+        m3_type = args["model3d_type"]
+        if args.get("_dense_3d") and m3_type == "Net3D":
+            m3_type = "Net3DDense"       # parameter-compatible dense path
+        models["model3d"] = build_model(
+            m3_type, args.get("model3d_parameters") or {})
+    if args.get("critic_type"):
+        raise NotImplementedError(
+            f"critic_type '{args['critic_type']}' is not ported yet "
+            f"(ROADMAP queue 1, item 7)")
+    return models
+
+
+def _is_torch_checkpoint(path: str) -> bool:
+    """True for a torch `.pt` (zip archive or legacy pickle), False for
+    the JAX package's flax msgpack checkpoints."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    return head == b"PK\x03\x04" or head[:2] == b"\x80\x02"
+
+
+def _rename_source(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The reference's transfer renames (train.py:216-226) on torch names:
+    BYOL 'student.' prefixes stripped, the root 'gnn.' / 'gnn2.' ->
+    'node_gnn.' (anchored at the root: a nested 'gnn' keeps its name)."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("student."):
+            k = k[len("student."):]
+        if k.startswith("gnn.") or k.startswith("gnn2."):
+            k = "node_gnn." + k.split(".", 1)[1]
+        out[k] = v
+    return out
+
+
+def transfer_pretrained(trainer, args: Dict[str, Any]) -> int:
+    """Pre-trained weight transfer (reference load_model, train.py:
+    207-231) from a port / reference `.pt` checkpoint into the trainer's
+    ``model``: each parameter and running statistic whose name contains a
+    `transfer_layers` token and no `exclude_from_transfer` token (nor
+    'teacher'), and whose shape matches the source's, is copied.  Tokens
+    are substrings of torch's dot-joined names; they are matched on each
+    tensor's flax path ('.' read as '/', BatchNorm spelled both
+    'MaskedBatchNorm' and 'batch_norm'), so the selection equals the JAX
+    package's.  `transfer_3d` takes the source's 3D network.  Prints and
+    returns the number of parameter tensors transferred."""
+    path = args["pretrain_checkpoint"]
+    if not _is_torch_checkpoint(path):
+        raise NotImplementedError(
+            f"{path} is not a torch checkpoint; converting the JAX "
+            f"package's flax checkpoints is ROADMAP queue 1, item 5")
+    from infomax3d_tpu_torch.train.checkpoint import load_checkpoint
+    payload = load_checkpoint(path)
+    src = _rename_source(payload.get(
+        "model3d_state_dict" if args.get("transfer_3d")
+        else "model_state_dict") or {})
+    transfer = [t.replace(".", "/") for t in (args["transfer_layers"] or [])]
+    exclude = [t.replace(".", "/") for t in
+               (args["exclude_from_transfer"] or [])] + ["teacher"]
+    model = trainer.models["model"]
+    params = dict(model.named_parameters())
+    tensors = {**dict(model.named_buffers()), **params}
+    n_hit = 0
+    with torch.no_grad():
+        for name, fpath in flax_paths(model, running_stats=True).items():
+            s = fpath + "|" + fpath.replace("MaskedBatchNorm", "batch_norm")
+            if not (any(t in s for t in transfer)
+                    and not any(x in s for x in exclude)):
+                continue
+            dst = tensors[name]
+            if name in src and tuple(src[name].shape) == tuple(dst.shape):
+                dst.copy_(src[name].to(dst.device, dst.dtype))
+                n_hit += name in params
+    print(f"transferred {n_hit} parameter tensors from {path}")
+    return n_hit
+
+
+def make_splits(args: Dict[str, Any], dataset):
+    """(train_idx, val_idx, test_idx) per the reference's per-family
+    protocol: scaffold splits for OGB sets (item 4, raises), stored splits
+    for pre-split sets, random splits otherwise (data/splits.py)."""
+    name = args["dataset"]
+    n = len(dataset)
+    if name.startswith("ogbg"):
+        split = get_idx_split(dataset, getattr(dataset, "cache_dir", None))
+        if args.get("force_random_split"):
+            all_idx = get_random_indices(n, args["seed_data"])
+            nt, nv = len(split["train"]), len(split["valid"])
+            split = {"train": all_idx[:nt], "valid": all_idx[nt:nt + nv],
+                     "test": all_idx[nt + nv:]}
+        return split["train"], split["valid"], split["test"]
+    stored = getattr(dataset, "split_indices", None)
+    if stored:
+        tr = stored["train"]
+        if name == "pcqm4m" and args["num_train"] > 0:
+            tr = tr[: args["num_train"]]     # reference train.py:402
+        return tr, stored["valid"], stored["test"]
+    return reference_split_indices(args, n)
+
+
+def make_loaders(args: Dict[str, Any], dataset):
+    """Train / validation / test `GraphDataLoader`s: one static CSR bucket
+    sized to cover a random batch with overwhelming probability (`_cap`),
+    shuffled train batches (seed `seed`), full batches for the contrastive
+    collates."""
+    from infomax3d_tpu_torch.data.loader import GraphDataLoader
+    from infomax3d_tpu_torch.graphs.batch import BucketSpec
+
+    train_idx, val_idx, test_idx = make_splits(args, dataset)
+    bs = args["batch_size"]
+    nodes = dataset.node_counts()
+    max_n = int(nodes.max())
+
+    def _cap(per_mol, granularity, slack=1.1, n_sigma=5.0):
+        """Static bucket size covering a random batch of `bs` molecules:
+        mean + n_sigma x batch std + one max-size molecule, rounded up to
+        the granularity."""
+        per_mol = np.asarray(per_mol, np.float64)
+        need = (bs * per_mol.mean() * slack
+                + n_sigma * np.sqrt(bs) * per_mol.std() + per_mol.max())
+        return int(np.ceil(need / granularity) * granularity)
+
+    bucket = BucketSpec(bs, _cap(nodes, 256), _cap(dataset.edge_counts(), 512),
+                        max_deg=int(dataset.max_in_degree()), csr=True,
+                        nmax=max_n)
+    collate = args["collate_function"]
+    ckw = dict(args.get("collate_params") or {})
+    contrastive = collate in ("contrastive_collate", "conformer_collate",
+                              "contrastive_collate_ae")
+    if args.get("_dense_3d") and collate == "contrastive_collate":
+        ckw.setdefault("dense_3d", True)
+        ckw.setdefault("max_nodes3d", max_n)
+    if collate == "ot_collate":
+        hp = (args.get("model_parameters") or {}).get("hyperparams") or {}
+        ckw.setdefault("n_true_confs",
+                       int(hp.get("n_true_confs", args["num_conformers"])))
+    if args.get("bucket_ladder") or args.get("train_sampler"):
+        raise NotImplementedError(
+            "bucket_ladder / train_sampler are not ported yet (ROADMAP "
+            "queue 1, items 9 and 4)")
+
+    def mk(indices, shuffle, seed):
+        return GraphDataLoader(dataset, bs, collate, bucket=bucket,
+                               shuffle=shuffle, drop_last=contrastive,
+                               seed=seed, indices=indices,
+                               collate_kwargs=ckw)
+
+    return (mk(train_idx, True, args["seed"]),
+            mk(val_idx, False, args["seed"] + 1),
+            mk(test_idx, False, args["seed"] + 2))
+
+
+def resolve_collate(args: Dict[str, Any]) -> None:
+    """Canonicalize the config's collate name and apply the reference's
+    routing rules (aliases; `san_graph` -> san_collate; OT configs ->
+    ot_collate; SMP -> smp_collate)."""
+    from infomax3d_tpu_torch.data.loader import COLLATE_ALIASES
+    args["collate_function"] = COLLATE_ALIASES.get(
+        args["collate_function"], args["collate_function"])
+    if any(str(r) == "san_graph" for r in args["required_data"]) and \
+            args["collate_function"] == "graph_collate":
+        args["collate_function"] = "san_collate"
+    if args["trainer"] == "optimal_transport" and \
+            args["collate_function"] in ("graph_only_collate",
+                                         "graph_collate"):
+        args["collate_function"] = "ot_collate"
+    if args["model_type"] == "SMP" and \
+            args["collate_function"] == "graph_collate":
+        args["collate_function"] = "smp_collate"
+
+
+def run_training(args: Dict[str, Any], device=None,
+                 init_variables: Optional[Mapping[str, Mapping]] = None
+                 ) -> Dict[str, float]:
+    """One training run.  `device` wins over `args["device"]`; with both
+    None the run goes to the CUDA card (and raises without one).
+    `init_variables` maps model keys to flax numpy trees to start from
+    (otherwise torch's default initialization, seeded by `seed`)."""
+    check_device(args.get("device"))
+    check_device(device)
+    device = resolve_device(device if device is not None
+                            else args.get("device"))
+    seed_all(args["seed"])
+    from infomax3d_tpu_torch.losses import SUPERVISED_LOSSES, get_loss
+    from infomax3d_tpu_torch.train.trainer import get_trainer_class
+
+    resolve_collate(args)
+    dataset = build_dataset(args)
+    apply_dataset_protocol(args, dataset)
+    metrics = build_metrics(args, dataset)
+    resolve_fast_paths(args)
+    if args.get("n_shards", 1) > 1 or args.get("model_shards", 1) > 1:
+        raise NotImplementedError(
+            "n_shards / model_shards are not ported yet (ROADMAP queue 1, "
+            "item 9)")
+    loss_name = args["loss_func"]
+    loss_func = None if loss_name in SUPERVISED_LOSSES else \
+        get_loss(loss_name, **(args.get("loss_params") or {}))
+    # reference get_trainer (train.py:166-204): the SSL flavour only
+    # applies with a 3D model; otherwise the supervised Trainer
+    if args.get("model3d_type"):
+        trainer_cls = get_trainer_class(args["trainer"])
+    elif args["trainer"] in ("graphcl_trainer", "distance_predictor",
+                             "optimal_transport"):
+        trainer_cls = get_trainer_class(args["trainer"])
+    elif args["collate_function"] == "pairwise_distance_collate":
+        trainer_cls = get_trainer_class("distance_predictor")
+    else:
+        trainer_cls = get_trainer_class("default")
+    models = build_models(args, dataset)
+    run_dir = os.path.join(
+        args["logdir"],
+        f"{args['model_type']}_{args['dataset']}_{args['experiment_name']}_"
+        f"{args['seed']}_{datetime.now().strftime('%d-%m_%H-%M-%S')}")
+    # claim a unique dir atomically (same-second runs would collide)
+    base_run_dir, n_dup = run_dir, 1
+    while True:
+        try:
+            os.makedirs(run_dir)
+            break
+        except FileExistsError:
+            run_dir = f"{base_run_dir}_{n_dup}"
+            n_dup += 1
+    trainer = trainer_cls(
+        models, args, metrics=metrics, main_metric=args["main_metric"],
+        run_dir=run_dir, loss_func=loss_func, loss_name=loss_name,
+        main_metric_goal=args["main_metric_goal"],
+        scheduler_step_per_batch=args["scheduler_step_per_batch"],
+        device=device, use_tensorboard=args.get("use_tensorboard", True),
+        init_variables=init_variables)
+    train_loader, val_loader, test_loader = make_loaders(args, dataset)
+    if args.get("pretrain_checkpoint"):
+        trainer.init_state(next(iter(train_loader)))
+        transfer_pretrained(trainer, args)
+    val_metrics = trainer.train(train_loader, val_loader)
+    result = dict(val_metrics)
+    if args["eval_on_test"] and len(test_loader.indices) > 0:
+        test_metrics = trainer.evaluation(test_loader, "test")
+        result.update({f"test_{k}": v for k, v in test_metrics.items()})
+    trainer.write_timing()
+    trainer.logger.close()
+    return result
+
+
+def train(args: Dict[str, Any], device=None,
+          init_variables: Optional[Mapping[str, Mapping]] = None):
+    """Reference __main__ behaviour incl. the multi-seed thread pool
+    (train.py:647-698)."""
+    seeds = args.get("multithreaded_seeds") or []
+    if not seeds:
+        return run_training(args, device, init_variables)
+    with ThreadPoolExecutor(max_workers=len(seeds)) as ex:
+        futures = []
+        for s in seeds:
+            a = dict(args)
+            a["seed"] = s
+            a["multithreaded_seeds"] = []
+            futures.append(ex.submit(run_training, a, device,
+                                     init_variables))
+        results = [f.result() for f in futures]
+    agg = {}
+    keys = set().union(*[r.keys() for r in results])
+    for k in keys:
+        vals = np.array([r[k] for r in results if k in r], dtype=np.float64)
+        agg[f"{k}_mean"] = float(np.nanmean(vals))
+        agg[f"{k}_std"] = float(np.nanstd(vals))
+        agg[f"{k}_stderr"] = float(np.nanstd(vals) / np.sqrt(len(vals)))
+    os.makedirs(args["logdir"], exist_ok=True)
+    with open(os.path.join(args["logdir"],
+                           "multiple_seed_validation_statistics.txt"),
+              "w") as f:
+        for k in sorted(agg):
+            f.write(f"{k}: {agg[k]}\n")
+    print(agg)
+    return agg
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--config", type=str, default=None)
+    p.add_argument("--checkpoint", type=str, default=None)
+    p.add_argument("--device", type=str, default=None,
+                   help="cuda (the default) or cpu")
+    known, unknown = p.parse_known_args(argv)
+    overrides: Dict[str, Any] = {}
+    if known.checkpoint:
+        overrides["checkpoint"] = known.checkpoint
+    for tok in unknown:
+        if tok.startswith("--") and "=" in tok:
+            k, v = tok[2:].split("=", 1)
+            try:
+                overrides[k] = ast.literal_eval(v)
+            except (ValueError, SyntaxError):
+                overrides[k] = v
+    args = load_config(known.config, overrides)
+    return train(args, device=known.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,16 +1,30 @@
-"""The GeoMol optimal-transport batch (port of `ot_collate`,
-`infomax3d_tpu/data/loader.py`): the bond graphs as the port's CSR batch,
-plus the neighbourhood and dihedral-pair index arrays and the true
-conformer positions, with the JAX package's names and values.
+"""Host data pipeline (port of `infomax3d_tpu/data/loader.py`): the collate
+registry and `GraphDataLoader`.
 
-Node ids are those of the batch (the CSR sort permutes edges, not nodes),
-so the OT arrays do not depend on the edge order; the graph's edge-keyed
-arrays follow the receiver-sorted order as in every CSR batch.
+Collates turn per-molecule item dicts into one batch of numpy arrays per
+view, with the JAX package's names and values: `graph_collate` (the CSR
+bond graph with NaN-padded targets), `contrastive_collate` (the CSR 2D
+batch and the dense 3D batch Net3DDense reads) and `ot_collate` (the CSR
+bond graph plus the neighbourhood and dihedral-pair index arrays and the
+true conformer positions).  Node ids are those of the batch (the CSR sort
+permutes edges, not nodes), so the OT arrays do not depend on the edge
+order; the graph's edge-keyed arrays follow the receiver-sorted order as in
+every CSR batch.  A CSR view also carries its bucket's static bounds
+(``max_deg``, ``nmax``, 0-d int arrays) so `to_device` can rebuild the
+`GraphBatch`.
+
+`GraphDataLoader` shuffles with `np.random.default_rng(seed)` (one
+permutation per epoch), drops the last partial batch when `drop_last`
+(the contrastive collates need full batches), and collates on a prefetch
+thread whose errors are re-raised on the consuming thread.  Batches leave
+it as numpy arrays; the trainer moves them to its device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence
+import queue as queue_mod
+import threading
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -18,6 +32,7 @@ import torch
 from infomax3d_tpu_torch.data.geomol_featurize import geomol_featurize
 from infomax3d_tpu_torch.graphs.batch import (BucketSpec, GraphBatch,
                                               batch_graphs, to_graph_batch)
+from infomax3d_tpu_torch.graphs.dense import dense_batch, to_dense_batch
 
 OT_KEYS = ("nbh_center", "nbh_nbrs", "nbh_perms", "nbh_mask", "nbh_mol",
            "dp_x", "dp_y", "dp_x_h", "dp_y_h", "dp_x_nbrs", "dp_y_nbrs",
@@ -124,3 +139,227 @@ def to_ot_batch(arrays: Dict[str, np.ndarray], bucket: BucketSpec,
     return OTBatch(to_graph_batch(arrays, bucket, device),
                    {k: torch.from_numpy(np.ascontiguousarray(arrays[k])).to(
                        device) for k in OT_KEYS})
+
+
+# --------------------------------------------------------------- collates
+
+COLLATE_REGISTRY: Dict[str, Callable] = {}
+
+# Reference YAML collate names -> canonical registry names (the JAX
+# package's table, data/loader.py:41-66)
+COLLATE_ALIASES: Dict[str, str] = {
+    "NodeDropCollate": "graphcl_collate",
+    "NodeDrop2dCollate": "graphcl_collate",
+    "NodeDrop3dCollate": "node_drop_3d_collate",
+    "NodeDrop2d3DCollate": "node_drop_2d3d_collate",
+    "NoisedDistancesCollate": "noised_distances_collate",
+    "NoisedCoordinatesCollate": "noised_coordinates_collate",
+    "pyg_and_dgl_graph_collate": "ot_collate",
+    "pyg_graph_only_collate": "graph_only_collate",
+    "pytorch_geometric_collate": "graph_collate",
+    "ConformerCollate": "conformer_collate",
+    "pytorch_geometric2d_contrastive_collate": "contrastive_collate",
+    "pytorch_geometric3d_contrastive_collate": "contrastive_collate",
+    "contrastive_graphs_with_mask_collate": "contrastive_collate",
+    "contrastive_vae_collate": "contrastive_collate_ae",
+    "s_norm_graph_collate": "graph_collate",
+    "s_norm_contrastive_collate": "contrastive_collate",
+    "pna_transformer_collate": "graph_collate",
+    "pna_transformer_collate_contrastive": "contrastive_collate",
+    "padded_collate": "egnn_padded_collate",
+    "egnn_padded_collate3d": "egnn_padded_collate",
+    "padded_distances_collate": "pairwise_distance_collate",
+}
+
+# the JAX package's other collates and the ROADMAP queue 1 item that ports
+# each
+NOT_PORTED = {"conformer_collate": 3, **{name: 4 for name in (
+    "graph_only_collate", "contrastive_collate_ae",
+    "noised_distances_collate", "noised_coordinates_collate",
+    "node_drop_3d_collate", "node_drop_2d3d_collate", "san_collate",
+    "padded_collate_positional_encoding", "egnn_padded_collate",
+    "molhiv_padded_collate", "pairwise_distance_collate", "smp_collate",
+    "graphcl_collate")}}
+
+
+def register_collate(name):
+    def deco(fn):
+        COLLATE_REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+def get_collate(name: str):
+    name = COLLATE_ALIASES.get(name, name)
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"collate_function '{name}' is not ported yet (ROADMAP queue 1, "
+            f"item {NOT_PORTED[name]})")
+    if name not in COLLATE_REGISTRY:
+        raise KeyError(f"unknown collate_function '{name}'; known: "
+                       f"{sorted(COLLATE_REGISTRY)}")
+    return COLLATE_REGISTRY[name]
+
+
+def _csr_view(arrays: Dict[str, np.ndarray], bucket: BucketSpec
+              ) -> Dict[str, np.ndarray]:
+    if not bucket.csr or bucket.nmax <= 0:
+        raise ValueError("the port's batches are CSR buckets with nmax > 0")
+    arrays["max_deg"] = np.asarray(bucket.max_deg, np.int64)
+    arrays["nmax"] = np.asarray(bucket.nmax, np.int64)
+    return arrays
+
+
+def _nan_targets(arrays: Dict[str, np.ndarray], g_real: int):
+    """Padded target rows become NaN so masked losses ignore them."""
+    arrays["targets"][g_real:] = np.nan
+    return arrays
+
+
+@register_collate("graph_collate")
+def graph_collate(items: Sequence[Dict], bucket: BucketSpec):
+    """The bond graphs with their targets (custom_collate.py:12-18)."""
+    merged = [dict(it["graph2d"], targets=it["targets"]) for it in items]
+    arrays = _nan_targets(batch_graphs(merged, bucket), len(items))
+    return {"graph": _csr_view(arrays, bucket)}
+
+
+@register_collate("contrastive_collate")
+def contrastive_collate(items: Sequence[Dict], bucket: BucketSpec,
+                        bucket3d: Optional[BucketSpec] = None,
+                        dense_3d: bool = False,
+                        max_nodes3d: Optional[int] = None):
+    """[2D graphs], [3D views], optional targets (custom_collate.py:
+    105-114).  The 3D side is the dense batch Net3DDense reads
+    (``dense_3d``); the flat 3D complete graph is ROADMAP queue 1, item 3.
+    `bucket3d` sizes only that flat graph."""
+    del bucket3d
+    if not dense_3d:
+        raise NotImplementedError(
+            "contrastive_collate without dense_3d (the flat 3D complete "
+            "graph of Net3D) is not ported yet (ROADMAP queue 1, item 3)")
+    if "targets" in items[0]:
+        g2 = _nan_targets(batch_graphs(
+            [dict(it["graph2d"], targets=it["targets"]) for it in items],
+            bucket), len(items))
+    else:
+        g2 = batch_graphs([it["graph2d"] for it in items], bucket)
+    mols3 = [it["graph3d"] for it in items]
+    nmax = max_nodes3d or max(m["node_feat"].shape[0] for m in mols3)
+    return {"graph2d": _csr_view(g2, bucket),
+            "graph3d": dense_batch(mols3, bucket.n_graphs, nmax)}
+
+
+register_collate("ot_collate")(ot_collate)
+
+
+def to_device(view: Dict[str, np.ndarray], device):
+    """One collated view -> its batch on `device`: a `GraphBatch` for a CSR
+    view (targets included), a `DenseBatch` for a dense one."""
+    if "senders" not in view:
+        return to_dense_batch(view, device)
+    G, N = view["graph_mask"].shape[0], view["node_feat"].shape[0]
+    bucket = BucketSpec(G, N, view["senders"].shape[0],
+                        max_deg=int(view["max_deg"]), csr=True,
+                        nmax=int(view["nmax"]))
+    return to_graph_batch(view, bucket, device)
+
+
+# ----------------------------------------------------------------- loader
+
+class GraphDataLoader:
+    """Shuffling, prefetching loader over a dataset of item dicts
+    (`__len__`, `__getitem__(i)`), one static bucket per loader (the JAX
+    package's bucket ladder, data-parallel shards and batch samplers are
+    ROADMAP queue 1, items 9 and 4)."""
+
+    def __init__(self, dataset, batch_size: int, collate,
+                 bucket: Optional[BucketSpec] = None, shuffle: bool = True,
+                 drop_last: bool = False, seed: int = 0,
+                 indices: Optional[Sequence[int]] = None, prefetch: int = 2,
+                 collate_kwargs: Optional[Dict] = None):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.collate = collate if callable(collate) else get_collate(collate)
+        self.bucket = bucket
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.rng = np.random.default_rng(seed)
+        self.indices = np.asarray(indices if indices is not None
+                                  else np.arange(len(dataset)))
+        self.prefetch = prefetch
+        self.collate_kwargs = collate_kwargs or {}
+
+    def __len__(self):
+        n = len(self.indices)
+        return n // self.batch_size if self.drop_last else \
+            (n + self.batch_size - 1) // self.batch_size
+
+    def skip_epochs(self, n: int) -> None:
+        """Advance the shuffle by `n` epochs without collating (a resumed
+        run continues the order of the run it resumes)."""
+        if self.shuffle:
+            for _ in range(n):
+                self.rng.shuffle(self.indices.copy())
+
+    def _index_batches(self):
+        idx = self.indices.copy()
+        if self.shuffle:
+            self.rng.shuffle(idx)
+        for i in range(0, len(idx), self.batch_size):
+            yield idx[i:i + self.batch_size]
+
+    def _batches(self) -> Iterator:
+        for chunk in self._index_batches():
+            if len(chunk) < self.batch_size and self.drop_last:
+                continue
+            items = [self.dataset[int(j)] for j in chunk]
+            yield self.collate(items, self.bucket, **self.collate_kwargs)
+
+    def __iter__(self):
+        if self.prefetch <= 0:
+            yield from self._batches()
+            return
+        q: queue_mod.Queue = queue_mod.Queue(maxsize=self.prefetch)
+        sentinel = object()
+        err: list = []
+        stop = threading.Event()
+
+        def _put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue_mod.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for b in self._batches():
+                    if not _put(b):
+                        return       # consumer gone (e.g. next(iter(...)))
+            except BaseException as e:   # re-raised on the consuming thread
+                err.append(e)
+            finally:
+                _put(sentinel)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                b = q.get()
+                if b is sentinel:
+                    if err:
+                        raise err[0]
+                    break
+                yield b
+        finally:
+            # retire the worker if the consumer left early, so it does not
+            # pin `prefetch` collated batches
+            stop.set()
+            try:
+                while True:
+                    q.get_nowait()
+            except queue_mod.Empty:
+                pass

@@ -38,6 +38,9 @@ backbone's ``node_init`` / ``edge_init`` (GeoMol MLPs whose Linears are
 ``Dense_{k}``), and the edge-update layer's ``edge``, ``node_in``,
 ``node_out``, ``pretrans``, ``posttrans_1``, ``posttrans_2``.
 
+`flax_paths` goes the other way for a port module's parameters: each torch
+name's flax path, which the optimizer's group labels read.
+
 `init_jax_variables` makes seeded numpy trees in the flax layout of a PNA,
 Net3DDense, OGBGNN or OptimalTransportModel configuration, for serving and
 training without a checkpoint and for tests; `load_variables` loads such
@@ -132,6 +135,68 @@ def params_from_jax(params: Mapping, batch_stats: Mapping
                 sd[name.rsplit(".", 1)[0] + ".num_batches_tracked"] = \
                     torch.tensor(0, dtype=torch.long)
     return sd
+
+
+_FLAX_INDEXED = {name: stem for stem, name in _INDEXED}
+_FLAX_GIN_MLP = {v.split(".")[1]: k for k, v in _GIN_MLP.items()}
+
+
+def _flax_components(parts) -> list:
+    """Torch module path components -> flax components (the inverse of
+    `_components`, with ``<kind>_embedding_list.{i}`` -> ``encoder``,
+    ``emb_{i}``)."""
+    out, i = [], 0
+    while i < len(parts):
+        c, parent = parts[i], out[-1] if out else ""
+        nxt = parts[i + 1] if i + 1 < len(parts) else ""
+        if c in _FLAX_INDEXED and nxt.isdigit():
+            out.append(f"{_FLAX_INDEXED[c]}{nxt}")
+            i += 2
+        elif _indexed(parent, "conv_") and c == "mlp" and nxt.isdigit():
+            out.append(_FLAX_GIN_MLP[nxt])
+            i += 2
+        elif _indexed(parent, "FCLayer_") and c in ("linear", "batch_norm"):
+            out.append("Dense_0" if c == "linear" else "MaskedBatchNorm_0")
+            i += 1
+        elif c.endswith("_embedding_list") and nxt.isdigit():
+            out += ["encoder", f"emb_{nxt}"]
+            i += 2
+        else:
+            out.append(c)
+            i += 1
+    return out
+
+
+def flax_paths(model: torch.nn.Module, running_stats: bool = False
+               ) -> Dict[str, str]:
+    """Each parameter's torch name -> its flax path, '/'-joined: a Linear's
+    ``weight`` is ``kernel``, a BatchNorm's or LayerNorm's ``scale``, an
+    embedding table is its ``emb_{i}`` leaf, a bare parameter keeps its
+    name.  `params_from_jax` maps each such path back to the torch name.
+    With `running_stats`, each BatchNorm's ``running_mean`` /
+    ``running_var`` too, as the flax ``batch_stats`` paths ``.../mean`` /
+    ``.../var``."""
+    from infomax3d_tpu_torch.models.base import MaskedBatchNorm
+    out: Dict[str, str] = {}
+    for mod_name, mod in model.named_modules():
+        parts = mod_name.split(".") if mod_name else []
+        if running_stats and isinstance(mod, MaskedBatchNorm):
+            for leaf, stat in (("running_mean", "mean"),
+                               ("running_var", "var")):
+                out[".".join(parts + [leaf])] = "/".join(
+                    _flax_components(parts) + [stat])
+        for leaf, _ in mod.named_parameters(recurse=False):
+            comps = _flax_components(parts)
+            if isinstance(mod, torch.nn.Embedding):
+                path = comps
+            elif isinstance(mod, torch.nn.Linear):
+                path = comps + [{"weight": "kernel"}.get(leaf, leaf)]
+            elif isinstance(mod, (MaskedBatchNorm, torch.nn.LayerNorm)):
+                path = comps + [{"weight": "scale"}.get(leaf, leaf)]
+            else:
+                path = comps + [leaf]
+            out[".".join(parts + [leaf])] = "/".join(path)
+    return out
 
 
 def load_variables(model: torch.nn.Module, variables: Mapping

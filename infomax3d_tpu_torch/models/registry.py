@@ -1,0 +1,87 @@
+"""Model registry (port of `infomax3d_tpu/models/registry.py`): the
+`model_type` names of the configs mapped to the port's classes.
+
+Each entry keeps the JAX class's field names (`JAX_FIELDS`): a config key
+that is not a field is dropped, as the JAX package's `_adapt_model_params`
+drops it, and a field the port's class lacks raises when the config sets
+it to anything but the JAX default (`UNPORTED_FIELDS`).  `Net3D` (the flat
+3D network) is ROADMAP queue 1, item 3; the CLI swaps it for the
+parameter-compatible `Net3DDense` when `_dense_3d` is on, as the JAX
+package does.  Every other name is item 7.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+from torch import nn
+
+from infomax3d_tpu_torch.models.gin import OGBGNN
+from infomax3d_tpu_torch.models.net3d import Net3DDense
+from infomax3d_tpu_torch.models.optimal_transport import OptimalTransportModel
+from infomax3d_tpu_torch.models.pna import PNA
+
+_NET3D_FIELDS = ("hidden_dim", "target_dim", "readout_aggregators",
+                 "batch_norm", "node_wise_output_layers",
+                 "readout_batchnorm", "batch_norm_momentum", "reduce_func",
+                 "dropout", "propagation_depth", "readout_layers",
+                 "readout_hidden_dim", "fourier_encodings", "activation",
+                 "update_net_layers", "message_net_layers",
+                 "use_node_features")
+
+MODEL_REGISTRY: Dict[str, type] = {
+    "PNA": PNA, "OGBGNN": OGBGNN, "Net3DDense": Net3DDense,
+    "OptimalTransportModel": OptimalTransportModel}
+
+# the JAX dataclass fields of each registered class
+JAX_FIELDS: Dict[str, tuple] = {
+    "PNA": ("hidden_dim", "target_dim", "aggregators", "scalers",
+            "readout_aggregators", "readout_batchnorm", "readout_hidden_dim",
+            "readout_layers", "residual", "pairwise_distances", "activation",
+            "last_activation", "mid_batch_norm", "last_batch_norm",
+            "propagation_depth", "dropout", "posttrans_layers",
+            "pretrans_layers", "batch_norm_momentum"),
+    "OGBGNN": OGBGNN.FIELDS,
+    "Net3DDense": _NET3D_FIELDS,
+    "OptimalTransportModel": ("hyperparams", "gnn_params", "gnn_model",
+                              "use_transformer", "use_two_gnns"),
+}
+
+# JAX fields the port's classes lack, with the JAX default they run at
+UNPORTED_FIELDS: Dict[str, Dict[str, Any]] = {
+    "PNA": {"pairwise_distances": False},
+    "OptimalTransportModel": {"use_transformer": True, "use_two_gnns": True},
+}
+
+def get_model_class(name: str) -> type:
+    if name == "Net3D":
+        raise NotImplementedError(
+            "the flat Net3D is not ported yet (ROADMAP queue 1, item 3); "
+            "contrastive_collate runs it as Net3DDense (dense_3d)")
+    if name not in MODEL_REGISTRY:
+        raise NotImplementedError(
+            f"model_type '{name}' is not ported yet (ROADMAP queue 1, "
+            f"item 7); ported: {sorted(MODEL_REGISTRY)}")
+    return MODEL_REGISTRY[name]
+
+
+def adapt_model_params(name: str, mp: Mapping[str, Any]) -> Dict[str, Any]:
+    """`mp` restricted to the JAX class's fields; raises on a field the
+    port lacks when it is set to other than the JAX default."""
+    get_model_class(name)
+    out = {k: v for k, v in dict(mp).items() if k in JAX_FIELDS[name]}
+    for field, default in UNPORTED_FIELDS.get(name, {}).items():
+        if out.pop(field, default) != default:
+            raise NotImplementedError(
+                f"{name}.{field}={mp[field]!r} is not ported yet (ROADMAP "
+                f"queue 1, item 7)")
+    return out
+
+
+def build_model(name: str, mp: Mapping[str, Any]) -> nn.Module:
+    """The port's module for config name `name` and `model_parameters`
+    `mp` (unknown keys dropped by `adapt_model_params`)."""
+    cls = get_model_class(name)
+    kw = adapt_model_params(name, mp)
+    if cls is OptimalTransportModel:
+        return cls.from_config(kw)
+    return cls(**kw)

@@ -9,9 +9,11 @@ batches' float fields (`train/precision.py`), model outputs cast to
 float32 before the loss.  BatchNorm normalizes with masked batch statistics
 and updates its float32 running statistics in place.
 
-`pretrain()` is the entry point: it runs a few steps on one fixed
-synthetic batch, on the CUDA card unless asked for the CPU.  The trainer
-classes, schedulers and the CLI come later.
+`PretrainStep` is the step of the contrastive trainer
+(`train/trainer.py::SelfSupervisedTrainer`, built there by `from_modules`
+over the config's models and grouped optimizer).  `pretrain()` runs a few
+steps on one fixed synthetic batch, on the CUDA card unless asked for the
+CPU.
 """
 from __future__ import annotations
 
@@ -25,11 +27,12 @@ from infomax3d_tpu_torch.graphs.batch import (GraphBatch, batch_graphs,
                                               bucket_for, to_graph_batch)
 from infomax3d_tpu_torch.graphs.dense import (DenseBatch, dense_batch,
                                               to_dense_batch)
-from infomax3d_tpu_torch.interop import init_jax_variables, load_variables
+from infomax3d_tpu_torch.interop import (flax_paths, init_jax_variables,
+                                         load_variables)
 from infomax3d_tpu_torch.losses.contrastive import NTXent
 from infomax3d_tpu_torch.models.net3d import Net3DDense
 from infomax3d_tpu_torch.models.pna import PNA
-from infomax3d_tpu_torch.train.optim import build_adam
+from infomax3d_tpu_torch.train.optim import build_adam, label_params
 from infomax3d_tpu_torch.train.precision import (cast_batch, forward_in,
                                                  resolve_compute_dtype)
 
@@ -38,7 +41,9 @@ class PretrainStep:
     """Forward, backward and Adam update of the PNA / Net3DDense pair on
     one batch of molecules.  `variables` holds flax numpy trees for
     ``model`` and ``model3d`` (`interop.init_jax_variables` layout);
-    `compute_dtype` bf16 runs the bf16 recipe, None float32."""
+    `compute_dtype` bf16 runs the bf16 recipe, None float32.  Adam's
+    groups are the JAX package's labels (`optim.label_params` on the flax
+    paths)."""
 
     def __init__(self, model_parameters: Mapping,
                  model3d_parameters: Mapping, variables: Mapping,
@@ -46,17 +51,42 @@ class PretrainStep:
                  compute_dtype: Optional[torch.dtype] = None,
                  loss_params: Optional[Mapping] = None,
                  optimizer_params: Optional[Mapping] = None):
+        model = load_variables(PNA(**model_parameters), variables["model"])
+        model3d = load_variables(Net3DDense.from_config(model3d_parameters),
+                                 variables["model3d"])
+        self._setup(model, model3d, device, compute_dtype,
+                    NTXent(**dict(loss_params or {})))
+        self.optimizer = build_adam(
+            self.named_parameters(), labels=label_params(self.paths())[0],
+            **dict(optimizer_params or {}))
+
+    @classmethod
+    def from_modules(cls, model: torch.nn.Module, model3d: torch.nn.Module,
+                     device: torch.device,
+                     compute_dtype: Optional[torch.dtype], loss_fn,
+                     optimizer: Optional[torch.optim.Optimizer] = None
+                     ) -> "PretrainStep":
+        """The step over given modules, loss and optimizer (the trainer's);
+        `optimizer` may be set later, before the first step."""
+        step = cls.__new__(cls)
+        step._setup(model, model3d, device, compute_dtype, loss_fn)
+        step.optimizer = optimizer
+        return step
+
+    def _setup(self, model, model3d, device, compute_dtype, loss_fn):
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
-        self.model = load_variables(PNA(**model_parameters),
-                                    variables["model"])
-        self.model3d = load_variables(
-            Net3DDense.from_config(model3d_parameters), variables["model3d"])
-        self.model.to(self.device).train()
-        self.model3d.to(self.device).train()
-        self.loss_fn = NTXent(**dict(loss_params or {}))
-        self.optimizer = build_adam(self.named_parameters(),
-                                    **dict(optimizer_params or {}))
+        self.model = model.to(self.device).train()
+        self.model3d = model3d.to(self.device).train()
+        self.loss_fn = loss_fn
+
+    def paths(self) -> Dict[str, str]:
+        """Each parameter's name (`named_parameters`) -> its flax path
+        under its model's key, as the JAX package labels the joint tree."""
+        return {f"{prefix}.{n}": f"{prefix}/{p}"
+                for prefix, m in (("model", self.model),
+                                  ("model3d", self.model3d))
+                for n, p in flax_paths(m).items()}
 
     def named_parameters(self):
         """(name, parameter) of both models: ``model.*``, ``model3d.*``."""
@@ -71,14 +101,25 @@ class PretrainStep:
         return (cast_batch(g2.to(self.device), self.compute_dtype),
                 cast_batch(g3.to(self.device), self.compute_dtype))
 
-    def loss_and_grads(self, g2: GraphBatch, g3: DenseBatch) -> torch.Tensor:
+    def outputs(self, g2: GraphBatch, g3: DenseBatch
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Both models' float32 outputs on prepared batches, under the
+        recipe (training or eval, as the modules are set)."""
+        return (forward_in(self.model, self.compute_dtype, g2),
+                forward_in(self.model3d, self.compute_dtype, g3))
+
+    def loss_and_grads(self, g2: GraphBatch, g3: DenseBatch,
+                       return_outputs: bool = False):
         """Forward and backward on prepared batches: fills each master
         parameter's `.grad` (float32), updates the running statistics and
-        returns the float32 loss (detached)."""
+        returns the float32 loss (detached), with both outputs (detached)
+        when `return_outputs`."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_fn(forward_in(self.model, self.compute_dtype, g2),
-                            forward_in(self.model3d, self.compute_dtype, g3))
+        z1, z2 = self.outputs(g2, g3)
+        loss = self.loss_fn(z1, z2)
         loss.backward()
+        if return_outputs:
+            return loss.detach(), (z1.detach(), z2.detach())
         return loss.detach()
 
     def step(self, g2: GraphBatch, g3: DenseBatch) -> torch.Tensor:

@@ -11,9 +11,11 @@ labels reach the loss in float32 (the JAX trainer reads them from the
 uncast batch).  The cross-replica sum of the loss belongs to the parallel
 layer and is not here.
 
-`supervised()` is the entry point: it runs a few steps on one fixed
-labelled synthetic batch, on the CUDA card unless asked for the CPU.  The
-`Trainer` class, its schedulers and the CLI come later.
+`SupervisedStep` is the step of the supervised trainer
+(`train/trainer.py::Trainer`, built there by `from_modules` over the
+config's model and grouped optimizer).  `supervised()` runs a few steps on
+one fixed labelled synthetic batch, on the CUDA card unless asked for the
+CPU.
 """
 from __future__ import annotations
 
@@ -28,9 +30,10 @@ from infomax3d_tpu_torch.data.synthetic import SyntheticMolecules
 from infomax3d_tpu_torch.device import resolve_device
 from infomax3d_tpu_torch.graphs.batch import (GraphBatch, batch_graphs,
                                               bucket_for, to_graph_batch)
-from infomax3d_tpu_torch.interop import init_jax_variables, load_variables
+from infomax3d_tpu_torch.interop import (flax_paths, init_jax_variables,
+                                         load_variables)
 from infomax3d_tpu_torch.models.gin import OGBGNN
-from infomax3d_tpu_torch.train.optim import build_adam
+from infomax3d_tpu_torch.train.optim import build_adam, label_params
 from infomax3d_tpu_torch.train.precision import (cast_batch, forward_in,
                                                  resolve_compute_dtype)
 
@@ -57,7 +60,9 @@ class SupervisedStep:
     """Forward, masked loss, backward and Adam update of one model on one
     labelled batch.  `variables` holds the model's flax numpy trees
     (`interop.init_jax_variables` layout); `compute_dtype` bf16 runs the
-    bf16 recipe, None float32."""
+    bf16 recipe, None float32.  Adam's groups are the JAX package's labels
+    (`optim.label_params` on the flax paths).  This constructor builds
+    OGBGNN; `from_modules` takes any model (the trainer's)."""
 
     def __init__(self, model_type: str, model_parameters: Mapping,
                  variables: Mapping, device: torch.device,
@@ -67,14 +72,31 @@ class SupervisedStep:
         if model_type != "OGBGNN":
             raise NotImplementedError(
                 f"supervised step for model_type {model_type!r} not ported")
+        self._setup(load_variables(OGBGNN.from_config(model_parameters),
+                                   variables), device, compute_dtype,
+                    loss_func)
+        self.optimizer = build_adam(
+            self.model.named_parameters(),
+            labels=label_params(flax_paths(self.model))[0],
+            **dict(optimizer_params or {}))
+
+    @classmethod
+    def from_modules(cls, model: torch.nn.Module, device: torch.device,
+                     compute_dtype: Optional[torch.dtype], loss_func: str,
+                     optimizer: Optional[torch.optim.Optimizer] = None
+                     ) -> "SupervisedStep":
+        """The step over a given module, loss name and optimizer (the
+        trainer's); `optimizer` may be set later, before the first step."""
+        step = cls.__new__(cls)
+        step._setup(model, device, compute_dtype, loss_func)
+        step.optimizer = optimizer
+        return step
+
+    def _setup(self, model, device, compute_dtype, loss_func):
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
         self.loss_func = loss_func
-        self.model = load_variables(OGBGNN.from_config(model_parameters),
-                                    variables)
-        self.model.to(self.device).train()
-        self.optimizer = build_adam(self.model.named_parameters(),
-                                    **dict(optimizer_params or {}))
+        self.model = model.to(self.device).train()
 
     def prepare(self, g: GraphBatch) -> GraphBatch:
         """The batch as the forward reads it: on the step's device, float
@@ -83,15 +105,23 @@ class SupervisedStep:
         return dataclasses.replace(cast_batch(g, self.compute_dtype),
                                    targets=g.targets)
 
-    def loss_and_grads(self, g: GraphBatch) -> torch.Tensor:
-        """Forward and backward on a prepared batch: fills each master
-        parameter's `.grad` (float32), updates the running statistics and
-        returns the float32 loss (detached)."""
-        self.optimizer.zero_grad(set_to_none=True)
+    def loss(self, g: GraphBatch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(masked loss, float32 predictions) on a prepared batch, under
+        the recipe (training or eval, as the module is set)."""
         pred = forward_in(self.model, self.compute_dtype, g)
         valid = ~torch.isnan(g.targets) & g.graph_mask[:, None]
-        loss = supervised_loss(self.loss_func, pred, g.targets, valid)
+        return supervised_loss(self.loss_func, pred, g.targets, valid), pred
+
+    def loss_and_grads(self, g: GraphBatch, return_outputs: bool = False):
+        """Forward and backward on a prepared batch: fills each master
+        parameter's `.grad` (float32), updates the running statistics and
+        returns the float32 loss (detached), with the predictions
+        (detached) when `return_outputs`."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, pred = self.loss(g)
         loss.backward()
+        if return_outputs:
+            return loss.detach(), pred.detach()
         return loss.detach()
 
     def step(self, g: GraphBatch) -> torch.Tensor:

@@ -1,0 +1,540 @@
+"""Training engine (port of `infomax3d_tpu/train/trainer.py`: `Trainer`
+and `SelfSupervisedTrainer`).
+
+The host loop is the JAX package's, which is the contract of the
+reference's `Trainer.train` (trainer/trainer.py:69-109): epochs,
+`log_iterations`, validation per batch or per epoch (`val_per_batch`),
+early stopping on the main metric with `patience` and `minimum_epochs`,
+`best_checkpoint.pt` / `last_checkpoint.pt` / `best_checkpoint_{n}epochs.pt`
+and `train_arguments.yaml` in the run directory, resuming from
+`checkpoint`, the model source snapshot, the linear probe, the
+`evaluation_*.txt` files, and the reload of the best checkpoint at the end.
+
+The step is not written again here: the supervised trainer runs
+`train/supervised.py::SupervisedStep` and the contrastive one
+`train/pretrain.py::PretrainStep`, each built over the config's models and
+the grouped optimizer (`train/optim.py`), so the bf16 recipe (float32
+masters, bf16 forward, float32 outputs into the loss) is the steps'.  The
+learning rates come from an `LRController` per the config and are written
+into the torch param groups before every step.
+
+Batches arrive from `GraphDataLoader` as numpy arrays and move to the
+trainer's device here.  `timing` accumulates the host seconds spent waiting
+on the loader, moving batches, in the steps' launches, waiting for the
+device before reading results (a synchronize, so the metrics' seconds are
+the host's own), in metrics, in checkpoints and in logging, the wall seconds of each epoch's training and
+validation, and (on CUDA) the device milliseconds of each train step
+between CUDA events, so a caller can account for a loop's time.
+"""
+from __future__ import annotations
+
+import inspect
+import json
+import math
+import os
+import shutil
+import time
+from contextlib import contextmanager
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from infomax3d_tpu_torch.cli import yaml_lite
+from infomax3d_tpu_torch.data.loader import to_device
+from infomax3d_tpu_torch.device import resolve_device
+from infomax3d_tpu_torch.interop import flax_paths, load_variables
+from infomax3d_tpu_torch.train import checkpoint
+from infomax3d_tpu_torch.train.logging import TENSORBOARD_FUNCTIONS, RunLogger
+from infomax3d_tpu_torch.train.optim import build_optimizer, label_params
+from infomax3d_tpu_torch.train.precision import resolve_compute_dtype
+from infomax3d_tpu_torch.train.pretrain import PretrainStep
+from infomax3d_tpu_torch.train.schedulers import LRController
+from infomax3d_tpu_torch.train.supervised import SupervisedStep
+
+TIMERS = ("loader", "to_device", "step", "device_wait", "metrics",
+          "checkpoint", "logging")
+
+
+class Trainer:
+    """Supervised trainer (reference base `Trainer`).  `models` maps
+    ``model`` to the port's module; `init_variables` optionally maps it to
+    flax numpy trees (``params``, ``batch_stats``) loaded before training,
+    e.g. another implementation's initial weights."""
+
+    MODEL_KEYS = ("model",)
+
+    def __init__(self, models: Dict[str, torch.nn.Module], args: Dict,
+                 metrics: Dict[str, Any], main_metric: str, run_dir: str,
+                 loss_func: Any = None, loss_name: str = "MSELoss",
+                 main_metric_goal: str = "min",
+                 scheduler_step_per_batch: bool = True, device=None,
+                 use_tensorboard: bool = True,
+                 init_variables: Optional[Mapping[str, Mapping]] = None):
+        self.device = resolve_device(device)
+        self.models = models
+        self.args = args
+        self.metrics = metrics
+        self.loss_func = loss_func
+        self.loss_name = loss_name
+        self.main_metric = loss_name if main_metric == "loss" else main_metric
+        self.main_metric_goal = main_metric_goal
+        self.compute_dtype = resolve_compute_dtype(
+            args.get("bf16_compute", "auto"), self.device)
+        self.run_dir = run_dir
+        self.init_variables = init_variables
+        os.makedirs(run_dir, exist_ok=True)
+        self.logger = RunLogger(run_dir, use_tensorboard=use_tensorboard)
+        self.tensorboard_functions = {
+            name: TENSORBOARD_FUNCTIONS[name]
+            for name in (args.get("tensorboard_functions") or [])
+            if name in TENSORBOARD_FUNCTIONS}
+        self.step = None
+        self.optimizer: Optional[torch.optim.Optimizer] = None
+        self.lr_controllers: Dict[str, LRController] = {}
+        self.active_groups: Dict[str, list] = {}
+        self.scheduler_step_per_batch = scheduler_step_per_batch
+        self.start_epoch = 1
+        self.optim_steps = 0
+        self.best_val_score = -math.inf if main_metric_goal == "max" \
+            else math.inf
+        self.timing: Dict[str, Any] = {k: 0.0 for k in TIMERS}
+        self.timing.update(step_ms=[], train_epoch_s=[], eval_s=[])
+        self._events = []
+
+    # ------------------------------------------------------------------ init
+    def init_state(self, example_batch=None):
+        """Load `init_variables`, place the models on the device, build the
+        grouped optimizer, the lr controller and the step; then resume from
+        `checkpoint` when the config names one.  `example_batch` is unused
+        (the JAX package initializes its parameters from one)."""
+        del example_batch
+        for key in self.MODEL_KEYS:
+            if self.init_variables is not None:
+                load_variables(self.models[key], self.init_variables[key])
+            self.models[key].to(self.device).train()
+        self._build_optimizer()
+        self.step = self._make_step()
+        self._snapshot_model_source()
+        if self.args.get("checkpoint"):
+            self._load(self.args["checkpoint"])
+        return self.step
+
+    def named_parameters(self):
+        for key in self.MODEL_KEYS:
+            for n, p in self.models[key].named_parameters():
+                yield f"{key}.{n}", p
+
+    def _build_optimizer(self):
+        """Reference param groups (trainer.py:216-238) over the models'
+        joint tree, labelled on the flax paths as the JAX package does."""
+        paths = {f"{key}.{n}": f"{key}/{p}" for key in self.MODEL_KEYS
+                 for n, p in flax_paths(self.models[key]).items()}
+        labels, active = label_params(
+            paths,
+            transfer_layers=self.args.get("transfer_layers") or (),
+            exclude_from_transfer=self.args.get("exclude_from_transfer")
+            or (),
+            frozen_layers=self.args.get("frozen_layers") or ())
+        op = dict(self.args.get("optimizer_params", {}) or {})
+        op["betas"] = tuple(op.get("betas", (0.9, 0.999)))
+        self.optimizer = build_optimizer(
+            self.named_parameters(), labels,
+            self.args.get("optimizer", "Adam"),
+            transferred_lr=self.args.get("transferred_lr"), **op)
+        self.labels = labels
+        self.active_groups["main"] = active
+        self.lr_controllers["main"] = LRController(
+            [g["lr"] for g in self.optimizer.param_groups],
+            self.args.get("lr_scheduler"),
+            self.args.get("lr_scheduler_params"),
+            step_per_batch=self.scheduler_step_per_batch)
+
+    def _make_step(self):
+        return SupervisedStep.from_modules(
+            self.models["model"], self.device, self.compute_dtype,
+            self.loss_name, self.optimizer)
+
+    def _snapshot_model_source(self):
+        """Copy each model class's source into the run dir (reference
+        trainer.py:264-270)."""
+        for key in self.MODEL_KEYS:
+            cls = type(self.models[key])
+            try:
+                source = inspect.getsource(cls)
+                file_name = os.path.basename(inspect.getfile(cls))
+            except (OSError, TypeError):
+                continue
+            with open(os.path.join(self.run_dir, file_name), "w") as f:
+                f.write(source)
+
+    def run_tensorboard_functions(self, preds, targets, step: int,
+                                  data_split: str):
+        for fn in self.tensorboard_functions.values():
+            fn(preds, targets, self.logger, step, data_split)
+
+    # ------------------------------------------------------------ host time
+    @contextmanager
+    def _timed(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.timing[name] += time.perf_counter() - t0
+
+    def _timed_iter(self, loader):
+        """`loader`'s batches, each wait counted as loader time."""
+        it = iter(loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            finally:
+                self.timing["loader"] += time.perf_counter() - t0
+            yield batch
+
+    # ------------------------------------------------------------- the steps
+    def _prepare(self, batch):
+        """Host arrays -> the step's prepared batches on the device."""
+        with self._timed("to_device"):
+            g = to_device(batch["graph"], self.device)
+            return (self.step.prepare(g),)
+
+    def _sync(self):
+        """Wait for the device (counted as `device_wait`) before reading
+        results on the host."""
+        if self.device.type == "cuda":
+            with self._timed("device_wait"):
+                torch.cuda.synchronize(self.device)
+
+    def _write_lrs(self):
+        for group, lr in zip(self.optimizer.param_groups,
+                             self.lr_controllers["main"].lrs):
+            group["lr"] = lr
+
+    def _train_step(self, batches):
+        """One optimizer step; returns (loss, outputs), both detached."""
+        loss, out = self.step.loss_and_grads(*batches, return_outputs=True)
+        self.step.optimizer.step()
+        return loss, out
+
+    @contextmanager
+    def _evaluating(self):
+        """Eval mode (running statistics), no autograd."""
+        for key in self.MODEL_KEYS:
+            self.models[key].eval()
+        try:
+            with torch.no_grad():
+                yield
+        finally:
+            for key in self.MODEL_KEYS:
+                self.models[key].train()
+
+    def _eval_step(self, batches):
+        """Loss and outputs in eval mode."""
+        with self._evaluating():
+            return self.step.loss(*batches)
+
+    def _host_filter(self, batch, out):
+        """Real graphs' predictions and targets as host arrays."""
+        mask = batch["graph"]["graph_mask"]
+        preds = out.float().cpu().numpy()
+        return preds[mask], batch["graph"]["targets"][mask]
+
+    def _eval_metrics(self, preds, targets, val=False) -> Dict[str, float]:
+        res = {
+            "mean_pred": float(np.mean(preds)),
+            "std_pred": float(np.std(preds, ddof=1)) if preds.size > 1
+            else 0.0,
+            "mean_targets": float(np.nanmean(targets)),
+            "std_targets": float(np.nanstd(targets, ddof=1))
+            if targets.size > 1 else 0.0,
+        }
+        for key, metric in self.metrics.items():
+            if getattr(metric, "val_only", False) and not val:
+                continue
+            try:
+                res[key] = float(metric(preds, targets))
+            except Exception:
+                res[key] = float("nan")
+        return res
+
+    # ---------------------------------------------------------------- epochs
+    def train_epoch(self, loader, epoch: int) -> None:
+        log_iterations = self.args.get("log_iterations", 20)
+        cuda = self.device.type == "cuda"
+        for batch in self._timed_iter(loader):
+            batches = self._prepare(batch)
+            self._write_lrs()
+            with self._timed("step"):
+                if cuda:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                loss, out = self._train_step(batches)
+                if cuda:
+                    end.record()
+                    self._events.append((start, end))
+            self.optim_steps += 1
+            self._after_optim_step()
+            if self.optim_steps % log_iterations == 0:
+                self._sync()
+                with self._timed("metrics"):
+                    preds, targets = self._host_filter(batch, out)
+                    m = self._eval_metrics(preds, targets)
+                    m[self.loss_name] = float(loss)
+                    for gi, lr in enumerate(self.lr_controllers["main"].lrs):
+                        m[f"lr_param_group_{gi}"] = lr
+                with self._timed("logging"):
+                    self.logger.log(m, "train", self.optim_steps, epoch)
+                    self.run_tensorboard_functions(preds, targets,
+                                                   self.optim_steps, "train")
+        if self._events:
+            torch.cuda.synchronize(self.device)
+            self.timing["step_ms"] += [s.elapsed_time(e)
+                                       for s, e in self._events]
+            self._events = []
+
+    def _after_optim_step(self):
+        for c in self.lr_controllers.values():
+            c.after_optim_step()
+
+    def evaluate_epoch(self, loader, epoch: int = 0) -> Dict[str, float]:
+        """Validation pass: per-batch averaged metrics when `val_per_batch`
+        (contrastive probes), else whole-epoch metrics on the concatenated
+        predictions (OGB evaluators)."""
+        val_per_batch = self.args.get("val_per_batch", True)
+        if len(loader) == 0:
+            raise ValueError(
+                "evaluation loader yields no batches — the split is smaller "
+                "than the batch size (contrastive loaders drop partial "
+                "batches; shrink batch_size or grow the split)")
+        totals: Dict[str, float] = {}
+        n_batches = 0
+        all_preds, all_targets = [], []
+        epoch_loss = 0.0
+        for batch in self._timed_iter(loader):
+            batches = self._prepare(batch)
+            with self._timed("step"):
+                loss, out = self._eval_step(batches)
+            self._sync()
+            n_batches += 1
+            with self._timed("metrics"):
+                epoch_loss += float(loss)
+                preds, targets = self._host_filter(batch, out)
+            if n_batches == 1:  # reference: figure hooks on the first batch
+                with self._timed("logging"):
+                    self.run_tensorboard_functions(preds, targets,
+                                                   self.optim_steps, "val")
+            if val_per_batch:
+                with self._timed("metrics"):
+                    m = self._eval_metrics(preds, targets, val=True)
+                    m[self.loss_name] = float(loss)
+                    for k, v in m.items():
+                        totals[k] = totals.get(k, 0.0) + v
+            else:
+                all_preds.append(preds)
+                all_targets.append(targets)
+        if val_per_batch:
+            return {k: v / max(n_batches, 1) for k, v in totals.items()}
+        with self._timed("metrics"):
+            m = self._eval_metrics(np.concatenate(all_preds, axis=0),
+                                   np.concatenate(all_targets, axis=0),
+                                   val=True)
+            m[self.loss_name] = epoch_loss / max(n_batches, 1)
+        return m
+
+    def train(self, train_loader, val_loader) -> Dict[str, float]:
+        """Full fit loop with early stopping — reference Trainer.train."""
+        if self.step is None:
+            # the JAX package draws an example batch here, which advances
+            # the train loader's shuffle; drawing it too keeps the batches
+            self.init_state(next(iter(train_loader)))
+        if self.start_epoch > 1 and hasattr(train_loader, "skip_epochs"):
+            # a resumed run continues the shuffle where the run left it
+            train_loader.skip_epochs(self.start_epoch - 1)
+        patience = self.args.get("patience", 20)
+        minimum_epochs = self.args.get("minimum_epochs", 0)
+        num_epochs = self.args.get("num_epochs", 10)
+        models_to_save = self.args.get("models_to_save", []) or []
+        epochs_no_improve = 0
+        eval_per_epochs = self.args.get("eval_per_epochs", 0)
+        for epoch in range(self.start_epoch, num_epochs + 1):
+            t0 = time.perf_counter()
+            self.train_epoch(train_loader, epoch)
+            t1 = time.perf_counter()
+            metrics = self.evaluate_epoch(val_loader, epoch)
+            self.timing["train_epoch_s"].append(t1 - t0)
+            self.timing["eval_s"].append(time.perf_counter() - t1)
+            if eval_per_epochs > 0 and epoch % eval_per_epochs == 0:
+                self.run_per_epoch_evaluations(val_loader, epoch)
+            val_score = metrics.get(self.main_metric, float("nan"))
+            for c in self.lr_controllers.values():
+                c.after_epoch(val_score)
+            with self._timed("logging"):
+                self.logger.log(metrics, "val", self.optim_steps, epoch)
+            val_loss = metrics.get(self.loss_name, float("nan"))
+            print(f"[Epoch {epoch}] {self.main_metric}: {val_score:.6f} "
+                  f"val loss: {val_loss:.6f}")
+            improved = (val_score >= self.best_val_score
+                        if self.main_metric_goal == "max"
+                        else val_score <= self.best_val_score)
+            if improved:
+                epochs_no_improve = 0
+                self.best_val_score = val_score
+                self.save_checkpoint(epoch, "best_checkpoint.pt")
+            else:
+                epochs_no_improve += 1
+            self.save_checkpoint(epoch, "last_checkpoint.pt")
+            if epochs_no_improve >= patience and epoch >= minimum_epochs:
+                print(f"Early stopping after {epoch} epochs; best epoch was "
+                      f"{epoch - epochs_no_improve}.")
+                break
+            if epoch in models_to_save:
+                shutil.copyfile(os.path.join(self.run_dir,
+                                             "best_checkpoint.pt"),
+                                os.path.join(self.run_dir,
+                                             f"best_checkpoint_{epoch}"
+                                             f"epochs.pt"))
+        # reload best and evaluate (reference trainer.py:106-109)
+        best = os.path.join(self.run_dir, "best_checkpoint.pt")
+        if os.path.exists(best):
+            self._load(best, restore_host=False)
+        return self.evaluation(val_loader, "val_best_checkpoint")
+
+    def run_per_epoch_evaluations(self, loader, epoch: int):
+        """Hook for expensive periodic evaluations (reference
+        run_per_epoch_evaluations, trainer.py:66-67)."""
+
+    def evaluation(self, loader, data_split: str = "") -> Dict[str, float]:
+        metrics = self.evaluate_epoch(loader)
+        with open(os.path.join(self.run_dir,
+                               f"evaluation_{data_split}.txt"), "w") as f:
+            for k, v in metrics.items():
+                f.write(f"{k}: {v}\n")
+        return metrics
+
+    def write_timing(self) -> Dict[str, Any]:
+        """`timing` into the run dir (`timing.json`): host seconds per
+        part of the loop and the device ms of each train step (CUDA)."""
+        with open(os.path.join(self.run_dir, "timing.json"), "w") as f:
+            json.dump(self.timing, f)
+        return self.timing
+
+    # ----------------------------------------------------------- checkpoints
+    def save_checkpoint(self, epoch: int, name: str):
+        with self._timed("checkpoint"):
+            payload = checkpoint.state_dicts(
+                {k: self.models[k] for k in self.MODEL_KEYS})
+            payload.update(
+                optimizer_state_dict=self.optimizer.state_dict(),
+                scheduler_state_dict={k: c.state_dict() for k, c in
+                                      self.lr_controllers.items()},
+                epoch=epoch, best_val_score=self.best_val_score,
+                optim_steps=self.optim_steps)
+            checkpoint.save_checkpoint(os.path.join(self.run_dir, name),
+                                       payload)
+            with open(os.path.join(self.run_dir, "train_arguments.yaml"),
+                      "w") as f:
+                yaml_lite.dump(yamlable(self.args), f)
+
+    def _load(self, path: str, restore_host: bool = True):
+        with self._timed("checkpoint"):
+            payload = checkpoint.load_checkpoint(path, self.device)
+            checkpoint.load_state_dicts(
+                {k: self.models[k] for k in self.MODEL_KEYS}, payload)
+            self.optimizer.load_state_dict(payload["optimizer_state_dict"])
+        if restore_host:
+            self.start_epoch = payload.get("epoch", 0) + 1
+            self.best_val_score = payload.get("best_val_score",
+                                              self.best_val_score)
+            self.optim_steps = payload.get("optim_steps", 0)
+            for k, sd in (payload.get("scheduler_state_dict") or {}).items():
+                if k in self.lr_controllers and sd is not None:
+                    self.lr_controllers[k].load_state_dict(sd)
+
+
+def yamlable(obj):
+    """`obj` with numpy scalars as Python ones and unknown objects as their
+    `str` (the JAX package's `_yamlable`)."""
+    if isinstance(obj, dict):
+        return {k: yamlable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [yamlable(v) for v in obj]
+    if isinstance(obj, (np.floating, np.integer)):
+        return obj.item()
+    if isinstance(obj, (str, int, float, bool)) or obj is None:
+        return obj
+    return str(obj)
+
+
+class SelfSupervisedTrainer(Trainer):
+    """2D-vs-3D contrastive (reference trainer/self_supervised_trainer.py):
+    `PretrainStep` over ``model`` and ``model3d``, `loss_func` between
+    their outputs."""
+
+    MODEL_KEYS = ("model", "model3d")
+
+    def _make_step(self):
+        return PretrainStep.from_modules(
+            self.models["model"], self.models["model3d"], self.device,
+            self.compute_dtype, self.loss_func, self.optimizer)
+
+    def _prepare(self, batch):
+        with self._timed("to_device"):
+            return self.step.prepare(to_device(batch["graph2d"], self.device),
+                                     to_device(batch["graph3d"], self.device))
+
+    def _eval_step(self, batches):
+        with self._evaluating():
+            z1, z2 = self.step.outputs(*batches)
+            return self.loss_func(z1, z2), (z1, z2)
+
+    def _host_filter(self, batch, out):
+        z1, z2 = out
+        return z1.float().cpu().numpy(), z2.float().cpu().numpy()
+
+    def run_per_epoch_evaluations(self, loader, epoch: int):
+        """Linear probe: least-squares fit of targets from 2D embeddings
+        (reference self_supervised_trainer.py:52-76)."""
+        n_samples = self.args.get("linear_probing_samples", 500)
+        reps, targets = [], []
+        for batch in loader:
+            _, (z1, _) = self._eval_step(self._prepare(batch))
+            z = z1.float().cpu().numpy()
+            t = batch["graph2d"].get("targets")
+            if t is None:
+                return
+            reps.append(z)
+            targets.append(np.asarray(t)[: z.shape[0]])
+            if sum(r.shape[0] for r in reps) >= n_samples:
+                break
+        X = np.concatenate(reps, axis=0)
+        y = np.concatenate(targets, axis=0)
+        if X.shape[0] < X.shape[1]:
+            raise ValueError(
+                f"linear_probing_samples {X.shape[0]} < metric dim "
+                f"{X.shape[1]}; linear probing cannot be used.")
+        sol, *_ = np.linalg.lstsq(X, y, rcond=None)
+        mae = float(np.abs(X @ sol - y).mean())
+        self.logger.log({"linear_probe_mae": mae}, "val", self.optim_steps,
+                        epoch)
+
+
+TRAINER_REGISTRY = {"default": Trainer, "contrastive": SelfSupervisedTrainer}
+
+# the JAX package's other trainer flavours (ROADMAP queue 1, item 8)
+NOT_PORTED = ("alternating", "autoencoder", "byol", "philosophy",
+              "graphcl_trainer", "noisy_negatives", "distance_predictor",
+              "optimal_transport")
+
+
+def get_trainer_class(name: str):
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"trainer '{name}' is not ported yet (ROADMAP queue 1, item 8)")
+    if name not in TRAINER_REGISTRY:
+        raise KeyError(f"unknown trainer '{name}'")
+    return TRAINER_REGISTRY[name]
