@@ -97,6 +97,26 @@ its seconds:
    same run on the CPU; per run the ms per epoch, steps/s, the step inside
    the loop against the bare step and the host seconds in the loader,
    metrics, checkpoints and logging.
+18. multi-conformer pre-training: the architecture of
+   `configs_clean/pre-train_QMugs.yml` (C = 3) and
+   `configs_clean/pre-train_GEOM-Drugs.yml` (C = 5): phase 8's PNA 200x7
+   with the flat Net3D (hidden 20, 1 layer, mean) on the CSR batch of each
+   molecule's C conformer complete graphs, NTXentMultiplePositives tau
+   0.1, Adam lr 8e-5, batch 500 synthetic molecules of 20 to 70 atoms.
+   (a) rows 5, 6 and 7 at both conformer batches (in-degree up to 69,
+   D = 20) in bf16 and float32, bit for bit against their plain versions
+   with padding edges ignored, and the vector path each takes; (b) 20
+   bf16 and 20 float32 QMugs steps and 10 of each GEOM-Drugs step through
+   `pretrain()` (launches per step, loss over the steps); one bf16 and one
+   float32 QMugs step on the card against the CPU under phase 8's bounds,
+   with two planted faults that must each fail (the conformers packed
+   graph-major; the `csr_mean` gradient dropped); per configuration ms per
+   step, graphs/s, edges/s (2D + 3D), peak `max_memory_allocated`, the
+   profile (busy and idle share, kernels per step) and rows 5, 6 and 7's
+   times at the conformer shape beside their bounds and `index_add_`;
+   (c) `load_config` + `train` of `pre-train_QMugs.yml` in bf16, 1 epoch
+   of 2 steps on 5000 synthetic drug-size molecules, launches from the
+   steps and eval forwards.
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 """
@@ -136,8 +156,9 @@ from infomax3d_tpu_torch.ops.kernels import (WRAPPERS, csr_segment_sum,
                                              snd_segment_sum_reference)
 from infomax3d_tpu_torch.ops.kernels._build import build_all, launcher
 from infomax3d_tpu_torch.ops.kernels.pna_stats_bwd import COTANGENTS
-from infomax3d_tpu_torch.train.pretrain import (build_step, flagship_batches,
-                                                pretrain)
+from infomax3d_tpu_torch.train.pretrain import (build_step,
+                                                conformer_batches,
+                                                flagship_batches, pretrain)
 from infomax3d_tpu_torch.train.ot import OTStep, build_ot_step, ot, ot_batch
 from infomax3d_tpu_torch.train.supervised import (build_supervised_step,
                                                   labelled_batch, supervised)
@@ -476,35 +497,34 @@ def _stats_cases(g):
         ("degree-16 batch", rp16, 16, e16, WIDTH)]
 
 
-def phase_kernels(g) -> dict:
-    N, E, D, K = g.num_nodes, g.senders.shape[0], WIDTH, g.max_deg
-    print(f"[kernels] N={N} E={E} (real {int(g.csr_row_ptr[-1])}) D={D} "
-          f"K={K}")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def randn(*shape, dtype=torch.float32):
-        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
-
-    deg0 = (g.csr_row_ptr[1:] - g.csr_row_ptr[:-1]) == 0
-    _check(bool(deg0.any()), "bench batch has padding nodes")
-    errs = {}
-
+def _hold_edge_combine(gen, g, D: int) -> list:
+    """Row 6 (`edge_combine`) against its plain version on `g`'s edges at
+    width D, bf16 and float32: the same adds in the same order ->
+    bit-exact.  Returns the (kernel, plain) pairs."""
+    N, E = g.num_nodes, g.senders.shape[0]
     pairs = []
     for dt in (torch.bfloat16, torch.float32):
-        hd, hs, pe = randn(N, D, dtype=dt), randn(N, D, dtype=dt), \
-            randn(E, D, dtype=dt)
+        hd, hs, pe = (torch.randn(n, D, generator=gen, device="cuda").to(dt)
+                      for n in (N, N, E))
         args = (hd, hs, pe, g.receivers, g.senders)
         k, r = edge_combine(*args), edge_combine_reference(*args)
         torch.cuda.synchronize()
         _check(torch.equal(k, r), f"edge_combine {dt}: not bit-exact")
         pairs.append((k, r))
-    errs["edge_combine"] = _max_err(pairs)
+    return pairs
 
+
+def _hold_pna_stats(phase: str, gen, cases) -> list:
+    """Row 2 (`pna_stats`) against its plain version on each of `cases`
+    (`_stats_cases`' tuples), with and without the affine and the sum
+    section: every section bit-exact, degree-0 nodes 0.  Returns the
+    (kernel, plain) pairs."""
     pairs = []
-    for name, rp, k_deg, e_all, width in _stats_cases(g):
-        x = randn(e_all, width, dtype=torch.bfloat16) * 2
+    for name, rp, k_deg, e_all, width in cases:
+        x = torch.randn(e_all, width, generator=gen,
+                        device="cuda").bfloat16() * 2
         aff = (torch.rand(width, generator=gen, device="cuda") + 0.5,
-               randn(width) * 0.3)
+               torch.randn(width, generator=gen, device="cuda") * 0.3)
         empty = (rp[1:] - rp[:-1]) == 0
         for affine in (None, aff):
             for want_sum in (True, False):
@@ -525,10 +545,21 @@ def phase_kernels(g) -> dict:
                         _check(bool((kk[empty] == 0).all()),
                                f"{tag}: {sec} nonzero on degree-0 nodes")
                     pairs.append((kk, rr))
-        print(f"[kernels] pna_stats {name} D={width} (K={k_deg}): every "
+        print(f"[{phase}] pna_stats {name} D={width} (K={k_deg}): every "
               f"section bit-exact, with and without the affine and the sum")
-    errs["pna_stats"] = _max_err(pairs)
+    return pairs
 
+
+def phase_kernels(g) -> dict:
+    N, E, D, K = g.num_nodes, g.senders.shape[0], WIDTH, g.max_deg
+    print(f"[kernels] N={N} E={E} (real {int(g.csr_row_ptr[-1])}) D={D} "
+          f"K={K}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    deg0 = (g.csr_row_ptr[1:] - g.csr_row_ptr[:-1]) == 0
+    _check(bool(deg0.any()), "bench batch has padding nodes")
+    errs = {"edge_combine": _max_err(_hold_edge_combine(gen, g, D)),
+            "pna_stats": _max_err(_hold_pna_stats("kernels", gen,
+                                                  _stats_cases(g)))}
     rp16, e16 = degree16_csr()
     crp16, perm16, s16 = degree16_csc()
     errs.update(_hold_walks(
@@ -790,19 +821,12 @@ BWD_MISSING = {"all": (), "no sum": ("d_sum",),
                "std, max, min": ("d_sum", "d_mean")}
 
 
-def phase_train_kernels(g) -> dict:
-    """Phase 7: the backward kernels against their plain versions on the
-    same CUDA tensors.  pair_segment_sum: both sum the same rows in float32
-    in slot order and round once -> bit-exact.  pna_stats_bwd (on the cases
-    of phase 3, with the forward kernel's residuals): d_x has the same
-    rounding points -> bit-exact, padding edges 0; d_a / d_b are float32
-    column sums in the kernel's order -> within 1e-6 of max|plain|
-    (reported when exact); the kernel leaves its counters at 0.  Then the
-    stats backward on two streams at once (`_stats_bwd_on_two_streams`)."""
-    from infomax3d_tpu_torch.ops.kernels.pna_stats_bwd import _COUNTERS
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    E, D = g.senders.shape[0], WIDTH
-    errs = {}
+def _hold_pair_segment_sum(gen, g, D: int) -> list:
+    """Row 5 (`pair_segment_sum`) against its plain version on `g`'s CSR
+    and CSC arrays at width D, bf16 and float32: both sum the same rows in
+    float32 in slot order and round once -> bit-exact.  Returns the
+    (kernel, plain) pairs."""
+    E = g.senders.shape[0]
     pairs = []
     for dt in (torch.bfloat16, torch.float32):
         ct = torch.randn(E, D, generator=gen, device="cuda").to(dt)
@@ -813,10 +837,18 @@ def phase_train_kernels(g) -> dict:
             _check(torch.equal(kk, rr),
                    f"pair_segment_sum {dt} {name}: not bit-exact")
             pairs.append((kk, rr))
-    errs["pair_segment_sum"] = _max_err(pairs)
+    return pairs
 
+
+def _hold_pna_stats_bwd(phase: str, gen, cases) -> list:
+    """Row 8 (`pna_stats_bwd`) against its plain version on each of
+    `cases` (`_stats_cases`' tuples), for each cotangent set of
+    BWD_MISSING, with and without the affine, on the forward kernel's
+    residuals: d_x bit-exact (the same rounding points), padding edges 0;
+    d_a / d_b (float32 column sums in the kernel's order) within 1e-6 of
+    max|plain|, reported when exact.  Returns the (kernel, plain) pairs."""
     pairs = []
-    for name, rp, k_deg, e_all, width in _stats_cases(g):
+    for name, rp, k_deg, e_all, width in cases:
         e_real = int(rp[-1])
         for cset, missing in BWD_MISSING.items():
             x, aff, res, cts = _stats_bwd_inputs(rp, k_deg, e_all, width, gen,
@@ -841,10 +873,24 @@ def phase_train_kernels(g) -> dict:
                     _check(err <= 1e-6 * float(rr.abs().max()),
                            f"{tag}: {sec} off by {err:.3g}")
                     pairs.append((kk, rr))
-                print(f"[train-kernels] {tag}: d_x bit-exact, d_a / d_b "
+                print(f"[{phase}] {tag}: d_x bit-exact, d_a / d_b "
                       + ("bit-exact" if all(torch.equal(kk, rr) for kk, rr
                                             in zip(k[1:], r[1:]))
                          else f"within {_max_err(zip(k[1:], r[1:])):.3g}"))
+    return pairs
+
+
+def phase_train_kernels(g) -> dict:
+    """Phase 7: the backward kernels against their plain versions on the
+    same CUDA tensors (`_hold_pair_segment_sum` at the bench batch,
+    `_hold_pna_stats_bwd` on the cases of phase 3); the kernel leaves its
+    counters at 0.  Then the stats backward on two streams at once
+    (`_stats_bwd_on_two_streams`)."""
+    from infomax3d_tpu_torch.ops.kernels.pna_stats_bwd import _COUNTERS
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    errs = {"pair_segment_sum": _max_err(_hold_pair_segment_sum(gen, g,
+                                                                WIDTH))}
+    pairs = _hold_pna_stats_bwd("train-kernels", gen, _stats_cases(g))
     errs_two = _stats_bwd_on_two_streams(g, gen)
     _check(all(int(c.abs().sum()) == 0 for c in _COUNTERS.values()),
            "pna_stats_bwd left a counter non-zero")
@@ -2410,6 +2456,451 @@ def phase_trainer(smi: str, out_dir: Path) -> dict:
     return {"launches": launches}
 
 
+# --- phase 18: multi-conformer pre-training ---------------------------------
+
+# configs_clean/pre-train_QMugs.yml and pre-train_GEOM-Drugs.yml: phase 8's
+# architecture (MODEL_PARAMETERS, MODEL3D_PARAMETERS, LOSS_PARAMS,
+# OPTIMIZER_PARAMS, BATCH) with the flat Net3D (`model3d_type: Net3D`,
+# `conformer_collate`), the multi-positive loss and C conformers per
+# molecule.  Their datasets (QMugs, GEOM-Drugs) are not in the repository:
+# synthetic molecules of drug-like size (20 to 70 atoms) stand in.
+CONF_QMUGS = "configs_clean/pre-train_QMugs.yml"
+CONF_DRUGS = "configs_clean/pre-train_GEOM-Drugs.yml"
+CONF_CONFS = {CONF_QMUGS: 3, CONF_DRUGS: 5}
+CONF_LOSS = "NTXentMultiplePositives"
+CONF_DATA = {"seed": 0, "n_min": 20, "n_max": 70}
+CONF_WIDTH = MODEL3D_PARAMETERS["hidden_dim"]
+CONF_DEPTH = MODEL3D_PARAMETERS["propagation_depth"]
+CONF_STEPS = {CONF_QMUGS: TRAIN_STEPS, CONF_DRUGS: 10}
+# launches per step: phase 8's 2D side, and per Net3D layer the message
+# MLP's edge combine, its backward and the mean's CSR sum (whose backward
+# is plain PyTorch); per forward the same without the backward
+_NET3D_FWD = {"edge_combine": CONF_DEPTH, "csr_sum": CONF_DEPTH}
+_NET3D_STEP = dict(_NET3D_FWD, pair_segment_sum=CONF_DEPTH)
+EXPECTED_CONF_STEP = {bf16: {n: v + _NET3D_STEP.get(n, 0) for n, v in
+                             EXPECTED_STEP[bf16].items()}
+                      for bf16 in (True, False)}
+EXPECTED_CONF_FWD = {bf16: {n: v + _NET3D_FWD.get(n, 0) for n, v in
+                            EXPECTED[bf16].items()} for bf16 in (True, False)}
+# phase 18c: the QMugs config through the CLI, 1 epoch of 2 steps on 5000
+# synthetic drug-size molecules (model pool 4000, validation 500, test
+# 500); eval forwards: the validation, the best checkpoint's, the test set
+CONF_CLI = {"dataset": "synthetic",
+            "dataset_params": {"num": 5000, "n_min": CONF_DATA["n_min"],
+                               "n_max": CONF_DATA["n_max"]},
+            "num_train": 1000, "num_epochs": 1, "use_tensorboard": False,
+            "bf16_compute": True}
+CONF_CLI_STEPS, CONF_CLI_EVALS = 2, 3
+# None: the entry points' default device, the card
+CONF_DEVICE = None
+
+
+# The QMugs step on the card against the CPU (18b) takes phase 8's bounds
+# and witness unchanged, at the state the main path leaves: the weights and
+# running statistics after its 20 bf16 steps (`_state`).  At the seeded
+# weights the flat Net3D's outputs cluster, so the loss's gradient in z1 is
+# a small remainder and the bf16 PNA gradient is rounding noise: card
+# against CPU L2 1.21, worst leaf 5.26, where the card's witness reads
+# 0.821; no bound there fails a gradient unrelated to the true one.  The
+# phase prints that reading and holds nothing on it.  After the 20 steps
+# (loss 6.22 -> 5.44) the gradient is signal.  Readings
+# there (NVIDIA H100 80GB HBM3, 700 W): bf16 PNA L2 0.201 against a
+# witness of 0.248, worst leaf 0.400; Net3D L2 0.0159 against 0.0123,
+# worst leaf 0.038; zero-gradient leaves 7.0e-3; float32 PNA L2 1.4e-3,
+# worst leaf 1.7e-2, Net3D L2 2.0e-3.  Planted faults there: the
+# conformers packed graph-major read PNA L2 2.28 and Net3D 1.84; the d_max
+# / d_min routing dropped (a fault of the PNA side alone) PNA L2 0.728;
+# the dropped csr_mean gradient leaves 10 Net3D leaves without gradient.
+def _conf_args(bf16: bool, config: str) -> dict:
+    return dict(_train_args(bf16), model3d_type="Net3D", loss_func=CONF_LOSS,
+                num_conformers=CONF_CONFS[config], dataset_params=CONF_DATA)
+
+
+def conformer_batch(config: str, device="cuda"):
+    """The batch of phase 18 for `config`: 500 synthetic drug-size
+    molecules (seed 0) with their C conformers, packed molecule-major."""
+    return conformer_batches(BATCH, CONF_CONFS[config], device=device,
+                             **CONF_DATA)
+
+
+def _path16(dtype: torch.dtype, D: int) -> str:
+    """The vector path of the edge combine and the pair segment sum: 16-byte
+    vectors where a row is a whole number of them, else element-wise
+    (`vec16_ok` in csrc/common.cuh)."""
+    return "16-byte" if D * (2 if dtype == torch.bfloat16 else 4) % 16 == 0 \
+        else "element-wise"
+
+
+def phase_conf_kernels(tag: str, g2, g3) -> dict:
+    """Phase 18a: every kernel of the path at the shapes the path gives
+    it, against its plain version on the same CUDA tensors.  The 2D side
+    (`g2`, drug-size bond graphs) at the PNA width, as phases 3 and 7 hold
+    them: rows 6 and 5 (`edge_combine`, `pair_segment_sum`), rows 2 and 8
+    (`pna_stats`, `pna_stats_bwd`) and row 1 (`multi_reduce`, the float32
+    step's).  Then rows 5, 6 and 7 (`csr_sum`) at the conformer batch `g3`
+    (complete graphs, in-degree up to n_max - 1) at D = 20 in bf16 and
+    float32.  All three sum the same float32 terms in the same order and
+    round once -> bit-exact.  Padding edges, set to 1e4 in the inputs,
+    must not count: rows 5 and 7 read no row past the ranges, and row 6
+    gives a padding edge its own `pe` row alone."""
+    gen2 = torch.Generator(device="cuda").manual_seed(17)
+    E2, K2 = g2.senders.shape[0], g2.max_deg
+    print(f"[conf-kernels] {tag} 2D batch: N={g2.num_nodes} E={E2} (real "
+          f"{int(g2.csr_row_ptr[-1])}) D={WIDTH} K={K2}")
+    case = [("drug-size 2D batch", g2.csr_row_ptr, K2, E2, WIDTH)]
+    errs2 = {"edge_combine": _max_err(_hold_edge_combine(gen2, g2, WIDTH)),
+             "pair_segment_sum": _max_err(_hold_pair_segment_sum(gen2, g2,
+                                                                 WIDTH)),
+             "pna_stats": _max_err(_hold_pna_stats("conf-kernels", gen2,
+                                                   case)),
+             "pna_stats_bwd": _max_err(_hold_pna_stats_bwd("conf-kernels",
+                                                           gen2, case))}
+    errs2.update(_hold_walks("conf-kernels", gen2,
+                             [case[0][:4] + ((WIDTH,),)], []))
+    print(f"[conf-kernels] {tag} 2D batch: edge_combine and "
+          f"pair_segment_sum bit-exact in bf16 and float32")
+    N, E, D = g3.num_nodes, g3.senders.shape[0], CONF_WIDTH
+    e_real = int(g3.csr_row_ptr[-1])
+    print(f"[conf-kernels] {tag}: N={N} E={E} (real {e_real}) max in-degree "
+          f"{g3.max_deg} graphs {int(g3.graph_mask.sum())}")
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    pad = ~g3.edge_mask
+    pairs = {"pair_segment_sum": [], "edge_combine": [], "csr_sum": []}
+    for dt in (torch.bfloat16, torch.float32):
+        def rows(n):
+            return torch.randn(n, D, generator=gen, device="cuda").to(dt)
+        ct = rows(E)
+        ct[pad] = 1e4
+        hd, hs, pe = rows(N), rows(N), rows(E)
+        cases = {
+            "pair_segment_sum": (
+                lambda: pair_segment_sum(ct, g3.csr_row_ptr, g3.csc_row_ptr,
+                                         g3.csc_perm),
+                lambda: pair_segment_sum_reference(
+                    ct, g3.csr_row_ptr, g3.csc_row_ptr, g3.csc_perm),
+                _path16(dt, D)),
+            "edge_combine": (
+                lambda: (edge_combine(hd, hs, pe, g3.receivers,
+                                      g3.senders),),
+                lambda: (edge_combine_reference(hd, hs, pe, g3.receivers,
+                                                g3.senders),),
+                _path16(dt, D)),
+            "csr_sum": (
+                lambda: (csr_sum(ct, g3.csr_row_ptr),),
+                lambda: (csr_sum_reference(ct, g3.csr_row_ptr),),
+                _vector_path(dt, D)),
+        }
+        for name, (kern, plain, path) in cases.items():
+            k, r = kern(), plain()
+            torch.cuda.synchronize()
+            _check(all(torch.equal(a, b) for a, b in zip(k, r)),
+                   f"{name} {tag} {dt}: not bit-exact")
+            # a sum of <= 69 standard normals stays far below one 1e4 row
+            _check(name == "edge_combine" or all(
+                float(a.float().abs().max()) < 1e3 for a in k),
+                f"{name} {tag} {dt}: a padding row counted")
+            pairs[name] += list(zip(k, r))
+            print(f"[conf-kernels] {name} {tag} D={D} {dt} ({path} path): "
+                  f"bit-exact")
+        with torch.no_grad():
+            out = edge_combine(hd, hs, pe, g3.receivers, g3.senders)
+        _check(torch.equal(out[pad], pe[pad]),
+               f"edge_combine {tag} {dt}: padding edges not pe alone")
+    errs = {n: _max_err(p) for n, p in pairs.items()}
+    _merge_errs(errs, errs2)
+    return errs
+
+
+def _state(step) -> dict:
+    """Both models' weights and running statistics, copied to the CPU."""
+    return {name: {k: v.detach().cpu().clone()
+                   for k, v in m.state_dict().items()}
+            for name, m in (("model", step.model), ("model3d", step.model3d))}
+
+
+def _conf_one_step(bf16: bool, dev: str, config: str, batches: dict,
+                   perturb: bool, state=None):
+    """`_measure_step` of one multi-conformer step on `batches["g2"]`,
+    `batches["g3"]`, from the seeded weights or from `state` (`_state`)."""
+    step = build_step(_conf_args(bf16, config), torch.device(dev))
+    if state is not None:
+        step.model.load_state_dict(state["model"])
+        step.model3d.load_state_dict(state["model3d"])
+    return _measure_step(step, {"model": step.model,
+                                "model3d": step.model3d},
+                         step.prepare(batches["g2"], batches["g3"]),
+                         WITNESS_REL if perturb else 0)
+
+
+def _graph_major(batches: dict, config: str):
+    """The first planted fault of phase 18: the card's step reads the
+    conformers packed graph-major (conformer 0 of every molecule, then
+    conformer 1, ...), where the multi-positive loss reshapes
+    molecule-major.  Returns the plant()."""
+    from infomax3d_tpu_torch.graphs.batch import batch_graphs, bucket_for
+    C = CONF_CONFS[config]
+    ds = SyntheticMolecules(BATCH, num_conformers=C, **CONF_DATA)
+    confs = [ds.graph3d(i, conformer=c) for c in range(C)
+             for i in range(BATCH)]
+    b = bucket_for(confs, BATCH * C)
+    wrong = to_graph_batch(batch_graphs(confs, b), b, "cpu")
+
+    def plant():
+        right = batches["g3"]
+        batches["g3"] = wrong
+        return lambda: batches.__setitem__("g3", right)
+    return plant
+
+
+def _dropped_csr_mean_gradient():
+    """The second planted fault: the CSR sum's backward (under `csr_mean`,
+    the flat Net3D's aggregation) returns zeros.  Returns the undo."""
+    mod = importlib.import_module("infomax3d_tpu_torch.ops.kernels.csr_sum")
+    real = mod.CsrSum.backward
+
+    def zeroed(ctx, d_s):
+        receivers, = ctx.saved_tensors
+        return (torch.zeros(receivers.shape[0], d_s.shape[1],
+                            dtype=ctx.dtype, device=d_s.device), None, None)
+    mod.CsrSum.backward = staticmethod(zeroed)
+    return lambda: setattr(mod.CsrSum, "backward", staticmethod(real))
+
+
+def _conf_profile(step, a, b, ms: float, tag: str, n: int = 3) -> dict:
+    """torch.profiler over `n` warm steps: device busy ms per step, its
+    idle share of the CUDA-event step time `ms`, kernels per step, the
+    port's kernels (us per launch in the step) and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        step.step(a, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step.step(a, b)
+        torch.cuda.synchronize()
+    by_name = _profile_kernels(prof)
+    if not by_name:
+        print(f"[conf-profile] {tag}: the profiler recorded no device "
+              f"activity; not measured")
+        return {}
+    busy = sum(us for us, _ in by_name.values()) / n / 1e3
+    kernels = sum(c for _, c in by_name.values()) / n
+    print(f"[conf-profile] {tag}: device busy {busy:.4f} ms of {ms:.4f} ms "
+          f"per step (idle share {1 - busy / ms:.3f}), {kernels:.0f} kernels "
+          f"per step")
+    for kname, (us, launches) in _port_kernels(by_name).items():
+        print(f"[conf-profile]   {kname}: {us / launches:.2f} us per launch "
+              f"in the step, {launches / n:.0f} launches per step")
+    _print_globals(by_name, n, "conf-profile")
+    # rows 5, 6 and 7 on the 3D side: their bf16 instantiation at D = 20
+    # (element-wise for rows 5 and 6, 8-byte for row 7), ms per launch
+    in_step = {}
+    for kname, vec in (("pair_segment_sum", 1), ("edge_combine", 1),
+                       ("csr_sum", _vec_elems(torch.bfloat16, CONF_WIDTH))):
+        needle = f"{PROFILE_NAMES[kname][0]}<__nv_bfloat16, {vec}>"
+        for name, (us, cnt) in by_name.items():
+            if needle in name:
+                in_step[kname] = us / cnt / 1e3
+    for name, (us, cnt) in sorted(by_name.items(),
+                                  key=lambda kv: -kv[1][0])[:12]:
+        print(f"[conf-profile]   {us / n:9.2f} us/step  {cnt / n:5.0f}x  "
+              f"{name[:90]}")
+    return {"busy_ms": busy, "kernels": kernels, "in_step": in_step}
+
+
+def _conf_time(config: str, sizes: dict, batches: dict, smi: str) -> dict:
+    """Per dtype: ms per warm step (CUDA events over back-to-back steps),
+    graphs/s, edges/s (2D + 3D, as bench.py counts them), the peak of
+    `max_memory_allocated` over a step, and (bf16) the profile."""
+    out = {}
+    for bf16 in (True, False):
+        torch.cuda.empty_cache()
+        step = build_step(_conf_args(bf16, config), torch.device("cuda"))
+        a, b = step.prepare(batches["g2"], batches["g3"])
+        step.step(a, b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step.step(a, b)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        t = cuda_ms(lambda: step.step(a, b), iters=10)
+        edges = sizes["edges_2d"] + sizes["edges_3d"]
+        print(f"[conf] {config} step bf16={bf16}: {t:.4f} ms, "
+              f"{BATCH / t * 1e3:.1f} graphs/s, {edges / t * 1e3:.1f} edges/s "
+              f"({sizes['edges_2d']} 2D bond + {sizes['edges_3d']} 3D "
+              f"complete-graph edges of {sizes['conformers']} conformers per "
+              f"step; CUDA events over 10 warm steps); peak "
+              f"max_memory_allocated {peak / 2 ** 30:.3f} GiB; {smi}")
+        out[bf16] = {"ms": t, "peak": peak}
+        if bf16:
+            out["profile"] = _conf_profile(step, a, b, t,
+                                           f"{config} bf16 step")
+        del step, a, b
+    return out
+
+
+def _conf_kernel_times(g3, in_step: dict, smi: str):
+    """Rows 5, 6 and 7 at the conformer shape in the step's variant (bf16,
+    D = 20): cold-L2 and warm device time, the plain version, the nearest
+    PyTorch call (float32 `index_add_` by receiver, and by sender for row
+    5's second half; row 6 has none), the bound (bytes over the H100's
+    memory rate, operations over its float32 rate)."""
+    N, E, D = g3.num_nodes, g3.senders.shape[0], CONF_WIDTH
+    e_real = int(g3.csr_row_ptr[-1])
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    bf = torch.bfloat16
+    ct = torch.randn(E, D, generator=gen, device="cuda").to(bf)
+    hd, hs = (torch.randn(N, D, generator=gen, device="cuda").to(bf)
+              for _ in range(2))
+    pe = torch.randn(E, D, generator=gen, device="cuda").to(bf)
+    ctf = ct.float()
+    recv = g3.receivers.long().clamp(max=N)
+    send = g3.senders.long().clamp(max=N)
+    acc = torch.zeros(N + 1, D, device="cuda")
+
+    def library_pair():
+        acc.zero_().index_add_(0, recv, ctf)
+        acc.zero_().index_add_(0, send, ctf)
+
+    cases = {
+        "pair_segment_sum": (
+            lambda: pair_segment_sum(ct, g3.csr_row_ptr, g3.csc_row_ptr,
+                                     g3.csc_perm),
+            lambda: pair_segment_sum_reference(ct, g3.csr_row_ptr,
+                                               g3.csc_row_ptr, g3.csc_perm),
+            e_real * D * 2 + 2 * (N + 1) * 4 + e_real * 4 + 2 * N * D * 2,
+            2.0 * e_real * D, library_pair, "two float32 index_add_"),
+        "edge_combine": (
+            lambda: edge_combine(hd, hs, pe, g3.receivers, g3.senders),
+            lambda: edge_combine_reference(hd, hs, pe, g3.receivers,
+                                           g3.senders),
+            2 * N * D * 2 + E * D * 2 + 2 * E * 4 + E * D * 2,
+            2.0 * E * D, None, "no single PyTorch call"),
+        "csr_sum": (
+            lambda: csr_sum(ct, g3.csr_row_ptr),
+            lambda: csr_sum_reference(ct, g3.csr_row_ptr),
+            e_real * D * 2 + (N + 1) * 4 + N * D * 4, 1.0 * e_real * D,
+            lambda: acc.zero_().index_add_(0, recv, ctf),
+            "one float32 index_add_"),
+    }
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    for name, (kern, plain, nbytes, flops, lib, note) in cases.items():
+        warm = device_ms(kern, iters=50, warmup=5)
+        ms = device_ms(kern, iters=10, flush=flush)
+        plain_ms = device_ms(plain, iters=3, warmup=1)
+        lib_ms = device_ms(lib, iters=50, warmup=5) if lib else None
+        bound_ms, bound_by = _bound(nbytes, flops)
+        step_ms = in_step.get(name)
+        print(f"[conf-times] {name} (bf16, D={D}, conformer shape N={N} "
+              f"E={E}): device {ms:.5f} ms cold-L2 median, {warm:.5f} ms "
+              f"warm, {_fmt(step_ms)} in the step (the 3D launch); plain "
+              f"{plain_ms:.5f} ms; library {_fmt(lib_ms)} ({note}); bound {bound_ms:.5f} ms by "
+              f"{bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP "
+              f"f32); {bound_ms / ms:.2f} of the bound cold; {smi}")
+
+
+def phase_conformers(smi: str, out_dir: Path) -> dict:
+    """Phase 18: multi-conformer pre-training.  (b) 20 bf16 and 20 float32
+    steps through `pretrain()` at pre-train_QMugs.yml (C = 3), 10 of each
+    at pre-train_GEOM-Drugs.yml (C = 5), and (c) the QMugs config through
+    the CLI: the main path.  (a) every kernel of the path at both configs'
+    batches.  (b) one step of each dtype from the state the QMugs bf16 run
+    left, held against the CPU with phase 8's bounds and three planted
+    faults; each config's step time, rate, memory and profile, and rows 5,
+    6 and 7 timed at its conformer shape.  Returns the main path's
+    launches and each kernel's max |kernel - plain|."""
+    import shutil
+    # (b) the main path: the counts are set to 0 just before it
+    _reset_counts()
+    for config in (CONF_QMUGS, CONF_DRUGS):
+        for bf16 in (True, False):
+            steps = CONF_STEPS[config]
+            before = _counts()
+            out = pretrain(_conf_args(bf16, config), steps=steps,
+                           device=CONF_DEVICE)
+            after = _counts()
+            per_step = {n: (after[n] - before[n]) / steps for n in after}
+            _check(per_step == EXPECTED_CONF_STEP[bf16],
+                   f"{config} launches per step {per_step} != "
+                   f"{EXPECTED_CONF_STEP[bf16]}")
+            losses = out["losses"]
+            _check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+            _check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+            print(f"[conf] {config} bf16={bf16}: {steps} steps through "
+                  f"pretrain(), loss {losses[0]:.6f} -> {losses[-1]:.6f}; "
+                  f"sizes {out['sizes']}; launches per step {per_step}")
+            if config == CONF_QMUGS and bf16:
+                trained = _state(out["step"])
+            del out
+    # (c) the CLI, still on the main path's counts
+    root = out_dir / "conformers"
+    shutil.rmtree(root, ignore_errors=True)
+    from infomax3d_tpu_torch.cli.config import load_config
+    from infomax3d_tpu_torch.cli.train import train
+    args = load_config(CONF_QMUGS, dict(CONF_CLI, logdir=str(root)))
+    before = _counts()
+    t0 = time.perf_counter()
+    result = train(args, device=CONF_DEVICE)
+    wall = time.perf_counter() - t0
+    after = _counts()
+    launches = _counts()
+    run = {n: after[n] - before[n] for n in after}
+    want = {n: EXPECTED_CONF_STEP[True][n] * CONF_CLI_STEPS
+            + EXPECTED_CONF_FWD[True][n] * CONF_CLI_EVALS for n in NONE}
+    _check(run == want, f"CLI launches {run} != {want}")
+    _check(all(np.isfinite(v) for v in result.values()),
+           f"CLI: non-finite metrics {result}")
+    run_dir = _run_dir(root)
+    for name in ("best_checkpoint.pt", "metrics.jsonl", "timing.json",
+                 "evaluation_val_best_checkpoint.txt"):
+        _check((run_dir / name).exists(), f"CLI: no {name}")
+    print(f"[conf] CLI {CONF_QMUGS} (bf16, 1 epoch of {CONF_CLI_STEPS} "
+          f"steps, {CONF_CLI_EVALS} eval forwards): {wall:.3f} s; result "
+          f"{result}; launches {run}")
+    print(f"[conf] multi-conformer main-path launches: {launches}")
+
+    # (a) the kernels at the QMugs and GEOM-Drugs conformer batches
+    errs, sizes, batches = {}, {}, {}
+    for config in (CONF_QMUGS, CONF_DRUGS):
+        g2, g3, sizes[config] = conformer_batch(config, "cpu")
+        batches[config] = {"g2": g2, "g3": g3}
+        _merge_errs(errs, phase_conf_kernels(config, g2.to("cuda"),
+                                             g3.to("cuda")))
+
+    # (b) the QMugs step on the card against the CPU: at the seeded
+    # weights read only, at the main path's state after its 20 bf16 steps
+    # held (see above); then the timings
+    qb = batches[CONF_QMUGS]
+    sides, unbounded = ("model", "model3d"), {"model": float("inf"),
+                                              "model3d": float("inf")}
+    seeded = {dev: _conf_one_step(True, dev, CONF_QMUGS, qb, False)[1]
+              for dev in ("cuda", "cpu")}
+    _print_readings("seeded weights, bf16 witness (card)", _readings(
+        _conf_one_step(True, "cuda", CONF_QMUGS, qb, True)[1],
+        seeded["cuda"], sides), unbounded, "conf")
+    _print_readings("seeded weights, bf16 card vs CPU (read, not held)",
+                    _readings(seeded["cuda"], seeded["cpu"], sides),
+                    unbounded, "conf")
+    del seeded
+    _hold_step_against_cpu(
+        lambda bf16, dev, perturb: _conf_one_step(bf16, dev, CONF_QMUGS, qb,
+                                                  perturb, trained),
+        sides,
+        {"conformers packed graph-major": _graph_major(qb, CONF_QMUGS),
+         "csr_mean gradient dropped": _dropped_csr_mean_gradient,
+         "d_max / d_min routing dropped": _dropped_extremum_routing},
+        "conf")
+    timing = {}
+    for config in (CONF_QMUGS, CONF_DRUGS):
+        b = {k: v.to("cuda") for k, v in batches[config].items()}
+        timing[config] = _conf_time(config, sizes[config], b, smi)
+        _conf_kernel_times(b["g3"], timing[config].get("profile", {}).get(
+            "in_step", {}), smi)
+        del b
+    return {"launches": launches, "errs": errs}
+
+
 class _Phase:
     """Prints a phase's seconds when it ends (and lets its error pass)."""
 
@@ -2455,11 +2946,16 @@ def main() -> int:
         ot_run = phase_ot_train(smi)
     with _Phase("17 trainer CLI"):
         trainer = phase_trainer(smi, out_dir)
-    # every kernel's launches over the five main paths (serving,
-    # pre-training, GIN training, OT training, the trainer CLI)
+    with _Phase("18 multi-conformer pre-training"):
+        conf = phase_conformers(smi, out_dir)
+        _merge_errs(errs, conf["errs"])
+    # every kernel's launches over the six main paths (serving,
+    # pre-training, GIN training, OT training, the trainer CLI,
+    # multi-conformer pre-training)
     launches = {n: serve_launches[n] + train["launches"][n]
                 + gin["launches"][n] + ot_run["launches"][n]
-                + trainer["launches"][n] for n in serve_launches}
+                + trainer["launches"][n] + conf["launches"][n]
+                for n in serve_launches}
     with _Phase("6 kernel times"):
         rows = phase_kernel_times(g, launches, errs)
     with _Phase("9 training profile"):

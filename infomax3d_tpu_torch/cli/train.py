@@ -12,9 +12,9 @@ synthetic` runs everything without chemistry data.
 The run goes to the CUDA card unless `--device` (or the config's `device`)
 says "cpu"; with neither set and no card, it raises.  What the port has
 not ported yet raises `NotImplementedError` naming its ROADMAP queue 1
-item: datasets other than `synthetic` (item 4), the flat Net3D (item 3),
-non-CSR batches (item 7), trainer flavours other than `default` and
-`contrastive` (item 8), shards (item 9).
+item: datasets other than `synthetic` (item 4), non-CSR batches (item 7),
+trainer flavours other than `default` and `contrastive` (item 8), shards
+(item 9).
 """
 from __future__ import annotations
 
@@ -182,14 +182,15 @@ FLAT_COLLATES = {
 
 def resolve_fast_paths(args: Dict[str, Any]) -> None:
     """Resolve the batch-layout knobs once (read by build_models and
-    make_loaders).  The port has only receiver-sorted CSR batches and the
-    dense Net3DDense, so on every device:
+    make_loaders).  The port has only receiver-sorted CSR batches, so on
+    every device:
 
     * ``_csr`` is on for the flat collates; ``csr_buckets: False`` (the
       non-CSR batch) is ROADMAP queue 1, item 7, and raises;
-    * ``_dense_3d`` is on for a Net3D / Net3DDense 3D model with
-      `contrastive_collate`; ``dense_3d: False`` there (the flat Net3D) is
-      item 3 and raises.
+    * ``_dense_3d`` (Net3DDense on the dense 3D batch) is on for a Net3D /
+      Net3DDense 3D model with `contrastive_collate`, unless the config
+      sets ``dense_3d: False``, which runs the flat Net3D on the CSR
+      complete graph; `conformer_collate` always runs the flat Net3D.
     Graph- and node-sharded modes (item 9) raise."""
     if args.get("graph_shards", 1) > 1 or args.get("node_shards", 1) > 1:
         raise NotImplementedError(
@@ -202,11 +203,8 @@ def resolve_fast_paths(args: Dict[str, Any]) -> None:
     args["_csr"] = args.get("collate_function") in FLAT_COLLATES
     eligible = (args.get("model3d_type") in ("Net3D", "Net3DDense") and
                 args.get("collate_function") == "contrastive_collate")
-    if eligible and args.get("dense_3d", "auto") is False:
-        raise NotImplementedError(
-            "dense_3d: False (the flat Net3D) is not ported yet (ROADMAP "
-            "queue 1, item 3)")
-    args["_dense_3d"] = eligible
+    args["_dense_3d"] = (eligible
+                         and args.get("dense_3d", "auto") is not False)
 
 
 def build_models(args: Dict[str, Any], dataset=None
@@ -323,7 +321,9 @@ def make_splits(args: Dict[str, Any], dataset):
 def make_loaders(args: Dict[str, Any], dataset):
     """Train / validation / test `GraphDataLoader`s: one static CSR bucket
     sized to cover a random batch with overwhelming probability (`_cap`),
-    shuffled train batches (seed `seed`), full batches for the contrastive
+    and for a flat 3D side one for its complete graphs (`max_deg` the
+    largest n - 1; C times as large for `conformer_collate`); shuffled
+    train batches (seed `seed`), full batches for the contrastive
     collates."""
     from infomax3d_tpu_torch.data.loader import GraphDataLoader
     from infomax3d_tpu_torch.graphs.batch import BucketSpec
@@ -342,16 +342,33 @@ def make_loaders(args: Dict[str, Any], dataset):
                 + n_sigma * np.sqrt(bs) * per_mol.std() + per_mol.max())
         return int(np.ceil(need / granularity) * granularity)
 
-    bucket = BucketSpec(bs, _cap(nodes, 256), _cap(dataset.edge_counts(), 512),
+    n_cap, e3_cap = _cap(nodes, 256), _cap(nodes * (nodes - 1), 2048)
+    bucket = BucketSpec(bs, n_cap, _cap(dataset.edge_counts(), 512),
                         max_deg=int(dataset.max_in_degree()), csr=True,
                         nmax=max_n)
     collate = args["collate_function"]
     ckw = dict(args.get("collate_params") or {})
     contrastive = collate in ("contrastive_collate", "conformer_collate",
                               "contrastive_collate_ae")
-    if args.get("_dense_3d") and collate == "contrastive_collate":
+
+    def bucket3d(copies):
+        return BucketSpec(bs * copies, n_cap * copies, e3_cap * copies,
+                          max_deg=max(max_n - 1, 1), csr=True, nmax=max_n)
+    if collate == "conformer_collate":
+        # one conformer count for the packing and the bucket: the
+        # dataset's, capped by collate_params.num_conformers (the JAX
+        # package's cli/train.py:537-547)
+        C = max(int(getattr(dataset, "num_conformers",
+                            args["num_conformers"])), 1)
+        if ckw.get("num_conformers"):
+            C = min(C, int(ckw["num_conformers"]))
+        ckw["num_conformers"] = C
+        ckw.setdefault("bucket3d", bucket3d(C))
+    elif args.get("_dense_3d") and collate == "contrastive_collate":
         ckw.setdefault("dense_3d", True)
         ckw.setdefault("max_nodes3d", max_n)
+    elif collate == "contrastive_collate":
+        ckw.setdefault("bucket3d", bucket3d(1))
     if collate == "ot_collate":
         hp = (args.get("model_parameters") or {}).get("hyperparams") or {}
         ckw.setdefault("n_true_confs",

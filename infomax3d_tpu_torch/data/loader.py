@@ -4,14 +4,16 @@ registry and `GraphDataLoader`.
 Collates turn per-molecule item dicts into one batch of numpy arrays per
 view, with the JAX package's names and values: `graph_collate` (the CSR
 bond graph with NaN-padded targets), `contrastive_collate` (the CSR 2D
-batch and the dense 3D batch Net3DDense reads) and `ot_collate` (the CSR
-bond graph plus the neighbourhood and dihedral-pair index arrays and the
-true conformer positions).  Node ids are those of the batch (the CSR sort
-permutes edges, not nodes), so the OT arrays do not depend on the edge
-order; the graph's edge-keyed arrays follow the receiver-sorted order as in
-every CSR batch.  A CSR view also carries its bucket's static bounds
-(``max_deg``, ``nmax``, 0-d int arrays) so `to_device` can rebuild the
-`GraphBatch`.
+batch and the 3D batch: the dense one Net3DDense reads, or the CSR
+complete graph of the flat Net3D), `conformer_collate` (the CSR 2D batch
+and C conformer complete graphs per molecule, packed molecule-major) and
+`ot_collate` (the CSR bond graph plus the neighbourhood and dihedral-pair
+index arrays and the true conformer positions).  Node ids are those of the
+batch (the CSR sort permutes edges, not nodes), so the OT arrays do not
+depend on the edge order; the graph's edge-keyed arrays follow the
+receiver-sorted order as in every CSR batch.  A CSR view also carries its
+bucket's static bounds (``max_deg``, ``nmax``, 0-d int arrays) so
+`to_device` can rebuild the `GraphBatch`.
 
 `GraphDataLoader` shuffles with `np.random.default_rng(seed)` (one
 permutation per epoch), drops the last partial batch when `drop_last`
@@ -31,7 +33,8 @@ import torch
 
 from infomax3d_tpu_torch.data.geomol_featurize import geomol_featurize
 from infomax3d_tpu_torch.graphs.batch import (BucketSpec, GraphBatch,
-                                              batch_graphs, to_graph_batch)
+                                              batch_graphs, bucket_for,
+                                              to_graph_batch)
 from infomax3d_tpu_torch.graphs.dense import dense_batch, to_dense_batch
 
 OT_KEYS = ("nbh_center", "nbh_nbrs", "nbh_perms", "nbh_mask", "nbh_mol",
@@ -173,13 +176,13 @@ COLLATE_ALIASES: Dict[str, str] = {
 
 # the JAX package's other collates and the ROADMAP queue 1 item that ports
 # each
-NOT_PORTED = {"conformer_collate": 3, **{name: 4 for name in (
+NOT_PORTED = {name: 4 for name in (
     "graph_only_collate", "contrastive_collate_ae",
     "noised_distances_collate", "noised_coordinates_collate",
     "node_drop_3d_collate", "node_drop_2d3d_collate", "san_collate",
     "padded_collate_positional_encoding", "egnn_padded_collate",
     "molhiv_padded_collate", "pairwise_distance_collate", "smp_collate",
-    "graphcl_collate")}}
+    "graphcl_collate")}
 
 
 def register_collate(name):
@@ -224,30 +227,62 @@ def graph_collate(items: Sequence[Dict], bucket: BucketSpec):
     return {"graph": _csr_view(arrays, bucket)}
 
 
+def _graph2d(items: Sequence[Dict], bucket: BucketSpec):
+    """The CSR 2D batch of `items`, with NaN-padded targets when they have
+    targets."""
+    if "targets" not in items[0]:
+        return _csr_view(batch_graphs([it["graph2d"] for it in items],
+                                      bucket), bucket)
+    return _csr_view(_nan_targets(batch_graphs(
+        [dict(it["graph2d"], targets=it["targets"]) for it in items],
+        bucket), len(items)), bucket)
+
+
+def complete_graphs(graphs: Sequence[Dict], bucket: Optional[BucketSpec],
+                    n_graphs: int) -> Dict[str, np.ndarray]:
+    """The CSR batch of 3D complete graphs (`complete_graph_from_coords`
+    dicts) in `bucket`, or, without one, in the smallest bucket of
+    `n_graphs` graphs that holds them (`bucket_for`: `max_deg` the largest
+    n - 1, `nmax` the largest n)."""
+    bucket = bucket or bucket_for(graphs, n_graphs)
+    return _csr_view(batch_graphs(graphs, bucket), bucket)
+
+
 @register_collate("contrastive_collate")
 def contrastive_collate(items: Sequence[Dict], bucket: BucketSpec,
                         bucket3d: Optional[BucketSpec] = None,
                         dense_3d: bool = False,
                         max_nodes3d: Optional[int] = None):
     """[2D graphs], [3D views], optional targets (custom_collate.py:
-    105-114).  The 3D side is the dense batch Net3DDense reads
-    (``dense_3d``); the flat 3D complete graph is ROADMAP queue 1, item 3.
-    `bucket3d` sizes only that flat graph."""
-    del bucket3d
-    if not dense_3d:
-        raise NotImplementedError(
-            "contrastive_collate without dense_3d (the flat 3D complete "
-            "graph of Net3D) is not ported yet (ROADMAP queue 1, item 3)")
-    if "targets" in items[0]:
-        g2 = _nan_targets(batch_graphs(
-            [dict(it["graph2d"], targets=it["targets"]) for it in items],
-            bucket), len(items))
-    else:
-        g2 = batch_graphs([it["graph2d"] for it in items], bucket)
+    105-114).  The 3D side is the dense batch Net3DDense reads with
+    ``dense_3d``, else the CSR complete graph of the flat Net3D, in
+    `bucket3d` (which sizes only that flat graph)."""
+    g2 = _graph2d(items, bucket)
     mols3 = [it["graph3d"] for it in items]
+    if not dense_3d:
+        return {"graph2d": g2, "graph3d": complete_graphs(
+            mols3, bucket3d, bucket.n_graphs)}
     nmax = max_nodes3d or max(m["node_feat"].shape[0] for m in mols3)
-    return {"graph2d": _csr_view(g2, bucket),
+    return {"graph2d": g2,
             "graph3d": dense_batch(mols3, bucket.n_graphs, nmax)}
+
+
+@register_collate("conformer_collate")
+def conformer_collate(items: Sequence[Dict], bucket: BucketSpec,
+                      bucket3d: Optional[BucketSpec] = None,
+                      num_conformers: Optional[int] = None):
+    """2D graphs and C conformer complete graphs per molecule, packed
+    molecule-major: all conformers of molecule 0, then of molecule 1, ...
+    (custom_collate.py:155-157, qmugs_dataset.py:149-166), the order the
+    multi-positive losses reshape to [B, C, D].  `num_conformers` (from
+    `collate_params`) caps C; `bucket3d` holds B * C graphs."""
+    confs = [c for it in items
+             for c in it["conformers3d"][:num_conformers or None]]
+    n_conf = len(items[0]["conformers3d"][:num_conformers or None])
+    return {"graph2d": _csr_view(batch_graphs(
+                [it["graph2d"] for it in items], bucket), bucket),
+            "graph3d": complete_graphs(confs, bucket3d,
+                                       bucket.n_graphs * n_conf)}
 
 
 register_collate("ot_collate")(ot_collate)

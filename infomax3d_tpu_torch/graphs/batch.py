@@ -6,10 +6,17 @@ into one flat graph padded to a `BucketSpec` and returns numpy arrays with
 the JAX package's names and values.  `to_graph_batch` wraps them as a
 `GraphBatch` of torch tensors on a device.
 
+A 3D complete graph (`data/synthetic.py::complete_graph_from_coords`,
+every ordered pair of distinct atoms with its distance ``edge_dist``) is
+batched the same way: its bucket's `max_deg` is the largest n - 1 and its
+`nmax` the largest n (`bucket_for`), and it carries `edge_dist` in place
+of bond features.
+
 Padding conventions (as in the reference): padding edges have sender and
-receiver N, padding nodes have graph id G.  With ``csr=True`` the edges are
-sorted by receiver (stable, padding last) and `csr_row_ptr` indexes each
-node's incoming edges — the layout the aggregation kernels walk;
+receiver N (and distance 0), padding nodes have graph id G.  With
+``csr=True`` the edges are sorted by receiver (stable, padding last) and
+`csr_row_ptr` indexes each node's incoming edges — the layout the
+aggregation kernels walk;
 `csc_perm` / `csc_row_ptr` give the same edges in sender order, which the
 combine backward walks.  The TPU DMA-window markers and the mailbox arrays
 are not emitted.
@@ -47,9 +54,10 @@ def _check_degree(indices: np.ndarray, num_nodes: int, max_deg: int):
 def batch_graphs(graphs: Sequence[Dict[str, np.ndarray]],
                  bucket: BucketSpec) -> Dict[str, np.ndarray]:
     """Concatenate per-molecule numpy graphs (``node_feat``, ``senders``,
-    ``receivers``, optional ``edge_feat`` and ``targets``) into one padded
-    flat batch.  ``targets`` (per graph, [T]) become [G, T] float32 with
-    zero padding rows, as the JAX batcher stacks its per-graph extras."""
+    ``receivers``, optional ``edge_feat``, ``edge_dist`` and ``targets``)
+    into one padded flat batch.  ``targets`` (per graph, [T]) become
+    [G, T] float32 with zero padding rows, as the JAX batcher stacks its
+    per-graph extras."""
     G, N, E = bucket.n_graphs, bucket.n_nodes, bucket.n_edges
     g_real = len(graphs)
     if g_real == 0:
@@ -94,12 +102,14 @@ def batch_graphs(graphs: Sequence[Dict[str, np.ndarray]],
         node_feat=node_feat, senders=senders, receivers=receivers,
         node_graph=node_graph, node_mask=node_mask, edge_mask=edge_mask,
         graph_mask=graph_mask, n_nodes=n_nodes)
-    if "edge_feat" in graphs[0] and graphs[0]["edge_feat"] is not None:
-        ef = graphs[0]["edge_feat"]
+    for key in ("edge_feat", "edge_dist"):
+        if graphs[0].get(key) is None:
+            continue
+        ef = graphs[0][key]
         buf = np.zeros((E,) + ef.shape[1:], dtype=ef.dtype)
         if e_tot:
-            buf[:e_tot] = np.concatenate([g["edge_feat"] for g in graphs])
-        out["edge_feat"] = buf
+            buf[:e_tot] = np.concatenate([g[key] for g in graphs])
+        out[key] = buf
     if "targets" in graphs[0]:
         tg = np.stack([np.asarray(g["targets"], np.float32) for g in graphs])
         out["targets"] = np.zeros((G,) + tg.shape[1:], np.float32)
@@ -110,7 +120,8 @@ def batch_graphs(graphs: Sequence[Dict[str, np.ndarray]],
             raise ValueError("csr buckets need max_deg > 0")
         # receiver-sorted edge order (stable; padding receivers == N last)
         order = np.argsort(receivers, kind="stable")
-        for key in ("senders", "receivers", "edge_mask", "edge_feat"):
+        for key in ("senders", "receivers", "edge_mask", "edge_feat",
+                    "edge_dist"):
             if key in out:
                 out[key] = out[key][order]
         senders, receivers = out["senders"], out["receivers"]
@@ -169,18 +180,21 @@ def bucket_for(graphs: Sequence[Dict[str, np.ndarray]],
                       max_deg=max(max_deg, 1), csr=True, nmax=nmax)
 
 
-_TENSOR_FIELDS = ("node_feat", "edge_feat", "senders", "receivers",
-                  "node_graph", "node_mask", "edge_mask", "graph_mask",
-                  "n_nodes", "csr_row_ptr", "csc_perm",
-                  "csc_row_ptr", "in_degree", "rd_node_idx", "rd_inv_flat")
+_TENSOR_FIELDS = ("node_feat", "senders", "receivers", "node_graph",
+                  "node_mask", "edge_mask", "graph_mask", "n_nodes",
+                  "csr_row_ptr", "csc_perm", "csc_row_ptr", "in_degree",
+                  "rd_node_idx", "rd_inv_flat")
+# per-batch fields that only some batches carry: bond codes (2D graphs),
+# distances (3D complete graphs), graph labels
+_OPTIONAL_FIELDS = ("edge_feat", "edge_dist", "targets")
 
 
 @dataclasses.dataclass(frozen=True)
 class GraphBatch:
     """A padded CSR batch as torch tensors.  `max_deg` and `nmax` are the
-    bucket's static bounds (Python ints)."""
+    bucket's static bounds (Python ints).  A 2D bond graph carries
+    `edge_feat`, a 3D complete graph `edge_dist`."""
     node_feat: torch.Tensor       # [N, 9] int32 atom codes
-    edge_feat: torch.Tensor       # [E, 3] int32 bond codes
     senders: torch.Tensor         # [E] int32 (pad -> N)
     receivers: torch.Tensor       # [E] int32, ascending (pad -> N)
     node_graph: torch.Tensor      # [N] int32 (pad -> G)
@@ -196,22 +210,26 @@ class GraphBatch:
     rd_inv_flat: torch.Tensor     # [N] int32 (pad -> G * nmax)
     max_deg: int
     nmax: int
-    targets: Optional[torch.Tensor] = None   # [G, T] float32 graph labels
+    edge_feat: Optional[torch.Tensor] = None  # [E, 3] int32 bond codes
+    edge_dist: Optional[torch.Tensor] = None  # [E] float32 (pad -> 0)
+    targets: Optional[torch.Tensor] = None    # [G, T] float32 graph labels
 
     @property
     def num_nodes(self) -> int:
         return self.node_feat.shape[0]
 
     def to(self, device) -> "GraphBatch":
-        return dataclasses.replace(
-            self, **{k: getattr(self, k).to(device) for k in _TENSOR_FIELDS},
-            targets=None if self.targets is None else self.targets.to(device))
+        return dataclasses.replace(self, **{
+            k: getattr(self, k).to(device) for k in
+            _TENSOR_FIELDS + _OPTIONAL_FIELDS
+            if getattr(self, k) is not None})
 
 
 def to_graph_batch(arrays: Dict[str, np.ndarray], bucket: BucketSpec,
                    device) -> GraphBatch:
     """Host arrays of a ``csr=True``, ``nmax > 0`` bucket -> `GraphBatch`
-    on `device` (with `targets` when the arrays carry them)."""
+    on `device` (with `edge_feat`, `edge_dist` and `targets` when the
+    arrays carry them)."""
     if not bucket.csr or bucket.nmax <= 0:
         raise ValueError("the port's batches are CSR buckets with nmax > 0")
 
@@ -219,5 +237,5 @@ def to_graph_batch(arrays: Dict[str, np.ndarray], bucket: BucketSpec,
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return GraphBatch(
         **{k: tensor(arrays[k]) for k in _TENSOR_FIELDS},
-        max_deg=bucket.max_deg, nmax=bucket.nmax,
-        targets=tensor(arrays["targets"]) if "targets" in arrays else None)
+        **{k: tensor(arrays[k]) for k in _OPTIONAL_FIELDS if k in arrays},
+        max_deg=bucket.max_deg, nmax=bucket.nmax)

@@ -239,10 +239,11 @@ def _mlp_tree(rng, in_dim, out_dim, layers, hidden, mid_bn, last_bn):
 def init_jax_variables(model_parameters: Mapping, seed: int = 0,
                        model_type: str = "PNA"):
     """Seeded numpy (params, batch_stats) trees in the flax layout of
-    `PNA(**model_parameters)` (or of `Net3DDense` for `model_type`
-    "Net3DDense" / "Net3D", of `OGBGNN` without a virtual node for
-    "OGBGNN", of the OT model with the `PNAGNNRandomEdgeUpdate` backbone
-    for "OptimalTransportModel"): Xavier-uniform weights, small random
+    `PNA(**model_parameters)` (or of `Net3D` / `Net3DDense`, which share
+    one layout, for `model_type` "Net3D" / "Net3DDense", of `OGBGNN`
+    without a virtual node for "OGBGNN", of the OT model with the
+    `PNAGNNRandomEdgeUpdate` backbone for "OptimalTransportModel"):
+    Xavier-uniform weights, small random
     biases, BatchNorm and LayerNorm scales in [0.5, 1.5] and non-trivial
     running statistics (so an eval forward exercises every fold), non-zero
     GIN `eps` and edge-update `edge_eps` / `node_eps`.  float32 leaves."""
@@ -384,7 +385,11 @@ def _init_net3d_dense(mp: Dict[str, Any], rng):
     d = mp["hidden_dim"]
     bn = mp.get("batch_norm", False)
     k = mp.get("fourier_encodings", 0)
-    params: Dict[str, Any] = {"node_embedding": rng.normal(0.0, 1.0, d)}
+    if mp.get("use_node_features", False):
+        params: Dict[str, Any] = {"atom_encoder": {"encoder": _emb_tree(
+            rng, FULL_ATOM_FEATURE_DIMS, d)}}
+    else:
+        params = {"node_embedding": rng.normal(0.0, 1.0, d)}
     stats: Dict[str, Any] = {}
     params["edge_input"], stats["edge_input"] = _mlp_tree(
         rng, 2 * k + 1 if k > 0 else 1, d, 1, d, bn, bn)

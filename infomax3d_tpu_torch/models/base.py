@@ -172,10 +172,15 @@ class FCLayer(nn.Module):
         w, bias = self.linear.weight, self.linear.bias
         if isinstance(x, EdgeInput):
             # weight columns: [0:Dh] sender, [Dh:2Dh] receiver, [2Dh:] edge
+            # (all in their common type, as flax promotes: the flat Net3D's
+            # "sum" aggregate makes h float32 under bf16 weights)
             dh = x.h.shape[1]
-            hs = F.linear(x.h, w[:, :dh])
-            hd = F.linear(x.h, w[:, dh:2 * dh])
-            pe = F.linear(x.e, w[:, 2 * dh:], bias)
+            dt = torch.promote_types(torch.promote_types(x.h.dtype,
+                                                         x.e.dtype), w.dtype)
+            w, bias, h = w.to(dt), bias.to(dt), x.h.to(dt)
+            hs = F.linear(h, w[:, :dh])
+            hd = F.linear(h, w[:, dh:2 * dh])
+            pe = F.linear(x.e.to(dt), w[:, 2 * dh:], bias)
             return edge_combine(hd, hs, pe, x.receivers, x.senders,
                                 x.row_ptr, x.csc_row_ptr, x.csc_perm)
         if isinstance(x, PairGridInput):
@@ -191,7 +196,9 @@ class FCLayer(nn.Module):
             wf = (w.float() * x.scale[None, :]).to(x.x.dtype)
             row = w.float() @ x.shift
             return (F.linear(x.x, wf).float() + row).to(x.x.dtype) + bias
-        return F.linear(x, w, bias)
+        # flax Dense's promotion, as above
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return F.linear(x.to(dt), w.to(dt), bias.to(dt))
 
     def forward(self, x, mask: Optional[torch.Tensor] = None,
                 lazy_out: bool = False):

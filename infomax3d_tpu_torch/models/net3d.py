@@ -1,6 +1,15 @@
-"""Net3DDense — the 3D encoder on dense per-graph complete graphs (port of
-`Net3DDense`, `Net3DDenseLayer` and `_dense_readout`,
-infomax3d_tpu/models/net3d.py).
+"""Net3D — the 3D encoder over complete graphs (port of `Net3D`,
+`Net3DLayer`, `Net3DDense`, `Net3DDenseLayer` and `_dense_readout`,
+infomax3d_tpu/models/net3d.py), in two layouts with the same parameters.
+
+`Net3D` (flat) reads a receiver-sorted CSR batch of complete graphs with
+each edge's distance (`GraphBatch.edge_dist`).  Each layer's message MLP
+takes ``[h[src] ‖ h[dst] ‖ e]`` through `FCLayer`'s `EdgeInput` (the
+edge-combine kernel forward, the pair segment sum backward), adds the
+message to the edge state, gates it and reduces it at each receiver with
+`edge_aggregate` (the CSR sum kernel: float32 for "sum", the messages'
+dtype for "mean"), as the JAX `Net3DLayer` does on a CSR batch.  The
+readout is `batch_readout` over the graphs.
 
 Each molecule is one row of [G, n] node slots; its complete graph is the
 [n, n] pair grid minus the diagonal, restricted to real atoms (`emask`).
@@ -8,9 +17,10 @@ Distances come from the coordinates in-model (NaN-free: the masked pairs
 take sqrt(1)), go through Fourier encodings and the edge MLP (plus the
 reference's extra silu), and each layer gates its messages, averages them
 over the senders (axis 1) and updates the nodes.  The readout is min / max /
-mean over real atoms.  No Pallas kernel runs here, so plain PyTorch is the
-port.  Module names follow the reference's state_dict
-(`mp_layers.{i}.message_network`, `soft_edge_network`, `node_embedding`).
+mean over real atoms.  No Pallas kernel runs in the dense layout, so plain
+PyTorch is its port.  Module names follow the reference's state_dict
+(`mp_layers.{i}.message_network`, `soft_edge_network`, `node_embedding`,
+`atom_encoder` with `use_node_features`), in both layouts.
 """
 from __future__ import annotations
 
@@ -20,8 +30,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from infomax3d_tpu_torch.models.base import MLP, PairGridInput
+from infomax3d_tpu_torch.models.base import (MLP, AtomEncoder, EdgeInput,
+                                             PairGridInput, PromotingLinear)
+from infomax3d_tpu_torch.ops.aggregate import edge_aggregate
 from infomax3d_tpu_torch.ops.encodings import fourier_encode_dist
+from infomax3d_tpu_torch.ops.segment import batch_readout
 
 
 def dense_readout(h: torch.Tensor, node_mask: torch.Tensor,
@@ -72,7 +85,7 @@ class Net3DDenseLayer(nn.Module):
         self.message_network = MLP(3 * hidden_dim, hidden_dim,
                                    message_net_layers, hidden_size=hidden_dim,
                                    last_activation=mid_activation, **bn)
-        self.soft_edge_network = nn.Linear(hidden_dim, 1)
+        self.soft_edge_network = PromotingLinear(hidden_dim, 1)
         self.update_network = MLP(hidden_dim, hidden_dim, update_net_layers,
                                   hidden_size=hidden_dim,
                                   last_activation="none", **bn)
@@ -91,11 +104,28 @@ class Net3DDenseLayer(nn.Module):
         return upd + h, e_new
 
 
+class Net3DLayer(Net3DDenseLayer):
+    """One Net3D message-passing layer on a CSR batch of complete graphs
+    (reference `models/net3d.py:84-125`, the JAX `Net3DLayer`)."""
+
+    def forward(self, g, h, e):
+        message = self.message_network(
+            EdgeInput(h, g.senders, g.receivers, e, g.csr_row_ptr,
+                      g.csc_row_ptr, g.csc_perm), g.edge_mask)
+        e_new = e + message
+        gate = torch.sigmoid(self.soft_edge_network(message))
+        agg = edge_aggregate(g, message * gate, self.reduce_func)
+        upd = self.update_network(agg + h, g.node_mask)
+        return upd + h, e_new
+
+
 class Net3DDense(nn.Module):
     """Net3D on dense complete graphs (reference `models/net3d.py:15-84`,
     the JAX package's `Net3DDense`).  Keyword arguments are the
     `model3d_parameters` of the reference configs (keys the class lacks,
     such as `hidden_edge_dim`, are dropped by `from_config`)."""
+
+    LAYER = Net3DDenseLayer
 
     def __init__(self, hidden_dim: int, target_dim: int,
                  readout_aggregators: Sequence[str],
@@ -109,20 +139,21 @@ class Net3DDense(nn.Module):
                  update_net_layers: int = 2, message_net_layers: int = 2,
                  use_node_features: bool = False):
         super().__init__()
-        if use_node_features:
-            raise NotImplementedError("use_node_features is not ported")
         self.readout_aggregators = tuple(readout_aggregators)
         self.fourier_encodings = fourier_encodings
         self.dropout = dropout
         bn = dict(mid_batch_norm=batch_norm, last_batch_norm=batch_norm,
                   batch_norm_momentum=batch_norm_momentum,
                   mid_activation=activation)
-        self.node_embedding = nn.Parameter(torch.randn(hidden_dim))
+        if use_node_features:
+            self.atom_encoder = AtomEncoder(hidden_dim)
+        else:
+            self.node_embedding = nn.Parameter(torch.randn(hidden_dim))
         edge_in = 2 * fourier_encodings + 1 if fourier_encodings > 0 else 1
         self.edge_input = MLP(edge_in, hidden_dim, 1, hidden_size=hidden_dim,
                               last_activation=activation, **bn)
         self.mp_layers = nn.ModuleList(
-            Net3DDenseLayer(hidden_dim, batch_norm, batch_norm_momentum,
+            self.LAYER(hidden_dim, batch_norm, batch_norm_momentum,
                             activation, reduce_func, message_net_layers,
                             update_net_layers)
             for _ in range(propagation_depth))
@@ -149,6 +180,9 @@ class Net3DDense(nn.Module):
     def forward(self, g) -> torch.Tensor:
         if self.training and self.dropout > 0:
             raise NotImplementedError("dropout > 0 is not ported")
+        if hasattr(self, "atom_encoder"):
+            raise NotImplementedError("use_node_features is not ported for "
+                                      "Net3DDense; the flat Net3D has it")
         node_mask = g.node_mask
         G, n = node_mask.shape
         sizes = node_mask.sum(dim=1)
@@ -172,3 +206,31 @@ class Net3DDense(nn.Module):
             h = self.node_wise_output_network(h, node_mask)
         readout = dense_readout(h, node_mask, self.readout_aggregators, sizes)
         return self.output(readout, g.graph_mask)
+
+
+class Net3D(Net3DDense):
+    """Net3D on a receiver-sorted CSR batch of complete graphs with edge
+    distances (reference `models/net3d.py:14-81`, the JAX `Net3D`); the
+    parameters are Net3DDense's."""
+
+    LAYER = Net3DLayer
+
+    def forward(self, g) -> torch.Tensor:
+        if self.training and self.dropout > 0:
+            raise NotImplementedError("dropout > 0 is not ported")
+        if hasattr(self, "atom_encoder"):
+            h = self.atom_encoder(g.node_feat)
+        else:
+            h = self.node_embedding[None, :].expand(g.num_nodes, -1)
+        d = g.edge_dist
+        if self.fourier_encodings > 0:
+            d = fourier_encode_dist(d, num_encodings=self.fourier_encodings)
+        else:
+            d = d[:, None]
+        e = F.silu(self.edge_input(d, g.edge_mask))   # the extra silu
+        for layer in self.mp_layers:
+            h, e = layer(g, h, e)
+        if self.node_wise_output_network is not None:
+            h = self.node_wise_output_network(h, g.node_mask)
+        return self.output(batch_readout(g, h, self.readout_aggregators),
+                           g.graph_mask)

@@ -4,10 +4,10 @@
 Each entry keeps the JAX class's field names (`JAX_FIELDS`): a config key
 that is not a field is dropped, as the JAX package's `_adapt_model_params`
 drops it, and a field the port's class lacks raises when the config sets
-it to anything but the JAX default (`UNPORTED_FIELDS`).  `Net3D` (the flat
-3D network) is ROADMAP queue 1, item 3; the CLI swaps it for the
+it to anything but the JAX default (`UNPORTED_FIELDS`).  `Net3D` is the
+flat 3D network on CSR complete graphs; the CLI swaps it for the
 parameter-compatible `Net3DDense` when `_dense_3d` is on, as the JAX
-package does.  Every other name is item 7.
+package does.  Every other name is ROADMAP queue 1, item 7.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ from typing import Any, Dict, Mapping
 from torch import nn
 
 from infomax3d_tpu_torch.models.gin import OGBGNN
-from infomax3d_tpu_torch.models.net3d import Net3DDense
+from infomax3d_tpu_torch.models.net3d import Net3D, Net3DDense
 from infomax3d_tpu_torch.models.optimal_transport import OptimalTransportModel
 from infomax3d_tpu_torch.models.pna import PNA
 
@@ -29,7 +29,7 @@ _NET3D_FIELDS = ("hidden_dim", "target_dim", "readout_aggregators",
                  "use_node_features")
 
 MODEL_REGISTRY: Dict[str, type] = {
-    "PNA": PNA, "OGBGNN": OGBGNN, "Net3DDense": Net3DDense,
+    "PNA": PNA, "OGBGNN": OGBGNN, "Net3D": Net3D, "Net3DDense": Net3DDense,
     "OptimalTransportModel": OptimalTransportModel}
 
 # the JAX dataclass fields of each registered class
@@ -41,6 +41,7 @@ JAX_FIELDS: Dict[str, tuple] = {
             "propagation_depth", "dropout", "posttrans_layers",
             "pretrans_layers", "batch_norm_momentum"),
     "OGBGNN": OGBGNN.FIELDS,
+    "Net3D": _NET3D_FIELDS,
     "Net3DDense": _NET3D_FIELDS,
     "OptimalTransportModel": ("hyperparams", "gnn_params", "gnn_model",
                               "use_transformer", "use_two_gnns"),
@@ -53,10 +54,6 @@ UNPORTED_FIELDS: Dict[str, Dict[str, Any]] = {
 }
 
 def get_model_class(name: str) -> type:
-    if name == "Net3D":
-        raise NotImplementedError(
-            "the flat Net3D is not ported yet (ROADMAP queue 1, item 3); "
-            "contrastive_collate runs it as Net3DDense (dense_3d)")
     if name not in MODEL_REGISTRY:
         raise NotImplementedError(
             f"model_type '{name}' is not ported yet (ROADMAP queue 1, "

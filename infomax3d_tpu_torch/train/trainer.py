@@ -473,7 +473,11 @@ def yamlable(obj):
 class SelfSupervisedTrainer(Trainer):
     """2D-vs-3D contrastive (reference trainer/self_supervised_trainer.py):
     `PretrainStep` over ``model`` and ``model3d``, `loss_func` between
-    their outputs."""
+    their outputs.  The 3D view is the dense batch of Net3DDense or the
+    CSR complete-graph batch of the flat Net3D (B * C graphs under
+    `conformer_collate`); `to_device` tells them apart, the step's
+    `prepare` casts either, and the metrics read a [B * C, D] 3D side as
+    the JAX package's do."""
 
     MODEL_KEYS = ("model", "model3d")
 
