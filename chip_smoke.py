@@ -14,7 +14,11 @@ its seconds:
    same CUDA tensors, at the bench shapes of the port's own batcher (500
    synthetic QM9-like molecules, seed 0: N = 9216, E = 18432, max_deg 4,
    D = 200); the stats kernel also at D = 50 and 300 (its element-wise and
-   8-byte paths) and on a batch with nodes of degree 16.  The two small
+   8-byte paths) and on a batch with nodes of degree 16; the edge
+   combine at D = 200, 20 and 21 (16-byte, 8-byte and element-wise
+   gathers) through its public wrapper, with 64-bit indices forced, on a
+   run of E - 1 edges and on a pe shifted off 16-byte alignment, padding
+   edges getting pe alone (`_hold_edge_combine`).  The two small
    CSR walks (the multi-reduce and the sender-keyed segment sum) bit for
    bit at D = 200, 300 and 302, and on batches with in- and out-degree 16
    at D = 200 and 50, the multi-reduce also cut at K = 3, each through
@@ -32,8 +36,9 @@ its seconds:
    of them) of each forward kernel — cold-L2 and warm — and of its plain
    version at the bench shapes, beside the least time the card could take
    (bytes over the H100's memory rate, operations over its float32 rate).
-7. training kernels: the pair segment sum (bf16, float32) and the stats
-   backward (with and without the affine, with every cotangent or some
+7. training kernels: the pair segment sum (bf16, float32; the widths
+   and paths of phase 3's edge combine, padding edges ignored,
+   `_hold_pair_segment_sum`) and the stats backward (with and without the affine, with every cotangent or some
    missing, on phase 3's cases) against their plain versions; the stats
    backward also on two streams at once, each stream with its own chunk
    counters.
@@ -105,7 +110,9 @@ its seconds:
    0.1, Adam lr 8e-5, batch 500 synthetic molecules of 20 to 70 atoms.
    (a) rows 5, 6 and 7 at both conformer batches (in-degree up to 69,
    D = 20) in bf16 and float32, bit for bit against their plain versions
-   with padding edges ignored, and the vector path each takes; (b) 20
+   with padding edges ignored, rows 5 and 6 also at D = 21 and on every
+   path their launchers pick (as in phases 3 and 7), each with the path
+   it takes; the 2D side's kernels at the drug-size 2D batch; (b) 20
    bf16 and 20 float32 QMugs steps and 10 of each GEOM-Drugs step through
    `pretrain()` (launches per step, loss over the steps); one bf16 and one
    float32 QMugs step on the card against the CPU under phase 8's bounds,
@@ -113,7 +120,9 @@ its seconds:
    graph-major; the `csr_mean` gradient dropped); per configuration ms per
    step, graphs/s, edges/s (2D + 3D), peak `max_memory_allocated`, the
    profile (busy and idle share, kernels per step) and rows 5, 6 and 7's
-   times at the conformer shape beside their bounds and `index_add_`;
+   times at the conformer shape beside their bounds and `index_add_`
+   (row 5 also beside its bytes with ct read twice, and each of its
+   halves alone);
    (c) `load_config` + `train` of `pre-train_QMugs.yml` in bf16, 1 epoch
    of 2 steps on 5000 synthetic drug-size molecules, launches from the
    steps and eval forwards.
@@ -294,6 +303,12 @@ PEAK_F32_FLOPS = 67e12
 # accumulate in another order and round at bf16 on both sides, through 7
 # layers -> 3e-2.
 SLICE_TOL = {True: 3e-2, False: 1e-4}
+# the widths at which phases 3, 7 and 18a hold rows 6 and 5 on the bench
+# and drug-size 2D batches: the PNA's (16-byte rows in bf16 and float32),
+# the Net3D's (40-byte bf16 rows: 8-byte pieces; 80-byte float32 rows) and
+# one more (42- and 84-byte rows: element-wise gathers)
+COMBINE_WIDTHS = (WIDTH, MODEL3D_PARAMETERS["hidden_dim"],
+                  MODEL3D_PARAMETERS["hidden_dim"] + 1)
 # launches per forward, from the model's depth
 NONE = {"edge_combine": 0, "pna_stats": 0, "multi_reduce": 0,
         "pair_segment_sum": 0, "pna_stats_bwd": 0, "csr_sum": 0,
@@ -497,20 +512,73 @@ def _stats_cases(g):
         ("degree-16 batch", rp16, 16, e16, WIDTH)]
 
 
-def _hold_edge_combine(gen, g, D: int) -> list:
+def _combine_path(dtype: torch.dtype, D: int, aligned: bool = True) -> str:
+    """The instantiation the edge combine's launcher picks
+    (csrc/edge_combine.cu): hd / hs gathered in `vec_width` pieces, pe and
+    the output moved in flat 16-byte words where both are 16-byte aligned,
+    else element by element."""
+    if not aligned:
+        return "element-wise gathers and words"
+    return f"{_vector_path(dtype, D)} gathers, 16-byte words"
+
+
+def _shifted(x):
+    """x's elements from the second on, as a contiguous [rows - 1, D] view
+    whose data starts 2 or 4 bytes past a 16-byte boundary: the launchers'
+    unaligned paths."""
+    rows, D = x.shape
+    return x.view(-1)[1:1 + (rows - 1) * D].view(rows - 1, D)
+
+
+def _hold_edge_combine(phase: str, gen, g, widths) -> list:
     """Row 6 (`edge_combine`) against its plain version on `g`'s edges at
-    width D, bf16 and float32: the same adds in the same order ->
-    bit-exact.  Returns the (kernel, plain) pairs."""
+    each width, bf16 and float32, on every path its launcher picks: the
+    public wrapper; the raw launch with 64-bit indices forced; the first
+    E - 1 edges (a run that is not a whole number of 16-byte words where a
+    row is not: its last word moves piece by piece); and pe shifted by one
+    element (not 16-byte aligned: element-wise gathers and words).  All
+    sum the same float32 terms in the same order and round once ->
+    bit-exact.  Padding edges (ids N), their pe rows set to 1e4, must get
+    pe alone.  Returns the (kernel, plain) pairs."""
+    mod = importlib.import_module(
+        "infomax3d_tpu_torch.ops.kernels.edge_combine")
     N, E = g.num_nodes, g.senders.shape[0]
+    pad = ~g.edge_mask
+    _check(bool(pad.any()), f"edge_combine {phase}: padding edges")
+    r, s = g.receivers, g.senders
     pairs = []
-    for dt in (torch.bfloat16, torch.float32):
-        hd, hs, pe = (torch.randn(n, D, generator=gen, device="cuda").to(dt)
-                      for n in (N, N, E))
-        args = (hd, hs, pe, g.receivers, g.senders)
-        k, r = edge_combine(*args), edge_combine_reference(*args)
-        torch.cuda.synchronize()
-        _check(torch.equal(k, r), f"edge_combine {dt}: not bit-exact")
-        pairs.append((k, r))
+    for D in widths:
+        for dt in (torch.bfloat16, torch.float32):
+            hd, hs, pe = (torch.randn(n, D, generator=gen,
+                                      device="cuda").to(dt)
+                          for n in (N, N, E))
+            pe[pad] = 1e4
+            runs = (("public wrapper", edge_combine, (hd, hs, pe, r, s),
+                     _combine_path(dt, D)),
+                    ("64-bit indices",
+                     lambda *a: mod._launch(*a, wide=True),
+                     (hd, hs, pe, r, s), _combine_path(dt, D)),
+                    (f"E - 1 = {E - 1} edges, {(E - 1) * D} elements",
+                     edge_combine, (hd, hs, pe[:-1], r[:-1], s[:-1]),
+                     _combine_path(dt, D)),
+                    ("pe shifted by one element", edge_combine,
+                     (hd, hs, _shifted(pe), r[:-1], s[:-1]),
+                     _combine_path(dt, D, aligned=False)))
+            for run, fn, args, path in runs:
+                with torch.no_grad():
+                    k = fn(*args)
+                ref = edge_combine_reference(*args)
+                torch.cuda.synchronize()
+                tag = f"edge_combine {phase} D={D} {dt} {run} ({path})"
+                _check(k.dtype == ref.dtype and torch.equal(k, ref),
+                       f"{tag}: not bit-exact")
+                pairs.append((k, ref))
+                if run == "public wrapper":
+                    _check(torch.equal(k[pad], pe[pad]),
+                           f"{tag}: padding edges not pe alone")
+            print(f"[{phase}] edge_combine D={D} {dt}: bit-exact through "
+                  + ", ".join(f"{run} ({path})" for run, _, _, path in runs)
+                  + "; padding edges get pe alone")
     return pairs
 
 
@@ -557,7 +625,8 @@ def phase_kernels(g) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     deg0 = (g.csr_row_ptr[1:] - g.csr_row_ptr[:-1]) == 0
     _check(bool(deg0.any()), "bench batch has padding nodes")
-    errs = {"edge_combine": _max_err(_hold_edge_combine(gen, g, D)),
+    errs = {"edge_combine": _max_err(_hold_edge_combine("kernels", gen, g,
+                                                        COMBINE_WIDTHS)),
             "pna_stats": _max_err(_hold_pna_stats("kernels", gen,
                                                   _stats_cases(g)))}
     rp16, e16 = degree16_csr()
@@ -821,22 +890,57 @@ BWD_MISSING = {"all": (), "no sum": ("d_sum",),
                "std, max, min": ("d_sum", "d_mean")}
 
 
-def _hold_pair_segment_sum(gen, g, D: int) -> list:
+def _hold_pair_segment_sum(phase: str, gen, g, widths) -> list:
     """Row 5 (`pair_segment_sum`) against its plain version on `g`'s CSR
-    and CSC arrays at width D, bf16 and float32: both sum the same rows in
-    float32 in slot order and round once -> bit-exact.  Returns the
+    and CSC arrays at each width, bf16 and float32, on every path its
+    launcher picks: the public wrapper; the raw launch with 64-bit indices
+    forced; ct shifted by one element (not 16-byte aligned: one element per
+    thread; csc_perm without its last entry, a padding edge's).  All sum
+    the same rows in float32 in slot order and round once -> bit-exact;
+    nodes without edges get 0.  Then the padding rows of ct set to 1e4
+    must leave the public wrapper's result as it was.  Returns the
     (kernel, plain) pairs."""
+    mod = importlib.import_module(
+        "infomax3d_tpu_torch.ops.kernels.pair_segment_sum")
     E = g.senders.shape[0]
+    rp, crp, perm = g.csr_row_ptr, g.csc_row_ptr, g.csc_perm
+    e_real = int(rp[-1])
+    _check(e_real < E and int(perm[:e_real].max()) < e_real,
+           f"pair_segment_sum {phase}: padding edges, real positions")
+    empty = ((rp[1:] - rp[:-1]) == 0, (crp[1:] - crp[:-1]) == 0)
     pairs = []
-    for dt in (torch.bfloat16, torch.float32):
-        ct = torch.randn(E, D, generator=gen, device="cuda").to(dt)
-        args = (ct, g.csr_row_ptr, g.csc_row_ptr, g.csc_perm)
-        k, r = pair_segment_sum(*args), pair_segment_sum_reference(*args)
-        torch.cuda.synchronize()
-        for name, kk, rr in zip(("d_hd", "d_hs"), k, r):
-            _check(torch.equal(kk, rr),
-                   f"pair_segment_sum {dt} {name}: not bit-exact")
-            pairs.append((kk, rr))
+    for D in widths:
+        for dt in (torch.bfloat16, torch.float32):
+            ct = torch.randn(E, D, generator=gen, device="cuda").to(dt)
+            runs = (("public wrapper", pair_segment_sum, (ct, rp, crp, perm),
+                     _vector_path(dt, D)),
+                    ("64-bit indices",
+                     lambda *a: mod._launch(*a, wide=True),
+                     (ct, rp, crp, perm), _vector_path(dt, D)),
+                    ("ct shifted by one element", pair_segment_sum,
+                     (_shifted(ct), rp, crp, perm[:-1]), "element-wise"))
+            for run, fn, args, path in runs:
+                k = fn(*args)
+                ref = pair_segment_sum_reference(*args)
+                torch.cuda.synchronize()
+                tag = f"pair_segment_sum {phase} D={D} {dt} {run} ({path})"
+                for half, kk, rr, mt in zip(("d_hd", "d_hs"), k, ref, empty):
+                    _check(kk.dtype == rr.dtype and torch.equal(kk, rr),
+                           f"{tag} {half}: not bit-exact")
+                    _check(bool((kk[mt] == 0).all()),
+                           f"{tag} {half}: nonzero on nodes without edges")
+                    pairs.append((kk, rr))
+                if run == "public wrapper":
+                    want = k
+            ct[e_real:] = 1e4
+            again = pair_segment_sum(ct, rp, crp, perm)
+            _check(all(torch.equal(a, w) for a, w in zip(again, want)),
+                   f"pair_segment_sum {phase} D={D} {dt}: a padding edge "
+                   f"counted")
+            print(f"[{phase}] pair_segment_sum D={D} {dt}: bit-exact "
+                  f"through " + ", ".join(f"{run} ({path})"
+                                          for run, _, _, path in runs)
+                  + "; padding edges ignored")
     return pairs
 
 
@@ -888,8 +992,8 @@ def phase_train_kernels(g) -> dict:
     (`_stats_bwd_on_two_streams`)."""
     from infomax3d_tpu_torch.ops.kernels.pna_stats_bwd import _COUNTERS
     gen = torch.Generator(device="cuda").manual_seed(2)
-    errs = {"pair_segment_sum": _max_err(_hold_pair_segment_sum(gen, g,
-                                                                WIDTH))}
+    errs = {"pair_segment_sum": _max_err(_hold_pair_segment_sum(
+        "train-kernels", gen, g, COMBINE_WIDTHS))}
     pairs = _hold_pna_stats_bwd("train-kernels", gen, _stats_cases(g))
     errs_two = _stats_bwd_on_two_streams(g, gen)
     _check(all(int(c.abs().sum()) == 0 for c in _COUNTERS.values()),
@@ -2523,34 +2627,29 @@ def conformer_batch(config: str, device="cuda"):
                              **CONF_DATA)
 
 
-def _path16(dtype: torch.dtype, D: int) -> str:
-    """The vector path of the edge combine and the pair segment sum: 16-byte
-    vectors where a row is a whole number of them, else element-wise
-    (`vec16_ok` in csrc/common.cuh)."""
-    return "16-byte" if D * (2 if dtype == torch.bfloat16 else 4) % 16 == 0 \
-        else "element-wise"
-
-
 def phase_conf_kernels(tag: str, g2, g3) -> dict:
     """Phase 18a: every kernel of the path at the shapes the path gives
     it, against its plain version on the same CUDA tensors.  The 2D side
     (`g2`, drug-size bond graphs) at the PNA width, as phases 3 and 7 hold
     them: rows 6 and 5 (`edge_combine`, `pair_segment_sum`), rows 2 and 8
     (`pna_stats`, `pna_stats_bwd`) and row 1 (`multi_reduce`, the float32
-    step's).  Then rows 5, 6 and 7 (`csr_sum`) at the conformer batch `g3`
-    (complete graphs, in-degree up to n_max - 1) at D = 20 in bf16 and
-    float32.  All three sum the same float32 terms in the same order and
-    round once -> bit-exact.  Padding edges, set to 1e4 in the inputs,
-    must not count: rows 5 and 7 read no row past the ranges, and row 6
-    gives a padding edge its own `pe` row alone."""
+    step's).  Then, at the conformer batch `g3` (complete graphs,
+    in-degree up to n_max - 1), rows 6 and 5 on every path their launchers
+    pick at D = 20 (the step's: 8-byte pieces in bf16) and D = 21
+    (element-wise gathers) in bf16 and float32, and row 7 (`csr_sum`) at
+    D = 20.  All sum the same float32 terms in the same order and round
+    once -> bit-exact.  Padding edges, set to 1e4 in the inputs, must not
+    count: rows 5 and 7 read no row past the ranges, and row 6 gives a
+    padding edge its own `pe` row alone."""
     gen2 = torch.Generator(device="cuda").manual_seed(17)
     E2, K2 = g2.senders.shape[0], g2.max_deg
     print(f"[conf-kernels] {tag} 2D batch: N={g2.num_nodes} E={E2} (real "
           f"{int(g2.csr_row_ptr[-1])}) D={WIDTH} K={K2}")
     case = [("drug-size 2D batch", g2.csr_row_ptr, K2, E2, WIDTH)]
-    errs2 = {"edge_combine": _max_err(_hold_edge_combine(gen2, g2, WIDTH)),
-             "pair_segment_sum": _max_err(_hold_pair_segment_sum(gen2, g2,
-                                                                 WIDTH)),
+    errs2 = {"edge_combine": _max_err(_hold_edge_combine(
+                 "conf-kernels", gen2, g2, (WIDTH,))),
+             "pair_segment_sum": _max_err(_hold_pair_segment_sum(
+                 "conf-kernels", gen2, g2, (WIDTH,))),
              "pna_stats": _max_err(_hold_pna_stats("conf-kernels", gen2,
                                                    case)),
              "pna_stats_bwd": _max_err(_hold_pna_stats_bwd("conf-kernels",
@@ -2564,49 +2663,26 @@ def phase_conf_kernels(tag: str, g2, g3) -> dict:
     print(f"[conf-kernels] {tag}: N={N} E={E} (real {e_real}) max in-degree "
           f"{g3.max_deg} graphs {int(g3.graph_mask.sum())}")
     gen = torch.Generator(device="cuda").manual_seed(18)
-    pad = ~g3.edge_mask
-    pairs = {"pair_segment_sum": [], "edge_combine": [], "csr_sum": []}
+    widths = (D, D + 1)
+    errs = {"edge_combine": _max_err(_hold_edge_combine(
+                f"conf-kernels {tag}", gen, g3, widths)),
+            "pair_segment_sum": _max_err(_hold_pair_segment_sum(
+                f"conf-kernels {tag}", gen, g3, widths))}
+    pairs = []
     for dt in (torch.bfloat16, torch.float32):
-        def rows(n):
-            return torch.randn(n, D, generator=gen, device="cuda").to(dt)
-        ct = rows(E)
-        ct[pad] = 1e4
-        hd, hs, pe = rows(N), rows(N), rows(E)
-        cases = {
-            "pair_segment_sum": (
-                lambda: pair_segment_sum(ct, g3.csr_row_ptr, g3.csc_row_ptr,
-                                         g3.csc_perm),
-                lambda: pair_segment_sum_reference(
-                    ct, g3.csr_row_ptr, g3.csc_row_ptr, g3.csc_perm),
-                _path16(dt, D)),
-            "edge_combine": (
-                lambda: (edge_combine(hd, hs, pe, g3.receivers,
-                                      g3.senders),),
-                lambda: (edge_combine_reference(hd, hs, pe, g3.receivers,
-                                                g3.senders),),
-                _path16(dt, D)),
-            "csr_sum": (
-                lambda: (csr_sum(ct, g3.csr_row_ptr),),
-                lambda: (csr_sum_reference(ct, g3.csr_row_ptr),),
-                _vector_path(dt, D)),
-        }
-        for name, (kern, plain, path) in cases.items():
-            k, r = kern(), plain()
-            torch.cuda.synchronize()
-            _check(all(torch.equal(a, b) for a, b in zip(k, r)),
-                   f"{name} {tag} {dt}: not bit-exact")
-            # a sum of <= 69 standard normals stays far below one 1e4 row
-            _check(name == "edge_combine" or all(
-                float(a.float().abs().max()) < 1e3 for a in k),
-                f"{name} {tag} {dt}: a padding row counted")
-            pairs[name] += list(zip(k, r))
-            print(f"[conf-kernels] {name} {tag} D={D} {dt} ({path} path): "
-                  f"bit-exact")
-        with torch.no_grad():
-            out = edge_combine(hd, hs, pe, g3.receivers, g3.senders)
-        _check(torch.equal(out[pad], pe[pad]),
-               f"edge_combine {tag} {dt}: padding edges not pe alone")
-    errs = {n: _max_err(p) for n, p in pairs.items()}
+        ct = torch.randn(E, D, generator=gen, device="cuda").to(dt)
+        ct[e_real:] = 1e4
+        k = csr_sum(ct, g3.csr_row_ptr)
+        r = csr_sum_reference(ct, g3.csr_row_ptr)
+        torch.cuda.synchronize()
+        _check(torch.equal(k, r), f"csr_sum {tag} {dt}: not bit-exact")
+        # a sum of <= 69 standard normals stays far below one 1e4 row
+        _check(float(k.abs().max()) < 1e3,
+               f"csr_sum {tag} {dt}: a padding row counted")
+        pairs.append((k, r))
+        print(f"[conf-kernels] csr_sum {tag} D={D} {dt} "
+              f"({_vector_path(dt, D)} path): bit-exact")
+    errs["csr_sum"] = _max_err(pairs)
     _merge_errs(errs, errs2)
     return errs
 
@@ -2666,6 +2742,17 @@ def _dropped_csr_mean_gradient():
     return lambda: setattr(mod.CsrSum, "backward", staticmethod(real))
 
 
+def _conf_instantiation(kname: str) -> str:
+    """The start of the profiler's name of the instantiation that rows 5,
+    6 and 7 take on the 3D side (bf16, D = 20, 32-bit indices): the
+    8-byte vector of `vec_width`, and for row 6 its 16-byte flat word."""
+    vec = _vec_elems(torch.bfloat16, CONF_WIDTH)
+    args = {"pair_segment_sum": f"{vec}, unsigned int>",
+            "edge_combine": f"{vec}, 8, unsigned int>",
+            "csr_sum": f"{vec}>"}[kname]
+    return f"{PROFILE_NAMES[kname][0]}<__nv_bfloat16, {args}"
+
+
 def _conf_profile(step, a, b, ms: float, tag: str, n: int = 3) -> dict:
     """torch.profiler over `n` warm steps: device busy ms per step, its
     idle share of the CUDA-event step time `ms`, kernels per step, the
@@ -2693,12 +2780,11 @@ def _conf_profile(step, a, b, ms: float, tag: str, n: int = 3) -> dict:
         print(f"[conf-profile]   {kname}: {us / launches:.2f} us per launch "
               f"in the step, {launches / n:.0f} launches per step")
     _print_globals(by_name, n, "conf-profile")
-    # rows 5, 6 and 7 on the 3D side: their bf16 instantiation at D = 20
-    # (element-wise for rows 5 and 6, 8-byte for row 7), ms per launch
+    # rows 5, 6 and 7 on the 3D side: their bf16 instantiation at D = 20,
+    # ms per launch
     in_step = {}
-    for kname, vec in (("pair_segment_sum", 1), ("edge_combine", 1),
-                       ("csr_sum", _vec_elems(torch.bfloat16, CONF_WIDTH))):
-        needle = f"{PROFILE_NAMES[kname][0]}<__nv_bfloat16, {vec}>"
+    for kname in ("pair_segment_sum", "edge_combine", "csr_sum"):
+        needle = _conf_instantiation(kname)
         for name, (us, cnt) in by_name.items():
             if needle in name:
                 in_step[kname] = us / cnt / 1e3
@@ -2745,7 +2831,12 @@ def _conf_kernel_times(g3, in_step: dict, smi: str):
     D = 20): cold-L2 and warm device time, the plain version, the nearest
     PyTorch call (float32 `index_add_` by receiver, and by sender for row
     5's second half; row 6 has none), the bound (bytes over the H100's
-    memory rate, operations over its float32 rate)."""
+    memory rate, operations over its float32 rate).  Row 5's bound counts
+    each byte once; beside it stands the time of its bytes with ct read
+    twice (the sender half's second pass through csc_perm from device
+    memory), and the time of each half alone: the receiver half is row 3's
+    walk (`csr_segment_sum`), the sender half row 4's (`snd_segment_sum`),
+    both through `walk_rows` at the same vector width."""
     N, E, D = g3.num_nodes, g3.senders.shape[0], CONF_WIDTH
     e_real = int(g3.csr_row_ptr[-1])
     gen = torch.Generator(device="cuda").manual_seed(19)
@@ -2795,9 +2886,27 @@ def _conf_kernel_times(g3, in_step: dict, smi: str):
         print(f"[conf-times] {name} (bf16, D={D}, conformer shape N={N} "
               f"E={E}): device {ms:.5f} ms cold-L2 median, {warm:.5f} ms "
               f"warm, {_fmt(step_ms)} in the step (the 3D launch); plain "
-              f"{plain_ms:.5f} ms; library {_fmt(lib_ms)} ({note}); bound {bound_ms:.5f} ms by "
-              f"{bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP "
-              f"f32); {bound_ms / ms:.2f} of the bound cold; {smi}")
+              f"{plain_ms:.5f} ms; library {_fmt(lib_ms)} ({note}); bound "
+              f"{bound_ms:.5f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e6:.1f} MFLOP f32); {bound_ms / ms:.2f} of the "
+              f"bound cold; {smi}")
+        if name != "pair_segment_sum":
+            continue
+        twice = nbytes + e_real * D * 2
+        halves = {
+            "receiver half alone (csr_segment_sum)":
+                lambda: csr_segment_sum(ct, g3.csr_row_ptr),
+            "sender half alone (snd_segment_sum)":
+                lambda: snd_segment_sum(ct, g3.csc_row_ptr, g3.csc_perm)}
+        for half, fn in halves.items():
+            cold_h = device_ms(fn, iters=10, flush=flush)
+            warm_h = device_ms(fn, iters=50, warmup=5)
+            print(f"[conf-times]   {name} {half}: {cold_h:.5f} ms cold-L2, "
+                  f"{warm_h:.5f} ms warm")
+        print(f"[conf-times]   {name}: ct read twice from device memory "
+              f"{twice / 1e6:.2f} MB, {twice / PEAK_BYTES_PER_S * 1e3:.5f} ms "
+              f"at {PEAK_BYTES_PER_S / 1e12} TB/s beside the bytes-once "
+              f"bound {bound_ms:.5f} ms; {smi}")
 
 
 def phase_conformers(smi: str, out_dir: Path) -> dict:

@@ -16,7 +16,7 @@ from infomax3d_tpu_torch.ops.kernels._build import (check_launch, launcher,
 from infomax3d_tpu_torch.ops.kernels.pair_segment_sum import pair_segment_sum
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P,) * 6 + (_I,) * 3 + (_P,)
+_ARGTYPES = (_P,) * 6 + (_I,) * 4 + (_P,)
 _SYMBOLS = {torch.bfloat16: "edge_combine_bf16",
             torch.float32: "edge_combine_f32"}
 
@@ -35,7 +35,9 @@ def edge_combine_reference(hd, hs, pe, receivers, senders):
     return (zd + zs + pe.float()).to(pe.dtype)
 
 
-def _launch(hd, hs, pe, receivers, senders):
+def _launch(hd, hs, pe, receivers, senders, wide: bool = False):
+    """The kernel on CUDA tensors; `wide` forces 64-bit index arithmetic
+    (the kernel takes it by itself where max(N, E) * D >= 2^31)."""
     refuse_grad("edge_combine", hd, hs, pe)
     if pe.dtype not in _SYMBOLS:
         raise TypeError(f"edge_combine: bf16 or float32, got {pe.dtype}")
@@ -50,10 +52,12 @@ def _launch(hd, hs, pe, receivers, senders):
     out = torch.empty_like(pe)
     if E == 0 or D == 0:
         return out
+    if N == 0:
+        raise ValueError("edge_combine: edges but no nodes")
     fn = launcher("edge_combine", _SYMBOLS[pe.dtype], _ARGTYPES)
     err = fn(hd.data_ptr(), hs.data_ptr(), pe.data_ptr(),
              receivers.data_ptr(), senders.data_ptr(), out.data_ptr(),
-             N, E, D, stream_of(pe))
+             N, E, D, int(wide), stream_of(pe))
     check_launch("edge_combine", err)
     edge_combine.launches += 1
     return out

@@ -15,7 +15,7 @@ from infomax3d_tpu_torch.ops.kernels._build import (check_launch, launcher,
 from infomax3d_tpu_torch.ops.kernels.csr_sum import slot_sums
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P,) * 6 + (_I,) * 2 + (_P,)
+_ARGTYPES = (_P,) * 6 + (_I,) * 4 + (_P,)
 _SYMBOLS = {torch.bfloat16: "pair_segment_sum_bf16",
             torch.float32: "pair_segment_sum_f32"}
 
@@ -29,7 +29,9 @@ def pair_segment_sum_reference(ct, row_ptr, csc_row_ptr, csc_perm):
             slot_sums(ct, csc_row_ptr, csc_perm).to(ct.dtype))
 
 
-def _launch(ct, row_ptr, csc_row_ptr, csc_perm):
+def _launch(ct, row_ptr, csc_row_ptr, csc_perm, wide: bool = False):
+    """The kernel on CUDA tensors; `wide` forces 64-bit index arithmetic
+    (the kernel takes it by itself where max(N, E) * D >= 2^31)."""
     refuse_grad("pair_segment_sum", ct)
     if ct.dtype not in _SYMBOLS:
         raise TypeError(f"pair_segment_sum: bf16 or float32, got {ct.dtype}")
@@ -40,15 +42,17 @@ def _launch(ct, row_ptr, csc_row_ptr, csc_perm):
     require(row_ptr, "row_ptr", torch.int32, (N + 1,), dev)
     require(csc_row_ptr, "csc_row_ptr", torch.int32, (N + 1,), dev)
     require(csc_perm, "csc_perm", torch.int32, (E,), dev)
-    out = torch.empty(2, N, D, dtype=ct.dtype, device=dev)
+    # two allocations, so both outputs are 16-byte aligned whatever N * D
+    d_hd, d_hs = (torch.empty(N, D, dtype=ct.dtype, device=dev)
+                  for _ in range(2))
     if N > 0 and D > 0:
         fn = launcher("pair_segment_sum", _SYMBOLS[ct.dtype], _ARGTYPES)
         err = fn(ct.data_ptr(), row_ptr.data_ptr(), csc_row_ptr.data_ptr(),
-                 csc_perm.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-                 N, D, stream_of(ct))
+                 csc_perm.data_ptr(), d_hd.data_ptr(), d_hs.data_ptr(),
+                 N, E, D, int(wide), stream_of(ct))
         check_launch("pair_segment_sum", err)
         pair_segment_sum.launches += 1
-    return out[0], out[1]
+    return d_hd, d_hs
 
 
 def pair_segment_sum(ct, row_ptr, csc_row_ptr, csc_perm):

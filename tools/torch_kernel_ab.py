@@ -1,29 +1,36 @@
 #!/usr/bin/env python3
-"""The three small CSR walks of the PyTorch/CUDA port, rows 1
-(`multi_reduce`), 3 (`csr_segment_sum`) and 4 (`snd_segment_sum`), and row
-7 (`csr_sum`, the control that shares row 3's source), measured in two
-trees of the repository on one card.
+"""The port's CSR kernels measured in two trees of the repository on one
+card: the three small CSR walks, rows 1 (`multi_reduce`), 3
+(`csr_segment_sum`) and 4 (`snd_segment_sum`); rows 5
+(`pair_segment_sum`) and 6 (`edge_combine`) at the bench and
+multi-conformer shapes; and row 7 (`csr_sum`), the control that shares
+row 3's source.
 
     python3 tools/torch_kernel_ab.py PARENT_ROOT CHANGE_ROOT [SUMMARY_JSON]
 
 runs, in the order parent, change, change, parent and each in a process of
-its own, that tree's `chip_smoke.py` phases 1 to 3, 11 and 14 (the kernels
-built and held against their plain versions); then the OT step of phase 15
-(`ot()`, float32) timed by CUDA events over 10 warm steps and profiled
-over 3 (kernels and device time per step, each port kernel's mean device
-time per launch in the step); then each row alone: rows 1, 3 and 4 at the
+its own, that tree's `chip_smoke.py` phases 1 to 3, 7, 11 and 14 and
+phase 18a at the QMugs conformer batch (the kernels built and held against
+their plain versions); then the OT step of phase 15 (`ot()`, float32)
+timed by CUDA events over 10 warm steps and profiled over 3 (kernels and
+device time per step, each port kernel's mean device time per launch in
+the step); then the QMugs bf16 multi-conformer step of phase 18 (PNA 200x7
+and the flat Net3D on 500 drug-size molecules with 3 conformers each)
+timed and profiled the same way (busy ms, kernels per step, rows 5, 6 and
+7's 3D launch in the step); then each row alone: rows 1, 3 and 4 at the
 OT shape (float32, D = 50), row 3 also in bf16 there, rows 1 and 3 at the
 bench shape (float32, D = 200), rows 3 (bf16), 4 and 7 (float32 and bf16)
-at the GIN shape (D = 300): cold-L2 and warm device times (CUDA events)
-and the mean device time in a profile of 50 back-to-back launches; then
-the tree's phase 16c (the launch floor and the ladder of the OT step's
-walks).  Each run also prints the order of loads (L), float ops (F),
-stores (S) and branches (b) in the SASS of every instantiation in the
-three kernels' libraries (`csr_sum` holds rows 7 and 3).  Each run's
-numbers end in one JSON line; the summary, with each run's printed lines
-(the SASS orders only there), goes to SUMMARY_JSON (default
-`CHANGE_ROOT/build/kernel_ab.json`).  Needs one CUDA card; the kernels of
-each tree build into that tree's `build/`.
+at the GIN shape (D = 300), rows 5 and 6 at the bench shape (bf16 and
+float32, D = 200) and rows 5, 6 and 7 at the QMugs conformer shape (bf16,
+D = 20): cold-L2 and warm device times (CUDA events) and the mean device
+time in a profile of 50 back-to-back launches; then the tree's phase 16c
+(the launch floor and the ladder of the OT step's walks).  Each run also
+prints the order of loads (L), float ops (F), stores (S) and branches (b)
+in the SASS of every instantiation in the five kernels' libraries
+(`csr_sum` holds rows 7 and 3).  Each run's numbers end in one JSON line;
+the summary, with each run's printed lines (the SASS orders only there),
+goes to SUMMARY_JSON (default `CHANGE_ROOT/build/kernel_ab.json`).  Needs
+one CUDA card; the kernels of each tree build into that tree's `build/`.
 """
 from __future__ import annotations
 
@@ -37,9 +44,11 @@ import subprocess
 import sys
 from pathlib import Path
 
-# the kernel libraries whose SASS is read: rows 1, 4, and 7 with 3
-LIBRARIES = ("multi_reduce", "snd_segment_sum", "csr_sum")
+# the kernel libraries whose SASS is read: rows 1, 4, 7 with 3, 6 and 5
+LIBRARIES = ("multi_reduce", "snd_segment_sum", "csr_sum", "edge_combine",
+             "pair_segment_sum")
 STEP_KERNELS = ("multi_reduce", "snd_segment_sum", "csr_segment_sum")
+CONF_KERNELS = ("pair_segment_sum", "edge_combine", "csr_sum")
 # (shape, dtype name, rows) of the alone times
 CASES = (("OT", "float32", ("multi_reduce", "csr_segment_sum",
                             "snd_segment_sum")),
@@ -47,7 +56,10 @@ CASES = (("OT", "float32", ("multi_reduce", "csr_segment_sum",
          ("bench", "float32", ("multi_reduce", "csr_segment_sum")),
          ("GIN", "float32", ("snd_segment_sum", "csr_sum")),
          ("GIN", "bfloat16", ("snd_segment_sum", "csr_segment_sum",
-                              "csr_sum")))
+                              "csr_sum")),
+         ("bench", "bfloat16", ("pair_segment_sum", "edge_combine")),
+         ("bench", "float32", ("pair_segment_sum", "edge_combine")),
+         ("QMugs", "bfloat16", CONF_KERNELS))
 
 
 def _sass_orders(name: str) -> dict:
@@ -85,9 +97,11 @@ def one(root: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
     import chip_smoke as cs
     from infomax3d_tpu_torch.ops.kernels import (csr_segment_sum, csr_sum,
-                                                 multi_reduce,
+                                                 edge_combine, multi_reduce,
+                                                 pair_segment_sum,
                                                  snd_segment_sum)
     from infomax3d_tpu_torch.train.ot import ot
+    from infomax3d_tpu_torch.train.pretrain import build_step
 
     smi = cs.phase_device()
     cs.phase_build()
@@ -98,9 +112,13 @@ def one(root: str) -> dict:
     g = cs.bench_batch()
     gg, _ = cs.gin_batch()
     ob, _ = cs.ot_slice_batch()
+    g2q, g3q, _ = cs.conformer_batch(cs.CONF_QMUGS, "cpu")
+    g2q, g3q = g2q.to("cuda"), g3q.to("cuda")
     cs.phase_kernels(g)
+    cs.phase_train_kernels(g)
     cs.phase_gin_kernels(gg)
     cs.phase_ot_kernels(ob, g)
+    cs.phase_conf_kernels(cs.CONF_QMUGS, g2q, g3q)
 
     out = ot(cs._ot_args(), steps=2)
     step, batch = out["step"], out["batch"]
@@ -120,6 +138,15 @@ def one(root: str) -> dict:
     by_name = cs._profile_kernels(prof)
     ported = cs._port_kernels(by_name)
     in_step = {k: us / c / 1e3 for k, (us, c) in ported.items()}
+    del out, step, batch
+
+    conf = build_step(cs._conf_args(True, cs.CONF_QMUGS),
+                      torch.device("cuda"))
+    ca, cb = conf.prepare(g2q, g3q)
+    conf_ms = cs.cuda_ms(lambda: conf.step(ca, cb), iters=10)
+    conf_prof = cs._conf_profile(conf, ca, cb, conf_ms, "QMugs bf16 step")
+    del conf, ca, cb
+    torch.cuda.empty_cache()
 
     def profiled(fn, needle, reps=50):
         """Mean device ms per launch of the kernels named like `needle` in
@@ -147,22 +174,29 @@ def one(root: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(11)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     shapes = {"OT": (ob.graph, cs.OT_WIDTH), "bench": (g, cs.WIDTH),
-              "GIN": (gg, cs.GIN_WIDTH)}
+              "GIN": (gg, cs.GIN_WIDTH), "QMugs": (g3q, cs.CONF_WIDTH)}
     calls = {
-        "multi_reduce": lambda x, gr: multi_reduce(x, gr.csr_row_ptr,
-                                                   gr.max_deg),
-        "csr_segment_sum": lambda x, gr: csr_segment_sum(x, gr.csr_row_ptr),
-        "snd_segment_sum": lambda x, gr: snd_segment_sum(x, gr.csc_row_ptr,
-                                                         gr.csc_perm),
-        "csr_sum": lambda x, gr: csr_sum(x, gr.csr_row_ptr)}
+        "multi_reduce": lambda x, h, gr: multi_reduce(x, gr.csr_row_ptr,
+                                                      gr.max_deg),
+        "csr_segment_sum": lambda x, h, gr: csr_segment_sum(x,
+                                                            gr.csr_row_ptr),
+        "snd_segment_sum": lambda x, h, gr: snd_segment_sum(
+            x, gr.csc_row_ptr, gr.csc_perm),
+        "csr_sum": lambda x, h, gr: csr_sum(x, gr.csr_row_ptr),
+        "pair_segment_sum": lambda x, h, gr: pair_segment_sum(
+            x, gr.csr_row_ptr, gr.csc_row_ptr, gr.csc_perm),
+        "edge_combine": lambda x, h, gr: edge_combine(
+            h[0], h[1], x, gr.receivers, gr.senders)}
     times = []
     for shape, dname, rows in CASES:
         gr, D = shapes[shape]
         dt = getattr(torch, dname)
         x = torch.randn(gr.senders.shape[0], D, generator=gen,
                         device="cuda").to(dt)
+        h = [torch.randn(gr.num_nodes, D, generator=gen,
+                         device="cuda").to(dt) for _ in range(2)]
         for row in rows:
-            fn = functools.partial(calls[row], x, gr)
+            fn = functools.partial(calls[row], x, h, gr)
             rec = {"shape": shape, "row": row, "dtype": str(dt), "D": D,
                    "cold_ms": cs.device_ms(fn, iters=20, flush=flush),
                    "warm_ms": cs.device_ms(fn, iters=100, warmup=10),
@@ -178,6 +212,11 @@ def one(root: str) -> dict:
             "busy_ms_per_ot_step": sum(us for us, _ in by_name.values())
             / n / 1e3,
             "in_step_ms": {k: in_step.get(k) for k in STEP_KERNELS},
+            "conf_step_ms": conf_ms,
+            "kernels_per_conf_step": conf_prof.get("kernels"),
+            "busy_ms_per_conf_step": conf_prof.get("busy_ms"),
+            "conf_in_step_ms": {k: conf_prof.get("in_step", {}).get(k)
+                                for k in CONF_KERNELS},
             "times": times, "sass": sass}
 
 
@@ -196,7 +235,7 @@ def main(argv) -> int:
                       ("change", change), ("parent", parent)):
         print(f"[ab] === {tag}: {root}", flush=True)
         proc = subprocess.run([sys.executable, __file__, "--one", root],
-                              capture_output=True, text=True, timeout=900)
+                              capture_output=True, text=True, timeout=1200)
         log = [line for line in proc.stdout.splitlines()
                if line.startswith(("[ab]", "[floor]", "NVIDIA"))]
         print("\n".join(line for line in log
@@ -214,7 +253,13 @@ def main(argv) -> int:
               f"{r['busy_ms_per_ot_step']:.4f} ms busy per step; in the "
               "step " + ", ".join(
                   f"{k} {'not measured' if v is None else f'{v:.6f}'} ms"
-                  for k, v in r["in_step_ms"].items()) + "; cold / warm / "
+                  for k, v in r["in_step_ms"].items()) + "; QMugs bf16 "
+              f"step {r['conf_step_ms']:.4f} ms, "
+              f"{r['kernels_per_conf_step']} kernels and "
+              f"{r['busy_ms_per_conf_step']} ms busy per step; in the step "
+              + ", ".join(
+                  f"{k} {'not measured' if v is None else f'{v:.6f}'} ms"
+                  for k, v in r["conf_in_step_ms"].items()) + "; cold / warm / "
               "alone " + ", ".join(
                   f"{row} {shape} {dt.split('.')[-1]} {x['cold_ms']:.5f} / "
                   f"{x['warm_ms']:.5f} / {x['alone_ms']} ms"
