@@ -57,8 +57,10 @@ its seconds:
 11. GIN kernels: the CSR sum and the sender-keyed segment sum (bf16,
    float32) against their plain versions at the GIN slice's batch (128
    synthetic molhiv-like molecules, seed 0: N = 3328, E = 7168, D = 300),
-   and at D = 302, a width that takes the other vector paths; the
-   multi-reduce on the same batch (`_hold_walks`).
+   and at D = 302, a width that takes the other vector paths, the CSR sum
+   also with 64-bit indices forced and on messages shifted off 16-byte
+   alignment (`_hold_csr_sum`); the multi-reduce on the same batch
+   (`_hold_walks`).
 12. GIN training: the supervised step of `configs/30.yml` (OGBGNN, GIN
    5x300 without a virtual node, sum pooling, BCEWithLogitsLoss, Adam lr
    1e-3, batch 128) through `supervised()`, 20 steps in bf16 and in
@@ -108,11 +110,12 @@ its seconds:
    with the flat Net3D (hidden 20, 1 layer, mean) on the CSR batch of each
    molecule's C conformer complete graphs, NTXentMultiplePositives tau
    0.1, Adam lr 8e-5, batch 500 synthetic molecules of 20 to 70 atoms.
-   (a) rows 5, 6 and 7 at both conformer batches (in-degree up to 69,
-   D = 20) in bf16 and float32, bit for bit against their plain versions
-   with padding edges ignored, rows 5 and 6 also at D = 21 and on every
-   path their launchers pick (as in phases 3 and 7), each with the path
-   it takes; the 2D side's kernels at the drug-size 2D batch; (b) 20
+   (a) rows 5, 6 and 7 at both conformer batches (in-degree up to 69)
+   at D = 20 and 21 in bf16 and float32, bit for bit against their plain
+   versions with padding edges ignored, on every path their launchers
+   pick (as in phases 3 and 7; row 7 through its stream there and through
+   its walk at the drug-size 2D batch, `_hold_csr_sum`), each with the
+   path it takes; the 2D side's kernels at the drug-size 2D batch; (b) 20
    bf16 and 20 float32 QMugs steps and 10 of each GEOM-Drugs step through
    `pretrain()` (launches per step, loss over the steps); one bf16 and one
    float32 QMugs step on the card against the CPU under phase 8's bounds,
@@ -121,8 +124,8 @@ its seconds:
    step, graphs/s, edges/s (2D + 3D), peak `max_memory_allocated`, the
    profile (busy and idle share, kernels per step) and rows 5, 6 and 7's
    times at the conformer shape beside their bounds and `index_add_`
-   (row 5 also beside its bytes with ct read twice, and each of its
-   halves alone);
+   (row 7 in bf16 and float32; row 5 also beside its bytes with ct read
+   twice, and each of its halves alone);
    (c) `load_config` + `train` of `pre-train_QMugs.yml` in bf16, 1 epoch
    of 2 steps on 5000 synthetic drug-size molecules, launches from the
    steps and eval forwards.
@@ -1341,13 +1344,13 @@ def _profile_kernels(prof):
     return by_name
 
 
-# kernel names of each wrapper in a profile
+# kernel names of each wrapper in a profile (a call launches one of them)
 PROFILE_NAMES = {"edge_combine": ("edge_combine_kernel",),
                  "pna_stats": ("pna_stats_kernel",),
                  "multi_reduce": ("multi_reduce_kernel",),
                  "pair_segment_sum": ("pair_segment_sum_kernel",),
                  "pna_stats_bwd": ("pna_stats_bwd_kernel",),
-                 "csr_sum": ("csr_sum_kernel",),
+                 "csr_sum": ("csr_sum_kernel", "csr_sum_stream_kernel"),
                  "snd_segment_sum": ("snd_segment_sum_kernel",),
                  "csr_segment_sum": ("csr_segment_sum_kernel",)}
 
@@ -1361,7 +1364,7 @@ def _port_kernels(by_name: dict) -> dict:
                 if any(nd in nm for nd in needles)]
         if hits:
             us, c = map(sum, zip(*hits))
-            out[kname] = (us, c / len(needles))
+            out[kname] = (us, c)
     return out
 
 
@@ -1525,34 +1528,86 @@ def _vector_path(dtype: torch.dtype, D: int) -> str:
             else "element-wise")
 
 
+def _sum_path(dtype: torch.dtype, D: int, N: int, E: int,
+              aligned: bool = True) -> str:
+    """The path csr_sum's launcher picks (`stream_path` in
+    csrc/csr_sum.cu): the stream, each tile's rows staged in shared
+    memory, where E >= 8 N and a node's column vectors fit one block of
+    128 threads; else the walk; with its vector (element-wise where the
+    messages are not 16-byte aligned)."""
+    vec = _vec_elems(dtype, D) if aligned else 1
+    stream = E >= 8 * N and D // vec <= 128
+    return (f"{'stream' if stream else 'walk'}, "
+            f"{_vector_path(dtype, D) if aligned else 'element-wise'}")
+
+
+def _hold_csr_sum(phase: str, gen, g, widths) -> list:
+    """Row 7 (`csr_sum`) against its plain version on `g`'s edges at each
+    width, bf16 and float32, on every path its launcher picks
+    (`_sum_path`): the public wrapper; the raw launch with 64-bit indices
+    forced; and the real rows shifted by one element (not 16-byte aligned:
+    element-wise vectors, and on the stream the tensor's partial first and
+    last words moved element by element) over the first N - 1 nodes, the
+    last of which, a padding node, ends at the tensor's end.  All sum the
+    same float32 terms in slot order -> bit-exact.  Padding edges,
+    their rows set to 1e4, must not count (a sum of at most 69 standard
+    normals stays far below one such row); nodes without edges get 0.
+    Returns the (kernel, plain) pairs."""
+    mod = importlib.import_module("infomax3d_tpu_torch.ops.kernels.csr_sum")
+    N, E = g.num_nodes, g.senders.shape[0]
+    rp = g.csr_row_ptr
+    e_real = int(rp[-1])
+    empty = (rp[1:] - rp[:-1]) == 0
+    _check(bool(empty[-1]) and e_real < E,
+           f"csr_sum {phase}: padding nodes and padding edges")
+    pairs = []
+    for D in widths:
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(E, D, generator=gen, device="cuda").to(dt)
+            x[e_real:] = 1e4
+            xs = _shifted(x[:e_real + 1])
+            runs = (("public wrapper", csr_sum, (x, rp),
+                     _sum_path(dt, D, N, E)),
+                    ("64-bit indices",
+                     lambda *a: mod._launch(*a, wide=True), (x, rp),
+                     _sum_path(dt, D, N, E)),
+                    ("real rows shifted by one element", csr_sum,
+                     (xs, rp[:-1]),
+                     _sum_path(dt, D, N - 1, e_real, aligned=False)))
+            for run, fn, args, path in runs:
+                k = fn(*args)
+                ref = csr_sum_reference(*args)
+                torch.cuda.synchronize()
+                tag = f"csr_sum {phase} D={D} {dt} {run} ({path})"
+                _check(k.dtype == torch.float32 and torch.equal(k, ref),
+                       f"{tag}: not bit-exact")
+                pairs.append((k, ref))
+                if run != "real rows shifted by one element":
+                    _check(bool((k[empty] == 0).all()),
+                           f"{tag}: nonzero on nodes without edges")
+                    _check(float(k.abs().max()) < 1e3,
+                           f"{tag}: a padding row counted")
+            print(f"[{phase}] csr_sum D={D} {dt}: bit-exact through "
+                  + ", ".join(f"{run} ({path})" for run, _, _, path in runs)
+                  + "; padding edges ignored, degree 0 gives 0")
+    return pairs
+
+
 def phase_gin_kernels(g) -> dict:
     """Phase 11: the CSR sum and the sender-keyed segment sum against their
     plain versions on the same CUDA tensors, at the slice's width (300: the
     8-byte path in bf16, 16-byte in float32) and at 302 (element-wise in
-    bf16, 8-byte in float32).  The CSR sum sums the same rows in float32 in
-    slot order -> bit-exact; the segment sum and the multi-reduce (on the
-    same batch) are held by `_hold_walks`."""
+    bf16, 8-byte in float32).  The CSR sum (`_hold_csr_sum`: its walk at
+    this batch's in-degree) sums the same rows in float32 in slot order ->
+    bit-exact; the segment sum and the multi-reduce (on the same batch)
+    are held by `_hold_walks`."""
     N, E = g.num_nodes, g.senders.shape[0]
     print(f"[gin-kernels] N={N} E={E} (real {int(g.csr_row_ptr[-1])}) "
           f"max in-degree {g.max_deg}")
     gen = torch.Generator(device="cuda").manual_seed(4)
-    deg0 = (g.csr_row_ptr[1:] - g.csr_row_ptr[:-1]) == 0
-    _check(bool(deg0.any()), "GIN batch has padding nodes")
     widths = (GIN_WIDTH, GIN_WIDTH + 2)
-    pairs = []
-    for D in widths:
-        for dt in (torch.bfloat16, torch.float32):
-            m = torch.randn(E, D, generator=gen, device="cuda").to(dt)
-            k, r = csr_sum(m, g.csr_row_ptr), csr_sum_reference(
-                m, g.csr_row_ptr)
-            torch.cuda.synchronize()
-            tag = f"D={D} {dt} ({_vector_path(dt, D)} path)"
-            _check(k.dtype == torch.float32 and torch.equal(k, r),
-                   f"csr_sum {tag}: not bit-exact")
-            _check(bool((k[deg0] == 0).all()), f"csr_sum {tag}: degree 0")
-            pairs.append((k, r))
-            print(f"[gin-kernels] csr_sum {tag}: bit-exact")
-    errs = {"csr_sum": _max_err(pairs)}
+    errs = {"csr_sum": _max_err(_hold_csr_sum("gin-kernels", gen, g,
+                                              widths))}
     print(f"[gin-kernels] csr_sum: agrees with its plain version (max "
           f"|kernel - plain| = {errs['csr_sum']:.3g})")
     errs.update(_hold_walks(
@@ -2637,10 +2692,11 @@ def phase_conf_kernels(tag: str, g2, g3) -> dict:
     in-degree up to n_max - 1), rows 6 and 5 on every path their launchers
     pick at D = 20 (the step's: 8-byte pieces in bf16) and D = 21
     (element-wise gathers) in bf16 and float32, and row 7 (`csr_sum`) at
-    D = 20.  All sum the same float32 terms in the same order and round
-    once -> bit-exact.  Padding edges, set to 1e4 in the inputs, must not
-    count: rows 5 and 7 read no row past the ranges, and row 6 gives a
-    padding edge its own `pe` row alone."""
+    both widths on every path its launcher picks (`_hold_csr_sum`: the
+    stream at `g3`, the walk at `g2`).  All sum the same float32 terms in
+    the same order and round once -> bit-exact.  Padding edges, set to 1e4
+    in the inputs, must not count: rows 5 and 7 read no row past the
+    ranges, and row 6 gives a padding edge its own `pe` row alone."""
     gen2 = torch.Generator(device="cuda").manual_seed(17)
     E2, K2 = g2.senders.shape[0], g2.max_deg
     print(f"[conf-kernels] {tag} 2D batch: N={g2.num_nodes} E={E2} (real "
@@ -2668,21 +2724,9 @@ def phase_conf_kernels(tag: str, g2, g3) -> dict:
                 f"conf-kernels {tag}", gen, g3, widths)),
             "pair_segment_sum": _max_err(_hold_pair_segment_sum(
                 f"conf-kernels {tag}", gen, g3, widths))}
-    pairs = []
-    for dt in (torch.bfloat16, torch.float32):
-        ct = torch.randn(E, D, generator=gen, device="cuda").to(dt)
-        ct[e_real:] = 1e4
-        k = csr_sum(ct, g3.csr_row_ptr)
-        r = csr_sum_reference(ct, g3.csr_row_ptr)
-        torch.cuda.synchronize()
-        _check(torch.equal(k, r), f"csr_sum {tag} {dt}: not bit-exact")
-        # a sum of <= 69 standard normals stays far below one 1e4 row
-        _check(float(k.abs().max()) < 1e3,
-               f"csr_sum {tag} {dt}: a padding row counted")
-        pairs.append((k, r))
-        print(f"[conf-kernels] csr_sum {tag} D={D} {dt} "
-              f"({_vector_path(dt, D)} path): bit-exact")
-    errs["csr_sum"] = _max_err(pairs)
+    errs["csr_sum"] = _max_err(
+        _hold_csr_sum(f"conf-kernels {tag}", gen, g3, widths)
+        + _hold_csr_sum(f"conf-kernels {tag} 2D batch", gen, g2, widths))
     _merge_errs(errs, errs2)
     return errs
 
@@ -2745,12 +2789,15 @@ def _dropped_csr_mean_gradient():
 def _conf_instantiation(kname: str) -> str:
     """The start of the profiler's name of the instantiation that rows 5,
     6 and 7 take on the 3D side (bf16, D = 20, 32-bit indices): the
-    8-byte vector of `vec_width`, and for row 6 its 16-byte flat word."""
+    8-byte vector of `vec_width`, for row 6 its 16-byte flat word, for row
+    7 its stream."""
     vec = _vec_elems(torch.bfloat16, CONF_WIDTH)
-    args = {"pair_segment_sum": f"{vec}, unsigned int>",
-            "edge_combine": f"{vec}, 8, unsigned int>",
-            "csr_sum": f"{vec}>"}[kname]
-    return f"{PROFILE_NAMES[kname][0]}<__nv_bfloat16, {args}"
+    name, args = {
+        "pair_segment_sum": ("pair_segment_sum_kernel",
+                             f"{vec}, unsigned int>"),
+        "edge_combine": ("edge_combine_kernel", f"{vec}, 8, unsigned int>"),
+        "csr_sum": ("csr_sum_stream_kernel", f"{vec}, unsigned int>")}[kname]
+    return f"{name}<__nv_bfloat16, {args}"
 
 
 def _conf_profile(step, a, b, ms: float, tag: str, n: int = 3) -> dict:
@@ -2826,9 +2873,28 @@ def _conf_time(config: str, sizes: dict, batches: dict, smi: str) -> dict:
     return out
 
 
+def _read_ms(nbytes: int, flush) -> tuple:
+    """Cold-L2 and warm device ms of `read_probe` (csrc/csr_sum.cu), a
+    plain read of `nbytes` from a fresh buffer: the least time a kernel
+    that reads that many bytes takes under `device_ms`."""
+    fn = launcher("csr_sum", "read_probe", (ctypes.c_void_p,
+                                            ctypes.c_longlong,
+                                            ctypes.c_void_p, ctypes.c_void_p))
+    buf = torch.empty(nbytes // 16 * 16, dtype=torch.uint8, device="cuda")
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def call():
+        err = fn(buf.data_ptr(), buf.numel(), out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        _check(err == 0, f"read_probe launch failed ({err})")
+    return (device_ms(call, iters=10, flush=flush),
+            device_ms(call, iters=50, warmup=5))
+
+
 def _conf_kernel_times(g3, in_step: dict, smi: str):
     """Rows 5, 6 and 7 at the conformer shape in the step's variant (bf16,
-    D = 20): cold-L2 and warm device time, the plain version, the nearest
+    D = 20; row 7 also in float32, the float32 step's 80-byte rows): cold-L2
+    and warm device time, the plain version, the nearest
     PyTorch call (float32 `index_add_` by receiver, and by sender for row
     5's second half; row 6 has none), the bound (bytes over the H100's
     memory rate, operations over its float32 rate).  Row 5's bound counts
@@ -2846,6 +2912,7 @@ def _conf_kernel_times(g3, in_step: dict, smi: str):
               for _ in range(2))
     pe = torch.randn(E, D, generator=gen, device="cuda").to(bf)
     ctf = ct.float()
+    ct32 = torch.randn(E, D, generator=gen, device="cuda")
     recv = g3.receivers.long().clamp(max=N)
     send = g3.senders.long().clamp(max=N)
     acc = torch.zeros(N + 1, D, device="cuda")
@@ -2874,6 +2941,12 @@ def _conf_kernel_times(g3, in_step: dict, smi: str):
             e_real * D * 2 + (N + 1) * 4 + N * D * 4, 1.0 * e_real * D,
             lambda: acc.zero_().index_add_(0, recv, ctf),
             "one float32 index_add_"),
+        "csr_sum float32": (
+            lambda: csr_sum(ct32, g3.csr_row_ptr),
+            lambda: csr_sum_reference(ct32, g3.csr_row_ptr),
+            e_real * D * 4 + (N + 1) * 4 + N * D * 4, 1.0 * e_real * D,
+            lambda: acc.zero_().index_add_(0, recv, ct32),
+            "one float32 index_add_"),
     }
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     for name, (kern, plain, nbytes, flops, lib, note) in cases.items():
@@ -2883,13 +2956,22 @@ def _conf_kernel_times(g3, in_step: dict, smi: str):
         lib_ms = device_ms(lib, iters=50, warmup=5) if lib else None
         bound_ms, bound_by = _bound(nbytes, flops)
         step_ms = in_step.get(name)
-        print(f"[conf-times] {name} (bf16, D={D}, conformer shape N={N} "
-              f"E={E}): device {ms:.5f} ms cold-L2 median, {warm:.5f} ms "
+        variant = "float32" if name.endswith("float32") else "bf16"
+        print(f"[conf-times] {name.split()[0]} ({variant}, D={D}, conformer "
+              f"shape N={N} E={E}): device {ms:.5f} ms cold-L2 median, "
+              f"{warm:.5f} ms "
               f"warm, {_fmt(step_ms)} in the step (the 3D launch); plain "
               f"{plain_ms:.5f} ms; library {_fmt(lib_ms)} ({note}); bound "
               f"{bound_ms:.5f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
               f"{flops / 1e6:.1f} MFLOP f32); {bound_ms / ms:.2f} of the "
               f"bound cold; {smi}")
+        if name.startswith("csr_sum"):
+            read_ms = _read_ms(e_real * D * (4 if variant == "float32" else 2),
+                               flush)
+            print(f"[conf-times]   csr_sum ({variant}): a plain read of its "
+                  f"messages' real rows (`read_probe`) {read_ms[0]:.5f} ms "
+                  f"cold-L2, {read_ms[1]:.5f} ms warm: {read_ms[0] / ms:.2f} "
+                  f"of the kernel's time cold")
         if name != "pair_segment_sum":
             continue
         twice = nbytes + e_real * D * 2

@@ -15,7 +15,7 @@ from infomax3d_tpu_torch.ops.kernels._build import (check_launch, launcher,
                                                     stream_of)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P,) * 3 + (_I,) * 2 + (_P,)
+_ARGTYPES = (_P,) * 3 + (_I,) * 4 + (_P,)
 _SYMBOLS = {torch.float32: "csr_sum_f32", torch.bfloat16: "csr_sum_bf16"}
 
 
@@ -54,9 +54,12 @@ def csr_sum_reference(messages, row_ptr):
     return slot_sums(messages, row_ptr)
 
 
-def _launch(messages, row_ptr):
+def _launch(messages, row_ptr, wide=False):
     """The kernel on CUDA tensors: `messages [E, D]`, `row_ptr [N + 1]`
-    int32 -> float32 [N, D]."""
+    int32 -> float32 [N, D].  The kernel takes its path from N, E and D
+    (`stream_path` in csrc/csr_sum.cu: the stream where E >= 8 N, else
+    the walk) and picks 32-bit or 64-bit indices itself; `wide` forces
+    64-bit (the card check's way to that path)."""
     refuse_grad("csr_sum", messages)
     E, D = messages.shape
     N = row_ptr.shape[0] - 1
@@ -67,7 +70,7 @@ def _launch(messages, row_ptr):
     if N > 0 and D > 0:
         fn = launcher("csr_sum", _SYMBOLS[messages.dtype], _ARGTYPES)
         err = fn(messages.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), N,
-                 D, stream_of(messages))
+                 E, D, int(wide), stream_of(messages))
         check_launch("csr_sum", err)
         csr_sum.launches += 1
     return out

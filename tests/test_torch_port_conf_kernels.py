@@ -1,11 +1,12 @@
-"""Rows 6 (`edge_combine`) and 5 (`pair_segment_sum`) at the shape of the
-multi-conformer step's 3D side: complete graphs of C conformers per
-molecule, packed molecule-major in one CSR batch, at the flat Net3D's
-width D = 20 (40-byte bf16 rows, which the kernels gather in 8-byte
-pieces) and at D = 21 (42-byte rows, which fit no word: element-wise
-gathers).  Each plain twin against the JAX package's Pallas kernel in
-interpret mode (bf16) or against XLA's gathers and segment sums (float32),
-and the arguments the wrappers pass to the kernels.
+"""Rows 6 (`edge_combine`), 5 (`pair_segment_sum`) and 7 (`csr_sum`) at
+the shape of the multi-conformer step's 3D side: complete graphs of C
+conformers per molecule, packed molecule-major in one CSR batch, at the
+flat Net3D's width D = 20 (40-byte bf16 rows, which the kernels gather in
+8-byte pieces) and at D = 21 (42-byte rows, which fit no word:
+element-wise gathers).  Each plain twin against the JAX package's Pallas
+kernel in interpret mode (bf16; row 7 in both dtypes) or against XLA's
+gathers and segment sums (float32), and the arguments the wrappers pass
+to the kernels.
 
 The batch: 4 synthetic molecules of 12 to 24 atoms (seed 3) with C = 3
 conformers each, their 12 complete graphs in a bucket with padding nodes
@@ -14,7 +15,12 @@ package's batchers.  Tolerances: the bf16 twins and Pallas kernels sum the
 same bf16 terms in float32 and round once: equal.  The float32 edge
 combine adds the same three terms in the same order as XLA's take + take +
 add: equal.  The float32 pair sum adds in slot order, XLA's segment sum in
-its own: 1e-6 relative.
+its own: 1e-6 relative.  The CSR sum's twin adds a node's up to 23 rows in
+slot order in float32, the Pallas `csr_sum` through a 0/1 incidence
+matmul (interpret mode: XLA's float32 dot, whose order may differ): 1e-6
+relative plus 1e-6 of the largest sum, for sums that cancel, as in
+`tests/test_torch_port_gin.py` at in-degree 4; its gradient, a gather of
+the cotangent at each edge's receiver, equals `jax.vjp`'s exactly.
 """
 import jax
 import jax.numpy as jnp
@@ -26,9 +32,11 @@ from infomax3d_tpu.graphs.batch import BucketSpec as JaxBucket
 from infomax3d_tpu.graphs.batch import batch_graphs as jax_batch_graphs
 from infomax3d_tpu.ops.pallas.spmm import (_csr_edge_combine_raw,
                                            pair_segment_sum_bf16)
+from infomax3d_tpu.ops.pallas.spmm import csr_sum as jax_csr_sum
 from infomax3d_tpu_torch.data.synthetic import SyntheticMolecules
 from infomax3d_tpu_torch.graphs.batch import batch_graphs, bucket_for
-from infomax3d_tpu_torch.ops.kernels import (_build, edge_combine,
+from infomax3d_tpu_torch.ops.kernels import (_build, csr_sum,
+                                             csr_sum_reference, edge_combine,
                                              edge_combine_reference,
                                              pair_segment_sum,
                                              pair_segment_sum_reference)
@@ -159,6 +167,46 @@ def test_pair_segment_sum_f32_matches_segment_sum_at_the_conformer_batch(
                                    atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("D", WIDTHS)
+def test_csr_sum_matches_pallas_at_the_conformer_batch(conf, D, dtype):
+    """The twin against the JAX `csr_sum` (Pallas, interpret mode) at the
+    conformer batch, padding rows set to 1e4 in both inputs: 1e-6 relative
+    plus 1e-6 of the max (module docstring); the same sums as with the
+    padding rows zeroed (never read); degree-0 nodes get 0; the gradient
+    equals `jax.vjp`'s, 0 on padding edges."""
+    arr, b, _ = conf
+    N, E = b.n_nodes, b.n_edges
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    rng = np.random.default_rng(70 + D)
+    m = _bf16(rng.normal(size=(E, D))).copy()
+    e_real = int(arr["csr_row_ptr"][-1])
+    m[e_real:] = 1e4
+    ct = rng.normal(size=(N, D)).astype(np.float32)
+    rp, recv = jnp.asarray(arr["csr_row_ptr"]), jnp.asarray(arr["receivers"])
+    want, vjp = jax.vjp(lambda x: jax_csr_sum(x, rp, recv, b.max_deg, True),
+                        jnp.asarray(m, jdt))
+    tm = _t(m).to(tdt).requires_grad_()
+    trp = _t(arr["csr_row_ptr"])
+    got = csr_sum(tm, trp, _t(arr["receivers"]))
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    assert got.shape == (N, D)
+    w = np.asarray(want)
+    np.testing.assert_allclose(got.detach().numpy(), w, rtol=1e-6,
+                               atol=1e-6 * np.abs(w).max())
+    assert np.abs(w).max() < 1e3          # no padding row entered a sum
+    zeroed = tm.detach().clone()
+    zeroed[e_real:] = 0
+    assert torch.equal(got.detach(), csr_sum_reference(zeroed, trp))
+    empty = np.diff(arr["csr_row_ptr"]) == 0
+    assert empty.any() and (got.detach().numpy()[empty] == 0).all()
+    got.backward(_t(ct))
+    d_want = np.asarray(vjp(jnp.asarray(ct))[0], np.float32)
+    assert tm.grad.dtype == tdt
+    np.testing.assert_array_equal(tm.grad.float().numpy(), d_want)
+    assert (tm.grad.float().numpy()[e_real:] == 0).all()
+
+
 # --- the card path's arguments ----------------------------------------------
 
 
@@ -169,7 +217,7 @@ def _fake_launches(monkeypatch):
     import importlib
     monkeypatch.setattr(_build, "on_card", lambda t, name: True)
     calls = []
-    for name in ("edge_combine", "pair_segment_sum"):
+    for name in ("edge_combine", "pair_segment_sum", "csr_sum"):
         m = importlib.import_module(f"infomax3d_tpu_torch.ops.kernels.{name}")
 
         def fake_launcher(name, symbol, argtypes):
@@ -186,32 +234,68 @@ def _fake_launches(monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wrappers_pass_their_shapes_to_the_kernel(conf, monkeypatch, dtype):
     """Each public wrapper launches once with exactly its C signature's
-    arguments: N, E, D, then 0 (the kernel picks 32-bit or 64-bit indices
-    itself), the stream last; the pair sum's two outputs are separate
-    allocations; each launch is counted once."""
+    arguments: N, E, D, then 0 (the kernel picks 32-bit or 64-bit indices,
+    and row 7 its path, itself), the stream last; the pair sum's two
+    outputs are separate allocations; row 7's output is float32; each
+    launch is counted once."""
     arr, b, _ = conf
     calls = _fake_launches(monkeypatch)
     D = WIDTHS[0]
     x = torch.zeros(b.n_edges, D, dtype=dtype)
     h = torch.zeros(b.n_nodes, D, dtype=dtype)
-    before = (edge_combine.launches, pair_segment_sum.launches)
+    before = (edge_combine.launches, pair_segment_sum.launches,
+              csr_sum.launches)
     edge_combine(h, h, x, _t(arr["receivers"]), _t(arr["senders"]))
     d_hd, d_hs = pair_segment_sum(x, _t(arr["csr_row_ptr"]),
                                   _t(arr["csc_row_ptr"]),
                                   _t(arr["csc_perm"]))
+    s = csr_sum(x, _t(arr["csr_row_ptr"]))
     suffix = "f32" if dtype == torch.float32 else "bf16"
-    (s6, a6), (s5, a5) = calls
-    assert (s6, s5) == (f"edge_combine_{suffix}",
-                        f"pair_segment_sum_{suffix}")
+    (s6, a6), (s5, a5), (s7, a7) = calls
+    assert (s6, s5, s7) == (f"edge_combine_{suffix}",
+                            f"pair_segment_sum_{suffix}",
+                            f"csr_sum_{suffix}")
     assert a6[6:] == (b.n_nodes, b.n_edges, D, 0, 7)
     assert a5[6:] == (b.n_nodes, b.n_edges, D, 0, 7)
     assert a5[4:6] == (d_hd.data_ptr(), d_hs.data_ptr())
     assert d_hd.shape == d_hs.shape == (b.n_nodes, D)
-    assert (edge_combine.launches, pair_segment_sum.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert a7[2:] == (s.data_ptr(), b.n_nodes, b.n_edges, D, 0, 7)
+    assert s.dtype == torch.float32 and s.shape == (b.n_nodes, D)
+    assert (edge_combine.launches, pair_segment_sum.launches,
+            csr_sum.launches) == tuple(n + 1 for n in before)
 
 
-@pytest.mark.parametrize("row", ["edge_combine", "pair_segment_sum"])
+def _bond_batch():
+    """Port arrays and bucket of 12 molecules' bond graphs (in-degree up
+    to 4)."""
+    ds = SyntheticMolecules(12, **DATA)
+    graphs = [ds.graph2d(i) for i in range(12)]
+    b = bucket_for(graphs, 12)
+    return batch_graphs(graphs, b), b
+
+
+@pytest.mark.parametrize("side", ["stream", "walk"])
+def test_csr_sum_passes_its_shape_on_either_side_of_the_path_rule(
+        conf, monkeypatch, side):
+    """Row 7's launcher picks its path from N, E and D (the stream where
+    E >= 8 N, the walk below): on either side, the conformer batch (E =
+    11 N) and a batch of bond graphs (E = 2 N), the wrapper passes the
+    batch's N, E (padding edges counted), D, 0 and the stream, once per
+    call."""
+    arr, b = conf[:2] if side == "stream" else _bond_batch()
+    N, E = b.n_nodes, b.n_edges
+    assert (E >= 8 * N) == (side == "stream")
+    calls = _fake_launches(monkeypatch)
+    before = csr_sum.launches
+    for D in WIDTHS:
+        csr_sum(torch.zeros(E, D), _t(arr["csr_row_ptr"]))
+    assert [(sym, args[3:]) for sym, args in calls] == [
+        ("csr_sum_f32", (N, E, D, 0, 7)) for D in WIDTHS]
+    assert csr_sum.launches == before + len(WIDTHS)
+
+
+@pytest.mark.parametrize("row", ["edge_combine", "pair_segment_sum",
+                                 "csr_sum"])
 def test_launch_forces_64bit_indices(conf, monkeypatch, row):
     """`_launch(..., wide=True)`, the card check's way to the 64-bit path,
     passes 1 in the index-width argument."""
@@ -224,9 +308,11 @@ def test_launch_forces_64bit_indices(conf, monkeypatch, row):
         h = torch.zeros(b.n_nodes, WIDTHS[0])
         mod._launch(h, h, x, _t(arr["receivers"]), _t(arr["senders"]),
                     wide=True)
-    else:
+    elif row == "pair_segment_sum":
         mod._launch(x, _t(arr["csr_row_ptr"]), _t(arr["csc_row_ptr"]),
                     _t(arr["csc_perm"]), wide=True)
+    else:
+        mod._launch(x, _t(arr["csr_row_ptr"]), wide=True)
     (_, args), = calls
     assert args[-2:] == (1, 7)
 

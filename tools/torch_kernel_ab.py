@@ -3,34 +3,51 @@
 card: the three small CSR walks, rows 1 (`multi_reduce`), 3
 (`csr_segment_sum`) and 4 (`snd_segment_sum`); rows 5
 (`pair_segment_sum`) and 6 (`edge_combine`) at the bench and
-multi-conformer shapes; and row 7 (`csr_sum`), the control that shares
-row 3's source.
+multi-conformer shapes; and row 7 (`csr_sum`) at the GIN and
+multi-conformer shapes.
 
     python3 tools/torch_kernel_ab.py PARENT_ROOT CHANGE_ROOT [SUMMARY_JSON]
+        [--extra ROOT ...]
+    python3 tools/torch_kernel_ab.py --variant rows4|rows8 SOURCE_ROOT DEST
 
-runs, in the order parent, change, change, parent and each in a process of
-its own, that tree's `chip_smoke.py` phases 1 to 3, 7, 11 and 14 and
-phase 18a at the QMugs conformer batch (the kernels built and held against
-their plain versions); then the OT step of phase 15 (`ot()`, float32)
-timed by CUDA events over 10 warm steps and profiled over 3 (kernels and
-device time per step, each port kernel's mean device time per launch in
-the step); then the QMugs bf16 multi-conformer step of phase 18 (PNA 200x7
-and the flat Net3D on 500 drug-size molecules with 3 conformers each)
-timed and profiled the same way (busy ms, kernels per step, rows 5, 6 and
-7's 3D launch in the step); then each row alone: rows 1, 3 and 4 at the
-OT shape (float32, D = 50), row 3 also in bf16 there, rows 1 and 3 at the
-bench shape (float32, D = 200), rows 3 (bf16), 4 and 7 (float32 and bf16)
-at the GIN shape (D = 300), rows 5 and 6 at the bench shape (bf16 and
-float32, D = 200) and rows 5, 6 and 7 at the QMugs conformer shape (bf16,
-D = 20): cold-L2 and warm device times (CUDA events) and the mean device
-time in a profile of 50 back-to-back launches; then the tree's phase 16c
-(the launch floor and the ladder of the OT step's walks).  Each run also
-prints the order of loads (L), float ops (F), stores (S) and branches (b)
-in the SASS of every instantiation in the five kernels' libraries
-(`csr_sum` holds rows 7 and 3).  Each run's numbers end in one JSON line;
-the summary, with each run's printed lines (the SASS orders only there),
-goes to SUMMARY_JSON (default `CHANGE_ROOT/build/kernel_ab.json`).  Needs
-one CUDA card; the kernels of each tree build into that tree's `build/`.
+The first form runs, in the order parent, each extra tree, change, change,
+each extra tree in reverse, parent, and each in a process of its own, that
+tree's `chip_smoke.py` phases 1 to 3, 7, 11 and 14 and phase 18a at the
+QMugs conformer batch (the kernels built and held against their plain
+versions); then the OT step of phase 15 (`ot()`, float32) timed by CUDA
+events over 10 warm steps and profiled over 3 (kernels and device time per
+step, each port kernel's mean device time per launch in the step); then
+the bf16 GIN step of phase 12 (OGBGNN 5x300, batch 128) timed over 20 warm
+steps and profiled over 5 (row 7's and row 4's mean device time per launch
+in the step); then the QMugs bf16 multi-conformer step of phase 18 (PNA
+200x7 and the flat Net3D on 500 drug-size molecules with 3 conformers
+each) timed and profiled as the OT step (busy ms, kernels per step, rows
+5, 6 and 7's 3D launch in the step); then each row alone: rows 1, 3 and 4
+at the OT shape (float32, D = 50), row 3 also in bf16 there, rows 1 and 3
+at the bench shape (float32, D = 200), rows 3 (bf16), 4 and 7 (float32
+and bf16) at the GIN shape (D = 300), rows 5 and 6 at the bench shape
+(bf16 and float32, D = 200), rows 5, 6, 7 and 3 (row 7's control: the
+same sum from device memory, stored in bf16) at the QMugs conformer shape
+in bf16 (D = 20) and row 7 there in float32: cold-L2 and warm device
+times (CUDA events) and the mean device time in a profile of 50
+back-to-back launches; where the tree has it, a plain read of row 7's
+QMugs rows (`read_probe`, bf16 and float32 sizes) the same way; then the
+tree's phase 16c (the launch floor and the ladder of the OT step's
+walks).  Each run also prints the order of global loads (L), shared loads
+(l), asynchronous and bulk copies (A, T), float ops (F), stores (S) and
+branches (b) in the SASS of every instantiation in the five kernels'
+libraries (`csr_sum` holds rows 7 and 3).  Each run's numbers end in one
+JSON line; the summary, with each run's printed lines (the SASS orders
+only there), goes to SUMMARY_JSON (default
+`CHANGE_ROOT/build/kernel_ab.json`).  Needs one CUDA card; the kernels of
+each tree build into that tree's `build/`.
+
+The second form writes DEST, a copy of SOURCE_ROOT (without `build/` and
+`chiprun_out/`) whose row 7 takes, on its long-range path, the walk of
+row 3 (`walk_rows` from device memory at U = 4 or 8 slots a chunk, one
+thread per node and column vector, blocks of 256) with a float32 store in
+place of the staged tile: the first design step of row 7's redesign, to
+be measured as an extra tree.
 """
 from __future__ import annotations
 
@@ -59,7 +76,8 @@ CASES = (("OT", "float32", ("multi_reduce", "csr_segment_sum",
                               "csr_sum")),
          ("bench", "bfloat16", ("pair_segment_sum", "edge_combine")),
          ("bench", "float32", ("pair_segment_sum", "edge_combine")),
-         ("QMugs", "bfloat16", CONF_KERNELS))
+         ("QMugs", "bfloat16", CONF_KERNELS + ("csr_segment_sum",)),
+         ("QMugs", "float32", ("csr_sum",)))
 
 
 def _sass_orders(name: str) -> dict:
@@ -76,8 +94,14 @@ def _sass_orders(name: str) -> dict:
         head, body = fn.split("\n", 1)
         toks = []
         for line in body.splitlines():
-            if "LDG" in line:
+            if "LDGSTS" in line:
+                toks.append("A")
+            elif "UBLKCP" in line:
+                toks.append("T")
+            elif "LDG" in line:
                 toks.append("L")
+            elif re.search(r"\bLDS\b", line):
+                toks.append("l")
             elif re.search(r"\b(FADD|FSEL|FMNMX|FMUL)\b", line):
                 toks.append("F")
             elif "STG" in line:
@@ -140,6 +164,20 @@ def one(root: str) -> dict:
     in_step = {k: us / c / 1e3 for k, (us, c) in ported.items()}
     del out, step, batch
 
+    gin = cs.build_supervised_step(cs._gin_args(True), torch.device("cuda"))
+    gp = gin.prepare(cs.gin_batch("cpu")[0])
+    gin_ms = cs.cuda_ms(lambda: gin.step(gp), iters=20)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            gin.step(gp)
+        torch.cuda.synchronize()
+    gin_in_step = {k: us / c / 1e3 for k, (us, c) in
+                   cs._port_kernels(cs._profile_kernels(prof)).items()}
+    print("[ab] GIN bf16 step " + f"{gin_ms:.4f} ms; in the step " + ", ".join(
+        f"{k} {v:.6f} ms" for k, v in sorted(gin_in_step.items())))
+    del gin, gp
+
     conf = build_step(cs._conf_args(True, cs.CONF_QMUGS),
                       torch.device("cuda"))
     ca, cb = conf.prepare(g2q, g3q)
@@ -148,10 +186,11 @@ def one(root: str) -> dict:
     del conf, ca, cb
     torch.cuda.empty_cache()
 
-    def profiled(fn, needle, reps=50):
-        """Mean device ms per launch of the kernels named like `needle` in
-        a profile of `reps` back-to-back calls; a profile that recorded
-        none of them (it happens) is taken again, up to three times."""
+    def profiled(fn, names, reps=50):
+        """Mean device ms per launch of the kernels whose names contain one
+        of `names` in a profile of `reps` back-to-back calls; a profile
+        that recorded none of them (it happens) is taken again, up to three
+        times."""
         for _ in range(3):
             for _ in range(5):
                 fn()
@@ -162,7 +201,7 @@ def one(root: str) -> dict:
                     fn()
                 torch.cuda.synchronize()
             rec = [v for k, v in cs._profile_kernels(p).items()
-                   if needle in k]
+                   if any(nd in k for nd in names)]
             if rec:
                 return (sum(us for us, _ in rec) / sum(c for _, c in rec)
                         / 1e3)
@@ -200,11 +239,22 @@ def one(root: str) -> dict:
             rec = {"shape": shape, "row": row, "dtype": str(dt), "D": D,
                    "cold_ms": cs.device_ms(fn, iters=20, flush=flush),
                    "warm_ms": cs.device_ms(fn, iters=100, warmup=10),
-                   "alone_ms": profiled(fn, f"{row}_kernel")}
+                   "alone_ms": profiled(fn, cs.PROFILE_NAMES[row])}
             times.append(rec)
             print(f"[ab] {row} at the {shape} shape ({dt}, D={D}): cold-L2 "
                   f"{rec['cold_ms']:.5f} ms, warm {rec['warm_ms']:.5f} ms, "
                   f"alone in a profile {fmt(rec['alone_ms'])} ms")
+
+    if hasattr(cs, "_read_ms"):     # a plain read of row 7's messages
+        e_real = int(g3q.csr_row_ptr[-1])
+        for dname, size in (("bfloat16", 2), ("float32", 4)):
+            cold, warm = cs._read_ms(e_real * cs.CONF_WIDTH * size, flush)
+            times.append({"shape": "QMugs", "row": "read_probe",
+                          "dtype": f"torch.{dname}", "D": cs.CONF_WIDTH,
+                          "cold_ms": cold, "warm_ms": warm,
+                          "alone_ms": None})
+            print(f"[ab] read_probe of row 7's QMugs {dname} rows: cold-L2 "
+                  f"{cold:.5f} ms, warm {warm:.5f} ms")
 
     cs.phase_launch_floor(ob, {k: 0 for k in cs.NONE}, in_step)
     return {"tree": root, "card": smi, "ot_step_ms": step_ms,
@@ -212,6 +262,9 @@ def one(root: str) -> dict:
             "busy_ms_per_ot_step": sum(us for us, _ in by_name.values())
             / n / 1e3,
             "in_step_ms": {k: in_step.get(k) for k in STEP_KERNELS},
+            "gin_step_ms": gin_ms,
+            "gin_in_step_ms": {k: gin_in_step.get(k)
+                               for k in ("csr_sum", "snd_segment_sum")},
             "conf_step_ms": conf_ms,
             "kernels_per_conf_step": conf_prof.get("kernels"),
             "busy_ms_per_conf_step": conf_prof.get("busy_ms"),
@@ -220,19 +273,78 @@ def one(root: str) -> dict:
             "times": times, "sass": sass}
 
 
+# the first design step of row 7's redesign (`--variant`): the long-range
+# path's kernel keeps its name and arguments but walks the rows from device
+# memory as row 3 does, U slots a chunk, one thread per (node, column
+# vector) in blocks of WALK_THREADS, and stores float32
+ROWS_KERNEL = """template <typename T, int VEC, typename Idx>
+__global__ void __launch_bounds__(WALK_THREADS)
+csr_sum_stream_kernel(const T* __restrict__ msg,
+                      const int* __restrict__ row_ptr, float* __restrict__ out,
+                      int N, int E, int D, int tn) {
+  int n, c;
+  if (!node_column<Idx, VEC>(N, D, n, c)) return;
+  const int start = row_ptr[n];
+  float acc[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+  auto add = [&](const float (&v)[VEC], bool valid) {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k)
+      acc[k] = __fadd_rn(acc[k], valid ? v[k] : 0.f);
+  };
+  walk_rows<T, VEC, UNROLL, false, Idx>(msg, D, c, nullptr, start,
+                                        row_ptr[n + 1] - start, add);
+  store_vec<float, VEC>(out + static_cast<int64_t>(n) * D + c, acc);
+}
+"""
+
+
+def variant(kind: str, source: str, dest: str):
+    """DEST: SOURCE's tree with row 7's long-range path on `walk_rows` at
+    U = 4 (`rows4`) or 8 (`rows8`)."""
+    unroll = {"rows4": 4, "rows8": 8}[kind]
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(source, dest, ignore=lambda d, names: [
+        n for n in names if n in ("build", "chiprun_out", ".git")])
+    cu = Path(dest) / "infomax3d_tpu_torch" / "csrc" / "csr_sum.cu"
+    text = cu.read_text()
+    head = ("template <typename T, int VEC, typename Idx>\n__global__ void "
+            "__launch_bounds__(STREAM_THREADS)\ncsr_sum_stream_kernel(")
+    a = text.index(head)
+    b = text.index("\n}\n", a) + 3
+    text = (text[:a] + ROWS_KERNEL.replace("UNROLL", str(unroll))
+            + text[b:])
+    for old, new in (
+            ("const dim3 grid(static_cast<unsigned>((N + tn - 1) / tn));",
+             "const dim3 grid(walk_blocks(items));"),
+            ("<<<grid, tn * nvec, 0, st>>>", "<<<grid, WALK_THREADS, 0, st>>>")):
+        assert old in text, old
+        text = text.replace(old, new)
+    cu.write_text(text)
+
+
 def main(argv) -> int:
     if len(argv) == 3 and argv[1] == "--one":
         print(json.dumps(one(argv[2])))
         return 0
-    if len(argv) not in (3, 4):
+    if len(argv) == 5 and argv[1] == "--variant":
+        variant(*argv[2:])
+        return 0
+    extra = [argv[i + 1] for i, a in enumerate(argv[:-1]) if a == "--extra"]
+    args = [a for i, a in enumerate(argv)
+            if a != "--extra" and (i == 0 or argv[i - 1] != "--extra")]
+    if len(args) not in (3, 4):
         print(__doc__)
         return 2
-    parent, change = argv[1:3]
-    summary = Path(argv[3] if len(argv) == 4
+    parent, change = args[1:3]
+    summary = Path(args[3] if len(args) == 4
                    else Path(change) / "build" / "kernel_ab.json")
+    order = ([("parent", parent)] + [("extra", r) for r in extra]
+             + [("change", change)] * 2
+             + [("extra", r) for r in reversed(extra)] + [("parent", parent)])
     runs = []
-    for tag, root in (("parent", parent), ("change", change),
-                      ("change", change), ("parent", parent)):
+    for tag, root in order:
         print(f"[ab] === {tag}: {root}", flush=True)
         proc = subprocess.run([sys.executable, __file__, "--one", root],
                               capture_output=True, text=True, timeout=1200)
@@ -248,12 +360,15 @@ def main(argv) -> int:
                          tag=tag, log=log))
     for r in runs:
         t = {(x["row"], x["shape"], x["dtype"]): x for x in r["times"]}
-        print(f"[ab] {r['tag']}: OT step {r['ot_step_ms']:.4f} ms, "
-              f"{r['kernels_per_ot_step']:.1f} kernels and "
+        print(f"[ab] {r['tag']} {r['tree']}: OT step {r['ot_step_ms']:.4f} "
+              f"ms, {r['kernels_per_ot_step']:.1f} kernels and "
               f"{r['busy_ms_per_ot_step']:.4f} ms busy per step; in the "
               "step " + ", ".join(
                   f"{k} {'not measured' if v is None else f'{v:.6f}'} ms"
-                  for k, v in r["in_step_ms"].items()) + "; QMugs bf16 "
+                  for k, v in r["in_step_ms"].items()) + "; GIN bf16 step "
+              f"{r['gin_step_ms']:.4f} ms, in the step " + ", ".join(
+                  f"{k} {'not measured' if v is None else f'{v:.6f}'} ms"
+                  for k, v in r["gin_in_step_ms"].items()) + "; QMugs bf16 "
               f"step {r['conf_step_ms']:.4f} ms, "
               f"{r['kernels_per_conf_step']} kernels and "
               f"{r['busy_ms_per_conf_step']} ms busy per step; in the step "
