@@ -129,6 +129,23 @@ its seconds:
    (c) `load_config` + `train` of `pre-train_QMugs.yml` in bf16, 1 epoch
    of 2 steps on 5000 synthetic drug-size molecules, launches from the
    steps and eval forwards.
+19. data layer: the port's `preprocess_qm9` on `tests/fixtures/qm9_slice`
+   (the facts `tests/test_real_qm9_slice.py` holds; a planted fault, the
+   csv's columns left in raw order, must fail them), then
+   `tune_QM9_homo.yml` fine-tuned on the card from that cache (float32,
+   batch 4, 2 steps; the denormalised MAE in the JAX test's range); the
+   molecules of phases 17 and 18 written as `QM9` and `QMugs` caches
+   (`write_synthetic_cache`; QM9's items equal `SyntheticDataset`'s) and
+   a molhiv-shaped cache of 4096 molecules with one binary target and no
+   stored split (the port's Murcko / WL scaffold split); through the CLI
+   from those caches: phase 17's float32 1-epoch pre-training (held to
+   phase 17's float32 card run under `F32_RUN_TOL`) and its bf16 one,
+   phase 18's QMugs run and `configs/30.yml` (GIN 5x300, bf16, 1 epoch
+   over the scaffold train set, ogbg-molhiv's ROC-AUC as the main
+   metric), launches per step as in phases 17, 18 and 12; each cache's
+   write and load seconds, the scaffold split's, and each run's host
+   seconds waiting on the loader per train step beside its
+   synthetic-served run.
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 """
@@ -137,10 +154,12 @@ from __future__ import annotations
 import ctypes
 import importlib
 import json
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -335,6 +354,11 @@ EXPECTED_GIN_STEP = dict(NONE, csr_sum=GIN_DEPTH, snd_segment_sum=GIN_DEPTH)
 OT_PASS = 2 * OT_CONFS * OT_DEPTH
 EXPECTED_OT_STEP = dict(NONE, multi_reduce=2 * OT_PASS,
                         snd_segment_sum=OT_PASS, csr_segment_sum=OT_PASS)
+
+def _expect(step: dict, fwd: dict, steps: int, evals: int) -> dict:
+    """A run's launches: `steps` training steps and `evals` forwards."""
+    return {n: step[n] * steps + fwd[n] * evals for n in NONE}
+
 
 KERNEL_INFO = {
     "edge_combine": ("infomax3d_tpu_torch/csrc/edge_combine.cu",
@@ -2361,17 +2385,19 @@ _NOT_METRICS = ("split", "step", "epoch", "time")
 
 
 def _expected_run(bf16: bool, kind: str) -> dict:
-    return {n: EXPECTED_STEP[bf16][n] * TRAINER_STEPS[kind]
-            + EXPECTED[bf16][n] * TRAINER_EVALS[kind] for n in NONE}
+    return _expect(EXPECTED_STEP[bf16], EXPECTED[bf16], TRAINER_STEPS[kind],
+                   TRAINER_EVALS[kind])
 
 
-def _cli_run(kind: str, logdir: Path, device, **extra):
-    """`load_config` + `train` as a user runs them; returns the result,
-    the run dir, the printed text, the launches and the wall seconds."""
+def _data_run(config: str, overrides: dict, logdir: Path, device) -> dict:
+    """`load_config` + `train` of `config` with `overrides`, as a user
+    runs them; returns the result (every metric finite), the run dir, the
+    printed text, the launches, the wall seconds and the args."""
     import contextlib
     import io
+    from infomax3d_tpu_torch.cli.config import load_config
     from infomax3d_tpu_torch.cli.train import train
-    args = _trainer_args(kind, logdir, **extra)
+    args = load_config(config, dict(overrides, logdir=str(logdir)))
     text = io.StringIO()
     before = _counts()
     t0 = time.perf_counter()
@@ -2379,17 +2405,24 @@ def _cli_run(kind: str, logdir: Path, device, **extra):
         result = train(args, device=device)
     wall = time.perf_counter() - t0
     after = _counts()
-    print(text.getvalue(), end="")
-    run_dir = _run_dir(logdir)
+    _check(all(np.isfinite(v) for v in result.values()),
+           f"{config}: non-finite metrics {result}")
+    return {"result": result, "dir": _run_dir(logdir), "args": args,
+            "wall_s": wall, "text": text.getvalue(),
+            "launches": {n: after[n] - before[n] for n in after}}
+
+
+def _cli_run(kind: str, logdir: Path, device, **extra):
+    """`_data_run` of `TRAINER_RUNS[kind]` with `extra` overrides, its
+    text printed and its run files checked."""
+    config, overrides = TRAINER_RUNS[kind]
+    run = _data_run(config, dict(overrides, **extra), logdir, device)
+    print(run["text"], end="")
     for name in ("best_checkpoint.pt", "last_checkpoint.pt",
                  "train_arguments.yaml", "metrics.jsonl",
                  "evaluation_val_best_checkpoint.txt", "timing.json"):
-        _check((run_dir / name).exists(), f"{kind}: no {name}")
-    _check(all(np.isfinite(v) for v in result.values()),
-           f"{kind}: non-finite metrics {result}")
-    return {"result": result, "dir": run_dir, "text": text.getvalue(),
-            "launches": {n: after[n] - before[n] for n in after},
-            "wall_s": wall, "args": args}
+        _check((run["dir"] / name).exists(), f"{kind}: no {name}")
+    return run
 
 
 def _fresh_trainer(kind: str, logdir: Path, dataset, device):
@@ -2590,29 +2623,35 @@ def phase_trainer(smi: str, out_dir: Path) -> dict:
     # float32: the same 1-epoch pre-training on the CPU
     cpu = _cli_run("pre", root / "pre_f32_cpu", "cpu", num_epochs=1,
                    bf16_compute=False)
-    card_val, cpu_val = (_val_records(r["dir"])[0] for r in (f32, cpu))
+    _hold_f32_run("[trainer] float32 1-epoch pre-training, card vs CPU",
+                  f32, cpu)
+
+    for kind, run in (("pre", pre), ("tune", tune)):
+        bare = _bare_step_ms(kind, run["args"], device) \
+            if device.type == "cuda" else None
+        _print_loop(kind, run, bare, smi)
+    return {"launches": launches, "runs": {"pre": pre, "pre_f32": f32}}
+
+
+def _hold_f32_run(tag: str, run: dict, ref: dict):
+    """The first validation record of float32 `run` against `ref`'s under
+    `F32_RUN_TOL`."""
+    got, want = (_val_records(r["dir"])[0] for r in (run, ref))
     worst = {}
-    for k, v in cpu_val.items():
+    for k, v in want.items():
         if k in _NOT_METRICS:
             continue
-        d = abs(card_val[k] - v)
-        if k == f32["args"]["loss_func"]:
+        d = abs(got[k] - v)
+        if k == run["args"]["loss_func"]:
             tol = F32_RUN_TOL["loss"] * abs(v)
         elif k in THRESHOLD_PROBES:
             tol = F32_RUN_TOL["count"]
         else:
             tol = F32_RUN_TOL["probe"] * max(abs(v), 1.0)
         worst[k] = (d, tol)
-    print(f"[trainer] float32 1-epoch pre-training, card vs CPU "
-          f"(|card - CPU|, tolerance): {worst}")
+    print(f"{tag} (|difference|, tolerance): {worst}")
     bad = {k: v for k, v in worst.items() if not v[0] <= v[1]}
-    _check(not bad, f"float32 run card vs CPU: {bad}")
-
-    for kind, run in (("pre", pre), ("tune", tune)):
-        bare = _bare_step_ms(kind, run["args"], device) \
-            if device.type == "cuda" else None
-        _print_loop(kind, run, bare, smi)
-    return {"launches": launches}
+    _check(not bad, f"{tag}: {bad}")
 
 
 # --- phase 18: multi-conformer pre-training ---------------------------------
@@ -3027,28 +3066,19 @@ def phase_conformers(smi: str, out_dir: Path) -> dict:
     # (c) the CLI, still on the main path's counts
     root = out_dir / "conformers"
     shutil.rmtree(root, ignore_errors=True)
-    from infomax3d_tpu_torch.cli.config import load_config
-    from infomax3d_tpu_torch.cli.train import train
-    args = load_config(CONF_QMUGS, dict(CONF_CLI, logdir=str(root)))
-    before = _counts()
-    t0 = time.perf_counter()
-    result = train(args, device=CONF_DEVICE)
-    wall = time.perf_counter() - t0
-    after = _counts()
+    cli_run = _data_run(CONF_QMUGS, CONF_CLI, root, CONF_DEVICE)
     launches = _counts()
-    run = {n: after[n] - before[n] for n in after}
-    want = {n: EXPECTED_CONF_STEP[True][n] * CONF_CLI_STEPS
-            + EXPECTED_CONF_FWD[True][n] * CONF_CLI_EVALS for n in NONE}
-    _check(run == want, f"CLI launches {run} != {want}")
-    _check(all(np.isfinite(v) for v in result.values()),
-           f"CLI: non-finite metrics {result}")
-    run_dir = _run_dir(root)
+    want = _expect(EXPECTED_CONF_STEP[True], EXPECTED_CONF_FWD[True],
+                   CONF_CLI_STEPS, CONF_CLI_EVALS)
+    _check(cli_run["launches"] == want,
+           f"CLI launches {cli_run['launches']} != {want}")
     for name in ("best_checkpoint.pt", "metrics.jsonl", "timing.json",
                  "evaluation_val_best_checkpoint.txt"):
-        _check((run_dir / name).exists(), f"CLI: no {name}")
+        _check((cli_run["dir"] / name).exists(), f"CLI: no {name}")
     print(f"[conf] CLI {CONF_QMUGS} (bf16, 1 epoch of {CONF_CLI_STEPS} "
-          f"steps, {CONF_CLI_EVALS} eval forwards): {wall:.3f} s; result "
-          f"{result}; launches {run}")
+          f"steps, {CONF_CLI_EVALS} eval forwards): "
+          f"{cli_run['wall_s']:.3f} s; result {cli_run['result']}; "
+          f"launches {cli_run['launches']}")
     print(f"[conf] multi-conformer main-path launches: {launches}")
 
     # (a) the kernels at the QMugs and GEOM-Drugs conformer batches
@@ -3089,7 +3119,303 @@ def phase_conformers(smi: str, out_dir: Path) -> dict:
         _conf_kernel_times(b["g3"], timing[config].get("profile", {}).get(
             "in_step", {}), smi)
         del b
-    return {"launches": launches, "errs": errs}
+    return {"launches": launches, "errs": errs, "cli": cli_run}
+
+
+# --- phase 19: the data layer on the card ------------------------------------
+
+# The fixture of `tests/test_real_qm9_slice.py`: 12 QM9 molecules in raw
+# V2000 SDF and the csv's raw column order.
+QM9_FIXTURE = "tests/fixtures/qm9_slice"
+# The fixture fine-tune: `tune_QM9_homo.yml` at its own widths (PNA
+# 200x7), float32, batch 4, 8 of the 9-molecule model pool: 2 steps; the
+# validation set (2 molecules) one batch, evaluated for the epoch and for
+# the best checkpoint.  The test set is one molecule, whose r-squared is
+# not defined: not evaluated.
+FIXTURE_TUNE = {"bf16_compute": False, "batch_size": 4, "num_train": 8,
+                "num_epochs": 1, "use_tensorboard": False,
+                "pretrain_checkpoint": None, "eval_on_test": False}
+FIXTURE_STEPS, FIXTURE_EVALS = 2, 2
+# The OGB run: `configs/30.yml` (OGBGNN, GIN 5x300, batch 128) on a
+# molhiv-shaped cache of 4096 synthetic molecules of 4 to 28 atoms and one
+# binary target (about 3.5 % positive, as ogbg-molhiv), no stored split:
+# the port computes the scaffold split.  One seed, no pre-trained
+# weights, bf16, 1 epoch over the scaffold train set.
+OGB_CONFIG = "configs/30.yml"
+OGB_MOLECULES = 4096
+OGB_POSITIVE_Z = 1.81
+OGB_RUN = {"dataset": "ogbg-molhiv", "multithreaded_seeds": [],
+           "pretrain_checkpoint": None, "num_epochs": 1,
+           "bf16_compute": True, "use_tensorboard": False}
+# a GIN forward (an eval batch) sums each layer's messages once
+EXPECTED_GIN_FWD = dict(NONE, csr_sum=GIN_DEPTH)
+# the cache-served runs of phases 17 and 18: the synthetic molecules of
+# those phases (same seeds and sizes) written as caches
+QM9_CACHE = {"num": 5000, "num_targets": 19, "n_min": 4, "n_max": 28}
+QMUGS_CACHE = {"num": 5000, "num_conformers": CONF_CONFS[CONF_QMUGS],
+               "n_min": CONF_DATA["n_min"], "n_max": CONF_DATA["n_max"]}
+DATA_CACHE_RUN = {"dataset": "qm9", "dataset_params": {}, "num_epochs": 1}
+DATA_STEPS, DATA_EVALS = 2, 3
+# QMugs' split (the geom family's: a 5 % test set, 250 of 5000) holds less
+# than one full batch of 500, and the contrastive loaders drop partial
+# batches: the cache-served QMugs run evaluates no test set
+QMUGS_CACHE_RUN = {"dataset": "qmugs", "dataset_params": {},
+                   "eval_on_test": False}
+QMUGS_CACHE_EVALS = 2
+
+
+def _qm9_fixture_faults(path: str) -> list:
+    """The facts `tests/test_real_qm9_slice.py:29-70` holds on the fixture
+    cache at `path`; returns the ones that do not hold."""
+    from infomax3d_tpu_torch.data.cached import HAR2EV, QM9Dataset
+    z = np.load(path)
+    af, sl = z["atom_features"], z["atom_slices"]
+    c = z["coordinates"][:5]
+    a0, r0 = int(sl[3]), int(sl[11])
+    denorm = None
+    ds = QM9Dataset(path, target_tasks=["homo", "r2"], normalize=True)
+    denorm = ds.targets * ds.targets_std + ds.targets_mean
+    facts = {
+        "13 atom slices": sl.shape == (13,),
+        "methane 5 atoms, 8 edges": (sl[1], z["edge_slices"][1]) == (5, 8),
+        "feature widths 9, 3": (af.shape[1], z["edge_features"].shape[1])
+        == (9, 3),
+        "targets [12, 19]": z["targets"].shape == (12, 19),
+        "C-H 1.0902": abs(np.linalg.norm(c[1] - c[0]) - 1.0902) < 1e-3,
+        "methane C: code 5, degree 4, sp3": (af[0, 0], af[0, 2], af[0, 6])
+        == (5, 4, 2),
+        "acetylene C: sp": (af[a0, 0], af[a0, 6]) == (5, 0),
+        "oxirane ring flags": bool(af[r0:r0 + 3, 8].all()) and af[0, 8] == 0,
+        "homo -0.3877 Ha in eV": abs(denorm[0, 0] + 0.3877 * HAR2EV)
+        <= 1e-5 * 0.3877 * HAR2EV,
+        "r2 35.36": abs(denorm[0, 1] - 35.36) <= 1e-5 * 35.36,
+        "ev2mev": ds.ev2mev.tolist() == [1000.0, 1.0],
+    }
+    return [k for k, ok in facts.items() if not ok]
+
+
+def _raw_csv_order():
+    """Phase 19's planted fault: the csv's columns left in raw order (no
+    `_QM9_CSV_TO_CACHE`).  Returns the undo."""
+    pre = importlib.import_module("infomax3d_tpu_torch.data.preprocess")
+    real = pre._QM9_CSV_TO_CACHE
+    pre._QM9_CSV_TO_CACHE = list(range(1, 20))
+    return lambda: setattr(pre, "_QM9_CSV_TO_CACHE", real)
+
+
+def _write_molhiv_cache(path: Path):
+    """`write_synthetic_cache` with the target cut to one binary label."""
+    from infomax3d_tpu_torch.data.synthetic import write_synthetic_cache
+    write_synthetic_cache(str(path), num=OGB_MOLECULES, seed=0,
+                          num_targets=1, n_min=4, n_max=28)
+    z = dict(np.load(path))
+    z["targets"] = (z["targets"] > OGB_POSITIVE_Z).astype(np.float32)
+    np.savez(path, **z)
+
+
+def _timed_s(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def _loader_s(run: dict, steps: int) -> tuple:
+    t = json.load(open(run["dir"] / "timing.json"))
+    return t["loader"], t["loader"] / steps
+
+
+def _scaffold_split_checks(ds, split: dict):
+    """8:1:1 by scaffold groups: every molecule in one part, no group
+    across parts, train and validation within their caps."""
+    from infomax3d_tpu_torch.data.splits import scaffold_key
+    n = len(ds)
+    parts = {k: np.asarray(v) for k, v in split.items()}
+    allidx = np.sort(np.concatenate(list(parts.values())))
+    _check(np.array_equal(allidx, np.arange(n)),
+           "scaffold split does not cover every molecule once")
+    _check(len(parts["train"]) <= int(0.8 * n)
+           and len(parts["valid"]) <= int(0.1 * n),
+           f"split sizes {[len(v) for v in parts.values()]} over the caps")
+    keys = {k: {scaffold_key(ds.graph2d(int(i))) for i in v}
+            for k, v in parts.items()}
+    _check(not (keys["train"] & keys["valid"] or keys["train"] & keys["test"]
+                or keys["valid"] & keys["test"]),
+           "a scaffold group spans two parts")
+    return {k: len(v) for k, v in parts.items()}, \
+        {k: len(v) for k, v in keys.items()}
+
+
+def phase_data(smi: str, out_dir: Path, synthetic: dict = None) -> dict:
+    """Phase 19: the data layer.  (a) the port's `preprocess_qm9` on the
+    QM9 fixture, its facts, and a planted fault (the csv in raw order)
+    that must fail them; (b) caches written from phases 17 and 18's
+    synthetic molecules and a molhiv-shaped one, QM9's items equal to
+    `SyntheticDataset`'s, the OGB scaffold split; (c) the main path: the
+    fixture fine-tune, the QM9 float32 and bf16 pre-trainings, the QMugs
+    run and `configs/30.yml`'s GIN through the CLI from those caches,
+    their launches, the float32 run against phase 17's; (d) the loader's
+    host seconds per step beside the synthetic-served runs (`synthetic`:
+    phases 17 and 18's runs with their train steps, keyed "pre_f32",
+    "pre" and "qmugs"; the missing ones are run here).  Returns the main
+    path's launches."""
+    import shutil
+    from infomax3d_tpu_torch.cli.train import make_splits
+    from infomax3d_tpu_torch.data.cached import (CachedMoleculeDataset,
+                                                 QM9Dataset, SyntheticDataset)
+    from infomax3d_tpu_torch.data.preprocess import preprocess_qm9
+    from infomax3d_tpu_torch.data.splits import get_idx_split
+    from infomax3d_tpu_torch.data.synthetic import write_synthetic_cache
+    root = out_dir / "data"
+    shutil.rmtree(root, ignore_errors=True)
+    synthetic = dict(synthetic or {})
+    device = TRAINER_DEVICE
+
+    # (a) real chemistry: the fixture through the port's preprocessing
+    fixture = root / "fixture"
+    _, s = _timed_s(lambda: preprocess_qm9(
+        QM9_FIXTURE, str(fixture / "QM9" / "processed.npz")))
+    bad = _qm9_fixture_faults(str(fixture / "QM9" / "processed.npz"))
+    _check(not bad, f"QM9 fixture cache: {bad}")
+    undo = _raw_csv_order()
+    try:
+        preprocess_qm9(QM9_FIXTURE, str(root / "fault" / "processed.npz"))
+    finally:
+        undo()
+    caught = _qm9_fixture_faults(str(root / "fault" / "processed.npz"))
+    _check("homo -0.3877 Ha in eV" in caught,
+           f"the csv in raw order passed the homo check: {caught}")
+    print(f"[data] QM9 fixture: preprocess_qm9 {s:.3f} s; every fact of "
+          f"tests/test_real_qm9_slice.py holds; planted fault (csv columns "
+          f"in raw order) caught: {caught}")
+
+    # (b) the caches, each timed to write and to load
+    caches = root / "caches"
+    times = {}
+    _, times["QM9 write"] = _timed_s(lambda: write_synthetic_cache(
+        str(caches / "QM9" / "processed.npz"), seed=0, **QM9_CACHE))
+    _, times["QMugs write"] = _timed_s(lambda: write_synthetic_cache(
+        str(caches / "QMugs" / "processed.npz"), seed=0, num_targets=1,
+        **QMUGS_CACHE))
+    _, times["ogbg_molhiv write"] = _timed_s(lambda: _write_molhiv_cache(
+        caches / "ogbg_molhiv" / "processed.npz"))
+    qm9, times["QM9 load"] = _timed_s(lambda: QM9Dataset(
+        str(caches / "QM9" / "processed.npz"), target_tasks=["homo"]))
+    _, times["QMugs load"] = _timed_s(lambda: CachedMoleculeDataset(
+        str(caches / "QMugs" / "processed.npz"), num_conformers=3))
+    hiv, times["ogbg_molhiv load"] = _timed_s(lambda: CachedMoleculeDataset(
+        str(caches / "ogbg_molhiv" / "processed.npz")))
+    syn = SyntheticDataset(num=QM9_CACHE["num"], seed=0)
+    for i in range(len(syn)):
+        for view in ("graph2d", "graph3d"):
+            a, b = getattr(qm9, view)(i), getattr(syn.ds, view)(i)
+            _check(a.keys() == b.keys() and all(
+                a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+                for k in a), f"QM9 cache molecule {i} {view} differs")
+    _check(qm9.max_in_degree() == syn.max_in_degree(), "max_in_degree")
+    split, times["scaffold split"] = _timed_s(
+        lambda: get_idx_split(hiv, hiv.cache_dir))
+    sizes, groups = _scaffold_split_checks(hiv, split)
+    print(f"[data] QM9 cache: graph2d / graph3d of all {len(syn)} molecules "
+          f"equal SyntheticDataset's; molhiv scaffold split {sizes} "
+          f"molecules in {groups} scaffold groups; host seconds {times}")
+    del syn
+
+    # (c) the main path: the counts are set to 0 just before it
+    runs = {}
+    _reset_counts()
+    with mock.patch.dict(os.environ, {"INFOMAX3D_DATA": str(fixture)}):
+        runs["fixture tune"] = _data_run(TRAINER_TUNE, FIXTURE_TUNE,
+                                         root / "fixture_tune", device)
+    with mock.patch.dict(os.environ, {"INFOMAX3D_DATA": str(caches)}):
+        runs["qm9 pre f32"] = _data_run(
+            TRAINER_PRE, dict(TRAINER_RUNS["pre"][1], **DATA_CACHE_RUN,
+                              bf16_compute=False), root / "pre_f32", device)
+        runs["qm9 pre bf16"] = _data_run(
+            TRAINER_PRE, dict(TRAINER_RUNS["pre"][1], **DATA_CACHE_RUN),
+            root / "pre_bf16", device)
+        runs["qmugs"] = _data_run(CONF_QMUGS,
+                                  dict(CONF_CLI, **QMUGS_CACHE_RUN),
+                                  root / "qmugs", device)
+        runs["ogbg-molhiv"] = _data_run(OGB_CONFIG, OGB_RUN, root / "hiv",
+                                        device)
+    launches = _counts()
+    hiv_split = make_splits(runs["ogbg-molhiv"]["args"], hiv)
+    ogb_steps = -(-len(hiv_split[0]) // GIN_BATCH)
+    ogb_evals = 2 * -(-len(hiv_split[1]) // GIN_BATCH) \
+        + -(-len(hiv_split[2]) // GIN_BATCH)
+    plan = {
+        "fixture tune": (EXPECTED_STEP[False], EXPECTED[False],
+                         FIXTURE_STEPS, FIXTURE_EVALS),
+        "qm9 pre f32": (EXPECTED_STEP[False], EXPECTED[False], DATA_STEPS,
+                        DATA_EVALS),
+        "qm9 pre bf16": (EXPECTED_STEP[True], EXPECTED[True], DATA_STEPS,
+                         DATA_EVALS),
+        "qmugs": (EXPECTED_CONF_STEP[True], EXPECTED_CONF_FWD[True],
+                  CONF_CLI_STEPS, QMUGS_CACHE_EVALS),
+        "ogbg-molhiv": (EXPECTED_GIN_STEP, EXPECTED_GIN_FWD, ogb_steps,
+                        ogb_evals),
+    }
+    on_card = torch.device(device or "cuda").type == "cuda"
+    for name, (step, fwd, steps, evals) in plan.items():
+        run = runs[name]
+        want = _expect(step, fwd, steps, evals) if on_card else dict(NONE)
+        _check(run["launches"] == want,
+               f"{name}: launches {run['launches']} != {want}")
+        print(f"[data] {name}: {run['wall_s']:.3f} s, {steps} steps, "
+              f"{evals} eval batches, launches {run['launches']}; result "
+              f"{run['result']}")
+    print(f"[data] data-layer main-path launches: {launches}")
+
+    # the fixture fine-tune's denormalised MAE in the JAX test's range
+    tune = runs["fixture tune"]["result"]
+    scale_mev = float(QM9Dataset(str(fixture / "QM9" / "processed.npz"),
+                                 target_tasks=["homo"]).targets_std[0]) * 1e3
+    _check(0.01 * scale_mev < tune["mae_denormalized"] < 100 * scale_mev,
+           f"fixture tune: mae_denormalized {tune['mae_denormalized']} "
+           f"outside (0.01, 100) x {scale_mev}")
+    hiv_args = runs["ogbg-molhiv"]["args"]
+    _check(hiv_args["main_metric"] == "ogbg-molhiv"
+           and "ogbg-molhiv" in runs["ogbg-molhiv"]["result"],
+           f"ogbg-molhiv: main metric {hiv_args['main_metric']}")
+    print(f"[data] fixture tune: mae_denormalized "
+          f"{tune['mae_denormalized']:.3f} meV (homo std {scale_mev:.3f} "
+          f"meV); ogbg-molhiv main metric ROC-AUC "
+          f"{runs['ogbg-molhiv']['result']['ogbg-molhiv']:.6f}")
+
+    # (d) the synthetic-served counterparts, each (run, train steps):
+    # phase 17's float32 and bf16 pre-trainings and phase 18's QMugs run
+    # (run here when not given), and the GIN config on SyntheticDataset
+    if "pre_f32" not in synthetic:
+        synthetic["pre_f32"] = (_cli_run(
+            "pre", root / "syn_pre_f32", device, num_epochs=1,
+            bf16_compute=False), DATA_STEPS)
+    _hold_f32_run("[data] float32 1-epoch pre-training, QM9 cache vs "
+                  "synthetic", runs["qm9 pre f32"], synthetic["pre_f32"][0])
+    if "pre" not in synthetic:
+        synthetic["pre"] = (_cli_run("pre", root / "syn_pre", device,
+                                     num_epochs=1), DATA_STEPS)
+    if "qmugs" not in synthetic:
+        synthetic["qmugs"] = (_data_run(CONF_QMUGS, CONF_CLI,
+                                        root / "syn_qmugs", device),
+                              CONF_CLI_STEPS)
+    synthetic["ogbg-molhiv"] = (_data_run(
+        OGB_CONFIG, dict(OGB_RUN, dataset="synthetic", dataset_params={
+            "num": OGB_MOLECULES, "n_min": 4, "n_max": 28},
+            num_train=len(hiv_split[0])), root / "syn_hiv", device),
+        ogb_steps)
+    for name, syn_name in (("qm9 pre f32", "pre_f32"), ("qm9 pre bf16", "pre"),
+                           ("qmugs", "qmugs"),
+                           ("ogbg-molhiv", "ogbg-molhiv")):
+        steps = plan[name][2]
+        total, per = _loader_s(runs[name], steps)
+        syn_run, syn_steps = synthetic[syn_name]
+        syn_total, syn_per = _loader_s(syn_run, syn_steps)
+        print(f"[data] {name} loader host s per train step (waits on the "
+              f"prefetch thread, train and eval batches): cache "
+              f"{per:.6f} ({total:.6f} s / {steps} steps) against "
+              f"synthetic {syn_per:.6f} ({syn_total:.6f} s / {syn_steps} "
+              f"steps); {smi}")
+    return {"launches": launches}
 
 
 class _Phase:
@@ -3140,13 +3466,18 @@ def main() -> int:
     with _Phase("18 multi-conformer pre-training"):
         conf = phase_conformers(smi, out_dir)
         _merge_errs(errs, conf["errs"])
-    # every kernel's launches over the six main paths (serving,
+    with _Phase("19 data layer"):
+        data = phase_data(smi, out_dir, {
+            "pre_f32": (trainer["runs"]["pre_f32"], TRAINER_STEPS["pre_f32"]),
+            "pre": (trainer["runs"]["pre"], TRAINER_STEPS["pre"]),
+            "qmugs": (conf["cli"], CONF_CLI_STEPS)})
+    # every kernel's launches over the seven main paths (serving,
     # pre-training, GIN training, OT training, the trainer CLI,
-    # multi-conformer pre-training)
+    # multi-conformer pre-training, the data layer)
     launches = {n: serve_launches[n] + train["launches"][n]
                 + gin["launches"][n] + ot_run["launches"][n]
                 + trainer["launches"][n] + conf["launches"][n]
-                for n in serve_launches}
+                + data["launches"][n] for n in serve_launches}
     with _Phase("6 kernel times"):
         rows = phase_kernel_times(g, launches, errs)
     with _Phase("9 training profile"):

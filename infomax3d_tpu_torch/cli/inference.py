@@ -62,7 +62,12 @@ def inference(args: Dict[str, Any], device: Optional[str] = None
     Runs on the CUDA card unless `device` says otherwise (and raises when
     there is no card).  Returns the float32 [num_molecules, target_dim]
     matrix and saves it to `output_path`, or `output_dir`/fingerprints.npy
-    (default directory `dataset`)."""
+    (default directory `dataset`).  `smiles_txt_path` raises (ROADMAP
+    queue 1, item 5)."""
+    if args.get("smiles_txt_path"):
+        raise NotImplementedError(
+            "SMILES input to inference is not ported yet (ROADMAP queue 1, "
+            "item 5)")
     device = resolve_device(device)
     model = build_model(args, device)
     dataset = SyntheticMolecules(**{"num": 2000,

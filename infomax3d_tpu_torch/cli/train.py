@@ -3,18 +3,20 @@ reference's `train.py` CLI).
 
     python -m infomax3d_tpu_torch.cli.train --config=configs_clean/pre-train_synthetic.yml --device=cpu
 
-Reference parity: the YAML schema, dataset dispatch, the split protocol
+Reference parity: the YAML schema, dataset dispatch (every dataset name
+the JAX package routes, served from the flat .npz caches under
+`$INFOMAX3D_DATA` that `data/preprocess.py` builds), the split protocols
 (`get_random_indices` with numpy seed 123, first 100k model pool, 10%
-test), metric names, trainer selection, pre-trained-weight transfer with
-substring filtering, multi-seed runs and test evaluation.  `dataset:
+test; OGB scaffold splits; stored splits), the size-clustered train
+samplers, metric names, trainer selection, pre-trained-weight transfer
+with substring filtering, multi-seed runs and test evaluation.  `dataset:
 synthetic` runs everything without chemistry data.
 
 The run goes to the CUDA card unless `--device` (or the config's `device`)
 says "cpu"; with neither set and no card, it raises.  What the port has
 not ported yet raises `NotImplementedError` naming its ROADMAP queue 1
-item: datasets other than `synthetic` (item 4), non-CSR batches (item 7),
-trainer flavours other than `default` and `contrastive` (item 8), shards
-(item 9).
+item: non-CSR batches and the bucket ladder (item 7), trainer flavours
+other than `default` and `contrastive` (item 8), shards (item 9).
 """
 from __future__ import annotations
 
@@ -116,13 +118,24 @@ GEOMOL_FINETUNE_SETS = (
 
 
 def build_dataset(args: Dict[str, Any]):
-    """Dataset dispatch, name-compatible with the reference.  `synthetic`
-    only; the cached datasets are ROADMAP queue 1, item 4."""
-    from infomax3d_tpu_torch.data.cached import SyntheticDataset
+    """Dataset dispatch, name-compatible with the reference
+    (`train.py:271-287` routing into the per-family functions
+    `train.py:289-612`), as the JAX package routes it.  Every family
+    resolves to a prebuilt flat .npz cache under $INFOMAX3D_DATA (default
+    `dataset`, built by data/preprocess.py); the file_loader_* names
+    stream GEOM pickles directly when RDKit is present
+    (data/file_loader.py), else fall back to their cache."""
+    from infomax3d_tpu_torch.data.cached import (CachedMoleculeDataset,
+                                                 GeomolFineTuneDataset,
+                                                 QM9Dataset,
+                                                 SyntheticDataset)
     name = args["dataset"]
     if name == "molhiv":
+        # configs/pna_original_simple_molhiv.yml falls through every branch
+        # of the reference's routing; its evident intent is ogbg-molhiv
         name = args["dataset"] = "ogbg-molhiv"
     params = dict(args.get("dataset_params") or {})
+    data_dir = os.environ.get("INFOMAX3D_DATA", "dataset")
     needs_conformers = any("conform" in str(r) for r in args["required_data"]) \
         or "conformer" in args["collate_function"].lower()
     n_conf = args["num_conformers"] if needs_conformers else 1
@@ -139,9 +152,51 @@ def build_dataset(args: Dict[str, Any]):
         params.setdefault("num_targets", max(len(args["targets"]), 1))
         params.setdefault("num_conformers", n_conf)
         return SyntheticDataset(**params)
-    raise NotImplementedError(
-        f"dataset '{name}' is not ported yet (ROADMAP queue 1, item 4); "
-        f"dataset: synthetic runs every config")
+    if name in GEOMOL_FINETUNE_SETS:
+        return GeomolFineTuneDataset(
+            os.path.join(data_dir, name, "processed.npz"), name)
+    if name in ("qm9", "qm9_rdkit", "qm9_neuralconf"):
+        # the variants differ only in where the conformers came from:
+        # separate caches, same serving code
+        sub = {"qm9": "QM9", "qm9_rdkit": "QM9_rdkit",
+               "qm9_neuralconf": "QM9_neuralconf"}[name]
+        return QM9Dataset(os.path.join(data_dir, sub, "processed.npz"),
+                          target_tasks=args["targets"] or ["homo"],
+                          num_conformers=n_conf)
+    if name in ("qm9_geomol_feat", "qm9_geomol"):
+        return QM9Dataset(os.path.join(data_dir, "qm9_geomol",
+                                       "processed.npz"),
+                          target_tasks=args["targets"] or ["homo"],
+                          num_conformers=n_conf)
+    if name in ("file_loader_qm9", "file_loader_drugs", "ot_pyg_geom_qm9"):
+        # ot_pyg_geom_qm9 is the in-memory variant of file_loader_qm9: one
+        # serving path
+        split = "qm9" if name.endswith("qm9") else "drugs"
+        pickle_root = os.path.join(
+            data_dir, "GEOM_drugs" if split == "drugs" else "GEOM_qm9")
+        try:
+            from infomax3d_tpu_torch.data.file_loader import GeomFileLoader
+            if os.path.exists(os.path.join(pickle_root,
+                                           f"summary_{split}.json")):
+                return GeomFileLoader(
+                    pickle_root, split=split,
+                    num_conformers=args["num_conformers"], **params)
+        except ImportError:
+            pass
+        return CachedMoleculeDataset(
+            os.path.join(data_dir, name, "processed.npz"),
+            num_conformers=args["num_conformers"], **params)
+    cache_names = {"qmugs": "QMugs", "drugs": "GEOM_Drugs",
+                   "geom_qm9": "GEOM_QM9", "zinc": "ZINC"}
+    if name in cache_names:
+        return CachedMoleculeDataset(
+            os.path.join(data_dir, cache_names[name], "processed.npz"),
+            num_conformers=n_conf, **params)
+    if name.startswith("ogbg") or name == "pcqm4m":
+        return CachedMoleculeDataset(
+            os.path.join(data_dir, name.replace("-", "_"), "processed.npz"),
+            **params)
+    raise KeyError(f"unknown dataset '{name}'")
 
 
 def apply_dataset_protocol(args: Dict[str, Any], dataset) -> None:
@@ -297,8 +352,9 @@ def transfer_pretrained(trainer, args: Dict[str, Any]) -> int:
 
 def make_splits(args: Dict[str, Any], dataset):
     """(train_idx, val_idx, test_idx) per the reference's per-family
-    protocol: scaffold splits for OGB sets (item 4, raises), stored splits
-    for pre-split sets, random splits otherwise (data/splits.py)."""
+    protocol: scaffold `get_idx_split` for OGB sets (train.py:428-440),
+    stored splits for pre-split sets (ZINC, geomol fine-tune, pcqm4m),
+    family-parameterized random splits otherwise (data/splits.py)."""
     name = args["dataset"]
     n = len(dataset)
     if name.startswith("ogbg"):
@@ -323,8 +379,9 @@ def make_loaders(args: Dict[str, Any], dataset):
     sized to cover a random batch with overwhelming probability (`_cap`),
     and for a flat 3D side one for its complete graphs (`max_deg` the
     largest n - 1; C times as large for `conformer_collate`); shuffled
-    train batches (seed `seed`), full batches for the contrastive
-    collates."""
+    train batches (seed `seed`) or, with `train_sampler`, the batches of a
+    size-clustered sampler (data/samplers.py); full batches for the
+    contrastive collates."""
     from infomax3d_tpu_torch.data.loader import GraphDataLoader
     from infomax3d_tpu_torch.graphs.batch import BucketSpec
 
@@ -367,24 +424,36 @@ def make_loaders(args: Dict[str, Any], dataset):
     elif args.get("_dense_3d") and collate == "contrastive_collate":
         ckw.setdefault("dense_3d", True)
         ckw.setdefault("max_nodes3d", max_n)
-    elif collate == "contrastive_collate":
+    elif collate in ("contrastive_collate", "contrastive_collate_ae"):
         ckw.setdefault("bucket3d", bucket3d(1))
     if collate == "ot_collate":
         hp = (args.get("model_parameters") or {}).get("hyperparams") or {}
         ckw.setdefault("n_true_confs",
                        int(hp.get("n_true_confs", args["num_conformers"])))
-    if args.get("bucket_ladder") or args.get("train_sampler"):
+    if args.get("bucket_ladder"):
         raise NotImplementedError(
-            "bucket_ladder / train_sampler are not ported yet (ROADMAP "
-            "queue 1, items 9 and 4)")
+            "bucket_ladder (per-batch non-CSR buckets) is not ported yet "
+            "(ROADMAP queue 1, item 7)")
 
-    def mk(indices, shuffle, seed):
+    def mk(indices, shuffle, seed, batch_sampler=None):
         return GraphDataLoader(dataset, bs, collate, bucket=bucket,
                                shuffle=shuffle, drop_last=contrastive,
                                seed=seed, indices=indices,
-                               collate_kwargs=ckw)
+                               collate_kwargs=ckw,
+                               batch_sampler=batch_sampler)
 
-    return (mk(train_idx, True, args["seed"]),
+    sampler = None
+    if args.get("train_sampler"):
+        # reference train.py:470-473 / 535-540: the train loader takes a
+        # size-clustered batch sampler
+        from infomax3d_tpu_torch.data import samplers
+        sampler_cls = getattr(samplers, args["train_sampler"], None)
+        if sampler_cls is None:
+            raise KeyError(f"unknown train_sampler '{args['train_sampler']}'")
+        sampler = sampler_cls(nodes, bs, indices=train_idx,
+                              seed=args["seed"], drop_last=contrastive)
+
+    return (mk(train_idx, True, args["seed"], batch_sampler=sampler),
             mk(val_idx, False, args["seed"] + 1),
             mk(test_idx, False, args["seed"] + 2))
 

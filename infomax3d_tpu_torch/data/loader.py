@@ -3,10 +3,13 @@ registry and `GraphDataLoader`.
 
 Collates turn per-molecule item dicts into one batch of numpy arrays per
 view, with the JAX package's names and values: `graph_collate` (the CSR
-bond graph with NaN-padded targets), `contrastive_collate` (the CSR 2D
-batch and the 3D batch: the dense one Net3DDense reads, or the CSR
-complete graph of the flat Net3D), `conformer_collate` (the CSR 2D batch
-and C conformer complete graphs per molecule, packed molecule-major) and
+bond graph with NaN-padded targets), `graph_only_collate` (the bond graph
+alone), `contrastive_collate` (the CSR 2D batch and the 3D batch: the
+dense one Net3DDense reads, or the CSR complete graph of the flat Net3D)
+and `contrastive_collate_ae`, `conformer_collate` (the CSR 2D batch and C
+conformer complete graphs per molecule, packed molecule-major), the
+augmentations (`noised_distances_collate`, `noised_coordinates_collate`,
+`node_drop_3d_collate`, `node_drop_2d3d_collate`, `graphcl_collate`) and
 `ot_collate` (the CSR bond graph plus the neighbourhood and dihedral-pair
 index arrays and the true conformer positions).  Node ids are those of the
 batch (the CSR sort permutes edges, not nodes), so the OT arrays do not
@@ -15,9 +18,14 @@ receiver-sorted order as in every CSR batch.  A CSR view also carries its
 bucket's static bounds (``max_deg``, ``nmax``, 0-d int arrays) so
 `to_device` can rebuild the `GraphBatch`.
 
+The augmentations draw from ``np.random.default_rng(0)`` built anew on
+every call when no `rng` is passed, as the JAX package's do (its CLI
+passes none), so every batch of a run gets the same draws.
+
 `GraphDataLoader` shuffles with `np.random.default_rng(seed)` (one
-permutation per epoch), drops the last partial batch when `drop_last`
-(the contrastive collates need full batches), and collates on a prefetch
+permutation per epoch) or takes its index lists from a `batch_sampler`
+(`data/samplers.py`), drops the last partial batch when `drop_last` (the
+contrastive collates need full batches), and collates on a prefetch
 thread whose errors are re-raised on the consuming thread.  Batches leave
 it as numpy arrays; the trainer moves them to its device.
 """
@@ -32,6 +40,7 @@ import numpy as np
 import torch
 
 from infomax3d_tpu_torch.data.geomol_featurize import geomol_featurize
+from infomax3d_tpu_torch.data.synthetic import complete_graph_from_coords
 from infomax3d_tpu_torch.graphs.batch import (BucketSpec, GraphBatch,
                                               batch_graphs, bucket_for,
                                               to_graph_batch)
@@ -175,14 +184,12 @@ COLLATE_ALIASES: Dict[str, str] = {
 }
 
 # the JAX package's other collates and the ROADMAP queue 1 item that ports
-# each
-NOT_PORTED = {name: 4 for name in (
-    "graph_only_collate", "contrastive_collate_ae",
-    "noised_distances_collate", "noised_coordinates_collate",
-    "node_drop_3d_collate", "node_drop_2d3d_collate", "san_collate",
-    "padded_collate_positional_encoding", "egnn_padded_collate",
-    "molhiv_padded_collate", "pairwise_distance_collate", "smp_collate",
-    "graphcl_collate")}
+# each: the dense batches (SAN, the transformer, EGNN, the distance
+# predictor) and SMP's radius graph, with their models
+NOT_PORTED = {name: 7 for name in (
+    "san_collate", "padded_collate_positional_encoding",
+    "egnn_padded_collate", "molhiv_padded_collate",
+    "pairwise_distance_collate", "smp_collate")}
 
 
 def register_collate(name):
@@ -227,12 +234,17 @@ def graph_collate(items: Sequence[Dict], bucket: BucketSpec):
     return {"graph": _csr_view(arrays, bucket)}
 
 
+def _bonds_only(items: Sequence[Dict], bucket: BucketSpec):
+    """The CSR batch of the items' bond graphs, without targets."""
+    return _csr_view(batch_graphs([it["graph2d"] for it in items], bucket),
+                     bucket)
+
+
 def _graph2d(items: Sequence[Dict], bucket: BucketSpec):
     """The CSR 2D batch of `items`, with NaN-padded targets when they have
     targets."""
     if "targets" not in items[0]:
-        return _csr_view(batch_graphs([it["graph2d"] for it in items],
-                                      bucket), bucket)
+        return _bonds_only(items, bucket)
     return _csr_view(_nan_targets(batch_graphs(
         [dict(it["graph2d"], targets=it["targets"]) for it in items],
         bucket), len(items)), bucket)
@@ -279,10 +291,143 @@ def conformer_collate(items: Sequence[Dict], bucket: BucketSpec,
     confs = [c for it in items
              for c in it["conformers3d"][:num_conformers or None]]
     n_conf = len(items[0]["conformers3d"][:num_conformers or None])
-    return {"graph2d": _csr_view(batch_graphs(
-                [it["graph2d"] for it in items], bucket), bucket),
+    return {"graph2d": _bonds_only(items, bucket),
             "graph3d": complete_graphs(confs, bucket3d,
                                        bucket.n_graphs * n_conf)}
+
+
+@register_collate("graph_only_collate")
+def graph_only_collate(items: Sequence[Dict], bucket: BucketSpec):
+    """The bond graphs alone (custom_collate.py:37-40)."""
+    return {"graph": _bonds_only(items, bucket)}
+
+
+@register_collate("contrastive_collate_ae")
+def contrastive_collate_ae(items, bucket, bucket3d=None):
+    """The autoencoder trainer's batch: `contrastive_collate`'s with the
+    flat 3D side, whose `edge_dist` are the reconstruction targets."""
+    return contrastive_collate(items, bucket, bucket3d)
+
+
+@register_collate("noised_distances_collate")
+def noised_distances_collate(items: Sequence[Dict], bucket: BucketSpec,
+                             bucket3d: Optional[BucketSpec] = None,
+                             std: float = 0.1, num_noised: int = 1,
+                             rng: Optional[np.random.Generator] = None):
+    """Contrastive batch + `num_noised` copies of the 3D view with Gaussian
+    noise on the edge distances, appended as extra negatives
+    (NoisedDistancesCollate, custom_collate.py:131-152)."""
+    rng = rng or np.random.default_rng(0)
+    out = contrastive_collate(items, bucket, bucket3d)
+    noised = []
+    for _ in range(num_noised):
+        copies = []
+        for it in items:
+            g = it["graph3d"]
+            copies.append(dict(g, edge_dist=(g["edge_dist"] + rng.normal(
+                scale=std, size=g["edge_dist"].shape)).astype(np.float32)))
+        noised.append(complete_graphs(copies, bucket3d, bucket.n_graphs))
+    out["noisy3d"] = noised[0] if num_noised == 1 else noised
+    return out
+
+
+@register_collate("noised_coordinates_collate")
+def noised_coordinates_collate(items: Sequence[Dict], bucket: BucketSpec,
+                               bucket3d: Optional[BucketSpec] = None,
+                               std: float = 0.1, num_noised: int = 1,
+                               rng: Optional[np.random.Generator] = None):
+    """Noise the COORDINATES and recompute distances
+    (NoisedCoordinatesCollate, custom_collate.py:160-185)."""
+    rng = rng or np.random.default_rng(0)
+    out = contrastive_collate(items, bucket, bucket3d)
+    noised = []
+    for _ in range(num_noised):
+        copies = []
+        for it in items:
+            g = it["graph3d"]
+            coords = g["coords"] + rng.normal(
+                scale=std, size=g["coords"].shape).astype(np.float32)
+            d = np.linalg.norm(coords[g["senders"]] - coords[g["receivers"]],
+                               axis=-1).astype(np.float32)
+            copies.append(dict(g, coords=coords, edge_dist=d))
+        noised.append(complete_graphs(copies, bucket3d, bucket.n_graphs))
+    out["noisy3d"] = noised[0] if num_noised == 1 else noised
+    return out
+
+
+def _node_drop_3d(g3: Dict, keep: np.ndarray) -> Dict:
+    """The complete graph on the kept nodes."""
+    return complete_graph_from_coords(dict(node_feat=g3["node_feat"][keep],
+                                           coords=g3["coords"][keep]))
+
+
+@register_collate("node_drop_3d_collate")
+def node_drop_3d_collate(items, bucket, bucket3d=None, num_drop: int = 3,
+                         rng: Optional[np.random.Generator] = None):
+    """Randomly remove up to num_drop atoms from the 3D view only
+    (NodeDrop3dCollate, custom_collate.py:188-206)."""
+    rng = rng or np.random.default_rng(0)
+    dropped = []
+    for it in items:
+        g3 = it["graph3d"]
+        n = g3["node_feat"].shape[0]
+        k = int(rng.integers(0, num_drop))
+        keep = np.setdiff1d(np.arange(n),
+                            rng.integers(0, n, size=k)) if k else np.arange(n)
+        dropped.append(_node_drop_3d(g3, keep))
+    return {"graph2d": _bonds_only(items, bucket),
+            "graph3d": complete_graphs(dropped, bucket3d, bucket.n_graphs)}
+
+
+@register_collate("node_drop_2d3d_collate")
+def node_drop_2d3d_collate(items, bucket, bucket3d=None,
+                           drop_ratio: float = 0.1,
+                           rng: Optional[np.random.Generator] = None):
+    """Independently drop a fraction of atoms from BOTH views
+    (NodeDrop2d3DCollate, custom_collate.py:208-229)."""
+    rng = rng or np.random.default_rng(0)
+    g2s, g3s = [], []
+    for it in items:
+        g2s.append(node_drop(it["graph2d"], rng, drop_ratio))
+        g3 = it["graph3d"]
+        n = g3["node_feat"].shape[0]
+        keep = np.sort(rng.permutation(n)[: n - int(drop_ratio * n)])
+        g3s.append(_node_drop_3d(g3, keep))
+    return {"graph2d": _csr_view(batch_graphs(g2s, bucket), bucket),
+            "graph3d": complete_graphs(g3s, bucket3d, bucket.n_graphs)}
+
+
+@register_collate("graphcl_collate")
+def graphcl_collate(items: Sequence[Dict], bucket: BucketSpec,
+                    rng: Optional[np.random.Generator] = None,
+                    drop_ratio: float = 0.1):
+    """Two node-dropped augmented views of the 2D graph (NodeDrop2dCollate,
+    custom_collate.py:188-282)."""
+    rng = rng or np.random.default_rng(0)
+    v1 = [node_drop(it["graph2d"], rng, drop_ratio) for it in items]
+    v2 = [node_drop(it["graph2d"], rng, drop_ratio) for it in items]
+    return {"view1": _csr_view(batch_graphs(v1, bucket), bucket),
+            "view2": _csr_view(batch_graphs(v2, bucket), bucket)}
+
+
+def node_drop(graph: Dict, rng: np.random.Generator, ratio: float) -> Dict:
+    """Drop a fraction of nodes (keeping >=1) and incident edges."""
+    n = graph["node_feat"].shape[0]
+    keep_n = max(1, int(round(n * (1 - ratio))))
+    keep = np.sort(rng.permutation(n)[:keep_n])
+    remap = -np.ones(n, dtype=np.int64)
+    remap[keep] = np.arange(keep_n)
+    s, r = graph["senders"], graph["receivers"]
+    ekeep = (remap[s] >= 0) & (remap[r] >= 0)
+    out = dict(graph)
+    out["node_feat"] = graph["node_feat"][keep]
+    out["senders"] = remap[s[ekeep]].astype(np.int32)
+    out["receivers"] = remap[r[ekeep]].astype(np.int32)
+    if graph.get("edge_feat") is not None:
+        out["edge_feat"] = graph["edge_feat"][ekeep]
+    if graph.get("coords") is not None:
+        out["coords"] = graph["coords"][keep]
+    return out
 
 
 register_collate("ot_collate")(ot_collate)
@@ -304,15 +449,16 @@ def to_device(view: Dict[str, np.ndarray], device):
 
 class GraphDataLoader:
     """Shuffling, prefetching loader over a dataset of item dicts
-    (`__len__`, `__getitem__(i)`), one static bucket per loader (the JAX
-    package's bucket ladder, data-parallel shards and batch samplers are
-    ROADMAP queue 1, items 9 and 4)."""
+    (`__len__`, `__getitem__(i)`), one static bucket per loader; a
+    `batch_sampler` (an iterable of index lists with `__len__`) replaces
+    the shuffle.  The JAX package's bucket ladder (non-CSR buckets) is
+    ROADMAP queue 1, item 7, its data-parallel shards item 9."""
 
     def __init__(self, dataset, batch_size: int, collate,
                  bucket: Optional[BucketSpec] = None, shuffle: bool = True,
                  drop_last: bool = False, seed: int = 0,
                  indices: Optional[Sequence[int]] = None, prefetch: int = 2,
-                 collate_kwargs: Optional[Dict] = None):
+                 collate_kwargs: Optional[Dict] = None, batch_sampler=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate = collate if callable(collate) else get_collate(collate)
@@ -324,8 +470,11 @@ class GraphDataLoader:
                                   else np.arange(len(dataset)))
         self.prefetch = prefetch
         self.collate_kwargs = collate_kwargs or {}
+        self.batch_sampler = batch_sampler
 
     def __len__(self):
+        if self.batch_sampler is not None:
+            return len(self.batch_sampler)
         n = len(self.indices)
         return n // self.batch_size if self.drop_last else \
             (n + self.batch_size - 1) // self.batch_size
@@ -333,11 +482,18 @@ class GraphDataLoader:
     def skip_epochs(self, n: int) -> None:
         """Advance the shuffle by `n` epochs without collating (a resumed
         run continues the order of the run it resumes)."""
-        if self.shuffle:
+        if self.batch_sampler is not None:
+            for _ in range(n):
+                for _ in self.batch_sampler:
+                    pass
+        elif self.shuffle:
             for _ in range(n):
                 self.rng.shuffle(self.indices.copy())
 
     def _index_batches(self):
+        if self.batch_sampler is not None:
+            yield from self.batch_sampler
+            return
         idx = self.indices.copy()
         if self.shuffle:
             self.rng.shuffle(idx)

@@ -3,10 +3,13 @@
 Same generator, same draws: for one seed the molecules are identical, bit
 for bit, to the JAX package's — OGB-coded atom features [n, 9], bond
 features [e, 3], both edge directions, 3D coordinates (and conformers), and
-the complete-graph 3D view (`graph3d`).  numpy only.
+the complete-graph 3D view (`graph3d`).  `write_synthetic_cache` packs
+such a set into the flat .npz cache of `data/cached.py`, array for array
+the JAX package's.  numpy only.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -115,3 +118,96 @@ class SyntheticMolecules:
         if conformer is not None and "conformers" in mol:
             mol = dict(mol, coords=mol["conformers"][conformer])
         return complete_graph_from_coords(mol)
+
+
+def write_synthetic_cache(path: str, num: int = 256, seed: int = 0,
+                          num_targets: int = 1, num_conformers: int = 1,
+                          n_min: int = 4, n_max: int = 24,
+                          float_features: bool = False,
+                          split: Optional[str] = None,
+                          split_fracs=(0.8, 0.1, 0.1),
+                          nan_targets: bool = False) -> str:
+    """Pack a SyntheticMolecules set into the flat .npz cache layout served
+    by `data/cached.py` (the reference's processed-tensor layout,
+    `datasets/qm9_dataset.py:370-471`) — lets every `dataset:` name in the
+    reference configs run end-to-end without chemistry data.
+
+    split: None | 'random' | 'scaffold' -> stores split_train/valid/test.
+    float_features: one-hot-expand the categorical codes (GeoMol-style
+    chemprop featurization shape, reference bace_geomol_feat.py:107-186).
+    """
+    ds = SyntheticMolecules(num, seed=seed, num_targets=num_targets,
+                            num_conformers=num_conformers,
+                            n_min=n_min, n_max=n_max)
+    atoms, edges, eidx, coords = [], [], [], []
+    atom_slices, edge_slices = [0], [0]
+    for m in ds.mols:
+        nf = m["node_feat"]
+        if float_features:
+            onehots = [np.eye(d, dtype=np.float32)[nf[:, c] % d]
+                       for c, d in enumerate(FULL_ATOM_FEATURE_DIMS[:4])]
+            nf = np.concatenate(onehots, axis=1)
+        atoms.append(nf)
+        ef = m["edge_feat"]
+        if float_features:
+            ef = np.eye(FULL_BOND_FEATURE_DIMS[0],
+                        dtype=np.float32)[ef[:, 0] % FULL_BOND_FEATURE_DIMS[0]]
+        edges.append(ef)
+        eidx.append(np.stack([m["senders"], m["receivers"]]))
+        if num_conformers > 1:
+            coords.append(np.swapaxes(m["conformers"], 0, 1))  # [n, C, 3]
+        else:
+            coords.append(m["coords"])
+        atom_slices.append(atom_slices[-1] + m["node_feat"].shape[0])
+        edge_slices.append(edge_slices[-1] + m["senders"].shape[0])
+    arrays = dict(
+        atom_features=np.concatenate(atoms),
+        edge_features=np.concatenate(edges),
+        edge_indices=np.concatenate(eidx, axis=1),
+        atom_slices=np.asarray(atom_slices, np.int64),
+        edge_slices=np.asarray(edge_slices, np.int64),
+        coordinates=np.concatenate(coords),
+        targets=ds.targets,
+    )
+    if nan_targets:
+        # OGB multi-task label sparsity (e.g. ogbg-molpcba is ~94% NaN):
+        # exercised by the NaN-masked losses and task-skipping metrics
+        t = arrays["targets"].astype(np.float32).copy()
+        mask_rng = np.random.default_rng(seed + 1)
+        nan_mask = mask_rng.random(t.shape) < 0.5
+        # keep at least one observed label per task and per molecule
+        nan_mask[0, :] = False
+        nan_mask[:, 0] = False
+        t[nan_mask] = np.nan
+        arrays["targets"] = t
+    if split == "random":
+        rng = np.random.default_rng(seed)
+        perm = rng.permutation(num)
+        n_tr = int(split_fracs[0] * num)
+        n_va = int(split_fracs[1] * num)
+        arrays["split_train"] = np.sort(perm[:n_tr])
+        arrays["split_valid"] = np.sort(perm[n_tr:n_tr + n_va])
+        arrays["split_test"] = np.sort(perm[n_tr + n_va:])
+    elif split == "scaffold":
+        from infomax3d_tpu_torch.data.splits import scaffold_split
+        sp = scaffold_split(_CacheView(ds), *split_fracs)
+        arrays["split_train"] = sp["train"]
+        arrays["split_valid"] = sp["valid"]
+        arrays["split_test"] = sp["test"]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, **arrays)
+    return path
+
+
+class _CacheView:
+    """Adapter giving SyntheticMolecules the graph2d(i) protocol
+    scaffold_split expects."""
+
+    def __init__(self, ds: SyntheticMolecules):
+        self.ds = ds
+
+    def __len__(self):
+        return len(self.ds)
+
+    def graph2d(self, i):
+        return self.ds.graph2d(i)
