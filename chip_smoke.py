@@ -26,10 +26,10 @@ its seconds:
    ignored (`_hold_walks`).
 4. serving: `inference()` serves 2 requests of 500 molecules through the
    PNA 200x7 model of `configs_clean/pre-train_QM9.yml` (seeded numpy
-   weights in the JAX layout, through `params_from_jax`) in bf16 and in
-   float32; each fingerprint matrix is held against the same model and
-   batch on the CPU (which runs the plain versions), and each forward's
-   kernel launches are counted.  Then ms per forward and graphs/s.
+   weights in the JAX layout, through `params_from_jax`) in bf16 (asked
+   for explicitly) and in float32; each fingerprint matrix is held
+   against the same model and batch on the CPU (which runs the plain
+   versions), and each forward's kernel launches are counted.  Then ms per forward and graphs/s.
 5. profile: torch.profiler's kernel records of warm forwards — device-busy
    time per forward, its idle share and the top kernels.
 6. kernel times: device times (CUDA events, the host's launches kept out
@@ -88,9 +88,10 @@ its seconds:
    pass, host EMD and gradient pass plus update; graphs/s; the step with
    its noise drawn on the card against the same step drawing on the host.
 16. OT profile and kernel times: torch.profiler over warm steps, then the
-   CSR segment sum as in phase 13 and the multi-reduce and the sender-keyed
-   segment sum at the OT shape; then the ladder of the OT step's small CSR
-   walks (the empty kernel, the index round trip, each walk alone and in
+   CSR segment sum as in phase 13 (and against `index_add_` in 6
+   interleaved repeats, cold and warm) and the multi-reduce and the
+   sender-keyed segment sum at the OT shape; then the ladder of the OT
+   step's small CSR walks (the empty kernel, the index round trip, each walk alone and in
    the step, on the walks' grid) beside the byte bounds of rows 1, 3 and 4
    at the OT shapes, and each row's closable gap.
 17. trainer CLI: `load_config` + `train` of `configs_clean/pre-train_QM9.yml`
@@ -146,6 +147,19 @@ its seconds:
    write and load seconds, the scaffold split's, and each run's host
    seconds waiting on the loader per train step beside its
    synthetic-served run.
+20. serving CLI: 5000 drug-like SMILES (20 to 70 heavy atoms) from a
+   seeded fragment grammar (`drug_smiles`) served through
+   `cli.inference.main` with a YAML config (`yaml_lite`) from phase 18c's
+   QMugs checkpoint (PNA 200x7, target 256, batch 500, float32); the JAX
+   fixture's SMILES (`tests/fixtures/jax_serving`) from its flax msgpack
+   checkpoint against the JAX CLI's stored fingerprints; one fine-tune
+   step transferring from that checkpoint (the JAX CLI's count);
+   `configs/30.yml`'s GIN from phase 19's checkpoint over its molhiv
+   cache; `cli.analysis.main` on the 5000; launches per request; the
+   first 500 SMILES and the GIN request on the CPU against the card, with
+   a planted fault (the request served in bf16) that must fail; host
+   seconds to read and featurize and to collate, device ms per batch,
+   molecules/s end to end.
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 """
@@ -2157,6 +2171,10 @@ def phase_ot_kernel_times(ob, launches: dict, errs: dict,
               f"{plain_ms:.5f} ms; library {lib_ms:.5f} ms (float32 "
               f"index_add_); bound {bound_ms:.5f} ms by {bound_by} "
               f"({nbytes / 1e6:.3f} MB, {e_real * D / 1e6:.3f} MFLOP f32)")
+        if dt == torch.float32:
+            _row3_against_index_add(
+                lambda: csr_segment_sum(ct, rp),
+                lambda: acc.zero_().index_add_(0, recv, ctf), flush)
         src, replaces = KERNEL_INFO["csr_segment_sum"]
         row = {"name": "csr_segment_sum", "route": "cuda", "source": src,
                "replaces": replaces, "launches": launches["csr_segment_sum"],
@@ -2165,6 +2183,35 @@ def phase_ot_kernel_times(ob, launches: dict, errs: dict,
                "bound_by": bound_by, "library_ms": lib_ms}
     _ot_walk_times(ob, in_step, flush)
     return [row]      # the float32 variant
+
+
+# interleaved repeats of row 3 against its library call (phase 16b)
+ROW3_REPEATS = 6
+
+
+def _row3_against_index_add(kern, lib, flush):
+    """Row 3 (float32, the OT step's shape) and its `index_add_` (with the
+    `zero_` of its accumulator, as in the kernels line) in alternating
+    order over `ROW3_REPEATS` repeats, each cold-L2 (median of 20 calls)
+    and warm (mean of 100): the spread of each, and the ratio of each
+    repeat's pair."""
+    times = {f"{who} {how}": [] for who in ("row 3", "index_add_")
+             for how in ("cold", "warm")}
+    for r in range(ROW3_REPEATS):
+        pair = (("row 3", kern), ("index_add_", lib))
+        for who, fn in (pair if r % 2 == 0 else pair[::-1]):
+            times[f"{who} cold"].append(device_ms(fn, iters=20, flush=flush))
+            times[f"{who} warm"].append(device_ms(fn, iters=100, warmup=10))
+    for key, ts in times.items():
+        print(f"[times] row 3 A/B, {key}: min {min(ts):.5f} median "
+              f"{float(np.median(ts)):.5f} max {max(ts):.5f} ms over "
+              f"{ROW3_REPEATS} interleaved repeats")
+    for how in ("cold", "warm"):
+        ratio = np.asarray(times[f"row 3 {how}"]) / np.asarray(
+            times[f"index_add_ {how}"])
+        print(f"[times] row 3 A/B, row 3 / index_add_ {how}: per repeat "
+              f"{np.round(ratio, 4).tolist()}; row 3 faster in "
+              f"{int((ratio < 1).sum())} of {ROW3_REPEATS}")
 
 
 def _ot_walk_times(ob, in_step: dict, flush):
@@ -3257,7 +3304,7 @@ def phase_data(smi: str, out_dir: Path, synthetic: dict = None) -> dict:
     host seconds per step beside the synthetic-served runs (`synthetic`:
     phases 17 and 18's runs with their train steps, keyed "pre_f32",
     "pre" and "qmugs"; the missing ones are run here).  Returns the main
-    path's launches."""
+    path's launches, the caches' root and the GIN run's best checkpoint."""
     import shutil
     from infomax3d_tpu_torch.cli.train import make_splits
     from infomax3d_tpu_torch.data.cached import (CachedMoleculeDataset,
@@ -3415,6 +3462,338 @@ def phase_data(smi: str, out_dir: Path, synthetic: dict = None) -> dict:
               f"{per:.6f} ({total:.6f} s / {steps} steps) against "
               f"synthetic {syn_per:.6f} ({syn_total:.6f} s / {syn_steps} "
               f"steps); {smi}")
+    return {"launches": launches, "caches": caches,
+            "gin_ckpt": runs["ogbg-molhiv"]["dir"] / "best_checkpoint.pt"}
+
+
+# --- phase 20: the serving CLI ---------------------------------------------
+
+# A seeded fragment grammar of drug-like SMILES (the card's machine has no
+# RDKit and the repository no SMILES set of that size): rings (benzene,
+# heteroaromatics, fused bicycles, saturated heterocycles, a pyridinium)
+# joined by linkers (amides, esters, ethers, a sulfonyl, alkenes, alkynes,
+# a quaternary ammonium), ring carbons carrying substituents (halogens,
+# methoxy, CF3, nitrile, nitro, carboxylate, ammonium).  "{}" marks a
+# carbon that may carry one; the chain enters a ring at its first atom and
+# leaves from its last.  Every string is in the subset `data/chem.py`
+# parses.
+SMILES_RINGS = (
+    "c1cc{}ccc1", "c1cc{}ncc1", "c1cc{}sc1", "c1cc{}oc1", "c1cc[nH]c1",
+    "c1cc{}c2ccccc2c1", "c1ccc2[nH]ccc2c1", "c1cc{}c2ncccc2c1",
+    "c1ccc2[nH]cnc2c1", "c1cc[n+](C)cc1", "C1CC{}CCC1", "C1CCNCC1",
+    "N1CCN(C)CC1", "C1COCCN1", "C1CC{}C1", "c1nc{}cs1", "c1ncnc{}c1",
+    "C1CC2CCC{}C2C1",
+)
+SMILES_LINKERS = ("C", "CC", "C(=O)N", "NC(=O)", "O", "S(=O)(=O)", "N",
+                  "C=C", "C#C", "OC(=O)", "CN", "C(C)", "CO", "[N+](C)(C)")
+SMILES_SUBSTITUENTS = ("(F)", "(Cl)", "(Br)", "(C)", "(O)", "(OC)", "(N)",
+                       "(C(F)(F)F)", "(C#N)", "([N+](=O)[O-])",
+                       "(C(=O)[O-])", "(CC[NH3+])", "(I)", "(SC)")
+_HEAVY_ATOM = r"\[[^\]]+\]|Br|Cl|[BCNOPSFI]|[cnops]"
+
+
+def drug_smiles(num: int, seed: int, n_min: int = 20,
+                n_max: int = 70) -> list:
+    """`num` SMILES of `n_min` to `n_max` heavy atoms (each size drawn
+    uniformly, rings and linkers appended until it is reached, longer ones
+    drawn again), from `np.random.default_rng(seed)`."""
+    import re
+    rng = np.random.default_rng(seed)
+
+    def pick(options):
+        return options[rng.integers(len(options))]
+
+    def ring():
+        return re.sub(r"\{\}", lambda _: pick(SMILES_SUBSTITUENTS)
+                      if rng.random() < 0.6 else "", pick(SMILES_RINGS))
+
+    def heavy(s):
+        return len(re.findall(_HEAVY_ATOM, s))
+    out = []
+    while len(out) < num:
+        target = int(rng.integers(n_min, n_max + 1))
+        s = ring()
+        while heavy(s) < target:
+            s += pick(SMILES_LINKERS) + ring()
+        if heavy(s) <= n_max:
+            out.append(s)
+    return out
+
+
+# Phase 20's requests.  (b) the main request: 5000 SMILES at the
+# checkpoint of phase 18c (`pre-train_QMugs.yml`'s PNA 200x7, target 256,
+# batch 500, from its train_arguments.yaml); (c) the first 500 of them on
+# the CPU.  Both training runs asked for bf16 explicitly (`bf16_compute:
+# True` in their train_arguments.yaml, which serving would honour); the
+# serving configs ask for the default, "auto": float32.
+SERVE_MOLECULES = 5000
+SERVE_SEED = 0
+SERVE_CPU = 500
+SERVE_CONFIG = {"bf16_compute": "auto"}
+# The card against the CPU, float32 serving, relative to max|CPU|: phase
+# 4's float32 bound (matmuls in full float32 on both, TF32 off; only the
+# summation order differs).  The planted fault is the defect this slice
+# repairs, serving "auto" in bf16 on the card: it must exceed the bound.
+# Readings (NVIDIA H100 80GB HBM3, 700.00 W): PNA 200x7 2.29e-6, the
+# fault 1.08e-2; GIN 5x300 5.99e-7.
+SERVE_TOL = SLICE_TOL[False]
+# The JAX fixture (`tools/make_jax_serving_fixture.py`): its 64 SMILES
+# through the JAX CLI on a CPU, stored; the card against them, relative
+# to max|JAX|, as the CPU test holds the port (it reads 4.7e-7 there,
+# tests/test_torch_port_inference.py; the card 3.93e-7)
+JAX_FIXTURE = Path("tests/fixtures/jax_serving")
+JAX_SERVE_TOL = 1e-5
+# the fixture's PNA 16x2 at its batch of 32: 2 forwards of 64 SMILES
+JAX_FIXTURE_FWD = dict(NONE, edge_combine=2, multi_reduce=2)
+JAX_FIXTURE_BATCHES = 2
+
+
+def _write_yaml(path: Path, cfg: dict) -> str:
+    from infomax3d_tpu_torch.cli import yaml_lite
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        yaml_lite.dump(cfg, f)
+    return str(path)
+
+
+def _serve(argv: list) -> tuple:
+    """`cli.inference.main(argv)` with its timing and launches."""
+    import contextlib
+    import io
+    from infomax3d_tpu_torch.cli.inference import main as serve_main
+    timing, text = {}, io.StringIO()
+    before = _counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        fp = serve_main(argv, timing=timing)
+    timing["e2e_s"] = time.perf_counter() - t0
+    after = _counts()
+    return fp, timing, {n: after[n] - before[n] for n in after}
+
+
+def _serve_numbers(tag: str, source: str, n: int, timing: dict,
+                   launches: dict, smi: str):
+    fwd = timing["forward_ms"]
+    print(f"[serve] {tag}: {source} {timing['data_s']:.6f} s host; "
+          f"collate {timing['collate_s']:.6f} s host (loader thread); "
+          f"device forward {np.mean(fwd):.6f} ms "
+          f"per batch (CUDA events, {len(fwd)} batches, {min(fwd):.6f} to "
+          f"{max(fwd):.6f}); end to end {n / timing['e2e_s']:.3f} "
+          f"molecules/s ({n} molecules, {timing['e2e_s']:.6f} s, input "
+          f"to fingerprints.npy); kernels per request {launches}; "
+          f"{smi}")
+
+
+def _rel(got: np.ndarray, ref: np.ndarray) -> float:
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def _serve_forward_profile(tag: str, cfg: str, dataset, bs: int,
+                           in_request: list, smi: str, n: int = 5):
+    """One batch of `bs` molecules of `dataset` in the serving bucket
+    through the model of `cfg`, outside a request: back to back (CUDA
+    events, the host's launches included), device time alone
+    (`device_ms`), and torch.profiler's busy time, kernels per forward and
+    top kernels, beside the request's per-batch forward (`in_request`,
+    ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    from infomax3d_tpu_torch.cli.inference import (build_model, parse_args,
+                                                   serving_bucket)
+    from infomax3d_tpu_torch.data.loader import graph_only_collate, to_device
+    args, _ = parse_args(["--config", cfg])
+    g = to_device(graph_only_collate([dataset[i] for i in range(bs)],
+                                     serving_bucket(dataset, bs))["graph"],
+                  "cuda")
+    model = build_model(args, "cuda")
+    with torch.inference_mode():
+        back = cuda_ms(lambda: model(g), iters=20)
+        alone = device_ms(lambda: model(g), iters=10)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                model(g)
+            torch.cuda.synchronize()
+    by_name = _profile_kernels(prof)
+    busy = sum(us for us, _ in by_name.values()) / n / 1e3
+    if by_name:
+        kernels = f"{sum(c for _, c in by_name.values()) / n:.0f}"
+        busy_s, idle = f"{busy:.4f} ms", f"{1 - busy / back:.3f}"
+    else:
+        kernels = busy_s = idle = "not measured"
+    print(f"[serve] {tag} forward of one batch of {bs} (N = {g.num_nodes}, "
+          f"E = {g.senders.shape[0]} in the serving bucket), outside the "
+          f"request: {back:.4f} ms back to back (CUDA events over 20), "
+          f"{alone:.4f} ms device time alone, busy {busy_s} (idle share "
+          f"{idle} of back to back), {kernels} kernels per forward; in the "
+          f"request {float(np.mean(in_request)):.4f} ms (median "
+          f"{float(np.median(in_request)):.4f}); {smi}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    for name, (us, cnt) in top:
+        print(f"[serve]   {us / n:9.2f} us/fwd  {cnt / n:5.0f}x  {name[:90]}")
+
+
+def phase_serving(smi: str, out_dir: Path, qmugs_ckpt: Path,
+                  gin_ckpt: Path, caches: Path) -> dict:
+    """Phase 20: the serving CLI as users run it.  (a) 5000 drug-like
+    SMILES from the fragment grammar; the main path: (b) the full-width
+    PNA of phase 18c's checkpoint serves them through
+    `cli.inference.main`, (c) the JAX fixture's SMILES from its flax
+    msgpack checkpoint, (d) one fine-tune step transferring from that
+    checkpoint, (e) `configs/30.yml`'s GIN from phase 19's checkpoint over
+    its molhiv-shaped cache, (f) `cli.analysis.main` on (b)'s request;
+    then the CPU's fingerprints of (b)'s first 500 SMILES, (e)'s and the
+    planted fault.  Returns the main path's launches."""
+    import contextlib
+    import io
+    import shutil
+    from infomax3d_tpu_torch.cli import analysis
+    from infomax3d_tpu_torch.cli.inference import SmilesDataset, parse_args
+    from infomax3d_tpu_torch.cli.train import build_dataset, make_splits
+    root = out_dir / "serving"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+
+    # (a) the SMILES
+    smiles = drug_smiles(SERVE_MOLECULES, SERVE_SEED)
+    (root / "smiles.txt").write_text("\n".join(smiles) + "\n")
+    (root / "smiles_cpu.txt").write_text("\n".join(smiles[:SERVE_CPU])
+                                         + "\n")
+    pna = dict(SERVE_CONFIG, checkpoint=str(qmugs_ckpt))
+    cfg = _write_yaml(root / "serve.yml", dict(
+        pna, smiles_txt_path=str(root / "smiles.txt"),
+        output_path=str(root / "fingerprints.npy")))
+    fx = json.loads((JAX_FIXTURE / "fixture.json").read_text())
+    cfg_fx = _write_yaml(root / "serve_jax.yml", {
+        "smiles_txt_path": str(JAX_FIXTURE / "smiles.txt"),
+        "output_path": str(root / "fingerprints_jax.npy")})
+    gin = dict(SERVE_CONFIG, checkpoint=str(gin_ckpt))
+    cfg_gin = _write_yaml(root / "serve_gin.yml", dict(
+        gin, output_path=str(root / "fingerprints_gin.npy")))
+    cfg_an = _write_yaml(root / "analysis.yml", dict(
+        pna, smiles_txt_path=str(root / "smiles.txt"),
+        output_dir=str(root / "analysis")))
+
+    # the main path: the counts are set to 0 just before it
+    _reset_counts()
+    fp, timing, per_req = _serve(["--config", cfg])
+    fp_fx, _, fx_req = _serve(["--config", cfg_fx, "--checkpoint",
+                               str(JAX_FIXTURE / "best_checkpoint.pt")])
+    tune = _data_run(fx["tune_config"], dict(
+        fx["tune_overrides"],
+        pretrain_checkpoint=str(JAX_FIXTURE / "best_checkpoint.pt")),
+        root / "tune", None)
+    with mock.patch.dict(os.environ, {"INFOMAX3D_DATA": str(caches)}):
+        fp_gin, gin_timing, gin_req = _serve(["--config", cfg_gin])
+    an_before = _counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        payload = analysis.main(["--config", cfg_an])
+    an_after = _counts()
+    launches = _counts()
+
+    # (b) the full-width request
+    batches = -(-SERVE_MOLECULES // BATCH)
+    _check(fp.shape == (SERVE_MOLECULES, MODEL_PARAMETERS["target_dim"]),
+           f"fingerprints {fp.shape}")
+    _check(bool(np.isfinite(fp).all()), "non-finite fingerprints")
+    want = {n: v * batches for n, v in EXPECTED[False].items()}
+    _check(per_req == want, f"PNA request launches {per_req} != {want}")
+    an_req = {n: an_after[n] - an_before[n] for n in an_after}
+    _check(an_req == want, f"analysis request launches {an_req} != {want}")
+    _serve_numbers(f"PNA 200x7 (phase 18c's QMugs checkpoint, float32, "
+                   f"batch {BATCH})", "SMILES read, parsed and featurized",
+                   SERVE_MOLECULES, timing, per_req, smi)
+    _serve_forward_profile("PNA 200x7", cfg,
+                           SmilesDataset(str(root / "smiles_cpu.txt")),
+                           BATCH, timing["forward_ms"], smi)
+    # (c) the JAX checkpoint against the JAX CLI's fingerprints
+    ref = np.load(JAX_FIXTURE / "fingerprints.npy")
+    want_fx = {n: v * JAX_FIXTURE_BATCHES for n, v in JAX_FIXTURE_FWD.items()}
+    _check(fx_req == want_fx, f"JAX fixture launches {fx_req} != {want_fx}")
+    rel = _rel(fp_fx, ref)
+    _check(fp_fx.shape == ref.shape and rel <= JAX_SERVE_TOL,
+           f"JAX fixture: {fp_fx.shape}, card vs JAX {rel:.3g} > "
+           f"{JAX_SERVE_TOL}")
+    print(f"[serve] JAX msgpack checkpoint (PNA 16x2): {fp_fx.shape} "
+          f"against the JAX CLI's stored fingerprints rel {rel:.3g} (tol "
+          f"{JAX_SERVE_TOL}); launches {fx_req}")
+    # (d) the transfer from the JAX checkpoint
+    line = next(x for x in tune["text"].splitlines()
+                if x.startswith("transferred "))
+    _check(int(line.split()[1]) == fx["transfer_count"],
+           f"transfer from the JAX checkpoint: {line} != "
+           f"{fx['transfer_count']} (the JAX CLI's)")
+    _, val_idx, test_idx = make_splits(tune["args"],
+                                       build_dataset(tune["args"]))
+    bs = tune["args"]["batch_size"]
+    evals = 2 * -(-len(val_idx) // bs) + -(-len(test_idx) // bs)
+    small = dict(NONE, edge_combine=2, pna_stats=2, pair_segment_sum=2,
+                 pna_stats_bwd=2)
+    want_tune = _expect(small, dict(NONE, edge_combine=2, pna_stats=2), 1,
+                        evals)
+    _check(tune["launches"] == want_tune,
+           f"fine-tune launches {tune['launches']} != {want_tune}")
+    print(f"[serve] fine-tune from the JAX checkpoint (bf16, 1 step, "
+          f"{evals} eval forwards): {line.split(' from ')[0]}, the JAX "
+          f"CLI's {fx['transfer_count']}; result {tune['result']}; "
+          f"launches {tune['launches']}")
+    # (e) GIN over the molhiv cache
+    gin_batches = -(-fp_gin.shape[0] // GIN_BATCH)
+    want_gin = {n: v * gin_batches for n, v in EXPECTED_GIN_FWD.items()}
+    _check(gin_req == want_gin, f"GIN launches {gin_req} != {want_gin}")
+    _check(fp_gin.shape == (OGB_MOLECULES, 1)
+           and bool(np.isfinite(fp_gin).all()), f"GIN {fp_gin.shape}")
+    # (f) the spectrum
+    spec = np.asarray(payload["singular_values_pct"])
+    _check(bool(np.isfinite(spec).all()) and bool(np.all(np.diff(spec) <= 0))
+           and abs(spec.sum() - 100) < 1e-3
+           and (root / "analysis" / "singular_values.json").exists(),
+           f"spectrum: sum {spec.sum()}, {spec[:5]}")
+    fp_an = np.load(root / "analysis" / "fingerprints.npy")
+    print(f"[serve] analysis: {payload['n_samples']} x {payload['dim']}, "
+          f"top-5 singular values (%) {np.round(spec[:5], 4).tolist()}, "
+          f"sum {spec.sum():.6f}; its request against the first: max |diff| "
+          f"{float(np.abs(fp_an - fp).max()):.3g}; launches {an_req}")
+    print(f"[serve] serving main-path launches: {launches}")
+
+    # the card against the CPU, and the planted fault
+    fp_cpu, cpu_timing, _ = _serve(["--config", _write_yaml(
+        root / "serve_cpu.yml", dict(
+            pna, smiles_txt_path=str(root / "smiles_cpu.txt"),
+            output_path=str(root / "fingerprints_cpu.npy"))),
+        "--device", "cpu"])
+    rel = _rel(fp[:SERVE_CPU], fp_cpu)
+    _check(rel <= SERVE_TOL, f"PNA card vs CPU {rel:.3g} > {SERVE_TOL}")
+    fault, _, fault_req = _serve(["--config", _write_yaml(
+        root / "serve_fault.yml", dict(
+            pna, bf16_compute=True,
+            smiles_txt_path=str(root / "smiles_cpu.txt"),
+            output_path=str(root / "fingerprints_fault.npy")))])
+    rel_fault = _rel(fault, fp_cpu)
+    _check(rel_fault > SERVE_TOL and fault_req["pna_stats"] > 0,
+           f"planted fault (bf16 serving) passed: {rel_fault:.3g}")
+    print(f"[serve] PNA card vs CPU (first {SERVE_CPU}): rel {rel:.3g} "
+          f"(tol {SERVE_TOL}); planted fault, the same request served in "
+          f"bf16 on the card: rel {rel_fault:.3g}, caught; CPU request "
+          f"{SERVE_CPU / cpu_timing['e2e_s']:.3f} molecules/s; {smi}")
+    with mock.patch.dict(os.environ, {"INFOMAX3D_DATA": str(caches)}):
+        fp_gin_cpu, _, _ = _serve(["--config", _write_yaml(
+            root / "serve_gin_cpu.yml", dict(
+                gin, output_path=str(root / "fingerprints_gin_cpu.npy"))),
+            "--device", "cpu"])
+    rel = _rel(fp_gin, fp_gin_cpu)
+    _check(rel <= SERVE_TOL, f"GIN card vs CPU {rel:.3g} > {SERVE_TOL}")
+    print(f"[serve] GIN 5x300 card vs CPU ({fp_gin.shape[0]} molecules): "
+          f"rel {rel:.3g} (tol {SERVE_TOL})")
+    _serve_numbers(f"GIN 5x300 (phase 19's ogbg-molhiv checkpoint, float32, "
+                   f"batch {GIN_BATCH}, from the cache)",
+                   "cache loaded (build_dataset)", OGB_MOLECULES,
+                   gin_timing, gin_req, smi)
+    with mock.patch.dict(os.environ, {"INFOMAX3D_DATA": str(caches)}):
+        _serve_forward_profile(
+            "GIN 5x300", cfg_gin,
+            build_dataset(parse_args(["--config", cfg_gin])[0]), GIN_BATCH,
+            gin_timing["forward_ms"], smi)
     return {"launches": launches}
 
 
@@ -3471,13 +3850,18 @@ def main() -> int:
             "pre_f32": (trainer["runs"]["pre_f32"], TRAINER_STEPS["pre_f32"]),
             "pre": (trainer["runs"]["pre"], TRAINER_STEPS["pre"]),
             "qmugs": (conf["cli"], CONF_CLI_STEPS)})
-    # every kernel's launches over the seven main paths (serving,
+    with _Phase("20 serving CLI"):
+        serving = phase_serving(smi, out_dir,
+                                conf["cli"]["dir"] / "best_checkpoint.pt",
+                                data["gin_ckpt"], data["caches"])
+    # every kernel's launches over the eight main paths (serving,
     # pre-training, GIN training, OT training, the trainer CLI,
-    # multi-conformer pre-training, the data layer)
+    # multi-conformer pre-training, the data layer, the serving CLI)
     launches = {n: serve_launches[n] + train["launches"][n]
                 + gin["launches"][n] + ot_run["launches"][n]
                 + trainer["launches"][n] + conf["launches"][n]
-                + data["launches"][n] for n in serve_launches}
+                + data["launches"][n] + serving["launches"][n]
+                for n in serve_launches}
     with _Phase("6 kernel times"):
         rows = phase_kernel_times(g, launches, errs)
     with _Phase("9 training profile"):

@@ -7,9 +7,11 @@ CUDA C++ kernel under `csrc/`, bound with ctypes (`ops/kernels/`).  Every
 kernel wrapper runs its plain PyTorch twin on CPU tensors and launches the
 kernel (or raises) on CUDA tensors.
 
-Ported so far: the PNA fingerprint-serving forward (`cli.inference`); four
-training steps: contrastive pre-training of PNA and Net3DDense
-(`train.pretrain`), the supervised step (`train.supervised`; OGBGNN and the
+Ported so far: the fingerprint-serving CLI and the embedding analysis
+(`cli.inference`, `cli.analysis`: PNA and OGBGNN from SMILES or a dataset,
+from the port's `.pt` or the JAX package's flax msgpack checkpoints,
+`train.torch_interop`, `train.flax_msgpack`); four training steps:
+contrastive pre-training of PNA and Net3DDense (`train.pretrain`), the supervised step (`train.supervised`; OGBGNN and the
 trainer's PNA fine-tune), the GeoMol optimal-transport step (`train.ot`);
 and the training CLI for pre-train -> fine-tune (`cli.train`, `cli.config`
 with its own YAML reader `cli.yaml_lite`): `train.trainer`'s `Trainer` and

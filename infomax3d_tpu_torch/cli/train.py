@@ -286,31 +286,10 @@ def build_models(args: Dict[str, Any], dataset=None
     return models
 
 
-def _is_torch_checkpoint(path: str) -> bool:
-    """True for a torch `.pt` (zip archive or legacy pickle), False for
-    the JAX package's flax msgpack checkpoints."""
-    with open(path, "rb") as f:
-        head = f.read(4)
-    return head == b"PK\x03\x04" or head[:2] == b"\x80\x02"
-
-
-def _rename_source(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The reference's transfer renames (train.py:216-226) on torch names:
-    BYOL 'student.' prefixes stripped, the root 'gnn.' / 'gnn2.' ->
-    'node_gnn.' (anchored at the root: a nested 'gnn' keeps its name)."""
-    out = {}
-    for k, v in sd.items():
-        if k.startswith("student."):
-            k = k[len("student."):]
-        if k.startswith("gnn.") or k.startswith("gnn2."):
-            k = "node_gnn." + k.split(".", 1)[1]
-        out[k] = v
-    return out
-
-
 def transfer_pretrained(trainer, args: Dict[str, Any]) -> int:
     """Pre-trained weight transfer (reference load_model, train.py:
-    207-231) from a port / reference `.pt` checkpoint into the trainer's
+    207-231) from a port / reference `.pt` checkpoint or a JAX package
+    flax-msgpack one (`train/torch_interop.py`) into the trainer's
     ``model``: each parameter and running statistic whose name contains a
     `transfer_layers` token and no `exclude_from_transfer` token (nor
     'teacher'), and whose shape matches the source's, is copied.  Tokens
@@ -319,25 +298,26 @@ def transfer_pretrained(trainer, args: Dict[str, Any]) -> int:
     'MaskedBatchNorm' and 'batch_norm'), so the selection equals the JAX
     package's.  `transfer_3d` takes the source's 3D network.  Prints and
     returns the number of parameter tensors transferred."""
-    path = args["pretrain_checkpoint"]
-    if not _is_torch_checkpoint(path):
-        raise NotImplementedError(
-            f"{path} is not a torch checkpoint; converting the JAX "
-            f"package's flax checkpoints is ROADMAP queue 1, item 5")
+    from infomax3d_tpu_torch.train import torch_interop as ti
     from infomax3d_tpu_torch.train.checkpoint import load_checkpoint
-    payload = load_checkpoint(path)
-    src = _rename_source(payload.get(
-        "model3d_state_dict" if args.get("transfer_3d")
-        else "model_state_dict") or {})
+    path = args["pretrain_checkpoint"]
+    key = "model3d" if args.get("transfer_3d") else "model"
+    model = trainer.models["model"]
+    paths = flax_paths(model, running_stats=True)
+    if ti.is_torch_checkpoint(path):
+        src = ti.rename_torch_keys(
+            load_checkpoint(path).get(f"{key}_state_dict") or {})
+    else:
+        src = ti.flax_transfer_source(ti.load_jax_checkpoint(path), key,
+                                      paths)
     transfer = [t.replace(".", "/") for t in (args["transfer_layers"] or [])]
     exclude = [t.replace(".", "/") for t in
                (args["exclude_from_transfer"] or [])] + ["teacher"]
-    model = trainer.models["model"]
     params = dict(model.named_parameters())
     tensors = {**dict(model.named_buffers()), **params}
     n_hit = 0
     with torch.no_grad():
-        for name, fpath in flax_paths(model, running_stats=True).items():
+        for name, fpath in paths.items():
             s = fpath + "|" + fpath.replace("MaskedBatchNorm", "batch_norm")
             if not (any(t in s for t in transfer)
                     and not any(x in s for x in exclude)):

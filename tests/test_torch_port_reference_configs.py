@@ -10,8 +10,9 @@
   batch), or raises the `NotImplementedError` of its ROADMAP queue 1 item
   (`RAISES`): the OT baseline, the distance predictor and GraphCL stop at
   their trainers (item 8; the distance predictor's model and collate are
-  item 7 behind that), and `fingerprint_inference.yml`, a config of the
-  inference CLI, at its SMILES input (item 5).
+  item 7 behind that).  `fingerprint_inference.yml`, a config of the
+  inference CLI, serves the SMILES and checkpoint of
+  `tests/fixtures/jax_serving` (the JAX CLI's fingerprints within 1e-5).
 * A cache-served `pre-train_QM9.yml` then `tune_QM9_homo.yml` (2 epochs
   of 4 steps each, PNA 16x2, Net3D hidden 8, dataset `qm9` from the QM9
   cache, the fine-tune transferring from the port's pre-training, its
@@ -48,6 +49,7 @@ from test_torch_port_cli import (FIRST_LOSS_TOL, _first_loss,
 
 CONFIG_DIR = "configs_clean"
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "qm9_slice")
+SERVING = os.path.join(os.path.dirname(__file__), "fixtures", "jax_serving")
 
 # the JAX test's caches (tests/test_reference_configs.py:23-40)
 CACHES = {
@@ -65,7 +67,6 @@ CACHES = {
 # configs that stop at a part the port has not ported: the ROADMAP queue 1
 # item their NotImplementedError names, and what it names
 RAISES = {
-    "fingerprint_inference.yml": (5, "SMILES input"),
     "pre-train_Optimal_Transport_baseline.yml": (8, "optimal_transport"),
     "pre-train_distance_predictor_baseline.yml": (8, "distance_predictor"),
     "pre-train_graphCL_baseline.yml": (8, "graphcl_trainer"),
@@ -113,16 +114,23 @@ def _one_step(config, logdir):
 def test_config_steps_or_names_its_item(config, data_root, tmp_path,
                                         monkeypatch):
     monkeypatch.setenv("INFOMAX3D_DATA", str(data_root))
+    if config == "fingerprint_inference.yml":
+        fp = inference(load_config(f"{CONFIG_DIR}/{config}", {
+            "checkpoint": f"{SERVING}/best_checkpoint.pt",
+            "smiles_txt_path": f"{SERVING}/smiles.txt",
+            "output_dir": str(tmp_path)}), device="cpu")
+        ref = np.load(f"{SERVING}/fingerprints.npy")
+        assert fp.shape == ref.shape and np.isfinite(fp).all()
+        assert np.abs(fp - ref).max() <= 1e-5 * np.abs(ref).max()
+        np.testing.assert_array_equal(np.load(tmp_path / "fingerprints.npy"),
+                                      fp)
+        return
     if config in RAISES:
         item, what = RAISES[config]
         with pytest.raises(NotImplementedError,
                            match=rf"{what}.*ROADMAP queue 1, item {item}\)"):
-            if config == "fingerprint_inference.yml":
-                inference(load_config(f"{CONFIG_DIR}/{config}", {}),
-                          device="cpu")
-            else:
-                train(load_config(f"{CONFIG_DIR}/{config}",
-                                  _one_step(config, tmp_path)), device="cpu")
+            train(load_config(f"{CONFIG_DIR}/{config}",
+                              _one_step(config, tmp_path)), device="cpu")
         return
     args = load_config(f"{CONFIG_DIR}/{config}", _one_step(config, tmp_path))
     result = train(args, device="cpu")

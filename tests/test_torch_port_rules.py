@@ -1,5 +1,6 @@
 """Rules the port lives by: no JAX (nor the JAX package, nor YAML, msgpack
-or networkx) at run time, no silent CPU fallback, kernels dispatch by
+or networkx) at run time, also where it serves from a JAX checkpoint, no
+silent CPU fallback, kernels dispatch by
 device, and `chip_smoke.py` serves and trains the models of
 `configs_clean/pre-train_QM9.yml` and trains those of `configs/30.yml` and
 `configs_clean/pre-train_Optimal_Transport_baseline.yml`."""
@@ -88,6 +89,14 @@ out = ot({{"model_parameters": {TINY_OT!r}, "batch_size": 3,
           "dataset_params": {{"n_min": 5, "n_max": 9}}}}, steps=1,
          device="cpu")
 assert len(out["losses"]) == 1, out
+from infomax3d_tpu_torch.cli.analysis import singular_value_spectrum
+from infomax3d_tpu_torch.cli.config import load_config
+fx = "tests/fixtures/jax_serving"
+fp = inference(load_config(None, {{
+    "checkpoint": fx + "/best_checkpoint.pt",
+    "smiles_txt_path": fx + "/smiles.txt",
+    "output_dir": {str(tmp_path)!r}}}), device="cpu")
+assert singular_value_spectrum(fp).shape == (64,), fp.shape
 print(json.dumps(sorted(sys.modules)))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
@@ -100,7 +109,8 @@ print(json.dumps(sorted(sys.modules)))
               "ops.kernels.csr_sum", "ops.kernels.snd_segment_sum",
               "models.gin", "train.supervised",
               "ops.kernels.csr_segment_sum", "data.geomol_featurize",
-              "data.loader", "models.optimal_transport", "train.ot"):
+              "data.loader", "models.optimal_transport", "train.ot",
+              "train.flax_msgpack", "train.torch_interop", "cli.analysis"):
         assert f"infomax3d_tpu_torch.{m}" in mods, m
     assert [m for m in mods if _forbidden(m)] == []
 
