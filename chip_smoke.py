@@ -160,6 +160,25 @@ its seconds:
    a planted fault (the request served in bf16) that must fail; host
    seconds to read and featurize and to collate, device ms per batch,
    molecules/s end to end.
+21. pre-training baselines: (a) `configs_clean/pre-train_distance_predictor_
+   baseline.yml` (DistancePredictor over PNA 200x7 with one transformer
+   layer and the symmetrised distance net, L1 over the pairs, Adam 1e-3,
+   batch 100), (b) `configs/contrastive_training_Net3DAE.yml` (PNA 200x7
+   against Net3DAE hidden 70, NTXentAE, batch 50) and (c) `configs_clean/
+   pre-train_graphCL_baseline.yml` (PNA 200x7 on two node-dropped views,
+   NT-Xent, batch 500), at the configs' widths from seeded weights: one
+   float32 step on the card against the CPU (loss, gradients, running
+   statistics, the weights after one Adam step; QM9-size molecules for (a)
+   and (b), 100 drug-size molecules for (c)) with a planted fault each
+   that must fail it (the distance net's second half dropped; the
+   reconstruction zeroed; view1 read twice); the launches per bf16 step
+   split into the 2D side, the 3D side and the pair view (width 1); rows
+   6 and 5 at D = 1 on the pair views bit for bit against their plain
+   versions and timed cold and warm beside their byte bounds; ms per bf16
+   step, graphs/s and peak memory at the configs' batches; each config
+   through the CLI in bf16 (1 epoch of 3 steps on phase 19's QM9 and QMugs
+   caches: the main path), then `tune_QM9_homo.yml` one step from (a)'s
+   checkpoint with the JAX CLI's transfer count.
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 """
@@ -3797,6 +3816,475 @@ def phase_serving(smi: str, out_dir: Path, qmugs_ckpt: Path,
     return {"launches": launches}
 
 
+# ------------------------------------------------- phase 21: the baselines
+
+BASE_CONFIGS = {"a": "configs_clean/pre-train_distance_predictor_baseline.yml",
+                "b": "configs/contrastive_training_Net3DAE.yml",
+                "c": "configs_clean/pre-train_graphCL_baseline.yml"}
+BASE_NAMES = {"a": "distance predictor", "b": "Net3DAE autoencoder",
+              "c": "GraphCL"}
+# Each configuration's fixed synthetic batch (the step checks, launches
+# and timings): QM9-size molecules (4 to 28 atoms, as the QM9 cache) at
+# the configs' own batches of 100 and 50 for (a) and (b); drug-size
+# molecules (20 to 70 atoms) for (c), timed at its batch of 500 and held
+# card against CPU at 100 (the CPU's float32 step at 500 would take most
+# of the phase).
+BASE_DATA = {"a": {"seed": 0, "n_min": 4, "n_max": 28},
+             "b": {"seed": 0, "n_min": 4, "n_max": 28},
+             "c": {"seed": 0, "n_min": 20, "n_max": 70}}
+BASE_CHECK_BATCH = {"a": 100, "b": 50, "c": 100}
+BASE_TIMED_STEPS = 10
+# launches per bf16 step by side: a PNA 200x7 pass runs rows 6, 2, 5 and 8
+# once a layer (GraphCL runs two passes); Net3DAE's 2 encoder layers run
+# row 6, its backward row 5 and the mean's row 7 (whose backward is plain
+# PyTorch); a distance head on its pair view runs row 6 for each half and
+# row 5 for each half's backward, at the head's first width: 1 for (a)
+# (one layer to target_dim 1), the projection's 70 for (b) (2 layers), on
+# (b)'s own complete-graph edges
+BASE_AE_DEPTH = 2
+_PNA_PASS = dict(edge_combine=DEPTH, pna_stats=DEPTH, pair_segment_sum=DEPTH,
+                 pna_stats_bwd=DEPTH)
+_PAIR_HEAD = {"edge_combine": 2, "pair_segment_sum": 2}
+BASE_SIDES = {
+    "a": {"2D": _PNA_PASS, "pair view": _PAIR_HEAD},
+    "b": {"2D": _PNA_PASS,
+          "3D": {"edge_combine": BASE_AE_DEPTH,
+                 "pair_segment_sum": BASE_AE_DEPTH, "csr_sum": BASE_AE_DEPTH},
+          "pair view": _PAIR_HEAD},
+    "c": {"2D": {n: 2 * v for n, v in _PNA_PASS.items()}}}
+# launches per eval forward (bf16): the forwards of the sides above
+BASE_FWD = {"a": dict(NONE, edge_combine=DEPTH + 2, pna_stats=DEPTH),
+            "b": dict(NONE, edge_combine=DEPTH + BASE_AE_DEPTH + 2,
+                      pna_stats=DEPTH, csr_sum=BASE_AE_DEPTH),
+            "c": dict(NONE, edge_combine=2 * DEPTH, pna_stats=2 * DEPTH)}
+# The CLI runs (the main path): 1 epoch of 3 steps at each config's batch,
+# bf16, on phase 19's caches (or this phase's own, run alone): QM9, 5000
+# QM9-size molecules, for (a) and (b); QMugs, 5000 drug-size molecules, for
+# (c).  Then tune_QM9_homo.yml 1 step of 128 from (a)'s checkpoint.
+BASE_CLI_COMMON = {"dataset_params": {}, "num_epochs": 1,
+                   "eval_on_test": False, "use_tensorboard": False,
+                   "bf16_compute": True, "multithreaded_seeds": []}
+BASE_CLI = {"a": {"dataset": "qm9", "num_train": 300},
+            "b": {"dataset": "qm9", "num_train": 150},
+            "c": {"dataset": "qmugs", "num_train": 1500}}
+BASE_TUNE = {"dataset": "qm9", "num_train": 128, "batch_size": 128}
+# The JAX CLI's transfer from a distance-predictor checkpoint under
+# tune_QM9_homo.yml's transfer_layers [gnn] and exclude_from_transfer
+# [batch_norm]: every `node_gnn` tensor but the BatchNorms', the 12
+# embedding tables and each layer's 2 pretrans and 1 posttrans Linears'
+# weight and bias (tests/test_torch_port_pretrain_baselines.py holds the
+# port's count to the JAX CLI's on such checkpoints).
+BASE_TRANSFER = 12 + DEPTH * 3 * 2
+# The float32 step on the card against the CPU: phase 8's float32 bounds
+# (STEP_TOL[False]: loss 1e-5, each leaf 5e-2 of its max, each model's
+# gradient L2 5e-3, zero-gradient leaves 1e-4 of the model's largest
+# gradient, running statistics 1e-4); the zero-gradient leaves are the ones
+# whose CPU gradient is below 1e-6 of the model's largest.  Then one Adam
+# step on each side: each updated weight within 2 lr (Adam's first step
+# moves a weight by lr times its gradient's sign, which rounding may flip
+# where the gradient is at rounding level) and within BASE_FIRM_TOL of
+# max(|w|, 1) where the CPU gradient exceeds 1e-2 of its leaf's max and
+# BASE_FIRM_GRAD (100 times Adam's eps: below it the step lr g / (|g| +
+# eps) moves with the gradient's own rounding, not only its sign).
+BASE_FIRM_TOL = 1e-6
+BASE_FIRM_GRAD = 1e-6
+
+
+def _base_args(kind: str, bf16: bool) -> dict:
+    """The configuration's YAML as `load_config` reads it, at its full
+    widths, with the compute dtype and seed 0."""
+    from infomax3d_tpu_torch.cli.config import load_config
+    return dict(load_config(BASE_CONFIGS[kind], {}), bf16_compute=bf16,
+                seed=0)
+
+
+def _base_step(kind: str, bf16: bool, dev: str, batch_size: int):
+    """(step, prepared batches, sizes) of configuration `kind` from the
+    seeded weights on its fixed batch."""
+    from infomax3d_tpu_torch.train.baselines import (baseline_batches,
+                                                     build_baseline_step)
+    args = _base_args(kind, bf16)
+    step = build_baseline_step(args, torch.device(dev))
+    batches, sizes = baseline_batches(args, batch_size, device=dev,
+                                      **BASE_DATA[kind])
+    return step, step.prepare(*batches), sizes
+
+
+def _base_models(step) -> dict:
+    models = {"model": step.model}
+    if getattr(step, "model3d", None) is not None \
+            and step.model3d is not step.model:
+        models["model3d"] = step.model3d
+    return models
+
+
+def _base_one_step(kind: str, dev: str):
+    """The float32 step's loss, gradients and running statistics
+    (`_measure_step`), then the weights after one Adam step."""
+    step, prepared, _ = _base_step(kind, False, dev, BASE_CHECK_BATCH[kind])
+    models = _base_models(step)
+    loss, out = _measure_step(step, models, prepared)
+    step.optimizer.step()
+    new = {f"{k}.{n}": p.detach().float().cpu() for k, m in models.items()
+           for n, p in m.named_parameters()}
+    return loss, out, new, step.optimizer.param_groups[0]["lr"]
+
+
+def _dropped_backward_half():
+    """(a)'s planted fault: the distance net's second half (receiver
+    columns first) left out, ``softplus(dn([h_s, h_r]))``."""
+    mod = importlib.import_module("infomax3d_tpu_torch.models.transformer")
+    real = mod.symmetric_distances
+
+    def one_half(dn, h, pairs):
+        return torch.nn.functional.softplus(
+            dn(mod.pair_input(h, pairs), pairs.edge_mask))
+    mod.symmetric_distances = one_half
+    return lambda: setattr(mod, "symmetric_distances", real)
+
+
+def _zeroed_reconstruction():
+    """(b)'s planted fault: NTXentAE's reconstruction term zeroed."""
+    mod = importlib.import_module("infomax3d_tpu_torch.losses.contrastive")
+    real = mod.NTXentAE.__call__
+
+    def zeroed(self, *a, **kw):
+        lc, lr = real(self, *a, **kw)
+        return lc, lr * 0.0
+    mod.NTXentAE.__call__ = zeroed
+    return lambda: setattr(mod.NTXentAE, "__call__", real)
+
+
+def _view1_twice():
+    """(c)'s planted fault: the model reads view1 where it should read
+    view2."""
+    mod = importlib.import_module("infomax3d_tpu_torch.train.baselines")
+    real = mod.GraphCLStep.outputs
+    mod.GraphCLStep.outputs = lambda self, v1, v2: real(self, v1, v1)
+    return lambda: setattr(mod.GraphCLStep, "outputs", real)
+
+
+BASE_FAULTS = {"a": ("the distance net's bwd half dropped",
+                     _dropped_backward_half),
+               "b": ("the reconstruction term zeroed", _zeroed_reconstruction),
+               "c": ("view2 replaced by view1", _view1_twice)}
+
+
+def _base_violations(card, cpu, lr) -> list:
+    """What a float32 step on the card breaks of the check against the CPU
+    step (see BASE_FIRM_TOL)."""
+    (loss_card, g_card, new_card, _), (loss_cpu, g_cpu, new_cpu, _) = \
+        card, cpu
+    bad = []
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    if rel > STEP_TOL[False]["loss"]:
+        bad.append(f"loss {rel:.3g}")
+    sides = sorted({k.split(".")[0] for k in g_cpu})
+    zero = []
+    for side in sides:
+        keys = [k for k in g_cpu if k.startswith(side + ".")
+                and "running" not in k and g_cpu[k] is not None]
+        gmax = max(float(g_cpu[k].abs().max()) for k in keys)
+        zero += [k for k in keys if float(g_cpu[k].abs().max()) < 1e-6 * gmax]
+    r = _readings(g_card, g_cpu, tuple(sides), tuple(zero))
+    bad += _violations(r, STEP_TOL[False],
+                       {s: STEP_TOL[False]["l2"] for s in sides})
+    for k, w in new_cpu.items():
+        got, g = new_card[k], g_cpu[k]
+        if float((got - w).abs().max()) > 2 * lr * (1 + 1e-3):
+            bad.append(f"{k}: updated weight off by more than 2 lr")
+        if g is None or k in zero:
+            continue
+        firm = (g.abs() > 1e-2 * g.abs().max()) & (g.abs() > BASE_FIRM_GRAD)
+        if bool(firm.any()) and float((got - w).abs()[firm].max()) > \
+                BASE_FIRM_TOL * max(float(w.abs().max()), 1.0):
+            bad.append(f"{k}: updated weight off by "
+                       f"{float((got - w).abs()[firm].max()):.3g} where the "
+                       f"gradient is firm (leaf max |g| "
+                       f"{float(g.abs().max()):.3g})")
+    return bad, r
+
+
+def _launch_sides():
+    """Patches each kernel module's `_launch` to record (kernel, side) of
+    every launch; returns (records, undo).  The side is "pair view" for a
+    distance head's launches: row 6 inside `symmetric_distances` and row 5
+    in the backward of those row 6 calls (its autograd node, which is its
+    backward's ctx); else "2D" where the launch's edge rows (edge_combine's
+    pe, the others' first argument) are a 2D batch's (`rows_2d`, set by
+    the caller), else "3D"."""
+    base = importlib.import_module("infomax3d_tpu_torch.models.base")
+    ec = importlib.import_module(
+        "infomax3d_tpu_torch.ops.kernels.edge_combine")
+    heads = [importlib.import_module(f"infomax3d_tpu_torch.models.{m}")
+             for m in ("transformer", "net3d_vae")]
+    state = {"pair": False, "nodes": set(), "rows_2d": set()}
+    records, undo = [], []
+
+    def patch(obj, name, value):
+        undo.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+    for name in NONE:
+        mod = importlib.import_module(f"infomax3d_tpu_torch.ops.kernels.{name}")
+        at = 2 if name == "edge_combine" else 0
+
+        def rec(*a, _real=mod._launch, _name=name, _at=at, **kw):
+            side = "pair view" if state["pair"] else \
+                "2D" if a[_at].shape[0] in state["rows_2d"] else "3D"
+            records.append((_name, side))
+            return _real(*a, **kw)
+        patch(mod, "_launch", rec)
+    real_head = heads[0].symmetric_distances
+
+    def head(*a, **kw):
+        state["pair"] = True
+        try:
+            return real_head(*a, **kw)
+        finally:
+            state["pair"] = False
+    for mod in heads:
+        patch(mod, "symmetric_distances", head)
+    real_combine = base.edge_combine
+
+    def combine(*a, **kw):
+        out = real_combine(*a, **kw)
+        if state["pair"]:
+            state["nodes"].add(out.grad_fn)
+        return out
+    patch(base, "edge_combine", combine)
+    real_bwd = ec.EdgeCombine.backward
+
+    def backward(ctx, ct):
+        state["pair"] = ctx in state["nodes"]
+        try:
+            return real_bwd(ctx, ct)
+        finally:
+            state["pair"] = False
+    patch(ec.EdgeCombine, "backward", staticmethod(backward))
+
+    def restore():
+        for obj, name, value in reversed(undo):
+            setattr(obj, name, value)
+    return records, state, restore
+
+
+def _sides(records) -> dict:
+    """Launch records as {side: {kernel: launches}}."""
+    out = {}
+    for name, side in records:
+        d = out.setdefault(side, {})
+        d[name] = d.get(name, 0) + 1
+    return out
+
+
+def _pair_times(tag: str, g, smi: str, D: int):
+    """Rows 6 and 5 at width D on a pair view `g` (bf16): cold-L2 and warm
+    device ms, the plain version's, row 5's nearest PyTorch call (two
+    float32 `index_add_`), and the byte bound (each input read once, each
+    output written once: rows 6 and 5 do 2 adds / 1 add per element)."""
+    N, E = g.num_nodes, g.senders.shape[0]
+    e_real = int(g.csr_row_ptr[-1])
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    bf = torch.bfloat16
+    hd, hs = (torch.randn(N, D, generator=gen, device="cuda").to(bf)
+              for _ in range(2))
+    pe, ct = (torch.randn(E, D, generator=gen, device="cuda").to(bf)
+              for _ in range(2))
+    ctf = ct.float()
+    recv = g.receivers.long().clamp(max=N)
+    send = g.senders.long().clamp(max=N)
+    acc = torch.zeros(N + 1, D, device="cuda")
+
+    def library_pair():
+        acc.zero_().index_add_(0, recv, ctf)
+        acc.zero_().index_add_(0, send, ctf)
+    cases = {
+        "edge_combine": (
+            lambda: edge_combine(hd, hs, pe, g.receivers, g.senders),
+            lambda: edge_combine_reference(hd, hs, pe, g.receivers,
+                                           g.senders),
+            2 * N * D * 2 + E * D * 2 + 2 * E * 4 + E * D * 2, 2.0 * E * D,
+            None),
+        "pair_segment_sum": (
+            lambda: pair_segment_sum(ct, g.csr_row_ptr, g.csc_row_ptr,
+                                     g.csc_perm),
+            lambda: pair_segment_sum_reference(ct, g.csr_row_ptr,
+                                               g.csc_row_ptr, g.csc_perm),
+            e_real * D * 2 + 2 * (N + 1) * 4 + e_real * 4 + 2 * N * D * 2,
+            2.0 * e_real * D, library_pair)}
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    for name, (kern, plain, nbytes, flops, lib) in cases.items():
+        warm = device_ms(kern, iters=50, warmup=5)
+        cold = device_ms(kern, iters=10, flush=flush)
+        plain_ms = device_ms(plain, iters=3, warmup=1)
+        lib_ms = device_ms(lib, iters=50, warmup=5) if lib else None
+        bound_ms, bound_by = _bound(nbytes, flops)
+        note = "two float32 index_add_" if lib else "no single PyTorch call"
+        print(f"[baselines] {name} at D={D} ({tag}: N={N} E={E}, "
+              f"{e_real} real, bf16): {cold:.5f} ms cold-L2 median, "
+              f"{warm:.5f} ms warm; plain {plain_ms:.5f} ms; library "
+              f"{_fmt(lib_ms)} ({note}); "
+              f"bound {bound_ms:.5f} ms by {bound_by} ({nbytes / 1e6:.3f} MB); "
+              f"{bound_ms / cold:.3g} of the bound cold; {smi}")
+
+
+def _write_baseline_caches(root: Path) -> Path:
+    """Phase 19's QM9 and QMugs caches, for a run of this phase alone."""
+    from infomax3d_tpu_torch.data.synthetic import write_synthetic_cache
+    write_synthetic_cache(str(root / "QM9" / "processed.npz"), **QM9_CACHE)
+    write_synthetic_cache(str(root / "QMugs" / "processed.npz"),
+                          **QMUGS_CACHE)
+    return root
+
+
+def _base_cli_expected(kind: str, run: dict) -> dict:
+    """A CLI run's launches: its steps and eval forwards (the validation
+    set after the epoch and again from the best checkpoint) from its
+    split; contrastive batches drop a partial one."""
+    from infomax3d_tpu_torch.cli.train import build_dataset, make_splits
+    args = run["args"]
+    tr, val, _ = make_splits(args, build_dataset(args))
+    bs = args["batch_size"]
+    full = args["collate_function"] == "contrastive_collate_ae"
+    n = (lambda k: k // bs) if full else (lambda k: -(-k // bs))
+    step = dict(NONE)
+    for side in BASE_SIDES[kind].values():
+        for name, v in side.items():
+            step[name] += v
+    return _expect(step, BASE_FWD[kind], n(len(tr)), 2 * n(len(val)))
+
+
+def phase_baselines(smi: str, out_dir: Path, caches: Path = None) -> dict:
+    """Phase 21: the distance-supervised and GraphCL pre-training baselines
+    at full width: (a) `pre-train_distance_predictor_baseline.yml`, (b)
+    `contrastive_training_Net3DAE.yml`, (c) `pre-train_graphCL_baseline.
+    yml`.  Returns the main path's launches (the CLI runs) and the kernel
+    checks' errors."""
+    from infomax3d_tpu_torch.cli.train import build_dataset, make_splits
+    errs = {}
+    gen = torch.Generator(device="cuda").manual_seed(210)
+    # 1-2: the float32 step on the card against the CPU; planted faults
+    for kind in "abc":
+        cpu = _base_one_step(kind, "cpu")
+        card = _base_one_step(kind, "cuda")
+        bad, r = _base_violations(card, cpu, cpu[3])
+        print(f"[baselines] ({kind}) {BASE_NAMES[kind]}: float32 step, "
+              f"batch {BASE_CHECK_BATCH[kind]}: loss card {card[0]:.6f} vs "
+              f"CPU {cpu[0]:.6f}")
+        _print_readings(f"({kind}) card vs CPU", r,
+                        {s: STEP_TOL[False]["l2"] for s in r}, "baselines")
+        _check(not bad, f"({kind}) float32 step card vs CPU: {bad}")
+        fault, plant = BASE_FAULTS[kind]
+        undo = plant()
+        try:
+            planted = _base_one_step(kind, "cuda")
+        finally:
+            undo()
+        bad, _ = _base_violations(planted, cpu, cpu[3])
+        print(f"[baselines] ({kind}) planted fault ({fault}): loss "
+              f"{planted[0]:.6f}, {len(bad)} violations, e.g. {bad[:2]}")
+        _check(bool(bad), f"({kind}) the step check passed a planted fault "
+                          f"({fault})")
+    # 4-5: launches per bf16 step by side, rows 6 and 5 on the pair views,
+    # ms per step, graphs/s, peak memory
+    for kind in "abc":
+        bs = _base_args(kind, True)["batch_size"]
+        step, prepared, sizes = _base_step(kind, True, "cuda", bs)
+        records, state, undo = _launch_sides()
+        state["rows_2d"].add(prepared[0].senders.shape[0])
+        if kind == "c":
+            state["rows_2d"].add(prepared[1].senders.shape[0])
+        try:
+            loss = float(step.step(*prepared))
+        finally:
+            undo()
+        sides = _sides(records)
+        print(f"[baselines] ({kind}) launches per bf16 step by side: "
+              f"{sides}")
+        _check(sides == BASE_SIDES[kind], f"({kind}) launches per step "
+                                          f"{sides} != {BASE_SIDES[kind]}")
+        if kind != "c":
+            # (a)'s pair view, (b)'s 3D graph; the head's first layer runs
+            # at width 1 in (a), at the projection's in (b)
+            pairs = prepared[1]
+            mp3 = _base_args(kind, True).get("model3d_parameters") or {}
+            widths = (1,) if kind == "a" else (1, mp3["projection_dim"])
+            tag = f"baselines ({kind}) pair view"
+            _merge_errs(errs, {
+                "edge_combine": _max_err(_hold_edge_combine(
+                    tag, gen, pairs, widths)),
+                "pair_segment_sum": _max_err(_hold_pair_segment_sum(
+                    tag, gen, pairs, widths))})
+            _pair_times(f"({kind}) pair view", pairs, smi, widths[-1])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step.step(*prepared), iters=BASE_TIMED_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        loss_after = float(step.step(*prepared))
+        _check(np.isfinite(loss) and np.isfinite(loss_after),
+               f"({kind}) non-finite bf16 loss")
+        print(f"[baselines] ({kind}) bf16 step, batch {bs} ({sizes}): "
+              f"{ms:.3f} ms per step (CUDA events over {BASE_TIMED_STEPS} "
+              f"warm steps), {bs / ms * 1e3:.1f} graphs/s, peak "
+              f"max_memory_allocated {peak:.3f} GiB; loss {loss:.5f} -> "
+              f"{loss_after:.5f} after {BASE_TIMED_STEPS + 4} more steps; "
+              f"{smi}")
+        del step, prepared
+    # 3, 6: the CLI in bf16 (the main path) and the fine-tune from (a)
+    if caches is None:
+        caches = _write_baseline_caches(out_dir / "baseline_caches")
+    runs = {}
+    _reset_counts()
+    with mock.patch.dict(os.environ, {"INFOMAX3D_DATA": str(caches)}):
+        for kind in "abc":
+            logdir = out_dir / f"baseline_{kind}"
+            run = _data_run(BASE_CONFIGS[kind],
+                            dict(BASE_CLI_COMMON, **BASE_CLI[kind]), logdir,
+                            TRAINER_DEVICE)
+            _check((run["dir"] / "best_checkpoint.pt").exists(),
+                   f"({kind}) no checkpoint")
+            recs = [json.loads(x) for x in open(run["dir"] /
+                                                 "metrics.jsonl")]
+            losses = [r[run["args"]["loss_func"]] for r in recs
+                      if run["args"]["loss_func"] in r]
+            _check(bool(losses) and all(np.isfinite(losses)),
+                   f"({kind}) CLI losses {losses}")
+            want = _base_cli_expected(kind, run)
+            _check(run["launches"] == want,
+                   f"({kind}) CLI launches {run['launches']} != {want}")
+            path = {"edge_combine", "pna_stats", "pair_segment_sum",
+                    "pna_stats_bwd"} | ({"csr_sum"} if kind == "b" else set())
+            _check(all(run["launches"][n] > 0 for n in path),
+                   f"({kind}) a kernel of the path did not launch")
+            runs[kind] = run
+            print(f"[baselines] ({kind}) CLI {BASE_CONFIGS[kind]} (bf16, "
+                  f"{run['args']['dataset']} cache): {run['wall_s']:.1f} s, "
+                  f"losses {losses}, result {run['result']}, launches "
+                  f"{run['launches']}")
+        tune = _data_run(TRAINER_TUNE, dict(
+            BASE_CLI_COMMON, **BASE_TUNE,
+            pretrain_checkpoint=str(runs["a"]["dir"] / "best_checkpoint.pt")),
+            out_dir / "baseline_tune", TRAINER_DEVICE)
+        launches = _counts()
+        _, val_idx, _ = make_splits(tune["args"],
+                                    build_dataset(tune["args"]))
+    line = next(x for x in tune["text"].splitlines()
+                if x.startswith("transferred "))
+    _check(int(line.split()[1]) == BASE_TRANSFER,
+           f"fine-tune from (a): {line} != {BASE_TRANSFER} (the JAX CLI's)")
+    evals = 2 * -(-len(val_idx) // BASE_TUNE["batch_size"])
+    want_tune = _expect(EXPECTED_STEP[True], EXPECTED[True], 1, evals)
+    _check(tune["launches"] == want_tune,
+           f"fine-tune launches {tune['launches']} != {want_tune}")
+    print(f"[baselines] fine-tune tune_QM9_homo.yml from (a)'s checkpoint "
+          f"(bf16, 1 step, {evals} eval forwards): {line.split(' from ')[0]}"
+          f", the JAX CLI's {BASE_TRANSFER}; result {tune['result']}; "
+          f"launches {tune['launches']}")
+    print(f"[baselines] main-path launches (the CLI runs and the "
+          f"fine-tune): {launches}")
+    return {"launches": launches, "errs": errs}
+
+
 class _Phase:
     """Prints a phase's seconds when it ends (and lets its error pass)."""
 
@@ -3854,14 +4342,18 @@ def main() -> int:
         serving = phase_serving(smi, out_dir,
                                 conf["cli"]["dir"] / "best_checkpoint.pt",
                                 data["gin_ckpt"], data["caches"])
-    # every kernel's launches over the eight main paths (serving,
+    with _Phase("21 pre-training baselines"):
+        base = phase_baselines(smi, out_dir, data["caches"])
+        _merge_errs(errs, base["errs"])
+    # every kernel's launches over the nine main paths (serving,
     # pre-training, GIN training, OT training, the trainer CLI,
-    # multi-conformer pre-training, the data layer, the serving CLI)
+    # multi-conformer pre-training, the data layer, the serving CLI, the
+    # baselines' CLI runs)
     launches = {n: serve_launches[n] + train["launches"][n]
                 + gin["launches"][n] + ot_run["launches"][n]
                 + trainer["launches"][n] + conf["launches"][n]
                 + data["launches"][n] + serving["launches"][n]
-                for n in serve_launches}
+                + base["launches"][n] for n in serve_launches}
     with _Phase("6 kernel times"):
         rows = phase_kernel_times(g, launches, errs)
     with _Phase("9 training profile"):

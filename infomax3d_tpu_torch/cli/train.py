@@ -15,8 +15,9 @@ synthetic` runs everything without chemistry data.
 The run goes to the CUDA card unless `--device` (or the config's `device`)
 says "cpu"; with neither set and no card, it raises.  What the port has
 not ported yet raises `NotImplementedError` naming its ROADMAP queue 1
-item: non-CSR batches and the bucket ladder (item 7), trainer flavours
-other than `default` and `contrastive` (item 8), shards (item 9).
+item: non-CSR batches and the bucket ladder (item 7), the trainer
+flavours `alternating`, `byol`, `philosophy`, `noisy_negatives` and
+`optimal_transport` (item 8), shards (item 9).
 """
 from __future__ import annotations
 
@@ -232,6 +233,7 @@ FLAT_COLLATES = {
     "contrastive_collate_ae", "conformer_collate", "graphcl_collate",
     "node_drop_3d_collate", "node_drop_2d3d_collate",
     "noised_distances_collate", "noised_coordinates_collate",
+    "pairwise_distance_collate",
 }
 
 
@@ -357,8 +359,9 @@ def make_splits(args: Dict[str, Any], dataset):
 def make_loaders(args: Dict[str, Any], dataset):
     """Train / validation / test `GraphDataLoader`s: one static CSR bucket
     sized to cover a random batch with overwhelming probability (`_cap`),
-    and for a flat 3D side one for its complete graphs (`max_deg` the
-    largest n - 1; C times as large for `conformer_collate`); shuffled
+    and for a flat 3D side or a pair view one for its complete graphs
+    (`max_deg` the largest n - 1; C times as large for
+    `conformer_collate`); shuffled
     train batches (seed `seed`) or, with `train_sampler`, the batches of a
     size-clustered sampler (data/samplers.py); full batches for the
     contrastive collates."""
@@ -404,8 +407,13 @@ def make_loaders(args: Dict[str, Any], dataset):
     elif args.get("_dense_3d") and collate == "contrastive_collate":
         ckw.setdefault("dense_3d", True)
         ckw.setdefault("max_nodes3d", max_n)
-    elif collate in ("contrastive_collate", "contrastive_collate_ae"):
+    elif collate in ("contrastive_collate", "contrastive_collate_ae",
+                     "pairwise_distance_collate"):
         ckw.setdefault("bucket3d", bucket3d(1))
+        if collate == "pairwise_distance_collate" and any(
+                str(r) == "complete_graph3d" for r in args["required_data"]):
+            # the pair view is the model's input (JAX cli/train.py:550-552)
+            ckw.setdefault("graph_3d", True)
     if collate == "ot_collate":
         hp = (args.get("model_parameters") or {}).get("hyperparams") or {}
         ckw.setdefault("n_true_confs",

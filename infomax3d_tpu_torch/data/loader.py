@@ -7,7 +7,9 @@ bond graph with NaN-padded targets), `graph_only_collate` (the bond graph
 alone), `contrastive_collate` (the CSR 2D batch and the 3D batch: the
 dense one Net3DDense reads, or the CSR complete graph of the flat Net3D)
 and `contrastive_collate_ae`, `conformer_collate` (the CSR 2D batch and C
-conformer complete graphs per molecule, packed molecule-major), the
+conformer complete graphs per molecule, packed molecule-major),
+`pairwise_distance_collate` (the bond graph and the CSR complete graphs on
+its node slots, the distance predictors' pair view), the
 augmentations (`noised_distances_collate`, `noised_coordinates_collate`,
 `node_drop_3d_collate`, `node_drop_2d3d_collate`, `graphcl_collate`) and
 `ot_collate` (the CSR bond graph plus the neighbourhood and dihedral-pair
@@ -184,12 +186,11 @@ COLLATE_ALIASES: Dict[str, str] = {
 }
 
 # the JAX package's other collates and the ROADMAP queue 1 item that ports
-# each: the dense batches (SAN, the transformer, EGNN, the distance
-# predictor) and SMP's radius graph, with their models
+# each: the dense batches (SAN, the transformer, EGNN) and SMP's radius
+# graph, with their models
 NOT_PORTED = {name: 7 for name in (
     "san_collate", "padded_collate_positional_encoding",
-    "egnn_padded_collate", "molhiv_padded_collate",
-    "pairwise_distance_collate", "smp_collate")}
+    "egnn_padded_collate", "molhiv_padded_collate", "smp_collate")}
 
 
 def register_collate(name):
@@ -307,6 +308,26 @@ def contrastive_collate_ae(items, bucket, bucket3d=None):
     """The autoencoder trainer's batch: `contrastive_collate`'s with the
     flat 3D side, whose `edge_dist` are the reconstruction targets."""
     return contrastive_collate(items, bucket, bucket3d)
+
+
+@register_collate("pairwise_distance_collate")
+def pairwise_distance_collate(items: Sequence[Dict], bucket: BucketSpec,
+                              bucket3d: Optional[BucketSpec] = None,
+                              graph_3d: bool = False):
+    """The 2D graphs and their pair view, the CSR complete graphs whose
+    edges carry the true distances (reference custom_collate.py:65-78),
+    laid out on the 2D bucket's node slots so the two views' node indices
+    coincide: `bucket3d` (or the smallest bucket of `complete_graphs`)
+    with `bucket`'s node count.  With `graph_3d` the pair view is also
+    the model's input (the Net3DDistancePredictor protocol); both keys
+    then hold the same arrays."""
+    mols3 = [it["graph3d"] for it in items]
+    b3 = bucket3d or bucket_for(mols3, bucket.n_graphs)
+    pairs = complete_graphs(mols3, dataclasses.replace(
+        b3, n_nodes=bucket.n_nodes), bucket.n_graphs)
+    if graph_3d:
+        return {"graph": pairs, "pairs": pairs}
+    return {"graph": _bonds_only(items, bucket), "pairs": pairs}
 
 
 @register_collate("noised_distances_collate")

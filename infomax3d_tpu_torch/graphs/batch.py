@@ -89,6 +89,10 @@ def batch_graphs(graphs: Sequence[Dict[str, np.ndarray]],
 
     node_graph = np.full(N, G, dtype=np.int32)
     node_graph[:n_tot] = np.repeat(np.arange(g_real, dtype=np.int32), n_per)
+    # each node's position inside its graph; padding nodes 0, as in JAX
+    node_pos = np.zeros(N, dtype=np.int32)
+    node_pos[:n_tot] = np.arange(n_tot, dtype=np.int32) - np.repeat(
+        node_off, n_per)
     node_mask = np.zeros(N, dtype=bool)
     node_mask[:n_tot] = True
     edge_mask = np.zeros(E, dtype=bool)
@@ -100,8 +104,8 @@ def batch_graphs(graphs: Sequence[Dict[str, np.ndarray]],
 
     out: Dict[str, np.ndarray] = dict(
         node_feat=node_feat, senders=senders, receivers=receivers,
-        node_graph=node_graph, node_mask=node_mask, edge_mask=edge_mask,
-        graph_mask=graph_mask, n_nodes=n_nodes)
+        node_graph=node_graph, node_pos=node_pos, node_mask=node_mask,
+        edge_mask=edge_mask, graph_mask=graph_mask, n_nodes=n_nodes)
     for key in ("edge_feat", "edge_dist"):
         if graphs[0].get(key) is None:
             continue
@@ -185,8 +189,9 @@ _TENSOR_FIELDS = ("node_feat", "senders", "receivers", "node_graph",
                   "csr_row_ptr", "csc_perm", "csc_row_ptr", "in_degree",
                   "rd_node_idx", "rd_inv_flat")
 # per-batch fields that only some batches carry: bond codes (2D graphs),
-# distances (3D complete graphs), graph labels
-_OPTIONAL_FIELDS = ("edge_feat", "edge_dist", "targets")
+# distances (3D complete graphs), graph labels; each node's position in its
+# graph (`batch_graphs` always emits it)
+_OPTIONAL_FIELDS = ("edge_feat", "edge_dist", "targets", "node_pos")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,6 +218,7 @@ class GraphBatch:
     edge_feat: Optional[torch.Tensor] = None  # [E, 3] int32 bond codes
     edge_dist: Optional[torch.Tensor] = None  # [E] float32 (pad -> 0)
     targets: Optional[torch.Tensor] = None    # [G, T] float32 graph labels
+    node_pos: Optional[torch.Tensor] = None   # [N] int32 (pad -> 0)
 
     @property
     def num_nodes(self) -> int:
@@ -228,8 +234,8 @@ class GraphBatch:
 def to_graph_batch(arrays: Dict[str, np.ndarray], bucket: BucketSpec,
                    device) -> GraphBatch:
     """Host arrays of a ``csr=True``, ``nmax > 0`` bucket -> `GraphBatch`
-    on `device` (with `edge_feat`, `edge_dist` and `targets` when the
-    arrays carry them)."""
+    on `device` (with `edge_feat`, `edge_dist`, `targets` and `node_pos`
+    when the arrays carry them)."""
     if not bucket.csr or bucket.nmax <= 0:
         raise ValueError("the port's batches are CSR buckets with nmax > 0")
 

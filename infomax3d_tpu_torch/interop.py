@@ -36,15 +36,19 @@ therefore pass through unchanged: the OT model's ``gnn``, ``gnn2``,
 ``coord_pred``, ``d_mlp``, ``h_mol_mlp``, ``alpha_mlp``, ``c_mlp`` and the
 backbone's ``node_init`` / ``edge_init`` (GeoMol MLPs whose Linears are
 ``Dense_{k}``), and the edge-update layer's ``edge``, ``node_in``,
-``node_out``, ``pretrans``, ``posttrans_1``, ``posttrans_2``.
+``node_out``, ``pretrans``, ``posttrans_1``, ``posttrans_2``; the
+distance predictors' ``transformer_layer``, ``node_projection_net``,
+``distance_net`` and ``predictor``, and Net3DAE's ``enc_{i}``, ``dec_{i}``,
+``node_wise_encoder`` and ``net``.
 
 `flax_paths` goes the other way for a port module's parameters: each torch
 name's flax path, which the optimizer's group labels read.
 
 `init_jax_variables` makes seeded numpy trees in the flax layout of a PNA,
-Net3DDense, OGBGNN or OptimalTransportModel configuration, for serving and
-training without a checkpoint and for tests; `load_variables` loads such
-trees into a module.
+Net3DDense, OGBGNN, OptimalTransportModel, DistancePredictor,
+PNADistancePredictor, Net3DAE or Net3DDistancePredictor configuration,
+for serving and training without a checkpoint and for tests;
+`load_variables` loads such trees into a module.
 """
 from __future__ import annotations
 
@@ -242,21 +246,43 @@ def init_jax_variables(model_parameters: Mapping, seed: int = 0,
     `PNA(**model_parameters)` (or of `Net3D` / `Net3DDense`, which share
     one layout, for `model_type` "Net3D" / "Net3DDense", of `OGBGNN`
     without a virtual node for "OGBGNN", of the OT model with the
-    `PNAGNNRandomEdgeUpdate` backbone for "OptimalTransportModel"):
+    `PNAGNNRandomEdgeUpdate` backbone for "OptimalTransportModel", and of
+    the distance predictors and `Net3DAE` / "Net3DVAE" for their names):
     Xavier-uniform weights, small random
     biases, BatchNorm and LayerNorm scales in [0.5, 1.5] and non-trivial
     running statistics (so an eval forward exercises every fold), non-zero
     GIN `eps` and edge-update `edge_eps` / `node_eps`.  float32 leaves."""
     mp = dict(model_parameters)
     rng = np.random.default_rng(seed)
+    model_type = {"Net3DVAE": "Net3DAE"}.get(model_type, model_type)
     if model_type in ("Net3D", "Net3DDense"):
         return _init_net3d_dense(mp, rng)
     if model_type == "OGBGNN":
         return _init_ogbgnn(mp, rng)
     if model_type == "OptimalTransportModel":
         return _init_optimal_transport(mp, rng)
+    if model_type in _WRAPPED:
+        key, inner, adapt = _WRAPPED[model_type]
+        params, stats = init_jax_variables(adapt(mp), seed, inner)
+        return {key: params}, ({key: stats} if stats else {})
+    if model_type == "DistancePredictor":
+        return _init_distance_predictor(mp, rng)
+    if model_type == "Net3DAE":
+        return _init_net3d_ae(mp, rng)
     if model_type != "PNA":
         raise ValueError(f"no numpy init for model_type {model_type!r}")
+    d = mp["hidden_dim"]
+    gnn, gnn_stats = _pnagnn_tree(mp, rng)
+    out_p, out_s = _mlp_tree(
+        rng, d * len(mp["readout_aggregators"]), mp["target_dim"],
+        mp.get("readout_layers", 2), mp.get("readout_hidden_dim") or d,
+        mp.get("readout_batchnorm", True), False)
+    return (_f32({"node_gnn": gnn, "output": out_p}),
+            _f32({"node_gnn": gnn_stats, "output": out_s}))
+
+
+def _pnagnn_tree(mp: Mapping[str, Any], rng):
+    """`PNAGNN(**mp)`'s (params, batch_stats)."""
     d = mp["hidden_dim"]
     n_aggs = len(mp["aggregators"]) * len(mp["scalers"])
     gnn = {"atom_encoder": {"encoder": _emb_tree(rng, FULL_ATOM_FEATURE_DIMS,
@@ -272,12 +298,112 @@ def init_jax_variables(model_parameters: Mapping, seed: int = 0,
                                    mp.get("posttrans_layers", 1), d, *bn)
         gnn[f"mp_{i}"] = {"pretrans": pre_p, "posttrans": post_p}
         gnn_stats[f"mp_{i}"] = {"pretrans": pre_s, "posttrans": post_s}
-    out_p, out_s = _mlp_tree(
-        rng, d * len(mp["readout_aggregators"]), mp["target_dim"],
-        mp.get("readout_layers", 2), mp.get("readout_hidden_dim") or d,
-        mp.get("readout_batchnorm", True), False)
-    return (_f32({"node_gnn": gnn, "output": out_p}),
-            _f32({"node_gnn": gnn_stats, "output": out_s}))
+    return gnn, gnn_stats
+
+
+def _init_distance_predictor(mp: Dict[str, Any], rng):
+    """`DistancePredictor(**mp)`: the PNA GNN, the transformer layer, the
+    node projection or the distance net, as the JAX module creates
+    them."""
+    d = mp["pna_args"]["hidden_dim"]
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    params["node_gnn"], stats["node_gnn"] = _pnagnn_tree(mp["pna_args"], rng)
+    if mp.get("transformer_layer", True):
+        ff = mp.get("dim_feedforward", 256)
+        params["transformer_layer"] = {
+            "self_attn": {"in_proj": _dense_tree(rng, d, 3 * d),
+                          "out_proj": _dense_tree(rng, d, d)},
+            "norm1": _norm_tree(rng, d),
+            "linear1": _dense_tree(rng, d, ff),
+            "linear2": _dense_tree(rng, ff, d),
+            "norm2": _norm_tree(rng, d)}
+    pdim, layers = mp.get("projection_dim", 3), mp.get("projection_layers", 1)
+    if mp.get("distance_net", False):
+        params["distance_net"], stats["distance_net"] = _mlp_tree(
+            rng, 2 * d, mp.get("target_dim", 1), layers, pdim, True, False)
+    elif pdim > 0:
+        params["node_projection_net"], stats["node_projection_net"] = \
+            _mlp_tree(rng, d, pdim, layers, 32, True, False)
+    return _f32(params), _f32(stats)
+
+
+def _net3d_layer_tree(rng, d: int, mp: Mapping[str, Any]):
+    """One Net3D layer's (params, batch_stats)."""
+    bn = mp.get("batch_norm", False)
+    msg_p, msg_s = _mlp_tree(rng, 3 * d, d, mp.get("message_net_layers", 2),
+                             d, bn, bn)
+    bound = np.sqrt(6.0 / (d + 1))
+    gate = {"kernel": rng.uniform(-bound, bound, (d, 1)),
+            "bias": rng.normal(0.0, 0.1, 1)}
+    upd_p, upd_s = _mlp_tree(rng, d, d, mp.get("update_net_layers", 2), d,
+                             bn, bn)
+    return ({"message_network": msg_p, "soft_edge_network": gate,
+             "update_network": upd_p},
+            {"message_network": msg_s, "update_network": upd_s})
+
+
+def _init_net3d_ae(mp: Dict[str, Any], rng):
+    """`Net3DAE(**mp)`: node embedding (or atom encoder), edge MLP, the
+    encoder's and decoder's layers, the node-wise encoder, and the distance
+    net or node projection, as the JAX module creates them."""
+    d = mp["hidden_dim"]
+    bn = mp.get("batch_norm", False)
+    k = mp.get("fourier_encodings", 0)
+    if mp.get("use_node_features", False):
+        params: Dict[str, Any] = {"atom_encoder": {"encoder": _emb_tree(
+            rng, FULL_ATOM_FEATURE_DIMS, d)}}
+    else:
+        params = {"node_embedding": rng.normal(0.0, 1.0, d)}
+    stats: Dict[str, Any] = {}
+    params["edge_input"], stats["edge_input"] = _mlp_tree(
+        rng, 2 * k + 1 if k > 0 else 1, d, 1, d, bn, bn)
+    depth = mp.get("encoder_depth", 4) or mp.get("propagation_depth", 0)
+    for i in range(depth):
+        params[f"enc_{i}"], stats[f"enc_{i}"] = _net3d_layer_tree(rng, d, mp)
+    nwe = mp.get("node_wise_encoder_layers", 0)
+    if nwe > 0:
+        params["node_wise_encoder"], stats["node_wise_encoder"] = _mlp_tree(
+            rng, d, d, nwe, d, bn, bn)
+    for i in range(mp.get("decoder_depth", 4)):
+        params[f"dec_{i}"], stats[f"dec_{i}"] = _net3d_layer_tree(rng, d, mp)
+    pdim, layers = mp.get("projection_dim", 3), mp.get("projection_layers", 1)
+    if mp.get("distance_net", True):
+        params["distance_net"], stats["distance_net"] = _mlp_tree(
+            rng, 2 * d, 1, layers, pdim, True, False)
+    elif pdim > 0:
+        params["node_projection_net"], stats["node_projection_net"] = \
+            _mlp_tree(rng, d, pdim, layers, 32, True, False)
+    return _f32(params), _f32(stats)
+
+
+def _pna_distance_args(mp: Mapping[str, Any]) -> Dict[str, Any]:
+    """`PNADistancePredictor`'s fields as its inner `DistancePredictor`'s
+    arguments."""
+    gnn = ("hidden_dim", "aggregators", "scalers", "residual",
+           "mid_batch_norm", "last_batch_norm", "propagation_depth",
+           "posttrans_layers", "pretrans_layers")
+    return {"pna_args": {k: mp[k] for k in gnn if k in mp},
+            "target_dim": mp.get("target_dim", 1), "distance_net": True,
+            "projection_dim": mp.get("projection_dim", 3),
+            "projection_layers": mp.get("projection_layers", 2),
+            "transformer_layer": False}
+
+
+def _net3d_distance_args(mp: Mapping[str, Any]) -> Dict[str, Any]:
+    """`Net3DDistancePredictor`'s fields as its inner `Net3DAE`'s."""
+    out = {k: v for k, v in mp.items() if k != "propagation_depth"}
+    out.update(encoder_depth=mp.get("propagation_depth", 4),
+               decoder_depth=mp.get("decoder_depth", 0))
+    return out
+
+
+# the wrappers: their subtree's name, the wrapped model and its arguments
+_WRAPPED = {
+    "PNADistancePredictor": ("predictor", "DistancePredictor",
+                             _pna_distance_args),
+    "Net3DDistancePredictor": ("net", "Net3DAE", _net3d_distance_args),
+}
 
 
 def _emb_tree(rng, dims, d):
@@ -394,18 +520,7 @@ def _init_net3d_dense(mp: Dict[str, Any], rng):
     params["edge_input"], stats["edge_input"] = _mlp_tree(
         rng, 2 * k + 1 if k > 0 else 1, d, 1, d, bn, bn)
     for i in range(mp.get("propagation_depth", 4)):
-        msg_p, msg_s = _mlp_tree(rng, 3 * d, d,
-                                 mp.get("message_net_layers", 2), d, bn, bn)
-        bound = np.sqrt(6.0 / (d + 1))
-        gate = {"kernel": rng.uniform(-bound, bound, (d, 1)),
-                "bias": rng.normal(0.0, 0.1, 1)}
-        upd_p, upd_s = _mlp_tree(rng, d, d, mp.get("update_net_layers", 2),
-                                 d, bn, bn)
-        params[f"mp_{i}"] = {"message_network": msg_p,
-                             "soft_edge_network": gate,
-                             "update_network": upd_p}
-        stats[f"mp_{i}"] = {"message_network": msg_s,
-                            "update_network": upd_s}
+        params[f"mp_{i}"], stats[f"mp_{i}"] = _net3d_layer_tree(rng, d, mp)
     nwo = mp.get("node_wise_output_layers", 2)
     if nwo > 0:
         (params["node_wise_output_network"],

@@ -1,13 +1,14 @@
 """Losses by their config name (port of `infomax3d_tpu/losses`'s
-`get_loss`): NT-Xent, the multiple-positive (conformer) family and the
-five supervised names.  The other losses of the JAX package's
-`LOSS_REGISTRY` are ROADMAP queue 1, item 6, and raise."""
+`get_loss`): NT-Xent, NT-Xent with distance reconstruction (`NTXentAE`),
+the multiple-positive (conformer) family and the five supervised names.
+The other losses of the JAX package's `LOSS_REGISTRY` are ROADMAP queue
+1, item 6, and raise."""
 from __future__ import annotations
 
 import torch
 
 from infomax3d_tpu_torch.losses.contrastive import (MULTI_POSITIVE_LOSSES,
-                                                    NTXent)
+                                                    NTXent, NTXentAE)
 
 SUPERVISED_LOSSES = ("L1Loss", "MSELoss", "BCEWithLogitsLoss",
                      "OGBNanLabelBCEWithLogitsLoss", "OGBNanLabelMSELoss")
@@ -29,8 +30,8 @@ class SupervisedLoss:
         return supervised_loss(self.name, pred, target, valid)
 
 
-LOSS_REGISTRY = {"NTXent": NTXent, **{cls.__name__: cls
-                                      for cls in MULTI_POSITIVE_LOSSES}}
+LOSS_REGISTRY = {"NTXent": NTXent, "NTXentAE": NTXentAE,
+                 **{cls.__name__: cls for cls in MULTI_POSITIVE_LOSSES}}
 
 
 def get_loss(name: str, **params):
@@ -42,5 +43,5 @@ def get_loss(name: str, **params):
     return LOSS_REGISTRY[name](**params)
 
 
-__all__ = ["LOSS_REGISTRY", "NTXent", "SUPERVISED_LOSSES", "SupervisedLoss",
-           "get_loss"]
+__all__ = ["LOSS_REGISTRY", "NTXent", "NTXentAE", "SUPERVISED_LOSSES",
+           "SupervisedLoss", "get_loss"]

@@ -86,6 +86,32 @@ class NTXent(_Regularized):
         return self._reg(loss, z1, z2)
 
 
+class NTXentAE(NTXent):
+    """NT-Xent and the weighted distance-reconstruction MSE, returned as
+    the pair ``(contrastive, reconstruction_reg * mse)`` (reference
+    losses.py:165-204, the autoencoder trainer's loss); the MSE is the mean
+    over the pairs `mask` selects, or over all without one."""
+
+    def __init__(self, norm: bool = True, tau: float = 0.5,
+                 reconstruction_reg: float = 1.0, **kw):
+        super().__init__(norm=norm, tau=tau, **kw)
+        self.reconstruction_reg = reconstruction_reg
+
+    def __call__(self, z1: torch.Tensor, z2: torch.Tensor,
+                 distances: torch.Tensor = None,
+                 distance_pred: torch.Tensor = None,
+                 mask: torch.Tensor = None):
+        base = NTXent.__call__(self, z1, z2)
+        se = (distances - distance_pred) ** 2
+        if mask is None:
+            rec = se.mean()
+        else:
+            rec = torch.where(mask, se, torch.zeros(
+                (), dtype=se.dtype, device=se.device)).sum() \
+                / mask.sum().clamp(min=1)
+        return base, self.reconstruction_reg * rec
+
+
 def _norms(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.linalg.vector_norm(x, dim=dim)
 

@@ -137,7 +137,11 @@ class EdgeInput(NamedTuple):
     """The message-MLP input ``[h[senders] ‖ h[receivers] ‖ e]`` of a PNA
     layer, never concatenated: `FCLayer` projects h in node space and the
     edge-combine kernel sums the gathered rows (`ops/kernels/
-    edge_combine.py`); the CSR and CSC arrays carry its backward."""
+    edge_combine.py`); the CSR and CSC arrays carry its backward.  `e` may
+    have width 0: the symmetrised distance nets' pair input ``[h[senders]
+    ‖ h[receivers]]``.  With `swap` the input is ``[h[receivers] ‖
+    h[senders] ‖ e]`` (the distance nets' other half): the first weight
+    columns meet the receivers, the same index arrays serve."""
     h: torch.Tensor           # [N, Dh]
     senders: torch.Tensor     # [E] int32 (pad -> N)
     receivers: torch.Tensor   # [E] int32 (pad -> N)
@@ -145,6 +149,7 @@ class EdgeInput(NamedTuple):
     row_ptr: Optional[torch.Tensor] = None       # [N + 1] int32
     csc_row_ptr: Optional[torch.Tensor] = None   # [N + 1] int32
     csc_perm: Optional[torch.Tensor] = None      # [E] int32
+    swap: bool = False
 
 
 class PairGridInput(NamedTuple):
@@ -178,9 +183,12 @@ class FCLayer(nn.Module):
             dt = torch.promote_types(torch.promote_types(x.h.dtype,
                                                          x.e.dtype), w.dtype)
             w, bias, h = w.to(dt), bias.to(dt), x.h.to(dt)
-            hs = F.linear(h, w[:, :dh])
-            hd = F.linear(h, w[:, dh:2 * dh])
-            pe = F.linear(x.e.to(dt), w[:, 2 * dh:], bias)
+            first, second = F.linear(h, w[:, :dh]), F.linear(h, w[:, dh:2 * dh])
+            hs, hd = (second, first) if x.swap else (first, second)
+            if x.e.shape[1]:
+                pe = F.linear(x.e.to(dt), w[:, 2 * dh:], bias)
+            else:
+                pe = bias.expand(x.e.shape[0], -1).contiguous()
             return edge_combine(hd, hs, pe, x.receivers, x.senders,
                                 x.row_ptr, x.csc_row_ptr, x.csc_perm)
         if isinstance(x, PairGridInput):

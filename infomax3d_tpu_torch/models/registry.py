@@ -7,7 +7,9 @@ drops it, and a field the port's class lacks raises when the config sets
 it to anything but the JAX default (`UNPORTED_FIELDS`).  `Net3D` is the
 flat 3D network on CSR complete graphs; the CLI swaps it for the
 parameter-compatible `Net3DDense` when `_dense_3d` is on, as the JAX
-package does.  Every other name is ROADMAP queue 1, item 7.
+package does.  `Net3DVAE` names `Net3DAE` (`MODEL_ALIASES`, the JAX
+table: the reference's configs name a class that exists nowhere).  Every
+other name is ROADMAP queue 1, item 7.
 """
 from __future__ import annotations
 
@@ -17,8 +19,12 @@ from torch import nn
 
 from infomax3d_tpu_torch.models.gin import OGBGNN
 from infomax3d_tpu_torch.models.net3d import Net3D, Net3DDense
+from infomax3d_tpu_torch.models.net3d_vae import (Net3DAE,
+                                                  Net3DDistancePredictor)
 from infomax3d_tpu_torch.models.optimal_transport import OptimalTransportModel
 from infomax3d_tpu_torch.models.pna import PNA
+from infomax3d_tpu_torch.models.transformer import (DistancePredictor,
+                                                    PNADistancePredictor)
 
 _NET3D_FIELDS = ("hidden_dim", "target_dim", "readout_aggregators",
                  "batch_norm", "node_wise_output_layers",
@@ -28,9 +34,24 @@ _NET3D_FIELDS = ("hidden_dim", "target_dim", "readout_aggregators",
                  "update_net_layers", "message_net_layers",
                  "use_node_features")
 
+_NET3DAE_SHARED = ("hidden_dim", "readout_aggregators", "batch_norm",
+                   "node_wise_encoder_layers", "node_wise_output_layers",
+                   "batch_norm_momentum", "reduce_func", "dropout",
+                   "decoder_depth", "projection_dim", "distance_net",
+                   "projection_layers", "fourier_encodings", "activation",
+                   "update_net_layers", "message_net_layers",
+                   "use_node_features")
+
 MODEL_REGISTRY: Dict[str, type] = {
     "PNA": PNA, "OGBGNN": OGBGNN, "Net3D": Net3D, "Net3DDense": Net3DDense,
-    "OptimalTransportModel": OptimalTransportModel}
+    "OptimalTransportModel": OptimalTransportModel,
+    "DistancePredictor": DistancePredictor,
+    "PNADistancePredictor": PNADistancePredictor, "Net3DAE": Net3DAE,
+    "Net3DDistancePredictor": Net3DDistancePredictor}
+
+# reference YAML names whose class the reference cannot resolve, mapped
+# onto the class the config means (the JAX package's models/registry.py)
+MODEL_ALIASES: Dict[str, str] = {"Net3DVAE": "Net3DAE"}
 
 # the JAX dataclass fields of each registered class
 JAX_FIELDS: Dict[str, tuple] = {
@@ -45,6 +66,22 @@ JAX_FIELDS: Dict[str, tuple] = {
     "Net3DDense": _NET3D_FIELDS,
     "OptimalTransportModel": ("hyperparams", "gnn_params", "gnn_model",
                               "use_transformer", "use_two_gnns"),
+    "DistancePredictor": ("pna_args", "target_dim", "projection_dim",
+                          "distance_net", "projection_layers",
+                          "transformer_layer", "nhead", "dim_feedforward",
+                          "activation", "max_nodes"),
+    "PNADistancePredictor": (
+        "hidden_dim", "aggregators", "scalers", "target_dim",
+        "readout_aggregators", "residual", "pairwise_distances",
+        "activation", "last_activation", "mid_batch_norm", "last_batch_norm",
+        "propagation_depth", "dropout", "projection_layers",
+        "projection_dim", "posttrans_layers", "pretrans_layers",
+        "batch_norm_momentum", "readout_batchnorm", "readout_hidden_dim",
+        "readout_layers"),
+    "Net3DAE": _NET3DAE_SHARED + ("encoder_depth", "target_dim",
+                                  "readout_batchnorm", "readout_layers",
+                                  "readout_hidden_dim", "propagation_depth"),
+    "Net3DDistancePredictor": _NET3DAE_SHARED + ("propagation_depth",),
 }
 
 # JAX fields the port's classes lack, with the JAX default they run at
@@ -54,6 +91,7 @@ UNPORTED_FIELDS: Dict[str, Dict[str, Any]] = {
 }
 
 def get_model_class(name: str) -> type:
+    name = MODEL_ALIASES.get(name, name)
     if name not in MODEL_REGISTRY:
         raise NotImplementedError(
             f"model_type '{name}' is not ported yet (ROADMAP queue 1, "
@@ -65,6 +103,7 @@ def adapt_model_params(name: str, mp: Mapping[str, Any]) -> Dict[str, Any]:
     """`mp` restricted to the JAX class's fields; raises on a field the
     port lacks when it is set to other than the JAX default."""
     get_model_class(name)
+    name = MODEL_ALIASES.get(name, name)
     out = {k: v for k, v in dict(mp).items() if k in JAX_FIELDS[name]}
     for field, default in UNPORTED_FIELDS.get(name, {}).items():
         if out.pop(field, default) != default:

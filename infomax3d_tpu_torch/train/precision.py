@@ -57,16 +57,17 @@ def compute_params(module: nn.Module, dtype: Optional[torch.dtype]
                 else p) for n, p in module.named_parameters()}
 
 
-def forward_in(model: nn.Module, dtype: Optional[torch.dtype], *inputs
-               ) -> torch.Tensor:
+def forward_in(model: nn.Module, dtype: Optional[torch.dtype], *inputs):
     """`model(*inputs)` under the training recipe: with `dtype` (bf16) on
     copies of the float32 master parameters cast to it (`compute_params`),
-    the output cast to float32 for the loss; `None` runs float32 as it
-    is."""
+    the output (a tensor or a tuple of them) cast to float32 for the loss;
+    `None` runs float32 as it is."""
     if dtype is None:
         return model(*inputs)
-    return functional_call(model, compute_params(model, dtype),
-                           inputs).float()
+    out = functional_call(model, compute_params(model, dtype), inputs)
+    if isinstance(out, tuple):
+        return tuple(o.float() for o in out)
+    return out.float()
 
 
 def cast_batch(batch, dtype: Optional[torch.dtype]):

@@ -41,9 +41,10 @@ from infomax3d_tpu_torch.models.registry import get_model_class
 from infomax3d_tpu_torch.train.optim import build_adam, label_params
 from infomax3d_tpu_torch.train.precision import (cast_batch, forward_in,
                                                  resolve_compute_dtype)
+from infomax3d_tpu_torch.train.supervised import TrainStep
 
 
-class PretrainStep:
+class PretrainStep(TrainStep):
     """Forward, backward and Adam update of the PNA / Net3D pair on one
     batch of molecules: `model3d_type` "Net3DDense" reads a `DenseBatch`,
     "Net3D" a CSR `GraphBatch` of complete graphs.  `variables` holds flax
@@ -121,25 +122,10 @@ class PretrainStep:
         return (forward_in(self.model, self.compute_dtype, g2),
                 forward_in(self.model3d, self.compute_dtype, g3))
 
-    def loss_and_grads(self, g2: GraphBatch, g3: DenseBatch,
-                       return_outputs: bool = False):
-        """Forward and backward on prepared batches: fills each master
-        parameter's `.grad` (float32), updates the running statistics and
-        returns the float32 loss (detached), with both outputs (detached)
-        when `return_outputs`."""
-        self.optimizer.zero_grad(set_to_none=True)
+    def loss(self, g2: GraphBatch, g3: DenseBatch):
+        """(float32 loss, both outputs) on prepared batches."""
         z1, z2 = self.outputs(g2, g3)
-        loss = self.loss_fn(z1, z2)
-        loss.backward()
-        if return_outputs:
-            return loss.detach(), (z1.detach(), z2.detach())
-        return loss.detach()
-
-    def step(self, g2: GraphBatch, g3: DenseBatch) -> torch.Tensor:
-        """One training step on prepared batches; returns the loss."""
-        loss = self.loss_and_grads(g2, g3)
-        self.optimizer.step()
-        return loss
+        return self.loss_fn(z1, z2), (z1, z2)
 
 
 def flagship_batches(batch_size: int, seed: int = 0, n_min: int = 10,

@@ -56,7 +56,39 @@ def supervised_loss(name: str, pred: torch.Tensor, target: torch.Tensor,
     return total / valid.sum().clamp(min=1)
 
 
-class SupervisedStep:
+def detached(out):
+    """`out` (a tensor, or a tuple or dict of them) detached."""
+    if isinstance(out, torch.Tensor):
+        return out.detach()
+    if isinstance(out, dict):
+        return {k: detached(v) for k, v in out.items()}
+    return tuple(detached(v) for v in out)
+
+
+class TrainStep:
+    """Backward and update over a step's ``loss(*batches) -> (loss,
+    outputs)`` on prepared batches; the steps set `optimizer`."""
+
+    def loss_and_grads(self, *batches, return_outputs: bool = False):
+        """Forward and backward on prepared batches: fills each master
+        parameter's `.grad` (float32), updates the running statistics and
+        returns the float32 loss (detached), with the outputs (detached)
+        when `return_outputs`."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, out = self.loss(*batches)
+        loss.backward()
+        if return_outputs:
+            return loss.detach(), detached(out)
+        return loss.detach()
+
+    def step(self, *batches) -> torch.Tensor:
+        """One training step on prepared batches; returns the loss."""
+        loss = self.loss_and_grads(*batches)
+        self.optimizer.step()
+        return loss
+
+
+class SupervisedStep(TrainStep):
     """Forward, masked loss, backward and Adam update of one model on one
     labelled batch.  `variables` holds the model's flax numpy trees
     (`interop.init_jax_variables` layout); `compute_dtype` bf16 runs the
@@ -111,24 +143,6 @@ class SupervisedStep:
         pred = forward_in(self.model, self.compute_dtype, g)
         valid = ~torch.isnan(g.targets) & g.graph_mask[:, None]
         return supervised_loss(self.loss_func, pred, g.targets, valid), pred
-
-    def loss_and_grads(self, g: GraphBatch, return_outputs: bool = False):
-        """Forward and backward on a prepared batch: fills each master
-        parameter's `.grad` (float32), updates the running statistics and
-        returns the float32 loss (detached), with the predictions
-        (detached) when `return_outputs`."""
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, pred = self.loss(g)
-        loss.backward()
-        if return_outputs:
-            return loss.detach(), pred.detach()
-        return loss.detach()
-
-    def step(self, g: GraphBatch) -> torch.Tensor:
-        """One training step on a prepared batch; returns the loss."""
-        loss = self.loss_and_grads(g)
-        self.optimizer.step()
-        return loss
 
 
 def labelled_batch(batch_size: int, num_targets: int = 1, seed: int = 0,

@@ -1,5 +1,6 @@
-"""Training engine (port of `infomax3d_tpu/train/trainer.py`: `Trainer`
-and `SelfSupervisedTrainer`).
+"""Training engine (port of `infomax3d_tpu/train/trainer.py`: `Trainer`,
+`SelfSupervisedTrainer`, `SelfSupervisedAETrainer`, `GraphCLTrainer` and
+`DistancePredictorTrainer`).
 
 The host loop is the JAX package's, which is the contract of the
 reference's `Trainer.train` (trainer/trainer.py:69-109): epochs,
@@ -11,8 +12,9 @@ and `train_arguments.yaml` in the run directory, resuming from
 `evaluation_*.txt` files, and the reload of the best checkpoint at the end.
 
 The step is not written again here: the supervised trainer runs
-`train/supervised.py::SupervisedStep` and the contrastive one
-`train/pretrain.py::PretrainStep`, each built over the config's models and
+`train/supervised.py::SupervisedStep`, the contrastive one
+`train/pretrain.py::PretrainStep` and the baselines the steps of
+`train/baselines.py`, each built over the config's models and
 the grouped optimizer (`train/optim.py`), so the bf16 recipe (float32
 masters, bf16 forward, float32 outputs into the loss) is the steps'.  The
 learning rates come from an `LRController` per the config and are written
@@ -45,6 +47,8 @@ from infomax3d_tpu_torch.data.loader import to_device
 from infomax3d_tpu_torch.device import resolve_device
 from infomax3d_tpu_torch.interop import flax_paths, load_variables
 from infomax3d_tpu_torch.train import checkpoint
+from infomax3d_tpu_torch.train.baselines import (AEStep, DistanceStep,
+                                                GraphCLStep)
 from infomax3d_tpu_torch.train.logging import TENSORBOARD_FUNCTIONS, RunLogger
 from infomax3d_tpu_torch.train.optim import build_optimizer, label_params
 from infomax3d_tpu_torch.train.precision import resolve_compute_dtype
@@ -243,6 +247,11 @@ class Trainer:
         preds = out.float().cpu().numpy()
         return preds[mask], batch["graph"]["targets"][mask]
 
+    def _extra_losses(self, out) -> Dict[str, float]:
+        """The loss's parts logged beside it (the JAX `AuxOut.
+        extra_losses`); none here."""
+        return {}
+
     def _eval_metrics(self, preds, targets, val=False) -> Dict[str, float]:
         res = {
             "mean_pred": float(np.mean(preds)),
@@ -285,6 +294,7 @@ class Trainer:
                     preds, targets = self._host_filter(batch, out)
                     m = self._eval_metrics(preds, targets)
                     m[self.loss_name] = float(loss)
+                    m.update(self._extra_losses(out))
                     for gi, lr in enumerate(self.lr_controllers["main"].lrs):
                         m[f"lr_param_group_{gi}"] = lr
                 with self._timed("logging"):
@@ -332,6 +342,7 @@ class Trainer:
                 with self._timed("metrics"):
                     m = self._eval_metrics(preds, targets, val=True)
                     m[self.loss_name] = float(loss)
+                    m.update(self._extra_losses(out))
                     for k, v in m.items():
                         totals[k] = totals.get(k, 0.0) + v
             else:
@@ -491,11 +502,6 @@ class SelfSupervisedTrainer(Trainer):
             return self.step.prepare(to_device(batch["graph2d"], self.device),
                                      to_device(batch["graph3d"], self.device))
 
-    def _eval_step(self, batches):
-        with self._evaluating():
-            z1, z2 = self.step.outputs(*batches)
-            return self.loss_func(z1, z2), (z1, z2)
-
     def _host_filter(self, batch, out):
         z1, z2 = out
         return z1.float().cpu().numpy(), z2.float().cpu().numpy()
@@ -506,8 +512,8 @@ class SelfSupervisedTrainer(Trainer):
         n_samples = self.args.get("linear_probing_samples", 500)
         reps, targets = [], []
         for batch in loader:
-            _, (z1, _) = self._eval_step(self._prepare(batch))
-            z = z1.float().cpu().numpy()
+            z = self._eval_step(self._prepare(batch))[1][0].float().cpu(
+            ).numpy()
             t = batch["graph2d"].get("targets")
             if t is None:
                 return
@@ -527,11 +533,73 @@ class SelfSupervisedTrainer(Trainer):
                         epoch)
 
 
-TRAINER_REGISTRY = {"default": Trainer, "contrastive": SelfSupervisedTrainer}
+class SelfSupervisedAETrainer(SelfSupervisedTrainer):
+    """Contrastive + distance reconstruction (reference
+    self_supervised_ae_trainer.py:14-30): ``model3d`` (`Net3DAE`) returns
+    (embedding, distances); the loss (`NTXentAE`) is contrastive +
+    reconstruction, both parts logged beside it (`AEStep`)."""
+
+    def _make_step(self):
+        return AEStep.from_modules(
+            self.models["model"], self.models["model3d"], self.device,
+            self.compute_dtype, self.loss_func, self.optimizer)
+
+    def _host_filter(self, batch, out):
+        return super()._host_filter(batch, out[:2])
+
+    def _extra_losses(self, out) -> Dict[str, float]:
+        return {k: float(v) for k, v in out[2].items()}
+
+
+class GraphCLTrainer(Trainer):
+    """The same model on two augmented 2D views (reference
+    graphcl_trainer.py:11-15, `GraphCLStep`); the metrics read the two
+    outputs."""
+
+    def _make_step(self):
+        return GraphCLStep.from_modules(self.models["model"], self.device,
+                                        self.compute_dtype, self.loss_func,
+                                        self.optimizer)
+
+    def _prepare(self, batch):
+        with self._timed("to_device"):
+            return self.step.prepare(to_device(batch["view1"], self.device),
+                                     to_device(batch["view2"], self.device))
+
+    _host_filter = SelfSupervisedTrainer._host_filter
+
+
+class DistancePredictorTrainer(Trainer):
+    """Pre-training baseline: every pairwise 3D distance predicted from the
+    2D graph (reference DistancePredictor path, `DistanceStep`); the batch
+    is the graph and its pair view with the true distances, and the
+    metrics read the real pairs."""
+
+    def _make_step(self):
+        return DistanceStep.from_modules(self.models["model"], self.device,
+                                         self.compute_dtype, self.loss_name,
+                                         self.optimizer)
+
+    def _prepare(self, batch):
+        with self._timed("to_device"):
+            g = to_device(batch["graph"], self.device)
+            pairs = g if batch["pairs"] is batch["graph"] else \
+                to_device(batch["pairs"], self.device)
+            return self.step.prepare(g, pairs)
+
+    def _host_filter(self, batch, out):
+        mask = batch["pairs"]["edge_mask"]
+        return (out.float().cpu().numpy()[mask],
+                batch["pairs"]["edge_dist"][:, None][mask])
+
+
+TRAINER_REGISTRY = {"default": Trainer, "contrastive": SelfSupervisedTrainer,
+                    "autoencoder": SelfSupervisedAETrainer,
+                    "graphcl_trainer": GraphCLTrainer,
+                    "distance_predictor": DistancePredictorTrainer}
 
 # the JAX package's other trainer flavours (ROADMAP queue 1, item 8)
-NOT_PORTED = ("alternating", "autoencoder", "byol", "philosophy",
-              "graphcl_trainer", "noisy_negatives", "distance_predictor",
+NOT_PORTED = ("alternating", "byol", "philosophy", "noisy_negatives",
               "optimal_transport")
 
 

@@ -461,7 +461,7 @@ def test_collate_aliases_and_not_ported():
         loader.node_drop_3d_collate
     for name in ("san_collate", "padded_collate_positional_encoding",
                  "egnn_padded_collate", "molhiv_padded_collate",
-                 "pairwise_distance_collate", "smp_collate"):
+                 "smp_collate"):
         with pytest.raises(NotImplementedError, match="item 7"):
             loader.get_collate(name)
     assert set(jax_loader.COLLATE_REGISTRY) == \

@@ -8,10 +8,11 @@
   written here by the port's `write_synthetic_cache`), at tiny widths, for
   one epoch of one step (OGB sets: their scaffold split's train set in one
   batch), or raises the `NotImplementedError` of its ROADMAP queue 1 item
-  (`RAISES`): the OT baseline, the distance predictor and GraphCL stop at
-  their trainers (item 8; the distance predictor's model and collate are
-  item 7 behind that).  `fingerprint_inference.yml`, a config of the
-  inference CLI, serves the SMILES and checkpoint of
+  (`RAISES`): the OT baseline stops at its trainer (item 8).  The
+  distance-predictor and GraphCL baselines (`AGAINST_JAX`) also run
+  through the JAX CLI from the same initial weights, and their first
+  logged losses agree within 1e-5 relative.  `fingerprint_inference.yml`,
+  a config of the inference CLI, serves the SMILES and checkpoint of
   `tests/fixtures/jax_serving` (the JAX CLI's fingerprints within 1e-5).
 * A cache-served `pre-train_QM9.yml` then `tune_QM9_homo.yml` (2 epochs
   of 4 steps each, PNA 16x2, Net3D hidden 8, dataset `qm9` from the QM9
@@ -30,13 +31,17 @@ import glob
 import json
 import os
 
+import jax
 import numpy as np
 import pytest
 
+from infomax3d_tpu.cli import train as jax_cli
 from infomax3d_tpu.cli.config import load_config as jax_load_config
 from infomax3d_tpu.cli.train import build_dataset as jax_build_dataset
 from infomax3d_tpu.data.synthetic import \
     write_synthetic_cache as jax_write_cache
+from infomax3d_tpu.losses import get_loss as jax_get_loss
+from infomax3d_tpu.train import trainer as jax_trainer
 from infomax3d_tpu_torch.cli.config import load_config
 from infomax3d_tpu_torch.cli.inference import inference
 from infomax3d_tpu_torch.cli.train import (GEOMOL_FINETUNE_SETS,
@@ -46,6 +51,7 @@ from infomax3d_tpu_torch.data.preprocess import preprocess_qm9
 from infomax3d_tpu_torch.data.synthetic import write_synthetic_cache
 from test_torch_port_cli import (FIRST_LOSS_TOL, _first_loss,
                                  _metric_violations, _run_jax, _run_port)
+from test_torch_port_conformers import _jax_float64, _to64
 
 CONFIG_DIR = "configs_clean"
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "qm9_slice")
@@ -68,9 +74,66 @@ CACHES = {
 # item their NotImplementedError names, and what it names
 RAISES = {
     "pre-train_Optimal_Transport_baseline.yml": (8, "optimal_transport"),
-    "pre-train_distance_predictor_baseline.yml": (8, "distance_predictor"),
-    "pre-train_graphCL_baseline.yml": (8, "graphcl_trainer"),
 }
+# configs whose first step also runs through the JAX CLI from the same
+# initial weights (and `configs/contrastive_training_Net3DAE.yml`, below).  The JAX CLI's first batch and weights give a loss in
+# float64 (`_jax_first_loss64`); the port's first logged loss is held to
+# it within FIRST_LOSS_TOL, and the JAX CLI's own (its jitted float32
+# step) within JAX_CLI_TOL (reading 1.4e-5 for GraphCL, whose port reads
+# 9e-7), which shows that both runs read that batch from those weights.
+AGAINST_JAX = ("pre-train_distance_predictor_baseline.yml",
+               "pre-train_graphCL_baseline.yml")
+JAX_CLI_TOL = 1e-4
+
+
+def _jax_first_loss64(config, overrides, init):
+    """The loss of the JAX CLI's first training batch (its loader's second
+    pass: the trainer draws an example batch first) at the initial weights
+    `init`, through the loss_fn of the trainer the JAX CLI picks, in
+    training mode, in float64 (`_jax_float64`)."""
+    args = jax_load_config(config, dict(overrides, csr_buckets=False,
+                                        dense_3d=True))
+    jax_cli.resolve_collate(args)
+    ds = jax_build_dataset(args)
+    jax_cli.apply_dataset_protocol(args, ds)
+    jax_cli.resolve_fast_paths(args)
+    loader = jax_cli.make_loaders(args, ds)[0]
+    next(iter(loader))
+    batch = next(iter(loader))
+    key = args["trainer"] if args.get("model3d_type") or args["trainer"] in (
+        "graphcl_trainer", "distance_predictor") else "distance_predictor"
+    cls = jax_trainer.TRAINER_REGISTRY[key]
+    tr = cls.__new__(cls)
+    tr.models = jax_cli.build_models(args, ds)
+    tr.loss_name, tr.compute_dtype, tr.args, tr.mesh = \
+        args["loss_func"], None, {}, None
+    tr.loss_func = None if key == "distance_predictor" else jax_get_loss(
+        args["loss_func"], **(args.get("loss_params") or {}))
+    with _jax_float64():
+        v = {k: _to64(init[k]) for k in init}
+        loss = tr.loss_fn({k: x["params"] for k, x in v.items()},
+                          {k: x["batch_stats"] for k, x in v.items()},
+                          _to64(batch), 0, jax.random.key(0), True)[0]
+        return float(loss)
+
+
+def _step_against_jax(path, over, tmp_path):
+    """`path` one step through the JAX CLI and through the port's from the
+    JAX run's initial weights; holds both first logged losses to
+    `_jax_first_loss64` (FIRST_LOSS_TOL, JAX_CLI_TOL) and returns the
+    port's run."""
+    ref = _run_jax(path, over, str(tmp_path / "jax"))
+    run = _run_port(path, over, str(tmp_path / "port"), ref["init"])
+    name = load_config(path, {})["loss_func"]
+    want = _jax_first_loss64(path, dict(over, logdir=str(tmp_path)),
+                             ref["init"])
+    assert abs(_first_loss(run["records"], 1, name) - want) <= \
+        FIRST_LOSS_TOL * abs(want)
+    assert abs(_first_loss(ref["records"], 1, name) - want) <= \
+        JAX_CLI_TOL * abs(want)
+    return run
+
+
 CONFIGS = sorted(os.path.basename(p)
                  for p in glob.glob(f"{CONFIG_DIR}/*.yml"))
 TINY = dict(hidden_dim=16, propagation_depth=2, readout_hidden_dim=16)
@@ -94,15 +157,19 @@ def test_caches_equal_the_jax_tests(data_root, tmp_path):
             np.testing.assert_array_equal(a[k], b[k], err_msg=f"{name}/{k}")
 
 
-def _one_step(config, logdir):
-    """Overrides that cut `config` to tiny widths and one training step."""
-    base = load_config(f"{CONFIG_DIR}/{config}", {})
+def _one_step(config, logdir, path=None):
+    """Overrides that cut `config` (at `path`, default under CONFIG_DIR)
+    to tiny widths and one training step."""
+    base = load_config(path or f"{CONFIG_DIR}/{config}", {})
     ov = dict(num_epochs=1, patience=1, use_tensorboard=False,
               eval_per_epochs=0, log_iterations=1, logdir=str(logdir),
               batch_size=8, num_train=8, multithreaded_seeds=[],
               pretrain_checkpoint=None)
     mp = dict(base.get("model_parameters") or {})
     ov["model_parameters"] = {k: TINY.get(k, v) for k, v in mp.items()}
+    if "pna_args" in mp:         # the distance predictor's nested PNA
+        ov["model_parameters"]["pna_args"] = {
+            k: TINY.get(k, v) for k, v in mp["pna_args"].items()}
     if base.get("model3d_parameters"):
         ov["model3d_parameters"] = dict(base["model3d_parameters"], **TINY3D)
     if base["dataset"].startswith("ogbg"):
@@ -133,7 +200,13 @@ def test_config_steps_or_names_its_item(config, data_root, tmp_path,
                               _one_step(config, tmp_path)), device="cpu")
         return
     args = load_config(f"{CONFIG_DIR}/{config}", _one_step(config, tmp_path))
-    result = train(args, device="cpu")
+    if config in AGAINST_JAX:
+        result = _step_against_jax(f"{CONFIG_DIR}/{config}",
+                                   _one_step(config, tmp_path),
+                                   tmp_path)["result"]
+        tmp_path = tmp_path / "port"
+    else:
+        result = train(args, device="cpu")
     assert all(np.isfinite(v) for v in result.values()), result
     run_dir, = glob.glob(str(tmp_path / "*"))
     steps = [r for r in map(json.loads, open(f"{run_dir}/metrics.jsonl"))
@@ -141,6 +214,23 @@ def test_config_steps_or_names_its_item(config, data_root, tmp_path,
     assert [r["step"] for r in steps] == [1], steps
     if args["dataset"].startswith("ogbg"):
         assert args["main_metric"] == args["dataset"] in result
+
+
+def test_net3d_ae_config_steps_against_jax(data_root, tmp_path,
+                                           monkeypatch):
+    """`configs/contrastive_training_Net3DAE.yml` (PNA + Net3DAE, the
+    autoencoder trainer, NTXentAE) at tiny widths, one step through both
+    CLIs from the same weights; the port logs both parts of the loss."""
+    monkeypatch.setenv("INFOMAX3D_DATA", str(data_root))
+    path = "configs/contrastive_training_Net3DAE.yml"
+    over = dict(_one_step("contrastive_training_Net3DAE.yml", tmp_path,
+                          path), model_parameters=dict(
+        load_config(path, {})["model_parameters"], **TINY, target_dim=24))
+    run = _step_against_jax(path, over, tmp_path)
+    assert all(np.isfinite(v) for v in run["result"].values())
+    first = next(r for r in run["records"] if r["split"] == "train")
+    assert abs(first["contrastive_loss"] + first["reconstruction_loss"]
+               - first["NTXentAE"]) <= 1e-6 * first["NTXentAE"]
 
 
 # 300 molecules: model pool 240, test 30, validation 30 (one batch of 16)
