@@ -179,6 +179,27 @@ its seconds:
    through the CLI in bf16 (1 epoch of 3 steps on phase 19's QM9 and QMugs
    caches: the main path), then `tune_QM9_homo.yml` one step from (a)'s
    checkpoint with the JAX CLI's transfer count.
+22. the OT family through its trainer, float32, at the configs' widths:
+   (a) `configs_clean/pre-train_Optimal_Transport_baseline.yml`
+   (PNAGNNRandomEdgeUpdate 50x3), (b) `configs/ot_gin.yml` (the
+   virtual-node GIN 5x300 with dropout 0.5 under the model's 50), (c)
+   `configs/ot_geomol_gnn.yml` (GeomolGNNOGBFeat 100x5, two GNNs), each
+   with 10 model and 10 true conformers: one trainer step on the card
+   against the CPU from the same weights, batch (16 QM9-size molecules
+   for (a) and (b), drug-size for (c)), draws and dropout masks (cost,
+   loss, every gradient leaf against a witness, running statistics,
+   Adam's update), (a) with `ignore_neighbors` off and on, and a planted
+   fault each that must fail (the dihedral terms kept with
+   `ignore_neighbors`; the cost pass in training mode; gnn2 reading gnn's
+   weights); rows 7 and 4 bit for bit at (b)'s batch at D = 300 and row
+   1 at (a)'s; launches per step, exact; ms per step, graphs/s, the host
+   EMD, peak memory and kernels per step; rows 7 and 4 at (b)'s shape
+   cold and warm beside their byte bounds; then (a), (b), (c) through
+   the CLI on synthetic caches (2 epochs of 3 steps, (a)'s first
+   local-only, the learning rate of each step printed), launches per run,
+   and (d) `configs/tune_from_ot_pna.yml` from an OT checkpoint of
+   `configs/ot_pyg_in_memory.yml`'s model (GeomolGNNOGBFeat 50x3) with the
+   JAX CLI's transfer count, on an ogbg-molesol-shaped cache.
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 """
@@ -202,8 +223,7 @@ from infomax3d_tpu_torch.data.synthetic import SyntheticMolecules
 from infomax3d_tpu_torch.graphs.batch import (batch_graphs, bucket_for,
                                               to_graph_batch)
 from infomax3d_tpu_torch.interop import init_jax_variables
-from infomax3d_tpu_torch.models.random_variants import (GeneratorNoise,
-                                                        ReplayNoise)
+from infomax3d_tpu_torch.models.noise import GeneratorNoise, ReplayNoise
 from infomax3d_tpu_torch.ops.kernels import (WRAPPERS, csr_segment_sum,
                                              csr_segment_sum_reference,
                                              csr_sum,
@@ -295,10 +315,10 @@ GIN_WIDTH = 300
 GIN_DEPTH = GIN_MODEL_PARAMETERS["num_layers"]
 
 # configs_clean/pre-train_Optimal_Transport_baseline.yml `model_parameters`,
-# `optimizer_params` and `batch_size` (no YAML on the card).  The dataset
-# (GEOM-QM9 pickles) is not in the repo: synthetic QM9-like molecules with
-# 10 conformers each stand in; the WarmUpWrapper schedule belongs to the
-# trainer, which is not ported, so the step takes the config's lr.
+# `optimizer_params` and `batch_size`.  The dataset (GEOM-QM9 pickles) is
+# not in the repo: synthetic QM9-like molecules with 10 conformers each
+# stand in; the WarmUpWrapper schedule belongs to the trainer (phase 22),
+# so phase 15's bare step takes the config's lr.
 OT_MODEL_PARAMETERS = {
     "gnn_model": "PNAGNNRandomEdgeUpdate",
     "gnn_params": {
@@ -4285,6 +4305,507 @@ def phase_baselines(smi: str, out_dir: Path, caches: Path = None) -> dict:
     return {"launches": launches, "errs": errs}
 
 
+# --------------------------------------- phase 22: the OT family's trainer
+
+OT_FAMILY = {"a": "configs_clean/pre-train_Optimal_Transport_baseline.yml",
+             "b": "configs/ot_gin.yml", "c": "configs/ot_geomol_gnn.yml"}
+OT_FAMILY_NAMES = {"a": "PNAGNNRandomEdgeUpdate 50x3",
+                   "b": "virtual-node GIN 5x300, dropout 0.5",
+                   "c": "GeomolGNNOGBFeat 100x5, two GNNs"}
+# the check batches: 16 molecules with 10 conformers each, QM9-size for
+# (a) and (b) (phase 14's OT batch), drug-size for (c)
+OT_FAMILY_DATA = {"a": OT_DATA, "b": OT_DATA,
+                  "c": {"seed": 0, "n_min": 20, "n_max": 50}}
+OT_FAMILY_LR = 1e-3
+GIN_OT_DEPTH, GIN_OT_WIDTH = 5, 300
+# launches per step: (a) as phase 15's step, and with `ignore_neighbors`
+# gnn2 runs forward in both passes but reaches no term of the cost, so
+# only gnn's gathers run backward; (b) each GIN layer sums its messages
+# (row 7) in both passes and its sender gather's backward is row 4; (c)
+# the GeoMol MPNN's gathers and sums are plain PyTorch.  An eval batch
+# (validation) runs the cost pass and the loss pass forward: the forward
+# launches of a step.
+GIN_OT_PASS = 2 * OT_CONFS * GIN_OT_DEPTH
+OT_FAMILY_STEP = {
+    "a": EXPECTED_OT_STEP,
+    "a local": dict(NONE, multi_reduce=2 * OT_PASS,
+                    snd_segment_sum=OT_PASS // 2,
+                    csr_segment_sum=OT_PASS // 2),
+    "b": dict(NONE, csr_sum=2 * GIN_OT_PASS, snd_segment_sum=GIN_OT_PASS),
+    "c": dict(NONE)}
+OT_FAMILY_EVAL = {"a": dict(NONE, multi_reduce=2 * OT_PASS),
+                  "b": dict(NONE, csr_sum=2 * GIN_OT_PASS), "c": dict(NONE)}
+# GIN leaves whose gradient is exactly zero (a bias feeding a BatchNorm):
+# the convolutions' two Linears' and the virtual node's first Linear's
+GIN_ZERO = ZERO_GRADIENT + tuple(f"vn_mlp_{i}_0.bias"
+                                 for i in range(GIN_OT_DEPTH - 1))
+# The card against the CPU, one float32 trainer step from the same weights,
+# batch, draws and dropout masks, as phase 15 holds its step, with two
+# witnesses, the CPU step from weights perturbed by OT_WITNESS_REL (two
+# seeds): each gradient leaf within OT_WITNESS_FACTOR times the larger of
+# its two witness readings, or OT_TOL["leaf"]; the cost, the loss and the
+# gradient's L2 within OT_WITNESS_FACTOR times their witnesses' or OT_TOL,
+# whichever is larger; the running statistics within STEP_TOL's float32
+# bound; and Adam's update of the weights (the change over lr) within
+# OT_WITNESS_FACTOR times its witnesses' in L2, at least OT_UPDATE_L2 (the
+# first Adam step is lr * g / (|g| + eps): a rounding-noise gradient entry
+# moves by lr with either sign on each side).  The GIN of (b) is the most
+# sensitive: 8 float32 ulps on its weights move its cost by 6.9e-5 and its
+# gradient by 1.8e-3 in L2 (on the CPU), while the CPU's own
+# summation orders (one thread against eight) agree to 1e-7 and 5e-7.
+OT_UPDATE_L2 = 1e-3
+# with `ignore_neighbors` the pair statistics reach no term of the cost:
+# these parameters get a zero gradient
+OT_LOCAL_IDLE = ("model.gnn2.", "model.gnn2_output_mlp.", "model.h_mol_mlp.",
+                 "model.alpha_mlp.", "model.c_mlp.")
+# the CLI runs: synthetic caches of 160 molecules with 10 conformers (a
+# model pool of 128, test 8, validation 24); 48 of the pool (3 steps of 16
+# an epoch) for 2 epochs, (a) with its first epoch local-only; the
+# fine-tune's OT run takes 1 epoch of 2 steps, the fine-tune 1 epoch on a
+# 300-molecule ogbg-molesol-shaped cache (scaffold split) and batch 32
+OT_FAMILY_CACHES = {
+    "file_loader_qm9": dict(num=160, num_conformers=10, seed=0, n_min=10,
+                            n_max=26),
+    "file_loader_drugs": dict(num=160, num_conformers=10, seed=1, n_min=20,
+                              n_max=50),
+    "ot_pyg_geom_qm9": dict(num=40, num_conformers=10, seed=2, n_min=10,
+                            n_max=26),
+    "ogbg_molesol": dict(num=300, num_targets=1, seed=3, split="scaffold")}
+OT_FAMILY_CLI = {"num_epochs": 2, "num_train": 48, "batch_size": 16,
+                 "log_iterations": 1, "use_tensorboard": False,
+                 "dataset_params": {}}
+OT_FAMILY_LOCAL = {"a": {"num_epochs_local_only": 2}}
+OT_TUNE_PRE = "configs/ot_pyg_in_memory.yml"
+OT_TUNE = "configs/tune_from_ot_pna.yml"
+OT_TUNE_PRE_RUN = {"num_epochs": 1, "num_train": 8, "batch_size": 4,
+                   "log_iterations": 1, "use_tensorboard": False,
+                   "dataset_params": {}}
+OT_TUNE_RUN = {"num_epochs": 1, "batch_size": 32, "log_iterations": 1,
+               "use_tensorboard": False, "dataset_params": {}}
+# the tensors the JAX CLI transfers into the fine-tune's node_gnn
+# (GeomolGNNOGBFeat 50x3, tests/test_torch_port_ot_trainer.py): 12
+# encoder tables, three 3-Linear MLPs (node_init, edge_init, the edge
+# model's), the edge model's edge Linear and two projections, the node
+# model's two MLPs and the two epsilons
+OT_TUNE_TRANSFER = 12 + 3 * 2 * 3 + 4 + 2 * 3 * 2 + 2
+OT_FAMILY_TIMED = 5
+
+
+def _family_mp(kind: str) -> dict:
+    from infomax3d_tpu_torch.cli.config import load_config
+    return load_config(OT_FAMILY[kind], {})["model_parameters"]
+
+
+def _family_batch(kind: str, dev):
+    return ot_batch(OT_BATCH, OT_CONFS, device=dev, **OT_FAMILY_DATA[kind])
+
+
+def _family_step(kind: str, dev, ignore: bool = False) -> OTStep:
+    mp = _family_mp(kind)
+    params, stats = init_jax_variables(mp, 0, "OptimalTransportModel")
+    step = OTStep(mp, {"params": params, "batch_stats": stats},
+                  torch.device(dev), {"lr": OT_FAMILY_LR})
+    step.ignore_neighbors = ignore
+    return step
+
+
+def _family_one_step(kind: str, dev: str, ignore: bool, noise=None,
+                     plans=None, perturb: float = 0.0, perturb_seed: int = 7):
+    """One trainer step of `kind` from the seeded weights (scaled by 1 +
+    perturb U(-1, 1) first, U from `perturb_seed`) on `dev`: the cost pass (its dropout source
+    drawing fresh, unused in eval mode), the plans (given, or the step's
+    own), the gradient pass and Adam.  `noise` is (draws, masks) to
+    replay; without it the draws and masks are drawn on the CPU and
+    returned.  Returns (cost, plans, (loss, gradients and statistics), the
+    update over lr per parameter, noise)."""
+    step = _family_step(kind, dev, ignore)
+    batch, _ = _family_batch(kind, dev)
+    if perturb:
+        gen = torch.Generator().manual_seed(perturb_seed)
+        with torch.no_grad():
+            for p in step.model.parameters():
+                u = torch.rand(p.shape, generator=gen) * 2 - 1
+                p.mul_(1 + perturb * u.to(p.device))
+    spare = GeneratorNoise(torch.Generator(dev).manual_seed(5))
+    if noise is None:
+        rec = GeneratorNoise(torch.Generator().manual_seed(99))
+        cost = step.cost(batch, rec)
+        masks = GeneratorNoise(torch.Generator().manual_seed(98))
+        grad_noise = ReplayNoise(rec.draws, fresh=masks)
+    else:
+        draws, mask_draws = ([(k, t.to(dev)) for k, t in d] for d in noise)
+        cost = step.cost(batch, ReplayNoise(draws, fresh=spare))
+        grad_noise = ReplayNoise(draws, fresh=ReplayNoise(mask_draws))
+    if plans is None:
+        plans = step.plans(cost, batch).cpu()
+    before = {n: p.detach().clone() for n, p in
+              step.model.named_parameters()}
+    out = _measure_step(step, {"model": step.model},
+                        (batch, grad_noise, plans.to(dev)))
+    step.optimizer.step()
+    update = {f"model.{n}": ((p.detach() - before[n]) / OT_FAMILY_LR).cpu()
+              for n, p in step.model.named_parameters()}
+    if noise is None:
+        noise = (rec.draws, masks.draws)
+    return cost.cpu(), plans, out, update, noise
+
+
+def _update_l2(one: dict, ref: dict) -> float:
+    a = torch.cat([one[k].flatten() for k in ref])
+    b = torch.cat([ref[k].flatten() for k in ref])
+    return float((a - b).norm() / b.norm())
+
+
+def _family_readings(kind: str, one, ref, ignore: bool) -> tuple:
+    """A `_family_one_step` result `one` against the CPU's `ref`: (the
+    cost's, loss's and update's relative errors, `_readings` of the
+    gradients, what breaks the rules that need no bound).  With `ignore`,
+    the gradient of `OT_LOCAL_IDLE` must be exactly zero on both sides and
+    stays out of the readings."""
+    cost, _, (loss, grads), upd, _ = one
+    rcost, _, (rloss, rgrads), rupd, _ = ref
+    idle = [k for k in rgrads if ignore and k.startswith(OT_LOCAL_IDLE)
+            and "running" not in k]
+    bad = [f"{k}: nonzero gradient with ignore_neighbors" for k in idle
+           if grads[k] is None or bool(grads[k].any()) or bool(
+               rgrads[k].any())]
+    real = rcost < 1e8
+    if not torch.equal(cost >= 1e8, ~real):
+        bad.append("masked cost entries differ")
+    c = {"cost": float((cost - rcost)[real].abs().max()
+                       / rcost[real].abs().max()),
+         "loss": abs(loss - rloss) / abs(rloss),
+         "update": _update_l2(upd, rupd)}
+    r = _readings({k: v for k, v in grads.items() if k not in idle},
+                  {k: v for k, v in rgrads.items() if k not in idle},
+                  ("model",), GIN_ZERO if kind == "b" else ())
+    return c, r, bad
+
+
+def _family_check(kind: str, one, ref, witnesses, ignore: bool) -> tuple:
+    """`one` (the card) against `ref` (the CPU) under the bounds the
+    `witnesses` set: (readings, gradient readings, leaf bounds, other
+    bounds, violations)."""
+    c, r, bad = _family_readings(kind, one, ref, ignore)
+    ws = [_family_readings(kind, w, ref, ignore)[:2] for w in witnesses]
+    leaf_tol = {k: max(OT_TOL["leaf"], OT_WITNESS_FACTOR * max(
+        w[1]["model"]["leaves"][k] for w in ws))
+        for k in r["model"]["leaves"]}
+    floor = dict(OT_TOL, update=OT_UPDATE_L2)
+    tol = {k: max(floor[k], OT_WITNESS_FACTOR * max(w[0][k] for w in ws))
+           for k in c}
+    tol["l2"] = max(OT_TOL["l2"], OT_WITNESS_FACTOR * max(
+        w[1]["model"]["l2"] for w in ws))
+    bad += [f"{k} {c[k]:.3g} > {tol[k]:.3g}" for k in c if c[k] > tol[k]]
+    bad += _violations(r, dict(OT_TOL, zero=STEP_TOL[False]["zero"],
+                               stats=STEP_TOL[False]["stats"]),
+                       {"model": tol["l2"]}, leaf_tol)
+    return c, r, leaf_tol, tol, bad
+
+
+def _kept_dihedrals():
+    """(a)'s planted fault: the cost keeps its dihedral and three-hop
+    terms while `ignore_neighbors` is on.  Returns the undo."""
+    from infomax3d_tpu_torch.models.optimal_transport import \
+        OptimalTransportModel
+    real = OptimalTransportModel.molecule_loss_matrix
+    OptimalTransportModel.molecule_loss_matrix = \
+        lambda self, g, ex, t, m, ignore_neighbors=False: real(
+            self, g, ex, t, m, False)
+    return lambda: setattr(OptimalTransportModel, "molecule_loss_matrix",
+                           real)
+
+
+def _training_mode_cost():
+    """(b)'s planted fault: the cost pass runs in training mode (batch
+    statistics, their running averages updated, dropout).  Returns the
+    undo."""
+    real = OTStep.cost
+
+    def cost(self, batch, noise):
+        with torch.no_grad():
+            return self.model(batch, noise,
+                              ignore_neighbors=self.ignore_neighbors,
+                              return_cost_matrix=True)
+    OTStep.cost = cost
+    return lambda: setattr(OTStep, "cost", real)
+
+
+def _gnn2_reads_gnn():
+    """(c)'s planted fault: the second backbone runs with the first one's
+    weights.  Returns the undo."""
+    from infomax3d_tpu_torch.models.optimal_transport import \
+        OptimalTransportModel
+    real = OptimalTransportModel.embed
+
+    def embed(self, g, noise):
+        gnn2 = self.gnn2
+        self.gnn2 = self.gnn
+        try:
+            return real(self, g, noise)
+        finally:
+            self.gnn2 = gnn2
+    OptimalTransportModel.embed = embed
+    return lambda: setattr(OptimalTransportModel, "embed", real)
+
+
+OT_FAMILY_FAULTS = {
+    ("a", True): ("the dihedral terms kept with ignore_neighbors",
+                  _kept_dihedrals),
+    ("b", False): ("the cost pass in training mode", _training_mode_cost),
+    ("c", False): ("gnn2 reading gnn's weights", _gnn2_reads_gnn)}
+
+
+def _family_checks():
+    """Items 1 and 2: each configuration's step on the card against the
+    CPU, and the planted faults."""
+    for (kind, ignore) in (("a", False), ("a", True), ("b", False),
+                           ("c", False)):
+        tag = f"({kind}){' ignore_neighbors' if ignore else ''}"
+        ref = _family_one_step(kind, "cpu", ignore)
+        noise, plans = ref[4], ref[1]
+        witnesses = [_family_one_step(kind, "cpu", ignore, noise, plans,
+                                      OT_WITNESS_REL, seed) for seed in (7, 8)]
+        card = _family_one_step(kind, "cuda", ignore, noise, plans)
+        c, r, leaf_tol, tol, bad = _family_check(kind, card, ref, witnesses,
+                                                 ignore)
+        print(f"[ot-family] {tag} {OT_FAMILY_NAMES[kind]}: float32 step "
+              f"card vs CPU: loss {card[2][0]:.6f} vs {ref[2][0]:.6f}; "
+              + ", ".join(f"{k} {v:.3g} (bound {tol[k]:.3g})"
+                          for k, v in c.items())
+              + f"; {len(noise[1])} dropout masks replayed")
+        _print_readings(f"{tag} card vs CPU", r, {"model": tol["l2"]},
+                        "ot-family")
+        _print_ot_leaves(f"{tag} card vs CPU", r, leaf_tol)
+        _check(not bad, f"{tag} card vs CPU: {bad}")
+        if (kind, ignore) not in OT_FAMILY_FAULTS:
+            continue
+        fault, plant = OT_FAMILY_FAULTS[(kind, ignore)]
+        undo = plant()
+        try:
+            planted = _family_one_step(kind, "cuda", ignore, noise, plans)
+        finally:
+            undo()
+        c, _, _, _, bad = _family_check(kind, planted, ref, witnesses,
+                                        ignore)
+        print(f"[ot-family] {tag} planted fault ({fault}): "
+              + ", ".join(f"{k} {v:.3g}" for k, v in c.items())
+              + f"; {len(bad)} violations, e.g. {bad[:3]}")
+        _check(bool(bad), f"{tag}: the step check passed a planted fault "
+                          f"({fault})")
+
+
+def _family_kernels(ob) -> dict:
+    """Item 3: rows 7 and 4 bit for bit at (b)'s batch at D = 300 (the GIN
+    width), row 1 at (a)'s (D = 50)."""
+    gen = torch.Generator(device="cuda").manual_seed(220)
+    gr = ob.graph
+    E = gr.senders.shape[0]
+    errs = {"csr_sum": _max_err(_hold_csr_sum("ot-family (b)", gen, gr,
+                                              (GIN_OT_WIDTH,)))}
+    _merge_errs(errs, _hold_walks(
+        "ot-family", gen, [("(a)'s batch", gr.csr_row_ptr, gr.max_deg, E,
+                            (OT_WIDTH,))],
+        [("(b)'s batch", gr.csc_row_ptr, gr.csc_perm, E, (GIN_OT_WIDTH,))]))
+    return errs
+
+
+def _family_row_times(ob, smi: str):
+    """Item 7: rows 7 and 4 at (b)'s shape (float32, D = 300), cold-L2 and
+    warm, beside their byte bounds."""
+    gr = ob.graph
+    N, E, D = gr.num_nodes, gr.senders.shape[0], GIN_OT_WIDTH
+    e_real = int(gr.csr_row_ptr[-1])
+    gen = torch.Generator(device="cuda").manual_seed(221)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    x = torch.randn(E, D, generator=gen, device="cuda")
+    calls = {"csr_sum (row 7)": (lambda: csr_sum(x, gr.csr_row_ptr),
+                                 (N + 1) * 4),
+             "snd_segment_sum (row 4)": (
+                 lambda: snd_segment_sum(x, gr.csc_row_ptr, gr.csc_perm),
+                 (N + 1) * 4 + e_real * 4)}
+    for name, (fn, index_bytes) in calls.items():
+        nbytes = e_real * D * 4 + index_bytes + N * D * 4
+        bound_ms, by = _bound(nbytes, float(e_real * D))
+        cold = device_ms(fn, iters=20, flush=flush)
+        warm = device_ms(fn, iters=100, warmup=10)
+        print(f"[ot-family] {name} at (b)'s shape (N={N}, real E={e_real}, "
+              f"D={D}, float32): {cold:.5f} ms cold-L2 median, {warm:.5f} "
+              f"ms warm; bound {bound_ms:.5f} ms by {by} ({nbytes / 1e6:.3f}"
+              f" MB), {bound_ms / cold:.1%} of it cold; {smi}")
+
+
+def _family_timed(smi: str):
+    """Items 5 and 7: each configuration's launches per step (exact),
+    then ms per step, graphs/s, peak memory, the host EMD per step and
+    kernels per step."""
+    from torch.profiler import ProfilerActivity, profile
+    for kind, ignore in (("a", True), ("a", False), ("b", False),
+                         ("c", False)):
+        tag = "a local" if ignore else kind
+        step = _family_step(kind, "cuda", ignore)
+        batch, sizes = _family_batch(kind, "cuda")
+        seeds = iter(range(4000, 5000))
+
+        def one():
+            return step.step(batch, torch.Generator("cuda").manual_seed(
+                next(seeds)))
+        _reset_counts()
+        loss = float(one())
+        per = _counts()
+        _check(per == OT_FAMILY_STEP[tag] and np.isfinite(loss),
+               f"({tag}) launches per step {per} != {OT_FAMILY_STEP[tag]}")
+        print(f"[ot-family] ({tag}) launches per step (exact): "
+              f"{ {n: c for n, c in per.items() if c} }")
+        if ignore:
+            continue
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step.emd_s = 0.0
+        ms = cuda_ms(one, iters=OT_FAMILY_TIMED, warmup=1)
+        emd_ms = step.emd_s * 1e3 / (OT_FAMILY_TIMED + 1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            one()
+            torch.cuda.synchronize()
+        by_name = _profile_kernels(prof)
+        kernels = sum(c for _, c in by_name.values())
+        busy = sum(us for us, _ in by_name.values()) / 1e3
+        print(f"[ot-family] ({kind}) {OT_FAMILY_NAMES[kind]}: {ms:.3f} ms "
+              f"per step (CUDA events over {OT_FAMILY_TIMED} warm steps), "
+              f"{OT_BATCH / ms * 1e3:.2f} graphs/s, host EMD {emd_ms:.3f} "
+              f"ms per step, peak max_memory_allocated {peak:.3f} GiB, "
+              f"{kernels} kernels per step (busy {busy:.3f} ms, profiled "
+              f"step), batch {sizes}; {smi}")
+        del step, batch
+
+
+def _family_cli_expected(run: dict, kind: str, steps: int) -> dict:
+    """A CLI run's launches: its steps (the first epoch local-only where
+    the config says so) and its eval batches (a validation per epoch, the
+    best checkpoint's, the test set's)."""
+    from infomax3d_tpu_torch.cli.train import build_dataset, make_splits
+    args = run["args"]
+    _, val, test = make_splits(args, build_dataset(args))
+    bs = args["batch_size"]
+    evals = (args["num_epochs"] + 1) * -(-len(val) // bs) + \
+        (-(-len(test) // bs) if args["eval_on_test"] and len(test) else 0)
+    local = args.get("num_epochs_local_only", 1) - 1
+    per_epoch = steps // args["num_epochs"]
+    step = OT_FAMILY_STEP[kind]
+    local_step = OT_FAMILY_STEP.get(f"{kind} local", step)
+    out = {n: step[n] * (steps - local * per_epoch)
+           + local_step[n] * local * per_epoch
+           + OT_FAMILY_EVAL[kind][n] * evals for n in NONE}
+    return out
+
+
+def _family_cli(out_dir: Path, caches: Path) -> dict:
+    """Items 4 and 6: (a), (b), (c) through `cli.train.train` on the
+    caches (2 epochs of 3 steps, the learning rate printed at each step),
+    then the fine-tune from an OT checkpoint of `ot_pyg_in_memory.yml`'s
+    model.  Returns the launches (the main path)."""
+    from infomax3d_tpu_torch.cli.train import build_dataset, make_splits
+    lrs = []
+    real_step = OTStep.step
+
+    def step_with_lr(self, batch, generator):
+        lrs.append([g["lr"] for g in self.optimizer.param_groups])
+        return real_step(self, batch, generator)
+    OTStep.step = step_with_lr
+    _reset_counts()
+    try:
+        with mock.patch.dict(os.environ, {"INFOMAX3D_DATA": str(caches)}):
+            for kind, config in OT_FAMILY.items():
+                lrs.clear()
+                run = _data_run(config, dict(
+                    OT_FAMILY_CLI, **OT_FAMILY_LOCAL.get(kind, {})),
+                    out_dir / f"ot_family_{kind}", TRAINER_DEVICE)
+                _check((run["dir"] / "best_checkpoint.pt").exists(),
+                       f"({kind}) no checkpoint")
+                recs = [json.loads(x) for x in open(run["dir"] /
+                                                     "metrics.jsonl")]
+                train = [r["MSELoss"] for r in recs if r["split"] == "train"]
+                val = [r["MSELoss"] for r in recs if r["split"] == "val"]
+                steps = len(train)
+                _check(steps == 6 and len(val) == 2 and
+                       all(np.isfinite(train + val)),
+                       f"({kind}) CLI losses {train}, validation {val}")
+                want = _family_cli_expected(run, kind, steps)
+                _check(run["launches"] == want,
+                       f"({kind}) CLI launches {run['launches']} != {want}")
+                timing = json.load(open(run["dir"] / "timing.json"))
+                print(f"[ot-family] ({kind}) CLI {config} ({run['args']['dataset']} "
+                      f"cache, 2 epochs of 3 steps): {run['wall_s']:.1f} s, "
+                      f"train losses {[round(x, 4) for x in train]}, "
+                      f"validation {[round(x, 4) for x in val]}, lr per "
+                      f"step {[x[0] for x in lrs]}, host EMD "
+                      f"{timing['host_emd']:.3f} s, step ms "
+                      f"{[round(x, 1) for x in timing['step_ms']]}; "
+                      f"launches {run['launches']}")
+            pre = _data_run(OT_TUNE_PRE, OT_TUNE_PRE_RUN,
+                            out_dir / "ot_family_tune_pre", TRAINER_DEVICE)
+            tune = _data_run(OT_TUNE, dict(
+                OT_TUNE_RUN, pretrain_checkpoint=str(
+                    pre["dir"] / "best_checkpoint.pt")),
+                out_dir / "ot_family_tune", TRAINER_DEVICE)
+            _, val_idx, _ = make_splits(tune["args"],
+                                        build_dataset(tune["args"]))
+    finally:
+        OTStep.step = real_step
+    launches = _counts()
+    line = next(x for x in tune["text"].splitlines()
+                if x.startswith("transferred "))
+    _check(int(line.split()[1]) == OT_TUNE_TRANSFER,
+           f"fine-tune: {line} != {OT_TUNE_TRANSFER} (the JAX CLI's)")
+    recs = [json.loads(x) for x in open(tune["dir"] / "metrics.jsonl")]
+    steps = [r for r in recs if r["split"] == "train"]
+    _check(len(steps) > 0 and (tune["dir"] / "best_checkpoint.pt").exists(),
+           "fine-tune: no steps or no checkpoint")
+    print(f"[ot-family] (d) {OT_TUNE_PRE} 1 epoch of "
+          f"{OT_TUNE_PRE_RUN['num_train'] // OT_TUNE_PRE_RUN['batch_size']} "
+          f"steps ({pre['wall_s']:.1f} s), then {OT_TUNE} from its "
+          f"checkpoint: {line.split(' from ')[0]}, the JAX CLI's "
+          f"{OT_TUNE_TRANSFER}; {len(steps)} steps, {len(val_idx)} "
+          f"validation molecules, result {tune['result']} "
+          f"({tune['wall_s']:.1f} s)")
+    print(f"[ot-family] main-path launches (the CLI runs): {launches}")
+    return launches
+
+
+def _write_family_caches(root: Path) -> Path:
+    from infomax3d_tpu_torch.data.synthetic import write_synthetic_cache
+    for name, kw in OT_FAMILY_CACHES.items():
+        write_synthetic_cache(str(root / name / "processed.npz"), **kw)
+    return root
+
+
+def phase_ot_family(smi: str, out_dir: Path) -> dict:
+    """Phase 22: the OT family through its trainer at the configs' widths:
+    (a) `pre-train_Optimal_Transport_baseline.yml`, (b) `ot_gin.yml`, (c)
+    `ot_geomol_gnn.yml`, and (d) `tune_from_ot_pna.yml` from an OT
+    checkpoint.  Returns the main path's launches (the CLI runs) and the
+    kernel checks' errors."""
+    t = [time.perf_counter()]
+    ob, _ = _family_batch("a", "cuda")
+    errs = _family_kernels(ob)
+    t.append(time.perf_counter())
+    _family_checks()
+    t.append(time.perf_counter())
+    _family_timed(smi)
+    _family_row_times(ob, smi)
+    t.append(time.perf_counter())
+    caches = _write_family_caches(out_dir / "ot_family_caches")
+    launches = _family_cli(out_dir, caches)
+    t.append(time.perf_counter())
+    print("[ot-family] seconds: " + ", ".join(
+        f"{k} {b - a:.1f}" for k, a, b in zip(
+            ("kernel checks", "step checks", "timings", "CLI runs"),
+            t, t[1:])))
+    return {"launches": launches, "errs": errs}
+
+
 class _Phase:
     """Prints a phase's seconds when it ends (and lets its error pass)."""
 
@@ -4345,15 +4866,19 @@ def main() -> int:
     with _Phase("21 pre-training baselines"):
         base = phase_baselines(smi, out_dir, data["caches"])
         _merge_errs(errs, base["errs"])
-    # every kernel's launches over the nine main paths (serving,
+    with _Phase("22 OT family trainer"):
+        family = phase_ot_family(smi, out_dir)
+        _merge_errs(errs, family["errs"])
+    # every kernel's launches over the ten main paths (serving,
     # pre-training, GIN training, OT training, the trainer CLI,
     # multi-conformer pre-training, the data layer, the serving CLI, the
-    # baselines' CLI runs)
+    # baselines' CLI runs, the OT family's CLI runs)
     launches = {n: serve_launches[n] + train["launches"][n]
                 + gin["launches"][n] + ot_run["launches"][n]
                 + trainer["launches"][n] + conf["launches"][n]
                 + data["launches"][n] + serving["launches"][n]
-                + base["launches"][n] for n in serve_launches}
+                + base["launches"][n] + family["launches"][n]
+                for n in serve_launches}
     with _Phase("6 kernel times"):
         rows = phase_kernel_times(g, launches, errs)
     with _Phase("9 training profile"):

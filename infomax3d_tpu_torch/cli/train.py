@@ -16,8 +16,8 @@ The run goes to the CUDA card unless `--device` (or the config's `device`)
 says "cpu"; with neither set and no card, it raises.  What the port has
 not ported yet raises `NotImplementedError` naming its ROADMAP queue 1
 item: non-CSR batches and the bucket ladder (item 7), the trainer
-flavours `alternating`, `byol`, `philosophy`, `noisy_negatives` and
-`optimal_transport` (item 8), shards (item 9).
+flavours `alternating`, `byol`, `philosophy` and `noisy_negatives` (item
+8), shards (item 9).
 """
 from __future__ import annotations
 

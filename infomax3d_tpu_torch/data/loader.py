@@ -147,12 +147,14 @@ class OTBatch:
     ex: Dict[str, torch.Tensor]
 
 
-def to_ot_batch(arrays: Dict[str, np.ndarray], bucket: BucketSpec,
+def to_ot_batch(arrays: Dict[str, np.ndarray], bucket: Optional[BucketSpec],
                 device) -> OTBatch:
-    """`ot_collate`'s arrays -> `OTBatch` on `device`."""
-    return OTBatch(to_graph_batch(arrays, bucket, device),
-                   {k: torch.from_numpy(np.ascontiguousarray(arrays[k])).to(
-                       device) for k in OT_KEYS})
+    """`ot_collate`'s arrays -> `OTBatch` on `device`; without `bucket`,
+    the arrays are the loader's view and carry its bounds (`to_device`)."""
+    graph = to_device(arrays, device) if bucket is None else \
+        to_graph_batch(arrays, bucket, device)
+    return OTBatch(graph, {k: torch.from_numpy(np.ascontiguousarray(
+        arrays[k])).to(device) for k in OT_KEYS})
 
 
 # --------------------------------------------------------------- collates
@@ -451,7 +453,13 @@ def node_drop(graph: Dict, rng: np.random.Generator, ratio: float) -> Dict:
     return out
 
 
-register_collate("ot_collate")(ot_collate)
+@register_collate("ot_collate")
+def _ot_view(items: Sequence[Dict], bucket: BucketSpec,
+             n_true_confs: int = 3):
+    """`ot_collate` as the loader's view ``{"graph": arrays}`` (the JAX
+    collate's batch), with the bucket's bounds for `to_device`."""
+    return {"graph": _csr_view(ot_collate(items, bucket, n_true_confs),
+                               bucket)}
 
 
 def to_device(view: Dict[str, np.ndarray], device):

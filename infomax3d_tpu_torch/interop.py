@@ -24,7 +24,10 @@ flax component              torch component
 emb_{i}``                   weight``
 ``<dense>/kernel``          ``<dense>.weight`` (a bare Dense, transposed)
 ``node_embedding``, ``eps``, the same name (a bare parameter)
-``edge_eps``, ``node_eps``
+``edge_eps``, ``node_eps``,
+``edge_eps_{d}``,
+``node_eps_{d}``,
+``virtualnode_embedding``
 ==========================  ===========================================
 
 ``Dense_0`` and ``MaskedBatchNorm_0`` become ``linear`` and ``batch_norm``
@@ -36,17 +39,22 @@ therefore pass through unchanged: the OT model's ``gnn``, ``gnn2``,
 ``coord_pred``, ``d_mlp``, ``h_mol_mlp``, ``alpha_mlp``, ``c_mlp`` and the
 backbone's ``node_init`` / ``edge_init`` (GeoMol MLPs whose Linears are
 ``Dense_{k}``), and the edge-update layer's ``edge``, ``node_in``,
-``node_out``, ``pretrans``, ``posttrans_1``, ``posttrans_2``; the
-distance predictors' ``transformer_layer``, ``node_projection_net``,
-``distance_net`` and ``predictor``, and Net3DAE's ``enc_{i}``, ``dec_{i}``,
-``node_wise_encoder`` and ``net``.
+``node_out``, ``pretrans``, ``posttrans_1``, ``posttrans_2``; the OT
+model's ``gnn_output_mlp`` / ``gnn2_output_mlp``, the GIN backbone's
+``node_gnn``, ``bn_{i}``, ``vn_mlp_{i}_0`` / ``vn_mlp_{i}_1``,
+``vn_bn_{i}``, the GeoMol MPNN's ``gnn``, ``node_init``, ``edge_init``,
+``edge_model[_{d}]``, ``node_model[_{d}]``, ``mlp``, ``node_mlp_1`` /
+``node_mlp_2``; the distance predictors' ``transformer_layer``,
+``node_projection_net``, ``distance_net`` and ``predictor``, and
+Net3DAE's ``enc_{i}``, ``dec_{i}``, ``node_wise_encoder`` and ``net``.
 
 `flax_paths` goes the other way for a port module's parameters: each torch
 name's flax path, which the optimizer's group labels read.
 
 `init_jax_variables` makes seeded numpy trees in the flax layout of a PNA,
-Net3DDense, OGBGNN, OptimalTransportModel, DistancePredictor,
-PNADistancePredictor, Net3DAE or Net3DDistancePredictor configuration,
+Net3DDense, OGBGNN, OptimalTransportModel (each backbone and option),
+DistancePredictor, PNADistancePredictor, Net3DAE, Net3DDistancePredictor
+or GeomolGNNWrapperOGBFeat configuration,
 for serving and training without a checkpoint and for tests;
 `load_variables` loads such trees into a module.
 """
@@ -105,12 +113,19 @@ _LEAVES = {("params", "kernel"): "weight", ("params", "bias"): "bias",
 
 
 # parameters that are leaves of their module, not of a Dense or BatchNorm
-_BARE = ("node_embedding", "eps", "edge_eps", "node_eps")
+# (the GeoMol MPNN's per-depth epsilons carry a ``_{d}`` suffix)
+_BARE = ("node_embedding", "eps", "edge_eps", "node_eps",
+         "virtualnode_embedding")
+
+
+def _bare(leaf: str) -> bool:
+    stem, _, d = leaf.rpartition("_")
+    return leaf in _BARE or (stem in ("edge_eps", "node_eps") and d.isdigit())
 
 
 def _torch_name(collection: str, path: Tuple[str, ...]) -> str:
     *mods, leaf = path
-    if collection == "params" and leaf in _BARE:
+    if collection == "params" and _bare(leaf):
         return ".".join(_components(mods) + [leaf])
     if leaf.startswith("emb_") and mods and mods[-1] == "encoder":
         kind = mods[-2].split("_")[0]                       # atom / bond
@@ -261,6 +276,8 @@ def init_jax_variables(model_parameters: Mapping, seed: int = 0,
         return _init_ogbgnn(mp, rng)
     if model_type == "OptimalTransportModel":
         return _init_optimal_transport(mp, rng)
+    if model_type == "GeomolGNNWrapperOGBFeat":
+        return _init_geomol_wrapper(mp, rng)
     if model_type in _WRAPPED:
         key, inner, adapt = _WRAPPED[model_type]
         params, stats = init_jax_variables(adapt(mp), seed, inner)
@@ -281,14 +298,15 @@ def init_jax_variables(model_parameters: Mapping, seed: int = 0,
             _f32({"node_gnn": gnn_stats, "output": out_s}))
 
 
-def _pnagnn_tree(mp: Mapping[str, Any], rng):
-    """`PNAGNN(**mp)`'s (params, batch_stats)."""
+def _pnagnn_tree(mp: Mapping[str, Any], rng, emb_dim: int = 0):
+    """`PNAGNN(**mp)`'s (params, batch_stats); encoders of width `emb_dim`
+    (default the hidden width)."""
     d = mp["hidden_dim"]
     n_aggs = len(mp["aggregators"]) * len(mp["scalers"])
     gnn = {"atom_encoder": {"encoder": _emb_tree(rng, FULL_ATOM_FEATURE_DIMS,
-                                                 d)},
+                                                 emb_dim or d)},
            "bond_encoder": {"encoder": _emb_tree(rng, FULL_BOND_FEATURE_DIMS,
-                                                 d)}}
+                                                 emb_dim or d)}}
     gnn_stats: Dict[str, Any] = {}
     bn = (mp.get("mid_batch_norm", False), mp.get("last_batch_norm", False))
     for i in range(mp.get("propagation_depth", 5)):
@@ -448,11 +466,13 @@ def _norm_tree(rng, d):
 
 
 def _init_edge_update_gnn(gp: Mapping, rng):
-    """`PNAGNNRandomEdgeUpdate(**gp)` (no BatchNorm in its MLPs)."""
+    """`PNAGNNRandomEdgeUpdate(**gp)`: (params, batch_stats)."""
     d, rvd = gp["hidden_dim"], gp["random_vec_dim"]
     parts = len(gp["aggregators"]) * (len(gp["scalers"])
                                       if len(gp["scalers"]) > 1 else 1)
     pre, post = gp.get("pretrans_layers", 1), gp.get("posttrans_layers", 1)
+    bn = (gp.get("mid_batch_norm", False), gp.get("last_batch_norm", False))
+    stats: Dict[str, Any] = {}
     gnn: Dict[str, Any] = {
         "atom_encoder": {"encoder": _emb_tree(rng, FULL_ATOM_FEATURE_DIMS,
                                               d)},
@@ -461,50 +481,155 @@ def _init_edge_update_gnn(gp: Mapping, rng):
         "node_init": _geomol_mlp_tree(rng, d + rvd, d, 2),
         "edge_init": _geomol_mlp_tree(rng, d + rvd, d, 2)}
     for i in range(gp.get("propagation_depth", 5)):
-        gnn[f"mp_{i}"] = {
+        layer = {"edge": _dense_tree(rng, d, d),
+                 "node_in": {"kernel": _dense_tree(rng, d, d)["kernel"]},
+                 "node_out": {"kernel": _dense_tree(rng, d, d)["kernel"]}}
+        layer_stats = {}
+        for name, fi, n in (("pretrans", d, pre), ("posttrans_1", d, post),
+                            ("posttrans_2", parts * d, post)):
+            layer[name], layer_stats[name] = _mlp_tree(rng, fi, d, n, d, *bn)
+            if name != "posttrans_2":
+                eps = "edge_eps" if name == "pretrans" else "node_eps"
+                layer[eps] = rng.normal(0.0, 0.1, 1)
+        gnn[f"mp_{i}"], stats[f"mp_{i}"] = layer, layer_stats
+    return gnn, stats
+
+
+def _init_pna_random(gp: Mapping, rng):
+    """`PNAGNNRandom(**gp)`: `PNAGNN`'s layout with encoders of width
+    hidden - random_vec_dim."""
+    return _pnagnn_tree(gp, rng, gp["hidden_dim"] - gp["random_vec_dim"])
+
+
+def _init_gin_random(gp: Mapping, rng):
+    """`GINVirtualRandomBackbone(**gp)`: ``node_gnn``, a `GNNNodeRandom`
+    with a virtual node (a non-zero ``virtualnode_embedding``, so that the
+    virtual node's path shows in a test)."""
+    d, rvd = gp.get("hidden_dim", 300), gp.get("random_vec_dim", 10)
+    layers = gp.get("num_layers", 5)
+    node: Dict[str, Any] = {
+        "atom_encoder": {"encoder": _emb_tree(rng, FULL_ATOM_FEATURE_DIMS,
+                                              d - rvd)},
+        "virtualnode_embedding": rng.normal(0.0, 0.1, d)}
+    stats: Dict[str, Any] = {}
+    for i in range(layers):
+        bn_p, bn_s = _bn_tree(rng, d)
+        node[f"conv_{i}"] = {
+            "bond_encoder": {"encoder": _emb_tree(rng, FULL_BOND_FEATURE_DIMS,
+                                                  d - rvd)},
+            "eps": rng.normal(0.0, 0.1, 1),
+            "Dense_0": _dense_tree(rng, d, d), "MaskedBatchNorm_0": bn_p,
+            "Dense_1": _dense_tree(rng, d, d)}
+        stats[f"conv_{i}"] = {"MaskedBatchNorm_0": bn_s}
+        node[f"bn_{i}"], stats[f"bn_{i}"] = _bn_tree(rng, d)
+        if i < layers - 1:
+            node[f"vn_mlp_{i}_0"] = _dense_tree(rng, d, 2 * d)
+            node[f"vn_bn_{i}"], stats[f"vn_bn_{i}"] = _bn_tree(rng, 2 * d)
+            node[f"vn_mlp_{i}_1"] = _dense_tree(rng, 2 * d, d)
+    return {"node_gnn": node}, {"node_gnn": stats}
+
+
+def _geomol_gnn_tree(rng, node_dim, edge_dim, d, depth, n_layers,
+                     non_shared=False):
+    """`GeomolGNN(node_dim, edge_dim, d, depth, n_layers, non_shared)`
+    (non-zero epsilons)."""
+    gnn: Dict[str, Any] = {
+        "node_init": _geomol_mlp_tree(rng, node_dim, d, n_layers),
+        "edge_init": _geomol_mlp_tree(rng, edge_dim, d, n_layers)}
+    for sfx in ([f"_{k}" for k in range(depth)] if non_shared else [""]):
+        gnn[f"edge_model{sfx}"] = {
             "edge": _dense_tree(rng, d, d),
             "node_in": {"kernel": _dense_tree(rng, d, d)["kernel"]},
             "node_out": {"kernel": _dense_tree(rng, d, d)["kernel"]},
-            "pretrans": _mlp_tree(rng, d, d, pre, d, False, False)[0],
-            "edge_eps": rng.normal(0.0, 0.1, 1),
-            "posttrans_1": _mlp_tree(rng, d, d, post, d, False, False)[0],
-            "node_eps": rng.normal(0.0, 0.1, 1),
-            "posttrans_2": _mlp_tree(rng, parts * d, d, post, d, False,
-                                     False)[0]}
+            "mlp": _geomol_mlp_tree(rng, d, d, n_layers)}
+        gnn[f"node_model{sfx}"] = {
+            "node_mlp_1": _geomol_mlp_tree(rng, d, d, n_layers),
+            "node_mlp_2": _geomol_mlp_tree(rng, d, d, n_layers)}
+        gnn[f"edge_eps{sfx}"] = rng.normal(0.0, 0.1, 1)
+        gnn[f"node_eps{sfx}"] = rng.normal(0.0, 0.1, 1)
     return gnn
 
 
+def _init_geomol_ogb(gp: Mapping, rng, noise: bool = False):
+    """`GeomolGNNOGBFeat(**gp)`, or with `noise` `GeomolGNNOGBFeatRandom`:
+    full-width encoders and ``gnn``; no BatchNorm."""
+    d = gp.get("hidden_dim", 300)
+    wide = d + (gp.get("random_vec_dim", 10) if noise else 0)
+    return {"atom_encoder": {"encoder": _emb_tree(
+                rng, FULL_ATOM_FEATURE_DIMS, d)},
+            "bond_encoder": {"encoder": _emb_tree(
+                rng, FULL_BOND_FEATURE_DIMS, d)},
+            "gnn": _geomol_gnn_tree(rng, wide, wide, d, gp.get("depth", 3),
+                                    gp.get("n_layers", 2),
+                                    noise and gp.get("non_shared", False))}, {}
+
+
+def _init_backbone(gnn_model: str, gp: Mapping, rng):
+    if gnn_model == "PNAGNNRandomEdgeUpdate":
+        return _init_edge_update_gnn(gp, rng)
+    if gnn_model == "PNAGNNRandom":
+        return _init_pna_random(gp, rng)
+    if gnn_model == "GNN_node_VirtualnodeRandom":
+        return _init_gin_random(gp, rng)
+    if gnn_model == "GeomolGNNOGBFeat":
+        return _init_geomol_ogb(gp, rng)
+    if gnn_model.startswith("GeomolGNNOGBFeatRandom"):
+        gp = dict(gp)
+        gp.setdefault("non_shared", gnn_model.endswith("NonShared"))
+        return _init_geomol_ogb(gp, rng, noise=True)
+    raise ValueError(f"no numpy init for OT gnn_model {gnn_model!r}")
+
+
 def _init_optimal_transport(mp: Dict[str, Any], rng):
-    """`OptimalTransportModel(hyperparams, gnn_params, gnn_model=
-    "PNAGNNRandomEdgeUpdate")`: two backbones, the neighbourhood
-    transformer and the five GeoMol MLPs, with the JAX module's default
-    layer counts where the hyperparameters are silent.  No BatchNorm, so
-    the batch_stats tree is empty."""
+    """`OptimalTransportModel(**mp)`: the backbone(s) of `gnn_model`, the
+    output MLPs where the backbone's width differs from the model's, the
+    neighbourhood transformer and the five GeoMol MLPs, with the JAX
+    module's default layer counts where the hyperparameters are silent."""
     hp = mp["hyperparams"]
     gp = dict(mp["gnn_params"])
     gp.setdefault("random_vec_dim", hp["random_vec_dim"])
     H = hp["hidden_dim"]
+    gnn_model = mp.get("gnn_model", "PNAGNNRandom")
 
     def layers(name, default):
         return hp.get(name, {}).get("n_layers", default)
-    params = {"gnn": _init_edge_update_gnn(gp, rng),
-              "gnn2": _init_edge_update_gnn(gp, rng),
-              "encoder": {
-                  "self_attn": {"in_proj": _dense_tree(rng, 2 * H, 6 * H),
-                                "out_proj": _dense_tree(rng, 2 * H, 2 * H)},
-                  "norm1": _norm_tree(rng, 2 * H),
-                  "linear1": _dense_tree(rng, 2 * H, 3 * H),
-                  "linear2": _dense_tree(rng, 3 * H, 2 * H),
-                  "norm2": _norm_tree(rng, 2 * H)},
-              "coord_pred": _geomol_mlp_tree(rng, 2 * H, 3,
-                                             layers("coord_pred", 2)),
-              "d_mlp": _geomol_mlp_tree(rng, 2 * H, 1, layers("d_mlp", 1)),
-              "h_mol_mlp": _geomol_mlp_tree(rng, H, H,
-                                            layers("h_mol_mlp", 1)),
-              "alpha_mlp": _geomol_mlp_tree(rng, 3 * H, 1,
-                                            layers("alpha_mlp", 2)),
-              "c_mlp": _geomol_mlp_tree(rng, 4 * H, 1, layers("c_mlp", 1))}
-    return _f32(params), {}
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for key in ("gnn", "gnn2") if mp.get("use_two_gnns", True) else ("gnn",):
+        params[key], stats[key] = _init_backbone(gnn_model, gp, rng)
+    gd = gp.get("hidden_dim", 300)
+    if gd != H:
+        for key in ("gnn_output_mlp", "gnn2_output_mlp"):
+            params[key] = _mlp_tree(rng, gd, H, 1, H, False, False)[0]
+    if mp.get("use_transformer", True):
+        params["encoder"] = {
+            "self_attn": {"in_proj": _dense_tree(rng, 2 * H, 6 * H),
+                          "out_proj": _dense_tree(rng, 2 * H, 2 * H)},
+            "norm1": _norm_tree(rng, 2 * H),
+            "linear1": _dense_tree(rng, 2 * H, 3 * H),
+            "linear2": _dense_tree(rng, 3 * H, 2 * H),
+            "norm2": _norm_tree(rng, 2 * H)}
+    alpha_in = 3 * H + (hp["random_vec_dim"] if hp.get("random_alpha")
+                        else 0)
+    params.update(
+        coord_pred=_geomol_mlp_tree(rng, 2 * H, 3, layers("coord_pred", 2)),
+        d_mlp=_geomol_mlp_tree(rng, 2 * H, 1, layers("d_mlp", 1)),
+        h_mol_mlp=_geomol_mlp_tree(rng, H, H, layers("h_mol_mlp", 1)),
+        alpha_mlp=_geomol_mlp_tree(rng, alpha_in, 1, layers("alpha_mlp", 2)),
+        c_mlp=_geomol_mlp_tree(rng, 4 * H, 1, layers("c_mlp", 1)))
+    return _f32(params), _f32(stats)
+
+
+def _init_geomol_wrapper(mp: Dict[str, Any], rng):
+    """`GeomolGNNWrapperOGBFeat(**mp)`: ``node_gnn`` and the output MLP
+    (mid BatchNorm per `readout_batchnorm`)."""
+    d = mp["hidden_dim"]
+    gnn, _ = _init_geomol_ogb(mp, rng)
+    out_p, out_s = _mlp_tree(rng, d, mp.get("target_dim", 1),
+                             mp.get("readout_layers", 2),
+                             mp.get("readout_hidden_dim") or d,
+                             mp.get("readout_batchnorm", True), False)
+    return _f32({"node_gnn": gnn, "output": out_p}), _f32({"output": out_s})
 
 
 def _init_net3d_dense(mp: Dict[str, Any], rng):

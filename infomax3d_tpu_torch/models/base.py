@@ -19,6 +19,7 @@ from torch import nn
 
 from infomax3d_tpu_torch.data.synthetic import (FULL_ATOM_FEATURE_DIMS,
                                                 FULL_BOND_FEATURE_DIMS)
+from infomax3d_tpu_torch.models.noise import dropout as drop
 from infomax3d_tpu_torch.ops.aggregate import AffinePart
 from infomax3d_tpu_torch.ops.kernels import edge_combine
 
@@ -162,14 +163,17 @@ class PairGridInput(NamedTuple):
 
 
 class FCLayer(nn.Module):
-    """Linear -> activation -> BatchNorm (reference FCLayer order).  The
-    port has no dropout (the ported configurations set it to 0)."""
+    """Linear -> activation -> dropout -> BatchNorm (reference FCLayer
+    order); the dropout masks come from the noise source `forward` is
+    given (`models/noise.py`)."""
 
     def __init__(self, in_dim: int, out_dim: int, activation: str = "relu",
-                 batch_norm: bool = False, batch_norm_momentum: float = 0.1):
+                 batch_norm: bool = False, batch_norm_momentum: float = 0.1,
+                 dropout: float = 0.0):
         super().__init__()
         self.linear = nn.Linear(in_dim, out_dim)
         self.activation = get_activation(activation)
+        self.dropout = dropout
         self.batch_norm = (MaskedBatchNorm(out_dim, batch_norm_momentum)
                            if batch_norm else None)
 
@@ -209,11 +213,13 @@ class FCLayer(nn.Module):
         return F.linear(x.to(dt), w.to(dt), bias.to(dt))
 
     def forward(self, x, mask: Optional[torch.Tensor] = None,
-                lazy_out: bool = False):
+                lazy_out: bool = False, noise=None):
         """`x`: a tensor, an `AffinePart` or an `EdgeInput`; `mask` selects
         the rows of the BatchNorm statistics.  With `lazy_out`, the
-        BatchNorm comes back as an `AffinePart` for the consumer to fold."""
-        h = self.activation(self.dense(x))
+        BatchNorm comes back as an `AffinePart` for the consumer to fold.
+        `noise` draws the dropout masks in training mode."""
+        h = drop(self.activation(self.dense(x)), self.dropout, noise,
+                 self.training)
         if self.batch_norm is None:
             return h
         if lazy_out:
@@ -222,15 +228,15 @@ class FCLayer(nn.Module):
 
 
 class MLP(nn.Module):
-    """Stack of FCLayers (reference MLP).  Mid-layer BatchNorms fold into
-    the next layer's weights; with `lazy_out` the last one is returned as
-    an `AffinePart`."""
+    """Stack of FCLayers (reference MLP), each with the same `dropout`.
+    Mid-layer BatchNorms fold into the next layer's weights; with
+    `lazy_out` the last one is returned as an `AffinePart`."""
 
     def __init__(self, in_dim: int, out_dim: int, layers: int,
                  hidden_size: Optional[int] = None,
                  mid_activation: str = "relu", last_activation: str = "none",
                  mid_batch_norm: bool = False, last_batch_norm: bool = False,
-                 batch_norm_momentum: float = 0.1):
+                 batch_norm_momentum: float = 0.1, dropout: float = 0.0):
         super().__init__()
         hidden = hidden_size or out_dim
         dims = [in_dim] + [hidden] * (layers - 1) + [out_dim]
@@ -239,14 +245,15 @@ class MLP(nn.Module):
             FCLayer(dims[j], dims[j + 1],
                     last_activation if j == n - 1 else mid_activation,
                     last_batch_norm if j == n - 1 else mid_batch_norm,
-                    batch_norm_momentum=batch_norm_momentum)
+                    batch_norm_momentum=batch_norm_momentum, dropout=dropout)
             for j in range(n))
 
     def forward(self, x, mask: Optional[torch.Tensor] = None,
-                lazy_out: bool = False):
+                lazy_out: bool = False, noise=None):
         for fc in self.fully_connected[:-1]:
-            x = fc(x, mask, lazy_out=True)
-        return self.fully_connected[-1](x, mask, lazy_out=lazy_out)
+            x = fc(x, mask, lazy_out=True, noise=noise)
+        return self.fully_connected[-1](x, mask, lazy_out=lazy_out,
+                                        noise=noise)
 
 
 def _embedding_sum(tables: nn.ModuleList, codes: torch.Tensor) -> torch.Tensor:

@@ -1,20 +1,35 @@
 """The GeoMol conformer generator with optimal-transport matching (port of
-`OptimalTransportModel`, infomax3d_tpu/models/optimal_transport.py, the
-reference's `models/optimal_transport_model.py`), with the
-`PNAGNNRandomEdgeUpdate` backbone.
+`OptimalTransportModel` and `GINVirtualRandomBackbone`, infomax3d_tpu/
+models/optimal_transport.py, the reference's `models/
+optimal_transport_model.py`).
 
 The model embeds each molecule `n_model_confs` times through two noisy
-backbones (``gnn``, ``gnn2``), predicts local neighbourhood coordinates
-(a transformer over each neighbourhood, ``coord_pred``, ``d_mlp``) and the
-torsions of each dihedral pair (``alpha_mlp``, ``c_mlp``), and compares
-their statistics with those of the true conformers: one fused [T, C, G]
-cost tensor over true conformers, model conformers and graphs.  The loss is
-``sum(plan * cost)`` for the host's optimal-transport plans (`ot_plans`,
-loss type ``ot_emd``), or the implicit-MLE bound without plans.
+backbones (``gnn``, ``gnn2``; with `use_two_gnns` off, ``gnn`` alone
+serves both), maps a backbone wider or narrower than the model to its
+width (``gnn_output_mlp``, ``gnn2_output_mlp``), predicts local
+neighbourhood coordinates (a transformer over each neighbourhood unless
+`use_transformer` is off, ``coord_pred``, ``d_mlp``) and the torsions of
+each dihedral pair (``alpha_mlp``, ``c_mlp``; with `random_alpha`,
+alpha's input carries noise columns too), and compares their statistics
+with those of the true conformers: one fused [T, C, G] cost tensor over
+true conformers, model conformers and graphs.  With `ignore_neighbors` the
+cost holds the one-hop, two-hop and angle terms alone; the dihedral and
+three-hop terms enter it otherwise.  The loss is ``sum(plan * cost)`` for
+the host's optimal-transport plans (`ot_plans`, loss type ``ot_emd``), or
+the implicit-MLE bound without plans.
 
-Randomness comes from a noise source (`models/random_variants.py`), drawn
-in the JAX model's order: per model conformer the two backbones' node and
-edge noise, then the two frames' auxiliary vectors.
+The backbone is the config's `gnn_model` (`BACKBONES`): `PNAGNNRandom`
+(the default), `PNAGNNRandomEdgeUpdate`, `GeomolGNNOGBFeat` (no noise; it
+returns node and edge embeddings, of which the nodes are read),
+`GeomolGNNOGBFeatRandom` and its `NonShared` sibling, and
+`GNN_node_VirtualnodeRandom` (the virtual-node GIN with noise columns).
+
+Randomness comes from a noise source (`models/noise.py`), drawn in the JAX
+model's order: per model conformer the node and edge noise and the
+dropout masks of ``gnn``, then of ``gnn2``; then the two frames'
+auxiliary vectors and, with `random_alpha`, alpha's noise.  In training
+mode each backbone call updates its BatchNorms' running statistics, in
+the same order.
 """
 from __future__ import annotations
 
@@ -25,23 +40,24 @@ import torch.nn.functional as F
 from torch import nn
 
 from infomax3d_tpu_torch.models.attention import TransformerEncoderBlock
+from infomax3d_tpu_torch.models.base import MLP
 from infomax3d_tpu_torch.models.geomol import GeomolMLP
-from infomax3d_tpu_torch.models.random_variants import PNAGNNRandomEdgeUpdate
+from infomax3d_tpu_torch.models.geomol_mpnn import (GeomolGNNOGBFeat,
+                                                    GeomolGNNOGBFeatRandom)
+from infomax3d_tpu_torch.models.noise import noise_columns
+from infomax3d_tpu_torch.models.pna_random import PNAGNNRandom
+from infomax3d_tpu_torch.models.random_variants import (GNNNodeRandom,
+                                                        PNAGNNRandomEdgeUpdate)
 from infomax3d_tpu_torch.ops.geomol_geometry import (
     batch_dihedrals, batch_local_stats_from_coords, build_alpha_rotation,
     rotation_matrix_v2, safe_norm, signed_volume, von_mises_loss)
 from infomax3d_tpu_torch.ops.segment import segment_mean, segment_sum
+from infomax3d_tpu_torch.ops.segment import take_clipped as _rows
 
 BIG = 9e9
 # the 9 (p, q) neighbour combinations of a dihedral pair
 PT_IDX = (0, 0, 0, 1, 1, 1, 2, 2, 2)
 QZ_IDX = (0, 1, 2, 0, 1, 2, 0, 1, 2)
-
-
-def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x[idx.clamp(0, len(x) - 1)]``: padding ids read the last row, as
-    the JAX package's clipped `take` does (their rows are masked)."""
-    return x[idx.clamp(0, x.shape[0] - 1).long()]
 
 
 def _take_slots(arr: torch.Tensor, slots: torch.Tensor, dim: int
@@ -56,45 +72,101 @@ def _take_slots(arr: torch.Tensor, slots: torch.Tensor, dim: int
     return arr.gather(dim, idx.expand(shape))
 
 
+class GINVirtualRandomBackbone(nn.Module):
+    """`gnn_model: GNN_node_VirtualnodeRandom` (configs/ot_gin.yml): one
+    draw of node then edge noise (``random_vec_std`` times a standard
+    normal), then ``node_gnn``, a `GNNNodeRandom` with a virtual node.
+    Keyword arguments are the JAX module's fields with its defaults."""
+
+    FIELDS = ("hidden_dim", "num_layers", "dropout", "random_vec_dim",
+              "random_vec_std")
+
+    def __init__(self, hidden_dim: int = 300, num_layers: int = 5,
+                 dropout: float = 0.5, random_vec_dim: int = 10,
+                 random_vec_std: float = 1.0):
+        super().__init__()
+        self.random_vec_dim, self.random_vec_std = random_vec_dim, \
+            random_vec_std
+        self.node_gnn = GNNNodeRandom(num_layers, hidden_dim, random_vec_dim,
+                                      dropout=dropout, virtual_node=True)
+
+    @classmethod
+    def from_config(cls, params: Mapping[str, Any]
+                    ) -> "GINVirtualRandomBackbone":
+        return cls(**{k: v for k, v in params.items() if k in cls.FIELDS})
+
+    def forward(self, g, noise=None) -> torch.Tensor:
+        like = self.node_gnn.virtualnode_embedding
+        rand_x = noise_columns(noise, g.node_feat.shape[0],
+                               self.random_vec_dim, self.random_vec_std, like)
+        rand_e = noise_columns(noise, g.senders.shape[0],
+                               self.random_vec_dim, self.random_vec_std, like)
+        return self.node_gnn(g, rand_x, rand_e, noise)
+
+
+# the config's `gnn_model` -> the backbone class (the JAX model's dispatch);
+# each class keeps the JAX module's fields as `FIELDS`
+BACKBONES = {
+    "PNAGNNRandom": PNAGNNRandom,
+    "PNAGNNRandomEdgeUpdate": PNAGNNRandomEdgeUpdate,
+    "GeomolGNNOGBFeat": GeomolGNNOGBFeat,
+    "GeomolGNNOGBFeatRandom": GeomolGNNOGBFeatRandom,
+    "GeomolGNNOGBFeatRandomNonShared": GeomolGNNOGBFeatRandom,
+    "GNN_node_VirtualnodeRandom": GINVirtualRandomBackbone,
+}
+
+
+def _nodes(out):
+    """The node half of the GeoMol backbones' (node, edge) output."""
+    return out[0] if isinstance(out, tuple) else out
+
+
 class OptimalTransportModel(nn.Module):
     """Keyword arguments are the config's `model_parameters`:
-    `hyperparams`, `gnn_params` and `gnn_model`.  Backbones other than
-    `PNAGNNRandomEdgeUpdate`, a backbone width other than the model's, and
-    `random_alpha` are not ported yet and raise (ROADMAP queue 1)."""
+    `hyperparams`, `gnn_params`, `gnn_model`, `use_transformer` and
+    `use_two_gnns` (module docstring)."""
 
     def __init__(self, hyperparams: Mapping[str, Any],
                  gnn_params: Mapping[str, Any],
-                 gnn_model: str = "PNAGNNRandom"):
+                 gnn_model: str = "PNAGNNRandom",
+                 use_transformer: bool = True, use_two_gnns: bool = True):
         super().__init__()
         hp = dict(hyperparams)
-        if gnn_model != "PNAGNNRandomEdgeUpdate":
-            raise NotImplementedError(
-                f"OT gnn_model {gnn_model!r} not ported (ROADMAP queue 1)")
-        if hp.get("random_alpha", False):
-            raise NotImplementedError("random_alpha not ported "
-                                      "(ROADMAP queue 1)")
+        if gnn_model not in BACKBONES:
+            raise KeyError(f"unknown OT gnn_model '{gnn_model}'")
         H = self.hidden_dim = hp["hidden_dim"]
         self.loss_type = hp["loss_type"]
         self.n_true_confs = hp["n_true_confs"]
         self.n_model_confs = hp["n_model_confs"]
+        self.random_vec_dim = hp["random_vec_dim"]
+        self.random_vec_std = hp["random_vec_std"]
+        self.random_alpha = hp.get("random_alpha", False)
+        self.use_transformer, self.use_two_gnns = use_transformer, \
+            use_two_gnns
         gp = dict(gnn_params)
-        gp.setdefault("random_vec_dim", hp["random_vec_dim"])
-        gp.setdefault("random_vec_std", hp["random_vec_std"])
-        if gp["hidden_dim"] != H:
-            raise NotImplementedError(
-                "a backbone width other than the model's (gnn_output_mlp) "
-                "is not ported (ROADMAP queue 1)")
-        self.gnn = PNAGNNRandomEdgeUpdate.from_config(gp)
-        self.gnn2 = PNAGNNRandomEdgeUpdate.from_config(gp)
+        gp.setdefault("random_vec_dim", self.random_vec_dim)
+        gp.setdefault("random_vec_std", self.random_vec_std)
+        if gnn_model.startswith("GeomolGNNOGBFeatRandom"):
+            gp.setdefault("non_shared", gnn_model.endswith("NonShared"))
+        cls = BACKBONES[gnn_model]
+        self.gnn = cls.from_config(gp)
+        if use_two_gnns:
+            self.gnn2 = cls.from_config(gp)
+        self.use_gnn_output_mlp = gp["hidden_dim"] != H
+        if self.use_gnn_output_mlp:
+            self.gnn_output_mlp = MLP(gp["hidden_dim"], H, 1)
+            self.gnn2_output_mlp = MLP(gp["hidden_dim"], H, 1)
 
         def layers(name, default):
             return hp.get(name, {}).get("n_layers", default)
-        self.encoder = TransformerEncoderBlock(
-            2 * H, hp.get("encoder", {}).get("n_head", 2), 3 * H)
+        if use_transformer:
+            self.encoder = TransformerEncoderBlock(
+                2 * H, hp.get("encoder", {}).get("n_head", 2), 3 * H)
         self.coord_pred = GeomolMLP(2 * H, 3, layers("coord_pred", 2))
         self.d_mlp = GeomolMLP(2 * H, 1, layers("d_mlp", 1))
         self.h_mol_mlp = GeomolMLP(H, H, layers("h_mol_mlp", 1))
-        self.alpha_mlp = GeomolMLP(3 * H, 1, layers("alpha_mlp", 2))
+        alpha_in = 3 * H + (self.random_vec_dim if self.random_alpha else 0)
+        self.alpha_mlp = GeomolMLP(alpha_in, 1, layers("alpha_mlp", 2))
         self.c_mlp = GeomolMLP(4 * H, 1, layers("c_mlp", 1))
 
     @classmethod
@@ -102,7 +174,9 @@ class OptimalTransportModel(nn.Module):
                     ) -> "OptimalTransportModel":
         mp = model_parameters
         return cls(mp["hyperparams"], mp["gnn_params"],
-                   mp.get("gnn_model", "PNAGNNRandom"))
+                   mp.get("gnn_model", "PNAGNNRandom"),
+                   mp.get("use_transformer", True),
+                   mp.get("use_two_gnns", True))
 
     # --- embeddings ---------------------------------------------------------
     def embed(self, g, noise):
@@ -110,9 +184,13 @@ class OptimalTransportModel(nn.Module):
         molecule representations [G, C, D]."""
         xs, xs2 = [], []
         for _ in range(self.n_model_confs):
-            xs.append(self.gnn(g, noise))
-            xs2.append(self.gnn2(g, noise))
+            x1 = _nodes(self.gnn(g, noise))
+            xs.append(x1)
+            xs2.append(_nodes(self.gnn2(g, noise)) if self.use_two_gnns
+                       else x1)
         x1, x2 = torch.stack(xs, dim=1), torch.stack(xs2, dim=1)
+        if self.use_gnn_output_mlp:
+            x1, x2 = self.gnn_output_mlp(x1), self.gnn2_output_mlp(x2)
         pooled = segment_sum(x2, g.node_graph, g.graph_mask.shape[0])
         return x1, x2, self.h_mol_mlp(pooled)
 
@@ -126,10 +204,13 @@ class OptimalTransportModel(nn.Module):
         x_hb = x_h[:, None].expand_as(n_h)
         h = torch.cat([n_h, x_hb], dim=-1) * m4                # [NH, 4, C, 2D]
         NH = h.shape[0]
-        h_ = h.permute(0, 2, 1, 3).reshape(NH * C, 4, -1)
-        key_mask = (mask[:, None, :] > 0).expand(NH, C, 4).reshape(NH * C, 4)
-        h_new = self.encoder(h_, key_mask).reshape(NH, C, 4, -1).permute(
-            0, 2, 1, 3) * m4
+        h_new = h
+        if self.use_transformer:
+            h_ = h.permute(0, 2, 1, 3).reshape(NH * C, 4, -1)
+            key_mask = (mask[:, None, :] > 0).expand(NH, C, 4).reshape(
+                NH * C, 4)
+            h_new = self.encoder(h_, key_mask).reshape(NH, C, 4, -1).permute(
+                0, 2, 1, 3) * m4
         unit_normals = self.coord_pred(h_new) * m4
         # chiral flips of the third axis
         ctag = _rows(chiral_tag, ex["nbh_center"])[:, None]     # [NH, 1]
@@ -176,8 +257,16 @@ class OptimalTransportModel(nn.Module):
         q_Z_translated = q_Z_prime * flip + p_Y_prime[:, None]
 
         h_mol_d = _rows(h_mol, ex["dp_mol"])                    # [P, C, D]
-        alpha = self.alpha_mlp(torch.cat([x_rep, y_rep, h_mol_d], -1)) + \
-            self.alpha_mlp(torch.cat([y_rep, x_rep, h_mol_d], -1))
+        tail = [h_mol_d]
+        if self.random_alpha and noise is not None:
+            tail.append(self.random_vec_std * noise.normal(
+                (P, C, self.random_vec_dim)).to(h_mol_d.dtype))
+        elif self.random_alpha:
+            # the JAX model without its 'random' rng takes the branch
+            # without noise, whose input is too narrow for alpha_mlp
+            raise ValueError("random_alpha needs a noise source")
+        alpha = self.alpha_mlp(torch.cat([x_rep, y_rep] + tail, -1)) + \
+            self.alpha_mlp(torch.cat([y_rep, x_rep] + tail, -1))
         v_star = torch.cat([torch.cos(alpha), torch.sin(alpha)], -1)
 
         pT = p_T_prime[:, PT_IDX]                               # [P, 9, C, 3]
@@ -234,11 +323,13 @@ class OptimalTransportModel(nn.Module):
         return true_dihedrals, safe_norm(xn9 - yn9) * dmask
 
     # --- the cost -----------------------------------------------------------
-    def molecule_loss_matrix(self, g, ex, true_stats, model_stats):
+    def molecule_loss_matrix(self, g, ex, true_stats, model_stats,
+                             ignore_neighbors: bool = False):
         """The [T, C, G] cost tensor (the reference's double loop over true
-        and model conformers, fused).  The min / max over hydrogen
-        permutations and combinations split their gradient evenly among
-        ties (`amin` / `amax`), as JAX's reductions do."""
+        and model conformers, fused); with `ignore_neighbors` the local
+        terms alone.  The min / max over hydrogen permutations and
+        combinations split their gradient evenly among ties (`amin` /
+        `amax`), as JAX's reductions do."""
         (t_one, t_two, t_ang), (t_dih, t_thr) = true_stats
         (m_one, m_two, m_ang), (m_dih, m_thr) = model_stats
         G = g.graph_mask.shape[0]
@@ -261,6 +352,10 @@ class OptimalTransportModel(nn.Module):
         amask = t_ang != 0
         ang = ((vm * amask[..., None]).sum(dim=2)
                / (amask.sum(dim=2)[..., None] + 1e-10)).amax(dim=1)
+        loss = mean_by(one, nbh_mol) + mean_by(two, nbh_mol) - \
+            mean_by(ang, nbh_mol)                                # [G, T, C]
+        if ignore_neighbors:
+            return loss.permute(1, 2, 0)                         # [T, C, G]
         dmask = ex["dihedral_mask"]                              # [P, 9]
         dsum = dmask.sum(dim=-1)[:, None, None, None] + 1e-10
         # dihedrals: true [2, P, 9, 6, T], model [2, P, 9, C]
@@ -272,18 +367,18 @@ class OptimalTransportModel(nn.Module):
                / dsum).amax(dim=1)                               # [P, T, C]
         se3 = (t_thr[..., None] - m_thr[:, :, None, None, :]) ** 2
         thr = (se3.sum(dim=1) / dsum).amin(dim=1)
-        loss = mean_by(one, nbh_mol) + mean_by(two, nbh_mol) - \
-            mean_by(ang, nbh_mol) + mean_by(thr, dp_mol) - \
-            mean_by(dih, dp_mol)                                 # [G, T, C]
+        loss = loss + mean_by(thr, dp_mol) - mean_by(dih, dp_mol)
         return loss.permute(1, 2, 0)                             # [T, C, G]
 
-    def forward(self, batch, noise, return_cost_matrix: bool = False,
+    def forward(self, batch, noise, ignore_neighbors: bool = False,
+                return_cost_matrix: bool = False,
                 ot_plans: Optional[torch.Tensor] = None) -> torch.Tensor:
         """`batch`: an `OTBatch`; `noise`: a noise source.  Returns the
         masked [T, C, G] cost (absent true conformers and padding graphs
         at `BIG`) with `return_cost_matrix`, else the loss: the
         plan-weighted cost per molecule averaged over the real graphs with
-        `ot_plans` [G, T, C], the implicit-MLE bound without."""
+        `ot_plans` [G, T, C], the implicit-MLE bound without.  With
+        `ignore_neighbors` the cost holds the local terms alone."""
         g, ex = batch.graph, batch.ex
         pos, pos_mask = ex["pos"], ex["pos_mask"]
         chiral = ex.get("chiral_tag")
@@ -295,7 +390,7 @@ class OptimalTransportModel(nn.Module):
         m_local, model_coords = self.model_local_stats(ex, x1, chiral)
         m_pair = self.model_pair_stats(ex, x2, h_mol, model_coords, noise)
         cost = self.molecule_loss_matrix(g, ex, (t_local, t_pair),
-                                         (m_local, m_pair))
+                                         (m_local, m_pair), ignore_neighbors)
         valid = (pos_mask.T[:, None, :] * g.graph_mask[None, None, :]) > 0
         if return_cost_matrix:
             return torch.where(valid, cost, torch.full_like(cost, BIG))

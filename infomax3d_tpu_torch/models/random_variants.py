@@ -1,7 +1,7 @@
-"""The edge-update PNA backbone with noise columns (port of
-`PNALayerEdgeUpdate` and `PNAGNNRandomEdgeUpdate`, infomax3d_tpu/models/
-random_variants.py, the reference's `models/pna_edge_update_random.py`),
-and the noise sources that feed it.
+"""The random-feature backbones of the OT generator (port of
+`PNALayerEdgeUpdate`, `PNAGNNRandomEdgeUpdate`, `GINConvRandom` and
+`GNNNodeRandom`, infomax3d_tpu/models/random_variants.py, the reference's
+`models/pna_edge_update_random.py` and `models/gin_random.py`).
 
 Per layer, in the JAX package's order: ``z = relu(edge(e) + node_in(h[s])
 + node_out(h[r]))`` (gather first, then the Linear), the pretrans MLP,
@@ -11,94 +11,62 @@ node_eps) h + posttrans_2(agg)``.  The sender gather's backward is the
 sender-keyed segment-sum kernel, the receiver gather's the CSR segment-sum
 kernel, and a float32 aggregate the CSR multi-reduce kernel.
 
-Randomness comes from a noise source with ``normal(shape)`` and
-``uniform(shape)`` (float32, standard normal and U[0, 1)), called in the
-JAX model's order of `jax.random` draws: `GeneratorNoise` draws from a
-`torch.Generator` and records its draws, `ReplayNoise` hands out given
-draws again, in order.  Without a source the noise is zero, as the JAX
-model's without its 'random' rng.
+The GIN with noise columns: atom and bond encoders emit ``hidden -
+random_vec_dim`` columns and one draw of node and edge noise fills the
+rest, at the input (nodes) and in every convolution (edges); per layer
+the GIN convolution (the sender gather, whose backward is the
+sender-keyed segment-sum kernel, and the CSR-sum kernel at each
+receiver), the layer's BatchNorm, a relu on all but the last layer,
+dropout, the residual, and with a virtual node its per-graph MLP.
+
+Randomness comes from a noise source (`models/noise.py`: normal, uniform
+and Bernoulli draws in the JAX model's order); without one the noise is
+zero, as the JAX model's without its 'random' rng.  Dropout masks are
+drawn in training mode only.
 """
 from __future__ import annotations
 
-from typing import Any, List, Mapping, Sequence, Tuple
+from typing import Any, Mapping, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from infomax3d_tpu_torch.models.base import MLP, AtomEncoder, BondEncoder
+from infomax3d_tpu_torch.models.base import (MLP, AtomEncoder, BondEncoder,
+                                             MaskedBatchNorm,
+                                             PromotingLinear)
 from infomax3d_tpu_torch.models.geomol import GeomolMLP
-from infomax3d_tpu_torch.ops.aggregate import (gather_dst, gather_src,
+from infomax3d_tpu_torch.models.gin import GINConv
+from infomax3d_tpu_torch.models.noise import dropout, noise_columns
+from infomax3d_tpu_torch.ops.aggregate import (edge_aggregate, gather_dst,
+                                               gather_src,
                                                pna_aggregate_parts)
-
-
-class GeneratorNoise:
-    """Draws from `generator` on the generator's own device (a CUDA
-    generator draws on the card, with no copy from the host); every draw
-    is kept in `draws` as ``(kind, tensor)`` so that `ReplayNoise` can hand
-    the same draws to a second pass."""
-
-    def __init__(self, generator: torch.Generator):
-        self.generator = generator
-        self.draws: List[Tuple[str, torch.Tensor]] = []
-
-    def _draw(self, kind: str, shape) -> torch.Tensor:
-        fn = torch.randn if kind == "normal" else torch.rand
-        t = fn(tuple(shape), generator=self.generator,
-               device=self.generator.device)
-        self.draws.append((kind, t))
-        return t
-
-    def normal(self, shape) -> torch.Tensor:
-        return self._draw("normal", shape)
-
-    def uniform(self, shape) -> torch.Tensor:
-        return self._draw("uniform", shape)
-
-
-class ReplayNoise:
-    """Given draws ``(kind, tensor)`` handed out in order; a draw of another
-    kind or shape than the next one raises, as does running out."""
-
-    def __init__(self, draws: Sequence[Tuple[str, torch.Tensor]]):
-        self.draws = list(draws)
-        self.used = 0
-
-    def _next(self, kind: str, shape) -> torch.Tensor:
-        if self.used >= len(self.draws):
-            raise RuntimeError(f"ReplayNoise: no draw left for {kind} "
-                               f"{tuple(shape)}")
-        k, t = self.draws[self.used]
-        if k != kind or tuple(t.shape) != tuple(shape):
-            raise RuntimeError(f"ReplayNoise: draw {self.used} is {k} "
-                               f"{tuple(t.shape)}, asked for {kind} "
-                               f"{tuple(shape)}")
-        self.used += 1
-        return t
-
-    def normal(self, shape) -> torch.Tensor:
-        return self._next("normal", shape)
-
-    def uniform(self, shape) -> torch.Tensor:
-        return self._next("uniform", shape)
+from infomax3d_tpu_torch.ops.segment import segment_sum
 
 
 class PNALayerEdgeUpdate(nn.Module):
     """One edge-update PNA layer (module docstring).  Submodules carry the
     JAX module's names: ``edge``, ``node_in``, ``node_out`` (no bias),
     ``pretrans``, ``edge_eps``, ``posttrans_1``, ``node_eps``,
-    ``posttrans_2``."""
+    ``posttrans_2``.  Its three MLPs carry the BatchNorms and dropout the
+    layer is given (the pretrans and the messages over the real edges,
+    the node update over the real nodes)."""
 
     def __init__(self, in_dim: int, out_dim: int, aggregators: Sequence[str],
                  scalers: Sequence[str], activation: str = "relu",
                  last_activation: str = "none", posttrans_layers: int = 2,
-                 pretrans_layers: int = 1):
+                 pretrans_layers: int = 1, mid_batch_norm: bool = False,
+                 last_batch_norm: bool = False,
+                 batch_norm_momentum: float = 0.1, dropout: float = 0.0):
         super().__init__()
         self.aggregators, self.scalers = list(aggregators), list(scalers)
         self.edge = nn.Linear(in_dim, in_dim)
         self.node_in = nn.Linear(in_dim, in_dim, bias=False)
         self.node_out = nn.Linear(in_dim, in_dim, bias=False)
-        acts = dict(mid_activation=activation, last_activation=last_activation)
+        acts = dict(mid_activation=activation, last_activation=last_activation,
+                    mid_batch_norm=mid_batch_norm,
+                    last_batch_norm=last_batch_norm,
+                    batch_norm_momentum=batch_norm_momentum, dropout=dropout)
         self.pretrans = MLP(in_dim, in_dim, pretrans_layers,
                             hidden_size=in_dim, **acts)
         self.edge_eps = nn.Parameter(torch.zeros(1))
@@ -109,16 +77,17 @@ class PNALayerEdgeUpdate(nn.Module):
         self.posttrans_2 = MLP(n_parts * in_dim, out_dim, posttrans_layers,
                                hidden_size=out_dim, **acts)
 
-    def forward(self, g, h: torch.Tensor, e: torch.Tensor):
+    def forward(self, g, h: torch.Tensor, e: torch.Tensor, noise=None):
         z = F.relu(self.edge(e) + self.node_in(gather_src(g, h))
                    + self.node_out(gather_dst(g, h)))
-        z = self.pretrans(z, g.edge_mask)
+        z = self.pretrans(z, g.edge_mask, noise=noise)
         e_out = (1.0 + self.edge_eps) * e + z
-        msg = self.posttrans_1(e_out, g.edge_mask)
+        msg = self.posttrans_1(e_out, g.edge_mask, noise=noise)
         agg = torch.cat(pna_aggregate_parts(g, msg, self.aggregators,
                                             self.scalers, avg_d_log=1.0),
                         dim=-1)
-        h_out = (1.0 + self.node_eps) * h + self.posttrans_2(agg, g.node_mask)
+        h_out = (1.0 + self.node_eps) * h + self.posttrans_2(
+            agg, g.node_mask, noise=noise)
         return h_out, e_out
 
 
@@ -129,7 +98,7 @@ class PNAGNNRandomEdgeUpdate(nn.Module):
     `propagation_depth` layers (``mp_layers.{i}``).  Returns the node
     embeddings [N, hidden_dim].  Keyword arguments are the JAX module's
     fields with its defaults (`residual` is a field the JAX layer never
-    reads); BatchNorm in the MLPs and dropout are not ported and raise."""
+    reads)."""
 
     FIELDS = ("hidden_dim", "aggregators", "scalers", "random_vec_dim",
               "random_vec_std", "residual", "activation", "last_activation",
@@ -146,13 +115,6 @@ class PNAGNNRandomEdgeUpdate(nn.Module):
                  posttrans_layers: int = 1, pretrans_layers: int = 1,
                  batch_norm_momentum: float = 0.1):
         super().__init__()
-        bad = {k: v for k, v in {"mid_batch_norm": mid_batch_norm,
-                                 "last_batch_norm": last_batch_norm,
-                                 "dropout": dropout > 0 and dropout}.items()
-               if v}
-        if bad:
-            raise NotImplementedError(
-                f"PNAGNNRandomEdgeUpdate options not ported: {bad}")
         self.random_vec_dim = random_vec_dim
         self.random_vec_std = random_vec_std
         self.atom_encoder = AtomEncoder(hidden_dim)
@@ -162,7 +124,8 @@ class PNAGNNRandomEdgeUpdate(nn.Module):
         self.mp_layers = nn.ModuleList(
             PNALayerEdgeUpdate(hidden_dim, hidden_dim, aggregators, scalers,
                                activation, last_activation, posttrans_layers,
-                               pretrans_layers)
+                               pretrans_layers, mid_batch_norm,
+                               last_batch_norm, batch_norm_momentum, dropout)
             for _ in range(propagation_depth))
 
     @classmethod
@@ -173,10 +136,8 @@ class PNAGNNRandomEdgeUpdate(nn.Module):
         return cls(**{k: v for k, v in params.items() if k in cls.FIELDS})
 
     def _noise(self, noise, rows: int, like: torch.Tensor) -> torch.Tensor:
-        shape = (rows, self.random_vec_dim)
-        if noise is None:
-            return like.new_zeros(shape)
-        return self.random_vec_std * noise.normal(shape).to(like.dtype)
+        return noise_columns(noise, rows, self.random_vec_dim,
+                             self.random_vec_std, like)
 
     def forward(self, g, noise=None) -> torch.Tensor:
         h = self.atom_encoder(g.node_feat)
@@ -186,5 +147,88 @@ class PNAGNNRandomEdgeUpdate(nn.Module):
         e = self.edge_init(torch.cat([e, self._noise(noise, e.shape[0], e)],
                                      dim=-1))
         for layer in self.mp_layers:
-            h, e = layer(g, h, e)
+            h, e = layer(g, h, e, noise)
         return h
+
+
+class GINConvRandom(GINConv):
+    """GIN convolution with edge noise (reference `gin_random.py:89-117`):
+    the bond encoder emits ``hidden - random_vec_dim`` columns and the
+    forward's edge noise fills the rest; then `GINConv`'s messages, sum
+    and MLP."""
+
+    def __init__(self, hidden_dim: int, random_vec_dim: int,
+                 batch_norm_momentum: float = 0.1):
+        super().__init__(hidden_dim, batch_norm_momentum)
+        self.bond_encoder = BondEncoder(hidden_dim - random_vec_dim)
+
+    def forward(self, g, h: torch.Tensor, rand_edge: torch.Tensor
+                ) -> torch.Tensor:
+        emb = self.bond_encoder(g.edge_feat)
+        emb = torch.cat([emb, rand_edge.to(emb.dtype)], dim=-1)
+        msg = F.relu(gather_src(g, h) + emb)
+        z = (1.0 + self.eps) * h + edge_aggregate(g, msg, "sum")
+        lin0, bn, relu, lin1 = self.mlp
+        return lin1(relu(bn(lin0(z), g.node_mask)))
+
+
+class GNNNodeRandom(nn.Module):
+    """The GIN node stack with noise columns (reference `gin_random.py:
+    153-243`): ``convs.{i}`` (flax ``conv_{i}``), ``bn_{i}``, and with a
+    virtual node ``virtualnode_embedding``, ``vn_mlp_{i}_0`` /
+    ``vn_bn_{i}`` / ``vn_mlp_{i}_1`` between layers; jumping knowledge
+    "last" or "sum" (the JAX module's sum of the stack's inputs, the
+    embedding included and the last layer's output not)."""
+
+    def __init__(self, num_layers: int, hidden_dim: int, random_vec_dim: int,
+                 dropout: float = 0.5, jk: str = "last",
+                 residual: bool = False, batch_norm_momentum: float = 0.1,
+                 virtual_node: bool = False):
+        super().__init__()
+        if jk not in ("last", "sum"):
+            raise ValueError(f"unknown JK mode {jk}")
+        H, m = hidden_dim, batch_norm_momentum
+        self.num_layers, self.dropout, self.jk = num_layers, dropout, jk
+        self.residual, self.virtual_node = residual, virtual_node
+        self.atom_encoder = AtomEncoder(H - random_vec_dim)
+        self.convs = nn.ModuleList(GINConvRandom(H, random_vec_dim, m)
+                                   for _ in range(num_layers))
+        for i in range(num_layers):
+            self.add_module(f"bn_{i}", MaskedBatchNorm(H, m))
+        if virtual_node:
+            self.virtualnode_embedding = nn.Parameter(torch.zeros(H))
+            for i in range(num_layers - 1):
+                self.add_module(f"vn_mlp_{i}_0", PromotingLinear(H, 2 * H))
+                self.add_module(f"vn_bn_{i}", MaskedBatchNorm(2 * H, m))
+                self.add_module(f"vn_mlp_{i}_1", PromotingLinear(2 * H, H))
+
+    def forward(self, g, rand_x: torch.Tensor, rand_edge: torch.Tensor,
+                noise=None) -> torch.Tensor:
+        G = g.graph_mask.shape[0]
+        h = self.atom_encoder(g.node_feat)
+        h = torch.cat([h, rand_x.to(h.dtype)], dim=-1)
+        graph_of = g.node_graph.clamp(0, G - 1).long()
+        if self.virtual_node:
+            virtual = self.virtualnode_embedding[None].expand(G, -1)
+        h_list = [h]
+        for i, conv in enumerate(self.convs):
+            h = h_list[i]
+            if self.virtual_node:
+                h = h + virtual[graph_of]
+            h = getattr(self, f"bn_{i}")(conv(g, h, rand_edge), g.node_mask)
+            if i != self.num_layers - 1:
+                h = F.relu(h)
+            h = dropout(h, self.dropout, noise, self.training)
+            if self.residual:
+                h = h + h_list[i]
+            h_list.append(h)
+            if self.virtual_node and i < self.num_layers - 1:
+                pooled = segment_sum(h_list[i], g.node_graph, G) + virtual
+                z = getattr(self, f"vn_mlp_{i}_0")(pooled)
+                z = F.relu(getattr(self, f"vn_bn_{i}")(z, g.graph_mask))
+                z = F.relu(getattr(self, f"vn_mlp_{i}_1")(z))
+                z = dropout(z, self.dropout, noise, self.training)
+                virtual = virtual + z if self.residual else z
+        if self.jk == "last":
+            return h_list[-1]
+        return sum(h_list[:self.num_layers])

@@ -8,8 +8,10 @@ it to anything but the JAX default (`UNPORTED_FIELDS`).  `Net3D` is the
 flat 3D network on CSR complete graphs; the CLI swaps it for the
 parameter-compatible `Net3DDense` when `_dense_3d` is on, as the JAX
 package does.  `Net3DVAE` names `Net3DAE` (`MODEL_ALIASES`, the JAX
-table: the reference's configs name a class that exists nowhere).  Every
-other name is ROADMAP queue 1, item 7.
+table: the reference's configs name a class that exists nowhere).  The OT
+generator's backbones (`gnn_model`: `PNAGNNRandom`, `GeomolGNNOGBFeat`
+and the others) are in `optimal_transport.BACKBONES`, each class with its
+JAX fields as `FIELDS`.  Every other name is ROADMAP queue 1, item 7.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Any, Dict, Mapping
 
 from torch import nn
 
+from infomax3d_tpu_torch.models.geomol_mpnn import GeomolGNNWrapperOGBFeat
 from infomax3d_tpu_torch.models.gin import OGBGNN
 from infomax3d_tpu_torch.models.net3d import Net3D, Net3DDense
 from infomax3d_tpu_torch.models.net3d_vae import (Net3DAE,
@@ -47,7 +50,8 @@ MODEL_REGISTRY: Dict[str, type] = {
     "OptimalTransportModel": OptimalTransportModel,
     "DistancePredictor": DistancePredictor,
     "PNADistancePredictor": PNADistancePredictor, "Net3DAE": Net3DAE,
-    "Net3DDistancePredictor": Net3DDistancePredictor}
+    "Net3DDistancePredictor": Net3DDistancePredictor,
+    "GeomolGNNWrapperOGBFeat": GeomolGNNWrapperOGBFeat}
 
 # reference YAML names whose class the reference cannot resolve, mapped
 # onto the class the config means (the JAX package's models/registry.py)
@@ -82,12 +86,12 @@ JAX_FIELDS: Dict[str, tuple] = {
                                   "readout_batchnorm", "readout_layers",
                                   "readout_hidden_dim", "propagation_depth"),
     "Net3DDistancePredictor": _NET3DAE_SHARED + ("propagation_depth",),
+    "GeomolGNNWrapperOGBFeat": GeomolGNNWrapperOGBFeat.FIELDS,
 }
 
 # JAX fields the port's classes lack, with the JAX default they run at
 UNPORTED_FIELDS: Dict[str, Dict[str, Any]] = {
     "PNA": {"pairwise_distances": False},
-    "OptimalTransportModel": {"use_transformer": True, "use_two_gnns": True},
 }
 
 def get_model_class(name: str) -> type:

@@ -1,7 +1,7 @@
 """Graph readout, the node gathers and plain segment reductions (port of
 `infomax3d_tpu/ops/segment.py`: the dense-regroup path `_regroup` /
 `_graph_readout_dense` / `batch_readout`, `take_rows` over the senders and
-over the receivers, `segment_sum` / `segment_mean`)."""
+over the receivers, the clipped `take`, `segment_sum` / `segment_mean`)."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -12,6 +12,12 @@ from infomax3d_tpu_torch.ops.kernels.csr_segment_sum import csr_segment_sum
 from infomax3d_tpu_torch.ops.kernels.snd_segment_sum import snd_segment_sum
 
 EPS = 1e-5  # reference models/pna.py:14
+
+
+def take_clipped(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx.clamp(0, len(x) - 1)]``: padding ids read the last row, as
+    the JAX package's clipped `take` does (their rows are masked)."""
+    return x[idx.clamp(0, x.shape[0] - 1).long()]
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,

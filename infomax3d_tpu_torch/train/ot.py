@@ -1,34 +1,41 @@
 """The optimal-transport pre-training step (port of the JAX package's
 `OptimalTransportTrainer` step, infomax3d_tpu/train/trainer.py: `exact_emd`,
-`_attach_ot_plans` and the jitted update), here for `OptimalTransportModel`
-with the `PNAGNNRandomEdgeUpdate` backbone at the architecture of
-`configs_clean/pre-train_Optimal_Transport_baseline.yml`: hidden 50, 3
+`_attach_ot_plans`, `_cost_fn`, `loss_fn` and the jitted update) for
+`OptimalTransportModel` with any of its backbones, e.g. at the architecture
+of `configs_clean/pre-train_Optimal_Transport_baseline.yml`: hidden 50, 3
 layers, sum aggregation, 10 model and 10 true conformers, loss `ot_emd`,
 Adam lr 1e-3, gradient-norm clip 10, batches of 16.  float32 throughout:
 the JAX trainer does not support bf16 for this model.
 
 One step with loss `ot_emd`:
-1. a cost pass without gradient: the masked [T, C, G] cost;
+1. a cost pass without gradient, in eval mode as the JAX trainer's
+   ``deterministic=True`` pass: BatchNorms normalize with their running
+   statistics and do not update them, no dropout; the masked [T, C, G]
+   cost;
 2. the host's exact EMD plan per molecule on the detached cost, between
    uniform marginals over the molecule's true conformers and the model's
    conformers, after shifting the cost by its largest magnitude;
-3. the gradient pass on ``sum(plan * cost)``, with the same random draws
-   as the cost pass (the JAX trainer hands both passes the same key);
+3. the gradient pass on ``sum(plan * cost)`` in training mode, with the
+   same noise as the cost pass (the JAX trainer hands both passes the same
+   key) and dropout masks of its own;
 4. the global gradient norm clipped at 10;
-5. grouped Adam (`train/optim.py`).
-With `implicit_mle` the gradient pass alone runs.  The random draws of a
-step come from one `torch.Generator` on the step's device, so the card
-draws its own noise.  The learning-rate schedule (WarmUpWrapper) belongs
-to the `Trainer`, which is not ported: the step takes the lr it is given.
-The dihedral terms always enter the cost: the JAX trainer drops them only
-for its `num_epochs_local_only` epochs, which this configuration does not
-set.
+5. grouped Adam (`train/optim.py`) at the lrs the caller wrote into its
+   param groups.
+With `implicit_mle` the gradient pass alone runs.  `ignore_neighbors`
+(set by the trainer for its first `num_epochs_local_only` epochs) drops
+the dihedral and three-hop terms from both passes' cost.  The random draws
+of a step come from one `torch.Generator` on the step's device, so the
+card draws its own noise.  `eval_loss` is the validation step: plans from
+an eval-mode cost pass, then the loss in eval mode with the same noise.
 
-`ot()` is the entry point: it runs a few steps on one fixed synthetic
-batch with true conformers, on the CUDA card unless asked for the CPU.
+`ot()` runs a few steps on one fixed synthetic batch with true conformers,
+on the CUDA card unless asked for the CPU; the epoch loop, the learning-
+rate schedule, validation and checkpoints are `OptimalTransportTrainer`'s
+(`train/trainer.py`).
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -40,8 +47,7 @@ from infomax3d_tpu_torch.device import resolve_device
 from infomax3d_tpu_torch.graphs.batch import bucket_for
 from infomax3d_tpu_torch.interop import init_jax_variables, load_variables
 from infomax3d_tpu_torch.models.optimal_transport import OptimalTransportModel
-from infomax3d_tpu_torch.models.random_variants import (GeneratorNoise,
-                                                        ReplayNoise)
+from infomax3d_tpu_torch.models.noise import GeneratorNoise, ReplayNoise
 from infomax3d_tpu_torch.train.optim import build_adam
 
 GRAD_CLIP = 10.0
@@ -89,7 +95,11 @@ def ot_plans(cost: np.ndarray, pos_mask: np.ndarray,
 class OTStep:
     """Cost pass, host plans, gradient pass, clip and Adam update of the OT
     model on one batch.  `variables` holds the model's flax numpy trees
-    (`interop.init_jax_variables` layout)."""
+    (`interop.init_jax_variables` layout); `from_modules` takes a built
+    model and optimizer (the trainer's).  `ignore_neighbors` applies to
+    every pass until changed."""
+
+    ignore_neighbors = False
 
     def __init__(self, model_parameters: Mapping, variables: Mapping,
                  device: torch.device,
@@ -101,46 +111,96 @@ class OTStep:
         self.optimizer = build_adam(self.model.named_parameters(),
                                     **dict(optimizer_params or {}))
 
+    @classmethod
+    def from_modules(cls, model: torch.nn.Module, device: torch.device,
+                     optimizer: torch.optim.Optimizer) -> "OTStep":
+        step = cls.__new__(cls)
+        step.device, step.model, step.optimizer = (torch.device(device),
+                                                   model, optimizer)
+        return step
+
     def cost(self, batch: OTBatch, noise) -> torch.Tensor:
-        """The masked [T, C, G] cost, without gradient."""
-        with torch.no_grad():
-            return self.model(batch, noise, return_cost_matrix=True)
+        """The masked [T, C, G] cost, without gradient, in eval mode; the
+        model's mode is restored after."""
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                return self.model(batch, noise,
+                                  ignore_neighbors=self.ignore_neighbors,
+                                  return_cost_matrix=True)
+        finally:
+            self.model.train(was_training)
+
+    emd_s = 0.0
 
     def plans(self, cost: torch.Tensor, batch: OTBatch) -> torch.Tensor:
-        """`ot_plans` of the cost on the host, back on the step's device."""
+        """`ot_plans` of the cost on the host, back on the step's device;
+        the host seconds of the EMDs accumulate in `emd_s`."""
         g = batch.graph
-        return torch.from_numpy(ot_plans(
-            cost.cpu().numpy(), batch.ex["pos_mask"].cpu().numpy(),
-            g.graph_mask.cpu().numpy())).to(self.device)
+        arrays = (cost.cpu().numpy(), batch.ex["pos_mask"].cpu().numpy(),
+                  g.graph_mask.cpu().numpy())
+        t0 = time.perf_counter()
+        plans = ot_plans(*arrays)
+        self.emd_s += time.perf_counter() - t0
+        return torch.from_numpy(plans).to(self.device)
 
     def loss_and_grads(self, batch: OTBatch, noise,
                        plans: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The gradient pass: fills each parameter's `.grad`, clipped to a
         global norm of `GRAD_CLIP` (``scale = min(1, clip / (norm +
-        1e-6))``), and returns the loss (detached)."""
+        1e-6))``), and returns the loss (detached).  A parameter the loss
+        does not reach gets a zero gradient, as JAX's gradient tree has
+        one: Adam then counts the step for it too (with `ignore_neighbors`
+        ``gnn2`` reaches no term of the cost), so its bias correction stays
+        the JAX optimizer's when its gradients start."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.model(batch, noise, ot_plans=plans)
+        loss = self.model(batch, noise, ignore_neighbors=self.ignore_neighbors,
+                          ot_plans=plans)
         loss.backward()
-        grads = [p.grad for p in self.model.parameters()
-                 if p.grad is not None]
+        grads = []
+        for p in self.model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
         norm = torch.sqrt(sum((g * g).sum() for g in grads))
         scale = (GRAD_CLIP / (norm + 1e-6)).clamp(max=1.0)
         for g in grads:
             g.mul_(scale)
         return loss.detach()
 
+    def _passes(self, batch: OTBatch, generator: torch.Generator):
+        """(plans or None, the loss pass's noise): with `ot_emd` the cost
+        pass's draws replayed, the dropout masks drawn fresh."""
+        noise = GeneratorNoise(generator)
+        if self.model.loss_type != "ot_emd":
+            return None, noise
+        plans = self.plans(self.cost(batch, noise), batch)
+        return plans, ReplayNoise(noise.draws, fresh=noise)
+
     def step(self, batch: OTBatch, generator: torch.Generator
              ) -> torch.Tensor:
         """One training step on a batch on the step's device, its random
         draws from `generator` (on the same device); returns the loss."""
-        noise = GeneratorNoise(generator)
-        plans = None
-        if self.model.loss_type == "ot_emd":
-            plans = self.plans(self.cost(batch, noise), batch)
-            noise = ReplayNoise(noise.draws)
+        plans, noise = self._passes(batch, generator)
         loss = self.loss_and_grads(batch, noise, plans)
         self.optimizer.step()
         return loss
+
+    def eval_loss(self, batch: OTBatch, generator: torch.Generator
+                  ) -> torch.Tensor:
+        """The validation loss of a batch: plans from the cost pass, then
+        the loss in eval mode with the same noise, without gradient."""
+        plans, noise = self._passes(batch, generator)
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                return self.model(batch, noise,
+                                  ignore_neighbors=self.ignore_neighbors,
+                                  ot_plans=plans)
+        finally:
+            self.model.train(was_training)
 
 
 def ot_batch(batch_size: int, n_true_confs: int, seed: int = 0,

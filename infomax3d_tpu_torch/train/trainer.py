@@ -1,6 +1,6 @@
 """Training engine (port of `infomax3d_tpu/train/trainer.py`: `Trainer`,
-`SelfSupervisedTrainer`, `SelfSupervisedAETrainer`, `GraphCLTrainer` and
-`DistancePredictorTrainer`).
+`SelfSupervisedTrainer`, `SelfSupervisedAETrainer`, `GraphCLTrainer`,
+`DistancePredictorTrainer` and `OptimalTransportTrainer`).
 
 The host loop is the JAX package's, which is the contract of the
 reference's `Trainer.train` (trainer/trainer.py:69-109): epochs,
@@ -13,8 +13,8 @@ and `train_arguments.yaml` in the run directory, resuming from
 
 The step is not written again here: the supervised trainer runs
 `train/supervised.py::SupervisedStep`, the contrastive one
-`train/pretrain.py::PretrainStep` and the baselines the steps of
-`train/baselines.py`, each built over the config's models and
+`train/pretrain.py::PretrainStep`, the baselines the steps of
+`train/baselines.py` and the OT trainer `train/ot.py::OTStep`, each built over the config's models and
 the grouped optimizer (`train/optim.py`), so the bf16 recipe (float32
 masters, bf16 forward, float32 outputs into the loss) is the steps'.  The
 learning rates come from an `LRController` per the config and are written
@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from infomax3d_tpu_torch.cli import yaml_lite
-from infomax3d_tpu_torch.data.loader import to_device
+from infomax3d_tpu_torch.data.loader import to_device, to_ot_batch
 from infomax3d_tpu_torch.device import resolve_device
 from infomax3d_tpu_torch.interop import flax_paths, load_variables
 from infomax3d_tpu_torch.train import checkpoint
@@ -51,6 +51,7 @@ from infomax3d_tpu_torch.train.baselines import (AEStep, DistanceStep,
                                                 GraphCLStep)
 from infomax3d_tpu_torch.train.logging import TENSORBOARD_FUNCTIONS, RunLogger
 from infomax3d_tpu_torch.train.optim import build_optimizer, label_params
+from infomax3d_tpu_torch.train.ot import OTStep
 from infomax3d_tpu_torch.train.precision import resolve_compute_dtype
 from infomax3d_tpu_torch.train.pretrain import PretrainStep
 from infomax3d_tpu_torch.train.schedulers import LRController
@@ -593,14 +594,98 @@ class DistancePredictorTrainer(Trainer):
                 batch["pairs"]["edge_dist"][:, None][mask])
 
 
+class OptimalTransportTrainer(Trainer):
+    """GeoMol conformer-generation training (reference trainer/
+    optimal_transport_trainer.py:11-67, the JAX package's
+    `OptimalTransportTrainer`): the loss is the model's own, each batch
+    one `OTStep` (cost pass in eval mode, host EMD plans, gradient pass,
+    clip 10, the grouped Adam at the trainer's per-group lrs), the cost
+    without its dihedral and three-hop terms (`ignore_neighbors`) in the
+    epochs before `num_epochs_local_only` (default 1: none).  float32
+    whatever `bf16_compute` says, as the JAX trainer (`supports_bf16 =
+    False`).  Validation is the mean over batches of the eval-mode loss,
+    each batch with its own plans.  The random draws come from one
+    `torch.Generator` on the trainer's device seeded with `seed`; each
+    batch's cost and gradient passes share its noise.  `timing` adds the
+    host seconds of the EMDs (`host_emd`, a part of `step`)."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.compute_dtype = None
+        self._epoch = 1
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            int(self.args.get("seed", 0)))
+        self.timing["host_emd"] = 0.0
+
+    @property
+    def _ignore_neighbors(self) -> bool:
+        return self._epoch < self.args.get("num_epochs_local_only", 1)
+
+    def _make_step(self):
+        return OTStep.from_modules(self.models["model"], self.device,
+                                   self.optimizer)
+
+    def _prepare(self, batch):
+        with self._timed("to_device"):
+            return to_ot_batch(batch["graph"], None, self.device)
+
+    def _collect_emd(self):
+        self.timing["host_emd"] += self.step.emd_s
+        self.step.emd_s = 0.0
+
+    def train_epoch(self, loader, epoch: int) -> None:
+        self._epoch = epoch
+        self.step.ignore_neighbors = self._ignore_neighbors
+        log_iterations = self.args.get("log_iterations", 20)
+        cuda = self.device.type == "cuda"
+        for batch in self._timed_iter(loader):
+            ob = self._prepare(batch)
+            self._write_lrs()
+            with self._timed("step"):
+                if cuda:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                loss = self.step.step(ob, self.generator)
+                if cuda:
+                    end.record()
+                    self._events.append((start, end))
+            self.optim_steps += 1
+            self._after_optim_step()
+            if self.optim_steps % log_iterations == 0:
+                self._sync()
+                with self._timed("logging"):
+                    self.logger.log({self.loss_name: float(loss)}, "train",
+                                    self.optim_steps, epoch)
+        self._collect_emd()
+        if self._events:
+            torch.cuda.synchronize(self.device)
+            self.timing["step_ms"] += [s.elapsed_time(e)
+                                       for s, e in self._events]
+            self._events = []
+
+    def evaluate_epoch(self, loader, epoch: int = 0) -> Dict[str, float]:
+        total, n = 0.0, 0
+        for batch in self._timed_iter(loader):
+            ob = self._prepare(batch)
+            with self._timed("step"):
+                loss = self.step.eval_loss(ob, self.generator)
+            self._sync()
+            with self._timed("metrics"):
+                total += float(loss)
+            n += 1
+        self._collect_emd()
+        return {self.loss_name: total / max(n, 1)}
+
+
 TRAINER_REGISTRY = {"default": Trainer, "contrastive": SelfSupervisedTrainer,
                     "autoencoder": SelfSupervisedAETrainer,
                     "graphcl_trainer": GraphCLTrainer,
-                    "distance_predictor": DistancePredictorTrainer}
+                    "distance_predictor": DistancePredictorTrainer,
+                    "optimal_transport": OptimalTransportTrainer}
 
 # the JAX package's other trainer flavours (ROADMAP queue 1, item 8)
-NOT_PORTED = ("alternating", "byol", "philosophy", "noisy_negatives",
-              "optimal_transport")
+NOT_PORTED = ("alternating", "byol", "philosophy", "noisy_negatives")
 
 
 def get_trainer_class(name: str):

@@ -83,8 +83,8 @@ from infomax3d_tpu_torch.models.attention import (TransformerEncoderBlock,
                                                   masked_softmax)
 from infomax3d_tpu_torch.models.optimal_transport import (
     BIG, OptimalTransportModel)
-from infomax3d_tpu_torch.models.random_variants import (
-    GeneratorNoise, PNAGNNRandomEdgeUpdate, ReplayNoise)
+from infomax3d_tpu_torch.models.noise import GeneratorNoise, ReplayNoise
+from infomax3d_tpu_torch.models.random_variants import PNAGNNRandomEdgeUpdate
 from infomax3d_tpu_torch.ops import geomol_geometry as geo
 from infomax3d_tpu_torch.ops.aggregate import gather_dst
 from infomax3d_tpu_torch.ops.kernels import csr_segment_sum
@@ -741,10 +741,47 @@ def test_replay_noise_refuses_other_draws():
     {"hyperparams": dict(HP, random_alpha=True)},
     {"gnn_params": dict(GNN, hidden_dim=H + 2)},
     {"gnn_params": dict(GNN, mid_batch_norm=True)},
-    {"gnn_params": dict(GNN, dropout=0.1)}])
-def test_ot_model_refuses_unported_options(change):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        OptimalTransportModel.from_config({**MP, **change})
+    {"gnn_params": dict(GNN, dropout=0.1)},
+    {"gnn_model": "PNAGNNRandom", "gnn_params": dict(GNN, dropout=0.1)}])
+def test_ot_model_refuses_unported_options(data, change):
+    """The options the OT model once refused: the `PNAGNNRandom` backbone,
+    `random_alpha`, a backbone wider than the model (`gnn_output_mlp`),
+    the edge-update layers' mid BatchNorm and their dropout now build
+    and match the JAX model from the same weights and draws: the
+    eval-mode cost within 1e-5 of its max, and the training-mode loss on
+    that cost's plans within 1e-5 relative (with the replayed dropout
+    masks and the running statistics).  What the port still lacks
+    raises: `PNAGNNRandom` with dropout (the port's `PNALayer` has
+    none)."""
+    from test_torch_port_ot_trainer import (_jax_apply, _port_noise,
+                                            _stats_errors)
+    mp = {**MP, **change}
+    if mp["gnn_model"] == "PNAGNNRandom" and mp["gnn_params"]["dropout"]:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            OptimalTransportModel.from_config(mp)
+        return
+    arr, _, batch, jb = data
+    params, stats = init_jax_variables(mp, 1, "OptimalTransportModel")
+    var = {"params": params, "batch_stats": stats}
+    jm = JaxOT(hyperparams=mp["hyperparams"], gnn_params=mp["gnn_params"],
+               gnn_model=mp["gnn_model"])
+    tm = load_variables(OptimalTransportModel.from_config(mp), var)
+    cost, _, rec = _jax_apply(jm, var, jb, return_cost_matrix=True)
+    with torch.no_grad():
+        got = tm.eval()(batch, _port_noise(rec),
+                        return_cost_matrix=True).numpy()
+    cost = np.asarray(cost)
+    real = cost < BIG / 2
+    assert _rel(got[real], cost[real]) <= 1e-5
+    plans = ot_plans(cost, arr["pos_mask"], arr["graph_mask"])
+    loss, new_stats, rec = _jax_apply(jm, var, jb, train=True, seed=1,
+                                      ot_plans=jnp.asarray(plans))
+    assert bool(rec["dropout"]) == bool(mp["gnn_params"]["dropout"])
+    with torch.no_grad():
+        got = tm.train()(batch, _port_noise(rec), ot_plans=_t(plans))
+    assert abs(float(got) - float(loss)) <= 1e-5 * abs(float(loss))
+    if new_stats:
+        assert max(_stats_errors(tm, new_stats).values()) <= 1e-5
 
 
 def test_ot_entry_point_on_cpu():

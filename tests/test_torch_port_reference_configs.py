@@ -72,9 +72,7 @@ CACHES = {
 
 # configs that stop at a part the port has not ported: the ROADMAP queue 1
 # item their NotImplementedError names, and what it names
-RAISES = {
-    "pre-train_Optimal_Transport_baseline.yml": (8, "optimal_transport"),
-}
+RAISES = {}
 # configs whose first step also runs through the JAX CLI from the same
 # initial weights (and `configs/contrastive_training_Net3DAE.yml`, below).  The JAX CLI's first batch and weights give a loss in
 # float64 (`_jax_first_loss64`); the port's first logged loss is held to
@@ -170,6 +168,12 @@ def _one_step(config, logdir, path=None):
     if "pna_args" in mp:         # the distance predictor's nested PNA
         ov["model_parameters"]["pna_args"] = {
             k: TINY.get(k, v) for k, v in mp["pna_args"].items()}
+    if "hyperparams" in mp:      # the OT model: its backbone and conformers
+        ov["model_parameters"]["gnn_params"] = {
+            k: TINY.get(k, v) for k, v in mp["gnn_params"].items()}
+        ov["model_parameters"]["hyperparams"] = dict(
+            mp["hyperparams"], hidden_dim=TINY["hidden_dim"],
+            n_model_confs=3, n_true_confs=3)
     if base.get("model3d_parameters"):
         ov["model3d_parameters"] = dict(base["model3d_parameters"], **TINY3D)
     if base["dataset"].startswith("ogbg"):
