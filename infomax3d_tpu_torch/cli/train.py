@@ -364,8 +364,10 @@ def make_loaders(args: Dict[str, Any], dataset):
     `conformer_collate`); shuffled
     train batches (seed `seed`) or, with `train_sampler`, the batches of a
     size-clustered sampler (data/samplers.py); full batches for the
-    contrastive collates."""
-    from infomax3d_tpu_torch.data.loader import GraphDataLoader
+    contrastive collates.  The dense collates take the bucket's graph
+    count and `max_nodes` slots per graph."""
+    from infomax3d_tpu_torch.data.loader import (DENSE_COLLATES,
+                                                 GraphDataLoader)
     from infomax3d_tpu_torch.graphs.batch import BucketSpec
 
     train_idx, val_idx, test_idx = make_splits(args, dataset)
@@ -414,6 +416,10 @@ def make_loaders(args: Dict[str, Any], dataset):
                 str(r) == "complete_graph3d" for r in args["required_data"]):
             # the pair view is the model's input (JAX cli/train.py:550-552)
             ckw.setdefault("graph_3d", True)
+    if collate in DENSE_COLLATES:
+        # the larger of the config's max_nodes and the largest molecule
+        # (JAX cli/train.py:556-558)
+        ckw.setdefault("max_nodes", max(args["max_nodes"], max_n))
     if collate == "ot_collate":
         hp = (args.get("model_parameters") or {}).get("hyperparams") or {}
         ckw.setdefault("n_true_confs",

@@ -13,7 +13,10 @@ its node slots, the distance predictors' pair view), the
 augmentations (`noised_distances_collate`, `noised_coordinates_collate`,
 `node_drop_3d_collate`, `node_drop_2d3d_collate`, `graphcl_collate`) and
 `ot_collate` (the CSR bond graph plus the neighbourhood and dihedral-pair
-index arrays and the true conformer positions).  Node ids are those of the
+index arrays and the true conformer positions), and the dense batches of
+the transformer (`san_collate`, `padded_collate_positional_encoding`:
+padded atom and bond codes, the real-bond mask, the Laplacian PE, the
+NaN-padded targets).  Node ids are those of the
 batch (the CSR sort permutes edges, not nodes), so the OT arrays do not
 depend on the edge order; the graph's edge-keyed arrays follow the
 receiver-sorted order as in every CSR batch.  A CSR view also carries its
@@ -41,6 +44,8 @@ from typing import Callable, Dict, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from infomax3d_tpu_torch.data.featurize import (lap_pe_node_array,
+                                                random_sign_flip)
 from infomax3d_tpu_torch.data.geomol_featurize import geomol_featurize
 from infomax3d_tpu_torch.data.synthetic import complete_graph_from_coords
 from infomax3d_tpu_torch.graphs.batch import (BucketSpec, GraphBatch,
@@ -187,11 +192,13 @@ COLLATE_ALIASES: Dict[str, str] = {
     "padded_distances_collate": "pairwise_distance_collate",
 }
 
+# the collates of dense batches (`max_nodes` slots per graph)
+DENSE_COLLATES = ("san_collate", "padded_collate_positional_encoding",
+                  "egnn_padded_collate", "molhiv_padded_collate")
+
 # the JAX package's other collates and the ROADMAP queue 1 item that ports
-# each: the dense batches (SAN, the transformer, EGNN) and SMP's radius
-# graph, with their models
+# each: EGNN's dense batches and SMP's radius graph, with their models
 NOT_PORTED = {name: 7 for name in (
-    "san_collate", "padded_collate_positional_encoding",
     "egnn_padded_collate", "molhiv_padded_collate", "smp_collate")}
 
 
@@ -431,6 +438,42 @@ def graphcl_collate(items: Sequence[Dict], bucket: BucketSpec,
     v2 = [node_drop(it["graph2d"], rng, drop_ratio) for it in items]
     return {"view1": _csr_view(batch_graphs(v1, bucket), bucket),
             "view2": _csr_view(batch_graphs(v2, bucket), bucket)}
+
+
+@register_collate("san_collate")
+def san_collate(items: Sequence[Dict], bucket: BucketSpec, max_nodes: int = 40,
+                num_lap_pe: int = 10, rng: Optional[np.random.Generator] = None,
+                sign_flip: bool = False):
+    """The dense batch of the bond graphs (reference san_graph and its
+    padded collates): padded atom and bond codes, the real-bond mask, the
+    Laplacian PE (`lap_pe_node_array` where an item has none; sign-flipped
+    with `sign_flip` and an `rng`), the targets NaN-padded, in
+    `bucket.n_graphs` slots of `max_nodes` atoms."""
+    graphs = []
+    for it in items:
+        g = dict(it["graph2d"])
+        if g.get("lap_pe") is None or g["lap_pe"].ndim != 3:
+            g["lap_pe"] = lap_pe_node_array(g["senders"], g["receivers"],
+                                            g["node_feat"].shape[0],
+                                            num_lap_pe)
+        if sign_flip and rng is not None:
+            g["lap_pe"] = random_sign_flip(g["lap_pe"], rng)
+        if "targets" in it:
+            g["targets"] = it["targets"]
+        graphs.append(g)
+    extras = ["targets"] if "targets" in items[0] else []
+    return {"graph": dense_batch(graphs, bucket.n_graphs, max_nodes,
+                                 extras_keys=extras, with_edges=True,
+                                 num_lap_pe=num_lap_pe)}
+
+
+@register_collate("padded_collate_positional_encoding")
+def padded_collate_positional_encoding(items, bucket, max_nodes: int = 40,
+                                       num_lap_pe: int = 10, **kw):
+    """TransformerPlain's batch: `san_collate`'s (reference
+    custom_collate.py:349-358)."""
+    return san_collate(items, bucket, max_nodes=max_nodes,
+                       num_lap_pe=num_lap_pe, **kw)
 
 
 def node_drop(graph: Dict, rng: np.random.Generator, ratio: float) -> Dict:

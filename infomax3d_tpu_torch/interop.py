@@ -20,14 +20,22 @@ flax component              torch component
 ``conv_{i}/Dense_0``,       ``convs.{i}.mlp.0``, ``.mlp.1``, ``.mlp.3``
 ``MaskedBatchNorm_0``,      (a GINConv's Sequential(Linear, BatchNorm1d,
 ``Dense_1``                 ReLU, Linear))
+``node_gnn/Dense_{2k+j}``,  ``node_gnn.mlp_virtualnode_list.{k}.{0|3}``,
+``MaskedBatchNorm_{2k+j}``  ``.{1|4}`` (OGBGNN's virtual node:
+                            Sequential(Linear, BN, ReLU, Linear, BN, ReLU))
+``Dense_0``,                ``pool.gate_nn.0``, ``.1``, ``.3`` (OGBGNN's
+``MaskedBatchNorm_0``,      attention pooling at the tree's root:
+``Dense_1`` (the root's)    Sequential(Linear, BN, ReLU, Linear))
 ``<kind>_encoder/encoder/   ``<kind>_encoder.<kind>_embedding_list.{i}.
 emb_{i}``                   weight``
 ``<dense>/kernel``          ``<dense>.weight`` (a bare Dense, transposed)
+``root_emb``,               ``root_emb.weight``,
+``virtualnode_embedding``   ``virtualnode_embedding.weight`` ([1, D]:
+                            an ``nn.Embedding(1, D)``)
 ``node_embedding``, ``eps``, the same name (a bare parameter)
 ``edge_eps``, ``node_eps``,
 ``edge_eps_{d}``,
-``node_eps_{d}``,
-``virtualnode_embedding``
+``node_eps_{d}``, ``v_node``
 ==========================  ===========================================
 
 ``Dense_0`` and ``MaskedBatchNorm_0`` become ``linear`` and ``batch_norm``
@@ -45,14 +53,20 @@ model's ``gnn_output_mlp`` / ``gnn2_output_mlp``, the GIN backbone's
 ``vn_bn_{i}``, the GeoMol MPNN's ``gnn``, ``node_init``, ``edge_init``,
 ``edge_model[_{d}]``, ``node_model[_{d}]``, ``mlp``, ``node_mlp_1`` /
 ``node_mlp_2``; the distance predictors' ``transformer_layer``,
-``node_projection_net``, ``distance_net`` and ``predictor``, and
-Net3DAE's ``enc_{i}``, ``dec_{i}``, ``node_wise_encoder`` and ``net``.
+``node_projection_net``, ``distance_net`` and ``predictor``,
+Net3DAE's ``enc_{i}``, ``dec_{i}``, ``node_wise_encoder`` and ``net``,
+OGBGNN's ``set2set/lstm_{i}/{ii,if,ig,io,hi,hf,hg,ho}`` (the reference
+has no Set2Set), and the transformers, a JAX redesign: ``pna_{i}``,
+``attn_{i}``, ``combine_{i}``, ``output``, and ``node_gnn``'s
+``pos_enc_mlp`` and ``v_node`` (its blocks ``mp_{i}`` are
+``mp_layers.{i}``, as the table maps them).
 
 `flax_paths` goes the other way for a port module's parameters: each torch
 name's flax path, which the optimizer's group labels read.
 
 `init_jax_variables` makes seeded numpy trees in the flax layout of a PNA,
-Net3DDense, OGBGNN, OptimalTransportModel (each backbone and option),
+Net3DDense, OGBGNN (each option), OGBGNNRandom, PNATransformer,
+TransformerPlain, OptimalTransportModel (each backbone and option),
 DistancePredictor, PNADistancePredictor, Net3DAE, Net3DDistancePredictor
 or GeomolGNNWrapperOGBFeat configuration,
 for serving and training without a checkpoint and for tests;
@@ -89,9 +103,28 @@ _INDEXED = (("mp_", "mp_layers"), ("FCLayer_", "fully_connected"),
             ("conv_", "convs"), ("batch_norm_", "batch_norms"))
 
 
-def _component(c: str, parent: str = "") -> str:
+# OGBGNN's attention pooling: the root's auto-named gate
+# Sequential(Linear, BatchNorm1d, ReLU, Linear)
+_GATE = {"Dense_0": "pool.gate_nn.0", "MaskedBatchNorm_0": "pool.gate_nn.1",
+         "Dense_1": "pool.gate_nn.3"}
+
+
+def _virtual_mlp(c: str) -> str:
+    """``Dense_{2k+j}`` / ``MaskedBatchNorm_{2k+j}`` of OGBGNN's node stack
+    -> the reference's ``mlp_virtualnode_list.{k}.{0|3}`` / ``.{1|4}``."""
+    stem, _, i = c.rpartition("_")
+    k, j = divmod(int(i), 2)
+    return f"mlp_virtualnode_list.{k}.{3 * j + (stem != 'Dense')}"
+
+
+def _component(c: str, parent: str = "", root: bool = False) -> str:
     if _indexed(parent, "conv_") and c in _GIN_MLP:
         return _GIN_MLP[c]
+    if root and c in _GATE:
+        return _GATE[c]
+    if parent == "node_gnn" and (_indexed(c, "Dense_")
+                                 or _indexed(c, "MaskedBatchNorm_")):
+        return _virtual_mlp(c)
     for stem, name in _INDEXED:
         if _indexed(c, stem):
             return f"{name}.{c[len(stem):]}"
@@ -102,7 +135,7 @@ def _component(c: str, parent: str = "") -> str:
 
 
 def _components(mods) -> list:
-    return [_component(c, mods[i - 1] if i else "")
+    return [_component(c, mods[i - 1] if i else "", i == 0)
             for i, c in enumerate(mods)]
 
 
@@ -114,8 +147,9 @@ _LEAVES = {("params", "kernel"): "weight", ("params", "bias"): "bias",
 
 # parameters that are leaves of their module, not of a Dense or BatchNorm
 # (the GeoMol MPNN's per-depth epsilons carry a ``_{d}`` suffix)
-_BARE = ("node_embedding", "eps", "edge_eps", "node_eps",
-         "virtualnode_embedding")
+_BARE = ("node_embedding", "eps", "edge_eps", "node_eps", "v_node")
+# [D] parameters that the reference keeps as nn.Embedding(1, D) weights
+_EMBEDDED = ("root_emb", "virtualnode_embedding")
 
 
 def _bare(leaf: str) -> bool:
@@ -127,6 +161,8 @@ def _torch_name(collection: str, path: Tuple[str, ...]) -> str:
     *mods, leaf = path
     if collection == "params" and _bare(leaf):
         return ".".join(_components(mods) + [leaf])
+    if collection == "params" and leaf in _EMBEDDED:
+        return ".".join(_components(mods) + [leaf, "weight"])
     if leaf.startswith("emb_") and mods and mods[-1] == "encoder":
         kind = mods[-2].split("_")[0]                       # atom / bond
         base = ".".join(_components(mods[:-1]))
@@ -148,6 +184,8 @@ def params_from_jax(params: Mapping, batch_stats: Mapping
             v = np.asarray(value, dtype=np.float32)
             if path[-1] == "kernel":
                 v = v.T
+            elif path[-1] in _EMBEDDED:
+                v = v.reshape(1, -1)
             name = _torch_name(collection, path)
             sd[name] = torch.from_numpy(np.ascontiguousarray(v).copy())
             if collection == "batch_stats" and path[-1] == "mean":
@@ -158,6 +196,7 @@ def params_from_jax(params: Mapping, batch_stats: Mapping
 
 _FLAX_INDEXED = {name: stem for stem, name in _INDEXED}
 _FLAX_GIN_MLP = {v.split(".")[1]: k for k, v in _GIN_MLP.items()}
+_FLAX_GATE = {v.split(".")[2]: k for k, v in _GATE.items()}
 
 
 def _flax_components(parts) -> list:
@@ -174,6 +213,14 @@ def _flax_components(parts) -> list:
         elif _indexed(parent, "conv_") and c == "mlp" and nxt.isdigit():
             out.append(_FLAX_GIN_MLP[nxt])
             i += 2
+        elif not out and c == "pool" and nxt == "gate_nn":
+            out.append(_FLAX_GATE[parts[i + 2]])
+            i += 3
+        elif c == "mlp_virtualnode_list" and nxt.isdigit():
+            k, pos = int(nxt), int(parts[i + 2])
+            stem = "Dense" if pos in (0, 3) else "MaskedBatchNorm"
+            out.append(f"{stem}_{2 * k + (pos >= 3)}")
+            i += 3
         elif _indexed(parent, "FCLayer_") and c in ("linear", "batch_norm"):
             out.append("Dense_0" if c == "linear" else "MaskedBatchNorm_0")
             i += 1
@@ -274,6 +321,12 @@ def init_jax_variables(model_parameters: Mapping, seed: int = 0,
         return _init_net3d_dense(mp, rng)
     if model_type == "OGBGNN":
         return _init_ogbgnn(mp, rng)
+    if model_type == "OGBGNNRandom":
+        return _init_ogbgnn_random(mp, rng)
+    if model_type == "PNATransformer":
+        return _init_pna_transformer(mp, rng)
+    if model_type == "TransformerPlain":
+        return _init_transformer_plain(mp, rng)
     if model_type == "OptimalTransportModel":
         return _init_optimal_transport(mp, rng)
     if model_type == "GeomolGNNWrapperOGBFeat":
@@ -298,25 +351,87 @@ def init_jax_variables(model_parameters: Mapping, seed: int = 0,
             _f32({"node_gnn": gnn_stats, "output": out_s}))
 
 
+def _encoders(rng, d: int) -> Dict[str, Any]:
+    return {"atom_encoder": {"encoder": _emb_tree(rng, FULL_ATOM_FEATURE_DIMS,
+                                                  d)},
+            "bond_encoder": {"encoder": _emb_tree(rng, FULL_BOND_FEATURE_DIMS,
+                                                  d)}}
+
+
+def _pna_layer_tree(rng, mp: Mapping[str, Any]):
+    """One `PNALayer` of `mp`'s PNA fields: (params, batch_stats)."""
+    d = mp["hidden_dim"]
+    n_aggs = len(mp["aggregators"]) * len(mp["scalers"])
+    bn = (mp.get("mid_batch_norm", False), mp.get("last_batch_norm", False))
+    pre_p, pre_s = _mlp_tree(rng, 3 * d, d, mp.get("pretrans_layers", 1),
+                             d, *bn)
+    post_p, post_s = _mlp_tree(rng, (n_aggs + 1) * d, d,
+                               mp.get("posttrans_layers", 1), d, *bn)
+    return ({"pretrans": pre_p, "posttrans": post_p},
+            {"pretrans": pre_s, "posttrans": post_s})
+
+
 def _pnagnn_tree(mp: Mapping[str, Any], rng, emb_dim: int = 0):
     """`PNAGNN(**mp)`'s (params, batch_stats); encoders of width `emb_dim`
     (default the hidden width)."""
-    d = mp["hidden_dim"]
-    n_aggs = len(mp["aggregators"]) * len(mp["scalers"])
-    gnn = {"atom_encoder": {"encoder": _emb_tree(rng, FULL_ATOM_FEATURE_DIMS,
-                                                 emb_dim or d)},
-           "bond_encoder": {"encoder": _emb_tree(rng, FULL_BOND_FEATURE_DIMS,
-                                                 emb_dim or d)}}
+    gnn = _encoders(rng, emb_dim or mp["hidden_dim"])
     gnn_stats: Dict[str, Any] = {}
-    bn = (mp.get("mid_batch_norm", False), mp.get("last_batch_norm", False))
     for i in range(mp.get("propagation_depth", 5)):
-        pre_p, pre_s = _mlp_tree(rng, 3 * d, d, mp.get("pretrans_layers", 1),
-                                 d, *bn)
-        post_p, post_s = _mlp_tree(rng, (n_aggs + 1) * d, d,
-                                   mp.get("posttrans_layers", 1), d, *bn)
-        gnn[f"mp_{i}"] = {"pretrans": pre_p, "posttrans": post_p}
-        gnn_stats[f"mp_{i}"] = {"pretrans": pre_s, "posttrans": post_s}
+        gnn[f"mp_{i}"], gnn_stats[f"mp_{i}"] = _pna_layer_tree(rng, mp)
     return gnn, gnn_stats
+
+
+def _transformer_block_tree(rng, d: int, ff: int) -> Dict[str, Any]:
+    """A `TransformerEncoderBlock(d, heads, ff)`'s params."""
+    return {"self_attn": {"in_proj": _dense_tree(rng, d, 3 * d),
+                          "out_proj": _dense_tree(rng, d, d)},
+            "norm1": _norm_tree(rng, d),
+            "linear1": _dense_tree(rng, d, ff),
+            "linear2": _dense_tree(rng, ff, d),
+            "norm2": _norm_tree(rng, d)}
+
+
+def _readout_tree(rng, mp: Mapping[str, Any], in_dim: int):
+    """The readout MLP ``output`` of the supervised models."""
+    return _mlp_tree(rng, in_dim, mp["target_dim"],
+                     mp.get("readout_layers", 2),
+                     mp.get("readout_hidden_dim") or mp["hidden_dim"],
+                     mp.get("readout_batchnorm", True), False)
+
+
+def _init_pna_transformer(mp: Dict[str, Any], rng):
+    """`PNATransformer(**mp)`: the encoders, per layer ``pna_{i}``,
+    ``attn_{i}`` and ``combine_{i}`` (one Linear [2D, D]), and
+    ``output``."""
+    d = mp["hidden_dim"]
+    params, stats = _encoders(rng, d), {}
+    for i in range(mp.get("propagation_depth", 5)):
+        params[f"pna_{i}"], stats[f"pna_{i}"] = _pna_layer_tree(rng, mp)
+        params[f"attn_{i}"] = _transformer_block_tree(
+            rng, d, mp.get("dim_feedforward", 256))
+        params[f"combine_{i}"] = _mlp_tree(rng, 2 * d, d, 1, d, False,
+                                           False)[0]
+    params["output"], stats["output"] = _readout_tree(
+        rng, mp, d * len(mp.get("readout_aggregators", ("mean",))))
+    return _f32(params), _f32(stats)
+
+
+def _init_transformer_plain(mp: Dict[str, Any], rng):
+    """`TransformerPlain(**mp)`: ``node_gnn`` (the atom encoder of width
+    hidden - pos_enc_dim, ``pos_enc_mlp``, ``v_node``, ``mp_{i}``) and
+    ``output``."""
+    d, pe = mp["hidden_dim"], mp.get("pos_enc_dim", 16)
+    gnn: Dict[str, Any] = {
+        "atom_encoder": {"encoder": _emb_tree(rng, FULL_ATOM_FEATURE_DIMS,
+                                              d - pe)},
+        "pos_enc_mlp": _dense_tree(rng, 2, pe),
+        "v_node": rng.normal(0.0, 1.0, d)}
+    for i in range(mp.get("propagation_depth", 5)):
+        gnn[f"mp_{i}"] = _transformer_block_tree(
+            rng, d, mp.get("dim_feedforward", 256))
+    out_p, out_s = _readout_tree(rng, mp, d)
+    return (_f32({"node_gnn": gnn, "output": out_p}),
+            _f32({"output": out_s}))
 
 
 def _init_distance_predictor(mp: Dict[str, Any], rng):
@@ -328,14 +443,8 @@ def _init_distance_predictor(mp: Dict[str, Any], rng):
     stats: Dict[str, Any] = {}
     params["node_gnn"], stats["node_gnn"] = _pnagnn_tree(mp["pna_args"], rng)
     if mp.get("transformer_layer", True):
-        ff = mp.get("dim_feedforward", 256)
-        params["transformer_layer"] = {
-            "self_attn": {"in_proj": _dense_tree(rng, d, 3 * d),
-                          "out_proj": _dense_tree(rng, d, d)},
-            "norm1": _norm_tree(rng, d),
-            "linear1": _dense_tree(rng, d, ff),
-            "linear2": _dense_tree(rng, ff, d),
-            "norm2": _norm_tree(rng, d)}
+        params["transformer_layer"] = _transformer_block_tree(
+            rng, d, mp.get("dim_feedforward", 256))
     pdim, layers = mp.get("projection_dim", 3), mp.get("projection_layers", 1)
     if mp.get("distance_net", False):
         params["distance_net"], stats["distance_net"] = _mlp_tree(
@@ -430,26 +539,72 @@ def _emb_tree(rng, dims, d):
 
 
 def _init_ogbgnn(mp: Dict[str, Any], rng):
-    """`OGBGNN(hidden_dim, num_layers, target_dim, virtual_node=False)`:
-    the JAX module's defaults (width 300, 5 layers) where the config is
-    silent."""
+    """`OGBGNN(**mp)`: the JAX module's defaults (width 300, 5 layers, a
+    virtual node, GIN, sum pooling) where the config is silent.  GIN
+    convolutions get a non-zero `eps`, GCN ones a `root_emb`, the virtual
+    node a non-zero embedding, so that each path shows in a test."""
     d, layers = mp.get("hidden_dim", 300), mp.get("num_layers", 5)
     gnn: Dict[str, Any] = {
         "atom_encoder": {"encoder": _emb_tree(rng, FULL_ATOM_FEATURE_DIMS, d)}}
     stats: Dict[str, Any] = {}
     for i in range(layers):
-        bn_p, bn_s = _bn_tree(rng, d)
-        gnn[f"conv_{i}"] = {
-            "bond_encoder": {"encoder": _emb_tree(rng, FULL_BOND_FEATURE_DIMS,
-                                                  d)},
-            "eps": rng.normal(0.0, 0.1, 1),
-            "Dense_0": _dense_tree(rng, d, d), "MaskedBatchNorm_0": bn_p,
-            "Dense_1": _dense_tree(rng, d, d)}
+        if mp.get("gnn_type", "gin") == "gin":
+            bn_p, bn_s = _bn_tree(rng, d)
+            gnn[f"conv_{i}"] = {
+                "bond_encoder": {"encoder": _emb_tree(
+                    rng, FULL_BOND_FEATURE_DIMS, d)},
+                "eps": rng.normal(0.0, 0.1, 1),
+                "Dense_0": _dense_tree(rng, d, d), "MaskedBatchNorm_0": bn_p,
+                "Dense_1": _dense_tree(rng, d, d)}
+            stats[f"conv_{i}"] = {"MaskedBatchNorm_0": bn_s}
+        else:
+            gnn[f"conv_{i}"] = {
+                "linear": _dense_tree(rng, d, d),
+                "bond_encoder": {"encoder": _emb_tree(
+                    rng, FULL_BOND_FEATURE_DIMS, d)},
+                "root_emb": rng.normal(0.0, 1.0, d)}
         gnn[f"batch_norm_{i}"], stats[f"batch_norm_{i}"] = _bn_tree(rng, d)
-        stats[f"conv_{i}"] = {"MaskedBatchNorm_0": bn_s}
-    params = {"node_gnn": gnn, "graph_pred_linear": _dense_tree(
-        rng, d, mp.get("target_dim", 1))}
-    return _f32(params), _f32({"node_gnn": stats})
+    params: Dict[str, Any] = {"node_gnn": gnn}
+    root_stats: Dict[str, Any] = {"node_gnn": stats}
+    if mp.get("virtual_node", True):
+        gnn["virtualnode_embedding"] = rng.normal(0.0, 0.1, d)
+        for j in range(2 * (layers - 1)):
+            gnn[f"Dense_{j}"] = _dense_tree(rng, d, d)
+            gnn[f"MaskedBatchNorm_{j}"], stats[f"MaskedBatchNorm_{j}"] = \
+                _bn_tree(rng, d)
+    pooling, out_dim = mp.get("graph_pooling", "sum"), d
+    if pooling == "attention":
+        params["Dense_0"] = _dense_tree(rng, d, 2 * d)
+        params["MaskedBatchNorm_0"], root_stats["MaskedBatchNorm_0"] = \
+            _bn_tree(rng, 2 * d)
+        params["Dense_1"] = _dense_tree(rng, 2 * d, 1)
+    elif pooling == "set2set":
+        params["set2set"] = {f"lstm_{k}": _lstm_tree(
+            rng, 2 * d if k == 0 else d, d) for k in range(2)}
+        out_dim = 2 * d
+    params["graph_pred_linear"] = _dense_tree(rng, out_dim,
+                                              mp.get("target_dim", 1))
+    return _f32(params), _f32(root_stats)
+
+
+def _lstm_tree(rng, in_dim: int, d: int) -> Dict[str, Any]:
+    """A flax `LSTMCell(d)` on inputs of width `in_dim`: the input Denses
+    without bias, the carry's with one."""
+    out: Dict[str, Any] = {}
+    for gate in ("i", "f", "g", "o"):
+        out[f"i{gate}"] = {"kernel": _dense_tree(rng, in_dim, d)["kernel"]}
+        out[f"h{gate}"] = _dense_tree(rng, d, d)
+    return out
+
+
+def _init_ogbgnn_random(mp: Dict[str, Any], rng):
+    """`OGBGNNRandom(**mp)`: ``node_gnn`` (a `GNNNodeRandom`, with a
+    virtual node unless the config says otherwise) and
+    ``graph_pred_linear``."""
+    gnn, stats = _init_gin_random(mp, rng, mp.get("virtual_node", True))
+    gnn["graph_pred_linear"] = _dense_tree(rng, mp.get("hidden_dim", 300),
+                                           mp.get("target_dim", 1))
+    return _f32(gnn), _f32(stats)
 
 
 def _geomol_mlp_tree(rng, in_dim, out_dim, num_layers):
@@ -501,16 +656,17 @@ def _init_pna_random(gp: Mapping, rng):
     return _pnagnn_tree(gp, rng, gp["hidden_dim"] - gp["random_vec_dim"])
 
 
-def _init_gin_random(gp: Mapping, rng):
+def _init_gin_random(gp: Mapping, rng, virtual_node: bool = True):
     """`GINVirtualRandomBackbone(**gp)`: ``node_gnn``, a `GNNNodeRandom`
     with a virtual node (a non-zero ``virtualnode_embedding``, so that the
-    virtual node's path shows in a test)."""
+    virtual node's path shows in a test), or without one."""
     d, rvd = gp.get("hidden_dim", 300), gp.get("random_vec_dim", 10)
     layers = gp.get("num_layers", 5)
     node: Dict[str, Any] = {
         "atom_encoder": {"encoder": _emb_tree(rng, FULL_ATOM_FEATURE_DIMS,
-                                              d - rvd)},
-        "virtualnode_embedding": rng.normal(0.0, 0.1, d)}
+                                              d - rvd)}}
+    if virtual_node:
+        node["virtualnode_embedding"] = rng.normal(0.0, 0.1, d)
     stats: Dict[str, Any] = {}
     for i in range(layers):
         bn_p, bn_s = _bn_tree(rng, d)
@@ -522,7 +678,7 @@ def _init_gin_random(gp: Mapping, rng):
             "Dense_1": _dense_tree(rng, d, d)}
         stats[f"conv_{i}"] = {"MaskedBatchNorm_0": bn_s}
         node[f"bn_{i}"], stats[f"bn_{i}"] = _bn_tree(rng, d)
-        if i < layers - 1:
+        if virtual_node and i < layers - 1:
             node[f"vn_mlp_{i}_0"] = _dense_tree(rng, d, 2 * d)
             node[f"vn_bn_{i}"], stats[f"vn_bn_{i}"] = _bn_tree(rng, 2 * d)
             node[f"vn_mlp_{i}_1"] = _dense_tree(rng, 2 * d, d)

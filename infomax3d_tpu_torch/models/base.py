@@ -131,7 +131,8 @@ class PromotingLinear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = torch.promote_types(x.dtype, self.weight.dtype)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class EdgeInput(NamedTuple):

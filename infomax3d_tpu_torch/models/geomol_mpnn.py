@@ -167,7 +167,9 @@ class GeomolGNNWrapperOGBFeat(nn.Module):
                           hidden_size=readout_hidden_dim or hidden_dim,
                           mid_batch_norm=readout_batchnorm)
 
-    def forward(self, g) -> torch.Tensor:
+    def forward(self, g, noise=None) -> torch.Tensor:
+        """`noise` (the supervised step's dropout source) draws nothing:
+        the model has no dropout."""
         x, _ = self.node_gnn(g)
         pooled = segment_mean(x, g.node_graph, g.graph_mask.shape[0])
         return self.output(pooled, g.graph_mask)

@@ -177,7 +177,9 @@ class Net3DDense(nn.Module):
         return cls(**{k: v for k, v in dict(model3d_parameters).items()
                       if k in known and k != "self"})
 
-    def forward(self, g) -> torch.Tensor:
+    def forward(self, g, noise=None) -> torch.Tensor:
+        """`noise` (the supervised step's dropout source) draws nothing
+        here: dropout > 0 is refused."""
         if self.training and self.dropout > 0:
             raise NotImplementedError("dropout > 0 is not ported")
         if hasattr(self, "atom_encoder"):
@@ -215,7 +217,7 @@ class Net3D(Net3DDense):
 
     LAYER = Net3DLayer
 
-    def forward(self, g) -> torch.Tensor:
+    def forward(self, g, noise=None) -> torch.Tensor:
         if self.training and self.dropout > 0:
             raise NotImplementedError("dropout > 0 is not ported")
         if hasattr(self, "atom_encoder"):

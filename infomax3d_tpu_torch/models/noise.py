@@ -88,6 +88,20 @@ class ReplayNoise:
         return self._next("bernoulli", shape)
 
 
+class MasksOnly:
+    """Dropout masks from `source` and no noise: `noise_columns` gives
+    zeros for this source, as the JAX models do without their 'random'
+    rng; any other draw raises."""
+
+    gives_noise = False
+
+    def __init__(self, source):
+        self.source = source
+
+    def bernoulli(self, p: float, shape) -> torch.Tensor:
+        return self.source.bernoulli(p, shape)
+
+
 def dropout(x: torch.Tensor, rate: float, noise, training: bool
             ) -> torch.Tensor:
     """flax's ``nn.Dropout(rate)`` on x: identity in eval mode or at rate
@@ -107,7 +121,8 @@ def dropout(x: torch.Tensor, rate: float, noise, training: bool
 def noise_columns(noise: Optional[object], rows: int, dim: int, std: float,
                   like: torch.Tensor) -> torch.Tensor:
     """``std * normal((rows, dim))`` from `noise` in `like`'s dtype, or
-    zeros without a source (the JAX models without their 'random' rng)."""
-    if noise is None:
+    zeros without a source or from a source of masks alone (the JAX models
+    without their 'random' rng)."""
+    if noise is None or not getattr(noise, "gives_noise", True):
         return like.new_zeros((rows, dim))
     return std * noise.normal((rows, dim)).to(like.dtype)

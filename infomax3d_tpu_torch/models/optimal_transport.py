@@ -96,7 +96,7 @@ class GINVirtualRandomBackbone(nn.Module):
         return cls(**{k: v for k, v in params.items() if k in cls.FIELDS})
 
     def forward(self, g, noise=None) -> torch.Tensor:
-        like = self.node_gnn.virtualnode_embedding
+        like = self.node_gnn.virtualnode_embedding.weight
         rand_x = noise_columns(noise, g.node_feat.shape[0],
                                self.random_vec_dim, self.random_vec_std, like)
         rand_e = noise_columns(noise, g.senders.shape[0],

@@ -6,8 +6,13 @@ Per layer: the pretrans MLP on ``[h[src] ‖ h[dst] ‖ e]`` (its first layer
 through the edge-combine kernel, its BatchNorms folded), the PNA
 aggregators and degree scalers at each receiver (the stats or multi-reduce
 kernel, `ops/aggregate.py`), the posttrans MLP on ``[h ‖ aggregates]``, and
-the residual.  The model reads out min / max / mean per graph and applies
-the output MLP.
+the residual.  Both MLPs run their dropout (Linear -> activation ->
+dropout -> BatchNorm, the masks over every edge or node row, padding
+included, from the noise source the forward is given): in the pretrans
+MLP a mask falls between the edge-combine kernel's output and the
+BatchNorm affine that the stats kernel folds in, so the kernels' backward
+runs on the masked cotangent.  The model reads out min / max / mean per
+graph and applies the output MLP.
 """
 from __future__ import annotations
 
@@ -31,7 +36,8 @@ class PNALayer(nn.Module):
                  residual: bool = True, mid_batch_norm: bool = False,
                  last_batch_norm: bool = False,
                  batch_norm_momentum: float = 0.1, avg_d_log: float = 1.0,
-                 posttrans_layers: int = 2, pretrans_layers: int = 1):
+                 posttrans_layers: int = 2, pretrans_layers: int = 1,
+                 dropout: float = 0.0):
         super().__init__()
         self.aggregators = tuple(aggregators)
         self.scalers = tuple(scalers)
@@ -40,22 +46,25 @@ class PNALayer(nn.Module):
         bn = dict(mid_batch_norm=mid_batch_norm,
                   last_batch_norm=last_batch_norm,
                   batch_norm_momentum=batch_norm_momentum,
-                  mid_activation=activation, last_activation=last_activation)
+                  mid_activation=activation, last_activation=last_activation,
+                  dropout=dropout)
         self.pretrans = MLP(2 * in_dim + in_dim_edges, in_dim,
                             pretrans_layers, hidden_size=in_dim, **bn)
         n_parts = len(self.aggregators) * len(self.scalers) + 1
         self.posttrans = MLP(n_parts * in_dim, out_dim, posttrans_layers,
                              hidden_size=out_dim, **bn)
 
-    def forward(self, g, h: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    def forward(self, g, h: torch.Tensor, e: torch.Tensor,
+                noise=None) -> torch.Tensor:
         # the pretrans last BatchNorm stays lazy: the stats kernel folds it
         msg = self.pretrans(EdgeInput(h, g.senders, g.receivers, e,
                                       g.csr_row_ptr, g.csc_row_ptr,
                                       g.csc_perm),
-                            g.edge_mask, lazy_out=True)
+                            g.edge_mask, lazy_out=True, noise=noise)
         parts = pna_aggregate_parts(g, msg, self.aggregators, self.scalers,
                                     self.avg_d_log)
-        h_new = self.posttrans(torch.cat([h] + parts, dim=-1), g.node_mask)
+        h_new = self.posttrans(torch.cat([h] + parts, dim=-1), g.node_mask,
+                               noise=noise)
         return h_new + h if self.residual else h_new
 
 
@@ -69,7 +78,7 @@ class PNAGNN(nn.Module):
                  mid_batch_norm: bool = False, last_batch_norm: bool = False,
                  batch_norm_momentum: float = 0.1,
                  propagation_depth: int = 5, posttrans_layers: int = 1,
-                 pretrans_layers: int = 1):
+                 pretrans_layers: int = 1, dropout: float = 0.0):
         super().__init__()
         self.atom_encoder = AtomEncoder(hidden_dim)
         self.bond_encoder = BondEncoder(hidden_dim)
@@ -81,22 +90,22 @@ class PNAGNN(nn.Module):
                      last_batch_norm=last_batch_norm,
                      batch_norm_momentum=batch_norm_momentum, avg_d_log=1.0,
                      posttrans_layers=posttrans_layers,
-                     pretrans_layers=pretrans_layers)
+                     pretrans_layers=pretrans_layers, dropout=dropout)
             for _ in range(propagation_depth))
 
-    def forward(self, g) -> torch.Tensor:
+    def forward(self, g, noise=None) -> torch.Tensor:
         h = self.atom_encoder(g.node_feat)
         e = self.bond_encoder(g.edge_feat)
         for layer in self.mp_layers:
-            h = layer(g, h, e)
+            h = layer(g, h, e, noise)
         return h
 
 
 class PNA(nn.Module):
     """GNN + multi-aggregator readout + output MLP (reference
     `models/pna.py:90-135`).  Keyword arguments are the `model_parameters`
-    of the reference configs; the port has no dropout, so training with
-    `dropout` > 0 raises."""
+    of the reference configs; the dropout masks come from the noise source
+    the forward is given (required in training with `dropout` > 0)."""
 
     def __init__(self, hidden_dim: int, target_dim: int,
                  aggregators: Sequence[str], scalers: Sequence[str],
@@ -111,7 +120,6 @@ class PNA(nn.Module):
                  batch_norm_momentum: float = 0.1):
         super().__init__()
         self.readout_aggregators = tuple(readout_aggregators)
-        self.dropout = dropout
         self.node_gnn = PNAGNN(
             hidden_dim, aggregators, scalers, residual=residual,
             activation=activation, last_activation=last_activation,
@@ -119,16 +127,14 @@ class PNA(nn.Module):
             batch_norm_momentum=batch_norm_momentum,
             propagation_depth=propagation_depth,
             posttrans_layers=posttrans_layers,
-            pretrans_layers=pretrans_layers)
+            pretrans_layers=pretrans_layers, dropout=dropout)
         self.output = MLP(hidden_dim * len(self.readout_aggregators),
                           target_dim, readout_layers,
                           hidden_size=readout_hidden_dim or hidden_dim,
                           mid_batch_norm=readout_batchnorm,
                           batch_norm_momentum=batch_norm_momentum)
 
-    def forward(self, g) -> torch.Tensor:
-        if self.training and self.dropout > 0:
-            raise NotImplementedError("dropout > 0 is not ported")
-        h = self.node_gnn(g)
+    def forward(self, g, noise=None) -> torch.Tensor:
+        h = self.node_gnn(g, noise)
         return self.output(batch_readout(g, h, self.readout_aggregators),
                            g.graph_mask)

@@ -5,7 +5,8 @@ generator's default backbone.
 Atom and bond encoders emit ``hidden - random_vec_dim`` columns, one draw
 of node and edge noise fills the rest, then `propagation_depth` PNA layers
 (`models/pna.py::PNALayer`: the edge-combine kernel, the aggregates, the
-posttrans MLP and the residual) over the noisy node and edge states.
+posttrans MLP and the residual, with their dropout) over the noisy node
+and edge states.
 """
 from __future__ import annotations
 
@@ -22,8 +23,8 @@ from infomax3d_tpu_torch.models.pna import PNALayer
 class PNAGNNRandom(nn.Module):
     """Keyword arguments are the JAX module's fields with its defaults;
     ``mp_layers.{i}`` are flax's ``mp_{i}``.  Returns the node embeddings
-    [N, hidden_dim].  The port's `PNALayer` has no dropout and no pairwise
-    distances: a dropout above 0 or `pairwise_distances` raises."""
+    [N, hidden_dim].  The port's `PNALayer` has no pairwise distances:
+    `pairwise_distances` raises."""
 
     FIELDS = ("random_vec_dim", "hidden_dim", "aggregators", "scalers",
               "random_vec_std", "residual", "pairwise_distances",
@@ -41,13 +42,10 @@ class PNAGNNRandom(nn.Module):
                  propagation_depth: int = 5, dropout: float = 0.0,
                  posttrans_layers: int = 1, pretrans_layers: int = 1):
         super().__init__()
-        bad = {k: v for k, v in {"dropout": dropout > 0 and dropout,
-                                 "pairwise_distances": pairwise_distances
-                                 }.items() if v}
-        if bad:
+        if pairwise_distances:
             raise NotImplementedError(
-                f"PNAGNNRandom options not ported (the port's PNALayer): "
-                f"{bad}")
+                "PNAGNNRandom pairwise_distances is not ported (the port's "
+                "PNALayer)")
         self.random_vec_dim, self.random_vec_std = random_vec_dim, \
             random_vec_std
         small = hidden_dim - random_vec_dim
@@ -61,7 +59,7 @@ class PNAGNNRandom(nn.Module):
                      last_batch_norm=last_batch_norm,
                      batch_norm_momentum=batch_norm_momentum, avg_d_log=1.0,
                      posttrans_layers=posttrans_layers,
-                     pretrans_layers=pretrans_layers)
+                     pretrans_layers=pretrans_layers, dropout=dropout)
             for _ in range(propagation_depth))
 
     @classmethod
@@ -78,5 +76,5 @@ class PNAGNNRandom(nn.Module):
                                         self.random_vec_dim,
                                         self.random_vec_std, e)], dim=-1)
         for layer in self.mp_layers:
-            h = layer(g, h, e)
+            h = layer(g, h, e, noise)
         return h

@@ -41,7 +41,7 @@ from infomax3d_tpu_torch.models.noise import dropout, noise_columns
 from infomax3d_tpu_torch.ops.aggregate import (edge_aggregate, gather_dst,
                                                gather_src,
                                                pna_aggregate_parts)
-from infomax3d_tpu_torch.ops.segment import segment_sum
+from infomax3d_tpu_torch.ops.segment import batch_readout, segment_sum
 
 
 class PNALayerEdgeUpdate(nn.Module):
@@ -165,7 +165,7 @@ class GINConvRandom(GINConv):
     def forward(self, g, h: torch.Tensor, rand_edge: torch.Tensor
                 ) -> torch.Tensor:
         emb = self.bond_encoder(g.edge_feat)
-        emb = torch.cat([emb, rand_edge.to(emb.dtype)], dim=-1)
+        emb = torch.cat([emb, rand_edge], dim=-1)     # promoted, as JAX
         msg = F.relu(gather_src(g, h) + emb)
         z = (1.0 + self.eps) * h + edge_aggregate(g, msg, "sum")
         lin0, bn, relu, lin1 = self.mlp
@@ -175,7 +175,8 @@ class GINConvRandom(GINConv):
 class GNNNodeRandom(nn.Module):
     """The GIN node stack with noise columns (reference `gin_random.py:
     153-243`): ``convs.{i}`` (flax ``conv_{i}``), ``bn_{i}``, and with a
-    virtual node ``virtualnode_embedding``, ``vn_mlp_{i}_0`` /
+    virtual node ``virtualnode_embedding`` (an ``nn.Embedding(1, D)``, as
+    the reference's), ``vn_mlp_{i}_0`` /
     ``vn_bn_{i}`` / ``vn_mlp_{i}_1`` between layers; jumping knowledge
     "last" or "sum" (the JAX module's sum of the stack's inputs, the
     embedding included and the last layer's output not)."""
@@ -196,7 +197,8 @@ class GNNNodeRandom(nn.Module):
         for i in range(num_layers):
             self.add_module(f"bn_{i}", MaskedBatchNorm(H, m))
         if virtual_node:
-            self.virtualnode_embedding = nn.Parameter(torch.zeros(H))
+            self.virtualnode_embedding = nn.Embedding(1, H)
+            nn.init.zeros_(self.virtualnode_embedding.weight)
             for i in range(num_layers - 1):
                 self.add_module(f"vn_mlp_{i}_0", PromotingLinear(H, 2 * H))
                 self.add_module(f"vn_bn_{i}", MaskedBatchNorm(2 * H, m))
@@ -206,10 +208,10 @@ class GNNNodeRandom(nn.Module):
                 noise=None) -> torch.Tensor:
         G = g.graph_mask.shape[0]
         h = self.atom_encoder(g.node_feat)
-        h = torch.cat([h, rand_x.to(h.dtype)], dim=-1)
+        h = torch.cat([h, rand_x], dim=-1)
         graph_of = g.node_graph.clamp(0, G - 1).long()
         if self.virtual_node:
-            virtual = self.virtualnode_embedding[None].expand(G, -1)
+            virtual = self.virtualnode_embedding.weight.expand(G, -1)
         h_list = [h]
         for i, conv in enumerate(self.convs):
             h = h_list[i]
@@ -232,3 +234,50 @@ class GNNNodeRandom(nn.Module):
         if self.jk == "last":
             return h_list[-1]
         return sum(h_list[:self.num_layers])
+
+
+class OGBGNNRandom(nn.Module):
+    """Reference `gin_random.py:16-86` (the JAX `OGBGNNRandom`): one draw of
+    node then edge noise, ``node_gnn`` (`GNNNodeRandom`), the graph
+    pooling (sum, mean or max) and `graph_pred_linear`.  Keyword arguments
+    are the JAX module's fields with its defaults.  Under the supervised
+    trainer the source gives masks alone, so the noise columns are zeros
+    (`noise.MasksOnly`), as the JAX trainer's are."""
+
+    FIELDS = ("target_dim", "num_layers", "hidden_dim", "virtual_node",
+              "residual", "dropout", "JK", "graph_pooling", "random_vec_dim",
+              "random_vec_std", "batch_norm_momentum")
+
+    def __init__(self, target_dim: int = 1, num_layers: int = 5,
+                 hidden_dim: int = 300, virtual_node: bool = True,
+                 residual: bool = False, dropout: float = 0.0,
+                 JK: str = "last", graph_pooling: str = "sum",
+                 random_vec_dim: int = 10, random_vec_std: float = 1.0,
+                 batch_norm_momentum: float = 0.1):
+        super().__init__()
+        if graph_pooling not in ("sum", "mean", "max"):
+            raise ValueError(f"unknown readout aggregator: {graph_pooling}")
+        self.graph_pooling = graph_pooling
+        self.random_vec_dim, self.random_vec_std = random_vec_dim, \
+            random_vec_std
+        self.node_gnn = GNNNodeRandom(
+            num_layers, hidden_dim, random_vec_dim, dropout=dropout, jk=JK,
+            residual=residual, batch_norm_momentum=batch_norm_momentum,
+            virtual_node=virtual_node)
+        self.graph_pred_linear = PromotingLinear(hidden_dim, target_dim)
+
+    @classmethod
+    def from_config(cls, params: Mapping[str, Any]) -> "OGBGNNRandom":
+        return cls(**{k: v for k, v in params.items() if k in cls.FIELDS})
+
+    def forward(self, g, noise=None) -> torch.Tensor:
+        # float32 noise columns (zeros without a source), as the JAX
+        # model's: they promote the bf16 encoders' columns they join
+        like = torch.empty(0, device=g.node_feat.device)
+        rand_x = noise_columns(noise, g.node_feat.shape[0],
+                               self.random_vec_dim, self.random_vec_std, like)
+        rand_e = noise_columns(noise, g.senders.shape[0],
+                               self.random_vec_dim, self.random_vec_std, like)
+        h = self.node_gnn(g, rand_x, rand_e, noise)
+        return self.graph_pred_linear(
+            batch_readout(g, h, [self.graph_pooling]))

@@ -11,7 +11,10 @@ package does.  `Net3DVAE` names `Net3DAE` (`MODEL_ALIASES`, the JAX
 table: the reference's configs name a class that exists nowhere).  The OT
 generator's backbones (`gnn_model`: `PNAGNNRandom`, `GeomolGNNOGBFeat`
 and the others) are in `optimal_transport.BACKBONES`, each class with its
-JAX fields as `FIELDS`.  Every other name is ROADMAP queue 1, item 7.
+JAX fields as `FIELDS`.  A name the JAX package registers and the port
+does not have yet raises `NotImplementedError` with its ROADMAP queue 1
+item (`NOT_PORTED`); any other name raises `KeyError`, as the JAX
+registry does.
 """
 from __future__ import annotations
 
@@ -26,8 +29,11 @@ from infomax3d_tpu_torch.models.net3d_vae import (Net3DAE,
                                                   Net3DDistancePredictor)
 from infomax3d_tpu_torch.models.optimal_transport import OptimalTransportModel
 from infomax3d_tpu_torch.models.pna import PNA
+from infomax3d_tpu_torch.models.random_variants import OGBGNNRandom
 from infomax3d_tpu_torch.models.transformer import (DistancePredictor,
-                                                    PNADistancePredictor)
+                                                    PNADistancePredictor,
+                                                    PNATransformer,
+                                                    TransformerPlain)
 
 _NET3D_FIELDS = ("hidden_dim", "target_dim", "readout_aggregators",
                  "batch_norm", "node_wise_output_layers",
@@ -51,7 +57,22 @@ MODEL_REGISTRY: Dict[str, type] = {
     "DistancePredictor": DistancePredictor,
     "PNADistancePredictor": PNADistancePredictor, "Net3DAE": Net3DAE,
     "Net3DDistancePredictor": Net3DDistancePredictor,
-    "GeomolGNNWrapperOGBFeat": GeomolGNNWrapperOGBFeat}
+    "GeomolGNNWrapperOGBFeat": GeomolGNNWrapperOGBFeat,
+    "OGBGNNRandom": OGBGNNRandom, "PNATransformer": PNATransformer,
+    "TransformerPlain": TransformerPlain}
+
+# the JAX package's other registered names and the ROADMAP queue 1 item
+# that ports each
+NOT_PORTED: Dict[str, str] = {
+    **{n: "7c" for n in ("PNAOriginal", "PNAOriginalRandom",
+                         "PNAOriginalSimple", "PNAOriginalSimpleRandom")},
+    "SMP": "7d", "SAN": "7e", "EGNN": "7f", "EGNNTorch": "7f",
+    **{n: "7g" for n in ("GeomolGNNWrapper",
+                         "GeomolGNNWrapperOGBFeatRandom",
+                         "GeomolGNNWrapperOGBFeatRandomNonShared",
+                         "PNARandom", "PNARandomEdgeUpdate",
+                         "PNAGNNRandomEdgeUpdate")},
+    "BYOLwrapper": "8a", "Critic": "8b"}
 
 # reference YAML names whose class the reference cannot resolve, mapped
 # onto the class the config means (the JAX package's models/registry.py)
@@ -87,6 +108,9 @@ JAX_FIELDS: Dict[str, tuple] = {
                                   "readout_hidden_dim", "propagation_depth"),
     "Net3DDistancePredictor": _NET3DAE_SHARED + ("propagation_depth",),
     "GeomolGNNWrapperOGBFeat": GeomolGNNWrapperOGBFeat.FIELDS,
+    "OGBGNNRandom": OGBGNNRandom.FIELDS,
+    "PNATransformer": PNATransformer.FIELDS,
+    "TransformerPlain": TransformerPlain.FIELDS,
 }
 
 # JAX fields the port's classes lack, with the JAX default they run at
@@ -96,10 +120,13 @@ UNPORTED_FIELDS: Dict[str, Dict[str, Any]] = {
 
 def get_model_class(name: str) -> type:
     name = MODEL_ALIASES.get(name, name)
-    if name not in MODEL_REGISTRY:
+    if name in NOT_PORTED:
         raise NotImplementedError(
             f"model_type '{name}' is not ported yet (ROADMAP queue 1, "
-            f"item 7); ported: {sorted(MODEL_REGISTRY)}")
+            f"item {NOT_PORTED[name]}); ported: {sorted(MODEL_REGISTRY)}")
+    if name not in MODEL_REGISTRY:
+        raise KeyError(f"unknown model_type '{name}'; known: "
+                       f"{sorted(MODEL_REGISTRY)}")
     return MODEL_REGISTRY[name]
 
 

@@ -1,6 +1,22 @@
-"""The distance-supervised baselines (port of `DistancePredictor`,
-`PNADistancePredictor` and the flat <-> dense exchange of
-`infomax3d_tpu/models/transformer.py`).
+"""The dense transformers and the distance-supervised baselines (port of
+`TransformerGNN`, `TransformerPlain`, `PNATransformer`,
+`DistancePredictor`, `PNADistancePredictor` and the flat <-> dense
+exchange of `infomax3d_tpu/models/transformer.py`).
+
+`TransformerPlain` runs on the dense batch (`graphs/dense.py`): the atom
+codes' embedding beside the Laplacian PE (``pos_enc_mlp`` on each
+(eigenvalue, eigenvector entry) pair, masked by ``lap_pe_mask`` and summed
+over the frequencies), a prepended virtual token ``v_node``, the encoder
+blocks (flax ``mp_{i}``, ``mp_layers.{i}``) over the real atoms and the
+token, and the readout MLP
+on the token.  `PNATransformer` is the JAX package's redesign of the
+reference's hybrid, not its layout: per layer a sparse PNA layer
+(``pna_{i}``, the port's `PNALayer` and its kernels) on the CSR batch and
+an encoder block (``attn_{i}``) over the layer's input moved to the dense
+slots, merged by one Linear over ``[h_sparse, h_dense]`` (``combine_{i}``,
+its kernel [2D, D] as the JAX `SplitDense` keeps it); the graphs are read
+out by aggregation (mean by default) where the reference reads a virtual
+token.  Both refuse a hidden width that is not a multiple of `nhead`.
 
 `DistancePredictor` runs the 2D PNA GNN, optionally one dense transformer
 layer over each molecule's atoms, and predicts a distance for every pair
@@ -29,9 +45,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from infomax3d_tpu_torch.models.attention import TransformerEncoderBlock
-from infomax3d_tpu_torch.models.base import MLP, EdgeInput
-from infomax3d_tpu_torch.models.pna import PNAGNN
+from infomax3d_tpu_torch.models.attention import (TransformerEncoderBlock,
+                                                  check_heads)
+from infomax3d_tpu_torch.models.base import (MLP, AtomEncoder, BondEncoder,
+                                             EdgeInput)
+from infomax3d_tpu_torch.models.pna import PNAGNN, PNALayer
+from infomax3d_tpu_torch.ops.segment import batch_readout
 
 # the JAX `PNAGNN` dataclass fields; `DistancePredictor` keeps these of its
 # `pna_args` (the configs pass the full PNA's, readout keys included)
@@ -198,3 +217,137 @@ class PNADistancePredictor(nn.Module):
 
     def forward(self, g, pairs) -> torch.Tensor:
         return self.predictor(g, pairs)
+
+
+class TransformerGNN(nn.Module):
+    """Reference `models/transformer.py:46-81` (the JAX `TransformerGNN`):
+    returns [G, 1 + nmax, hidden], the virtual token first."""
+
+    def __init__(self, hidden_dim: int, dim_feedforward: int, nhead: int = 4,
+                 pos_enc_dim: int = 16, activation: str = "relu",
+                 propagation_depth: int = 5, dropout: float = 0.0):
+        super().__init__()
+        check_heads(hidden_dim, nhead)
+        self.atom_encoder = AtomEncoder(hidden_dim - pos_enc_dim)
+        self.pos_enc_mlp = nn.Linear(2, pos_enc_dim)
+        self.v_node = nn.Parameter(torch.randn(hidden_dim))
+        self.mp_layers = nn.ModuleList(
+            TransformerEncoderBlock(hidden_dim, nhead, dim_feedforward,
+                                    activation, dropout)
+            for _ in range(propagation_depth))
+
+    def forward(self, g, noise=None) -> torch.Tensor:
+        G, N = g.node_feat.shape[:2]
+        h = self.atom_encoder(g.node_feat.reshape(G * N, -1)).reshape(
+            G, N, -1)
+        pe = self.pos_enc_mlp(torch.nan_to_num(g.lap_pe))      # [G, N, k, pe]
+        pe = torch.where(g.lap_pe_mask[..., None], pe,
+                         torch.zeros((), dtype=pe.dtype, device=pe.device))
+        h = torch.cat([h, pe.sum(dim=2)], dim=-1)
+        h = torch.cat([self.v_node.expand(G, 1, -1), h], dim=1)
+        key_mask = torch.cat([torch.ones(G, 1, dtype=torch.bool,
+                                         device=h.device), g.node_mask], 1)
+        for layer in self.mp_layers:
+            h = layer(h, key_mask, noise)
+        return h
+
+
+class TransformerPlain(nn.Module):
+    """The JAX `TransformerPlain`: ``node_gnn`` (`TransformerGNN`) and the
+    readout MLP ``output`` on the virtual token, its BatchNorms over the
+    real graphs.  Keyword arguments are the JAX module's fields with its
+    defaults (`node_dim` is one it never reads)."""
+
+    FIELDS = ("hidden_dim", "target_dim", "dropout", "nhead",
+              "dim_feedforward", "readout_batchnorm", "readout_hidden_dim",
+              "activation", "readout_layers", "batch_norm_momentum",
+              "propagation_depth", "pos_enc_dim", "node_dim")
+
+    def __init__(self, hidden_dim: int, target_dim: int,
+                 dropout: float = 0.0, nhead: int = 4,
+                 dim_feedforward: int = 256, readout_batchnorm: bool = True,
+                 readout_hidden_dim: Optional[int] = None,
+                 activation: str = "relu", readout_layers: int = 2,
+                 batch_norm_momentum: float = 0.1,
+                 propagation_depth: int = 5, pos_enc_dim: int = 16,
+                 node_dim: int = 9):
+        super().__init__()
+        del node_dim
+        self.node_gnn = TransformerGNN(hidden_dim, dim_feedforward, nhead,
+                                       pos_enc_dim, activation,
+                                       propagation_depth, dropout)
+        self.output = MLP(hidden_dim, target_dim, readout_layers,
+                          hidden_size=readout_hidden_dim or hidden_dim,
+                          mid_batch_norm=readout_batchnorm,
+                          batch_norm_momentum=batch_norm_momentum)
+
+    def forward(self, g, noise=None) -> torch.Tensor:
+        h = self.node_gnn(g, noise)
+        return self.output(h[:, 0, :], g.graph_mask)
+
+
+class PNATransformer(nn.Module):
+    """The JAX `PNATransformer` (module docstring).  Keyword arguments are
+    its fields with its defaults; the dropout masks come from the noise
+    source the forward is given, in the JAX forward's order (per layer
+    the PNA layer's, then the encoder block's)."""
+
+    FIELDS = ("hidden_dim", "target_dim", "aggregators", "scalers",
+              "readout_aggregators", "max_nodes", "nhead", "dim_feedforward",
+              "readout_batchnorm", "readout_hidden_dim", "readout_layers",
+              "residual", "activation", "last_activation", "mid_batch_norm",
+              "last_batch_norm", "propagation_depth", "dropout",
+              "posttrans_layers", "pretrans_layers", "batch_norm_momentum")
+
+    def __init__(self, hidden_dim: int, target_dim: int,
+                 aggregators: Sequence[str], scalers: Sequence[str],
+                 readout_aggregators: Sequence[str] = ("mean",),
+                 max_nodes: int = 40, nhead: int = 4,
+                 dim_feedforward: int = 256, readout_batchnorm: bool = True,
+                 readout_hidden_dim: Optional[int] = None,
+                 readout_layers: int = 2, residual: bool = True,
+                 activation: str = "relu", last_activation: str = "none",
+                 mid_batch_norm: bool = False, last_batch_norm: bool = False,
+                 propagation_depth: int = 5, dropout: float = 0.0,
+                 posttrans_layers: int = 1, pretrans_layers: int = 1,
+                 batch_norm_momentum: float = 0.1):
+        super().__init__()
+        check_heads(hidden_dim, nhead)
+        H = hidden_dim
+        self.readout_aggregators = tuple(readout_aggregators)
+        self.max_nodes, self.depth = max_nodes, propagation_depth
+        self.atom_encoder = AtomEncoder(H)
+        self.bond_encoder = BondEncoder(H)
+        for i in range(propagation_depth):
+            self.add_module(f"pna_{i}", PNALayer(
+                H, H, H, aggregators, scalers, activation=activation,
+                last_activation=last_activation, residual=residual,
+                mid_batch_norm=mid_batch_norm,
+                last_batch_norm=last_batch_norm,
+                batch_norm_momentum=batch_norm_momentum,
+                posttrans_layers=posttrans_layers,
+                pretrans_layers=pretrans_layers, dropout=dropout))
+            self.add_module(f"attn_{i}", TransformerEncoderBlock(
+                H, nhead, dim_feedforward, activation, dropout))
+            self.add_module(f"combine_{i}", MLP(2 * H, H, 1, hidden_size=H,
+                                                mid_activation=activation))
+        self.output = MLP(H * len(self.readout_aggregators), target_dim,
+                          readout_layers,
+                          hidden_size=readout_hidden_dim or H,
+                          mid_batch_norm=readout_batchnorm,
+                          batch_norm_momentum=batch_norm_momentum)
+
+    def forward(self, g, noise=None) -> torch.Tensor:
+        h = self.atom_encoder(g.node_feat)
+        e = self.bond_encoder(g.edge_feat)
+        slots = dense_slots(g, self.max_nodes)
+        dmask = dense_node_mask(g, self.max_nodes, slots)
+        for i in range(self.depth):
+            h_sparse = getattr(self, f"pna_{i}")(g, h, e, noise)
+            dense = getattr(self, f"attn_{i}")(
+                flat_to_dense(h, g, self.max_nodes, slots), dmask, noise)
+            h_dense = dense_to_flat(dense, g)
+            h = getattr(self, f"combine_{i}")(
+                torch.cat([h_sparse, h_dense], dim=-1), g.node_mask)
+        return self.output(batch_readout(g, h, self.readout_aggregators),
+                           g.graph_mask)

@@ -4,7 +4,7 @@
 over the receivers, the clipped `take`, `segment_sum` / `segment_mean`)."""
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -31,13 +31,70 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     return out.index_add(0, ids, data)[:num_segments]
 
 
+def degree(segment_ids: torch.Tensor, num_segments: int,
+           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[num_segments] float32: the rows per segment id (those where `mask`
+    is true, given one); out-of-range ids are dropped."""
+    ones = torch.ones(segment_ids.shape[0], device=segment_ids.device)
+    if mask is not None:
+        ones = ones * mask.float()
+    return segment_sum(ones, segment_ids, num_segments)
+
+
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
                  num_segments: int) -> torch.Tensor:
     """`segment_sum` over each segment's row count (at least 1)."""
-    ones = torch.ones(segment_ids.shape[0], device=data.device)
-    deg = segment_sum(ones, segment_ids, num_segments).clamp(min=1.0)
+    deg = degree(segment_ids, num_segments).clamp(min=1.0)
     return segment_sum(data, segment_ids, num_segments) / deg.reshape(
         (-1,) + (1,) * (data.ndim - 1))
+
+
+def _segment_amax(data: torch.Tensor, segment_ids: torch.Tensor,
+                  num_segments: int) -> torch.Tensor:
+    """Each segment's max of its rows, -inf for a segment without rows
+    (XLA's segment max); out-of-range ids are dropped."""
+    ids = segment_ids.long()
+    ids = torch.where((ids >= 0) & (ids < num_segments), ids, num_segments)
+    ids = ids.reshape((-1,) + (1,) * (data.ndim - 1)).expand_as(data)
+    out = data.new_full((num_segments + 1,) + tuple(data.shape[1:]),
+                        float("-inf"))
+    return out.scatter_reduce(0, ids, data, "amax")[:num_segments]
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int, empty_value: float = 0.0) -> torch.Tensor:
+    """Each segment's max of its rows; `empty_value` where it has none."""
+    has = degree(segment_ids, num_segments) > 0
+    if data.ndim > 1:
+        has = has.reshape((-1,) + (1,) * (data.ndim - 1))
+    return torch.where(has, _segment_amax(data, segment_ids, num_segments),
+                       torch.full((), empty_value, dtype=data.dtype,
+                                  device=data.device))
+
+
+def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int, mask: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Softmax of `logits` within each segment (graph attention), as the
+    JAX package computes it: masked logits set to the type's lowest value
+    and their exponentials to 0, the segment max (0 where it is not
+    finite) subtracted, the sum held at least 1e-16."""
+    m = None
+    if mask is not None:
+        m = mask if logits.ndim == 1 else mask[:, None]
+        logits = torch.where(m, logits, torch.full(
+            (), torch.finfo(logits.dtype).min, dtype=logits.dtype,
+            device=logits.device))
+    seg_max = _segment_amax(logits, segment_ids, num_segments)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max,
+                          torch.zeros((), dtype=seg_max.dtype,
+                                      device=seg_max.device))
+    expv = torch.exp(logits - take_clipped(seg_max, segment_ids))
+    if m is not None:
+        expv = torch.where(m, expv, torch.zeros((), dtype=expv.dtype,
+                                                device=expv.device))
+    seg_sum = segment_sum(expv, segment_ids, num_segments)
+    return expv / take_clipped(seg_sum, segment_ids).clamp(min=1e-16)
 
 
 class TakeRowsRecv(torch.autograd.Function):

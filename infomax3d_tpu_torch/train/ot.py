@@ -49,6 +49,7 @@ from infomax3d_tpu_torch.interop import init_jax_variables, load_variables
 from infomax3d_tpu_torch.models.optimal_transport import OptimalTransportModel
 from infomax3d_tpu_torch.models.noise import GeneratorNoise, ReplayNoise
 from infomax3d_tpu_torch.train.optim import build_adam
+from infomax3d_tpu_torch.train.supervised import TrainStep
 
 GRAD_CLIP = 10.0
 
@@ -150,19 +151,14 @@ class OTStep:
         """The gradient pass: fills each parameter's `.grad`, clipped to a
         global norm of `GRAD_CLIP` (``scale = min(1, clip / (norm +
         1e-6))``), and returns the loss (detached).  A parameter the loss
-        does not reach gets a zero gradient, as JAX's gradient tree has
-        one: Adam then counts the step for it too (with `ignore_neighbors`
-        ``gnn2`` reaches no term of the cost), so its bias correction stays
-        the JAX optimizer's when its gradients start."""
+        does not reach gets a zero gradient first
+        (`TrainStep.fill_missing_grads`; with `ignore_neighbors` ``gnn2``
+        reaches no term of the cost)."""
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.model(batch, noise, ignore_neighbors=self.ignore_neighbors,
                           ot_plans=plans)
         loss.backward()
-        grads = []
-        for p in self.model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
+        grads = TrainStep.fill_missing_grads(self.model.parameters())
         norm = torch.sqrt(sum((g * g).sum() for g in grads))
         scale = (GRAD_CLIP / (norm + 1e-6)).clamp(max=1.0)
         for g in grads:

@@ -57,14 +57,17 @@ def compute_params(module: nn.Module, dtype: Optional[torch.dtype]
                 else p) for n, p in module.named_parameters()}
 
 
-def forward_in(model: nn.Module, dtype: Optional[torch.dtype], *inputs):
-    """`model(*inputs)` under the training recipe: with `dtype` (bf16) on
-    copies of the float32 master parameters cast to it (`compute_params`),
-    the output (a tensor or a tuple of them) cast to float32 for the loss;
-    `None` runs float32 as it is."""
+def forward_in(model: nn.Module, dtype: Optional[torch.dtype], *inputs,
+               **kwargs):
+    """`model(*inputs, **kwargs)` under the training recipe: with `dtype`
+    (bf16) on copies of the float32 master parameters cast to it
+    (`compute_params`), the output (a tensor or a tuple of them) cast to
+    float32 for the loss; `None` runs float32 as it is.  The keyword
+    arguments (a model's noise source) pass through as they are."""
     if dtype is None:
-        return model(*inputs)
-    out = functional_call(model, compute_params(model, dtype), inputs)
+        return model(*inputs, **kwargs)
+    out = functional_call(model, compute_params(model, dtype), inputs,
+                          kwargs)
     if isinstance(out, tuple):
         return tuple(o.float() for o in out)
     return out.float()

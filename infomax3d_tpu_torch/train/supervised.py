@@ -1,8 +1,17 @@
 """The supervised training step (port of the JAX package's `Trainer` step,
 `infomax3d_tpu/train/trainer.py`: `loss_fn`, `_apply` and the jitted
-update, with `_elementwise_supervised_loss`), here for `OGBGNN` at the
-architecture of `configs/30.yml`: GIN 5x300 without a virtual node, sum
-pooling, masked `BCEWithLogitsLoss`, Adam at lr 1e-3, batches of 128.
+update, with `_elementwise_supervised_loss`) for any registered model on
+a labelled batch (the CSR batch, or the transformer's dense one): the
+forward, the loss masked to the real graphs' finite labels, the backward
+and the update.  `supervised()` runs it at the architecture of
+`configs/30.yml` by default: OGBGNN, GIN 5x300 without a virtual node,
+sum pooling, masked `BCEWithLogitsLoss`, Adam at lr 1e-3, batches of 128.
+
+Dropout: in training the step hands the model the noise source it is
+given (the trainer's `noise.MasksOnly` over its generator: masks and no
+noise, as the JAX trainer's ``dropout`` rng); eval draws nothing.  Every
+supervised model's forward takes the source; those without dropout draw
+nothing from it.
 
 Precision follows the JAX package's recipe: float32 master parameters and
 optimizer state, the forward on bf16 copies of the parameters and of the
@@ -20,19 +29,22 @@ CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from infomax3d_tpu_torch.data.loader import DENSE_COLLATES, san_collate
 from infomax3d_tpu_torch.data.synthetic import SyntheticMolecules
 from infomax3d_tpu_torch.device import resolve_device
 from infomax3d_tpu_torch.graphs.batch import (GraphBatch, batch_graphs,
                                               bucket_for, to_graph_batch)
+from infomax3d_tpu_torch.graphs.dense import DenseBatch, to_dense_batch
 from infomax3d_tpu_torch.interop import (flax_paths, init_jax_variables,
                                          load_variables)
-from infomax3d_tpu_torch.models.gin import OGBGNN
+from infomax3d_tpu_torch.models.noise import GeneratorNoise, MasksOnly
+from infomax3d_tpu_torch.models.registry import build_model
 from infomax3d_tpu_torch.train.optim import build_adam, label_params
 from infomax3d_tpu_torch.train.precision import (cast_batch, forward_in,
                                                  resolve_compute_dtype)
@@ -66,24 +78,41 @@ def detached(out):
 
 
 class TrainStep:
-    """Backward and update over a step's ``loss(*batches) -> (loss,
+    """Backward and update over a step's ``loss(*batches, **kw) -> (loss,
     outputs)`` on prepared batches; the steps set `optimizer`."""
 
-    def loss_and_grads(self, *batches, return_outputs: bool = False):
-        """Forward and backward on prepared batches: fills each master
-        parameter's `.grad` (float32), updates the running statistics and
-        returns the float32 loss (detached), with the outputs (detached)
-        when `return_outputs`."""
+    def loss_and_grads(self, *batches, return_outputs: bool = False, **kw):
+        """Forward and backward on prepared batches (`kw` to the step's
+        `loss`): fills each master parameter's `.grad` (float32), updates
+        the running statistics and returns the float32 loss (detached),
+        with the outputs (detached) when `return_outputs`.  A parameter the
+        loss does not reach (e.g. the last layer under "sum" jumping
+        knowledge) gets a zero gradient (`fill_missing_grads`)."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss, out = self.loss(*batches)
+        loss, out = self.loss(*batches, **kw)
         loss.backward()
+        self.fill_missing_grads(p for group in self.optimizer.param_groups
+                                for p in group["params"])
         if return_outputs:
             return loss.detach(), detached(out)
         return loss.detach()
 
-    def step(self, *batches) -> torch.Tensor:
+    @staticmethod
+    def fill_missing_grads(params) -> list:
+        """Give each of `params` the loss did not reach a zero `.grad`, as
+        `jax.grad` gives it one, so that Adam counts the step for it too
+        and its bias correction stays the JAX optimizer's; returns the
+        gradients in order."""
+        grads = []
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+        return grads
+
+    def step(self, *batches, **kw) -> torch.Tensor:
         """One training step on prepared batches; returns the loss."""
-        loss = self.loss_and_grads(*batches)
+        loss = self.loss_and_grads(*batches, **kw)
         self.optimizer.step()
         return loss
 
@@ -93,18 +122,15 @@ class SupervisedStep(TrainStep):
     labelled batch.  `variables` holds the model's flax numpy trees
     (`interop.init_jax_variables` layout); `compute_dtype` bf16 runs the
     bf16 recipe, None float32.  Adam's groups are the JAX package's labels
-    (`optim.label_params` on the flax paths).  This constructor builds
-    OGBGNN; `from_modules` takes any model (the trainer's)."""
+    (`optim.label_params` on the flax paths).  This constructor builds a
+    registered model; `from_modules` takes any module (the trainer's)."""
 
     def __init__(self, model_type: str, model_parameters: Mapping,
                  variables: Mapping, device: torch.device,
                  compute_dtype: Optional[torch.dtype] = None,
                  loss_func: str = "MSELoss",
                  optimizer_params: Optional[Mapping] = None):
-        if model_type != "OGBGNN":
-            raise NotImplementedError(
-                f"supervised step for model_type {model_type!r} not ported")
-        self._setup(load_variables(OGBGNN.from_config(model_parameters),
+        self._setup(load_variables(build_model(model_type, model_parameters),
                                    variables), device, compute_dtype,
                     loss_func)
         self.optimizer = build_adam(
@@ -137,27 +163,38 @@ class SupervisedStep(TrainStep):
         return dataclasses.replace(cast_batch(g, self.compute_dtype),
                                    targets=g.targets)
 
-    def loss(self, g: GraphBatch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(masked loss, float32 predictions) on a prepared batch, under
-        the recipe (training or eval, as the module is set)."""
-        pred = forward_in(self.model, self.compute_dtype, g)
+    def loss(self, g: GraphBatch, noise=None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(masked loss, float32 predictions) on a prepared batch (a
+        `GraphBatch` or a `DenseBatch`), under the recipe (training or
+        eval, as the module is set); `noise` draws the dropout masks."""
+        pred = forward_in(self.model, self.compute_dtype, g, noise=noise)
         valid = ~torch.isnan(g.targets) & g.graph_mask[:, None]
         return supervised_loss(self.loss_func, pred, g.targets, valid), pred
 
 
 def labelled_batch(batch_size: int, num_targets: int = 1, seed: int = 0,
-                   n_min: int = 10, n_max: int = 41, device="cpu"
-                   ) -> Tuple[GraphBatch, Dict[str, int]]:
+                   n_min: int = 10, n_max: int = 41, device="cpu",
+                   dense: bool = False, max_nodes: int = 40
+                   ) -> Tuple[Union[GraphBatch, DenseBatch], Dict[str, int]]:
     """`batch_size` synthetic molecules as a CSR batch with binary labels
     (their `targets` > 0, float32 0/1, [G, num_targets]), plus its sizes:
-    graphs, real nodes and real edges.  The defaults are molhiv-like: 10 to
-    41 atoms, 25.5 on average."""
+    graphs, real nodes and real edges.  With `dense`, the transformer's
+    dense batch (`san_collate`, the larger of `max_nodes` and the largest
+    molecule's slots per graph).  The defaults are molhiv-like: 10 to 41
+    atoms, 25.5 on average."""
     ds = SyntheticMolecules(batch_size, seed=seed, n_min=n_min, n_max=n_max,
                             num_targets=num_targets)
     labels = (ds.targets > 0).astype(np.float32)
     mols = [dict(ds.graph2d(i), targets=labels[i]) for i in range(batch_size)]
     b = bucket_for(mols, batch_size)
-    g = to_graph_batch(batch_graphs(mols, b), b, device)
+    if dense:
+        items = [{"graph2d": ds.graph2d(i), "targets": labels[i]}
+                 for i in range(batch_size)]
+        g = to_dense_batch(san_collate(items, b, max(max_nodes, b.nmax))[
+            "graph"], device)
+    else:
+        g = to_graph_batch(batch_graphs(mols, b), b, device)
     sizes = {"graphs": batch_size,
              "nodes": sum(m["node_feat"].shape[0] for m in mols),
              "edges": sum(m["senders"].shape[0] for m in mols)}
@@ -180,21 +217,34 @@ def build_supervised_step(args: Mapping[str, Any], device: torch.device
         args.get("loss_func", "MSELoss"), args.get("optimizer_params"))
 
 
+def masks_source(generator: torch.Generator) -> MasksOnly:
+    """A training step's noise source: dropout masks from `generator`
+    (on its device), no noise."""
+    return MasksOnly(GeneratorNoise(generator))
+
+
 def supervised(args: Dict[str, Any], steps: int = 1,
                device: Optional[str] = None) -> Dict[str, Any]:
     """Run `steps` supervised steps on one fixed labelled batch of
     `args["batch_size"]` (default 128) synthetic molecules
     (`args["dataset_params"]`: seed, n_min, n_max; `labelled_batch`'s
-    molhiv-like defaults where absent).  Runs on the CUDA card
-    unless `device` says otherwise (and raises when there is none).
-    Returns the float32 losses, the step object and the batch sizes."""
+    molhiv-like defaults where absent), the dense batch where
+    `args["collate_function"]` names a dense collate.  Each step draws its
+    dropout masks on the device from one generator seeded with
+    `args["seed"]`.  Runs on the CUDA card unless `device` says otherwise
+    (and raises when there is none).  Returns the float32 losses, the step
+    object and the batch sizes."""
     device = resolve_device(device)
     step = build_supervised_step(args, device)
     g, sizes = labelled_batch(
         args.get("batch_size", 128),
         args["model_parameters"].get("target_dim", 1), device=device,
+        dense=args.get("collate_function") in DENSE_COLLATES,
+        max_nodes=args.get("max_nodes", 40),
         **args.get("dataset_params", {}))
     g = step.prepare(g)
-    losses = [step.step(g) for _ in range(steps)]
+    gen = torch.Generator(device=device).manual_seed(int(args.get("seed",
+                                                                  0)))
+    losses = [step.step(g, noise=masks_source(gen)) for _ in range(steps)]
     return {"losses": [float(x) for x in losses], "step": step,
             "sizes": sizes}

@@ -12,7 +12,10 @@ and `train_arguments.yaml` in the run directory, resuming from
 `evaluation_*.txt` files, and the reload of the best checkpoint at the end.
 
 The step is not written again here: the supervised trainer runs
-`train/supervised.py::SupervisedStep`, the contrastive one
+`train/supervised.py::SupervisedStep` (handing each training step a source
+of dropout masks drawn on the trainer's device from one generator seeded
+with `seed`, and no noise, as the JAX trainer hands its model a
+``dropout`` rng alone; eval steps draw nothing), the contrastive one
 `train/pretrain.py::PretrainStep`, the baselines the steps of
 `train/baselines.py` and the OT trainer `train/ot.py::OTStep`, each built over the config's models and
 the grouped optimizer (`train/optim.py`), so the bf16 recipe (float32
@@ -55,7 +58,8 @@ from infomax3d_tpu_torch.train.ot import OTStep
 from infomax3d_tpu_torch.train.precision import resolve_compute_dtype
 from infomax3d_tpu_torch.train.pretrain import PretrainStep
 from infomax3d_tpu_torch.train.schedulers import LRController
-from infomax3d_tpu_torch.train.supervised import SupervisedStep
+from infomax3d_tpu_torch.train.supervised import (SupervisedStep,
+                                                  masks_source)
 
 TIMERS = ("loader", "to_device", "step", "device_wait", "metrics",
           "checkpoint", "logging")
@@ -65,9 +69,14 @@ class Trainer:
     """Supervised trainer (reference base `Trainer`).  `models` maps
     ``model`` to the port's module; `init_variables` optionally maps it to
     flax numpy trees (``params``, ``batch_stats``) loaded before training,
-    e.g. another implementation's initial weights."""
+    e.g. another implementation's initial weights.  `generator` (on the
+    device, seeded with `seed`) draws the dropout masks and, for the OT
+    trainer, the noise."""
 
     MODEL_KEYS = ("model",)
+    # each training step gets a source of dropout masks (the supervised
+    # step; the other flavours' steps take none)
+    DRAWS_MASKS = True
 
     def __init__(self, models: Dict[str, torch.nn.Module], args: Dict,
                  metrics: Dict[str, Any], main_metric: str, run_dir: str,
@@ -106,6 +115,8 @@ class Trainer:
         self.timing: Dict[str, Any] = {k: 0.0 for k in TIMERS}
         self.timing.update(step_ms=[], train_epoch_s=[], eval_s=[])
         self._events = []
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            int(args.get("seed", 0)))
 
     # ------------------------------------------------------------------ init
     def init_state(self, example_batch=None):
@@ -221,7 +232,10 @@ class Trainer:
 
     def _train_step(self, batches):
         """One optimizer step; returns (loss, outputs), both detached."""
-        loss, out = self.step.loss_and_grads(*batches, return_outputs=True)
+        kw = {"noise": masks_source(self.generator)} if self.DRAWS_MASKS \
+            else {}
+        loss, out = self.step.loss_and_grads(*batches, return_outputs=True,
+                                             **kw)
         self.step.optimizer.step()
         return loss, out
 
@@ -492,6 +506,7 @@ class SelfSupervisedTrainer(Trainer):
     the JAX package's do."""
 
     MODEL_KEYS = ("model", "model3d")
+    DRAWS_MASKS = False
 
     def _make_step(self):
         return PretrainStep.from_modules(
@@ -557,6 +572,8 @@ class GraphCLTrainer(Trainer):
     graphcl_trainer.py:11-15, `GraphCLStep`); the metrics read the two
     outputs."""
 
+    DRAWS_MASKS = False
+
     def _make_step(self):
         return GraphCLStep.from_modules(self.models["model"], self.device,
                                         self.compute_dtype, self.loss_func,
@@ -575,6 +592,8 @@ class DistancePredictorTrainer(Trainer):
     2D graph (reference DistancePredictor path, `DistanceStep`); the batch
     is the graph and its pair view with the true distances, and the
     metrics read the real pairs."""
+
+    DRAWS_MASKS = False
 
     def _make_step(self):
         return DistanceStep.from_modules(self.models["model"], self.device,
@@ -613,8 +632,6 @@ class OptimalTransportTrainer(Trainer):
         super().__init__(*a, **kw)
         self.compute_dtype = None
         self._epoch = 1
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            int(self.args.get("seed", 0)))
         self.timing["host_emd"] = 0.0
 
     @property

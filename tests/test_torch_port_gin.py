@@ -691,13 +691,24 @@ def test_labels_reach_the_loss_in_float32(batch, steps, monkeypatch):
 @pytest.mark.parametrize("option", [
     {"virtual_node": True}, {"gnn_type": "gcn"}, {"dropout": 0.5},
     {"residual": True}, {"JK": "sum"}, {"graph_pooling": "set2set"}])
-def test_ogbgnn_refuses_unported_options(option):
-    """What the port does not have yet raises instead of being ignored
-    (the JAX `OGBGNN` defaults to a virtual node)."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        OGBGNN.from_config({**MODEL, **option})
-    with pytest.raises(NotImplementedError, match="virtual_node"):
-        OGBGNN(hidden_dim=8, num_layers=1)
+def test_ogbgnn_refuses_unported_options(batch, option):
+    """The options the port once refused now build and match the JAX
+    `OGBGNN`'s eval forward from the same weights within 1e-5 of the
+    output's max (the training step of each: tests/
+    test_torch_port_gin_options.py); like the JAX module, `OGBGNN`
+    defaults to a virtual node."""
+    arr, b, _, jb = batch
+    mp = {**JAX_MODEL, **option}
+    params, stats = init_jax_variables(mp, 2, "OGBGNN")
+    variables = {"params": params, "batch_stats": stats}
+    model = OGBGNN.from_config({**MODEL, **option})
+    model.load_state_dict(params_from_jax(params, stats))
+    with torch.no_grad():
+        got = model.eval()(to_graph_batch(arr, b, "cpu")).numpy()
+    want = np.asarray(JaxOGBGNN(**mp).apply(_jax_tree(variables), jb,
+                                            deterministic=True))
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    assert OGBGNN(hidden_dim=8, num_layers=1).node_gnn.virtual_node
 
 
 def test_supervised_entry_point_on_cpu():

@@ -744,22 +744,17 @@ def test_replay_noise_refuses_other_draws():
     {"gnn_params": dict(GNN, dropout=0.1)},
     {"gnn_model": "PNAGNNRandom", "gnn_params": dict(GNN, dropout=0.1)}])
 def test_ot_model_refuses_unported_options(data, change):
-    """The options the OT model once refused: the `PNAGNNRandom` backbone,
-    `random_alpha`, a backbone wider than the model (`gnn_output_mlp`),
-    the edge-update layers' mid BatchNorm and their dropout now build
-    and match the JAX model from the same weights and draws: the
-    eval-mode cost within 1e-5 of its max, and the training-mode loss on
-    that cost's plans within 1e-5 relative (with the replayed dropout
-    masks and the running statistics).  What the port still lacks
-    raises: `PNAGNNRandom` with dropout (the port's `PNALayer` has
-    none)."""
+    """The options the OT model once refused: the `PNAGNNRandom` backbone
+    (also with dropout in its PNA layers), `random_alpha`, a backbone
+    wider than the model (`gnn_output_mlp`), the edge-update layers' mid
+    BatchNorm and their dropout now build and match the JAX model from
+    the same weights and draws: the eval-mode cost within 1e-5 of its
+    max, and the training-mode loss on that cost's plans within 1e-5
+    relative (with the replayed dropout masks and the running
+    statistics)."""
     from test_torch_port_ot_trainer import (_jax_apply, _port_noise,
                                             _stats_errors)
     mp = {**MP, **change}
-    if mp["gnn_model"] == "PNAGNNRandom" and mp["gnn_params"]["dropout"]:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            OptimalTransportModel.from_config(mp)
-        return
     arr, _, batch, jb = data
     params, stats = init_jax_variables(mp, 1, "OptimalTransportModel")
     var = {"params": params, "batch_stats": stats}

@@ -206,7 +206,8 @@ def test_pairwise_distance_collate(graph_3d):
             "node_feat", "node_graph", "node_pos", "node_mask",
             "graph_mask", "n_nodes")}, jview["graph"])
     with pytest.raises(NotImplementedError, match="item 7"):
-        get_collate("san_collate")
+        get_collate("egnn_padded_collate")
+    assert get_collate("san_collate").__name__ == "san_collate"
     assert get_collate("padded_distances_collate") is \
         get_collate("pairwise_distance_collate")
 
