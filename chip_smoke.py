@@ -227,6 +227,30 @@ its seconds:
    masks drawn on the card, (b)'s noise columns zero) with their launches,
    and `configs/pnatransformersimple_ogbg.yml` refused (width 80, 32
    heads).
+24. PNAOriginal and SMP through the supervised and contrastive trainers,
+   at the configs' widths and batches: (a) `configs/pna_original.yml`
+   (PNAOriginal 90x4, 5 towers, graph norm, batch 128, QM9-size), (b)
+   `pna_original_molhiv.yml` (70x4, molhiv-size), (c)
+   `pna_original_simple.yml` (PNAOriginalSimple 70x4, dropout 0.3,
+   residual), (d) `contrastive_training_pna_original.yml` (PNAOriginal
+   70x4 beside the flat Net3D, NT-Xent, batch 500 drug-size), (e)
+   `SMP_geomol_conformers.yml` (SMP 128x4, cutoff 5, batch 32): every
+   kernel bit for bit at its new call sites (rows 6, 5, 2, 8 and 1 at the
+   towers' widths 90 / 18 and 70 / 14, row 4 at (c)'s batch, and at (e)'s
+   row 7 over the receivers and over the triplets, row 4 keyed by
+   `idx_kj` and by the senders, row 3); one float32 and one bf16 step of
+   each on the card against the CPU's float32 step (31 graphs, (c)'s
+   masks replayed), with planted faults that must each fail the bf16
+   check (graph norm by the batch's node count; the attenuation scaler
+   computed as the amplification; the masks without their 1 / keep_prob
+   scale; the triplet message gathered at the edge j -> i; the triplet
+   gather's backward without its CSC order); launches per bf16 step,
+   exact; ms per step, graphs/s, peak memory, kernels per step and the
+   idle share; rows 2 and 8 in (a)'s step and row 7 over (e)'s triplets
+   beside their bounds; the host ms of `smp_collate` per batch; (a) and
+   (e) through the CLI (1 epoch on a synthetic QM9 cache) with their
+   launches, and the slice's other configs (`pna_original_simple_molhiv`,
+   `SMP_rdkit_conformers`, `sphere_net`) resolved and built.
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 """
@@ -5347,6 +5371,535 @@ def phase_slice16(smi: str, out_dir: Path) -> dict:
     return {"launches": launches, "errs": errs}
 
 
+# ------------- phase 24: PNAOriginal and SMP through the trainers
+
+SLICE17 = {"a": "configs/pna_original.yml",
+           "b": "configs/pna_original_molhiv.yml",
+           "c": "configs/pna_original_simple.yml",
+           "d": "configs/contrastive_training_pna_original.yml",
+           "e": "configs/SMP_geomol_conformers.yml"}
+# the other configs of the slice: (c)'s and (e)'s architectures on other
+# datasets, resolved and built through the CLI
+SLICE17_ALSO = {"configs/pna_original_simple_molhiv.yml": "PNAOriginalSimple",
+                "configs/SMP_rdkit_conformers.yml": "SMP",
+                "configs/sphere_net.yml": "SMP"}
+SLICE17_NAMES = {"a": "PNAOriginal 90x4, 5 towers, graph norm",
+                 "b": "PNAOriginal 70x4, 5 towers, graph norm, molhiv",
+                 "c": "PNAOriginalSimple 70x4, dropout 0.3, residual",
+                 "d": "PNAOriginal 70x4 + flat Net3D, NT-Xent",
+                 "e": "SMP 128x4, cutoff 5"}
+# the batches: QM9-size molecules for (a), (c) and (e), molhiv-size for
+# (b), drug-size for (d) (the config's GEOM-Drugs), each at its config's
+# batch (128, 128, 128, 500, 32)
+SLICE17_DATA = {"a": _QM9, "b": _MOLHIV, "c": _QM9, "d": CONF_DATA,
+                "e": _QM9}
+# the card-against-CPU checks: 31 graphs (an odd count, as phase 23's)
+SLICE17_CHECK = 31
+SLICE17_TIMED = 10
+
+
+def _s17_args(kind: str, bf16: bool) -> dict:
+    """The config's step as `build_supervised_step` / `build_step` take it
+    (Adam at the config's lr)."""
+    from infomax3d_tpu_torch.cli.config import load_config
+    a = load_config(SLICE17[kind], {})
+    out = {"model_type": a["model_type"],
+           "model_parameters": dict(a["model_parameters"]),
+           "loss_func": a["loss_func"],
+           "optimizer_params": {"lr": a["optimizer_params"]["lr"]},
+           "batch_size": a["batch_size"], "bf16_compute": bf16, "seed": 0,
+           "collate_function": a["collate_function"]}
+    if kind == "d":
+        out.update(model3d_type="Net3D",
+                   model3d_parameters=dict(a["model3d_parameters"]),
+                   loss_params=dict(a["loss_params"]), num_conformers=1,
+                   dataset_params=SLICE17_DATA["d"])
+    return out
+
+
+def _s17_launches(kind: str, step: bool) -> dict:
+    """Launches per bf16 training step (`step`) or eval forward of `kind`.
+    PNAOriginal: each tower's pretrans runs the edge combine (row 6, its
+    backward row 5); the first layer's messages are bf16 and aggregate on
+    the statistics kernel (row 2, backward row 8), the later layers' are
+    float32 (the scaled aggregates promote, as in JAX) and aggregate on the
+    multi-reduce (row 1, backward plain); (d) adds the flat Net3D's rows 6,
+    7 and 5 per layer.  PNAOriginalSimple: each layer's sender gather
+    (backward row 4), the first layer on row 2 / 8, the others on row 1.
+    SMP: row 7 over the receivers in every node update and over the
+    triplets in every edge update; the triplet gather's backward row 4 per
+    edge update; `init_e`'s receiver and sender gathers, backward rows 3
+    and 4."""
+    mp = _s17_args(kind, True)["model_parameters"]
+    L = mp.get("propagation_depth", 4)
+    if kind == "e":
+        return dict(NONE, csr_sum=1 + 2 * L,
+                    **({"csr_segment_sum": 1, "snd_segment_sum": 1 + L}
+                       if step else {}))
+    if kind == "c":
+        return dict(NONE, pna_stats=1, multi_reduce=L - 1,
+                    **({"snd_segment_sum": L, "pna_stats_bwd": 1}
+                       if step else {}))
+    T = mp.get("towers", 1)
+    out = dict(NONE, edge_combine=T * L, pna_stats=T, multi_reduce=T * (L - 1),
+               **({"pair_segment_sum": T * L, "pna_stats_bwd": T}
+                  if step else {}))
+    if kind == "d":
+        d3 = _s17_args("d", True)["model3d_parameters"]["propagation_depth"]
+        net3d = {"edge_combine": d3, "csr_sum": d3,
+                 **({"pair_segment_sum": d3} if step else {})}
+        out = {n: c + net3d.get(n, 0) for n, c in out.items()}
+    return out
+
+
+def _s17_batch(kind: str, dev, batch_size: int = None):
+    """(a) to (c), (e): `labelled_batch` at the config's batch (SMP's
+    radius graphs and triplets at its cutoff); (d): `conformer_batches`
+    with one conformer ((2D batch, 3D batch), sizes)."""
+    a = _s17_args(kind, False)
+    bs = batch_size or a["batch_size"]
+    if kind == "d":
+        g2, g3, sizes = conformer_batches(bs, 1, device=dev,
+                                          **SLICE17_DATA["d"])
+        return (g2, g3), sizes
+    cutoff = a["model_parameters"].get("cutoff") if kind == "e" else None
+    return labelled_batch(bs, a["model_parameters"].get("target_dim", 1),
+                          device=dev, smp_cutoff=cutoff,
+                          **SLICE17_DATA[kind])
+
+
+def _s17_step(kind: str, bf16: bool, dev):
+    args = _s17_args(kind, bf16)
+    if kind == "d":
+        return build_step(args, torch.device(dev))
+    return build_supervised_step(args, torch.device(dev))
+
+
+def _s17_masks(kind: str, g) -> list:
+    """The dropout masks of one training forward of `kind` on `g`, drawn
+    on the CPU (the step checks replay them on both sides)."""
+    step = _s17_step(kind, False, "cpu")
+    rec = GeneratorNoise(torch.Generator().manual_seed(97))
+    with torch.no_grad():
+        step.loss(step.prepare(g), noise=MasksOnly(rec))
+    return rec.draws
+
+
+def _s17_one_step(kind: str, g, masks: list, bf16: bool, dev: str):
+    """`_measure_step` of one step of `kind` from the seeded weights (the
+    masks replayed)."""
+    step = _s17_step(kind, bf16, dev)
+    if kind == "d":
+        return _measure_step(step, {"model": step.model,
+                                    "model3d": step.model3d},
+                             step.prepare(*g))
+    noise = MasksOnly(ReplayNoise([(k, t.to(dev)) for k, t in masks]))
+    return _measure_step(step, {"model": step.model}, (step.prepare(g),),
+                         noise=noise)
+
+
+def _snorm_of_the_batch():
+    """(a)'s and (d)'s planted fault: graph norm by 1 / sqrt of the batch's
+    real nodes where it is each graph's."""
+    from infomax3d_tpu_torch.models import pna_original as po
+    real = po.PNATower.forward
+
+    def forward(self, g, h, e, noise=None):
+        n = g.node_mask.sum()
+        snorm = (g.node_mask[:, None].float() / n.float().sqrt()).to(
+            g.snorm.dtype)
+        return real(self, dataclasses.replace(g, snorm=snorm), h, e, noise)
+    po.PNATower.forward = forward
+    return lambda: setattr(po.PNATower, "forward", real)
+
+
+def _attenuation_as_amplification():
+    """(b)'s planted fault: the attenuation scaler computed as the
+    amplification (log(d + 1) / avg_d where it is avg_d / log(d + 1))."""
+    from infomax3d_tpu_torch.models import pna_original as po
+    real = po.pna_aggregate_parts_always_scaled
+
+    def scaled(g, messages, aggregators, scalers, avg_d_log=1.0):
+        return real(g, messages, aggregators,
+                    [{"attenuation": "amplification"}.get(s, s)
+                     for s in scalers], avg_d_log)
+    return _patched(po.__name__, "pna_aggregate_parts_always_scaled", scaled)
+
+
+def _s17_unscaled_dropout():
+    """(c)'s planted fault: the dropout masks applied without the
+    1 / keep_prob scale."""
+    def unscaled(x, rate, source, training):
+        if not training or rate == 0.0:
+            return x
+        keep = source.bernoulli(1.0 - rate, x.shape).to(x.device)
+        return torch.where(keep, x, torch.zeros_like(x))
+    return _patched("infomax3d_tpu_torch.models.pna_original", "drop",
+                    unscaled)
+
+
+def _kj_gathered_by_ji():
+    """(e)'s planted fault: the edge updates gather each triplet's message
+    at its edge j -> i (`idx_ji`) where they read the edge k -> j."""
+    from infomax3d_tpu_torch.models import smp
+    real = smp.SMPUpdateE.forward
+
+    def forward(self, g, *a):
+        return real(self, dataclasses.replace(g, idx_kj=g.idx_ji), *a)
+    smp.SMPUpdateE.forward = forward
+    return lambda: setattr(smp.SMPUpdateE, "forward", real)
+
+
+def _kj_backward_unordered():
+    """(e)'s other planted fault: the triplet gather's backward summing
+    each edge's range of the triplets in their stored order (idx_ji's),
+    the CSC permutation dropped."""
+    from infomax3d_tpu_torch.models import smp
+    real = smp.take_rows
+    return _patched(smp.__name__, "take_rows",
+                    lambda x, idx, ptr, perm: real(
+                        x, idx, ptr, torch.arange(perm.shape[0],
+                                                  dtype=perm.dtype,
+                                                  device=perm.device)))
+
+
+SLICE17_FAULTS = {
+    "a": {"graph norm by the batch's node count": _snorm_of_the_batch},
+    "b": {"the attenuation scaler computed as the amplification":
+          _attenuation_as_amplification},
+    "c": {"the dropout masks without their 1 / keep_prob scale":
+          _s17_unscaled_dropout},
+    "d": {"graph norm by the batch's node count": _snorm_of_the_batch},
+    "e": {"the triplet message gathered at the edge j -> i":
+          _kj_gathered_by_ji,
+          "the triplet gather's backward without its CSC order":
+          _kj_backward_unordered}}
+# the zero-gradient leaves: the posttrans Linear's bias feeding its last
+# BatchNorm (PNAOriginal's towers, PNAOriginalSimple's layers; (d) adds
+# the Net3D's); SMP has no BatchNorm
+SLICE17_ZERO = {"a": ZERO_GRADIENT, "b": ZERO_GRADIENT, "c": ZERO_GRADIENT,
+                "d": ZERO_GRADIENT, "e": ()}
+
+
+def _s17_checks():
+    """One float32 and one bf16 step of each configuration on the card
+    against the CPU's float32 step (`_hold_step_against_cpu`; (c)'s
+    dropout masks replayed on both sides), and the planted faults against
+    the bf16 check."""
+    for kind in ("a", "b", "c", "d", "e"):
+        g, sizes = _s17_batch(kind, "cpu", SLICE17_CHECK)
+        masks = [] if kind == "d" else _s17_masks(kind, g)
+        print(f"[slice17] ({kind}) {SLICE17_NAMES[kind]}: the step on "
+              f"{SLICE17_CHECK} graphs ({sizes}), card against CPU, "
+              f"{len(masks)} dropout masks replayed")
+        _hold_step_against_cpu(
+            lambda bf16, dev: _s17_one_step(kind, g, masks, bf16, dev),
+            ("model", "model3d") if kind == "d" else ("model",),
+            SLICE17_FAULTS[kind], f"slice17 ({kind})", SLICE17_ZERO[kind])
+
+
+def _triplet_view(g):
+    """The triplet sum's CSR as `_hold_csr_sum` reads a batch: the edges
+    are its nodes, the triplets (sorted by `idx_ji`) its rows."""
+    import types
+    return types.SimpleNamespace(num_nodes=g.senders.shape[0],
+                                 senders=g.idx_ji, csr_row_ptr=g.tri_ji_ptr)
+
+
+def _s17_kernels(ga, gb, gc, ge) -> dict:
+    """Every kernel of the slice's paths bit for bit at its new call sites:
+    rows 6 and 5 at the towers' widths (90 and 18 at (a)'s batch, 70 and
+    14 at (b)'s), rows 2 and 8 at the same shapes, row 1 there too (the
+    float32 layers), row 4 at (c)'s batch (D = 70), and at (e)'s batch
+    row 7 over the receivers (D = 128) and over the triplets (D = 64),
+    row 4 keyed by `idx_kj` (D = 64) and by the senders (D = 128), row 3
+    over the receivers (D = 128)."""
+    gen = torch.Generator(device="cuda").manual_seed(240)
+    wa = _s17_args("a", True)["model_parameters"]["hidden_dim"]
+    wb = _s17_args("b", True)["model_parameters"]["hidden_dim"]
+    towers = _s17_args("a", True)["model_parameters"]["towers"]
+    me = _s17_args("e", True)["model_parameters"]
+    he, ie = me["hidden_channels"], me["int_emb_size"]
+    errs = {}
+    pairs = {"edge_combine": [], "pair_segment_sum": []}
+    for tag, g, widths in (("(a)", ga, (wa, wa // towers)),
+                           ("(b)", gb, (wb, wb // towers))):
+        pairs["edge_combine"] += _hold_edge_combine(f"slice17 {tag}", gen,
+                                                    g, widths)
+        pairs["pair_segment_sum"] += _hold_pair_segment_sum(
+            f"slice17 {tag}", gen, g, widths)
+    errs.update({n: _max_err(p) for n, p in pairs.items()})
+    cases = [(f"{tag}'s batch", g.csr_row_ptr, g.max_deg,
+              g.senders.shape[0], D)
+             for tag, g, w in (("(a)", ga, wa), ("(b)", gb, wb))
+             for D in (w, w // towers)]
+    errs["pna_stats"] = _max_err(_hold_pna_stats("slice17", gen, cases))
+    errs["pna_stats_bwd"] = _max_err(_hold_pna_stats_bwd("slice17", gen,
+                                                         cases))
+    Ee, T = ge.senders.shape[0], ge.idx_kj.shape[0]
+    _merge_errs(errs, _hold_walks(
+        "slice17",
+        gen, [(f"{tag}'s batch", g.csr_row_ptr, g.max_deg, g.senders.shape[0],
+               (w, w // towers))
+              for tag, g, w in (("(a)", ga, wa), ("(b)", gb, wb))],
+        [("(c)'s batch", gc.csc_row_ptr, gc.csc_perm, gc.senders.shape[0],
+          (wb,)),
+         ("(e)'s radius graph", ge.csc_row_ptr, ge.csc_perm, Ee, (he,)),
+         ("(e)'s triplets by idx_kj", ge.tri_kj_ptr, ge.tri_kj_perm, T,
+          (ie,))],
+        [("(e)'s radius graph", ge.csr_row_ptr, Ee, (he,))]))
+    errs["csr_sum"] = max(
+        _max_err(_hold_csr_sum("slice17 (e) receivers", gen, ge, (he,))),
+        _max_err(_hold_csr_sum("slice17 (e) triplets", gen,
+                               _triplet_view(ge), (ie,))))
+    return errs
+
+
+def _ordered_kernel_us(prof, needles) -> list:
+    """The device times (us) of the kernels whose names hold one of
+    `needles`, in launch order."""
+    from torch.profiler import DeviceType
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and any(n in e.name for n in needles)]
+    return [e.time_range.elapsed_us()
+            for e in sorted(evs, key=lambda e: e.time_range.start)]
+
+
+def _s17_timed(smi: str) -> dict:
+    """Each configuration's bf16 step at its batch: launches per step
+    (exact), ms per step (CUDA events over warm steps), graphs/s, peak
+    memory, kernels per step and the idle share of a profiled step; rows
+    2 and 8 in (a)'s step (the first layer's towers) and row 7 over the
+    triplets in (e)'s, each launch's mean device time beside its bound;
+    the host ms of `smp_collate` per batch of (e).  Returns the in-step
+    times."""
+    from torch.profiler import ProfilerActivity, profile
+    in_step = {}
+    for kind in ("a", "b", "c", "d", "e"):
+        step = _s17_step(kind, True, "cuda")
+        g, sizes = _s17_batch(kind, "cuda")
+        gp = step.prepare(*g) if kind == "d" else step.prepare(g)
+        gen = torch.Generator(device="cuda").manual_seed(241)
+        bs = _s17_args(kind, True)["batch_size"]
+
+        def one():
+            if kind == "d":
+                return step.step(*gp)
+            return step.step(gp, noise=masks_source(gen))
+        _reset_counts()
+        loss = float(one())
+        per, want = _counts(), _s17_launches(kind, True)
+        _check(per == want and np.isfinite(loss),
+               f"({kind}) launches per step {per} != {want}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(one, iters=SLICE17_TIMED, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            one()
+            torch.cuda.synchronize()
+        by_name = _profile_kernels(prof)
+        kernels = sum(c for _, c in by_name.values())
+        busy = sum(us for us, _ in by_name.values()) / 1e3
+        print(f"[slice17] ({kind}) {SLICE17_NAMES[kind]}, bf16, batch {bs}: "
+              f"{ms:.3f} ms per step (CUDA events over {SLICE17_TIMED} warm "
+              f"steps), {bs / ms * 1e3:.1f} graphs/s, peak "
+              f"max_memory_allocated {peak:.3f} GiB, {kernels} kernels per "
+              f"step, device busy {busy:.3f} ms of the profiled step (idle "
+              f"share {max(1 - busy / ms, 0.0):.3f}); launches per step "
+              f"(exact) { {n: c for n, c in per.items() if c} }; batch "
+              f"{sizes}; {smi}")
+        for kname, (us, c) in _port_kernels(by_name).items():
+            print(f"[slice17] ({kind})   {kname}: {c} launches, "
+                  f"{us / c:.2f} us each in the step")
+        if kind == "a":
+            _s17_tower_rows(gp, prof, in_step, smi)
+        if kind == "e":
+            _s17_triplet_rows(gp, prof, in_step, smi)
+        del step, gp
+    _s17_collate_ms(smi)
+    return in_step
+
+
+def _s17_tower_rows(g, prof, in_step: dict, smi: str):
+    """Rows 2 and 8 in (a)'s step: the first layer's towers, D = 90, bf16,
+    no affine, no sum section; beside the bytes each must move."""
+    D = _s17_args("a", True)["model_parameters"]["hidden_dim"]
+    N, E = g.num_nodes, g.senders.shape[0]
+    e_real = int(g.csr_row_ptr[-1])
+    bounds = {
+        # the real message rows, row_ptr, 5 bf16 sections out; per message
+        # element sum 1, sumsq 2, max / min 2, per output element ~8
+        "pna_stats": (e_real * D * 2 + (N + 1) * 4 + 5 * N * D * 2,
+                      5.0 * e_real * D + 8.0 * N * D),
+        # the real x rows, the d_x rows (padding included), seven [N, D]
+        # node arrays, row_ptr; ~18 flops per edge element (no affine)
+        "pna_stats_bwd": (e_real * D * 2 + E * D * 2 + 7 * N * D * 2
+                          + (N + 1) * 4, 18.0 * e_real * D)}
+    for name, (nbytes, flops) in bounds.items():
+        us = _ordered_kernel_us(prof, PROFILE_NAMES[name])
+        bound_ms, by = _bound(nbytes, flops)
+        mean = sum(us) / len(us) / 1e3
+        in_step[f"{name} (a) towers"] = mean
+        print(f"[slice17] {name} (row {2 if name == 'pna_stats' else 8}) in "
+              f"(a)'s step at the tower shape (N={N}, real E={e_real}, "
+              f"D={D}, bf16, no affine): {len(us)} launches, {mean:.5f} ms "
+              f"each; bound {bound_ms:.5f} ms by {by} ({nbytes / 1e6:.3f} "
+              f"MB), {bound_ms / mean:.1%} of it; {smi}")
+
+
+def _s17_triplet_rows(g, prof, in_step: dict, smi: str):
+    """Row 7 in (e)'s step: its launches alternate, in the forward, between
+    the receivers' sums (the node updates, D = 128) and the triplets'
+    (the edge updates, D = 64, float32); the triplets' beside their bytes,
+    and the same call timed alone, cold-L2 and warm."""
+    me = _s17_args("e", True)["model_parameters"]
+    D, L = me["int_emb_size"], me["propagation_depth"]
+    us = _ordered_kernel_us(prof, PROFILE_NAMES["csr_sum"])
+    _check(len(us) == 1 + 2 * L, f"(e) csr_sum launches {len(us)}")
+    tri = [us[2 * k + 1] for k in range(L)]
+    E, T = g.senders.shape[0], g.idx_kj.shape[0]
+    t_real = int(g.tri_ji_ptr[-1])
+    nbytes = t_real * D * 4 + (E + 1) * 4 + E * D * 4
+    bound_ms, by = _bound(nbytes, float(t_real * D))
+    mean = sum(tri) / len(tri) / 1e3
+    in_step["csr_sum (e) triplets"] = mean
+    x = torch.randn(T, D, device="cuda")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    cold = device_ms(lambda: csr_sum(x, g.tri_ji_ptr), iters=20,
+                     flush=flush)
+    warm = device_ms(lambda: csr_sum(x, g.tri_ji_ptr), iters=100, warmup=10)
+    print(f"[slice17] csr_sum (row 7) over (e)'s triplets (E={E} edges, "
+          f"{t_real} real triplets of {T}, D={D}, float32, "
+          f"{_sum_path(torch.float32, D, E, T)}): {mean:.5f} ms each in the "
+          f"step ({len(tri)} launches), alone {cold:.5f} ms cold-L2, "
+          f"{warm:.5f} ms warm; bound {bound_ms:.5f} ms by {by} "
+          f"({nbytes / 1e6:.3f} MB), {bound_ms / mean:.1%} of it in the "
+          f"step; {smi}")
+
+
+def _s17_collate_ms(smi: str):
+    """The host's `smp_collate` per batch of (e) (32 QM9-size molecules,
+    cutoff 5): featurization, packing and sorting, as the loader's thread
+    runs it."""
+    from infomax3d_tpu_torch.data.loader import smp_collate
+    a = _s17_args("e", True)
+    ds = SyntheticMolecules(4 * a["batch_size"], **SLICE17_DATA["e"])
+    cutoff = a["model_parameters"]["cutoff"]
+    times = []
+    for k in range(4):
+        items = [{"graph2d": ds.graph2d(i), "targets": ds.targets[i]}
+                 for i in range(k * a["batch_size"],
+                                (k + 1) * a["batch_size"])]
+        t0 = time.perf_counter()
+        smp_collate(items, None, cutoff)
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"[slice17] (e) host smp_collate per batch of {a['batch_size']} "
+          f"QM9-size molecules: {[round(t, 2) for t in times]} ms (4 "
+          f"batches); {smi}")
+
+
+# the CLI runs: synthetic caches of QM9 (19 targets, so `homo` and `r2`
+# are there) for (a) and (e), 1 epoch each
+SLICE17_CACHES = {"QM9": dict(num=600, num_targets=19, seed=5, n_min=4,
+                              n_max=26)}
+SLICE17_CLI = {"a": {"num_epochs": 1, "num_train": 256,
+                     "log_iterations": 1, "use_tensorboard": False},
+               "e": {"num_epochs": 1, "num_train": 64, "num_val": 32,
+                     "log_iterations": 1, "use_tensorboard": False}}
+
+
+def _s17_cli(out_dir: Path, caches: Path) -> dict:
+    """(a) and (e) through `cli.train.train` (1 epoch at the config's
+    batch, bf16 as "auto" resolves on the card): finite losses, a
+    validation loss, a checkpoint, the launches exact; the slice's other
+    configs resolved and built through the CLI.  Returns the launches
+    (the main path)."""
+    from infomax3d_tpu_torch.cli import train as cli
+    from infomax3d_tpu_torch.cli.config import load_config
+    _reset_counts()
+    with mock.patch.dict(os.environ, {"INFOMAX3D_DATA": str(caches)}):
+        for kind in ("a", "e"):
+            config = SLICE17[kind]
+            run = _data_run(config, SLICE17_CLI[kind],
+                            out_dir / f"slice17_{kind}", TRAINER_DEVICE)
+            _check((run["dir"] / "best_checkpoint.pt").exists(),
+                   f"({kind}) no checkpoint")
+            loss = run["args"]["loss_func"]
+            recs = [json.loads(x) for x in open(run["dir"] /
+                                                 "metrics.jsonl")]
+            train = [r[loss] for r in recs if r["split"] == "train"]
+            val = [r[loss] for r in recs if r["split"] == "val"]
+            _check(len(train) > 0 and len(val) == 1 and
+                   all(np.isfinite(train + val)),
+                   f"({kind}) CLI losses {train}, validation {val}")
+            args = run["args"]
+            _, v, t = cli.make_splits(args, cli.build_dataset(args))
+            bs = args["batch_size"]
+            evals = (args["num_epochs"] + 1) * -(-len(v) // bs) +                 (-(-len(t) // bs) if args["eval_on_test"] and len(t) else 0)
+            want = _expect(_s17_launches(kind, True),
+                           _s17_launches(kind, False), len(train), evals)
+            _check(run["launches"] == want,
+                   f"({kind}) CLI launches {run['launches']} != {want}")
+            timing = json.load(open(run["dir"] / "timing.json"))
+            print(f"[slice17] ({kind}) CLI {config} (QM9 cache, 1 epoch of "
+                  f"{len(train)} steps at batch {bs}): {run['wall_s']:.1f} "
+                  f"s, train losses {[round(x, 4) for x in train]}, "
+                  f"validation {[round(x, 4) for x in val]}, step ms "
+                  f"{[round(x, 2) for x in timing['step_ms']]}; launches "
+                  f"{ {n: c for n, c in run['launches'].items() if c} }")
+    launches = _counts()
+    for config, model_type in list(SLICE17_ALSO.items()) + [
+            (SLICE17["b"], "PNAOriginal"), (SLICE17["c"], "PNAOriginalSimple"),
+            (SLICE17["d"], "PNAOriginal")]:
+        args = load_config(config, {})
+        cli.resolve_collate(args)
+        cli.resolve_fast_paths(args)
+        models = cli.build_models(args)
+        _check(type(models["model"]).__name__ == model_type,
+               f"{config}: built {type(models['model']).__name__}")
+        print(f"[slice17] {config}: resolves and builds through the CLI "
+              f"({model_type}, collate {args['collate_function']}, "
+              f"{sum(p.numel() for p in models['model'].parameters())} "
+              f"parameters)")
+    print(f"[slice17] main-path launches (the CLI runs): {launches}")
+    return launches
+
+
+def _write_slice17_caches(root: Path) -> Path:
+    from infomax3d_tpu_torch.data.synthetic import write_synthetic_cache
+    for name, kw in SLICE17_CACHES.items():
+        write_synthetic_cache(str(root / name / "processed.npz"), **kw)
+    return root
+
+
+def phase_slice17(smi: str, out_dir: Path) -> dict:
+    """Phase 24: PNAOriginal (with towers, graph norm and the simple
+    variant) and SMP through the supervised and contrastive trainers.
+    Returns the main path's launches (the CLI runs), the kernel checks'
+    errors and the in-step times."""
+    t = [time.perf_counter()]
+    ga, _ = _s17_batch("a", "cuda")
+    gb, _ = _s17_batch("b", "cuda")
+    gc, _ = _s17_batch("c", "cuda")
+    ge, _ = _s17_batch("e", "cuda")
+    errs = _s17_kernels(ga, gb, gc, ge)
+    t.append(time.perf_counter())
+    _s17_checks()
+    t.append(time.perf_counter())
+    in_step = _s17_timed(smi)
+    t.append(time.perf_counter())
+    caches = _write_slice17_caches(out_dir / "slice17_caches")
+    launches = _s17_cli(out_dir, caches)
+    t.append(time.perf_counter())
+    print("[slice17] seconds: " + ", ".join(
+        f"{k} {b - a:.1f}" for k, a, b in zip(
+            ("kernel checks", "step checks", "timings", "CLI runs"),
+            t, t[1:])))
+    return {"launches": launches, "errs": errs, "in_step": in_step}
+
+
 class _Phase:
     """Prints a phase's seconds when it ends (and lets its error pass)."""
 
@@ -5413,17 +5966,22 @@ def main() -> int:
     with _Phase("23 GIN options and transformers"):
         s16 = phase_slice16(smi, out_dir)
         _merge_errs(errs, s16["errs"])
-    # every kernel's launches over the eleven main paths (serving,
+    with _Phase("24 PNAOriginal and SMP"):
+        s17 = phase_slice17(smi, out_dir)
+        _merge_errs(errs, s17["errs"])
+    # every kernel's launches over the twelve main paths (serving,
     # pre-training, GIN training, OT training, the trainer CLI,
     # multi-conformer pre-training, the data layer, the serving CLI, the
     # baselines' CLI runs, the OT family's CLI runs, the supervised CLI
-    # runs of the GIN's options and the transformers)
+    # runs of the GIN's options and the transformers, those of
+    # PNAOriginal and SMP)
     launches = {n: serve_launches[n] + train["launches"][n]
                 + gin["launches"][n] + ot_run["launches"][n]
                 + trainer["launches"][n] + conf["launches"][n]
                 + data["launches"][n] + serving["launches"][n]
                 + base["launches"][n] + family["launches"][n]
-                + s16["launches"][n] for n in serve_launches}
+                + s16["launches"][n] + s17["launches"][n]
+                for n in serve_launches}
     with _Phase("6 kernel times"):
         rows = phase_kernel_times(g, launches, errs)
     with _Phase("9 training profile"):

@@ -365,7 +365,9 @@ def make_loaders(args: Dict[str, Any], dataset):
     train batches (seed `seed`) or, with `train_sampler`, the batches of a
     size-clustered sampler (data/samplers.py); full batches for the
     contrastive collates.  The dense collates take the bucket's graph
-    count and `max_nodes` slots per graph."""
+    count and `max_nodes` slots per graph; `smp_collate` takes a radius
+    graph bucket (in-degree below the largest molecule) and a triplet
+    count sized from a sample."""
     from infomax3d_tpu_torch.data.loader import (DENSE_COLLATES,
                                                  GraphDataLoader)
     from infomax3d_tpu_torch.graphs.batch import BucketSpec
@@ -392,6 +394,27 @@ def make_loaders(args: Dict[str, Any], dataset):
     ckw = dict(args.get("collate_params") or {})
     contrastive = collate in ("contrastive_collate", "conformer_collate",
                               "contrastive_collate_ae")
+    if collate == "smp_collate":
+        # the radius graph (cutoff 5 angstrom by default) is denser than the
+        # bond graph and sparser than the complete graph: size its edges
+        # and triplets from a sample of 32 molecules with 2x headroom (JAX
+        # cli/train.py:513-540; a batch that still overflows raises:
+        # set collate_params.n_triplets)
+        from infomax3d_tpu_torch.data.smp_featurize import smp_featurize
+        cutoff = float(ckw.get("cutoff", 5.0))
+        sample = np.linspace(0, len(dataset) - 1,
+                             num=min(32, len(dataset))).astype(int)
+        se, st = [], []
+        for i in sample:
+            it = dataset[int(i)]
+            mol = it["graph2d"] if "coords" in it["graph2d"] else \
+                it["graph3d"]
+            f = smp_featurize(mol["coords"], cutoff=cutoff)
+            se.append(len(f["senders"]))
+            st.append(int(f["tri_count"]))
+        bucket = BucketSpec(bs, n_cap, min(_cap(se, 512, slack=2.0), e3_cap),
+                            max_deg=max(max_n - 1, 1), csr=True, nmax=max_n)
+        ckw.setdefault("n_triplets", _cap(st, 2048, slack=2.0))
 
     def bucket3d(copies):
         return BucketSpec(bs * copies, n_cap * copies, e3_cap * copies,

@@ -16,7 +16,8 @@ augmentations (`noised_distances_collate`, `noised_coordinates_collate`,
 index arrays and the true conformer positions), and the dense batches of
 the transformer (`san_collate`, `padded_collate_positional_encoding`:
 padded atom and bond codes, the real-bond mask, the Laplacian PE, the
-NaN-padded targets).  Node ids are those of the
+NaN-padded targets), and SMP's radius graphs with their triplets
+(`smp_collate`).  Node ids are those of the
 batch (the CSR sort permutes edges, not nodes), so the OT arrays do not
 depend on the edge order; the graph's edge-keyed arrays follow the
 receiver-sorted order as in every CSR batch.  A CSR view also carries its
@@ -47,10 +48,11 @@ import torch
 from infomax3d_tpu_torch.data.featurize import (lap_pe_node_array,
                                                 random_sign_flip)
 from infomax3d_tpu_torch.data.geomol_featurize import geomol_featurize
+from infomax3d_tpu_torch.data.smp_featurize import smp_featurize
 from infomax3d_tpu_torch.data.synthetic import complete_graph_from_coords
 from infomax3d_tpu_torch.graphs.batch import (BucketSpec, GraphBatch,
                                               batch_graphs, bucket_for,
-                                              to_graph_batch)
+                                              row_pointers, to_graph_batch)
 from infomax3d_tpu_torch.graphs.dense import dense_batch, to_dense_batch
 
 OT_KEYS = ("nbh_center", "nbh_nbrs", "nbh_perms", "nbh_mask", "nbh_mol",
@@ -197,9 +199,9 @@ DENSE_COLLATES = ("san_collate", "padded_collate_positional_encoding",
                   "egnn_padded_collate", "molhiv_padded_collate")
 
 # the JAX package's other collates and the ROADMAP queue 1 item that ports
-# each: EGNN's dense batches and SMP's radius graph, with their models
+# each: EGNN's dense batches, with their model
 NOT_PORTED = {name: 7 for name in (
-    "egnn_padded_collate", "molhiv_padded_collate", "smp_collate")}
+    "egnn_padded_collate", "molhiv_padded_collate")}
 
 
 def register_collate(name):
@@ -425,6 +427,93 @@ def node_drop_2d3d_collate(items, bucket, bucket3d=None,
         g3s.append(_node_drop_3d(g3, keep))
     return {"graph2d": _csr_view(batch_graphs(g2s, bucket), bucket),
             "graph3d": complete_graphs(g3s, bucket3d, bucket.n_graphs)}
+
+
+def edge_positions(graphs: Sequence[Dict], receivers: np.ndarray,
+                   num_nodes: int) -> np.ndarray:
+    """[E] int64: where `batch_graphs`' stable receiver sort puts each
+    edge of the molecules' edge lists concatenated in molecule order (the
+    order `smp_featurize`'s triplet ids count in, offset per molecule);
+    padding edges map onto themselves.  `receivers` is the sorted batch's,
+    which the sort is checked against."""
+    E = receivers.shape[0]
+    n_off = np.concatenate([[0], np.cumsum([len(g["node_feat"])
+                                            for g in graphs])[:-1]])
+    rec = np.full(E, num_nodes, np.int64)
+    e_tot = sum(len(g["receivers"]) for g in graphs)
+    rec[:e_tot] = np.concatenate([g["receivers"] + n_off[m]
+                                  for m, g in enumerate(graphs)])
+    order = np.argsort(rec, kind="stable")
+    if not np.array_equal(rec[order], receivers):
+        raise ValueError("edge_positions: not the batch's receiver sort")
+    inv = np.empty(E, np.int64)
+    inv[order] = np.arange(E)
+    return inv
+
+
+@register_collate("smp_collate")
+def smp_collate(items: Sequence[Dict], bucket: Optional[BucketSpec],
+                cutoff: float = 5.0, n_triplets: Optional[int] = None):
+    """SMP's batch (the JAX package's `smp_collate`, the reference's
+    xyztodat on the host): the molecules' radius graphs (cutoff in
+    angstrom, `data/smp_featurize.py`) as a CSR batch with their distances,
+    coordinates and NaN-padded targets, and the triplets k -> j -> i in a
+    bucket of `n_triplets` (the total plus 64 by default): `angle`,
+    `torsion`, `idx_kj`, `idx_ji`, `tri_mask`.  The triplets' edge ids
+    follow the receiver sort of the edges (molecule-order edge e sits at
+    the sort's inverse permutation of e); the triplets are sorted by
+    `idx_ji` (stable), with `tri_ji_ptr` [E + 1] over them (the CSR sum of
+    their messages onto each edge j -> i), and `tri_kj_perm` /
+    `tri_kj_ptr` give them in `idx_kj` order (the backward of the gather
+    ``x_kj[idx_kj]``).  Padding triplets point at edge id E, sort last and
+    carry no weight.  Without a bucket, the smallest CSR bucket of the
+    radius graphs (`bucket_for`) holds the batch."""
+    graphs, feats = [], []
+    for it in items:
+        mol = it["graph2d"] if "coords" in it["graph2d"] else it["graph3d"]
+        f = smp_featurize(mol["coords"], cutoff=cutoff)
+        g = dict(node_feat=mol["node_feat"], senders=f["senders"],
+                 receivers=f["receivers"], edge_dist=f["dist"],
+                 coords=mol["coords"])
+        if "targets" in it:
+            g["targets"] = it["targets"]
+        graphs.append(g)
+        feats.append(f)
+    bucket = bucket or bucket_for(graphs, len(items))
+    arrays = batch_graphs(graphs, bucket)
+    if "targets" in items[0]:
+        _nan_targets(arrays, len(items))
+    E = bucket.n_edges
+    inv = edge_positions(graphs, arrays["receivers"], bucket.n_nodes)
+    e_off = np.concatenate([[0], np.cumsum([len(f["senders"])
+                                            for f in feats])[:-1]])
+    counts = [int(f["tri_count"]) for f in feats]
+    T = n_triplets or sum(counts) + 64
+    if sum(counts) > T:
+        raise ValueError(f"triplet bucket {T} too small")
+    angle = np.zeros(T, np.float32)
+    torsion = np.zeros(T, np.float32)
+    idx_kj = np.full(T, E, np.int64)
+    idx_ji = np.full(T, E, np.int64)
+    tri_mask = np.zeros(T, bool)
+    o = 0
+    for m, (f, c) in enumerate(zip(feats, counts)):
+        angle[o:o + c] = f["angle"]
+        torsion[o:o + c] = f["torsion"]
+        idx_kj[o:o + c] = inv[f["idx_kj"] + e_off[m]]
+        idx_ji[o:o + c] = inv[f["idx_ji"] + e_off[m]]
+        tri_mask[o:o + c] = True
+        o += c
+    by_ji = np.argsort(idx_ji, kind="stable")
+    idx_kj, idx_ji = idx_kj[by_ji], idx_ji[by_ji]
+    arrays.update(angle=angle[by_ji], torsion=torsion[by_ji],
+                  idx_kj=idx_kj.astype(np.int32),
+                  idx_ji=idx_ji.astype(np.int32), tri_mask=tri_mask[by_ji],
+                  tri_ji_ptr=row_pointers(idx_ji, E),
+                  tri_kj_perm=np.argsort(idx_kj, kind="stable").astype(
+                      np.int32),
+                  tri_kj_ptr=row_pointers(np.sort(idx_kj), E))
+    return {"graph": _csr_view(arrays, bucket)}
 
 
 @register_collate("graphcl_collate")

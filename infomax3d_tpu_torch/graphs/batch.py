@@ -12,6 +12,10 @@ batched the same way: its bucket's `max_deg` is the largest n - 1 and its
 `nmax` the largest n (`bucket_for`), and it carries `edge_dist` in place
 of bond features.
 
+Every batch carries ``snorm``, 1 / sqrt(n) for each node of an n-atom
+graph (0 on padding: PNAOriginal's graph norm), and ``coords`` where the
+graphs have coordinates.
+
 Padding conventions (as in the reference): padding edges have sender and
 receiver N (and distance 0), padding nodes have graph id G.  With
 ``csr=True`` the edges are sorted by receiver (stable, padding last) and
@@ -43,6 +47,15 @@ class BucketSpec:
     nmax: int = 0
 
 
+def row_pointers(ids: np.ndarray, n: int) -> np.ndarray:
+    """[n + 1] int32: the ranges of ids 0 .. n - 1 in ascending `ids`
+    (ids >= n, the padding, lie past the last range)."""
+    ptr = np.zeros(n + 1, np.int32)
+    np.cumsum(np.bincount(np.minimum(ids, n), minlength=n + 1)[:n],
+              out=ptr[1:])
+    return ptr
+
+
 def _check_degree(indices: np.ndarray, num_nodes: int, max_deg: int):
     """The kernels' contract: no node has more than `max_deg` edges."""
     valid = indices[(indices >= 0) & (indices < num_nodes)]
@@ -57,7 +70,8 @@ def batch_graphs(graphs: Sequence[Dict[str, np.ndarray]],
     ``receivers``, optional ``edge_feat``, ``edge_dist`` and ``targets``)
     into one padded flat batch.  ``targets`` (per graph, [T]) become
     [G, T] float32 with zero padding rows, as the JAX batcher stacks its
-    per-graph extras."""
+    per-graph extras; ``coords`` ([n, 3]) become [N, 3] with zero padding
+    rows; ``snorm`` ([N, 1] float32) is always emitted."""
     G, N, E = bucket.n_graphs, bucket.n_nodes, bucket.n_edges
     g_real = len(graphs)
     if g_real == 0:
@@ -97,6 +111,11 @@ def batch_graphs(graphs: Sequence[Dict[str, np.ndarray]],
     node_mask[:n_tot] = True
     edge_mask = np.zeros(E, dtype=bool)
     edge_mask[:e_tot] = True
+    # 1 / sqrt(n) per real node of an n-atom graph, 0 on padding (the
+    # reference's s_norm collates, the JAX package's `snorm`)
+    snorm = np.zeros((N, 1), dtype=np.float32)
+    snorm[:n_tot, 0] = np.repeat(1.0 / np.sqrt(n_per.astype(np.float32)),
+                                 n_per)
     graph_mask = np.zeros(G, dtype=bool)
     graph_mask[:g_real] = True
     n_nodes = np.zeros(G, dtype=np.int32)
@@ -105,7 +124,13 @@ def batch_graphs(graphs: Sequence[Dict[str, np.ndarray]],
     out: Dict[str, np.ndarray] = dict(
         node_feat=node_feat, senders=senders, receivers=receivers,
         node_graph=node_graph, node_pos=node_pos, node_mask=node_mask,
-        edge_mask=edge_mask, graph_mask=graph_mask, n_nodes=n_nodes)
+        edge_mask=edge_mask, graph_mask=graph_mask, n_nodes=n_nodes,
+        snorm=snorm)
+    if graphs[0].get("coords") is not None:
+        c0 = graphs[0]["coords"]
+        coords = np.zeros((N,) + c0.shape[1:], dtype=c0.dtype)
+        coords[:n_tot] = np.concatenate([g["coords"] for g in graphs])
+        out["coords"] = coords
     for key in ("edge_feat", "edge_dist"):
         if graphs[0].get(key) is None:
             continue
@@ -129,17 +154,12 @@ def batch_graphs(graphs: Sequence[Dict[str, np.ndarray]],
             if key in out:
                 out[key] = out[key][order]
         senders, receivers = out["senders"], out["receivers"]
-        row_ptr = np.zeros(N + 1, np.int32)
-        np.cumsum(np.bincount(receivers.clip(0, N), minlength=N + 1)[:N],
-                  out=row_ptr[1:])
+        row_ptr = row_pointers(receivers, N)
         out["csr_row_ptr"] = row_ptr
         # sender-sorted edge order (stable; padding senders == N last) and
         # its row pointers: the sender half of the combine backward
         out["csc_perm"] = np.argsort(senders, kind="stable").astype(np.int32)
-        csc_ptr = np.zeros(N + 1, np.int32)
-        np.cumsum(np.bincount(senders.clip(0, N), minlength=N + 1)[:N],
-                  out=csc_ptr[1:])
-        out["csc_row_ptr"] = csc_ptr
+        out["csc_row_ptr"] = row_pointers(senders, N)
         # each edge's slot within its receiver's CSR range; -1 on padding
         pos = (np.arange(receivers.shape[0], dtype=np.int32)
                - row_ptr[np.minimum(receivers, N)])
@@ -189,9 +209,13 @@ _TENSOR_FIELDS = ("node_feat", "senders", "receivers", "node_graph",
                   "csr_row_ptr", "csc_perm", "csc_row_ptr", "in_degree",
                   "rd_node_idx", "rd_inv_flat")
 # per-batch fields that only some batches carry: bond codes (2D graphs),
-# distances (3D complete graphs), graph labels; each node's position in its
-# graph (`batch_graphs` always emits it)
-_OPTIONAL_FIELDS = ("edge_feat", "edge_dist", "targets", "node_pos")
+# distances (3D complete graphs), graph labels, coordinates; each node's
+# position in its graph and its graph's 1 / sqrt(n) (`batch_graphs` always
+# emits both); the SMP collate's triplets (`data/loader.py::smp_collate`)
+_OPTIONAL_FIELDS = ("edge_feat", "edge_dist", "targets", "node_pos",
+                    "snorm", "coords")
+TRIPLET_FIELDS = ("angle", "torsion", "idx_kj", "idx_ji", "tri_mask",
+                  "tri_ji_ptr", "tri_kj_ptr", "tri_kj_perm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,6 +243,18 @@ class GraphBatch:
     edge_dist: Optional[torch.Tensor] = None  # [E] float32 (pad -> 0)
     targets: Optional[torch.Tensor] = None    # [G, T] float32 graph labels
     node_pos: Optional[torch.Tensor] = None   # [N] int32 (pad -> 0)
+    snorm: Optional[torch.Tensor] = None      # [N, 1] float32 (pad -> 0)
+    coords: Optional[torch.Tensor] = None     # [N, 3] float32 (pad -> 0)
+    # SMP's triplets k -> j -> i over the radius graph, sorted by the edge
+    # j -> i (`idx_ji`; padding triplets last, pointing at edge id E):
+    angle: Optional[torch.Tensor] = None      # [T] float32
+    torsion: Optional[torch.Tensor] = None    # [T] float32
+    idx_kj: Optional[torch.Tensor] = None     # [T] int32 edge k -> j
+    idx_ji: Optional[torch.Tensor] = None     # [T] int32 edge j -> i
+    tri_mask: Optional[torch.Tensor] = None   # [T] bool
+    tri_ji_ptr: Optional[torch.Tensor] = None   # [E + 1] int32: by idx_ji
+    tri_kj_ptr: Optional[torch.Tensor] = None   # [E + 1] int32: by idx_kj
+    tri_kj_perm: Optional[torch.Tensor] = None  # [T] int32 idx_kj order
 
     @property
     def num_nodes(self) -> int:
@@ -227,15 +263,15 @@ class GraphBatch:
     def to(self, device) -> "GraphBatch":
         return dataclasses.replace(self, **{
             k: getattr(self, k).to(device) for k in
-            _TENSOR_FIELDS + _OPTIONAL_FIELDS
+            _TENSOR_FIELDS + _OPTIONAL_FIELDS + TRIPLET_FIELDS
             if getattr(self, k) is not None})
 
 
 def to_graph_batch(arrays: Dict[str, np.ndarray], bucket: BucketSpec,
                    device) -> GraphBatch:
     """Host arrays of a ``csr=True``, ``nmax > 0`` bucket -> `GraphBatch`
-    on `device` (with `edge_feat`, `edge_dist`, `targets` and `node_pos`
-    when the arrays carry them)."""
+    on `device` (with the optional fields and the triplets when the
+    arrays carry them)."""
     if not bucket.csr or bucket.nmax <= 0:
         raise ValueError("the port's batches are CSR buckets with nmax > 0")
 
@@ -243,5 +279,6 @@ def to_graph_batch(arrays: Dict[str, np.ndarray], bucket: BucketSpec,
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return GraphBatch(
         **{k: tensor(arrays[k]) for k in _TENSOR_FIELDS},
-        **{k: tensor(arrays[k]) for k in _OPTIONAL_FIELDS if k in arrays},
+        **{k: tensor(arrays[k]) for k in _OPTIONAL_FIELDS + TRIPLET_FIELDS
+           if k in arrays},
         max_deg=bucket.max_deg, nmax=bucket.nmax)

@@ -26,8 +26,10 @@ flax component              torch component
 ``Dense_0``,                ``pool.gate_nn.0``, ``.1``, ``.3`` (OGBGNN's
 ``MaskedBatchNorm_0``,      attention pooling at the tree's root:
 ``Dense_1`` (the root's)    Sequential(Linear, BN, ReLU, Linear))
-``<kind>_encoder/encoder/   ``<kind>_encoder.<kind>_embedding_list.{i}.
-emb_{i}``                   weight``
+``<name>/encoder/emb_{i}``  ``<name>.<kind>_embedding_list.{i}.weight``
+                            (kind "atom" where a component of the path
+                            contains "atom", else "bond", as the JAX
+                            package's `convert_state_dict` reads it)
 ``<dense>/kernel``          ``<dense>.weight`` (a bare Dense, transposed)
 ``root_emb``,               ``root_emb.weight``,
 ``virtualnode_embedding``   ``virtualnode_embedding.weight`` ([1, D]:
@@ -35,7 +37,8 @@ emb_{i}``                   weight``
 ``node_embedding``, ``eps``, the same name (a bare parameter)
 ``edge_eps``, ``node_eps``,
 ``edge_eps_{d}``,
-``node_eps_{d}``, ``v_node``
+``node_eps_{d}``, ``v_node``,
+``dist_emb_freq``
 ==========================  ===========================================
 
 ``Dense_0`` and ``MaskedBatchNorm_0`` become ``linear`` and ``batch_norm``
@@ -59,7 +62,15 @@ OGBGNN's ``set2set/lstm_{i}/{ii,if,ig,io,hi,hf,hg,ho}`` (the reference
 has no Set2Set), and the transformers, a JAX redesign: ``pna_{i}``,
 ``attn_{i}``, ``combine_{i}``, ``output``, and ``node_gnn``'s
 ``pos_enc_mlp`` and ``v_node`` (its blocks ``mp_{i}`` are
-``mp_layers.{i}``, as the table maps them).
+``mp_layers.{i}``, as the table maps them); PNAOriginal's
+``embedding_h``, ``embedding_e``, ``layer_{i}``, ``tower_{t}``,
+``pretrans``, ``posttrans``, ``mixing_network``, ``gru/{ir,iz,in,hr,hz,
+hn}`` (flax's GRU cell: no bias on ``hr`` and ``hz``) and ``output/
+Dense_{l}`` (`MLPReadout`), PNAOriginalSimpleRandom's ``node_init``, and
+SMP's ``init_e`` (``emb``, ``lin_rbf_0``, ``lin``, ``lin_rbf_1``),
+``init_v`` / ``update_v_{l}`` (``lin_up``, ``lins_{k}``, ``lin``),
+``update_e_{l}`` (``lin_ji`` ... ``lin_rbf``, ``res_before_{b}`` /
+``res_after_{a}`` with ``lin1``, ``lin2``).
 
 `flax_paths` goes the other way for a port module's parameters: each torch
 name's flax path, which the optimizer's group labels read.
@@ -67,8 +78,9 @@ name's flax path, which the optimizer's group labels read.
 `init_jax_variables` makes seeded numpy trees in the flax layout of a PNA,
 Net3DDense, OGBGNN (each option), OGBGNNRandom, PNATransformer,
 TransformerPlain, OptimalTransportModel (each backbone and option),
-DistancePredictor, PNADistancePredictor, Net3DAE, Net3DDistancePredictor
-or GeomolGNNWrapperOGBFeat configuration,
+DistancePredictor, PNADistancePredictor, Net3DAE, Net3DDistancePredictor,
+GeomolGNNWrapperOGBFeat, PNAOriginal (and its random alias),
+PNAOriginalSimple, PNAOriginalSimpleRandom or SMP configuration,
 for serving and training without a checkpoint and for tests;
 `load_variables` loads such trees into a module.
 """
@@ -147,7 +159,8 @@ _LEAVES = {("params", "kernel"): "weight", ("params", "bias"): "bias",
 
 # parameters that are leaves of their module, not of a Dense or BatchNorm
 # (the GeoMol MPNN's per-depth epsilons carry a ``_{d}`` suffix)
-_BARE = ("node_embedding", "eps", "edge_eps", "node_eps", "v_node")
+_BARE = ("node_embedding", "eps", "edge_eps", "node_eps", "v_node",
+         "dist_emb_freq")
 # [D] parameters that the reference keeps as nn.Embedding(1, D) weights
 _EMBEDDED = ("root_emb", "virtualnode_embedding")
 
@@ -164,7 +177,9 @@ def _torch_name(collection: str, path: Tuple[str, ...]) -> str:
     if collection == "params" and leaf in _EMBEDDED:
         return ".".join(_components(mods) + [leaf, "weight"])
     if leaf.startswith("emb_") and mods and mods[-1] == "encoder":
-        kind = mods[-2].split("_")[0]                       # atom / bond
+        # the JAX package's converter: "atom" where a component of the
+        # path says so, else "bond" (PNAOriginal's embedding_h, SMP's emb)
+        kind = "atom" if any("atom" in c for c in mods) else "bond"
         base = ".".join(_components(mods[:-1]))
         return f"{base}.{kind}_embedding_list.{leaf[4:]}.weight"
     if (collection, leaf) not in _LEAVES:
@@ -331,6 +346,12 @@ def init_jax_variables(model_parameters: Mapping, seed: int = 0,
         return _init_optimal_transport(mp, rng)
     if model_type == "GeomolGNNWrapperOGBFeat":
         return _init_geomol_wrapper(mp, rng)
+    if model_type in ("PNAOriginal", "PNAOriginalRandom"):
+        return _init_pna_original(mp, rng)
+    if model_type in ("PNAOriginalSimple", "PNAOriginalSimpleRandom"):
+        return _init_pna_original_simple(mp, rng, model_type)
+    if model_type == "SMP":
+        return _init_smp(mp, rng)
     if model_type in _WRAPPED:
         key, inner, adapt = _WRAPPED[model_type]
         params, stats = init_jax_variables(adapt(mp), seed, inner)
@@ -786,6 +807,153 @@ def _init_geomol_wrapper(mp: Dict[str, Any], rng):
                              mp.get("readout_hidden_dim") or d,
                              mp.get("readout_batchnorm", True), False)
     return _f32({"node_gnn": gnn, "output": out_p}), _f32({"output": out_s})
+
+
+_PNA_ORIGINAL_AGGS = ("mean", "max", "min", "std")
+_PNA_ORIGINAL_SCALERS = ("identity", "amplification", "attenuation")
+
+
+def _pna_original_parts(mp: Mapping[str, Any]) -> int:
+    return (len(mp.get("aggregators", _PNA_ORIGINAL_AGGS))
+            * len(mp.get("scalers", _PNA_ORIGINAL_SCALERS)))
+
+
+def _init_pna_original(mp: Dict[str, Any], rng):
+    """`PNAOriginal(**mp)`: ``embedding_h``, ``embedding_e`` (with
+    `edge_feat`), ``gru`` (with `gru_enable`: flax's cell, no bias on
+    ``hr`` / ``hz``), per layer ``tower_{t}`` (pretrans without
+    BatchNorm, posttrans with the mid / last ones) and
+    ``mixing_network``, and the `MLPReadout` ``output``."""
+    d, towers = mp["hidden_dim"], mp.get("towers", 1)
+    last_dim = mp["last_layer_dim"]
+    e_dim = mp.get("edge_hidden_dim", 0) or d
+    edge = mp.get("edge_feat", True)
+    depth = mp.get("propagation_depth", 4)
+    bn = (mp.get("mid_batch_norm", False), mp.get("last_batch_norm", False))
+    params: Dict[str, Any] = {"embedding_h": {"encoder": _emb_tree(
+        rng, FULL_ATOM_FEATURE_DIMS, d)}}
+    stats: Dict[str, Any] = {}
+    if edge:
+        params["embedding_e"] = {"encoder": _emb_tree(
+            rng, FULL_BOND_FEATURE_DIMS, e_dim)}
+    if mp.get("gru_enable", False):
+        params["gru"] = {g: (_dense_tree(rng, d, d) if g in ("ir", "iz",
+                                                             "in", "hn")
+                             else {"kernel": _dense_tree(rng, d, d)[
+                                 "kernel"]})
+                         for g in ("ir", "iz", "in", "hr", "hz", "hn")}
+    for i in range(depth):
+        last = i == depth - 1
+        out = last_dim if last else d
+        divide = mp.get("divide_input_last" if last else
+                        "divide_input_first", True)
+        w_in = d // towers if divide else d
+        w_out = out // towers
+        layer: Dict[str, Any] = {}
+        layer_stats: Dict[str, Any] = {}
+        for t in range(towers):
+            pre, _ = _mlp_tree(
+                rng, 2 * w_in + (e_dim if edge else 0)
+                + int(mp.get("use_3d", False)), w_in,
+                mp.get("pretrans_layers", 1), w_in, False, False)
+            post, post_s = _mlp_tree(
+                rng, (_pna_original_parts(mp) + 1) * w_in, w_out,
+                mp.get("posttrans_layers", 1), w_out, *bn)
+            layer[f"tower_{t}"] = {"pretrans": pre, "posttrans": post}
+            layer_stats[f"tower_{t}"] = {"posttrans": post_s}
+        layer["mixing_network"] = _dense_tree(rng, w_out * towers, out)
+        params[f"layer_{i}"], stats[f"layer_{i}"] = layer, layer_stats
+    width = last_dim * len(mp["readout_aggregators"])
+    dims = [width, width // 2, width // 4, mp["target_dim"]]
+    params["output"] = {f"Dense_{l}": _dense_tree(rng, dims[l], dims[l + 1])
+                        for l in range(3)}
+    return _f32(params), _f32(stats)
+
+
+def _init_pna_original_simple(mp: Dict[str, Any], rng, model_type: str):
+    """`PNAOriginalSimple(**mp)`: ``embedding_h``, per layer its
+    posttrans MLP, and the output MLP; `PNAOriginalSimpleRandom` has
+    ``atom_encoder`` and the 2-layer ``node_init`` in place of
+    ``embedding_h``."""
+    d, depth = mp["hidden_dim"], mp.get("propagation_depth", 4)
+    bn = (mp.get("mid_batch_norm", False), mp.get("last_batch_norm", False))
+    if model_type == "PNAOriginalSimpleRandom":
+        rvd = mp.get("random_vec_dim", 10)
+        params: Dict[str, Any] = {
+            "atom_encoder": {"encoder": _emb_tree(rng, FULL_ATOM_FEATURE_DIMS,
+                                                  d)},
+            "node_init": _geomol_mlp_tree(rng, d + rvd, d, 2)}
+    else:
+        params = {"embedding_h": {"encoder": _emb_tree(
+            rng, FULL_ATOM_FEATURE_DIMS, d)}}
+    stats: Dict[str, Any] = {}
+    for i in range(depth):
+        out = mp["last_layer_dim"] if i == depth - 1 else d
+        post, post_s = _mlp_tree(rng, _pna_original_parts(mp) * d, out,
+                                 mp.get("posttrans_layers", 1), out, *bn)
+        params[f"layer_{i}"] = {"posttrans": post}
+        stats[f"layer_{i}"] = {"posttrans": post_s}
+    params["output"], stats["output"] = _mlp_tree(
+        rng, mp["last_layer_dim"] * len(mp["readout_aggregators"]),
+        mp["target_dim"], mp.get("readout_layers", 2),
+        mp.get("readout_hidden_dim") or d, mp.get("readout_batchnorm", True),
+        False)
+    return _f32(params), _f32(stats)
+
+
+def _init_smp(mp: Dict[str, Any], rng):
+    """`SMP(**mp)`: ``dist_emb_freq`` (pi, 2 pi, ... perturbed by 5 %),
+    ``init_e``, ``init_v`` and per layer ``update_e_{l}`` /
+    ``update_v_{l}``.  Every output Linear is drawn non-zero whatever
+    `output_init` says (with zeros the model's output is 0 and a test of
+    it holds nothing)."""
+    h = mp.get("hidden_channels", 128)
+    k, sph = mp.get("num_radial", 6), mp.get("num_spherical", 3)
+    b, i_emb = mp.get("basis_emb_size", 8), mp.get("int_emb_size", 64)
+    o, target = mp.get("out_emb_size", 256), mp.get("target_dim", 1)
+
+    def dense(fi, fo, bias=True):
+        t = _dense_tree(rng, fi, fo)
+        return t if bias else {"kernel": t["kernel"]}
+
+    def update_v():
+        tree = {"lin_up": dense(h, o)}
+        tree.update({f"lins_{j}": dense(o, o)
+                     for j in range(mp.get("num_output_layers", 3))})
+        tree["lin"] = dense(o, target, False)
+        return tree
+
+    def residual():
+        return {"lin1": dense(h, h), "lin2": dense(h, h)}
+
+    params: Dict[str, Any] = {"dist_emb_freq": np.arange(1, k + 1) * np.pi
+                              * (1 + 0.05 * rng.normal(size=k))}
+    init_e: Dict[str, Any] = {}
+    if mp.get("use_node_features", True):
+        init_e["emb"] = {"encoder": _emb_tree(rng, FULL_ATOM_FEATURE_DIMS, h)}
+    else:
+        init_e["node_embedding"] = rng.normal(0.0, 1.0, h)
+    init_e.update(lin_rbf_0=dense(k, h), lin=dense(3 * h, h),
+                  lin_rbf_1=dense(k, h, False))
+    params["init_e"], params["init_v"] = init_e, update_v()
+    for layer in range(mp.get("propagation_depth", 4)):
+        e = {"lin_ji": dense(h, h), "lin_kj": dense(h, h),
+             "lin_rbf1": dense(k, b, False), "lin_rbf2": dense(b, h, False),
+             "lin_down": dense(h, i_emb, False),
+             "lin_sbf1": dense(sph * k, b, False),
+             "lin_sbf2": dense(b, i_emb, False),
+             "lin_t1": dense(sph * sph * k, b, False),
+             "lin_t2": dense(b, i_emb, False),
+             "lin_up": dense(i_emb, h, False)}
+        for j in range(mp.get("num_before_skip", 1)):
+            e[f"res_before_{j}"] = residual()
+        e["lin"] = dense(h, h)
+        for j in range(mp.get("num_after_skip", 2)):
+            e[f"res_after_{j}"] = residual()
+        e["lin_rbf"] = dense(k, h, False)
+        params[f"update_e_{layer}"] = e
+        params[f"update_v_{layer}"] = update_v()
+    return _f32(params), {}
 
 
 def _init_net3d_dense(mp: Dict[str, Any], rng):

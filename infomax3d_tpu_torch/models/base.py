@@ -1,6 +1,6 @@
 """Shared model blocks (port of `infomax3d_tpu/models/base.py`): activations,
 masked BatchNorm, `FCLayer` / `MLP` with the JAX package's lazy BatchNorm
-folds, and the atom / bond encoders.
+folds, the atom / bond encoders, `MLPReadout` and flax's `GRUCell`.
 
 Module and attribute names follow the reference repository's state_dict
 (`fully_connected.{i}.linear`, `batch_norm`, `atom_embedding_list.{i}`), so
@@ -270,25 +270,82 @@ def _embedding_sum(tables: nn.ModuleList, codes: torch.Tensor) -> torch.Tensor:
     return out.to(tables[0].weight.dtype)
 
 
-class AtomEncoder(nn.Module):
-    """Reference `commons/mol_encoder.py` AtomEncoder (9 OGB atom codes)."""
+class _CategoricalEncoder(nn.Module):
+    """Sum of one embedding table per categorical column, the tables in
+    ``{kind}_embedding_list``.  The kind is the one the JAX package's
+    `convert_state_dict` reads off the flax path: "atom" where a
+    component of the encoder's path contains "atom", else "bond" (so
+    PNAOriginal's ``embedding_h`` and SMP's ``emb`` hold atom codes in a
+    ``bond_embedding_list``)."""
 
-    def __init__(self, emb_dim: int):
+    def __init__(self, dims, emb_dim: int, kind: str):
         super().__init__()
-        self.atom_embedding_list = nn.ModuleList(
-            nn.Embedding(d, emb_dim) for d in FULL_ATOM_FEATURE_DIMS)
+        self.list_name = f"{kind}_embedding_list"
+        self.add_module(self.list_name, nn.ModuleList(
+            nn.Embedding(d, emb_dim) for d in dims))
 
     def forward(self, codes):
-        return _embedding_sum(self.atom_embedding_list, codes)
+        return _embedding_sum(getattr(self, self.list_name), codes)
 
 
-class BondEncoder(nn.Module):
+class AtomEncoder(_CategoricalEncoder):
+    """Reference `commons/mol_encoder.py` AtomEncoder (9 OGB atom codes)."""
+
+    def __init__(self, emb_dim: int, kind: str = "atom"):
+        super().__init__(FULL_ATOM_FEATURE_DIMS, emb_dim, kind)
+
+
+class BondEncoder(_CategoricalEncoder):
     """Reference `commons/mol_encoder.py` BondEncoder (3 OGB bond codes)."""
 
     def __init__(self, emb_dim: int):
-        super().__init__()
-        self.bond_embedding_list = nn.ModuleList(
-            nn.Embedding(d, emb_dim) for d in FULL_BOND_FEATURE_DIMS)
+        super().__init__(FULL_BOND_FEATURE_DIMS, emb_dim, "bond")
 
-    def forward(self, codes):
-        return _embedding_sum(self.bond_embedding_list, codes)
+
+class MLPReadout(nn.Module):
+    """The halving-width readout (reference `models/base_layers.py:
+    149-164`, the JAX package's `MLPReadout`): `num_hidden` Linears of
+    widths ``input_dim // 2 ** (l + 1)``, each followed by a ReLU, then the
+    output Linear; no BatchNorm.  The Linears carry flax's auto names
+    ``Dense_{l}`` and promote their input as flax `Dense` does."""
+
+    def __init__(self, input_dim: int, output_dim: int, num_hidden: int = 2):
+        super().__init__()
+        dims = [input_dim] + [input_dim // 2 ** (l + 1)
+                              for l in range(num_hidden)] + [output_dim]
+        self.num_hidden = num_hidden
+        for l in range(num_hidden + 1):
+            self.add_module(f"Dense_{l}", PromotingLinear(dims[l],
+                                                          dims[l + 1]))
+
+    def forward(self, x):
+        for l in range(self.num_hidden):
+            x = F.relu(getattr(self, f"Dense_{l}")(x))
+        return getattr(self, f"Dense_{self.num_hidden}")(x)
+
+
+class GRUCell(nn.Module):
+    """flax's `GRUCell` with its parameter layout: the input Denses
+    ``ir``, ``iz``, ``in`` with biases, the hidden ones ``hr``, ``hz``
+    without and ``hn`` with one (so `torch.nn.GRUCell`, whose hidden
+    biases all train, is not it).  ``forward(h, x)`` takes the carry `h`
+    and the input `x` and returns the new carry::
+
+        r = sigmoid(ir(x) + hr(h)),  z = sigmoid(iz(x) + hz(h)),
+        n = tanh(in(x) + r * hn(h)),  h' = (1 - z) * n + z * h."""
+
+    def __init__(self, in_dim: int, features: int):
+        super().__init__()
+        for name in ("ir", "iz", "in"):
+            self.add_module(name, PromotingLinear(in_dim, features))
+        for name, bias in (("hr", False), ("hz", False), ("hn", True)):
+            self.add_module(name, PromotingLinear(features, features,
+                                                  bias=bias))
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        gate = {n: getattr(self, n) for n in ("ir", "iz", "in", "hr", "hz",
+                                              "hn")}
+        r = torch.sigmoid(gate["ir"](x) + gate["hr"](h))
+        z = torch.sigmoid(gate["iz"](x) + gate["hz"](h))
+        n = torch.tanh(gate["in"](x) + r * gate["hn"](h))
+        return (1.0 - z) * n + z * h

@@ -5,12 +5,16 @@ from __future__ import annotations
 import torch.nn.functional as F
 from torch import nn
 
+from infomax3d_tpu_torch.models.base import PromotingLinear
+
 
 class GeomolMLP(nn.Module):
     """`num_layers` blocks ``Linear -> relu`` of hidden width ``in_dim``
     when ``out_dim < 10``, else ``out_dim``, then a final Linear.  The
     Linears are named as flax names the JAX module's auto-numbered
-    `Dense`s: ``Dense_0`` ... ``Dense_{num_layers}``.  The layer / batch
+    `Dense`s: ``Dense_0`` ... ``Dense_{num_layers}``; they promote their
+    input as flax `Dense` does (float32 noise columns meet bf16 weights in
+    PNAOriginalSimpleRandom's ``node_init``).  The layer / batch
     norm options are not used by the ported models and are not ported."""
 
     def __init__(self, in_dim: int, out_dim: int, num_layers: int):
@@ -19,7 +23,8 @@ class GeomolMLP(nn.Module):
         dims = [in_dim] + [h_dim] * num_layers + [out_dim]
         self.num_layers = num_layers
         for k in range(num_layers + 1):
-            self.add_module(f"Dense_{k}", nn.Linear(dims[k], dims[k + 1]))
+            self.add_module(f"Dense_{k}",
+                            PromotingLinear(dims[k], dims[k + 1]))
 
     def forward(self, x):
         for k in range(self.num_layers):

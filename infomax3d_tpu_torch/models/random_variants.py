@@ -1,6 +1,7 @@
-"""The random-feature backbones of the OT generator (port of
-`PNALayerEdgeUpdate`, `PNAGNNRandomEdgeUpdate`, `GINConvRandom` and
-`GNNNodeRandom`, infomax3d_tpu/models/random_variants.py, the reference's
+"""The random-feature models (port of `PNALayerEdgeUpdate`,
+`PNAGNNRandomEdgeUpdate`, `GINConvRandom`, `GNNNodeRandom`,
+`OGBGNNRandom`, `PNAOriginalRandom` and `PNAOriginalSimpleRandom`,
+infomax3d_tpu/models/random_variants.py, the reference's
 `models/pna_edge_update_random.py` and `models/gin_random.py`).
 
 Per layer, in the JAX package's order: ``z = relu(edge(e) + node_in(h[s])
@@ -18,6 +19,10 @@ the GIN convolution (the sender gather, whose backward is the
 sender-keyed segment-sum kernel, and the CSR-sum kernel at each
 receiver), the layer's BatchNorm, a relu on all but the last layer,
 dropout, the residual, and with a virtual node its per-graph MLP.
+
+PNAOriginal's random variants: `PNAOriginalRandom` is `PNAOriginal` (the
+reference draws no noise there), `PNAOriginalSimpleRandom` joins noise
+columns to the atom encoder's rows before PNAOriginalSimple's layers.
 
 Randomness comes from a noise source (`models/noise.py`: normal, uniform
 and Bernoulli draws in the JAX model's order); without one the noise is
@@ -38,6 +43,8 @@ from infomax3d_tpu_torch.models.base import (MLP, AtomEncoder, BondEncoder,
 from infomax3d_tpu_torch.models.geomol import GeomolMLP
 from infomax3d_tpu_torch.models.gin import GINConv
 from infomax3d_tpu_torch.models.noise import dropout, noise_columns
+from infomax3d_tpu_torch.models.pna_original import (PNAOriginal,
+                                                     PNAOriginalSimple)
 from infomax3d_tpu_torch.ops.aggregate import (edge_aggregate, gather_dst,
                                                gather_src,
                                                pna_aggregate_parts)
@@ -281,3 +288,38 @@ class OGBGNNRandom(nn.Module):
         h = self.node_gnn(g, rand_x, rand_e, noise)
         return self.graph_pred_linear(
             batch_readout(g, h, [self.graph_pooling]))
+
+
+# the reference's pna_original_random.py:120-150 draws no noise: the JAX
+# package registers PNAOriginal itself under this name
+PNAOriginalRandom = PNAOriginal
+
+
+class PNAOriginalSimpleRandom(PNAOriginalSimple):
+    """Reference `pna_original_random.py:328-412` (the JAX
+    `PNAOriginalSimpleRandom`): the atom encoder's rows (``atom_encoder``)
+    joined by `random_vec_dim` float32 noise columns and projected back to
+    `hidden_dim` by a 2-layer GeoMol MLP (``node_init``), then
+    PNAOriginalSimple's layers, readout and output MLP.  Under the
+    supervised trainer the source gives masks alone, so the noise columns
+    are zeros, as the JAX trainer's are."""
+
+    FIELDS = PNAOriginalSimple.FIELDS + ("random_vec_dim", "random_vec_std")
+
+    def __init__(self, hidden_dim: int, last_layer_dim: int, target_dim: int,
+                 readout_aggregators: Sequence[str], random_vec_dim: int = 10,
+                 random_vec_std: float = 1.0, **kw):
+        super().__init__(hidden_dim, last_layer_dim, target_dim,
+                         readout_aggregators, **kw)
+        del self.embedding_h
+        self.random_vec_dim, self.random_vec_std = random_vec_dim, \
+            random_vec_std
+        self.atom_encoder = AtomEncoder(hidden_dim)
+        self.node_init = GeomolMLP(hidden_dim + random_vec_dim, hidden_dim, 2)
+
+    def embed(self, g, noise=None) -> torch.Tensor:
+        h = self.atom_encoder(g.node_feat)
+        cols = noise_columns(noise, h.shape[0], self.random_vec_dim,
+                             self.random_vec_std,
+                             torch.empty(0, device=h.device))
+        return self.node_init(torch.cat([h, cols], dim=-1))

@@ -29,7 +29,11 @@ from infomax3d_tpu_torch.models.net3d_vae import (Net3DAE,
                                                   Net3DDistancePredictor)
 from infomax3d_tpu_torch.models.optimal_transport import OptimalTransportModel
 from infomax3d_tpu_torch.models.pna import PNA
-from infomax3d_tpu_torch.models.random_variants import OGBGNNRandom
+from infomax3d_tpu_torch.models.pna_original import (PNAOriginal,
+                                                     PNAOriginalSimple)
+from infomax3d_tpu_torch.models.random_variants import (
+    OGBGNNRandom, PNAOriginalRandom, PNAOriginalSimpleRandom)
+from infomax3d_tpu_torch.models.smp import SMP
 from infomax3d_tpu_torch.models.transformer import (DistancePredictor,
                                                     PNADistancePredictor,
                                                     PNATransformer,
@@ -59,14 +63,15 @@ MODEL_REGISTRY: Dict[str, type] = {
     "Net3DDistancePredictor": Net3DDistancePredictor,
     "GeomolGNNWrapperOGBFeat": GeomolGNNWrapperOGBFeat,
     "OGBGNNRandom": OGBGNNRandom, "PNATransformer": PNATransformer,
-    "TransformerPlain": TransformerPlain}
+    "TransformerPlain": TransformerPlain, "PNAOriginal": PNAOriginal,
+    "PNAOriginalRandom": PNAOriginalRandom,
+    "PNAOriginalSimple": PNAOriginalSimple,
+    "PNAOriginalSimpleRandom": PNAOriginalSimpleRandom, "SMP": SMP}
 
 # the JAX package's other registered names and the ROADMAP queue 1 item
 # that ports each
 NOT_PORTED: Dict[str, str] = {
-    **{n: "7c" for n in ("PNAOriginal", "PNAOriginalRandom",
-                         "PNAOriginalSimple", "PNAOriginalSimpleRandom")},
-    "SMP": "7d", "SAN": "7e", "EGNN": "7f", "EGNNTorch": "7f",
+    "SAN": "7e", "EGNN": "7f", "EGNNTorch": "7f",
     **{n: "7g" for n in ("GeomolGNNWrapper",
                          "GeomolGNNWrapperOGBFeatRandom",
                          "GeomolGNNWrapperOGBFeatRandomNonShared",
@@ -111,6 +116,11 @@ JAX_FIELDS: Dict[str, tuple] = {
     "OGBGNNRandom": OGBGNNRandom.FIELDS,
     "PNATransformer": PNATransformer.FIELDS,
     "TransformerPlain": TransformerPlain.FIELDS,
+    "PNAOriginal": PNAOriginal.FIELDS,
+    "PNAOriginalRandom": PNAOriginal.FIELDS,
+    "PNAOriginalSimple": PNAOriginalSimple.FIELDS,
+    "PNAOriginalSimpleRandom": PNAOriginalSimpleRandom.FIELDS,
+    "SMP": SMP.FIELDS,
 }
 
 # JAX fields the port's classes lack, with the JAX default they run at

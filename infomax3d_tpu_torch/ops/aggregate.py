@@ -7,8 +7,9 @@ node gathers `gather_src` / `gather_dst` and `edge_aggregate`
 Dispatch as in the JAX package: bf16 messages with max_deg <= 16 go to the
 fused stats kernel (`pna_stats`, with the pretrans BatchNorm folded in as a
 column affine); float32 messages, or max_deg > 16, go to the multi-reduce
-kernel (`multi_reduce`) with the node-side mean / std done here.  The port
-has CSR batches only (no mailbox or segment-scatter path).
+kernel (`multi_reduce`) with the node-side mean / std done here.
+PNAOriginal's always-scaled aggregates go through the same dispatch.  The
+port has CSR batches only (no mailbox or segment-scatter path).
 """
 from __future__ import annotations
 
@@ -50,9 +51,10 @@ def _stats_outs(g, x, aggregators, has, affine):
     return outs
 
 
-def _reduce_outs(g, x, deg, has):
+def _reduce_outs(g, x, deg, has, split_ties=False):
     s1, s2, mx, mn = multi_reduce(x, g.csr_row_ptr, g.max_deg,
-                                  receivers=g.receivers)
+                                  receivers=g.receivers,
+                                  split_ties=split_ties)
     deg_safe = deg.clamp(min=1.0)
     mean = s1 / deg_safe
     var = torch.relu(s2 / deg_safe - mean * mean)
@@ -63,11 +65,12 @@ def _reduce_outs(g, x, deg, has):
 
 
 def pna_aggregate_parts(g, messages, aggregators: Sequence[str],
-                        scalers: Sequence[str], avg_d_log: float = 1.0
-                        ) -> List[torch.Tensor]:
+                        scalers: Sequence[str], avg_d_log: float = 1.0,
+                        split_ties: bool = False) -> List[torch.Tensor]:
     """The PNA aggregates of edge `messages` (a tensor or an `AffinePart`)
     at each receiver, as [N, D] blocks in scaler-major, aggregator-minor
-    order, in the messages' dtype.  Nodes without edges give 0."""
+    order, in the messages' dtype.  Nodes without edges give 0.
+    `split_ties` is the multi-reduce path's tie rule (`multi_reduce`)."""
     unknown = set(aggregators) - {"sum", "mean", "max", "min", "std", "var"}
     if unknown:
         raise ValueError(f"unsupported PNA aggregators: {sorted(unknown)}")
@@ -83,7 +86,7 @@ def pna_aggregate_parts(g, messages, aggregators: Sequence[str],
     else:
         if affine is not None:
             x = messages.materialize()
-        outs = _reduce_outs(g, x, deg, has)
+        outs = _reduce_outs(g, x, deg, has, split_ties)
     dt = x.dtype
     aggs = [outs[a].to(dt) for a in aggregators]
     if len(scalers) <= 1:
@@ -102,6 +105,47 @@ def pna_aggregate_parts(g, messages, aggregators: Sequence[str],
             raise ValueError(f"unknown PNA scaler: {s}")
         scale = scale.to(dt)
         parts.extend(a * scale for a in aggs)
+    return parts
+
+
+def pna_aggregate_parts_always_scaled(g, messages, aggregators: Sequence[str],
+                                      scalers: Sequence[str],
+                                      avg_d_log: float = 1.0
+                                      ) -> List[torch.Tensor]:
+    """PNAOriginal's aggregates (the JAX package's
+    `pna_multi_aggregate_always_scaled`): `pna_aggregate_parts` with the
+    identity scaler alone, then every scaler applied, even a single one.
+    The identity blocks keep the messages' dtype; the scaled ones are the
+    identity block times a float32 degree factor, so they come back in
+    float32 (as JAX promotes ``h * (log_deg / avg_d_log)``).  The moment
+    aggregators are refused, as in JAX.  JAX aggregates PNAOriginal on
+    XLA's segment ops, whose max / min gradient is shared among tied
+    edges (on the multi-reduce path here too: `split_ties`; ties are
+    common where the messages are rows of h itself, as in
+    PNAOriginalSimple, whose dropout zeroes entries).  The bf16 statistics
+    kernel's backward routes a tie's cotangent to one winner edge, as the
+    JAX package's Pallas path does: the same total per node."""
+    if any(a.startswith("moment") for a in aggregators):
+        raise ValueError("moment aggregators are not supported by "
+                         "PNAOriginal (the reference implementation "
+                         "collapses them)")
+    aggs = pna_aggregate_parts(g, messages, aggregators, ("identity",),
+                               avg_d_log, split_ties=True)
+    rp = g.csr_row_ptr
+    deg = (rp[1:] - rp[:-1]).float()[:, None]
+    has = deg > 0
+    log_deg = torch.log(deg + 1.0)
+    parts = []
+    for s in scalers:
+        if s == "identity":
+            parts.extend(aggs)
+        elif s == "amplification":
+            parts.extend(a * (log_deg / avg_d_log) for a in aggs)
+        elif s == "attenuation":
+            att = avg_d_log / log_deg.clamp(min=EPS)
+            parts.extend(torch.where(has, a * att, 0.0) for a in aggs)
+        else:
+            raise ValueError(f"unknown PNA scaler: {s}")
     return parts
 
 

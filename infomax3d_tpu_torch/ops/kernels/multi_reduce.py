@@ -72,22 +72,34 @@ def _launch(messages, row_ptr, max_deg, wide: bool = False):
     return tuple(out.unbind(0))
 
 
-def multi_reduce_bwd(messages, receivers, mx, mn, cts):
+def multi_reduce_bwd(messages, receivers, mx, mn, cts,
+                     split_ties: bool = False):
     """The JAX package's `_bwd` (spmm.py), plain PyTorch: each edge gets
     its receiver's sum cotangent, ``2·m`` times the sumsq one, and the
     max / min ones where it ties the extremum — compared against the
     message and its bf16 rounding, so every tie gets the full cotangent.
+    With `split_ties`, the max / min cotangents are shared equally among
+    the edges equal to the extremum instead, as the gradient of XLA's
+    segment max / min is (the JAX package's `pna_multi_aggregate`).
     Padding edges get 0."""
     d_s, d_s2, d_mx, d_mn = cts
     N = mx.shape[0]
     r = receivers.long().clamp(0, N - 1)
+    valid = (receivers < N)[:, None]
     m = messages.float()
-    m_r = messages.to(torch.bfloat16).float()
     d = d_s[r] + 2.0 * m * d_s2[r]
     mx_e, mn_e = mx[r], mn[r]
-    d = d + d_mx[r] * ((m_r == mx_e) | (m == mx_e)).float()
-    d = d + d_mn[r] * ((m_r == mn_e) | (m == mn_e)).float()
-    valid = (receivers < N)[:, None]
+    if split_ties:
+        ids = torch.where(receivers < N, receivers.long(), N)
+        for ct, ext in ((d_mx, mx_e), (d_mn, mn_e)):
+            tie = ((m == ext) & valid).float()
+            count = torch.zeros(N + 1, tie.shape[1], device=tie.device)
+            count = count.index_add_(0, ids, tie)[:N]
+            d = d + ct[r] * tie / count[r].clamp(min=1.0)
+    else:
+        m_r = messages.to(torch.bfloat16).float()
+        d = d + d_mx[r] * ((m_r == mx_e) | (m == mx_e)).float()
+        d = d + d_mn[r] * ((m_r == mn_e) | (m == mn_e)).float()
     return torch.where(valid, d, torch.zeros((), device=d.device)).to(
         messages.dtype)
 
@@ -97,7 +109,8 @@ class MultiReduce(torch.autograd.Function):
     CPU.  Backward: `multi_reduce_bwd` on both."""
 
     @staticmethod
-    def forward(ctx, messages, row_ptr, receivers, max_deg):
+    def forward(ctx, messages, row_ptr, receivers, max_deg, split_ties):
+        ctx.split_ties = split_ties
         if _build.on_card(messages, "multi_reduce"):
             outs = _launch(messages, row_ptr, max_deg)
         else:
@@ -112,17 +125,20 @@ class MultiReduce(torch.autograd.Function):
             raise ValueError("multi_reduce: the gradient needs the batch's "
                              "receivers")
         cts = tuple(torch.zeros_like(mx) if c is None else c for c in cts)
-        return (multi_reduce_bwd(messages, receivers, mx, mn, cts), None,
-                None, None)
+        return (multi_reduce_bwd(messages, receivers, mx, mn, cts,
+                                 ctx.split_ties), None, None, None, None)
 
 
-def multi_reduce(messages, row_ptr, max_deg: int, receivers=None):
+def multi_reduce(messages, row_ptr, max_deg: int, receivers=None,
+                 split_ties: bool = False):
     """`messages [E, D]` float32 or bf16, `row_ptr [N + 1]` int32 ->
     (sum, sumsq, max, min), each float32 [N, D].  The gradient needs the
-    batch's `receivers` [E].  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    batch's `receivers` [E]; `split_ties` shares the max / min cotangents
+    among tied edges (`multi_reduce_bwd`).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
     _check(messages, max_deg)
-    return MultiReduce.apply(messages, row_ptr, receivers, max_deg)
+    return MultiReduce.apply(messages, row_ptr, receivers, max_deg,
+                             split_ties)
 
 
 multi_reduce.launches = 0

@@ -1,7 +1,8 @@
 """Graph readout, the node gathers and plain segment reductions (port of
 `infomax3d_tpu/ops/segment.py`: the dense-regroup path `_regroup` /
 `_graph_readout_dense` / `batch_readout`, `take_rows` over the senders and
-over the receivers, the clipped `take`, `segment_sum` / `segment_mean`)."""
+over the receivers, the clipped `take`, `segment_sum` / `segment_mean` /
+`segment_max` / `segment_min` / `segment_softmax`)."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -70,6 +71,12 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
     return torch.where(has, _segment_amax(data, segment_ids, num_segments),
                        torch.full((), empty_value, dtype=data.dtype,
                                   device=data.device))
+
+
+def segment_min(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int, empty_value: float = 0.0) -> torch.Tensor:
+    """Each segment's min of its rows; `empty_value` where it has none."""
+    return -segment_max(-data, segment_ids, num_segments, -empty_value)
 
 
 def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,

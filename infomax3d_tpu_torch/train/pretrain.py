@@ -36,8 +36,7 @@ from infomax3d_tpu_torch.graphs.dense import (DenseBatch, dense_batch,
 from infomax3d_tpu_torch.interop import (flax_paths, init_jax_variables,
                                          load_variables)
 from infomax3d_tpu_torch.losses import get_loss
-from infomax3d_tpu_torch.models.pna import PNA
-from infomax3d_tpu_torch.models.registry import get_model_class
+from infomax3d_tpu_torch.models.registry import build_model, get_model_class
 from infomax3d_tpu_torch.train.optim import build_adam, label_params
 from infomax3d_tpu_torch.train.precision import (cast_batch, forward_in,
                                                  resolve_compute_dtype)
@@ -45,8 +44,9 @@ from infomax3d_tpu_torch.train.supervised import TrainStep
 
 
 class PretrainStep(TrainStep):
-    """Forward, backward and Adam update of the PNA / Net3D pair on one
-    batch of molecules: `model3d_type` "Net3DDense" reads a `DenseBatch`,
+    """Forward, backward and Adam update of the 2D / 3D pair on one batch
+    of molecules: the 2D model is `model_type` (PNA by default, or e.g.
+    PNAOriginal), `model3d_type` "Net3DDense" reads a `DenseBatch`,
     "Net3D" a CSR `GraphBatch` of complete graphs.  `variables` holds flax
     numpy trees for ``model`` and ``model3d`` (`interop.init_jax_variables`
     layout); `compute_dtype` bf16 runs the bf16 recipe, None float32;
@@ -60,8 +60,9 @@ class PretrainStep(TrainStep):
                  loss_params: Optional[Mapping] = None,
                  optimizer_params: Optional[Mapping] = None,
                  loss_func: str = "NTXent",
-                 model3d_type: str = "Net3DDense"):
-        model = load_variables(PNA(**model_parameters), variables["model"])
+                 model3d_type: str = "Net3DDense", model_type: str = "PNA"):
+        model = load_variables(build_model(model_type, model_parameters),
+                               variables["model"])
         model3d = load_variables(
             get_model_class(model3d_type).from_config(model3d_parameters),
             variables["model3d"])
@@ -173,16 +174,18 @@ def conformer_batches(batch_size: int, num_conformers: int, seed: int = 0,
 
 
 def build_step(args: Mapping[str, Any], device: torch.device) -> PretrainStep:
-    """`PretrainStep` from a config-like dict: `model_parameters`,
-    `model3d_type` (default "Net3DDense"), `model3d_parameters`,
+    """`PretrainStep` from a config-like dict: `model_type` (default
+    "PNA"), `model_parameters`, `model3d_type` (default "Net3DDense"),
+    `model3d_parameters`,
     `loss_func` (default "NTXent"), `loss_params`, `optimizer_params` (the
     YAML keys), `bf16_compute` (default "auto"), and seeded numpy weights
     in the flax layout (`seed`, default 0; the 3D model takes `seed + 1`)."""
     seed = args.get("seed", 0)
+    m_type = args.get("model_type", "PNA")
     m3_type = args.get("model3d_type", "Net3DDense")
     variables = {
         "model": dict(zip(("params", "batch_stats"), init_jax_variables(
-            args["model_parameters"], seed))),
+            args["model_parameters"], seed, m_type))),
         "model3d": dict(zip(("params", "batch_stats"), init_jax_variables(
             args["model3d_parameters"], seed + 1, m3_type)))}
     return PretrainStep(
@@ -190,7 +193,7 @@ def build_step(args: Mapping[str, Any], device: torch.device) -> PretrainStep:
         device, resolve_compute_dtype(args.get("bf16_compute", "auto"),
                                       device),
         args.get("loss_params"), args.get("optimizer_params"),
-        args.get("loss_func", "NTXent"), m3_type)
+        args.get("loss_func", "NTXent"), m3_type, m_type)
 
 
 def pretrain(args: Dict[str, Any], steps: int = 1,

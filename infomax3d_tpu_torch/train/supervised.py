@@ -35,7 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from infomax3d_tpu_torch.data.loader import DENSE_COLLATES, san_collate
+from infomax3d_tpu_torch.data.loader import (DENSE_COLLATES, san_collate,
+                                             smp_collate, to_device)
 from infomax3d_tpu_torch.data.synthetic import SyntheticMolecules
 from infomax3d_tpu_torch.device import resolve_device
 from infomax3d_tpu_torch.graphs.batch import (GraphBatch, batch_graphs,
@@ -175,29 +176,36 @@ class SupervisedStep(TrainStep):
 
 def labelled_batch(batch_size: int, num_targets: int = 1, seed: int = 0,
                    n_min: int = 10, n_max: int = 41, device="cpu",
-                   dense: bool = False, max_nodes: int = 40
+                   dense: bool = False, max_nodes: int = 40,
+                   smp_cutoff: Optional[float] = None
                    ) -> Tuple[Union[GraphBatch, DenseBatch], Dict[str, int]]:
     """`batch_size` synthetic molecules as a CSR batch with binary labels
     (their `targets` > 0, float32 0/1, [G, num_targets]), plus its sizes:
     graphs, real nodes and real edges.  With `dense`, the transformer's
     dense batch (`san_collate`, the larger of `max_nodes` and the largest
-    molecule's slots per graph).  The defaults are molhiv-like: 10 to 41
-    atoms, 25.5 on average."""
+    molecule's slots per graph); with `smp_cutoff`, SMP's radius graphs
+    and triplets (`smp_collate`, its smallest bucket; the sizes then count
+    radius-graph edges and also the triplets).  The defaults are
+    molhiv-like: 10 to 41 atoms, 25.5 on average."""
     ds = SyntheticMolecules(batch_size, seed=seed, n_min=n_min, n_max=n_max,
                             num_targets=num_targets)
     labels = (ds.targets > 0).astype(np.float32)
     mols = [dict(ds.graph2d(i), targets=labels[i]) for i in range(batch_size)]
     b = bucket_for(mols, batch_size)
-    if dense:
-        items = [{"graph2d": ds.graph2d(i), "targets": labels[i]}
-                 for i in range(batch_size)]
+    items = [{"graph2d": ds.graph2d(i), "targets": labels[i]}
+             for i in range(batch_size)]
+    sizes = {"graphs": batch_size,
+             "nodes": sum(m["node_feat"].shape[0] for m in mols),
+             "edges": sum(m["senders"].shape[0] for m in mols)}
+    if smp_cutoff is not None:
+        g = to_device(smp_collate(items, None, smp_cutoff)["graph"], device)
+        sizes.update(edges=int(g.edge_mask.sum()),
+                     triplets=int(g.tri_mask.sum()))
+    elif dense:
         g = to_dense_batch(san_collate(items, b, max(max_nodes, b.nmax))[
             "graph"], device)
     else:
         g = to_graph_batch(batch_graphs(mols, b), b, device)
-    sizes = {"graphs": batch_size,
-             "nodes": sum(m["node_feat"].shape[0] for m in mols),
-             "edges": sum(m["senders"].shape[0] for m in mols)}
     return g, sizes
 
 
@@ -241,6 +249,8 @@ def supervised(args: Dict[str, Any], steps: int = 1,
         args["model_parameters"].get("target_dim", 1), device=device,
         dense=args.get("collate_function") in DENSE_COLLATES,
         max_nodes=args.get("max_nodes", 40),
+        smp_cutoff=(float(args["model_parameters"].get("cutoff", 5.0))
+                    if args["model_type"] == "SMP" else None),
         **args.get("dataset_params", {}))
     g = step.prepare(g)
     gen = torch.Generator(device=device).manual_seed(int(args.get("seed",

@@ -459,10 +459,10 @@ def test_collate_aliases_and_not_ported():
     assert loader.get_collate("NodeDropCollate") is loader.graphcl_collate
     assert loader.get_collate("NodeDrop3dCollate") is \
         loader.node_drop_3d_collate
-    for name in ("egnn_padded_collate", "molhiv_padded_collate",
-                 "smp_collate"):
+    for name in ("egnn_padded_collate", "molhiv_padded_collate"):
         with pytest.raises(NotImplementedError, match="item 7"):
             loader.get_collate(name)
+    assert loader.get_collate("smp_collate") is loader.smp_collate
     assert loader.get_collate("padded_collate_positional_encoding") is \
         loader.padded_collate_positional_encoding
     assert set(jax_loader.COLLATE_REGISTRY) == \
