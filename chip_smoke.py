@@ -251,6 +251,28 @@ its seconds:
    (e) through the CLI (1 epoch on a synthetic QM9 cache) with their
    launches, and the slice's other configs (`pna_original_simple_molhiv`,
    `SMP_rdkit_conformers`, `sphere_net`) resolved and built.
+25. BYOL, EGNN and SAN through the trainers, at the configs' widths and
+   batches, bf16: (a) `configs/byol.yml` (BYOL wrappers around PNA 90x6
+   and the flat Net3D 20x1, predictors 256, batch 250 QM9-size), (b)
+   `configs/0.yml` (PNA 90x6 beside EGNN 128x7, NT-Xent, batch 500),
+   (c) `configs/san.yml` and (d) `san_ogbg.yml` (SAN 64 x 10 layers, LPE
+   16 x 3, batches 4 and 64), (e) EGNNTorch at `egnn_dense`'s defaults on
+   `egnn_padded_collate` (128 wide, batch 128): rows 6, 5, 2, 8 and 1 bit
+   for bit on (a)'s bond graphs, rows 6, 5 and 7 on (a)'s and (b)'s
+   complete graphs (D = 20 and 128); one float32 and one bf16 step of
+   each on the card against the CPU's float32 step (the CPU's own bf16
+   distance the largest of three readings), with planted faults that
+   must each fail (the teachers in eval mode; each prediction against its
+   own side's projection; the squared distance from the receiver alone;
+   the gate dropped; SAN's channels' masks swapped; its score clamp
+   dropped); (a)'s state after a step (the 2D teacher moved by exactly
+   the EMA, the 3D teacher's weights unchanged, both teachers' running
+   statistics moved; the EMA on both teachers must fail it) and the
+   teachers' forwards through the kernels against the plain versions bit
+   for bit; launches per bf16 step, exact; ms per step, graphs/s, peak
+   memory, kernels per step and the idle share; (a), (b), (c) through
+   the CLI (1 epoch on a synthetic QM9 cache) with their launches, and
+   (d) resolved and built.
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 """
@@ -1365,7 +1387,8 @@ def _bf16_limits(own: dict, own_loss: float) -> tuple:
 
 
 def _hold_step_against_cpu(one_step, sides: tuple, faults: dict,
-                           phase: str, zero_leaves: tuple = ZERO_GRADIENT):
+                           phase: str, zero_leaves: tuple = ZERO_GRADIENT,
+                           fault_bf16: bool = True, witnesses: int = 1):
     """One float32 and one bf16 step on the card against the CPU's float32
     step (`one_step(bf16, device)` gives `_measure_step`'s loss and
     leaves): the loss, every leaf, the L2 of each model's gradient and the
@@ -1373,7 +1396,13 @@ def _hold_step_against_cpu(one_step, sides: tuple, faults: dict,
     of the CPU's own bf16 step; `zero_leaves` are the model's
     zero-gradient leaves.  Then the check's own test: with each planted
     fault (`faults` maps its name to a `plant()` that returns its undo)
-    the card's bf16 step must fail it."""
+    the card's bf16 step must fail it (with `fault_bf16` False, the
+    card's float32 step must fail the float32 check).  With `witnesses`
+    n > 1 the CPU's own bf16 distance is the largest of n readings: the
+    seeded weights', then the weights scaled by 1 + k * 2^-16 * U(-1, 1)
+    (k = 1 .. n - 1: below bf16's resolution, so each rounds anew), each
+    bf16 step against the float32 step at its own weights; `one_step`
+    then takes `perturb`."""
     loss_ref, ref = one_step(False, "cpu")
 
     def against_ref(loss, leaves, tol, l2_tol, leaf_tol=None):
@@ -1394,6 +1423,22 @@ def _hold_step_against_cpu(one_step, sides: tuple, faults: dict,
     loss_own, own = one_step(True, "cpu")
     own_loss = abs(loss_own - loss_ref) / abs(loss_ref)
     own = _readings(own, ref, sides, zero_leaves)
+    for k in range(1, witnesses):
+        l32, r32 = one_step(False, "cpu", perturb=k * 2.0 ** -16)
+        l16, r16 = one_step(True, "cpu", perturb=k * 2.0 ** -16)
+        rk = _readings(r16, r32, sides, zero_leaves)
+        print(f"[{phase}] bf16 witness {k} (weights scaled by 1 + "
+              f"{k} * 2^-16 * U(-1, 1)): loss {abs(l16 - l32) / abs(l32):.3g}"
+              + "".join(f", {side} L2 {d['l2']:.3g}, worst leaf "
+                        f"{d['leaf'][0]:.3g}" for side, d in rk.items()))
+        own_loss = max(own_loss, abs(l16 - l32) / abs(l32))
+        for side, d in rk.items():
+            o = own[side]
+            o["leaves"] = {n: max(e, d["leaves"].get(n, 0.0))
+                           for n, e in o["leaves"].items()}
+            o["leaf"] = max(o["leaf"], d["leaf"], key=lambda e: e[0])
+            o["l2"], o["stats"] = max(o["l2"], d["l2"]), max(o["stats"],
+                                                             d["stats"])
     limits = _bf16_limits(own, own_loss)
     print(f"[{phase}] bf16 CPU vs float32 CPU (the bf16 limits' base, x "
           f"{BF16_FACTOR:g}): loss {loss_own:.6f}, {own_loss:.3g}")
@@ -1404,15 +1449,17 @@ def _hold_step_against_cpu(one_step, sides: tuple, faults: dict,
           f"{loss_ref:.6f}, {rel:.3g} (tol {limits[0]['loss']:.3g})")
     _print_readings("bf16 card vs float32 CPU", r, limits[1], phase)
     _check(not bad, f"bf16 step card vs CPU: {bad}")
+    held = limits if fault_bf16 else (STEP_TOL[False], l2_32)
     for fault, plant in faults.items():
         undo = plant()
         try:
-            loss, card = one_step(True, "cuda")
+            loss, card = one_step(fault_bf16, "cuda")
         finally:
             undo()
-        r, rel, bad = against_ref(loss, card, *limits)
-        _print_readings(f"planted fault ({fault}), bf16 card vs float32 CPU",
-                        r, limits[1], phase)
+        r, rel, bad = against_ref(loss, card, *held)
+        _print_readings(f"planted fault ({fault}), "
+                        f"{'bf16' if fault_bf16 else 'float32'} card vs "
+                        f"float32 CPU", r, held[1], phase)
         print(f"[{phase}] planted fault ({fault}): loss {rel:.3g}, "
               f"{len(bad)} violations, e.g. {bad[:2]}")
         _check(bool(bad), f"the step check passed a planted fault "
@@ -2564,9 +2611,11 @@ def _expected_run(bf16: bool, kind: str) -> dict:
                    TRAINER_EVALS[kind])
 
 
-def _data_run(config: str, overrides: dict, logdir: Path, device) -> dict:
+def _data_run(config: str, overrides: dict, logdir: Path, device,
+              unbounded: tuple = ()) -> dict:
     """`load_config` + `train` of `config` with `overrides`, as a user
-    runs them; returns the result (every metric finite), the run dir, the
+    runs them; returns the result (every metric finite, but those named
+    in `unbounded`, which may be infinite and not NaN), the run dir, the
     printed text, the launches, the wall seconds and the args."""
     import contextlib
     import io
@@ -2580,7 +2629,8 @@ def _data_run(config: str, overrides: dict, logdir: Path, device) -> dict:
         result = train(args, device=device)
     wall = time.perf_counter() - t0
     after = _counts()
-    _check(all(np.isfinite(v) for v in result.values()),
+    _check(all(np.isfinite(v) or (k.endswith(unbounded) and not np.isnan(v))
+               for k, v in result.items()),
            f"{config}: non-finite metrics {result}")
     return {"result": result, "dir": _run_dir(logdir), "args": args,
             "wall_s": wall, "text": text.getvalue(),
@@ -5900,6 +5950,583 @@ def phase_slice17(smi: str, out_dir: Path) -> dict:
     return {"launches": launches, "errs": errs, "in_step": in_step}
 
 
+# ------------- phase 25: BYOL, EGNN and SAN through the trainers
+
+SLICE18 = {"a": "configs/byol.yml", "b": "configs/0.yml",
+           "c": "configs/san.yml", "d": "configs/san_ogbg.yml"}
+SLICE18_NAMES = {"a": "BYOL: PNA 90x6 + flat Net3D 20x1, predictors 256",
+                 "b": "PNA 90x6 + EGNN 128x7, NT-Xent",
+                 "c": "SAN 64x10, LPE 16x3, batch 4",
+                 "d": "SAN 64x10, LPE 16x3, molhiv, batch 64",
+                 "e": "EGNNTorch 128x4, egnn_dense's defaults"}
+# (e): no config names the dense EGNN; `egnn_dense`'s defaults (4 layers,
+# SiLU, residual, no attention, coords_weight 1) at (b)'s EGNN width on
+# `egnn_padded_collate`'s batch, a QM9-size property (L1), batch 128
+SLICE18_DENSE_EGNN = {
+    "model_type": "EGNNTorch",
+    "model_parameters": {"in_node_nf": 9, "hidden_dim": 128,
+                         "target_dim": 1},
+    "loss_func": "L1Loss", "optimizer_params": {"lr": 1.0e-4},
+    "batch_size": 128, "collate_function": "egnn_padded_collate",
+    "max_nodes": 40}
+# QM9-size molecules for (a), (b), (c) and (e), molhiv-size for (d)
+SLICE18_DATA = {"a": _QM9, "b": _QM9, "c": _QM9, "d": _MOLHIV, "e": _QM9}
+# the card-against-CPU checks: 31 graphs (an odd count, as phases 23 and
+# 24), the SAN ones 16 (the CPU's bf16 attention over the LPE's feed-forward
+# of 2048 is slow)
+SLICE18_CHECK = {"a": 31, "b": 31, "c": 16, "d": 16, "e": 31}
+# the CPU's own bf16 distance from three readings (`_hold_step_against_cpu`
+# `witnesses`): one reading is a single draw of the rounding noise, and the
+# card's is another; at SAN (d)'s 16 graphs the CPU's loss read 6.2e-4
+# and the card's 3.1e-3 (NVIDIA H100 80GB HBM3, 700 W)
+SLICE18_WITNESSES = 3
+SLICE18_TIMED = 10
+
+
+def _s18_args(kind: str, bf16: bool) -> dict:
+    """The configuration's step as `build_byol_step` (a), `build_step`
+    (b) or `build_supervised_step` (c to e) take it (Adam at the config's
+    lr); EGNN's input width is the complete graph's atom codes', as the
+    CLI sets it from the data."""
+    from infomax3d_tpu_torch.cli.config import load_config
+    if kind == "e":
+        return dict(SLICE18_DENSE_EGNN, bf16_compute=bf16, seed=0)
+    a = load_config(SLICE18[kind], {})
+    out = {"model_parameters": dict(a["model_parameters"]),
+           "loss_func": a["loss_func"],
+           "optimizer_params": {"lr": a["optimizer_params"]["lr"]},
+           "batch_size": a["batch_size"], "bf16_compute": bf16, "seed": 0,
+           "collate_function": a["collate_function"],
+           "max_nodes": a["max_nodes"], "model_type": a["model_type"]}
+    if kind in ("a", "b"):
+        out.update(model3d_type=a["model3d_type"],
+                   model3d_parameters=dict(a["model3d_parameters"]),
+                   loss_params=dict(a.get("loss_params") or {}),
+                   dataset_params=SLICE18_DATA[kind], num_conformers=1)
+    if kind == "b":
+        out["model3d_parameters"]["node_dim"] = 9
+    return out
+
+
+def _s18_step(kind: str, bf16: bool, dev):
+    from infomax3d_tpu_torch.train.byol import build_byol_step
+    args = _s18_args(kind, bf16)
+    dev = torch.device(dev)
+    if kind == "a":
+        return build_byol_step(args, dev)
+    if kind == "b":
+        return build_step(args, dev)
+    return build_supervised_step(args, dev)
+
+
+def _s18_batch(kind: str, dev, batch_size: int = None):
+    """(a), (b): `conformer_batches` with one conformer (the CSR complete
+    graphs of `contrastive_collate`), ((2D batch, 3D batch), sizes); (c),
+    (d): `labelled_batch`'s dense `san_collate` batch; (e) the
+    `egnn_padded_collate` batch of labelled molecules."""
+    from infomax3d_tpu_torch.data.loader import egnn_padded_collate
+    from infomax3d_tpu_torch.graphs.dense import to_dense_batch
+    a = _s18_args(kind, False)
+    bs = batch_size or a["batch_size"]
+    if kind in ("a", "b"):
+        g2, g3, sizes = conformer_batches(bs, 1, device=dev,
+                                          **SLICE18_DATA[kind])
+        return (g2, g3), sizes
+    if kind in ("c", "d"):
+        return labelled_batch(bs, 1, device=dev, dense=True,
+                              max_nodes=a["max_nodes"], **SLICE18_DATA[kind])
+    ds = SyntheticMolecules(bs, num_targets=1, **SLICE18_DATA[kind])
+    items = [{"graph2d": ds.graph2d(i), "targets": ds.targets[i]}
+             for i in range(bs)]
+    nmax = max(a["max_nodes"], max(it["graph2d"]["node_feat"].shape[0]
+                                   for it in items))
+    view = egnn_padded_collate(items, bucket_for(
+        [it["graph2d"] for it in items], bs), nmax)["graph"]
+    return to_dense_batch(view, dev), {
+        "graphs": bs, "slots": nmax,
+        "nodes": int(view["node_mask"].sum())}
+
+
+def _s18_masks(kind: str, g) -> list:
+    """SAN's dropout masks of one training forward on `g`, drawn on the
+    CPU (the step checks replay them on both sides); none elsewhere."""
+    if kind not in ("c", "d"):
+        return []
+    step = _s18_step(kind, False, "cpu")
+    rec = GeneratorNoise(torch.Generator().manual_seed(97))
+    with torch.no_grad():
+        step.loss(step.prepare(g), noise=MasksOnly(rec))
+    return rec.draws
+
+
+def _s18_one_step(kind: str, g, masks: list, bf16: bool, dev: str,
+                  perturb: float = 0.0):
+    """`_measure_step` of one step of `kind` from the seeded weights (the
+    masks replayed; the weights perturbed by `perturb`)."""
+    step = _s18_step(kind, bf16, dev)
+    if kind in ("a", "b"):
+        return _measure_step(step, {"model": step.model,
+                                    "model3d": step.model3d},
+                             step.prepare(*g), perturb=perturb)
+    noise = MasksOnly(ReplayNoise([(k, t.to(dev)) for k, t in masks]))
+    return _measure_step(step, {"model": step.model}, (step.prepare(g),),
+                         perturb=perturb, noise=noise)
+
+
+def _s18_launches(kind: str, step: bool) -> dict:
+    """Launches per bf16 training step (`step`) or eval forward of `kind`.
+    PNA: per layer the edge combine (row 6) and the statistics (row 2),
+    their backwards rows 5 and 8.  BYOL adds each teacher's forward (no
+    backward): the 2D teacher's rows 6 and 2 per layer, the 3D teacher's
+    rows 6 and 7; the flat Net3D runs rows 6, 7 and 5 per layer.  EGNN
+    (float32 under the recipe, as in JAX) runs rows 6, 7 and 5 per layer.
+    SAN and the dense EGNN run no kernel of the port."""
+    if kind in ("c", "d", "e"):
+        return dict(NONE)
+    a = _s18_args(kind, True)
+    if kind == "a":
+        inner = a["model_parameters"]["model_parameters"]
+        d3 = a["model3d_parameters"]["model_parameters"]["propagation_depth"]
+        copies = 2             # student and teacher
+    else:
+        inner, copies = a["model_parameters"], 1
+        d3 = a["model3d_parameters"]["propagation_depth"]
+    L = inner["propagation_depth"]
+    out = dict(NONE, edge_combine=copies * (L + d3), pna_stats=copies * L,
+               csr_sum=copies * d3)
+    if step:
+        out.update(pair_segment_sum=L + d3, pna_stats_bwd=L)
+    return out
+
+
+def _byol_teacher_in_eval():
+    """(a)'s planted fault: the teachers run in eval mode (their running
+    statistics) in training."""
+    from infomax3d_tpu_torch.train import byol
+    from infomax3d_tpu_torch.train.precision import forward_in
+    real = byol.BYOLStep.teacher_projections
+
+    def projections(self, g2, g3):
+        with torch.no_grad():
+            return [forward_in(self.teachers[k].eval(), self.compute_dtype,
+                               g).float()
+                    for k, g in (("model", g2), ("model3d", g3))]
+    byol.BYOLStep.teacher_projections = projections
+    return lambda: setattr(byol.BYOLStep, "teacher_projections", real)
+
+
+def _byol_own_side():
+    """(a)'s planted fault: each prediction paired with its own side's
+    teacher projection."""
+    from infomax3d_tpu_torch.train import byol
+    from infomax3d_tpu_torch.train.precision import forward_in
+    real = byol.BYOLStep.loss
+
+    def loss(self, g2, g3):
+        pred2, _ = forward_in(self.model, self.compute_dtype, g2)
+        pred3, _ = forward_in(self.model3d, self.compute_dtype, g3)
+        proj2_t, proj3_t = self.teacher_projections(g2, g3)
+        return (self.loss_fn(pred2, proj2_t) + self.loss_fn(proj3_t, pred3),
+                (pred2, pred3))
+    byol.BYOLStep.loss = loss
+    return lambda: setattr(byol.BYOLStep, "loss", real)
+
+
+def _receiver_only_distance():
+    """(b)'s planted fault: each edge's squared distance from the
+    receiver's coordinates alone."""
+    def sq(g):
+        N = g.coords.shape[0]
+        xd = g.coords[g.receivers.long().clamp(0, N - 1)]
+        return (xd ** 2).sum(dim=-1, keepdim=True)
+    return _patched("infomax3d_tpu_torch.models.egnn", "squared_distances",
+                    sq)
+
+
+def _gate_dropped():
+    """(b)'s planted fault: the messages aggregated without the sigmoid
+    gate of `soft_edge_network`."""
+    from infomax3d_tpu_torch.models import egnn
+    real = egnn.EGCLayer.forward
+
+    def forward(self, g, h, noise=None):
+        msg = self.message_network(
+            egnn.EdgeInput(h, g.senders, g.receivers,
+                           egnn.squared_distances(g), g.csr_row_ptr,
+                           g.csc_row_ptr, g.csc_perm), g.edge_mask,
+            noise=noise)
+        agg = egnn.edge_aggregate(g, msg, self.reduce_func)
+        return self.update_network(agg + h, g.node_mask, noise=noise) + h
+    egnn.EGCLayer.forward = forward
+    return lambda: setattr(egnn.EGCLayer, "forward", real)
+
+
+def _fake_on_real_mask():
+    """(c)'s planted fault: the channels' masks swapped, so the fake
+    channel scores the real bonds and the real channel the other pairs."""
+    from infomax3d_tpu_torch.models import san
+    real = san.SANAttention.forward
+
+    def forward(self, g, h, e_real, e_fake):
+        pair = g.node_mask[:, :, None] & g.node_mask[:, None, :]
+        return real(self, dataclasses.replace(
+            g, real_edge_mask=pair & ~g.real_edge_mask), h, e_real, e_fake)
+    san.SANAttention.forward = forward
+    return lambda: setattr(san.SANAttention, "forward", real)
+
+
+def _score_clamp_dropped():
+    """(c)'s planted fault: the attention scores' clamp at +-5 dropped."""
+    return _patched("infomax3d_tpu_torch.models.san", "SCORE_CLAMP",
+                    float("inf"))
+
+
+SLICE18_FAULTS = {
+    "a": {"the teachers in eval mode": _byol_teacher_in_eval,
+          "each prediction against its own side's projection":
+          _byol_own_side},
+    "b": {"the squared distance from the receiver alone":
+          _receiver_only_distance,
+          "the soft edge gate dropped": _gate_dropped},
+    "c": {"the fake channel on the real bonds' mask": _fake_on_real_mask,
+          "the score clamp dropped": _score_clamp_dropped},
+    "d": {}, "e": {}}
+# the zero-gradient leaves: a bias (or a mid BatchNorm's shift) feeding a
+# BatchNorm with nothing nonlinear between (PNA's and the flat Net3D's;
+# EGNN's single-layer input MLP and the last two layers of its update and
+# node-wise MLPs; SAN's O_h and second FFN layer through their
+# residuals); the dense EGNN's last coordinate head, whose coordinates
+# nothing reads
+EGNN_ZERO = ZERO_GRADIENT[:3] + tuple(
+    f"{net}.fully_connected.{leaf}" for net in ("update_network",
+                                                 "node_wise_output_network")
+    for leaf in ("0.batch_norm.bias", "1.linear.bias")) + (
+    "input.fully_connected.0.linear.bias",)
+SAN_ZERO = ("O_h.bias", "FFN_h_layer2.bias")
+_DENSE_LAST = SLICE18_DENSE_EGNN["model_parameters"].get("n_layers", 4) - 1
+DENSE_EGNN_ZERO = tuple(f"gcl_{_DENSE_LAST}.{leaf}" for leaf in (
+    "coord_mlp_1.weight", "coord_mlp_1.bias", "coord_mlp_out.weight"))
+SLICE18_ZERO = {"a": ZERO_GRADIENT, "b": EGNN_ZERO, "c": SAN_ZERO,
+                "d": SAN_ZERO, "e": DENSE_EGNN_ZERO}
+
+
+def _s18_checks(kinds: tuple = ("a", "b", "c", "d", "e")):
+    """One float32 and one bf16 step of each configuration on the card
+    against the CPU's float32 step (`_hold_step_against_cpu`; SAN's
+    dropout masks replayed on both sides), and the planted faults against
+    the bf16 check (the CPU's own bf16 distance the largest of
+    SLICE18_WITNESSES readings); (b)'s against the float32 one: EGNN
+    computes in float32 under the recipe, and its faults move the bf16
+    step about as far as the PNA side's bf16 rounding does (a CPU run:
+    the receiver-only distance read 1.59 on a leaf limited at 1.22)."""
+    for kind in kinds:
+        g, sizes = _s18_batch(kind, "cpu", SLICE18_CHECK[kind])
+        masks = _s18_masks(kind, g)
+        print(f"[slice18] ({kind}) {SLICE18_NAMES[kind]}: the step on "
+              f"{SLICE18_CHECK[kind]} graphs ({sizes}), card against CPU, "
+              f"{len(masks)} dropout masks replayed")
+        _hold_step_against_cpu(
+            lambda bf16, dev, perturb=0.0: _s18_one_step(
+                kind, g, masks, bf16, dev, perturb),
+            ("model", "model3d") if kind in ("a", "b") else ("model",),
+            SLICE18_FAULTS[kind], f"slice18 ({kind})", SLICE18_ZERO[kind],
+            fault_bf16=kind != "b", witnesses=SLICE18_WITNESSES)
+
+
+def _teacher_state(step) -> dict:
+    """Every teacher tensor of a `BYOLStep` (parameters and running
+    statistics), cloned, named ``<model>.<name>``."""
+    return {f"{k}.{n}": v.detach().clone()
+            for k, t in step.teachers.items()
+            for n, v in t.state_dict().items()}
+
+
+def _byol_state_violations(step, before: dict) -> list:
+    """What the BYOL state after one step breaks: the 2D teacher moved by
+    exactly the EMA toward its updated student (``t * d + s * (1 - d)``,
+    the same float32 operations), the 3D teacher's parameters unchanged
+    (the default: only the 2D teacher moves), both teachers' running
+    statistics moved (train-mode teachers)."""
+    bad = []
+    d = step.ma_decay
+    for key in ("model", "model3d"):
+        student = dict(getattr(step, key).student.named_parameters())
+        for n, t in step.teachers[key].named_parameters():
+            t0 = before[f"{key}.{n}"]
+            want = t0 * d + student[n].detach() * (1.0 - d) \
+                if key == "model" else t0
+            if not torch.equal(t, want):
+                bad.append(f"{key} teacher {n}: max |t - want| "
+                           f"{float((t - want).abs().max()):.3g}")
+        for n, b in step.teachers[key].named_buffers():
+            if "running" in n and torch.equal(b, before[f"{key}.{n}"]):
+                bad.append(f"{key} teacher {n}: did not move")
+    return bad
+
+
+def _s18_byol_state(smi: str):
+    """(a)'s state after one full bf16 step at its batch: the teachers as
+    `_byol_state_violations` holds them, and the planted fault (the EMA on
+    both teachers, not only the 2D one) that must break it; and the
+    teachers' no-grad train-mode forwards through rows 6, 2 and 7 against
+    the same forwards through the plain versions on the card, bit for bit
+    (projections and running statistics)."""
+    from infomax3d_tpu_torch.ops.kernels import _build
+    g, sizes = _s18_batch("a", "cuda")
+    for fault in (None, "the EMA on both teachers"):
+        step = _s18_step("a", True, "cuda")
+        gp = step.prepare(*g)
+        if fault:
+            step.ema_keys = ("model", "model3d")
+        before = _teacher_state(step)
+        step.step(*gp)
+        torch.cuda.synchronize()
+        bad = _byol_state_violations(step, before)
+        if fault is None:
+            _check(not bad, f"(a) BYOL state after a step: {bad[:4]}")
+            print(f"[slice18] (a) after one bf16 step at batch "
+                  f"{sizes['graphs']}: the 2D teacher moved by exactly the "
+                  f"EMA (decay {step.ma_decay}) toward its student, the 3D "
+                  f"teacher's parameters unchanged, both teachers' running "
+                  f"statistics moved")
+        else:
+            _check(bool(bad), f"the BYOL state check passed a planted fault "
+                              f"({fault})")
+            print(f"[slice18] (a) planted fault ({fault}): "
+                  f"{len(bad)} violations, e.g. {bad[:2]}")
+    state = _teacher_state(step)
+
+    def restore():
+        for key, t in step.teachers.items():
+            t.load_state_dict({n[len(key) + 1:]: v for n, v in state.items()
+                               if n.startswith(key + ".")})
+    runs = {}
+    real = _build.on_card
+    for how in ("kernels", "plain versions"):
+        restore()
+        _reset_counts()
+        if how == "plain versions":
+            _build.on_card = lambda t, name: False
+        try:
+            proj = step.teacher_projections(*gp)
+        finally:
+            _build.on_card = real
+        torch.cuda.synchronize()
+        runs[how] = (proj, _teacher_state(step), _counts())
+    a = _s18_args("a", True)
+    L = a["model_parameters"]["model_parameters"]["propagation_depth"]
+    d3 = a["model3d_parameters"]["model_parameters"]["propagation_depth"]
+    want = dict(NONE, edge_combine=L + d3, pna_stats=L, csr_sum=d3)
+    (pk, sk, ck), (pp, sp, cp) = runs["kernels"], runs["plain versions"]
+    _check(ck == want and cp == dict(NONE),
+           f"(a) teacher forwards launched {ck} / {cp}")
+    same = all(torch.equal(a, b) for a, b in zip(pk, pp)) and all(
+        torch.equal(sk[n], sp[n]) for n in sk)
+    _check(same, "(a) the teachers' forwards through the kernels differ "
+                 "from the plain versions")
+    print(f"[slice18] (a) the teachers' no-grad train-mode forwards: "
+          f"projections and running statistics bit-exact between the "
+          f"kernels ({ {n: c for n, c in ck.items() if c} }) and the plain "
+          f"versions on the card")
+    restore()
+
+
+def _s18_kernels(ga, gb) -> dict:
+    """Every kernel of the slice's paths bit for bit at its new call
+    sites: at (a)'s batch (250 molecules) rows 6, 5, 2, 8 and 1 on the
+    2D bond graphs at the PNA width (90) and rows 6, 5 and 7 on the
+    complete graphs at the flat Net3D's (20); at (b)'s (500) rows 2 and 8
+    on the bond graphs at 90 and rows 6, 5 and 7 on the complete graphs
+    at EGNN's width (128)."""
+    gen = torch.Generator(device="cuda").manual_seed(250)
+    (a2, a3), (b2, b3) = ga, gb
+    w = _s18_args("a", True)["model_parameters"]["model_parameters"][
+        "hidden_dim"]
+    w3a = _s18_args("a", True)["model3d_parameters"]["model_parameters"][
+        "hidden_dim"]
+    w3b = _s18_args("b", True)["model3d_parameters"]["hidden_dim"]
+    errs = {}
+    pairs = {"edge_combine": [], "pair_segment_sum": [], "csr_sum": []}
+    for tag, g, width in (("(a) bonds", a2, w), ("(a) complete graphs", a3,
+                                                  w3a),
+                          ("(b) complete graphs", b3, w3b)):
+        pairs["edge_combine"] += _hold_edge_combine(f"slice18 {tag}", gen,
+                                                    g, (width,))
+        pairs["pair_segment_sum"] += _hold_pair_segment_sum(
+            f"slice18 {tag}", gen, g, (width,))
+        if "complete" in tag:
+            pairs["csr_sum"] += _hold_csr_sum(f"slice18 {tag}", gen, g,
+                                              (width,))
+    errs.update({n: _max_err(p) for n, p in pairs.items()})
+    cases = [(f"{tag}'s bonds", g.csr_row_ptr, g.max_deg, g.senders.shape[0],
+              w) for tag, g in (("(a)", a2), ("(b)", b2))]
+    errs["pna_stats"] = _max_err(_hold_pna_stats("slice18", gen, cases))
+    errs["pna_stats_bwd"] = _max_err(_hold_pna_stats_bwd("slice18", gen,
+                                                         cases))
+    _merge_errs(errs, _hold_walks(
+        "slice18", gen, [("(a)'s bonds", a2.csr_row_ptr, a2.max_deg,
+                          a2.senders.shape[0], (w,))], []))
+    return errs
+
+
+def _s18_timed(smi: str):
+    """Each configuration's bf16 step at its batch: launches per step
+    (exact), ms per step (CUDA events over warm steps), graphs/s, peak
+    memory, kernels per step and the idle share of a profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+    for kind in ("a", "b", "c", "d", "e"):
+        step = _s18_step(kind, True, "cuda")
+        g, sizes = _s18_batch(kind, "cuda")
+        gp = step.prepare(*g) if kind in ("a", "b") else step.prepare(g)
+        gen = torch.Generator(device="cuda").manual_seed(251)
+        bs = _s18_args(kind, True)["batch_size"]
+
+        def one():
+            if kind in ("a", "b"):
+                return step.step(*gp)
+            return step.step(gp, noise=masks_source(gen))
+        _reset_counts()
+        loss = float(one())
+        per, want = _counts(), _s18_launches(kind, True)
+        _check(per == want and np.isfinite(loss),
+               f"({kind}) launches per step {per} != {want}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(one, iters=SLICE18_TIMED, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            one()
+            torch.cuda.synchronize()
+        by_name = _profile_kernels(prof)
+        kernels = sum(c for _, c in by_name.values())
+        busy = sum(us for us, _ in by_name.values()) / 1e3
+        print(f"[slice18] ({kind}) {SLICE18_NAMES[kind]}, bf16, batch {bs}: "
+              f"{ms:.3f} ms per step (CUDA events over {SLICE18_TIMED} warm "
+              f"steps), {bs / ms * 1e3:.1f} graphs/s, peak "
+              f"max_memory_allocated {peak:.3f} GiB, {kernels} kernels per "
+              f"step, device busy {busy:.3f} ms of the profiled step (idle "
+              f"share {max(1 - busy / ms, 0.0):.3f}); launches per step "
+              f"(exact) { {n: c for n, c in per.items() if c} }; batch "
+              f"{sizes}; {smi}")
+        for kname, (us, c) in _port_kernels(by_name).items():
+            print(f"[slice18] ({kind})   {kname}: {c} launches, "
+                  f"{us / c:.2f} us each in the step")
+        del step, gp
+
+
+# the CLI runs: one synthetic QM9 cache (19 targets, so `homo` is there)
+# with the contiguous split of `num_val`, 1 epoch each at the config's
+# batch: (a) 2 steps of 250, (b) 1 of 500, (c) 16 of 4
+SLICE18_CACHES = {"QM9": dict(num=1500, num_targets=19, seed=6, n_min=4,
+                              n_max=26)}
+_S18_CLI = {"num_epochs": 1, "log_iterations": 1, "use_tensorboard": False,
+            "multithreaded_seeds": [], "dataset_params": {}}
+SLICE18_CLI = {"a": dict(_S18_CLI, num_train=500, num_val=250),
+               "b": dict(_S18_CLI, num_train=500, num_val=500),
+               "c": dict(_S18_CLI, num_train=64, num_val=32)}
+
+
+def _s18_cli(out_dir: Path, caches: Path) -> dict:
+    """(a), (b) and (c) through `cli.train.train` (1 epoch at the config's
+    batch, bf16 as "auto" resolves on the card): finite losses, a
+    validation loss, a checkpoint (with the teachers for (a)), the
+    launches exact; (d) resolved and built through the CLI.  Returns the
+    launches (the main path)."""
+    from infomax3d_tpu_torch.cli import train as cli
+    from infomax3d_tpu_torch.cli.config import load_config
+    from infomax3d_tpu_torch.train import checkpoint
+    _reset_counts()
+    with mock.patch.dict(os.environ, {"INFOMAX3D_DATA": str(caches)}):
+        for kind in ("a", "b", "c"):
+            config = SLICE18[kind]
+            # the uniformity metric, log mean exp(-2 |x - y|^2) over the
+            # predictions' pairs, is -inf where they all lie farther apart
+            # than float32's exp reaches, as BYOL's untrained predictors
+            # put them (in JAX as here)
+            run = _data_run(config, SLICE18_CLI[kind],
+                            out_dir / f"slice18_{kind}", TRAINER_DEVICE,
+                            unbounded=("uniformity",))
+            ckpt = run["dir"] / "best_checkpoint.pt"
+            _check(ckpt.exists(), f"({kind}) no checkpoint")
+            if kind == "a":
+                sd = checkpoint.load_checkpoint(str(ckpt))["model_state_dict"]
+                _check(any(n.startswith("teacher.") for n in sd),
+                       "(a) the checkpoint holds no teacher")
+            loss = run["args"]["loss_func"]
+            recs = [json.loads(x) for x in open(run["dir"] /
+                                                 "metrics.jsonl")]
+            train = [r[loss] for r in recs if r["split"] == "train"]
+            val = [r[loss] for r in recs if r["split"] == "val"]
+            _check(len(train) > 0 and len(val) == 1 and
+                   all(np.isfinite(train + val)),
+                   f"({kind}) CLI losses {train}, validation {val}")
+            args = run["args"]
+            _, v, t = cli.make_splits(args, cli.build_dataset(args))
+            bs = args["batch_size"]
+            drop = kind in ("a", "b")       # the contrastive loaders
+            n_batches = (lambda n: n // bs) if drop else \
+                (lambda n: -(-n // bs))
+            evals = (args["num_epochs"] + 1) * n_batches(len(v)) + (
+                n_batches(len(t)) if args["eval_on_test"] and len(t) else 0)
+            want = _expect(_s18_launches(kind, True),
+                           _s18_launches(kind, False), len(train), evals)
+            _check(run["launches"] == want,
+                   f"({kind}) CLI launches {run['launches']} != {want}")
+            timing = json.load(open(run["dir"] / "timing.json"))
+            print(f"[slice18] ({kind}) CLI {config} (QM9 cache, 1 epoch of "
+                  f"{len(train)} steps at batch {bs}): {run['wall_s']:.1f} "
+                  f"s, train losses {[round(x, 4) for x in train]}, "
+                  f"validation {[round(x, 4) for x in val]}, step ms "
+                  f"{[round(x, 2) for x in timing['step_ms']]}; launches "
+                  f"{ {n: c for n, c in run['launches'].items() if c} }")
+    launches = _counts()
+    args = load_config(SLICE18["d"], {})
+    cli.resolve_collate(args)
+    cli.resolve_fast_paths(args)
+    models = cli.build_models(args)
+    _check(type(models["model"]).__name__ == "SAN",
+           f"{SLICE18['d']}: built {type(models['model']).__name__}")
+    print(f"[slice18] {SLICE18['d']}: resolves and builds through the CLI "
+          f"(SAN, collate {args['collate_function']}, "
+          f"{sum(p.numel() for p in models['model'].parameters())} "
+          f"parameters)")
+    print(f"[slice18] main-path launches (the CLI runs): {launches}")
+    return launches
+
+
+def _write_slice18_caches(root: Path) -> Path:
+    from infomax3d_tpu_torch.data.synthetic import write_synthetic_cache
+    for name, kw in SLICE18_CACHES.items():
+        write_synthetic_cache(str(root / name / "processed.npz"), **kw)
+    return root
+
+
+def phase_slice18(smi: str, out_dir: Path) -> dict:
+    """Phase 25: BYOL, EGNN (flat and dense) and SAN through the trainers.
+    Returns the main path's launches (the CLI runs) and the kernel
+    checks' errors."""
+    t = [time.perf_counter()]
+    ga, _ = _s18_batch("a", "cuda")
+    gb, _ = _s18_batch("b", "cuda")
+    errs = _s18_kernels(ga, gb)
+    del ga, gb
+    t.append(time.perf_counter())
+    _s18_checks()
+    _s18_byol_state(smi)
+    t.append(time.perf_counter())
+    _s18_timed(smi)
+    t.append(time.perf_counter())
+    caches = _write_slice18_caches(out_dir / "slice18_caches")
+    launches = _s18_cli(out_dir, caches)
+    t.append(time.perf_counter())
+    print("[slice18] seconds: " + ", ".join(
+        f"{k} {b - a:.1f}" for k, a, b in zip(
+            ("kernel checks", "step checks", "timings", "CLI runs"),
+            t, t[1:])))
+    return {"launches": launches, "errs": errs}
+
+
 class _Phase:
     """Prints a phase's seconds when it ends (and lets its error pass)."""
 
@@ -5969,19 +6596,22 @@ def main() -> int:
     with _Phase("24 PNAOriginal and SMP"):
         s17 = phase_slice17(smi, out_dir)
         _merge_errs(errs, s17["errs"])
-    # every kernel's launches over the twelve main paths (serving,
+    with _Phase("25 BYOL, EGNN and SAN"):
+        s18 = phase_slice18(smi, out_dir)
+        _merge_errs(errs, s18["errs"])
+    # every kernel's launches over the thirteen main paths (serving,
     # pre-training, GIN training, OT training, the trainer CLI,
     # multi-conformer pre-training, the data layer, the serving CLI, the
     # baselines' CLI runs, the OT family's CLI runs, the supervised CLI
     # runs of the GIN's options and the transformers, those of
-    # PNAOriginal and SMP)
+    # PNAOriginal and SMP, those of BYOL, EGNN and SAN)
     launches = {n: serve_launches[n] + train["launches"][n]
                 + gin["launches"][n] + ot_run["launches"][n]
                 + trainer["launches"][n] + conf["launches"][n]
                 + data["launches"][n] + serving["launches"][n]
                 + base["launches"][n] + family["launches"][n]
                 + s16["launches"][n] + s17["launches"][n]
-                for n in serve_launches}
+                + s18["launches"][n] for n in serve_launches}
     with _Phase("6 kernel times"):
         rows = phase_kernel_times(g, launches, errs)
     with _Phase("9 training profile"):

@@ -16,8 +16,8 @@ The run goes to the CUDA card unless `--device` (or the config's `device`)
 says "cpu"; with neither set and no card, it raises.  What the port has
 not ported yet raises `NotImplementedError` naming its ROADMAP queue 1
 item: non-CSR batches and the bucket ladder (item 7), the trainer
-flavours `alternating`, `byol`, `philosophy` and `noisy_negatives` (item
-8), shards (item 9).
+flavours `alternating`, `philosophy` and `noisy_negatives` and the critic
+(item 8b), shards (item 9).
 """
 from __future__ import annotations
 
@@ -264,27 +264,73 @@ def resolve_fast_paths(args: Dict[str, Any]) -> None:
                          and args.get("dense_3d", "auto") is not False)
 
 
+# the models whose input width the JAX module infers from the data (flax
+# `Dense`), and the field that holds it here: the batch's node features
+INPUT_WIDTH = {"EGNN": "node_dim", "EGNNTorch": "in_node_nf"}
+# the OGB atom codes of the synthetic and cached molecules
+ATOM_CODES = 9
+
+
+def _with_input_width(name: str, mp: Dict[str, Any], dataset,
+                      view: str) -> Dict[str, Any]:
+    """`mp` with the input width of `INPUT_WIDTH`'s models set from the
+    dataset's first item (its `view`'s node features; the atom codes'
+    width without a dataset), as flax infers it; other models' `mp` as it
+    is."""
+    if name not in INPUT_WIDTH:
+        return mp
+    width = ATOM_CODES
+    if dataset is not None:
+        feat = dataset[0][view]["node_feat"]
+        width = int(feat.shape[1]) if feat.ndim == 2 else 1
+    return dict(mp, **{INPUT_WIDTH[name]: width})
+
+
+def _byol_wrap(type_name: str, params: Mapping[str, Any], dataset,
+               view: str):
+    """The BYOL wrapper the JAX CLI's `_byol_wrap` builds: a config names
+    the wrapper with the wrapped `model_type` / `model_parameters` nested
+    inside (configs/byol.yml), or names the wrapped model itself under
+    the byol trainer (its parameters then the model's, the predictor's at
+    their defaults)."""
+    from infomax3d_tpu_torch.models.registry import build_model
+    inner_type = params.get("model_type", type_name)
+    inner = params.get("model_parameters") or (
+        {} if inner_type != type_name else params)
+    wp = {k: v for k, v in params.items()
+          if k not in ("model_type", "model_parameters")}
+    wp.update(model_type=inner_type, model_parameters=_with_input_width(
+        inner_type, dict(inner), dataset, view))
+    return build_model("BYOLwrapper", wp)
+
+
 def build_models(args: Dict[str, Any], dataset=None
                  ) -> Dict[str, torch.nn.Module]:
     """The config's models as the port's modules (`models/registry.py`),
     built with torch's default initialization under the seeded global
-    generator."""
+    generator.  Under the byol trainer, or where a config names
+    ``BYOLwrapper``, each model is a BYOL wrapper (`_byol_wrap`); the 3D
+    side is then the flat Net3D on the CSR complete graph, since the
+    wrapper is not a Net3D (`resolve_fast_paths`), as in JAX."""
     from infomax3d_tpu_torch.models.registry import build_model
-    if args["model_type"] == "BYOLwrapper" or args["trainer"] == "byol":
-        raise NotImplementedError(
-            "BYOL is not ported yet (ROADMAP queue 1, item 8)")
-    models = {"model": build_model(args["model_type"],
-                                   args.get("model_parameters") or {})}
-    if args.get("model3d_type"):
-        m3_type = args["model3d_type"]
-        if args.get("_dense_3d") and m3_type == "Net3D":
-            m3_type = "Net3DDense"       # parameter-compatible dense path
-        models["model3d"] = build_model(
-            m3_type, args.get("model3d_parameters") or {})
+    byol = args["trainer"] == "byol"
+    models = {}
+    for key, view in (("model", "graph2d"), ("model3d", "graph3d")):
+        name = args.get(f"{key}_type")
+        if not name:
+            continue
+        mp = args.get(f"{key}_parameters") or {}
+        if name == "BYOLwrapper" or byol:
+            models[key] = _byol_wrap(name, mp, dataset, view)
+            continue
+        if key == "model3d" and args.get("_dense_3d") and name == "Net3D":
+            name = "Net3DDense"       # parameter-compatible dense path
+        models[key] = build_model(name, _with_input_width(name, mp, dataset,
+                                                          view))
     if args.get("critic_type"):
         raise NotImplementedError(
             f"critic_type '{args['critic_type']}' is not ported yet "
-            f"(ROADMAP queue 1, item 7)")
+            f"(ROADMAP queue 1, item 8b)")
     return models
 
 
@@ -546,13 +592,20 @@ def run_training(args: Dict[str, Any], device=None,
         except FileExistsError:
             run_dir = f"{base_run_dir}_{n_dup}"
             n_dup += 1
+    kw: Dict[str, Any] = {}
+    if args["trainer"] == "byol":
+        # the 2D wrapper's `ma_decay` (JAX cli/train.py:775-779); only the
+        # 2D teacher moves by EMA unless `byol_ema_all`
+        kw["ma_decay"] = (args.get("model_parameters") or {}).get(
+            "ma_decay", 0.99)
+        kw["ema_all"] = bool(args.get("byol_ema_all", False))
     trainer = trainer_cls(
         models, args, metrics=metrics, main_metric=args["main_metric"],
         run_dir=run_dir, loss_func=loss_func, loss_name=loss_name,
         main_metric_goal=args["main_metric_goal"],
         scheduler_step_per_batch=args["scheduler_step_per_batch"],
         device=device, use_tensorboard=args.get("use_tensorboard", True),
-        init_variables=init_variables)
+        init_variables=init_variables, **kw)
     train_loader, val_loader, test_loader = make_loaders(args, dataset)
     if args.get("pretrain_checkpoint"):
         trainer.init_state(next(iter(train_loader)))

@@ -16,11 +16,12 @@ augmentations (`noised_distances_collate`, `noised_coordinates_collate`,
 index arrays and the true conformer positions), and the dense batches of
 the transformer (`san_collate`, `padded_collate_positional_encoding`:
 padded atom and bond codes, the real-bond mask, the Laplacian PE, the
-NaN-padded targets), and SMP's radius graphs with their triplets
-(`smp_collate`).  Node ids are those of the
-batch (the CSR sort permutes edges, not nodes), so the OT arrays do not
-depend on the edge order; the graph's edge-keyed arrays follow the
-receiver-sorted order as in every CSR batch.  A CSR view also carries its
+NaN-padded targets) and of the dense EGNN (`egnn_padded_collate`,
+`molhiv_padded_collate`: padded atom codes, coordinates and targets), and
+SMP's radius graphs with their triplets (`smp_collate`).  Node ids are
+those of the batch (the CSR sort permutes edges, not nodes), so the OT
+arrays do not depend on the edge order; the graph's edge-keyed arrays
+follow the receiver-sorted order as in every CSR batch.  A CSR view also carries its
 bucket's static bounds (``max_deg``, ``nmax``, 0-d int arrays) so
 `to_device` can rebuild the `GraphBatch`.
 
@@ -198,12 +199,6 @@ COLLATE_ALIASES: Dict[str, str] = {
 DENSE_COLLATES = ("san_collate", "padded_collate_positional_encoding",
                   "egnn_padded_collate", "molhiv_padded_collate")
 
-# the JAX package's other collates and the ROADMAP queue 1 item that ports
-# each: EGNN's dense batches, with their model
-NOT_PORTED = {name: 7 for name in (
-    "egnn_padded_collate", "molhiv_padded_collate")}
-
-
 def register_collate(name):
     def deco(fn):
         COLLATE_REGISTRY[name] = fn
@@ -213,10 +208,6 @@ def register_collate(name):
 
 def get_collate(name: str):
     name = COLLATE_ALIASES.get(name, name)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"collate_function '{name}' is not ported yet (ROADMAP queue 1, "
-            f"item {NOT_PORTED[name]})")
     if name not in COLLATE_REGISTRY:
         raise KeyError(f"unknown collate_function '{name}'; known: "
                        f"{sorted(COLLATE_REGISTRY)}")
@@ -563,6 +554,34 @@ def padded_collate_positional_encoding(items, bucket, max_nodes: int = 40,
     custom_collate.py:349-358)."""
     return san_collate(items, bucket, max_nodes=max_nodes,
                        num_lap_pe=num_lap_pe, **kw)
+
+
+@register_collate("egnn_padded_collate")
+def egnn_padded_collate(items: Sequence[Dict], bucket: BucketSpec,
+                        max_nodes: int = 40):
+    """The dense EGNN's batch (reference custom_collate.py:296-346): the
+    bond graphs' atom codes padded to `max_nodes` slots in
+    `bucket.n_graphs` rows, with the node mask, the coordinates (an item's
+    ``graph3d`` ones where its 2D graph has none) and the NaN-padded
+    targets; no bond codes."""
+    graphs = []
+    for it in items:
+        g = dict(it["graph2d"])
+        if "coords" not in g and "graph3d" in it:
+            g["coords"] = it["graph3d"]["coords"]
+        if "targets" in it:
+            g["targets"] = it["targets"]
+        graphs.append(g)
+    extras = ["targets"] if "targets" in items[0] else []
+    return {"graph": dense_batch(graphs, bucket.n_graphs, max_nodes,
+                                 extras_keys=extras, with_edges=False)}
+
+
+@register_collate("molhiv_padded_collate")
+def molhiv_padded_collate(items, bucket, max_nodes: int = 40, **kw):
+    """The padded dense batch for molhiv (reference custom_collate.py:
+    385-391): `egnn_padded_collate`'s."""
+    return egnn_padded_collate(items, bucket, max_nodes=max_nodes)
 
 
 def node_drop(graph: Dict, rng: np.random.Generator, ratio: float) -> Dict:

@@ -70,7 +70,18 @@ Dense_{l}`` (`MLPReadout`), PNAOriginalSimpleRandom's ``node_init``, and
 SMP's ``init_e`` (``emb``, ``lin_rbf_0``, ``lin``, ``lin_rbf_1``),
 ``init_v`` / ``update_v_{l}`` (``lin_up``, ``lins_{k}``, ``lin``),
 ``update_e_{l}`` (``lin_ji`` ... ``lin_rbf``, ``res_before_{b}`` /
-``res_after_{a}`` with ``lin1``, ``lin2``).
+``res_after_{a}`` with ``lin1``, ``lin2``); EGNN's ``input``,
+``message_network``, ``soft_edge_network``, ``update_network``,
+``node_wise_output_network``; the dense EGNN's ``embedding``,
+``gcl_{i}/{edge_mlp_1, edge_mlp_2, att_mlp, coord_mlp_1, coord_mlp_out,
+node_mlp_1, node_mlp_2}``, ``node_dec``, ``graph_dec``; SAN's ``gnn``
+(``embedding_h``, ``linear_A``, ``PE_Transformer_{i}``, ``layer_{i}``
+with ``attention/{Q, K, V, E, Q_2, K_2, E_2}``, ``O_h``, ``FFN_h_layer1``,
+``FFN_h_layer2``, the bare BatchNorms ``batch_norm1_h`` / ``batch_norm2_h``
+and LayerNorms ``layer_norm1_h`` / ``layer_norm2_h``; its edge encoders'
+tables ``embedding_e_real/emb_{i}``, an encoder used on its own, keep the
+bare name ``emb_{i}``); the BYOL wrapper's ``student`` (the wrapped
+model's names below it, its root the student's) and ``predictor``.
 
 `flax_paths` goes the other way for a port module's parameters: each torch
 name's flax path, which the optimizer's group labels read.
@@ -80,7 +91,8 @@ Net3DDense, OGBGNN (each option), OGBGNNRandom, PNATransformer,
 TransformerPlain, OptimalTransportModel (each backbone and option),
 DistancePredictor, PNADistancePredictor, Net3DAE, Net3DDistancePredictor,
 GeomolGNNWrapperOGBFeat, PNAOriginal (and its random alias),
-PNAOriginalSimple, PNAOriginalSimpleRandom or SMP configuration,
+PNAOriginalSimple, PNAOriginalSimpleRandom, SMP, EGNN, EGNNTorch, SAN
+or BYOLwrapper (around any of these) configuration,
 for serving and training without a checkpoint and for tests;
 `load_variables` loads such trees into a module.
 """
@@ -147,7 +159,10 @@ def _component(c: str, parent: str = "", root: bool = False) -> str:
 
 
 def _components(mods) -> list:
-    return [_component(c, mods[i - 1] if i else "", i == 0)
+    # a BYOL wrapper's ``student`` is transparent: the model's root is
+    # the component below it
+    root = 1 if tuple(mods[:1]) == ("student",) else 0
+    return [_component(c, mods[i - 1] if i else "", i == root)
             for i, c in enumerate(mods)]
 
 
@@ -182,6 +197,9 @@ def _torch_name(collection: str, path: Tuple[str, ...]) -> str:
         kind = "atom" if any("atom" in c for c in mods) else "bond"
         base = ".".join(_components(mods[:-1]))
         return f"{base}.{kind}_embedding_list.{leaf[4:]}.weight"
+    if collection == "params" and _indexed(leaf, "emb_"):
+        # a table of an encoder used on its own (SAN's edge encoders)
+        return ".".join(_components(mods) + [leaf])
     if (collection, leaf) not in _LEAVES:
         raise KeyError(f"no torch name for {collection}/{'/'.join(path)}")
     return ".".join(_components(mods) + [_LEAVES[(collection, leaf)]])
@@ -228,7 +246,7 @@ def _flax_components(parts) -> list:
         elif _indexed(parent, "conv_") and c == "mlp" and nxt.isdigit():
             out.append(_FLAX_GIN_MLP[nxt])
             i += 2
-        elif not out and c == "pool" and nxt == "gate_nn":
+        elif out in ([], ["student"]) and c == "pool" and nxt == "gate_nn":
             out.append(_FLAX_GATE[parts[i + 2]])
             i += 3
         elif c == "mlp_virtualnode_list" and nxt.isdigit():
@@ -304,13 +322,15 @@ def _bn_tree(rng, d):
 
 
 def _mlp_tree(rng, in_dim, out_dim, layers, hidden, mid_bn, last_bn):
+    # `layers` 0 is one layer, as in the modules
     dims = [in_dim] + [hidden] * (layers - 1) + [out_dim]
+    n = len(dims) - 1
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
-    for j in range(layers):
+    for j in range(n):
         fo = dims[j + 1]
         p = {"Dense_0": _dense_tree(rng, dims[j], fo)}
-        if (last_bn if j == layers - 1 else mid_bn):
+        if (last_bn if j == n - 1 else mid_bn):
             p["MaskedBatchNorm_0"], bn_stats = _bn_tree(rng, fo)
             stats[f"FCLayer_{j}"] = {"MaskedBatchNorm_0": bn_stats}
         params[f"FCLayer_{j}"] = p
@@ -352,6 +372,14 @@ def init_jax_variables(model_parameters: Mapping, seed: int = 0,
         return _init_pna_original_simple(mp, rng, model_type)
     if model_type == "SMP":
         return _init_smp(mp, rng)
+    if model_type == "EGNN":
+        return _init_egnn(mp, rng)
+    if model_type == "EGNNTorch":
+        return _init_egnn_dense(mp, rng)
+    if model_type == "SAN":
+        return _init_san(mp, rng)
+    if model_type == "BYOLwrapper":
+        return _init_byol(mp, seed)
     if model_type in _WRAPPED:
         key, inner, adapt = _WRAPPED[model_type]
         params, stats = init_jax_variables(adapt(mp), seed, inner)
@@ -980,6 +1008,119 @@ def _init_net3d_dense(mp: Dict[str, Any], rng):
         mp.get("readout_layers", 2), mp.get("readout_hidden_dim") or d,
         mp.get("readout_batchnorm", True), False)
     return _f32(params), _f32(stats)
+
+
+def _init_egnn(mp: Dict[str, Any], rng):
+    d = mp["hidden_dim"]
+    bn = mp.get("batch_norm", False)
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    params["input"], stats["input"] = _mlp_tree(rng, mp["node_dim"], d, 1, d,
+                                                bn, bn)
+    for i in range(mp.get("propagation_depth", 4)):
+        msg_p, msg_s = _mlp_tree(rng, 2 * d + 1, d, 2, d, bn, bn)
+        upd_p, upd_s = _mlp_tree(rng, d, d, 2, d, bn, bn)
+        params[f"mp_{i}"] = {"message_network": msg_p,
+                             "soft_edge_network": _dense_tree(rng, d, 1),
+                             "update_network": upd_p}
+        stats[f"mp_{i}"] = {"message_network": msg_s,
+                            "update_network": upd_s}
+    (params["node_wise_output_network"],
+     stats["node_wise_output_network"]) = _mlp_tree(rng, d, d, 2, d, bn, bn)
+    params["output"], stats["output"] = _mlp_tree(
+        rng, d * len(mp["readout_aggregators"]), mp["target_dim"],
+        mp.get("readout_layers", 2), mp.get("readout_hidden_dim") or d,
+        mp.get("readout_batchnorm", True), False)
+    return _f32(params), _f32(stats)
+
+
+def _init_egnn_dense(mp: Dict[str, Any], rng):
+    d = mp["hidden_dim"]
+    params: Dict[str, Any] = {"embedding": _dense_tree(rng, mp["in_node_nf"],
+                                                       d)}
+    for i in range(mp.get("n_layers", 4)):
+        # the messages sum over every other atom: edge_mlp_2 scaled by
+        # 1 / 20 keeps the aggregate O(1) at ~20 atoms, layer after layer
+        edge_2 = _dense_tree(rng, d, d)
+        edge_2["kernel"] = edge_2["kernel"] / 20.0
+        layer = {"edge_mlp_1": _dense_tree(rng, 2 * d + 1, d),
+                 "edge_mlp_2": edge_2,
+                 "coord_mlp_1": _dense_tree(rng, d, d),
+                 # the reference's coordinate head starts near zero
+                 # (xavier gain 0.001): coordinates that move by O(1) per
+                 # layer blow the squared distances up layer by layer
+                 "coord_mlp_out": {"kernel": _dense_tree(rng, d, 1)["kernel"]
+                                   * 1e-3},
+                 "node_mlp_1": _dense_tree(rng, 2 * d, d),
+                 "node_mlp_2": _dense_tree(rng, d, d)}
+        if mp.get("attention", False):
+            layer["att_mlp"] = _dense_tree(rng, d, 1)
+        params[f"gcl_{i}"] = layer
+    params["node_dec"] = _dense_tree(rng, d, d)
+    params["graph_dec"] = _dense_tree(rng, d, mp["target_dim"])
+    return _f32(params), {}
+
+
+def _init_san(mp: Dict[str, Any], rng):
+    hid = mp.get("GT_hidden_dim", 64)
+    out_dim, lpe = mp["GT_out_dim"], mp.get("LPE_dim", 8)
+    heads, layers = mp.get("GT_n_heads", 8), mp.get("GT_layers", 4)
+    full, bn = mp.get("full_graph", True), mp.get("batch_norm", True)
+    gnn: Dict[str, Any] = {
+        "embedding_h": {"encoder": _emb_tree(rng, FULL_ATOM_FEATURE_DIMS,
+                                             hid - lpe)},
+        "embedding_e_real": _emb_tree(rng, FULL_BOND_FEATURE_DIMS, hid),
+        "embedding_e_fake": _emb_tree(rng, FULL_BOND_FEATURE_DIMS, hid),
+        "linear_A": _dense_tree(rng, 2, lpe)}
+    gnn_stats: Dict[str, Any] = {}
+    for i in range(mp.get("LPE_layers", 2)):
+        gnn[f"PE_Transformer_{i}"] = _transformer_block_tree(rng, lpe, 2048)
+    for i in range(layers):
+        o = out_dim if i == layers - 1 else hid
+        width = (o // heads) * heads
+        names = ("Q", "K", "V", "E") + (("Q_2", "K_2", "E_2") if full
+                                        else ())
+        layer: Dict[str, Any] = {"attention": {
+            n: {"kernel": _dense_tree(rng, hid, width)["kernel"]}
+            for n in names}}
+        layer["O_h"] = _dense_tree(rng, o, o)
+        layer["FFN_h_layer1"] = _dense_tree(rng, o, 2 * o)
+        layer["FFN_h_layer2"] = _dense_tree(rng, 2 * o, o)
+        if mp.get("layer_norm", False):
+            layer["layer_norm1_h"] = _norm_tree(rng, o)
+            layer["layer_norm2_h"] = _norm_tree(rng, o)
+        if bn:
+            layer_stats = {}
+            for k in ("batch_norm1_h", "batch_norm2_h"):
+                layer[k], layer_stats[k] = _bn_tree(rng, o)
+            gnn_stats[f"layer_{i}"] = layer_stats
+        gnn[f"layer_{i}"] = layer
+    out_p, out_s = _mlp_tree(
+        rng, out_dim * len(mp["readout_aggregators"]), mp["target_dim"],
+        mp.get("readout_layers", 2), mp["readout_hidden_dim"],
+        mp.get("readout_batchnorm", True), False)
+    return (_f32({"gnn": gnn, "output": out_p}),
+            _f32({"gnn": gnn_stats, "output": out_s}))
+
+
+def _init_byol(mp: Dict[str, Any], seed: int):
+    """`BYOLWrapper(**mp)`: the student's trees (its `model_type`'s, from
+    `seed`) under ``student`` and the predictor MLP's under
+    ``predictor``."""
+    inner = dict(mp["model_parameters"])
+    params, stats = init_jax_variables(inner, seed, mp["model_type"])
+    rng = np.random.default_rng((seed, 1))
+    params, stats = {"student": params}, ({"student": stats} if stats
+                                          else {})
+    layers = mp.get("predictor_layers", 1)
+    if layers > 0:
+        pp, ps = _mlp_tree(rng, inner["target_dim"], mp.get("metric_dim", 256),
+                           layers, mp.get("predictor_hidden_size", 256),
+                           mp.get("predictor_batchnorm", False), False)
+        params["predictor"] = _f32(pp)
+        if _f32(ps):
+            stats["predictor"] = _f32(ps)
+    return params, stats
 
 
 def _f32(tree: Mapping) -> Dict[str, Any]:

@@ -1,6 +1,6 @@
 """Losses by their config name (port of `infomax3d_tpu/losses`'s
 `get_loss`): NT-Xent, NT-Xent with distance reconstruction (`NTXentAE`),
-the multiple-positive (conformer) family and the five supervised names.
+BYOL's `CosineSimilarityLoss`, the multiple-positive (conformer) family and the five supervised names.
 The other losses of the JAX package's `LOSS_REGISTRY` are ROADMAP queue
 1, item 6, and raise."""
 from __future__ import annotations
@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from infomax3d_tpu_torch.losses.contrastive import (MULTI_POSITIVE_LOSSES,
+                                                    CosineSimilarityLoss,
                                                     NTXent, NTXentAE)
 
 SUPERVISED_LOSSES = ("L1Loss", "MSELoss", "BCEWithLogitsLoss",
@@ -31,6 +32,7 @@ class SupervisedLoss:
 
 
 LOSS_REGISTRY = {"NTXent": NTXent, "NTXentAE": NTXentAE,
+                 "CosineSimilarityLoss": CosineSimilarityLoss,
                  **{cls.__name__: cls for cls in MULTI_POSITIVE_LOSSES}}
 
 
@@ -43,5 +45,5 @@ def get_loss(name: str, **params):
     return LOSS_REGISTRY[name](**params)
 
 
-__all__ = ["LOSS_REGISTRY", "NTXent", "NTXentAE", "SUPERVISED_LOSSES",
+__all__ = ["CosineSimilarityLoss", "LOSS_REGISTRY", "NTXent", "NTXentAE", "SUPERVISED_LOSSES",
            "SupervisedLoss", "get_loss"]

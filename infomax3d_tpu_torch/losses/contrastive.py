@@ -1,5 +1,5 @@
 """Contrastive losses (port of `infomax3d_tpu/losses/contrastive.py`):
-NT-Xent and the multiple-positive (conformer) family with the shared
+NT-Xent, BYOL's cosine loss and the multiple-positive (conformer) family with the shared
 uniformity / variance / covariance regularizers.
 
 The multi-positive losses take the 3D side as [B * C, D], C conformers per
@@ -110,6 +110,20 @@ class NTXentAE(NTXent):
                 (), dtype=se.dtype, device=se.device)).sum() \
                 / mask.sum().clamp(min=1)
         return base, self.reconstruction_reg * rec
+
+
+class CosineSimilarityLoss(_Regularized):
+    """BYOL's symmetric loss ``2 - 2 cos``: the mean over rows of
+    ``||x̂ - ŷ||²``, each row normalized with its norm clamped at 1e-12
+    (reference losses.py:76-95), plus the regularizer tail."""
+
+    def __call__(self, z1: torch.Tensor, z2: torch.Tensor) -> torch.Tensor:
+        x = z1 / torch.linalg.vector_norm(z1, dim=-1,
+                                          keepdim=True).clamp(min=1e-12)
+        y = z2 / torch.linalg.vector_norm(z2, dim=-1,
+                                          keepdim=True).clamp(min=1e-12)
+        loss = ((x - y) ** 2).sum(dim=-1).mean()
+        return self._reg(loss, z1, z2)
 
 
 def _norms(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -163,6 +163,21 @@ class PairGridInput(NamedTuple):
     e: torch.Tensor           # [G, n, n, De]
 
 
+def split_linear(linear: nn.Linear, parts) -> torch.Tensor:
+    """``linear`` applied to the concatenation of `parts` along the last
+    axis without forming it (the JAX `SplitDense`): each part times its
+    block of weight columns, in their common type with the weight, the
+    blocks summed in order (broadcasting), then the bias.  The pair grid's
+    ``[h_i ‖ h_j ‖ e_ij]`` is ``(h[:, :, None], h[:, None], e)``."""
+    w, off, y = linear.weight, 0, None
+    for p in parts:
+        dt = torch.promote_types(p.dtype, w.dtype)
+        t = F.linear(p.to(dt), w[:, off:off + p.shape[-1]].to(dt))
+        y = t if y is None else y + t
+        off += p.shape[-1]
+    return y + linear.bias.to(y.dtype)
+
+
 class FCLayer(nn.Module):
     """Linear -> activation -> dropout -> BatchNorm (reference FCLayer
     order); the dropout masks come from the noise source `forward` is
@@ -197,12 +212,8 @@ class FCLayer(nn.Module):
             return edge_combine(hd, hs, pe, x.receivers, x.senders,
                                 x.row_ptr, x.csc_row_ptr, x.csc_perm)
         if isinstance(x, PairGridInput):
-            # the JAX package's order: sender + receiver, + edge, + bias
-            dh = x.h.shape[-1]
-            hs = F.linear(x.h, w[:, :dh])
-            hd = F.linear(x.h, w[:, dh:2 * dh])
-            pe = F.linear(x.e, w[:, 2 * dh:])
-            return hs[:, :, None] + hd[:, None] + pe + bias
+            return split_linear(self.linear, (x.h[:, :, None], x.h[:, None],
+                                              x.e))
         if isinstance(x, AffinePart):
             # fold the column affine into the weights:
             # (x * a + b) @ W^T == x @ (W * a)^T + W @ b

@@ -22,6 +22,9 @@ from typing import Any, Dict, Mapping
 
 from torch import nn
 
+from infomax3d_tpu_torch.models.byol import BYOLWrapper
+from infomax3d_tpu_torch.models.egnn import EGNN
+from infomax3d_tpu_torch.models.egnn_dense import DenseEGNN
 from infomax3d_tpu_torch.models.geomol_mpnn import GeomolGNNWrapperOGBFeat
 from infomax3d_tpu_torch.models.gin import OGBGNN
 from infomax3d_tpu_torch.models.net3d import Net3D, Net3DDense
@@ -33,6 +36,7 @@ from infomax3d_tpu_torch.models.pna_original import (PNAOriginal,
                                                      PNAOriginalSimple)
 from infomax3d_tpu_torch.models.random_variants import (
     OGBGNNRandom, PNAOriginalRandom, PNAOriginalSimpleRandom)
+from infomax3d_tpu_torch.models.san import SAN
 from infomax3d_tpu_torch.models.smp import SMP
 from infomax3d_tpu_torch.models.transformer import (DistancePredictor,
                                                     PNADistancePredictor,
@@ -66,18 +70,19 @@ MODEL_REGISTRY: Dict[str, type] = {
     "TransformerPlain": TransformerPlain, "PNAOriginal": PNAOriginal,
     "PNAOriginalRandom": PNAOriginalRandom,
     "PNAOriginalSimple": PNAOriginalSimple,
-    "PNAOriginalSimpleRandom": PNAOriginalSimpleRandom, "SMP": SMP}
+    "PNAOriginalSimpleRandom": PNAOriginalSimpleRandom, "SMP": SMP,
+    "EGNN": EGNN, "EGNNTorch": DenseEGNN, "SAN": SAN,
+    "BYOLwrapper": BYOLWrapper}
 
 # the JAX package's other registered names and the ROADMAP queue 1 item
 # that ports each
 NOT_PORTED: Dict[str, str] = {
-    "SAN": "7e", "EGNN": "7f", "EGNNTorch": "7f",
     **{n: "7g" for n in ("GeomolGNNWrapper",
                          "GeomolGNNWrapperOGBFeatRandom",
                          "GeomolGNNWrapperOGBFeatRandomNonShared",
                          "PNARandom", "PNARandomEdgeUpdate",
                          "PNAGNNRandomEdgeUpdate")},
-    "BYOLwrapper": "8a", "Critic": "8b"}
+    "Critic": "8b"}
 
 # reference YAML names whose class the reference cannot resolve, mapped
 # onto the class the config means (the JAX package's models/registry.py)
@@ -121,6 +126,10 @@ JAX_FIELDS: Dict[str, tuple] = {
     "PNAOriginalSimple": PNAOriginalSimple.FIELDS,
     "PNAOriginalSimpleRandom": PNAOriginalSimpleRandom.FIELDS,
     "SMP": SMP.FIELDS,
+    "EGNN": EGNN.FIELDS,
+    "EGNNTorch": DenseEGNN.FIELDS,
+    "SAN": SAN.FIELDS,
+    "BYOLwrapper": BYOLWrapper.FIELDS,
 }
 
 # JAX fields the port's classes lack, with the JAX default they run at

@@ -36,7 +36,7 @@ from infomax3d_tpu_torch.graphs.dense import (DenseBatch, dense_batch,
 from infomax3d_tpu_torch.interop import (flax_paths, init_jax_variables,
                                          load_variables)
 from infomax3d_tpu_torch.losses import get_loss
-from infomax3d_tpu_torch.models.registry import build_model, get_model_class
+from infomax3d_tpu_torch.models.registry import build_model
 from infomax3d_tpu_torch.train.optim import build_adam, label_params
 from infomax3d_tpu_torch.train.precision import (cast_batch, forward_in,
                                                  resolve_compute_dtype)
@@ -47,7 +47,7 @@ class PretrainStep(TrainStep):
     """Forward, backward and Adam update of the 2D / 3D pair on one batch
     of molecules: the 2D model is `model_type` (PNA by default, or e.g.
     PNAOriginal), `model3d_type` "Net3DDense" reads a `DenseBatch`,
-    "Net3D" a CSR `GraphBatch` of complete graphs.  `variables` holds flax
+    "Net3D" or "EGNN" a CSR `GraphBatch` of complete graphs.  `variables` holds flax
     numpy trees for ``model`` and ``model3d`` (`interop.init_jax_variables`
     layout); `compute_dtype` bf16 runs the bf16 recipe, None float32;
     `loss_func` names the loss (`losses.get_loss`).  Adam's groups are the
@@ -63,9 +63,9 @@ class PretrainStep(TrainStep):
                  model3d_type: str = "Net3DDense", model_type: str = "PNA"):
         model = load_variables(build_model(model_type, model_parameters),
                                variables["model"])
-        model3d = load_variables(
-            get_model_class(model3d_type).from_config(model3d_parameters),
-            variables["model3d"])
+        model3d = load_variables(build_model(model3d_type,
+                                             model3d_parameters),
+                                 variables["model3d"])
         self._setup(model, model3d, device, compute_dtype,
                     get_loss(loss_func, **dict(loss_params or {})))
         self.optimizer = build_adam(
@@ -201,16 +201,16 @@ def pretrain(args: Dict[str, Any], steps: int = 1,
     """Run `steps` pre-training steps on one fixed batch of
     `args["batch_size"]` (default 500) synthetic molecules
     (`args["dataset_params"]`: seed, n_min, n_max): `flagship_batches`
-    (QM9-like, 10 to 26 atoms by default), or for the flat Net3D
-    (`model3d_type` "Net3D") `conformer_batches` with
-    `args["num_conformers"]` conformers per molecule (drug-like, 20 to 70
-    atoms by default).  Runs on the CUDA card unless `device` says
+    (QM9-like, 10 to 26 atoms by default), or for a 3D model on the CSR
+    complete graphs (`model3d_type` "Net3D", "EGNN") `conformer_batches`
+    with `args["num_conformers"]` conformers per molecule (drug-like, 20 to
+    70 atoms by default).  Runs on the CUDA card unless `device` says
     otherwise (and raises when there is none).  Returns the float32 losses,
     the step object and the batch sizes."""
     device = resolve_device(device)
     step = build_step(args, device)
     data = dict(args.get("dataset_params", {}))
-    if args.get("model3d_type") == "Net3D":
+    if args.get("model3d_type", "Net3DDense") != "Net3DDense":
         g2, g3, sizes = conformer_batches(
             args.get("batch_size", 500), args.get("num_conformers", 1),
             device=device, **data)

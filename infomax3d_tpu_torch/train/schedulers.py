@@ -202,9 +202,10 @@ WRAPPED_SCHEDULERS = {
 class WarmUpController:
     """Reference `WarmUpWrapper` (trainer/lr_schedulers.py:5-78), exactly:
 
-    - `warmup_steps`: list; its cumsum defines warmup phases.  During warmup,
-      group i only updates when `i <= current_phase` (or a single entry
-      updates all groups), interpolating 0 -> start_lr linearly or cosine.
+    - `warmup_steps`: list (a single number is one phase); its cumsum
+      defines warmup phases.  During warmup, group i only updates when
+      `i <= current_phase` (or a single entry updates all groups),
+      interpolating 0 -> start_lr linearly or cosine.
     - Groups NOT yet unlocked stay at 0 (reference sets every lr to 0 at
       construction).
     - After `sum(warmup_steps)` total steps, delegates to the wrapped
@@ -215,6 +216,11 @@ class WarmUpController:
                  wrapped_scheduler: str = "ReduceLROnPlateau",
                  interpolation: str = "linear", **wrapped_params):
         self.start_lrs = list(start_lrs)
+        if isinstance(warmup_steps, (int, float)):
+            # configs/0.yml gives one number where the others give a list;
+            # the reference's sum() and the JAX package's loop both fail
+            # on it, its evident intent is one warmup phase
+            warmup_steps = [warmup_steps]
         self.warmup_steps = [int(w) for w in warmup_steps]
         self.total_warmup_steps = sum(self.warmup_steps)
         self.interpolation = interpolation

@@ -12,7 +12,8 @@ of `infomax3d_tpu/train/torch_interop.py`).
   ``params`` / ``batch_stats`` keyed by model name), written under the
   same file names; read by the port's own `flax_msgpack` reader and
   turned into torch names by `interop.params_from_jax` (serving) or onto
-  a model's flax paths (`flax_transfer_source`, the fine-tune transfer).
+  a model's flax paths (`flax_transfer_source`, the fine-tune transfer);
+  a BYOL run's teachers from its ``extra`` (`jax_teacher_variables`).
 
 Nothing here reshapes a tensor to fit: a missing tensor or a shape that
 differs raises in `load_state_dict(strict=True)` (serving), and the
@@ -70,6 +71,21 @@ def jax_model_variables(tree: Mapping[str, Any], key: str = "model"
                        f"has {sorted(tree['params'])}")
     return {"params": tree["params"][key],
             "batch_stats": (tree.get("batch_stats") or {}).get(key, {})}
+
+
+def jax_teacher_variables(tree: Mapping[str, Any], key: str = "model"
+                          ) -> Dict[str, Any]:
+    """The BYOL teacher of model `key` from a JAX `BYOLTrainer`
+    checkpoint's ``extra`` (``teacher`` and ``teacher_stats``, each the
+    wrapper's tree without its predictor) as ``{"params",
+    "batch_stats"}`` numpy trees of the student alone, for
+    `interop.load_variables` into a `BYOLStep`'s teacher."""
+    extra = tree.get("extra") or {}
+    if "teacher" not in extra or key not in extra["teacher"]:
+        raise KeyError(f"the checkpoint holds no BYOL teacher of {key!r}")
+    return {"params": extra["teacher"][key]["student"],
+            "batch_stats": ((extra.get("teacher_stats") or {}).get(key)
+                            or {}).get("student", {})}
 
 
 def flax_transfer_source(tree: Mapping[str, Any], key: str,

@@ -1,6 +1,7 @@
 """Training engine (port of `infomax3d_tpu/train/trainer.py`: `Trainer`,
-`SelfSupervisedTrainer`, `SelfSupervisedAETrainer`, `GraphCLTrainer`,
-`DistancePredictorTrainer` and `OptimalTransportTrainer`).
+`SelfSupervisedTrainer`, `SelfSupervisedAETrainer`, `BYOLTrainer`,
+`GraphCLTrainer`, `DistancePredictorTrainer` and
+`OptimalTransportTrainer`).
 
 The host loop is the JAX package's, which is the contract of the
 reference's `Trainer.train` (trainer/trainer.py:69-109): epochs,
@@ -16,7 +17,8 @@ The step is not written again here: the supervised trainer runs
 of dropout masks drawn on the trainer's device from one generator seeded
 with `seed`, and no noise, as the JAX trainer hands its model a
 ``dropout`` rng alone; eval steps draw nothing), the contrastive one
-`train/pretrain.py::PretrainStep`, the baselines the steps of
+`train/pretrain.py::PretrainStep`, BYOL `train/byol.py::BYOLStep`, the
+baselines the steps of
 `train/baselines.py` and the OT trainer `train/ot.py::OTStep`, each built over the config's models and
 the grouped optimizer (`train/optim.py`), so the bf16 recipe (float32
 masters, bf16 forward, float32 outputs into the loss) is the steps'.  The
@@ -52,6 +54,7 @@ from infomax3d_tpu_torch.interop import flax_paths, load_variables
 from infomax3d_tpu_torch.train import checkpoint
 from infomax3d_tpu_torch.train.baselines import (AEStep, DistanceStep,
                                                 GraphCLStep)
+from infomax3d_tpu_torch.train.byol import BYOLStep
 from infomax3d_tpu_torch.train.logging import TENSORBOARD_FUNCTIONS, RunLogger
 from infomax3d_tpu_torch.train.optim import build_optimizer, label_params
 from infomax3d_tpu_torch.train.ot import OTStep
@@ -452,8 +455,7 @@ class Trainer:
     # ----------------------------------------------------------- checkpoints
     def save_checkpoint(self, epoch: int, name: str):
         with self._timed("checkpoint"):
-            payload = checkpoint.state_dicts(
-                {k: self.models[k] for k in self.MODEL_KEYS})
+            payload = self._model_state_dicts()
             payload.update(
                 optimizer_state_dict=self.optimizer.state_dict(),
                 scheduler_state_dict={k: c.state_dict() for k, c in
@@ -466,11 +468,19 @@ class Trainer:
                       "w") as f:
                 yaml_lite.dump(yamlable(self.args), f)
 
+    def _model_state_dicts(self) -> Dict[str, Any]:
+        """The checkpoint's model entries (`checkpoint.state_dicts`)."""
+        return checkpoint.state_dicts({k: self.models[k]
+                                       for k in self.MODEL_KEYS})
+
+    def _load_model_state_dicts(self, payload: Mapping[str, Any]) -> None:
+        checkpoint.load_state_dicts({k: self.models[k]
+                                     for k in self.MODEL_KEYS}, payload)
+
     def _load(self, path: str, restore_host: bool = True):
         with self._timed("checkpoint"):
             payload = checkpoint.load_checkpoint(path, self.device)
-            checkpoint.load_state_dicts(
-                {k: self.models[k] for k in self.MODEL_KEYS}, payload)
+            self._load_model_state_dicts(payload)
             self.optimizer.load_state_dict(payload["optimizer_state_dict"])
         if restore_host:
             self.start_epoch = payload.get("epoch", 0) + 1
@@ -565,6 +575,57 @@ class SelfSupervisedAETrainer(SelfSupervisedTrainer):
 
     def _extra_losses(self, out) -> Dict[str, float]:
         return {k: float(v) for k, v in out[2].items()}
+
+
+class BYOLTrainer(SelfSupervisedTrainer):
+    """BYOL (reference byol_trainer.py, the JAX package's `BYOLTrainer`):
+    ``model`` and ``model3d`` are `BYOLWrapper`s, each step a `BYOLStep`
+    (each wrapper's teacher in train mode without autograd, the loss
+    ``L(pred2_s, proj3_t) + L(proj2_t, pred3_s)``, then the EMA of the
+    2D teacher, or of both with `ema_all`, at `ma_decay`).  The metrics
+    and the linear probe read the students' predictions.  A checkpoint
+    carries each teacher, running statistics included, under ``teacher.``
+    in its model's state_dict (the reference wrapper's layout), so a
+    resumed run and the reload of the best checkpoint restore them."""
+
+    TEACHER = "teacher."
+
+    def __init__(self, *a, ma_decay: float = 0.99, ema_all: bool = False,
+                 **kw):
+        super().__init__(*a, **kw)
+        self.ma_decay, self.ema_all = ma_decay, ema_all
+
+    def _make_step(self):
+        return BYOLStep.from_modules(
+            self.models["model"], self.models["model3d"], self.device,
+            self.compute_dtype, self.loss_func, self.optimizer,
+            ma_decay=self.ma_decay, ema_all=self.ema_all)
+
+    def _train_step(self, batches):
+        out = super()._train_step(batches)
+        self.step.update_teachers()
+        return out
+
+    def _model_state_dicts(self) -> Dict[str, Any]:
+        payload = super()._model_state_dicts()
+        for k, teacher in self.step.teachers.items():
+            payload[checkpoint.STATE_DICT_KEYS[k]].update(
+                {self.TEACHER + n: t.detach().cpu()
+                 for n, t in teacher.state_dict().items()})
+        return payload
+
+    def _load_model_state_dicts(self, payload: Mapping[str, Any]) -> None:
+        own = dict(payload)
+        for k, teacher in self.step.teachers.items():
+            key = checkpoint.STATE_DICT_KEYS[k]
+            n = len(self.TEACHER)
+            teacher.load_state_dict({name[n:]: t for name, t in
+                                     payload[key].items()
+                                     if name.startswith(self.TEACHER)},
+                                    strict=True)
+            own[key] = {name: t for name, t in payload[key].items()
+                        if not name.startswith(self.TEACHER)}
+        super()._load_model_state_dicts(own)
 
 
 class GraphCLTrainer(Trainer):
@@ -697,18 +758,19 @@ class OptimalTransportTrainer(Trainer):
 
 TRAINER_REGISTRY = {"default": Trainer, "contrastive": SelfSupervisedTrainer,
                     "autoencoder": SelfSupervisedAETrainer,
+                    "byol": BYOLTrainer,
                     "graphcl_trainer": GraphCLTrainer,
                     "distance_predictor": DistancePredictorTrainer,
                     "optimal_transport": OptimalTransportTrainer}
 
-# the JAX package's other trainer flavours (ROADMAP queue 1, item 8)
-NOT_PORTED = ("alternating", "byol", "philosophy", "noisy_negatives")
+# the JAX package's other trainer flavours (ROADMAP queue 1, item 8b)
+NOT_PORTED = ("alternating", "philosophy", "noisy_negatives")
 
 
 def get_trainer_class(name: str):
     if name in NOT_PORTED:
         raise NotImplementedError(
-            f"trainer '{name}' is not ported yet (ROADMAP queue 1, item 8)")
+            f"trainer '{name}' is not ported yet (ROADMAP queue 1, item 8b)")
     if name not in TRAINER_REGISTRY:
         raise KeyError(f"unknown trainer '{name}'")
     return TRAINER_REGISTRY[name]

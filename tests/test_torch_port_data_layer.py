@@ -459,14 +459,16 @@ def test_collate_aliases_and_not_ported():
     assert loader.get_collate("NodeDropCollate") is loader.graphcl_collate
     assert loader.get_collate("NodeDrop3dCollate") is \
         loader.node_drop_3d_collate
-    for name in ("egnn_padded_collate", "molhiv_padded_collate"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            loader.get_collate(name)
+    # every JAX collate is ported: the padded ones too, with their aliases
+    for name in ("egnn_padded_collate", "padded_collate",
+                 "egnn_padded_collate3d"):
+        assert loader.get_collate(name) is loader.egnn_padded_collate
+    assert loader.get_collate("molhiv_padded_collate") is \
+        loader.molhiv_padded_collate
     assert loader.get_collate("smp_collate") is loader.smp_collate
     assert loader.get_collate("padded_collate_positional_encoding") is \
         loader.padded_collate_positional_encoding
-    assert set(jax_loader.COLLATE_REGISTRY) == \
-        set(loader.COLLATE_REGISTRY) | set(loader.NOT_PORTED)
+    assert set(jax_loader.COLLATE_REGISTRY) == set(loader.COLLATE_REGISTRY)
 
 
 def test_node_drop(caches):

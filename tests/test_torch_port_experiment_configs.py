@@ -6,7 +6,8 @@ the trainer class and `build_metrics`.  No model is trained.
 
 Each config's outcome is set by a table: it resolves, or it raises what
 the port does not have yet (the `NotImplementedError` of its ROADMAP queue
-1 item: 7 for models, 8 for BYOL), or it fails as the JAX package fails on
+1 item: 7g for `GeomolGNNWrapper`; item 8's trainers, none of which a
+config names, raise 8b), or it fails as the JAX package fails on
 it: `pnatransformersimple_ogbg.yml`'s width 80 is no multiple of its 32
 heads; `PNASelfAttentionReadout` is registered in neither package
 (`KeyError`); the checkpoint pointers (`1.yml` to `8.yml`) carry no
@@ -34,19 +35,15 @@ SKIP = {"continue.yml": "bare checkpoint pointer into a run dir the "
                         "reference does not ship (reference "
                         "configs/continue.yml)"}
 # the models the port has not ported yet, by ROADMAP queue 1 item
-ITEM_7 = {"san.yml": "7e", "san_ogbg.yml": "7e", "0.yml": "7f",
-          "tune_from_ot_geomoL_feat.yml": "7g"}
-ITEM_8 = {"byol.yml"}
+ITEM_7 = {"tune_from_ot_geomoL_feat.yml": "7g"}
+ITEM_8 = set()
 # what fails in the JAX package too
 WIDTH = {"pnatransformersimple_ogbg.yml"}
 UNKNOWN = {"contrastive_training_pna_self_attention_readout.yml"}
 POINTERS = {f"{i}.yml" for i in range(1, 9)}
-# the configs this slice opens (PNAOriginal, 7c; SMP, 7d): none of them
-# raises
-SLICE = ("pna_original.yml", "pna_original_molhiv.yml",
-         "pna_original_simple.yml", "pna_original_simple_molhiv.yml",
-         "contrastive_training_pna_original.yml", "SMP_geomol_conformers.yml",
-         "SMP_rdkit_conformers.yml", "sphere_net.yml")
+# the configs this slice opens (BYOL, 8a; SAN, 7e; EGNN, 7f): none of
+# them raises
+SLICE = ("byol.yml", "san.yml", "san_ogbg.yml", "0.yml")
 # as the JAX test: metrics that need a dataset in hand, and one that the
 # reference's own lookup fails on
 DATASET_DEPENDENT_METRICS = {"qm9_properties", "mae_denormalized",
@@ -74,17 +71,26 @@ def resolve(name):
 
 def test_outcome_table():
     """The table's counts after this slice, each name a config of
-    `configs/`, no config in two rows: 74 configs resolve, the slice's
-    eight among them; item 7 raises for 4 (7e: 2, 7f: 1, 7g: 1), item 8
-    for `byol.yml`."""
+    `configs/`, no config in two rows: 78 configs resolve, the slice's
+    four among them; item 7 raises for one (7g), item 8 for none."""
     assert len(ALL_CONFIGS) == 90
-    assert len(ITEM_7) == 4 and len(ITEM_8) == 1
-    assert sorted(ITEM_7.values()) == ["7e", "7e", "7f", "7g"]
+    assert len(ITEM_7) == 1 and len(ITEM_8) == 0
+    assert sorted(ITEM_7.values()) == ["7g"]
     rows = [set(ITEM_7), ITEM_8, WIDTH, UNKNOWN, POINTERS, set(SKIP),
             set(SLICE)]
     assert sum(len(r) for r in rows) == len(set().union(*rows))
     assert set().union(*rows) <= set(ALL_CONFIGS)
-    assert len(ALL_CONFIGS) - len(set().union(*rows)) + len(SLICE) == 74
+    assert len(ALL_CONFIGS) - len(set().union(*rows)) + len(SLICE) == 78
+
+
+def test_critic_type_names_item_8b():
+    """A config's `critic_type` (the philosophy trainer's critic) raises
+    naming ROADMAP queue 1, item 8b."""
+    args = load_config(os.path.join(CONFIG_DIR, "0.yml"),
+                       {"critic_type": "Critic"})
+    with pytest.raises(NotImplementedError, match=r"item 8b\)"):
+        with torch.device("meta"):
+            port_cli.build_models(args)
 
 
 @pytest.mark.parametrize("name", ALL_CONFIGS)

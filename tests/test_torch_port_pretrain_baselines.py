@@ -205,8 +205,8 @@ def test_pairwise_distance_collate(graph_3d):
         _same_arrays({k: view["graph"][k] for k in (
             "node_feat", "node_graph", "node_pos", "node_mask",
             "graph_mask", "n_nodes")}, jview["graph"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        get_collate("egnn_padded_collate")
+    assert get_collate("egnn_padded_collate").__name__ == \
+        "egnn_padded_collate"
     assert get_collate("san_collate").__name__ == "san_collate"
     assert get_collate("padded_distances_collate") is \
         get_collate("pairwise_distance_collate")
