@@ -273,6 +273,25 @@ its seconds:
    memory, kernels per step and the idle share; (a), (b), (c) through
    the CLI (1 epoch on a synthetic QM9 cache) with their launches, and
    (d) resolved and built.
+26. The last trainers and model names at configs_clean/pre-train_QM9.yml's
+   architecture (PNA 200x7, the flat Net3D 20x1, batch 500), bf16: the
+   philosophy step (Critic 256 x 2 layers x 4 repeats, CriticLoss), an
+   even and an odd alternating step, the noisy-negatives step
+   (`noised_distances_collate`, NTXentExtraNegatives), and supervised L1
+   steps of PNARandom, PNARandomEdgeUpdate and PNA with
+   `pairwise_distances`: rows 6 and 5 (bf16 and float32), 2, 8, 1, 4 and 3
+   bit for bit on the bond graphs (D = 200), rows 6, 5 and 7 on the
+   complete graphs (D = 20); one float32 and one bf16 step of each on the
+   card against the CPU's float32 step (the models each step trains),
+   with planted faults that must each fail (the philosopher's sign; the
+   odd step run as an even one; the extra negatives dropped; the distance
+   column dropped); launches per bf16 step, exact; ms per step, graphs/s,
+   peak memory, kernels per step and the idle share; the philosophy
+   trainer through the CLI (1 epoch on a synthetic QM9 cache, the critic
+   and the three optimizers in its checkpoint) with its launches, and
+   `configs/tune_from_ot_geomoL_feat.yml` through the CLI on a synthetic
+   `qm9_geomol` cache of float features, from scratch and again from the
+   first run's checkpoint (its transfer moves nothing, as the JAX CLI's).
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 """
@@ -1366,14 +1385,15 @@ def _one_step(bf16: bool, dev: str, g2, g3):
                          step.prepare(g2, g3))
 
 
-def _bf16_limits(own: dict, own_loss: float) -> tuple:
+def _bf16_limits(own: dict, own_loss: float, floor: dict = None) -> tuple:
     """The bf16 step check's limits from the CPU's own bf16 step read
     against its float32 step (`own`, `_readings`; `own_loss`, relative):
-    BF16_FACTOR times each reading, never below STEP_TOL[True]; each leaf
-    of a model within BF16_FACTOR times that model's worst leaf (a single
-    leaf's reading, a max over a few hundred entries, is too noisy to
-    scale).  Returns (tol, each side's L2 limit, each leaf's limit)."""
-    floor = STEP_TOL[True]
+    BF16_FACTOR times each reading, never below `floor` (STEP_TOL[True]);
+    each leaf of a model within BF16_FACTOR times that model's worst leaf
+    (a single leaf's reading, a max over a few hundred entries, is too
+    noisy to scale).  Returns (tol, each side's L2 limit, each leaf's
+    limit)."""
+    floor = floor or STEP_TOL[True]
     tol = dict(floor, loss=max(floor["loss"], BF16_FACTOR * own_loss),
                stats=max(floor["stats"], BF16_FACTOR * max(
                    d["stats"] for d in own.values())))
@@ -1386,9 +1406,21 @@ def _bf16_limits(own: dict, own_loss: float) -> tuple:
     return tol, l2_tol, leaf_tol
 
 
+def _merge_own(own: dict, more: dict):
+    """`own` readings (`_readings`) raised to `more`'s where larger."""
+    for side, d in more.items():
+        o = own[side]
+        o["leaves"] = {n: max(e, d["leaves"].get(n, 0.0))
+                       for n, e in o["leaves"].items()}
+        o["leaf"] = max(o["leaf"], d["leaf"], key=lambda e: e[0])
+        o["l2"], o["stats"] = max(o["l2"], d["l2"]), max(o["stats"],
+                                                         d["stats"])
+
+
 def _hold_step_against_cpu(one_step, sides: tuple, faults: dict,
                            phase: str, zero_leaves: tuple = ZERO_GRADIENT,
-                           fault_bf16: bool = True, witnesses: int = 1):
+                           fault_bf16: bool = True, witnesses: int = 1,
+                           f32_witnesses: int = 0):
     """One float32 and one bf16 step on the card against the CPU's float32
     step (`one_step(bf16, device)` gives `_measure_step`'s loss and
     leaves): the loss, every leaf, the L2 of each model's gradient and the
@@ -1402,7 +1434,13 @@ def _hold_step_against_cpu(one_step, sides: tuple, faults: dict,
     seeded weights', then the weights scaled by 1 + k * 2^-16 * U(-1, 1)
     (k = 1 .. n - 1: below bf16's resolution, so each rounds anew), each
     bf16 step against the float32 step at its own weights; `one_step`
-    then takes `perturb`."""
+    then takes `perturb`.  With `f32_witnesses` n > 0 the float32 check's
+    limits are likewise BF16_FACTOR times the CPU's own float32 noise,
+    never below STEP_TOL[False]: the largest distance of n CPU float32
+    steps at weights scaled by 1 + k * 2^-20 * U(-1, 1) (k = 1 .. n) from
+    the CPU float32 step (for models whose float32 step is
+    ill-conditioned: a max or min aggregate whose winner flips, a std over
+    near-constant columns)."""
     loss_ref, ref = one_step(False, "cpu")
 
     def against_ref(loss, leaves, tol, l2_tol, leaf_tol=None):
@@ -1413,10 +1451,28 @@ def _hold_step_against_cpu(one_step, sides: tuple, faults: dict,
         return r, rel, bad
 
     l2_32 = {s: STEP_TOL[False]["l2"] for s in sides}
+    limits32 = (STEP_TOL[False], l2_32)
+    if f32_witnesses:
+        own32, own32_loss = None, 0.0
+        for k in range(1, f32_witnesses + 1):
+            lk, rk = one_step(False, "cpu", perturb=k * 2.0 ** -20)
+            rk = _readings(rk, ref, sides, zero_leaves)
+            own32_loss = max(own32_loss, abs(lk - loss_ref) / abs(loss_ref))
+            print(f"[{phase}] float32 witness {k} (weights scaled by 1 + "
+                  f"{k} * 2^-20 * U(-1, 1)): loss "
+                  f"{abs(lk - loss_ref) / abs(loss_ref):.3g}"
+                  + "".join(f", {side} L2 {d['l2']:.3g}, worst leaf "
+                            f"{d['leaf'][0]:.3g}" for side, d in rk.items()))
+            if own32 is None:
+                own32 = rk
+            else:
+                _merge_own(own32, rk)
+        limits32 = _bf16_limits(own32, own32_loss, STEP_TOL[False])
+        l2_32 = limits32[1]
     loss, card = one_step(False, "cuda")
-    r, rel, bad = against_ref(loss, card, STEP_TOL[False], l2_32)
+    r, rel, bad = against_ref(loss, card, *limits32)
     print(f"[{phase}] float32: loss card {loss:.6f} vs CPU {loss_ref:.6f}, "
-          f"{rel:.3g} (tol {STEP_TOL[False]['loss']:.3g})")
+          f"{rel:.3g} (tol {limits32[0]['loss']:.3g})")
     _print_readings("float32 card vs CPU", r, l2_32, phase)
     _check(not bad, f"float32 step card vs CPU: {bad}")
 
@@ -1432,13 +1488,7 @@ def _hold_step_against_cpu(one_step, sides: tuple, faults: dict,
               + "".join(f", {side} L2 {d['l2']:.3g}, worst leaf "
                         f"{d['leaf'][0]:.3g}" for side, d in rk.items()))
         own_loss = max(own_loss, abs(l16 - l32) / abs(l32))
-        for side, d in rk.items():
-            o = own[side]
-            o["leaves"] = {n: max(e, d["leaves"].get(n, 0.0))
-                           for n, e in o["leaves"].items()}
-            o["leaf"] = max(o["leaf"], d["leaf"], key=lambda e: e[0])
-            o["l2"], o["stats"] = max(o["l2"], d["l2"]), max(o["stats"],
-                                                             d["stats"])
+        _merge_own(own, rk)
     limits = _bf16_limits(own, own_loss)
     print(f"[{phase}] bf16 CPU vs float32 CPU (the bf16 limits' base, x "
           f"{BF16_FACTOR:g}): loss {loss_own:.6f}, {own_loss:.3g}")
@@ -1449,7 +1499,7 @@ def _hold_step_against_cpu(one_step, sides: tuple, faults: dict,
           f"{loss_ref:.6f}, {rel:.3g} (tol {limits[0]['loss']:.3g})")
     _print_readings("bf16 card vs float32 CPU", r, limits[1], phase)
     _check(not bad, f"bf16 step card vs CPU: {bad}")
-    held = limits if fault_bf16 else (STEP_TOL[False], l2_32)
+    held = limits if fault_bf16 else limits32
     for fault, plant in faults.items():
         undo = plant()
         try:
@@ -4115,7 +4165,8 @@ def _view1_twice():
     view2."""
     mod = importlib.import_module("infomax3d_tpu_torch.train.baselines")
     real = mod.GraphCLStep.outputs
-    mod.GraphCLStep.outputs = lambda self, v1, v2: real(self, v1, v1)
+    mod.GraphCLStep.outputs = lambda self, v1, v2, noise=None: real(
+        self, v1, v1, noise)
     return lambda: setattr(mod.GraphCLStep, "outputs", real)
 
 
@@ -6527,6 +6578,466 @@ def phase_slice18(smi: str, out_dir: Path) -> dict:
     return {"launches": launches, "errs": errs}
 
 
+# ------------- phase 26: the last trainers, losses and model names
+
+# configs_clean/pre-train_QM9.yml's architecture (PNA 200x7, the flat Net3D
+# 20x1 on the CSR complete graphs) under the three trainer flavours, and
+# the model names at its PNA width as supervised L1 steps on labelled
+# QM9-size molecules (one target)
+SLICE19_CONFIG = "configs_clean/pre-train_QM9.yml"
+SLICE19_NAMES = {
+    "phil": "philosophy: PNA 200x7 + flat Net3D 20x1, Critic 256 x 2 "
+            "layers x 4 repeats, CriticLoss",
+    "alt_even": "alternating, an even step (the 2D side learns)",
+    "alt_odd": "alternating, an odd step (the 3D side learns, the loss's "
+               "arguments swapped)",
+    "noisy": "noisy negatives: one noised 3D copy, NTXentExtraNegatives",
+    "pnar": "PNARandom 200x7, 10 noise columns (zeros: masks only)",
+    "pner": "PNARandomEdgeUpdate 200x7, 10 noise columns (zeros)",
+    "pair": "PNA 200x7 with pairwise_distances",
+}
+SLICE19_KINDS = tuple(SLICE19_NAMES)
+SLICE19_SUPERVISED = ("pnar", "pner", "pair")
+SLICE19_CRITIC = {"metric_dim": 256, "hidden_dim": 256, "layers": 2,
+                  "repeats": 4}
+SLICE19_CHECK = 31
+SLICE19_TIMED = 10
+# the float32 steps that are ill-conditioned get float32 witnesses
+# (`_hold_step_against_cpu`): on the CPU, weights scaled by 1 + 2^-20
+# U(-1, 1) moved PNARandom's float32 loss by 2.0e-5 (STEP_TOL: 1e-5) and
+# PNARandomEdgeUpdate's by 3.1e-5, a leaf of it by 1.6 and its L2 by
+# 4.9e-3 (its max / min winners flip), the pairwise PNA's loss by 1.4e-6
+SLICE19_F32_WITNESSES = {"pnar": 3, "pner": 3}
+# the leaves whose exact gradient is 0 beyond ZERO_GRADIENT's: the edge
+# update layers' message and node MLPs end in a Linear feeding a BatchNorm
+SLICE19_ZERO = ZERO_GRADIENT + ("posttrans_1.fully_connected.0.linear.bias",
+                                "posttrans_2.fully_connected.0.linear.bias")
+
+
+def _s19_config() -> dict:
+    from infomax3d_tpu_torch.cli.config import load_config
+    return load_config(SLICE19_CONFIG, {})
+
+
+def _s19_args(kind: str, bf16: bool) -> dict:
+    """`build_step` (the flavours) or `build_supervised_step` (the model
+    names) arguments of `kind`, at the config's widths and lr."""
+    a = _s19_config()
+    lr = {"lr": a["optimizer_params"]["lr"]}
+    if kind not in SLICE19_SUPERVISED:
+        loss = ("NTXentExtraNegatives", dict(a["loss_params"])) \
+            if kind == "noisy" else (a["loss_func"], dict(a["loss_params"]))
+        return {"model_parameters": dict(a["model_parameters"]),
+                "model3d_type": "Net3D",
+                "model3d_parameters": dict(a["model3d_parameters"]),
+                "loss_func": loss[0], "loss_params": loss[1],
+                "optimizer_params": lr, "bf16_compute": bf16, "seed": 0}
+    mp = dict(a["model_parameters"], target_dim=1)
+    name = {"pnar": "PNARandom", "pner": "PNARandomEdgeUpdate",
+            "pair": "PNA"}[kind]
+    if kind == "pair":
+        mp["pairwise_distances"] = True
+    else:
+        mp.update(random_vec_dim=10, random_vec_std=1.0)
+    return {"model_type": name, "model_parameters": mp,
+            "loss_func": "L1Loss", "optimizer_params": lr,
+            "bf16_compute": bf16, "seed": 0}
+
+
+def _s19_step(kind: str, bf16: bool, dev):
+    """The step of `kind` from the seeded weights: a `SupervisedStep`, or
+    the flavour's step over `build_step`'s PNA and Net3D (the critic
+    seeded too, each model its own Adam for philosophy)."""
+    from infomax3d_tpu_torch.interop import flax_paths, load_variables
+    from infomax3d_tpu_torch.losses import get_loss
+    from infomax3d_tpu_torch.models.registry import build_model as registered
+    from infomax3d_tpu_torch.train import flavours
+    from infomax3d_tpu_torch.train.optim import (OptimizerSet, build_adam,
+                                                 label_params)
+    dev = torch.device(dev)
+    args = _s19_args(kind, bf16)
+    if kind in SLICE19_SUPERVISED:
+        return build_supervised_step(args, dev)
+    base = build_step(args, dev)
+    if kind != "phil":
+        cls = flavours.NoisyNegativesStep if kind == "noisy" else \
+            flavours.AlternatingStep
+        return cls.from_modules(base.model, base.model3d, dev,
+                                base.compute_dtype, base.loss_fn,
+                                base.optimizer)
+    width = args["model3d_parameters"]["target_dim"]
+    critic = load_variables(
+        registered("Critic", SLICE19_CRITIC, in_dim=width),
+        dict(zip(("params", "batch_stats"), init_jax_variables(
+            dict(SLICE19_CRITIC, in_dim=width), 2, "Critic"))))
+    models = {"model": base.model, "model3d": base.model3d,
+              "critic": critic}
+    opts = OptimizerSet({k: build_adam(
+        [(f"{k}.{n}", p) for n, p in m.named_parameters()],
+        labels=label_params({f"{k}.{n}": f"{k}/{p}" for n, p in
+                             flax_paths(m).items()})[0],
+        **args["optimizer_params"]) for k, m in models.items()})
+    return flavours.PhilosophyStep.from_modules(
+        base.model, base.model3d, critic, dev, base.compute_dtype,
+        base.loss_fn, get_loss("CriticLoss"), opts)
+
+
+def _s19_batch(kind: str, dev, batch_size: int):
+    """`kind`'s batches on `dev` and their sizes: the labelled CSR batch,
+    or the 2D batch and the CSR complete graphs (with noisy negatives the
+    noised copy too, `noised_distances_collate`), QM9-size molecules."""
+    from infomax3d_tpu_torch.data.loader import (noised_distances_collate,
+                                                 to_device)
+    if kind in SLICE19_SUPERVISED:
+        g, sizes = labelled_batch(batch_size, 1, device=dev, **_QM9)
+        return (g,), sizes
+    if kind != "noisy":
+        g2, g3, sizes = conformer_batches(batch_size, 1, device=dev, **_QM9)
+        return (g2, g3), sizes
+    ds = SyntheticMolecules(batch_size, **_QM9)
+    items = [{"graph2d": ds.graph2d(i), "graph3d": ds.graph3d(i)}
+             for i in range(batch_size)]
+    view = noised_distances_collate(items, bucket_for(
+        [it["graph2d"] for it in items], batch_size))
+    batches = tuple(to_device(view[k], dev)
+                    for k in ("graph2d", "graph3d", "noisy3d"))
+    return batches, {"graphs": batch_size,
+                     "edges_2d": int(batches[0].csr_row_ptr[-1]),
+                     "edges_3d": int(batches[1].csr_row_ptr[-1])}
+
+
+def _s19_models(kind: str, step) -> dict:
+    if kind in SLICE19_SUPERVISED:
+        return {"model": step.model}
+    out = {"model": step.model, "model3d": step.model3d}
+    if kind == "phil":
+        out["critic"] = step.critic
+    return out
+
+
+def _s19_kw(kind: str) -> dict:
+    return {"even": kind != "alt_odd"} if kind.startswith("alt") else {}
+
+
+def _s19_one_step(kind: str, g, bf16: bool, dev: str, perturb: float = 0.0):
+    step = _s19_step(kind, bf16, dev)
+    batches = tuple(t.to(dev) for t in g)
+    prepared = (step.prepare(*batches),) if kind in SLICE19_SUPERVISED \
+        else step.prepare(*batches)
+    return _measure_step(step, _s19_models(kind, step), prepared,
+                         perturb=perturb, **_s19_kw(kind))
+
+
+def _s19_sides(kind: str) -> tuple:
+    """The models a step of `kind` trains (the alternating step's other
+    side gets zero gradients by design)."""
+    return {"alt_even": ("model",), "alt_odd": ("model3d",),
+            "phil": ("model", "model3d", "critic")}.get(
+                kind, ("model",) if kind in SLICE19_SUPERVISED
+                else ("model", "model3d"))
+
+
+def _s19_launches(kind: str, step: bool) -> dict:
+    """Launches per bf16 training step (`step`) or eval forward of `kind`.
+    PNA: per layer the edge combine (row 6) and the statistics (row 2),
+    backwards rows 5 and 8; the flat Net3D per layer rows 6 and 7 (the
+    mean), backward row 5, twice with noisy negatives.  The alternating
+    step runs the backward of the side that learns.  PNARandom runs float32
+    activations under the recipe (its float32 noise columns promote): per
+    layer rows 6 and 1, backward row 5; PNARandomEdgeUpdate per layer row
+    1 and its gathers' backwards rows 4 and 3.  The critic runs none."""
+    a = _s19_args(kind, True)
+    L = a["model_parameters"]["propagation_depth"]
+    if kind == "pnar":
+        out = dict(NONE, edge_combine=L, multi_reduce=L)
+        return dict(out, pair_segment_sum=L) if step else out
+    if kind == "pner":
+        out = dict(NONE, multi_reduce=L)
+        return dict(out, snd_segment_sum=L, csr_segment_sum=L) if step \
+            else out
+    if kind == "pair":
+        out = dict(NONE, edge_combine=L, pna_stats=L)
+        return dict(out, pair_segment_sum=L, pna_stats_bwd=L) if step \
+            else out
+    d3 = a["model3d_parameters"]["propagation_depth"] * (
+        2 if kind == "noisy" else 1)
+    out = dict(NONE, edge_combine=L + d3, pna_stats=L, csr_sum=d3)
+    if not step:
+        return out
+    learns2, learns3 = kind != "alt_odd", kind != "alt_even"
+    return dict(out, pair_segment_sum=L * learns2 + d3 * learns3,
+                pna_stats_bwd=L * learns2)
+
+
+def _patch(obj, name: str, new):
+    """Set `obj.name` to `new`; returns the undo."""
+    real = getattr(obj, name)
+    setattr(obj, name, new)
+    return lambda: setattr(obj, name, real)
+
+
+def _philosopher_sign():
+    """(phil)'s planted fault: the philosopher loss peasant + critic."""
+    from infomax3d_tpu_torch.train import flavours
+    real = flavours.PhilosophyStep.loss
+
+    def loss(self, *a, **kw):
+        peasant, out = real(self, *a, **kw)
+        out[2]["philosopher_loss"] = peasant + out[2][self.critic_loss_name]
+        return peasant, out
+    return _patch(flavours.PhilosophyStep, "loss", loss)
+
+
+def _parity_swapped():
+    """(alt_odd)'s planted fault: the odd step run as an even one."""
+    from infomax3d_tpu_torch.train import flavours
+    real = flavours.AlternatingStep.loss
+    return _patch(flavours.AlternatingStep, "loss",
+                  lambda self, *a, even=True, **kw: real(
+                      self, *a, even=not even, **kw))
+
+
+def _extra_negatives_dropped():
+    """(noisy)'s planted fault: the loss without the noised copy's
+    embeddings."""
+    from infomax3d_tpu_torch.train import flavours
+
+    def loss(self, g2, g3, noisy, noise=None):
+        z1, z2 = self.outputs(g2, g3, noise)
+        return self.loss_fn(z1, z2), (z1, z2)
+    return _patch(flavours.NoisyNegativesStep, "loss", loss)
+
+
+def _distance_column_dropped():
+    """(pair)'s planted fault: every edge's coordinates read at node 0, so
+    the squared-distance column is 0.  (A sender / receiver swap is no
+    fault: the squared distance is symmetric.)"""
+    from infomax3d_tpu_torch.models import pna
+    real = pna.take_clipped
+    return _patch(pna, "take_clipped",
+                  lambda x, idx: real(x, torch.zeros_like(idx)))
+
+
+SLICE19_FAULTS = {"phil": {"philosopher sign": _philosopher_sign},
+                  "alt_odd": {"parity swapped": _parity_swapped},
+                  "noisy": {"extra negatives dropped":
+                            _extra_negatives_dropped},
+                  "pair": {"distance column dropped":
+                           _distance_column_dropped}}
+
+
+def _s19_checks(kinds: tuple = SLICE19_KINDS):
+    """One float32 and one bf16 step of each kind on the card against the
+    CPU's float32 step (`_hold_step_against_cpu`, the models the step
+    trains; the CPU's own bf16 distance the largest of SLICE18_WITNESSES
+    readings), and each planted fault against the bf16 check."""
+    for kind in kinds:
+        g, sizes = _s19_batch(kind, "cpu", SLICE19_CHECK)
+        print(f"[slice19] ({kind}) {SLICE19_NAMES[kind]}: the step on "
+              f"{SLICE19_CHECK} graphs ({sizes}), card against CPU")
+        _hold_step_against_cpu(
+            lambda bf16, dev, perturb=0.0: _s19_one_step(kind, g, bf16, dev,
+                                                         perturb),
+            _s19_sides(kind), SLICE19_FAULTS.get(kind, {}),
+            f"slice19 ({kind})", SLICE19_ZERO,
+            witnesses=SLICE18_WITNESSES,
+            f32_witnesses=SLICE19_F32_WITNESSES.get(kind, 0))
+
+
+def _s19_kernels(g2, g3) -> dict:
+    """Every kernel of the slice's paths bit for bit at its new call
+    sites, at the pre-training batch (500 molecules): on the bond graphs
+    at the PNA width (200) rows 6 and 5 (bf16 and float32: PNARandom's
+    float32 combine, the pairwise-distance PNA's bf16 one), 2 and 8, 1
+    (the float32 aggregates of PNARandom and the edge-update layers) and
+    the edge-update layers' gather backwards, rows 4 and 3; on the
+    complete graphs at the Net3D width (20) rows 6, 5 and 7."""
+    gen = torch.Generator(device="cuda").manual_seed(260)
+    a = _s19_args("phil", True)
+    w, w3 = a["model_parameters"]["hidden_dim"], a["model3d_parameters"][
+        "hidden_dim"]
+    pairs = {"edge_combine": [], "pair_segment_sum": [], "csr_sum": []}
+    for tag, g, width in (("bonds", g2, w), ("complete graphs", g3, w3)):
+        pairs["edge_combine"] += _hold_edge_combine(f"slice19 {tag}", gen, g,
+                                                    (width,))
+        pairs["pair_segment_sum"] += _hold_pair_segment_sum(
+            f"slice19 {tag}", gen, g, (width,))
+    pairs["csr_sum"] += _hold_csr_sum("slice19 complete graphs", gen, g3,
+                                      (w3,))
+    errs = {n: _max_err(p) for n, p in pairs.items()}
+    E = g2.senders.shape[0]
+    cases = [("bonds", g2.csr_row_ptr, g2.max_deg, E, w)]
+    errs["pna_stats"] = _max_err(_hold_pna_stats("slice19", gen, cases))
+    errs["pna_stats_bwd"] = _max_err(_hold_pna_stats_bwd("slice19", gen,
+                                                         cases))
+    _merge_errs(errs, _hold_walks(
+        "slice19", gen, [("bonds", g2.csr_row_ptr, g2.max_deg, E, (w,))],
+        [("bonds", g2.csc_row_ptr, g2.csc_perm, E, (w,))],
+        [("bonds", g2.csr_row_ptr, E, (w,))]))
+    return errs
+
+
+def _s19_timed(smi: str):
+    """Each kind's bf16 step at the config's batch (500): launches per step
+    (exact), ms per step (CUDA events over warm steps), graphs/s, peak
+    memory, kernels per step and the idle share of a profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+    bs = _s19_config()["batch_size"]
+    for kind in SLICE19_KINDS:
+        step = _s19_step(kind, True, "cuda")
+        g, sizes = _s19_batch(kind, "cuda", bs)
+        gp = (step.prepare(*g),) if kind in SLICE19_SUPERVISED \
+            else step.prepare(*g)
+
+        def one():
+            return step.step(*gp, **_s19_kw(kind))
+        _reset_counts()
+        loss = float(one())
+        per, want = _counts(), _s19_launches(kind, True)
+        _check(per == want and np.isfinite(loss),
+               f"({kind}) launches per step {per} != {want}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(one, iters=SLICE19_TIMED, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            one()
+            torch.cuda.synchronize()
+        by_name = _profile_kernels(prof)
+        kernels = sum(c for _, c in by_name.values())
+        busy = sum(us for us, _ in by_name.values()) / 1e3
+        print(f"[slice19] ({kind}) {SLICE19_NAMES[kind]}, bf16, batch {bs}: "
+              f"{ms:.3f} ms per step (CUDA events over {SLICE19_TIMED} warm "
+              f"steps), {bs / ms * 1e3:.1f} graphs/s, peak "
+              f"max_memory_allocated {peak:.3f} GiB, {kernels} kernels per "
+              f"step, device busy {busy:.3f} ms of the profiled step (idle "
+              f"share {max(1 - busy / ms, 0.0):.3f}); launches per step "
+              f"(exact) { {n: c for n, c in per.items() if c} }; batch "
+              f"{sizes}; {smi}")
+        for kname, (us, c) in _port_kernels(by_name).items():
+            print(f"[slice19] ({kind})   {kname}: {c} launches, "
+                  f"{us / c:.2f} us each in the step")
+        del step, gp
+
+
+# the CLI runs: a synthetic QM9 cache (19 targets) and a `qm9_geomol` one of
+# float features; 1 epoch each: philosophy at the config's batch (2 steps
+# of 500), the GeoMol fine-tune at its batch (4 steps of 128)
+SLICE19_CACHES = {"QM9": dict(num=1500, num_targets=19, seed=7, n_min=4,
+                              n_max=26),
+                  "qm9_geomol": dict(num=1000, num_targets=19, seed=8,
+                                     n_min=4, n_max=26, float_features=True)}
+SLICE19_PHIL = dict(_S18_CLI, num_train=1000, num_val=500,
+                    trainer="philosophy", critic_type="Critic",
+                    critic_parameters=SLICE19_CRITIC,
+                    critic_loss="CriticLoss")
+SLICE19_GEOMOL = "configs/tune_from_ot_geomoL_feat.yml"
+SLICE19_TUNE = dict(_S18_CLI, num_train=512, num_val=128,
+                    pretrain_checkpoint=None)
+
+
+def _s19_cli(out_dir: Path, caches: Path) -> dict:
+    """The philosophy trainer through `cli.train.train` on
+    configs_clean/pre-train_QM9.yml (the critic in the checkpoint with the
+    three optimizers, the three losses logged, finite; the launches
+    exact), then `configs/tune_from_ot_geomoL_feat.yml` without its
+    `pretrain_checkpoint` and again from the first run's checkpoint (its
+    ``gnn.`` transfer moves nothing, as in the JAX CLI: both rename the
+    source's root ``gnn.`` to ``node_gnn.``).  Returns the launches (the
+    main path)."""
+    from infomax3d_tpu_torch.cli import train as cli
+    from infomax3d_tpu_torch.train import checkpoint
+    _reset_counts()
+    with mock.patch.dict(os.environ, {"INFOMAX3D_DATA": str(caches)}):
+        run = _data_run(SLICE19_CONFIG, SLICE19_PHIL,
+                        out_dir / "slice19_phil", TRAINER_DEVICE,
+                        unbounded=("uniformity",))
+        payload = checkpoint.load_checkpoint(str(run["dir"] /
+                                                 "best_checkpoint.pt"))
+        _check(set(payload["optimizer_state_dict"]) ==
+               {"model", "model3d", "critic"} and
+               "critic_state_dict" in payload,
+               "philosophy: the checkpoint lacks the critic or an optimizer")
+        recs = [json.loads(x) for x in open(run["dir"] / "metrics.jsonl")]
+        train = [r for r in recs if r["split"] == "train"]
+        val = [r for r in recs if r["split"] == "val"]
+        names = ("NTXent", "philosopher_loss", "CriticLoss")
+        _check(len(train) > 0 and len(val) == 1 and all(
+            np.isfinite(r[n]) for r in train + val for n in names),
+            f"philosophy CLI losses {train}, validation {val}")
+        args = run["args"]
+        _, v, t = cli.make_splits(args, cli.build_dataset(args))
+        bs = args["batch_size"]
+        evals = (args["num_epochs"] + 1) * (len(v) // bs) + (
+            len(t) // bs if args["eval_on_test"] and len(t) else 0)
+        L = args["model_parameters"]["propagation_depth"]
+        fwd = dict(NONE, edge_combine=L, pna_stats=L)
+        want = _expect(dict(fwd, pair_segment_sum=L, pna_stats_bwd=L), fwd,
+                       len(train), evals)
+        _check(run["launches"] == want,
+               f"philosophy CLI launches {run['launches']} != {want}")
+        timing = json.load(open(run["dir"] / "timing.json"))
+        print(f"[slice19] philosophy CLI {SLICE19_CONFIG} (QM9 cache, "
+              f"Net3DDense on the dense 3D batch, 1 epoch of {len(train)} "
+              f"steps at batch {bs}): {run['wall_s']:.1f} s, losses "
+              + "; ".join(f"{n} {[round(r[n], 4) for r in train]}"
+                          for n in names)
+              + f", validation {[round(val[0][n], 4) for n in names]}, "
+              f"step ms {[round(x, 2) for x in timing['step_ms']]}; "
+              f"launches { {n: c for n, c in run['launches'].items() if c} }")
+        first = _data_run(SLICE19_GEOMOL, SLICE19_TUNE,
+                          out_dir / "slice19_tune", TRAINER_DEVICE)
+        ckpt = first["dir"] / "best_checkpoint.pt"
+        second = _data_run(SLICE19_GEOMOL, dict(SLICE19_TUNE,
+                                                pretrain_checkpoint=str(ckpt)),
+                           out_dir / "slice19_tune2", TRAINER_DEVICE)
+        _check("transferred 0 parameter tensors" in second["text"],
+               "tune_from_ot_geomoL_feat: the transfer moved weights the "
+               "JAX CLI does not move")
+        for tag, r in (("scratch", first), ("from the first run", second)):
+            print(f"[slice19] {SLICE19_GEOMOL} ({tag}; qm9_geomol cache of "
+                  f"float features, node_dim / edge_dim read off the data): "
+                  f"{r['wall_s']:.1f} s, L1Loss "
+                  f"{r['result']['L1Loss']:.4f}, launches "
+                  f"{ {n: c for n, c in r['launches'].items() if c} }")
+    launches = _counts()
+    print(f"[slice19] main-path launches (the CLI runs): {launches}")
+    return launches
+
+
+def _write_slice19_caches(root: Path) -> Path:
+    from infomax3d_tpu_torch.data.synthetic import write_synthetic_cache
+    for name, kw in SLICE19_CACHES.items():
+        write_synthetic_cache(str(root / name / "processed.npz"), **kw)
+    return root
+
+
+def phase_slice19(smi: str, out_dir: Path) -> dict:
+    """Phase 26: the philosophy, alternating and noisy-negatives trainers,
+    PNARandom, PNARandomEdgeUpdate and PNA's pairwise distances at the
+    pre-training architecture, and the last config through the CLI.
+    Returns the main path's launches (the CLI runs) and the kernel
+    checks' errors."""
+    t = [time.perf_counter()]
+    (g2, g3), _ = _s19_batch("phil", "cuda", _s19_config()["batch_size"])
+    errs = _s19_kernels(g2, g3)
+    del g2, g3
+    t.append(time.perf_counter())
+    _s19_checks()
+    t.append(time.perf_counter())
+    _s19_timed(smi)
+    t.append(time.perf_counter())
+    caches = _write_slice19_caches(out_dir / "slice19_caches")
+    launches = _s19_cli(out_dir, caches)
+    t.append(time.perf_counter())
+    print("[slice19] seconds: " + ", ".join(
+        f"{k} {b - a:.1f}" for k, a, b in zip(
+            ("kernel checks", "step checks", "timings", "CLI runs"),
+            t, t[1:])))
+    return {"launches": launches, "errs": errs}
+
+
 class _Phase:
     """Prints a phase's seconds when it ends (and lets its error pass)."""
 
@@ -6599,19 +7110,24 @@ def main() -> int:
     with _Phase("25 BYOL, EGNN and SAN"):
         s18 = phase_slice18(smi, out_dir)
         _merge_errs(errs, s18["errs"])
-    # every kernel's launches over the thirteen main paths (serving,
+    with _Phase("26 the last trainers and model names"):
+        s19 = phase_slice19(smi, out_dir)
+        _merge_errs(errs, s19["errs"])
+    # every kernel's launches over the fourteen main paths (serving,
     # pre-training, GIN training, OT training, the trainer CLI,
     # multi-conformer pre-training, the data layer, the serving CLI, the
     # baselines' CLI runs, the OT family's CLI runs, the supervised CLI
     # runs of the GIN's options and the transformers, those of
-    # PNAOriginal and SMP, those of BYOL, EGNN and SAN)
+    # PNAOriginal and SMP, those of BYOL, EGNN and SAN, those of the
+    # philosophy trainer and the GeoMol fine-tune)
     launches = {n: serve_launches[n] + train["launches"][n]
                 + gin["launches"][n] + ot_run["launches"][n]
                 + trainer["launches"][n] + conf["launches"][n]
                 + data["launches"][n] + serving["launches"][n]
                 + base["launches"][n] + family["launches"][n]
                 + s16["launches"][n] + s17["launches"][n]
-                + s18["launches"][n] for n in serve_launches}
+                + s18["launches"][n] + s19["launches"][n]
+                for n in serve_launches}
     with _Phase("6 kernel times"):
         rows = phase_kernel_times(g, launches, errs)
     with _Phase("9 training profile"):

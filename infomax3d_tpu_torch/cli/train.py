@@ -15,9 +15,7 @@ synthetic` runs everything without chemistry data.
 The run goes to the CUDA card unless `--device` (or the config's `device`)
 says "cpu"; with neither set and no card, it raises.  What the port has
 not ported yet raises `NotImplementedError` naming its ROADMAP queue 1
-item: non-CSR batches and the bucket ladder (item 7), the trainer
-flavours `alternating`, `philosophy` and `noisy_negatives` and the critic
-(item 8b), shards (item 9).
+item: the non-CSR batch (`csr_buckets: False`, item 7), shards (item 9).
 """
 from __future__ import annotations
 
@@ -271,14 +269,36 @@ INPUT_WIDTH = {"EGNN": "node_dim", "EGNNTorch": "in_node_nf"}
 ATOM_CODES = 9
 
 
+def _with_feature_dims(name: str, mp: Dict[str, Any], dataset
+                       ) -> Dict[str, Any]:
+    """`mp` with a model's `node_dim` / `edge_dim` fields, where the config
+    leaves them out, read off the dataset's first 2D graph (its feature
+    matrices' widths), as the JAX CLI's `_adapt_model_params` infers them
+    (GeomolGNNWrapper on `qm9_geomol`'s float features)."""
+    from infomax3d_tpu_torch.models.registry import (JAX_FIELDS,
+                                                     MODEL_ALIASES)
+    fields = JAX_FIELDS.get(MODEL_ALIASES.get(name, name), ())
+    if dataset is None or not {"node_dim", "edge_dim"} & set(fields):
+        return mp
+    mp = dict(mp)
+    g0 = dataset[0]["graph2d"]
+    for field, key in (("node_dim", "node_feat"), ("edge_dim", "edge_feat")):
+        feat = g0.get(key)
+        if field in fields and field not in mp and feat is not None \
+                and feat.ndim == 2:
+            mp[field] = int(feat.shape[1])
+    return mp
+
+
 def _with_input_width(name: str, mp: Dict[str, Any], dataset,
                       view: str) -> Dict[str, Any]:
     """`mp` with the input width of `INPUT_WIDTH`'s models set from the
     dataset's first item (its `view`'s node features; the atom codes'
-    width without a dataset), as flax infers it; other models' `mp` as it
-    is."""
+    width without a dataset), as flax infers it; for the other 2D models
+    `_with_feature_dims`."""
     if name not in INPUT_WIDTH:
-        return mp
+        return _with_feature_dims(name, mp, dataset) \
+            if view == "graph2d" else mp
     width = ATOM_CODES
     if dataset is not None:
         feat = dataset[0][view]["node_feat"]
@@ -328,9 +348,11 @@ def build_models(args: Dict[str, Any], dataset=None
         models[key] = build_model(name, _with_input_width(name, mp, dataset,
                                                           view))
     if args.get("critic_type"):
-        raise NotImplementedError(
-            f"critic_type '{args['critic_type']}' is not ported yet "
-            f"(ROADMAP queue 1, item 8b)")
+        # flax infers the critic's input width at init, where the JAX
+        # philosophy trainer feeds it `critic_in_dim` columns
+        models["critic"] = build_model(
+            args["critic_type"], args.get("critic_parameters") or {},
+            in_dim=int(args.get("critic_in_dim", 256)))
     return models
 
 
@@ -593,6 +615,9 @@ def run_training(args: Dict[str, Any], device=None,
             run_dir = f"{base_run_dir}_{n_dup}"
             n_dup += 1
     kw: Dict[str, Any] = {}
+    if args["trainer"] == "philosophy":
+        kw["critic_loss"] = get_loss(args["critic_loss"],
+                                     **(args.get("critic_loss_params") or {}))
     if args["trainer"] == "byol":
         # the 2D wrapper's `ma_decay` (JAX cli/train.py:775-779); only the
         # 2D teacher moves by EMA unless `byol_ema_all`

@@ -98,7 +98,7 @@ for serving and training without a checkpoint and for tests;
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -344,7 +344,9 @@ def init_jax_variables(model_parameters: Mapping, seed: int = 0,
     one layout, for `model_type` "Net3D" / "Net3DDense", of `OGBGNN`
     without a virtual node for "OGBGNN", of the OT model with the
     `PNAGNNRandomEdgeUpdate` backbone for "OptimalTransportModel", and of
-    the distance predictors and `Net3DAE` / "Net3DVAE" for their names):
+    the distance predictors and `Net3DAE` / "Net3DVAE" for their names,
+    and of the models of `_TABLE_INITS`: `PNAGNN`, the PNA random variants,
+    the GeoMol wrappers and the critic, whose input width is `in_dim`):
     Xavier-uniform weights, small random
     biases, BatchNorm and LayerNorm scales in [0.5, 1.5] and non-trivial
     running statistics (so an eval forward exercises every fold), non-zero
@@ -380,6 +382,8 @@ def init_jax_variables(model_parameters: Mapping, seed: int = 0,
         return _init_san(mp, rng)
     if model_type == "BYOLwrapper":
         return _init_byol(mp, seed)
+    if model_type in _TABLE_INITS:
+        return _TABLE_INITS[model_type](mp, rng)
     if model_type in _WRAPPED:
         key, inner, adapt = _WRAPPED[model_type]
         params, stats = init_jax_variables(adapt(mp), seed, inner)
@@ -412,8 +416,8 @@ def _pna_layer_tree(rng, mp: Mapping[str, Any]):
     d = mp["hidden_dim"]
     n_aggs = len(mp["aggregators"]) * len(mp["scalers"])
     bn = (mp.get("mid_batch_norm", False), mp.get("last_batch_norm", False))
-    pre_p, pre_s = _mlp_tree(rng, 3 * d, d, mp.get("pretrans_layers", 1),
-                             d, *bn)
+    pre_p, pre_s = _mlp_tree(rng, 3 * d + bool(mp.get("pairwise_distances")),
+                             d, mp.get("pretrans_layers", 1), d, *bn)
     post_p, post_s = _mlp_tree(rng, (n_aggs + 1) * d, d,
                                mp.get("posttrans_layers", 1), d, *bn)
     return ({"pretrans": pre_p, "posttrans": post_p},
@@ -835,6 +839,68 @@ def _init_geomol_wrapper(mp: Dict[str, Any], rng):
                              mp.get("readout_hidden_dim") or d,
                              mp.get("readout_batchnorm", True), False)
     return _f32({"node_gnn": gnn, "output": out_p}), _f32({"output": out_s})
+
+
+def _readout_mlp(mp: Mapping[str, Any], rng, in_dim: int,
+                 hidden_key: str = "readout_hidden_dim"):
+    """The ``output`` MLP of a model with the readout fields."""
+    d = mp["hidden_dim"]
+    return _mlp_tree(rng, in_dim, mp.get("target_dim", 1),
+                     mp.get("readout_layers", 2),
+                     (mp.get(hidden_key) if hidden_key else None) or d,
+                     mp.get("readout_batchnorm", True), False)
+
+
+def _with_output(gnn_key: Optional[str], gnn, mp, rng, in_dim,
+                 hidden_key: str = "readout_hidden_dim"):
+    """(params, batch_stats) of a backbone tree `gnn` ((params, stats),
+    under `gnn_key`, or at the root with None) and the ``output`` MLP."""
+    out_p, out_s = _readout_mlp(mp, rng, in_dim, hidden_key)
+    gp, gs = gnn
+    params = dict(gp) if gnn_key is None else {gnn_key: gp}
+    stats = dict(gs) if gnn_key is None else ({gnn_key: gs} if gs else {})
+    params["output"] = out_p
+    if out_s:
+        stats["output"] = out_s
+    return _f32(params), _f32(stats)
+
+
+def _readout_width(mp: Mapping[str, Any]) -> int:
+    return mp["hidden_dim"] * len(mp["readout_aggregators"])
+
+
+def _random_gp(mp: Mapping[str, Any]) -> Dict[str, Any]:
+    return dict({"random_vec_dim": 10}, **mp)
+
+
+_TABLE_INITS = {
+    "PNAGNN": lambda mp, rng: tuple(_f32(t) for t in _pnagnn_tree(mp, rng)),
+    "PNARandom": lambda mp, rng: _with_output(
+        "node_gnn", _init_pna_random(mp, rng), mp, rng, _readout_width(mp)),
+    "PNAGNNRandomEdgeUpdate": lambda mp, rng: tuple(
+        _f32(t) for t in _init_edge_update_gnn(_random_gp(mp), rng)),
+    "PNARandomEdgeUpdate": lambda mp, rng: _with_output(
+        None, _init_edge_update_gnn(_random_gp(mp), rng), mp, rng,
+        _readout_width(mp)),
+    "GeomolGNNWrapper": lambda mp, rng: _with_output(
+        "gnn", (_geomol_gnn_tree(
+            rng, mp["node_dim"] + mp.get("random_vec_dim", 10),
+            mp["edge_dim"] + mp.get("random_vec_dim", 10), mp["hidden_dim"],
+            mp.get("depth", 3), mp.get("n_layers", 2)), {}),
+        mp, rng, mp["hidden_dim"], hidden_key=None),
+    "GeomolGNNWrapperOGBFeatRandom": lambda mp, rng: _with_output(
+        "node_gnn", _init_geomol_ogb(mp, rng, noise=True), mp, rng,
+        mp["hidden_dim"]),
+    "GeomolGNNWrapperOGBFeatRandomNonShared": lambda mp, rng: _with_output(
+        "node_gnn", _init_geomol_ogb(dict(mp, non_shared=True), rng,
+                                     noise=True), mp, rng, mp["hidden_dim"]),
+    "Critic": lambda mp, rng: (_f32({"mlp": _mlp_tree(
+        rng, mp.get("in_dim", 256),
+        mp.get("metric_dim", 256) * mp.get("repeats", 4),
+        mp.get("layers", 2), mp.get("hidden_dim", 256), False, False)[0]}),
+        {}),
+}
+_TABLE_INITS["BasicCritic"] = _TABLE_INITS["Critic"]
 
 
 _PNA_ORIGINAL_AGGS = ("mean", "max", "min", "std")

@@ -406,3 +406,345 @@ MULTI_POSITIVE_LOSSES = (
     NTXentMinimumMatching, MaximumSimilarityMSE, NTXentMaximumSimilarity,
     KLDivergenceMultiplePositives, KLDivergenceMultiplePositivesV2,
     JSDMultiplePositivesLoss, NTXentLikelihoodLoss, NTXentMMDSeparate2D)
+
+
+# --- the other objectives: critic, Barlow Twins, VICReg, InfoNCE, hard
+# negatives, shuffled and sampled NT-Xent, extra negatives, local-global, JSE
+
+class CriticLoss:
+    """The PhilosophyTrainer's critic loss (reference losses.py:33-42):
+    z2 [B, D] and the reconstruction [B, D, R] each normalized over D
+    (norms clamped at 1e-12), the squared difference summed over D and
+    averaged over B and R."""
+
+    def __call__(self, z2, reconstruction, **kw):
+        z2n = z2 / _norms(z2, 1)[:, None].clamp(min=1e-12)
+        rn = reconstruction / torch.linalg.vector_norm(
+            reconstruction, dim=1, keepdim=True).clamp(min=1e-12)
+        return ((z2n[..., None] - rn) ** 2).sum(dim=1).mean()
+
+
+class BarlowTwinsLoss(_Regularized):
+    """Barlow Twins (losses.py:45-73): the cross-correlation of the
+    standardized views (unbiased std), on-diagonal ``(c_ii - 1)²`` plus
+    `lambd` times the off-diagonal squares, both times `scale_loss`."""
+
+    def __init__(self, scale_loss=1 / 32, lambd=3.9e-3, **kw):
+        super().__init__(**kw)
+        self.scale_loss = scale_loss
+        self.lambd = lambd
+
+    def __call__(self, z1, z2, **kw):
+        b = z1.shape[0]
+        z1n = (z1 - z1.mean(0)) / z1.std(0, unbiased=True)
+        z2n = (z2 - z2.mean(0)) / z2.std(0, unbiased=True)
+        corr = (z1n.T @ z2n) / b
+        diag = torch.diagonal(corr)
+        on = ((diag - 1.0) ** 2).sum() * self.scale_loss
+        off = ((corr - torch.diag(diag)) ** 2).sum() * self.scale_loss
+        return self._reg(on + self.lambd * off, z1, z2)
+
+
+class RegularizationLoss(_Regularized):
+    """VICReg-style (losses.py:98-123): the MSE of the views plus the
+    variance and covariance terms (`norm` is accepted and unused)."""
+
+    def __init__(self, norm=True, uniformity_reg=0.0, variance_reg=1.0,
+                 covariance_reg=0.04):
+        super().__init__(uniformity_reg, variance_reg, covariance_reg)
+
+    def __call__(self, z1, z2, **kw):
+        return self._reg(((z1 - z2) ** 2).mean(), z1, z2)
+
+
+class InfoNCE(NTXent):
+    """NT-Xent whose denominator keeps the positive (losses.py:998-1034)."""
+
+    def __call__(self, z1, z2, **kw):
+        sim = torch.exp(cosine_sim_matrix(z1, z2, self.norm) / self.tau)
+        pos = torch.diagonal(sim)
+        loss = -torch.log(pos / sim.sum(dim=1)).mean()
+        return self._reg(loss, z1, z2)
+
+
+class _HardNegative:
+    """Hard-negative reweighting of 'Contrastive Learning with Hard
+    Negative Samples' (losses.py:1037-1114)."""
+
+    def __init__(self, norm, tau, tau_plus, beta):
+        self.norm, self.tau, self.tau_plus, self.beta = norm, tau, tau_plus, \
+            beta
+
+    def _pos_ng(self, z1, z2):
+        b = z1.shape[0]
+        sim = torch.exp(cosine_sim_matrix(z1, z2, self.norm) / self.tau)
+        eye = torch.eye(b, dtype=torch.bool, device=sim.device)
+        pos = torch.diagonal(sim)
+        neg = sim[~eye].reshape(b, b - 1)
+        imp = torch.exp(self.beta * torch.log(neg))
+        reweight = (imp * neg).sum(dim=-1) / imp.mean(dim=-1)
+        ng = (-self.tau_plus * (b - 1) * pos + reweight) / (1 - self.tau_plus)
+        return pos, ng.clamp(min=(b - 1) * math.e ** (-1 / self.tau))
+
+
+class InfoNCEHard(_HardNegative):
+    def __init__(self, norm=False, tau=0.5, tau_plus=0.1, beta=0.5):
+        super().__init__(norm, tau, tau_plus, beta)
+
+    def __call__(self, z1, z2, **kw):
+        pos, ng = self._pos_ng(z1, z2)
+        return -torch.log(pos / (pos + ng)).mean()
+
+
+class NTXentHard(_HardNegative):
+    def __init__(self, norm=True, tau=0.5, tau_plus=0.1, beta=0.1):
+        super().__init__(norm, tau, tau_plus, beta)
+
+    def __call__(self, z1, z2, **kw):
+        pos, ng = self._pos_ng(z1, z2)
+        return -torch.log(pos / ng).mean()
+
+
+def _drawn(given, generator, what: str, draw):
+    """`given` (indices handed in), else `draw(generator)`; a draw with no
+    generator raises, as the JAX loss does without its key."""
+    if given is not None:
+        return given
+    if generator is None:
+        raise ValueError(f"{what} needs generator=torch.Generator(...)")
+    return draw(generator)
+
+
+class NTXentShuffled(NTXent):
+    """NT-Xent against z2 with its rows permuted (losses.py:967-995), no
+    regularizer tail.  The permutation is `perm` or drawn from
+    `generator`; with neither the loss raises, as the JAX loss raises
+    without `key`."""
+
+    def __init__(self, norm=True, tau=0.5):
+        super().__init__(norm=norm, tau=tau)
+
+    def __call__(self, z1, z2, generator=None, perm=None, **kw):
+        perm = _drawn(perm, generator, "NTXentShuffled", lambda gen:
+                      torch.randperm(z2.shape[0], generator=gen,
+                                     device=gen.device))
+        sim = torch.exp(cosine_sim_matrix(z1, z2[perm.to(z2.device)],
+                                          self.norm) / self.tau)
+        return _ntxent_of(sim)
+
+
+class SampleLossWrapper:
+    """The wrapped loss `loss_func` on ``int(B * fraction_samples)`` rows
+    drawn with replacement (losses.py:1188-1206): `idx`, or drawn from
+    `generator`; with neither it raises, as the JAX wrapper without
+    `key`."""
+
+    def __init__(self, loss_func, fraction_samples=0.1, **loss_params):
+        from infomax3d_tpu_torch.losses import get_loss
+        self.loss = get_loss(loss_func, **loss_params)
+        self.fraction = fraction_samples
+
+    def __call__(self, x, y, generator=None, idx=None, **kw):
+        n = int(x.shape[0] * self.fraction)
+        idx = _drawn(idx, generator, "SampleLossWrapper", lambda gen:
+                     torch.randint(0, x.shape[0], (n,), generator=gen,
+                                   device=gen.device))
+        idx = idx.to(x.device)
+        return self.loss(x[idx], y[idx])
+
+
+class NTXentExtraNegatives(_Regularized):
+    """The noisy-negatives loss (losses.py:889-943): z2 is the 3D side's
+    [B, D] rows followed by X noised copies of each molecule, [B * X, D]
+    molecule-major after them; each row's copies join its negatives,
+    weighted by `extra_negatives_weight`."""
+
+    def __init__(self, norm=True, tau=0.5, extra_negatives_weight=1.0, **kw):
+        super().__init__(**kw)
+        self.norm = norm
+        self.tau = tau
+        self.extra_negatives_weight = extra_negatives_weight
+
+    def __call__(self, z1, z2, **kw):
+        b, d = z1.shape
+        extra = z2[b:].reshape(b, -1, d)                   # [B, X, D]
+        z2m = z2[:b]
+        sim = z1 @ z2m.T
+        sim_x = torch.einsum("ik,iuk->iu", z1, extra)
+        if self.norm:
+            n1 = _norms(z1, 1)
+            sim = sim / (n1[:, None] * _norms(z2m, 1)[None, :])
+            sim_x = sim_x / (_norms(extra, 2) * n1[:, None])
+        sim_x = torch.exp(sim_x / self.tau) * self.extra_negatives_weight
+        full = torch.cat([torch.exp(sim / self.tau), sim_x], dim=-1)
+        pos = torch.diagonal(full)
+        loss = -torch.log(pos / (full.sum(dim=1) - pos)).mean()
+        return self._reg(loss, z1, z2)
+
+
+def _node_graph_masks(zn, g: int, node_graph, node_mask):
+    """(positive, negative) [N, G] masks of nodes against graphs: a node's
+    own graph, and the other graphs; padding nodes (`node_mask` false, id
+    G) in neither."""
+    pos = (node_graph.long()[:, None] == torch.arange(
+        g, device=zn.device)[None, :]).to(zn.dtype)
+    if node_mask is None:
+        valid = torch.ones((zn.shape[0], 1), dtype=zn.dtype,
+                           device=zn.device)
+    else:
+        pos = pos * node_mask[:, None]
+        valid = node_mask[:, None].to(zn.dtype)
+    return pos, valid - pos
+
+
+class NTXentLocalGlobal:
+    """Node-against-graph NT-Xent (losses.py:1117-1161) with the positive
+    mask from the nodes' graph ids `node_graph` (padding nodes, `node_mask`
+    false, count nowhere)."""
+
+    def __init__(self, norm=True, tau=0.5, **kw):
+        self.norm = norm
+        self.tau = tau
+
+    def __call__(self, zn, zg, node_graph=None, node_mask=None, **kw):
+        pos_mask, neg_mask = _node_graph_masks(zn, zg.shape[0], node_graph,
+                                               node_mask)
+        sim = zn @ zg.T
+        if self.norm:
+            sim = sim / (_norms(zn, 1)[:, None] * _norms(zg, 1)[None, :]
+                         + 1e-10)
+        sim = torch.exp(sim / self.tau)
+        pos = (sim * pos_mask).sum(dim=1)
+        neg = (sim * neg_mask).sum(dim=1)
+        ratio = torch.where(pos > 0, pos / neg.clamp(min=1e-12),
+                            torch.ones((), dtype=pos.dtype,
+                                       device=pos.device))
+        if node_mask is None:
+            return -torch.log(ratio).mean()
+        return -torch.where(node_mask, torch.log(ratio), torch.zeros(
+            (), dtype=ratio.dtype, device=ratio.device)).sum() \
+            / node_mask.sum().clamp(min=1)
+
+
+class NTXentGlobalLocal(NTXentLocalGlobal):
+    """`NTXentLocalGlobal` with its arguments switched (losses.py:
+    1164-1185)."""
+
+    def __call__(self, zg, zn, node_graph=None, node_mask=None, **kw):
+        return super().__call__(zn, zg, node_graph=node_graph,
+                                node_mask=node_mask)
+
+
+LOG_2 = math.log(2.0)
+
+
+def get_positive_expectation(p, measure: str, average: bool = True):
+    """The positive-sample expectation of a divergence `measure`
+    (losses.py:1209-1230)."""
+    if measure == "GAN":
+        ep = -F.softplus(-p)
+    elif measure == "JSD":
+        ep = LOG_2 - F.softplus(-p)
+    elif measure == "X2":
+        ep = p ** 2
+    elif measure in ("KL", "DV", "W1"):
+        ep = p
+    elif measure == "RKL":
+        ep = -torch.exp(-p)
+    elif measure == "H2":
+        ep = 1.0 - torch.exp(-p)
+    else:
+        raise ValueError(f"measure does not exist: {measure}")
+    return ep.mean() if average else ep
+
+
+def get_negative_expectation(q, measure: str, average: bool = True):
+    """The negative-sample expectation of a divergence `measure`
+    (losses.py:1233-1249)."""
+    if measure == "GAN":
+        eq = F.softplus(-q) + q
+    elif measure == "JSD":
+        eq = F.softplus(-q) + q - LOG_2
+    elif measure == "X2":
+        eq = -0.5 * ((torch.sqrt(q ** 2) + 1.0) ** 2)
+    elif measure == "KL":
+        eq = torch.exp(q - 1.0)
+    elif measure == "RKL":
+        eq = q - 1.0
+    elif measure == "DV":
+        eq = torch.logsumexp(q, dim=0) - math.log(q.shape[0])
+    elif measure == "H2":
+        eq = torch.exp(q) - 1.0
+    elif measure == "W1":
+        eq = q
+    else:
+        raise ValueError(f"measure does not exist: {measure}")
+    return eq.mean() if average else eq
+
+
+def jse_global_global(z1, z2):
+    """The JSD estimator between two global views (losses.py:1356-1376):
+    every entry of the masked score matrices summed (masked entries
+    contribute exactly 0)."""
+    g = z1.shape[0]
+    d = z1 @ z2.T
+    eye = torch.eye(g, dtype=d.dtype, device=d.device)
+    pos_score = LOG_2 - F.softplus(-(d * eye))
+    neg_score = F.softplus(-(d * (1 - eye))) + d * (1 - eye) - LOG_2
+    return neg_score.sum() / (g * (g - 1)) - pos_score.sum() / g
+
+
+def jse_local_global(zg, zn, node_graph, node_mask=None, measure="JSD"):
+    """MVGRL's local-global JSE (losses.py:1330-1353) with the graph-id
+    masks of `NTXentLocalGlobal`."""
+    g = zg.shape[0]
+    pos_mask, neg_mask = _node_graph_masks(zn, g, node_graph, node_mask)
+    n_real = zn.shape[0] if node_mask is None else node_mask.sum()
+    d = zn @ zg.T
+    e_pos = get_positive_expectation(d * pos_mask, measure,
+                                     average=False).sum() / n_real
+    e_neg = get_negative_expectation(d * neg_mask, measure,
+                                     average=False).sum() / (n_real * (g - 1))
+    return e_neg - e_pos
+
+
+class JSELossGlobal:
+    def __init__(self, **kw):
+        pass
+
+    def __call__(self, z1, z2, **kw):
+        return jse_global_global(z1, z2)
+
+
+class JSELoss:
+    """The multi-view JSE combiner (losses.py:1252-1298): local-global
+    pairs when node views `zs_n` come, else global-global; beyond two views
+    the pairs `sigma` selects."""
+
+    def __init__(self, neg_by_crpt=False, **kw):
+        self.neg_by_crpt = neg_by_crpt
+
+    def __call__(self, zs, zs_n=None, node_graph=None, node_mask=None,
+                 sigma=None, **kw):
+        import itertools
+        pairs = list(itertools.combinations(range(len(zs)), 2))
+        if zs_n is not None:
+            def jse(i, j):
+                return jse_local_global(zs[i], zs_n[j], node_graph,
+                                        node_mask)
+            if len(zs) == 1:
+                return jse(0, 0)
+            if len(zs) == 2:
+                return jse(0, 1) + jse(1, 0)
+            return sum(jse(i, j) + jse(j, i) for i, j in pairs
+                       if sigma[i][j])
+        if len(zs) == 2:
+            return jse_global_global(zs[0], zs[1])
+        return sum(jse_global_global(zs[i], zs[j]) for i, j in pairs
+                   if sigma[i][j])
+
+
+OTHER_LOSSES = (CriticLoss, BarlowTwinsLoss, RegularizationLoss, InfoNCE,
+               InfoNCEHard, NTXentHard, NTXentShuffled, SampleLossWrapper,
+               NTXentExtraNegatives, NTXentLocalGlobal, NTXentGlobalLocal,
+               JSELossGlobal, JSELoss)

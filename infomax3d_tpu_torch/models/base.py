@@ -143,7 +143,9 @@ class EdgeInput(NamedTuple):
     have width 0: the symmetrised distance nets' pair input ``[h[senders]
     ‖ h[receivers]]``.  With `swap` the input is ``[h[receivers] ‖
     h[senders] ‖ e]`` (the distance nets' other half): the first weight
-    columns meet the receivers, the same index arrays serve."""
+    columns meet the receivers, the same index arrays serve.  `d` is PNA's
+    `pairwise_distances` column [E, 1] (each edge's squared distance),
+    the last weight columns' input, projected beside `e`."""
     h: torch.Tensor           # [N, Dh]
     senders: torch.Tensor     # [E] int32 (pad -> N)
     receivers: torch.Tensor   # [E] int32 (pad -> N)
@@ -152,6 +154,7 @@ class EdgeInput(NamedTuple):
     csc_row_ptr: Optional[torch.Tensor] = None   # [N + 1] int32
     csc_perm: Optional[torch.Tensor] = None      # [E] int32
     swap: bool = False
+    d: Optional[torch.Tensor] = None             # [E, 1]
 
 
 class PairGridInput(NamedTuple):
@@ -199,13 +202,20 @@ class FCLayer(nn.Module):
             # weight columns: [0:Dh] sender, [Dh:2Dh] receiver, [2Dh:] edge
             # (all in their common type, as flax promotes: the flat Net3D's
             # "sum" aggregate makes h float32 under bf16 weights)
-            dh = x.h.shape[1]
+            dh, de = x.h.shape[1], 2 * x.h.shape[1] + x.e.shape[1]
             dt = torch.promote_types(torch.promote_types(x.h.dtype,
                                                          x.e.dtype), w.dtype)
+            if x.d is not None:
+                dt = torch.promote_types(dt, x.d.dtype)
             w, bias, h = w.to(dt), bias.to(dt), x.h.to(dt)
             first, second = F.linear(h, w[:, :dh]), F.linear(h, w[:, dh:2 * dh])
             hs, hd = (second, first) if x.swap else (first, second)
-            if x.e.shape[1]:
+            if x.d is not None:
+                # the JAX combine's pe: each plain part's projection summed
+                # in order, then the bias
+                pe = F.linear(x.e.to(dt), w[:, 2 * dh:de]) + F.linear(
+                    x.d.to(dt), w[:, de:]) + bias
+            elif x.e.shape[1]:
                 pe = F.linear(x.e.to(dt), w[:, 2 * dh:], bias)
             else:
                 pe = bias.expand(x.e.shape[0], -1).contiguous()

@@ -1,5 +1,6 @@
-"""The BYOL wrapper (port of `infomax3d_tpu/models/byol.py::BYOLWrapper`,
-reference trainer/byol_wrapper.py:12-53).
+"""The BYOL wrapper and the philosophy trainer's critic (port of
+`infomax3d_tpu/models/byol.py::BYOLWrapper` and `Critic`, reference
+trainer/byol_wrapper.py:12-53).
 
 The module holds the student (any registered model, ``student``) and the
 predictor MLP (``predictor``, omitted when `predictor_layers` is 0) and
@@ -45,3 +46,27 @@ class BYOLWrapper(nn.Module):
         if self.predictor is None:
             return projection, projection
         return self.predictor(projection, noise=noise), projection
+
+
+class Critic(nn.Module):
+    """The adversarial reconstruction player of the philosophy trainer
+    (the JAX `Critic`, registered as ``Critic`` and ``BasicCritic``): the
+    ``mlp`` (`layers` FCLayers of width `hidden_dim`, `dropout`) maps the
+    3D embedding [B, in_dim] to `repeats` reconstructions, returned as
+    [B, metric_dim, repeats] for `CriticLoss`.  flax infers the input
+    width at init; here it is `in_dim`, which the trainer sets from the
+    config's ``critic_in_dim`` (default 256, the JAX trainer's)."""
+
+    FIELDS = ("metric_dim", "hidden_dim", "layers", "repeats", "dropout")
+
+    def __init__(self, metric_dim: int = 256, hidden_dim: int = 256,
+                 layers: int = 2, repeats: int = 4, dropout: float = 0.0,
+                 in_dim: int = 256):
+        super().__init__()
+        self.metric_dim, self.repeats = metric_dim, repeats
+        self.mlp = MLP(in_dim, metric_dim * repeats, layers,
+                       hidden_size=hidden_dim, dropout=dropout)
+
+    def forward(self, z, noise=None):
+        return self.mlp(z, noise=noise).reshape(z.shape[0], self.metric_dim,
+                                                self.repeats)

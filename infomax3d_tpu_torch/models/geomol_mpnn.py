@@ -15,7 +15,14 @@ package's are plain `take` and `segment_sum` (no Pallas kernel).
 takes no noise (the reference's forward swallows it); `GeomolGNNOGBFeatRandom`
 appends noise columns after the encoders.  Both return (node, edge)
 embeddings.  `GeomolGNNWrapperOGBFeat` is the fine-tune model over
-`GeomolGNNOGBFeat`: mean pool and the output MLP.
+`GeomolGNNOGBFeat`: mean pool and the output MLP;
+`GeomolGNNWrapperOGBFeatRandom` (and its `...NonShared` sibling, one
+meta-layer per depth) the same over `GeomolGNNOGBFeatRandom`.
+`GeomolGNNWrapper` reads float features (the chemprop one-hots of
+`qm9_geomol`), appends noise columns and runs `GeomolGNN` on them.  The
+noise columns are float32 (zeros without a source), as the JAX models':
+under the bf16 recipe they promote what they join, and the Linears
+promote as flax `Dense` does.
 """
 from __future__ import annotations
 
@@ -25,7 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from infomax3d_tpu_torch.models.base import MLP, AtomEncoder, BondEncoder
+from infomax3d_tpu_torch.models.base import (MLP, AtomEncoder, BondEncoder,
+                                             PromotingLinear)
 from infomax3d_tpu_torch.models.geomol import GeomolMLP
 from infomax3d_tpu_torch.models.noise import noise_columns
 from infomax3d_tpu_torch.ops.segment import (segment_mean, segment_sum,
@@ -35,9 +43,9 @@ from infomax3d_tpu_torch.ops.segment import (segment_mean, segment_sum,
 class GeomolEdgeModel(nn.Module):
     def __init__(self, hidden_dim: int, n_layers: int):
         super().__init__()
-        self.edge = nn.Linear(hidden_dim, hidden_dim)
-        self.node_in = nn.Linear(hidden_dim, hidden_dim, bias=False)
-        self.node_out = nn.Linear(hidden_dim, hidden_dim, bias=False)
+        self.edge = PromotingLinear(hidden_dim, hidden_dim)
+        self.node_in = PromotingLinear(hidden_dim, hidden_dim, bias=False)
+        self.node_out = PromotingLinear(hidden_dim, hidden_dim, bias=False)
         self.mlp = GeomolMLP(hidden_dim, hidden_dim, n_layers)
 
     def forward(self, g, x: torch.Tensor, edge_attr: torch.Tensor):
@@ -135,15 +143,18 @@ class GeomolGNNOGBFeatRandom(GeomolGNNOGBFeat):
                              non_shared=non_shared)
 
     def forward(self, g, noise=None):
-        x = self.atom_encoder(g.node_feat)
-        e = self.bond_encoder(g.edge_feat)
-        x = torch.cat([x, noise_columns(noise, x.shape[0],
-                                        self.random_vec_dim,
-                                        self.random_vec_std, x)], dim=-1)
-        e = torch.cat([e, noise_columns(noise, e.shape[0],
-                                        self.random_vec_dim,
-                                        self.random_vec_std, e)], dim=-1)
+        x, e = with_noise(self, noise, self.atom_encoder(g.node_feat),
+                          self.bond_encoder(g.edge_feat))
         return self.gnn(g, x, e)
+
+
+def with_noise(model, noise, x: torch.Tensor, e: torch.Tensor):
+    """(x, e) each with `model.random_vec_dim` float32 noise columns
+    appended (node draw first), zeros without a source."""
+    f32 = torch.empty(0, device=x.device)
+    return tuple(torch.cat([t, noise_columns(
+        noise, t.shape[0], model.random_vec_dim, model.random_vec_std,
+        f32)], dim=-1) for t in (x, e))
 
 
 class GeomolGNNWrapperOGBFeat(nn.Module):
@@ -171,5 +182,85 @@ class GeomolGNNWrapperOGBFeat(nn.Module):
         """`noise` (the supervised step's dropout source) draws nothing:
         the model has no dropout."""
         x, _ = self.node_gnn(g)
+        pooled = segment_mean(x, g.node_graph, g.graph_mask.shape[0])
+        return self.output(pooled, g.graph_mask)
+
+
+class GeomolGNNWrapperOGBFeatRandom(GeomolGNNWrapperOGBFeat):
+    """The noise-augmented sibling (reference
+    `geomol_mpnn_ogb_feat_random.py:48-74`): ``node_gnn`` is a
+    `GeomolGNNOGBFeatRandom` (one meta-layer per depth with `non_shared`),
+    then the mean pool and the ``output`` MLP."""
+
+    FIELDS = GeomolGNNWrapperOGBFeat.FIELDS + ("random_vec_dim",
+                                               "random_vec_std",
+                                               "non_shared")
+
+    def __init__(self, hidden_dim: int, depth: int = 3, n_layers: int = 2,
+                 readout_layers: int = 2, readout_batchnorm: bool = True,
+                 readout_hidden_dim: Optional[int] = None,
+                 target_dim: int = 1, random_vec_dim: int = 10,
+                 random_vec_std: float = 1.0, non_shared: bool = False):
+        super().__init__(hidden_dim, depth, n_layers, readout_layers,
+                         readout_batchnorm, readout_hidden_dim, target_dim)
+        self.node_gnn = GeomolGNNOGBFeatRandom(
+            hidden_dim, depth, n_layers, random_vec_dim, random_vec_std,
+            non_shared)
+
+    def forward(self, g, noise=None) -> torch.Tensor:
+        x, _ = self.node_gnn(g, noise)
+        pooled = segment_mean(x, g.node_graph, g.graph_mask.shape[0])
+        return self.output(pooled, g.graph_mask)
+
+
+class GeomolGNNWrapperOGBFeatRandomNonShared(GeomolGNNWrapperOGBFeatRandom):
+    """Reference `geomol_mpnn_ogb_feat_random_non_shared.py:14-76`:
+    `GeomolGNNWrapperOGBFeatRandom` with its meta-layers not shared across
+    depth."""
+
+    FIELDS = GeomolGNNWrapperOGBFeat.FIELDS + ("random_vec_dim",
+                                               "random_vec_std")
+
+    def __init__(self, hidden_dim: int, target_dim: int = 1, depth: int = 3,
+                 n_layers: int = 2, readout_layers: int = 2,
+                 readout_batchnorm: bool = True,
+                 readout_hidden_dim: Optional[int] = None,
+                 random_vec_dim: int = 10, random_vec_std: float = 1.0):
+        super().__init__(hidden_dim, depth, n_layers, readout_layers,
+                         readout_batchnorm, readout_hidden_dim, target_dim,
+                         random_vec_dim, random_vec_std, non_shared=True)
+
+
+class GeomolGNNWrapper(nn.Module):
+    """Reference `geomol_mpnn.py:138-164` (the JAX `GeomolGNNWrapper`): the
+    float node and edge features (`node_dim`, `edge_dim` wide; the CLI
+    reads them off the dataset's first molecule) with noise columns
+    appended, ``gnn`` (a `GeomolGNN`), the mean over each graph's nodes
+    and the ``output`` MLP of width `hidden_dim`.  Under the default
+    trainers the source gives masks alone, so the noise columns are zeros,
+    as the JAX trainers' are."""
+
+    FIELDS = ("hidden_dim", "node_dim", "edge_dim", "depth", "n_layers",
+              "readout_layers", "readout_batchnorm", "target_dim",
+              "random_vec_dim", "random_vec_std")
+
+    def __init__(self, hidden_dim: int, node_dim: int, edge_dim: int,
+                 depth: int = 3, n_layers: int = 2, readout_layers: int = 2,
+                 readout_batchnorm: bool = True, target_dim: int = 1,
+                 random_vec_dim: int = 10, random_vec_std: float = 1.0):
+        super().__init__()
+        self.random_vec_dim, self.random_vec_std = random_vec_dim, \
+            random_vec_std
+        self.gnn = GeomolGNN(node_dim + random_vec_dim,
+                             edge_dim + random_vec_dim, hidden_dim, depth,
+                             n_layers)
+        self.output = MLP(hidden_dim, target_dim, readout_layers,
+                          hidden_size=hidden_dim,
+                          mid_batch_norm=readout_batchnorm)
+
+    def forward(self, g, noise=None) -> torch.Tensor:
+        x, e = with_noise(self, noise, g.node_feat.float(),
+                          g.edge_feat.float())
+        x, _ = self.gnn(g, x, e)
         pooled = segment_mean(x, g.node_graph, g.graph_mask.shape[0])
         return self.output(pooled, g.graph_mask)

@@ -74,14 +74,15 @@ class Net3DDenseLayer(nn.Module):
     def __init__(self, hidden_dim: int, batch_norm: bool = False,
                  batch_norm_momentum: float = 0.1,
                  mid_activation: str = "SiLU", reduce_func: str = "sum",
-                 message_net_layers: int = 2, update_net_layers: int = 2):
+                 message_net_layers: int = 2, update_net_layers: int = 2,
+                 dropout: float = 0.0):
         super().__init__()
         if reduce_func not in ("sum", "mean"):
             raise ValueError(f"reduce function not supported: {reduce_func}")
         self.reduce_func = reduce_func
         bn = dict(mid_batch_norm=batch_norm, last_batch_norm=batch_norm,
                   batch_norm_momentum=batch_norm_momentum,
-                  mid_activation=mid_activation)
+                  mid_activation=mid_activation, dropout=dropout)
         self.message_network = MLP(3 * hidden_dim, hidden_dim,
                                    message_net_layers, hidden_size=hidden_dim,
                                    last_activation=mid_activation, **bn)
@@ -90,8 +91,9 @@ class Net3DDenseLayer(nn.Module):
                                   hidden_size=hidden_dim,
                                   last_activation="none", **bn)
 
-    def forward(self, h, e, emask, node_mask, deg):
-        message = self.message_network(PairGridInput(h, e), emask)
+    def forward(self, h, e, emask, node_mask, deg, noise=None):
+        message = self.message_network(PairGridInput(h, e), emask,
+                                       noise=noise)
         e_new = e + message
         gate = torch.sigmoid(self.soft_edge_network(message))
         gated = torch.where(emask[..., None], message * gate,
@@ -100,7 +102,7 @@ class Net3DDenseLayer(nn.Module):
         agg = gated.sum(dim=1)                              # over senders
         if self.reduce_func == "mean":
             agg = agg / deg.clamp(min=1.0)[..., None]
-        upd = self.update_network(agg + h, node_mask)
+        upd = self.update_network(agg + h, node_mask, noise=noise)
         return upd + h, e_new
 
 
@@ -108,14 +110,14 @@ class Net3DLayer(Net3DDenseLayer):
     """One Net3D message-passing layer on a CSR batch of complete graphs
     (reference `models/net3d.py:84-125`, the JAX `Net3DLayer`)."""
 
-    def forward(self, g, h, e):
+    def forward(self, g, h, e, noise=None):
         message = self.message_network(
             EdgeInput(h, g.senders, g.receivers, e, g.csr_row_ptr,
-                      g.csc_row_ptr, g.csc_perm), g.edge_mask)
+                      g.csc_row_ptr, g.csc_perm), g.edge_mask, noise=noise)
         e_new = e + message
         gate = torch.sigmoid(self.soft_edge_network(message))
         agg = edge_aggregate(g, message * gate, self.reduce_func)
-        upd = self.update_network(agg + h, g.node_mask)
+        upd = self.update_network(agg + h, g.node_mask, noise=noise)
         return upd + h, e_new
 
 
@@ -141,10 +143,9 @@ class Net3DDense(nn.Module):
         super().__init__()
         self.readout_aggregators = tuple(readout_aggregators)
         self.fourier_encodings = fourier_encodings
-        self.dropout = dropout
         bn = dict(mid_batch_norm=batch_norm, last_batch_norm=batch_norm,
                   batch_norm_momentum=batch_norm_momentum,
-                  mid_activation=activation)
+                  mid_activation=activation, dropout=dropout)
         if use_node_features:
             self.atom_encoder = AtomEncoder(hidden_dim)
         else:
@@ -154,8 +155,8 @@ class Net3DDense(nn.Module):
                               last_activation=activation, **bn)
         self.mp_layers = nn.ModuleList(
             self.LAYER(hidden_dim, batch_norm, batch_norm_momentum,
-                            activation, reduce_func, message_net_layers,
-                            update_net_layers)
+                       activation, reduce_func, message_net_layers,
+                       update_net_layers, dropout)
             for _ in range(propagation_depth))
         self.node_wise_output_network = None
         if node_wise_output_layers > 0:
@@ -178,19 +179,19 @@ class Net3DDense(nn.Module):
                       if k in known and k != "self"})
 
     def forward(self, g, noise=None) -> torch.Tensor:
-        """`noise` (the supervised step's dropout source) draws nothing
-        here: dropout > 0 is refused."""
-        if self.training and self.dropout > 0:
-            raise NotImplementedError("dropout > 0 is not ported")
-        if hasattr(self, "atom_encoder"):
-            raise NotImplementedError("use_node_features is not ported for "
-                                      "Net3DDense; the flat Net3D has it")
+        """`noise` draws the dropout masks in training, in the JAX
+        forward's order (the edge input, each layer's message and update
+        networks, the node-wise output network)."""
         node_mask = g.node_mask
         G, n = node_mask.shape
         sizes = node_mask.sum(dim=1)
         eye = torch.eye(n, dtype=torch.bool, device=node_mask.device)
         emask = node_mask[:, :, None] & node_mask[:, None, :] & ~eye
-        h = self.node_embedding[None, None, :].expand(G, n, -1)
+        if hasattr(self, "atom_encoder"):
+            h = self.atom_encoder(g.node_feat.reshape(G * n, -1)).reshape(
+                G, n, -1)
+        else:
+            h = self.node_embedding[None, None, :].expand(G, n, -1)
         diff = g.coords[:, :, None, :] - g.coords[:, None, :, :]
         # keep sqrt off exact zeros (diagonal, padding): NaN-free gradients
         d2 = (diff * diff).sum(dim=-1)
@@ -200,12 +201,12 @@ class Net3DDense(nn.Module):
             d = fourier_encode_dist(d, num_encodings=self.fourier_encodings)
         else:
             d = d[..., None]
-        e = F.silu(self.edge_input(d, emask))   # the reference's extra silu
+        e = F.silu(self.edge_input(d, emask, noise=noise))   # extra silu
         deg = emask.sum(dim=1).to(e.dtype)                  # [G, n] in-degree
         for layer in self.mp_layers:
-            h, e = layer(h, e, emask, node_mask, deg)
+            h, e = layer(h, e, emask, node_mask, deg, noise)
         if self.node_wise_output_network is not None:
-            h = self.node_wise_output_network(h, node_mask)
+            h = self.node_wise_output_network(h, node_mask, noise=noise)
         readout = dense_readout(h, node_mask, self.readout_aggregators, sizes)
         return self.output(readout, g.graph_mask)
 
@@ -218,8 +219,6 @@ class Net3D(Net3DDense):
     LAYER = Net3DLayer
 
     def forward(self, g, noise=None) -> torch.Tensor:
-        if self.training and self.dropout > 0:
-            raise NotImplementedError("dropout > 0 is not ported")
         if hasattr(self, "atom_encoder"):
             h = self.atom_encoder(g.node_feat)
         else:
@@ -229,10 +228,10 @@ class Net3D(Net3DDense):
             d = fourier_encode_dist(d, num_encodings=self.fourier_encodings)
         else:
             d = d[:, None]
-        e = F.silu(self.edge_input(d, g.edge_mask))   # the extra silu
+        e = F.silu(self.edge_input(d, g.edge_mask, noise=noise))  # extra
         for layer in self.mp_layers:
-            h, e = layer(g, h, e)
+            h, e = layer(g, h, e, noise)
         if self.node_wise_output_network is not None:
-            h = self.node_wise_output_network(h, g.node_mask)
+            h = self.node_wise_output_network(h, g.node_mask, noise=noise)
         return self.output(batch_readout(g, h, self.readout_aggregators),
                            g.graph_mask)

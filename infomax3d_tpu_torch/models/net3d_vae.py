@@ -37,7 +37,9 @@ class Net3DAE(nn.Module):
     `readout_layers`, `readout_hidden_dim` and `node_wise_output_layers`
     are accepted for config compatibility and unused, as there; the
     encoder's depth is `encoder_depth`, or `propagation_depth` when it is
-    0.  The port has no dropout: training with `dropout` > 0 raises."""
+    0.  `dropout` acts in the edge input and the encoder and decoder
+    layers (not in the node-wise encoder or the distance heads, as in
+    JAX); the masks come from the noise source the forward is given."""
 
     def __init__(self, hidden_dim: int, readout_aggregators: Sequence[str],
                  batch_norm: bool = False, node_wise_encoder_layers: int = 0,
@@ -57,7 +59,6 @@ class Net3DAE(nn.Module):
         del readout_layers, readout_hidden_dim
         self.readout_aggregators = tuple(readout_aggregators)
         self.fourier_encodings = fourier_encodings
-        self.dropout = dropout
         bn = dict(mid_batch_norm=batch_norm, last_batch_norm=batch_norm,
                   batch_norm_momentum=batch_norm_momentum,
                   mid_activation=activation)
@@ -67,12 +68,13 @@ class Net3DAE(nn.Module):
             self.node_embedding = nn.Parameter(torch.randn(hidden_dim))
         edge_in = 2 * fourier_encodings + 1 if fourier_encodings > 0 else 1
         self.edge_input = MLP(edge_in, hidden_dim, 1, hidden_size=hidden_dim,
-                              last_activation=activation, **bn)
+                              last_activation=activation, dropout=dropout,
+                              **bn)
 
         def layer():
             return Net3DLayer(hidden_dim, batch_norm, batch_norm_momentum,
                               activation, reduce_func, message_net_layers,
-                              update_net_layers)
+                              update_net_layers, dropout)
         self.encoder_depth = encoder_depth or propagation_depth
         self.decoder_depth = decoder_depth
         for i in range(self.encoder_depth):
@@ -92,9 +94,7 @@ class Net3DAE(nn.Module):
             mid_batch_norm=True)
             if not distance_net and projection_dim > 0 else None)
 
-    def forward(self, g, pairs=None):
-        if self.training and self.dropout > 0:
-            raise NotImplementedError("dropout > 0 is not ported")
+    def forward(self, g, pairs=None, noise=None):
         if hasattr(self, "atom_encoder"):
             h = self.atom_encoder(g.node_feat)
         else:
@@ -104,14 +104,14 @@ class Net3DAE(nn.Module):
             d = fourier_encode_dist(d, num_encodings=self.fourier_encodings)
         else:
             d = d[:, None]
-        e = F.silu(self.edge_input(d, g.edge_mask))   # the extra silu
+        e = F.silu(self.edge_input(d, g.edge_mask, noise=noise))  # extra
         for i in range(self.encoder_depth):
-            h, e = getattr(self, f"enc_{i}")(g, h, e)
+            h, e = getattr(self, f"enc_{i}")(g, h, e, noise)
         if self.node_wise_encoder is not None:
             h = self.node_wise_encoder(h, g.node_mask)
         latent = batch_readout(g, h, self.readout_aggregators)
         for i in range(self.decoder_depth):
-            h, e = getattr(self, f"dec_{i}")(g, h, e)
+            h, e = getattr(self, f"dec_{i}")(g, h, e, noise)
         pg = g if pairs is None else pairs
         if self.distance_net is not None:
             return latent, symmetric_distances(self.distance_net, h, pg)[:, 0]
@@ -151,8 +151,8 @@ class Net3DDistancePredictor(nn.Module):
             message_net_layers=message_net_layers,
             use_node_features=use_node_features)
 
-    def forward(self, g, pairs=None):
-        out = self.net(g, pairs)
+    def forward(self, g, pairs=None, noise=None):
+        out = self.net(g, pairs, noise)
         if pairs is not None:
             return out[1][:, None]
         return out

@@ -6,7 +6,10 @@ Per layer: the pretrans MLP on ``[h[src] ‖ h[dst] ‖ e]`` (its first layer
 through the edge-combine kernel, its BatchNorms folded), the PNA
 aggregators and degree scalers at each receiver (the stats or multi-reduce
 kernel, `ops/aggregate.py`), the posttrans MLP on ``[h ‖ aggregates]``, and
-the residual.  Both MLPs run their dropout (Linear -> activation ->
+the residual.  With `pairwise_distances` each edge's squared distance
+(from the batch's `coords`, in their dtype) joins the pretrans input as
+a last column, projected beside the edge features into the edge-combine
+kernel's per-edge part.  Both MLPs run their dropout (Linear -> activation ->
 dropout -> BatchNorm, the masks over every edge or node row, padding
 included, from the noise source the forward is given): in the pretrans
 MLP a mask falls between the edge-combine kernel's output and the
@@ -24,7 +27,7 @@ from torch import nn
 from infomax3d_tpu_torch.models.base import (MLP, AtomEncoder, BondEncoder,
                                              EdgeInput)
 from infomax3d_tpu_torch.ops.aggregate import pna_aggregate_parts
-from infomax3d_tpu_torch.ops.segment import batch_readout
+from infomax3d_tpu_torch.ops.segment import batch_readout, take_clipped
 
 
 class PNALayer(nn.Module):
@@ -37,18 +40,20 @@ class PNALayer(nn.Module):
                  last_batch_norm: bool = False,
                  batch_norm_momentum: float = 0.1, avg_d_log: float = 1.0,
                  posttrans_layers: int = 2, pretrans_layers: int = 1,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, pairwise_distances: bool = False):
         super().__init__()
         self.aggregators = tuple(aggregators)
         self.scalers = tuple(scalers)
         self.avg_d_log = avg_d_log
         self.residual = residual and in_dim == out_dim
+        self.pairwise_distances = pairwise_distances
         bn = dict(mid_batch_norm=mid_batch_norm,
                   last_batch_norm=last_batch_norm,
                   batch_norm_momentum=batch_norm_momentum,
                   mid_activation=activation, last_activation=last_activation,
                   dropout=dropout)
-        self.pretrans = MLP(2 * in_dim + in_dim_edges, in_dim,
+        self.pretrans = MLP(2 * in_dim + in_dim_edges + pairwise_distances,
+                            in_dim,
                             pretrans_layers, hidden_size=in_dim, **bn)
         n_parts = len(self.aggregators) * len(self.scalers) + 1
         self.posttrans = MLP(n_parts * in_dim, out_dim, posttrans_layers,
@@ -57,9 +62,14 @@ class PNALayer(nn.Module):
     def forward(self, g, h: torch.Tensor, e: torch.Tensor,
                 noise=None) -> torch.Tensor:
         # the pretrans last BatchNorm stays lazy: the stats kernel folds it
+        d = None
+        if self.pairwise_distances:
+            diff = take_clipped(g.coords, g.senders) - take_clipped(
+                g.coords, g.receivers)
+            d = (diff ** 2).sum(dim=-1, keepdim=True)
         msg = self.pretrans(EdgeInput(h, g.senders, g.receivers, e,
                                       g.csr_row_ptr, g.csc_row_ptr,
-                                      g.csc_perm),
+                                      g.csc_perm, d=d),
                             g.edge_mask, lazy_out=True, noise=noise)
         parts = pna_aggregate_parts(g, msg, self.aggregators, self.scalers,
                                     self.avg_d_log)
@@ -70,7 +80,14 @@ class PNALayer(nn.Module):
 
 class PNAGNN(nn.Module):
     """Atom / bond embedding + stack of PNALayers (reference
-    `models/pna.py:138-166`)."""
+    `models/pna.py:138-166`; registered as ``PNAGNN``, whose output is the
+    node embeddings [N, hidden_dim])."""
+
+    FIELDS = ("hidden_dim", "aggregators", "scalers", "residual",
+              "pairwise_distances", "activation", "last_activation",
+              "mid_batch_norm", "last_batch_norm", "batch_norm_momentum",
+              "propagation_depth", "dropout", "posttrans_layers",
+              "pretrans_layers")
 
     def __init__(self, hidden_dim: int, aggregators: Sequence[str],
                  scalers: Sequence[str], residual: bool = True,
@@ -78,7 +95,8 @@ class PNAGNN(nn.Module):
                  mid_batch_norm: bool = False, last_batch_norm: bool = False,
                  batch_norm_momentum: float = 0.1,
                  propagation_depth: int = 5, posttrans_layers: int = 1,
-                 pretrans_layers: int = 1, dropout: float = 0.0):
+                 pretrans_layers: int = 1, dropout: float = 0.0,
+                 pairwise_distances: bool = False):
         super().__init__()
         self.atom_encoder = AtomEncoder(hidden_dim)
         self.bond_encoder = BondEncoder(hidden_dim)
@@ -90,7 +108,8 @@ class PNAGNN(nn.Module):
                      last_batch_norm=last_batch_norm,
                      batch_norm_momentum=batch_norm_momentum, avg_d_log=1.0,
                      posttrans_layers=posttrans_layers,
-                     pretrans_layers=pretrans_layers, dropout=dropout)
+                     pretrans_layers=pretrans_layers, dropout=dropout,
+                     pairwise_distances=pairwise_distances)
             for _ in range(propagation_depth))
 
     def forward(self, g, noise=None) -> torch.Tensor:
@@ -117,7 +136,8 @@ class PNA(nn.Module):
                  mid_batch_norm: bool = False, last_batch_norm: bool = False,
                  propagation_depth: int = 5, dropout: float = 0.0,
                  posttrans_layers: int = 1, pretrans_layers: int = 1,
-                 batch_norm_momentum: float = 0.1):
+                 batch_norm_momentum: float = 0.1,
+                 pairwise_distances: bool = False):
         super().__init__()
         self.readout_aggregators = tuple(readout_aggregators)
         self.node_gnn = PNAGNN(
@@ -127,7 +147,8 @@ class PNA(nn.Module):
             batch_norm_momentum=batch_norm_momentum,
             propagation_depth=propagation_depth,
             posttrans_layers=posttrans_layers,
-            pretrans_layers=pretrans_layers, dropout=dropout)
+            pretrans_layers=pretrans_layers, dropout=dropout,
+            pairwise_distances=pairwise_distances)
         self.output = MLP(hidden_dim * len(self.readout_aggregators),
                           target_dim, readout_layers,
                           hidden_size=readout_hidden_dim or hidden_dim,

@@ -1,5 +1,5 @@
 """The random-feature models (port of `PNALayerEdgeUpdate`,
-`PNAGNNRandomEdgeUpdate`, `GINConvRandom`, `GNNNodeRandom`,
+`PNAGNNRandomEdgeUpdate`, `PNARandomEdgeUpdate`, `GINConvRandom`, `GNNNodeRandom`,
 `OGBGNNRandom`, `PNAOriginalRandom` and `PNAOriginalSimpleRandom`,
 infomax3d_tpu/models/random_variants.py, the reference's
 `models/pna_edge_update_random.py` and `models/gin_random.py`).
@@ -67,9 +67,11 @@ class PNALayerEdgeUpdate(nn.Module):
                  batch_norm_momentum: float = 0.1, dropout: float = 0.0):
         super().__init__()
         self.aggregators, self.scalers = list(aggregators), list(scalers)
-        self.edge = nn.Linear(in_dim, in_dim)
-        self.node_in = nn.Linear(in_dim, in_dim, bias=False)
-        self.node_out = nn.Linear(in_dim, in_dim, bias=False)
+        # promoting, as flax `Dense`: float32 noise columns make the node
+        # and edge states float32 under the bf16 recipe
+        self.edge = PromotingLinear(in_dim, in_dim)
+        self.node_in = PromotingLinear(in_dim, in_dim, bias=False)
+        self.node_out = PromotingLinear(in_dim, in_dim, bias=False)
         acts = dict(mid_activation=activation, last_activation=last_activation,
                     mid_batch_norm=mid_batch_norm,
                     last_batch_norm=last_batch_norm,
@@ -143,8 +145,11 @@ class PNAGNNRandomEdgeUpdate(nn.Module):
         return cls(**{k: v for k, v in params.items() if k in cls.FIELDS})
 
     def _noise(self, noise, rows: int, like: torch.Tensor) -> torch.Tensor:
+        """float32 noise columns (zeros without a source), as the JAX
+        model's: they promote the bf16 encoders' columns they join."""
         return noise_columns(noise, rows, self.random_vec_dim,
-                             self.random_vec_std, like)
+                             self.random_vec_std,
+                             torch.empty(0, device=like.device))
 
     def forward(self, g, noise=None) -> torch.Tensor:
         h = self.atom_encoder(g.node_feat)
@@ -156,6 +161,39 @@ class PNAGNNRandomEdgeUpdate(nn.Module):
         for layer in self.mp_layers:
             h, e = layer(g, h, e, noise)
         return h
+
+
+class PNARandomEdgeUpdate(PNAGNNRandomEdgeUpdate):
+    """Reference `pna_edge_update_random.py:15-57` (the JAX
+    `PNARandomEdgeUpdate`): `PNAGNNRandomEdgeUpdate`'s encoders, init MLPs
+    and layers (at the module's root, where flax names them), then the
+    readout and the ``output`` MLP.  Keyword arguments are the JAX
+    module's fields.  Under the default trainers the source gives masks
+    alone, so the noise columns are zeros, as the JAX trainers' are."""
+
+    FIELDS = PNAGNNRandomEdgeUpdate.FIELDS + (
+        "target_dim", "readout_aggregators", "readout_batchnorm",
+        "readout_hidden_dim", "readout_layers")
+
+    def __init__(self, hidden_dim: int, target_dim: int,
+                 aggregators: Sequence[str], scalers: Sequence[str],
+                 readout_aggregators: Sequence[str],
+                 readout_batchnorm: bool = True,
+                 readout_hidden_dim=None, readout_layers: int = 2,
+                 batch_norm_momentum: float = 0.1, **gnn):
+        super().__init__(hidden_dim, aggregators, scalers,
+                         batch_norm_momentum=batch_norm_momentum, **gnn)
+        self.readout_aggregators = tuple(readout_aggregators)
+        self.output = MLP(hidden_dim * len(self.readout_aggregators),
+                          target_dim, readout_layers,
+                          hidden_size=readout_hidden_dim or hidden_dim,
+                          mid_batch_norm=readout_batchnorm,
+                          batch_norm_momentum=batch_norm_momentum)
+
+    def forward(self, g, noise=None) -> torch.Tensor:
+        h = super().forward(g, noise)
+        return self.output(batch_readout(g, h, self.readout_aggregators),
+                           g.graph_mask)
 
 
 class GINConvRandom(GINConv):

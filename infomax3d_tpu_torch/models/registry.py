@@ -3,18 +3,17 @@
 
 Each entry keeps the JAX class's field names (`JAX_FIELDS`): a config key
 that is not a field is dropped, as the JAX package's `_adapt_model_params`
-drops it, and a field the port's class lacks raises when the config sets
-it to anything but the JAX default (`UNPORTED_FIELDS`).  `Net3D` is the
+drops it.  `Net3D` is the
 flat 3D network on CSR complete graphs; the CLI swaps it for the
 parameter-compatible `Net3DDense` when `_dense_3d` is on, as the JAX
 package does.  `Net3DVAE` names `Net3DAE` (`MODEL_ALIASES`, the JAX
 table: the reference's configs name a class that exists nowhere).  The OT
 generator's backbones (`gnn_model`: `PNAGNNRandom`, `GeomolGNNOGBFeat`
 and the others) are in `optimal_transport.BACKBONES`, each class with its
-JAX fields as `FIELDS`.  A name the JAX package registers and the port
-does not have yet raises `NotImplementedError` with its ROADMAP queue 1
-item (`NOT_PORTED`); any other name raises `KeyError`, as the JAX
-registry does.
+JAX fields as `FIELDS`; `PNAGNN` and `PNAGNNRandomEdgeUpdate` are
+registered as models too, as in JAX.  `BasicCritic` names `Critic`.  Every
+name the JAX package registers is here; any other name raises
+`KeyError`, as the JAX registry does.
 """
 from __future__ import annotations
 
@@ -22,20 +21,24 @@ from typing import Any, Dict, Mapping
 
 from torch import nn
 
-from infomax3d_tpu_torch.models.byol import BYOLWrapper
+from infomax3d_tpu_torch.models.byol import BYOLWrapper, Critic
 from infomax3d_tpu_torch.models.egnn import EGNN
 from infomax3d_tpu_torch.models.egnn_dense import DenseEGNN
-from infomax3d_tpu_torch.models.geomol_mpnn import GeomolGNNWrapperOGBFeat
+from infomax3d_tpu_torch.models.geomol_mpnn import (
+    GeomolGNNWrapper, GeomolGNNWrapperOGBFeat, GeomolGNNWrapperOGBFeatRandom,
+    GeomolGNNWrapperOGBFeatRandomNonShared)
 from infomax3d_tpu_torch.models.gin import OGBGNN
 from infomax3d_tpu_torch.models.net3d import Net3D, Net3DDense
 from infomax3d_tpu_torch.models.net3d_vae import (Net3DAE,
                                                   Net3DDistancePredictor)
 from infomax3d_tpu_torch.models.optimal_transport import OptimalTransportModel
-from infomax3d_tpu_torch.models.pna import PNA
+from infomax3d_tpu_torch.models.pna import PNA, PNAGNN
+from infomax3d_tpu_torch.models.pna_random import PNARandom
 from infomax3d_tpu_torch.models.pna_original import (PNAOriginal,
                                                      PNAOriginalSimple)
 from infomax3d_tpu_torch.models.random_variants import (
-    OGBGNNRandom, PNAOriginalRandom, PNAOriginalSimpleRandom)
+    OGBGNNRandom, PNAGNNRandomEdgeUpdate, PNAOriginalRandom,
+    PNAOriginalSimpleRandom, PNARandomEdgeUpdate)
 from infomax3d_tpu_torch.models.san import SAN
 from infomax3d_tpu_torch.models.smp import SMP
 from infomax3d_tpu_torch.models.transformer import (DistancePredictor,
@@ -72,21 +75,20 @@ MODEL_REGISTRY: Dict[str, type] = {
     "PNAOriginalSimple": PNAOriginalSimple,
     "PNAOriginalSimpleRandom": PNAOriginalSimpleRandom, "SMP": SMP,
     "EGNN": EGNN, "EGNNTorch": DenseEGNN, "SAN": SAN,
-    "BYOLwrapper": BYOLWrapper}
-
-# the JAX package's other registered names and the ROADMAP queue 1 item
-# that ports each
-NOT_PORTED: Dict[str, str] = {
-    **{n: "7g" for n in ("GeomolGNNWrapper",
-                         "GeomolGNNWrapperOGBFeatRandom",
-                         "GeomolGNNWrapperOGBFeatRandomNonShared",
-                         "PNARandom", "PNARandomEdgeUpdate",
-                         "PNAGNNRandomEdgeUpdate")},
-    "Critic": "8b"}
+    "BYOLwrapper": BYOLWrapper, "PNAGNN": PNAGNN, "PNARandom": PNARandom,
+    "PNARandomEdgeUpdate": PNARandomEdgeUpdate,
+    "PNAGNNRandomEdgeUpdate": PNAGNNRandomEdgeUpdate,
+    "GeomolGNNWrapper": GeomolGNNWrapper,
+    "GeomolGNNWrapperOGBFeatRandom": GeomolGNNWrapperOGBFeatRandom,
+    "GeomolGNNWrapperOGBFeatRandomNonShared":
+        GeomolGNNWrapperOGBFeatRandomNonShared,
+    "Critic": Critic}
 
 # reference YAML names whose class the reference cannot resolve, mapped
-# onto the class the config means (the JAX package's models/registry.py)
-MODEL_ALIASES: Dict[str, str] = {"Net3DVAE": "Net3DAE"}
+# onto the class the config means (the JAX package's models/registry.py
+# and models/__init__.py)
+MODEL_ALIASES: Dict[str, str] = {"Net3DVAE": "Net3DAE",
+                                 "BasicCritic": "Critic"}
 
 # the JAX dataclass fields of each registered class
 JAX_FIELDS: Dict[str, tuple] = {
@@ -130,19 +132,19 @@ JAX_FIELDS: Dict[str, tuple] = {
     "EGNNTorch": DenseEGNN.FIELDS,
     "SAN": SAN.FIELDS,
     "BYOLwrapper": BYOLWrapper.FIELDS,
-}
-
-# JAX fields the port's classes lack, with the JAX default they run at
-UNPORTED_FIELDS: Dict[str, Dict[str, Any]] = {
-    "PNA": {"pairwise_distances": False},
+    "PNAGNN": PNAGNN.FIELDS,
+    "PNARandom": PNARandom.FIELDS,
+    "PNARandomEdgeUpdate": PNARandomEdgeUpdate.FIELDS,
+    "PNAGNNRandomEdgeUpdate": PNAGNNRandomEdgeUpdate.FIELDS,
+    "GeomolGNNWrapper": GeomolGNNWrapper.FIELDS,
+    "GeomolGNNWrapperOGBFeatRandom": GeomolGNNWrapperOGBFeatRandom.FIELDS,
+    "GeomolGNNWrapperOGBFeatRandomNonShared":
+        GeomolGNNWrapperOGBFeatRandomNonShared.FIELDS,
+    "Critic": Critic.FIELDS,
 }
 
 def get_model_class(name: str) -> type:
     name = MODEL_ALIASES.get(name, name)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"model_type '{name}' is not ported yet (ROADMAP queue 1, "
-            f"item {NOT_PORTED[name]}); ported: {sorted(MODEL_REGISTRY)}")
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model_type '{name}'; known: "
                        f"{sorted(MODEL_REGISTRY)}")
@@ -150,24 +152,19 @@ def get_model_class(name: str) -> type:
 
 
 def adapt_model_params(name: str, mp: Mapping[str, Any]) -> Dict[str, Any]:
-    """`mp` restricted to the JAX class's fields; raises on a field the
-    port lacks when it is set to other than the JAX default."""
+    """`mp` restricted to the JAX class's fields."""
     get_model_class(name)
     name = MODEL_ALIASES.get(name, name)
-    out = {k: v for k, v in dict(mp).items() if k in JAX_FIELDS[name]}
-    for field, default in UNPORTED_FIELDS.get(name, {}).items():
-        if out.pop(field, default) != default:
-            raise NotImplementedError(
-                f"{name}.{field}={mp[field]!r} is not ported yet (ROADMAP "
-                f"queue 1, item 7)")
-    return out
+    return {k: v for k, v in dict(mp).items() if k in JAX_FIELDS[name]}
 
 
-def build_model(name: str, mp: Mapping[str, Any]) -> nn.Module:
+def build_model(name: str, mp: Mapping[str, Any], **extra) -> nn.Module:
     """The port's module for config name `name` and `model_parameters`
-    `mp` (unknown keys dropped by `adapt_model_params`)."""
+    `mp` (unknown keys dropped by `adapt_model_params`); `extra` are
+    constructor arguments that are no JAX field (the critic's `in_dim`,
+    which flax infers at init)."""
     cls = get_model_class(name)
     kw = adapt_model_params(name, mp)
     if cls is OptimalTransportModel:
         return cls.from_config(kw)
-    return cls(**kw)
+    return cls(**kw, **extra)

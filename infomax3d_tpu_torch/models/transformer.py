@@ -52,13 +52,6 @@ from infomax3d_tpu_torch.models.base import (MLP, AtomEncoder, BondEncoder,
 from infomax3d_tpu_torch.models.pna import PNAGNN, PNALayer
 from infomax3d_tpu_torch.ops.segment import batch_readout
 
-# the JAX `PNAGNN` dataclass fields; `DistancePredictor` keeps these of its
-# `pna_args` (the configs pass the full PNA's, readout keys included)
-PNAGNN_FIELDS = ("hidden_dim", "aggregators", "scalers", "residual",
-                 "pairwise_distances", "activation", "last_activation",
-                 "mid_batch_norm", "last_batch_norm", "batch_norm_momentum",
-                 "propagation_depth", "dropout", "posttrans_layers",
-                 "pretrans_layers")
 
 
 def dense_slots(g, max_nodes: int) -> torch.Tensor:
@@ -129,9 +122,9 @@ def embedding_distances(h: torch.Tensor, pairs) -> torch.Tensor:
 class DistancePredictor(nn.Module):
     """2D GNN -> pairwise distances (reference `models/distance_predictor.
     py:14-86`, the JAX `DistancePredictor`).  ``forward(g, pairs)``
-    returns [E_pairs, target_dim] over the pair view's edges.  The port
-    has no dropout and no PNA `pairwise_distances`: training with
-    `dropout` > 0 raises, and so does `pairwise_distances`."""
+    returns [E_pairs, target_dim] over the pair view's edges.  The PNA's
+    `dropout` acts in its layers and in the transformer block, the masks
+    from the noise source the forward is given."""
 
     def __init__(self, pna_args: Mapping[str, Any], target_dim: int = 1,
                  projection_dim: int = 3, distance_net: bool = False,
@@ -139,17 +132,14 @@ class DistancePredictor(nn.Module):
                  nhead: int = 16, dim_feedforward: int = 256,
                  activation: str = "relu", max_nodes: int = 40):
         super().__init__()
-        pna = {k: v for k, v in dict(pna_args).items() if k in PNAGNN_FIELDS}
-        self.dropout = pna.pop("dropout", 0.0)
-        if pna.pop("pairwise_distances", False):
-            raise NotImplementedError(
-                "PNA pairwise_distances is not ported yet (ROADMAP queue 1, "
-                "item 7)")
+        # the configs pass the full PNA's arguments, readout keys included
+        pna = {k: v for k, v in dict(pna_args).items() if k in PNAGNN.FIELDS}
         self.max_nodes = max_nodes
         hidden = pna["hidden_dim"]
         self.node_gnn = PNAGNN(**pna)
         self.transformer_layer = (TransformerEncoderBlock(
-            hidden, nhead, dim_feedforward, activation)
+            hidden, nhead, dim_feedforward, activation,
+            pna.get("dropout", 0.0))
             if transformer_layer else None)
         self.node_projection_net = (MLP(
             hidden, projection_dim, projection_layers, hidden_size=32,
@@ -160,15 +150,13 @@ class DistancePredictor(nn.Module):
             hidden_size=projection_dim, mid_batch_norm=True)
             if distance_net else None)
 
-    def forward(self, g, pairs) -> torch.Tensor:
-        if self.training and self.dropout > 0:
-            raise NotImplementedError("dropout > 0 is not ported")
-        h = self.node_gnn(g)
+    def forward(self, g, pairs, noise=None) -> torch.Tensor:
+        h = self.node_gnn(g, noise)
         if self.transformer_layer is not None:
             slots = dense_slots(g, self.max_nodes)
             dense = self.transformer_layer(
                 flat_to_dense(h, g, self.max_nodes, slots),
-                dense_node_mask(g, self.max_nodes, slots))
+                dense_node_mask(g, self.max_nodes, slots), noise)
             h = dense_to_flat(dense, g)
         if self.node_projection_net is not None:
             h = self.node_projection_net(h, g.node_mask)
@@ -215,8 +203,8 @@ class PNADistancePredictor(nn.Module):
             projection_dim=projection_dim,
             projection_layers=projection_layers, transformer_layer=False)
 
-    def forward(self, g, pairs) -> torch.Tensor:
-        return self.predictor(g, pairs)
+    def forward(self, g, pairs, noise=None) -> torch.Tensor:
+        return self.predictor(g, pairs, noise)
 
 
 class TransformerGNN(nn.Module):

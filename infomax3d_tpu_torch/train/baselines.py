@@ -39,7 +39,7 @@ from infomax3d_tpu_torch.interop import (flax_paths, init_jax_variables,
 from infomax3d_tpu_torch.losses import get_loss
 from infomax3d_tpu_torch.models.registry import build_model
 from infomax3d_tpu_torch.train.optim import build_adam, label_params
-from infomax3d_tpu_torch.train.pretrain import PretrainStep
+from infomax3d_tpu_torch.train.pretrain import PretrainStep, noise_kw
 from infomax3d_tpu_torch.train.precision import (cast_batch, forward_in,
                                                  resolve_compute_dtype)
 from infomax3d_tpu_torch.train.supervised import SupervisedStep, \
@@ -60,9 +60,11 @@ class DistanceStep(SupervisedStep):
         pairs = g if same else pairs.to(self.device)
         return cast_batch(g, self.compute_dtype), pairs
 
-    def loss(self, g: GraphBatch, pairs: GraphBatch):
-        """(masked loss, float32 predictions [E, 1])."""
-        pred = forward_in(self.model, self.compute_dtype, g, pairs)
+    def loss(self, g: GraphBatch, pairs: GraphBatch, noise=None):
+        """(masked loss, float32 predictions [E, 1]); `noise` draws the
+        dropout masks."""
+        pred = forward_in(self.model, self.compute_dtype, g, pairs,
+                          **noise_kw(noise))
         target = pairs.edge_dist[:, None].float()
         valid = pairs.edge_mask[:, None]
         return supervised_loss(self.loss_func, pred, target, valid), pred
@@ -81,11 +83,14 @@ class AEStep(PretrainStep):
         dist = g3.edge_dist.to(self.device).float()
         return (*super().prepare(g2, g3), dist)
 
-    def loss(self, g2, g3, dist):
+    def loss(self, g2, g3, dist, noise=None):
         """(contrastive + reconstruction, (z1, z2, {"contrastive_loss",
-        "reconstruction_loss"})), float32."""
-        z1 = forward_in(self.model, self.compute_dtype, g2)
-        z2, pred = forward_in(self.model3d, self.compute_dtype, g3)
+        "reconstruction_loss"})), float32; `noise` draws the dropout
+        masks."""
+        z1 = forward_in(self.model, self.compute_dtype, g2,
+                        **noise_kw(noise))
+        z2, pred = forward_in(self.model3d, self.compute_dtype, g3,
+                              **noise_kw(noise))
         lc, lr = self.loss_fn(z1, z2, distances=dist, distance_pred=pred,
                               mask=g3.edge_mask)
         return lc + lr, (z1, z2, {"contrastive_loss": lc,
@@ -113,10 +118,12 @@ class GraphCLStep(PretrainStep):
         for n, p in self.model.named_parameters():
             yield f"model.{n}", p
 
-    def outputs(self, v1: GraphBatch, v2: GraphBatch):
+    def outputs(self, v1: GraphBatch, v2: GraphBatch, noise=None):
         """The model on `v1`, then on `v2` (float32 outputs)."""
-        return (forward_in(self.model, self.compute_dtype, v1),
-                forward_in(self.model, self.compute_dtype, v2))
+        return (forward_in(self.model, self.compute_dtype, v1,
+                           **noise_kw(noise)),
+                forward_in(self.model, self.compute_dtype, v2,
+                           **noise_kw(noise)))
 
 
 def _variables(model_type: str, mp: Mapping, seed: int) -> Dict[str, Any]:

@@ -3,8 +3,10 @@ trainer/trainer.py:252-280, which `infomax3d_tpu/train/torch_interop.py`
 documents and reads).
 
 `best_checkpoint.pt` / `last_checkpoint.pt` hold ``model_state_dict``
-(``model3d_state_dict`` for a second model: torch names, running
-statistics included, on the CPU), ``optimizer_state_dict``,
+(``model3d_state_dict`` for a second model, ``critic_state_dict`` for
+the philosophy trainer's critic: torch names, running statistics
+included, on the CPU), ``optimizer_state_dict`` (keyed by model where
+each model has its own optimizer),
 ``scheduler_state_dict``, ``epoch``, ``best_val_score`` and
 ``optim_steps``.  Written with `torch.save` (atomically: a reader never
 sees a partial file) and read with ``weights_only=True``, so a checkpoint
@@ -19,7 +21,8 @@ import torch
 
 # payload key of each model key
 STATE_DICT_KEYS = {"model": "model_state_dict",
-                   "model3d": "model3d_state_dict"}
+                   "model3d": "model3d_state_dict",
+                   "critic": "critic_state_dict"}
 
 
 def state_dicts(models: Mapping[str, torch.nn.Module]

@@ -21,11 +21,13 @@ The update rules are the JAX package's: Adam with weight decay coupled
 into the gradient before the moments (`torch.optim.Adam`), AdamW with it
 decoupled (`torch.optim.AdamW`), SGD with momentum (`torch.optim.SGD`),
 torch's bias correction.  A frozen group runs at lr 0: its moments still
-update, its parameters do not move.
+update, its parameters do not move.  `OptimizerSet` holds one optimizer
+per model key where a trainer steps the models on different losses.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
+from typing import (Any, Dict, Iterable, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -117,3 +119,33 @@ def build_adam(named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                   for n, _ in named}
     return build_optimizer(named, labels, "Adam", lr=lr,
                            weight_decay=weight_decay, betas=betas, eps=eps)
+
+
+class OptimizerSet:
+    """Optimizers by model key, used as one (the philosophy trainer's three,
+    the JAX package's one `GroupedOptimizer` per key): `param_groups` lists
+    every group in key order, `zero_grad` and `step` act on all, and the
+    state dict maps each key to its optimizer's."""
+
+    def __init__(self, optimizers: Mapping[str, torch.optim.Optimizer]):
+        self.optimizers = dict(optimizers)
+
+    @property
+    def param_groups(self) -> list:
+        return [g for opt in self.optimizers.values()
+                for g in opt.param_groups]
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for opt in self.optimizers.values():
+            opt.zero_grad(set_to_none=set_to_none)
+
+    def step(self) -> None:
+        for opt in self.optimizers.values():
+            opt.step()
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {k: opt.state_dict() for k, opt in self.optimizers.items()}
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        for k, opt in self.optimizers.items():
+            opt.load_state_dict(state[k])

@@ -116,17 +116,37 @@ class PretrainStep(TrainStep):
         return (cast_batch(g2.to(self.device), self.compute_dtype),
                 cast_batch(g3.to(self.device), self.compute_dtype))
 
-    def outputs(self, g2: GraphBatch, g3: DenseBatch
+    def outputs(self, g2: GraphBatch, g3: DenseBatch, noise=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Both models' float32 outputs on prepared batches, under the
-        recipe (training or eval, as the modules are set)."""
-        return (forward_in(self.model, self.compute_dtype, g2),
-                forward_in(self.model3d, self.compute_dtype, g3))
+        recipe (training or eval, as the modules are set); `noise` draws
+        the dropout masks, the 2D model's first."""
+        return (forward_in(self.model, self.compute_dtype, g2,
+                           **noise_kw(noise)),
+                forward_in(self.model3d, self.compute_dtype, g3,
+                           **noise_kw(noise)))
 
-    def loss(self, g2: GraphBatch, g3: DenseBatch):
+    def loss(self, g2: GraphBatch, g3: DenseBatch, noise=None):
         """(float32 loss, both outputs) on prepared batches."""
-        z1, z2 = self.outputs(g2, g3)
-        return self.loss_fn(z1, z2), (z1, z2)
+        z1, z2 = self.outputs(g2, g3, noise)
+        return self.loss_fn(z1, z2, **loss_kwargs(self.loss_fn, g2)), \
+            (z1, z2)
+
+
+def noise_kw(noise) -> Dict[str, Any]:
+    """A forward's keyword arguments for the noise source `noise` (none
+    without one: some 3D models' forwards take no source)."""
+    return {} if noise is None else {"noise": noise}
+
+
+def loss_kwargs(loss_fn, g2: GraphBatch) -> Dict[str, Any]:
+    """The 2D batch's node-to-graph ids and node mask for a node-level
+    ("Local") loss, or the one `SampleLossWrapper` wraps (the JAX
+    `SelfSupervisedTrainer._loss_kwargs`); nothing for the others."""
+    inner = getattr(loss_fn, "loss", loss_fn)
+    if "Local" in type(inner).__name__:
+        return dict(node_graph=g2.node_graph, node_mask=g2.node_mask)
+    return {}
 
 
 def flagship_batches(batch_size: int, seed: int = 0, n_min: int = 10,

@@ -1,6 +1,7 @@
 """Training engine (port of `infomax3d_tpu/train/trainer.py`: `Trainer`,
-`SelfSupervisedTrainer`, `SelfSupervisedAETrainer`, `BYOLTrainer`,
-`GraphCLTrainer`, `DistancePredictorTrainer` and
+`SelfSupervisedTrainer`, `SelfSupervisedAlternatingTrainer`,
+`SelfSupervisedAETrainer`, `NoisyNegativesTrainer`, `BYOLTrainer`,
+`PhilosophyTrainer`, `GraphCLTrainer`, `DistancePredictorTrainer` and
 `OptimalTransportTrainer`).
 
 The host loop is the JAX package's, which is the contract of the
@@ -16,9 +17,10 @@ The step is not written again here: the supervised trainer runs
 `train/supervised.py::SupervisedStep` (handing each training step a source
 of dropout masks drawn on the trainer's device from one generator seeded
 with `seed`, and no noise, as the JAX trainer hands its model a
-``dropout`` rng alone; eval steps draw nothing), the contrastive one
-`train/pretrain.py::PretrainStep`, BYOL `train/byol.py::BYOLStep`, the
-baselines the steps of
+``dropout`` rng alone; eval steps draw nothing; the contrastive, the
+autoencoder and the distance trainers do the same), the contrastive one
+`train/pretrain.py::PretrainStep` (its flavours `train/flavours.py`), BYOL
+`train/byol.py::BYOLStep`, the baselines the steps of
 `train/baselines.py` and the OT trainer `train/ot.py::OTStep`, each built over the config's models and
 the grouped optimizer (`train/optim.py`), so the bf16 recipe (float32
 masters, bf16 forward, float32 outputs into the loss) is the steps'.  The
@@ -55,8 +57,12 @@ from infomax3d_tpu_torch.train import checkpoint
 from infomax3d_tpu_torch.train.baselines import (AEStep, DistanceStep,
                                                 GraphCLStep)
 from infomax3d_tpu_torch.train.byol import BYOLStep
+from infomax3d_tpu_torch.train.flavours import (AlternatingStep,
+                                                NoisyNegativesStep,
+                                                PhilosophyStep)
 from infomax3d_tpu_torch.train.logging import TENSORBOARD_FUNCTIONS, RunLogger
-from infomax3d_tpu_torch.train.optim import build_optimizer, label_params
+from infomax3d_tpu_torch.train.optim import (OptimizerSet, build_optimizer,
+                                             label_params)
 from infomax3d_tpu_torch.train.ot import OTStep
 from infomax3d_tpu_torch.train.precision import resolve_compute_dtype
 from infomax3d_tpu_torch.train.pretrain import PretrainStep
@@ -233,10 +239,11 @@ class Trainer:
                              self.lr_controllers["main"].lrs):
             group["lr"] = lr
 
-    def _train_step(self, batches):
-        """One optimizer step; returns (loss, outputs), both detached."""
-        kw = {"noise": masks_source(self.generator)} if self.DRAWS_MASKS \
-            else {}
+    def _train_step(self, batches, **kw):
+        """One optimizer step (`kw` to the step's loss); returns (loss,
+        outputs), both detached."""
+        if self.DRAWS_MASKS:
+            kw["noise"] = masks_source(self.generator)
         loss, out = self.step.loss_and_grads(*batches, return_outputs=True,
                                              **kw)
         self.step.optimizer.step()
@@ -254,10 +261,10 @@ class Trainer:
             for key in self.MODEL_KEYS:
                 self.models[key].train()
 
-    def _eval_step(self, batches):
+    def _eval_step(self, batches, **kw):
         """Loss and outputs in eval mode."""
         with self._evaluating():
-            return self.step.loss(*batches)
+            return self.step.loss(*batches, **kw)
 
     def _host_filter(self, batch, out):
         """Real graphs' predictions and targets as host arrays."""
@@ -269,6 +276,11 @@ class Trainer:
         """The loss's parts logged beside it (the JAX `AuxOut.
         extra_losses`); none here."""
         return {}
+
+    def _logged_lrs(self) -> Dict[str, float]:
+        """The learning rates logged with the training metrics."""
+        return {f"lr_param_group_{gi}": lr for gi, lr in
+                enumerate(self.lr_controllers["main"].lrs)}
 
     def _eval_metrics(self, preds, targets, val=False) -> Dict[str, float]:
         res = {
@@ -313,8 +325,7 @@ class Trainer:
                     m = self._eval_metrics(preds, targets)
                     m[self.loss_name] = float(loss)
                     m.update(self._extra_losses(out))
-                    for gi, lr in enumerate(self.lr_controllers["main"].lrs):
-                        m[f"lr_param_group_{gi}"] = lr
+                    m.update(self._logged_lrs())
                 with self._timed("logging"):
                     self.logger.log(m, "train", self.optim_steps, epoch)
                     self.run_tensorboard_functions(preds, targets,
@@ -516,7 +527,6 @@ class SelfSupervisedTrainer(Trainer):
     the JAX package's do."""
 
     MODEL_KEYS = ("model", "model3d")
-    DRAWS_MASKS = False
 
     def _make_step(self):
         return PretrainStep.from_modules(
@@ -577,6 +587,106 @@ class SelfSupervisedAETrainer(SelfSupervisedTrainer):
         return {k: float(v) for k, v in out[2].items()}
 
 
+class SelfSupervisedAlternatingTrainer(SelfSupervisedTrainer):
+    """Gradients alternate sides each optimizer step (reference
+    self_supervised_alternating_trainer.py:10-22, `AlternatingStep`): the
+    parity is the optimizer's step count (`optim_steps`, the JAX
+    ``state.step``), in training and in evaluation."""
+
+    def _make_step(self):
+        return AlternatingStep.from_modules(
+            self.models["model"], self.models["model3d"], self.device,
+            self.compute_dtype, self.loss_func, self.optimizer)
+
+    def _train_step(self, batches, **kw):
+        return super()._train_step(batches, even=self.optim_steps % 2 == 0,
+                                   **kw)
+
+    def _eval_step(self, batches, **kw):
+        return super()._eval_step(batches, even=self.optim_steps % 2 == 0,
+                                  **kw)
+
+
+class NoisyNegativesTrainer(SelfSupervisedTrainer):
+    """The 3D model also embeds the batch's noised 3D copy (reference
+    noisy_negatives_trainer.py, `NoisyNegativesStep`), appended to the 3D
+    side for the loss (`NTXentExtraNegatives`).  One copy only: with
+    `num_noised` > 1 the collate gives a list, which the JAX trainer's
+    3D model cannot read either."""
+
+    def _make_step(self):
+        return NoisyNegativesStep.from_modules(
+            self.models["model"], self.models["model3d"], self.device,
+            self.compute_dtype, self.loss_func, self.optimizer)
+
+    def _prepare(self, batch):
+        noisy = batch["noisy3d"]
+        if isinstance(noisy, (list, tuple)):
+            raise TypeError(
+                "noisy_negatives reads one noised copy of the 3D view "
+                f"(num_noised 1); the batch holds {len(noisy)}")
+        with self._timed("to_device"):
+            return self.step.prepare(to_device(batch["graph2d"], self.device),
+                                     to_device(batch["graph3d"], self.device),
+                                     to_device(noisy, self.device))
+
+
+class PhilosophyTrainer(SelfSupervisedTrainer):
+    """Three-player adversarial training (reference philosophy_trainer.py,
+    the JAX `PhilosophyTrainer`, `PhilosophyStep`): ``model``, ``model3d``
+    and ``critic``, each with its own grouped optimizer (the config's
+    optimizer and parameters; no transfer groups) and lr controller.  The
+    peasant loss is the logged loss, beside ``philosopher_loss`` and the
+    critic loss under its class name.  A checkpoint carries the critic
+    (``critic_state_dict``) and the three optimizers' states."""
+
+    MODEL_KEYS = ("model", "model3d", "critic")
+
+    def __init__(self, *a, critic_loss=None, **kw):
+        super().__init__(*a, **kw)
+        self.critic_loss_func = critic_loss
+
+    def _build_optimizer(self):
+        op = dict(self.args.get("optimizer_params", {}) or {})
+        op["betas"] = tuple(op.get("betas", (0.9, 0.999)))
+        optimizers = {}
+        for key in self.MODEL_KEYS:
+            paths = {f"{key}.{n}": f"{key}/{p}"
+                     for n, p in flax_paths(self.models[key]).items()}
+            labels, self.active_groups[key] = label_params(paths)
+            optimizers[key] = build_optimizer(
+                ((f"{key}.{n}", p)
+                 for n, p in self.models[key].named_parameters()),
+                labels, self.args.get("optimizer", "Adam"), **op)
+            self.lr_controllers[key] = LRController(
+                [g["lr"] for g in optimizers[key].param_groups],
+                self.args.get("lr_scheduler"),
+                self.args.get("lr_scheduler_params"),
+                step_per_batch=self.scheduler_step_per_batch)
+        self.optimizer = OptimizerSet(optimizers)
+
+    def _write_lrs(self):
+        for key, opt in self.optimizer.optimizers.items():
+            for group, lr in zip(opt.param_groups,
+                                 self.lr_controllers[key].lrs):
+                group["lr"] = lr
+
+    def _logged_lrs(self) -> Dict[str, float]:
+        return {}
+
+    def _make_step(self):
+        return PhilosophyStep.from_modules(
+            self.models["model"], self.models["model3d"],
+            self.models["critic"], self.device, self.compute_dtype,
+            self.loss_func, self.critic_loss_func, self.optimizer)
+
+    def _host_filter(self, batch, out):
+        return super()._host_filter(batch, out[:2])
+
+    def _extra_losses(self, out) -> Dict[str, float]:
+        return {k: float(v) for k, v in out[2].items()}
+
+
 class BYOLTrainer(SelfSupervisedTrainer):
     """BYOL (reference byol_trainer.py, the JAX package's `BYOLTrainer`):
     ``model`` and ``model3d`` are `BYOLWrapper`s, each step a `BYOLStep`
@@ -589,6 +699,7 @@ class BYOLTrainer(SelfSupervisedTrainer):
     resumed run and the reload of the best checkpoint restore them."""
 
     TEACHER = "teacher."
+    DRAWS_MASKS = False
 
     def __init__(self, *a, ma_decay: float = 0.99, ema_all: bool = False,
                  **kw):
@@ -653,8 +764,6 @@ class DistancePredictorTrainer(Trainer):
     2D graph (reference DistancePredictor path, `DistanceStep`); the batch
     is the graph and its pair view with the true distances, and the
     metrics read the real pairs."""
-
-    DRAWS_MASKS = False
 
     def _make_step(self):
         return DistanceStep.from_modules(self.models["model"], self.device,
@@ -757,20 +866,17 @@ class OptimalTransportTrainer(Trainer):
 
 
 TRAINER_REGISTRY = {"default": Trainer, "contrastive": SelfSupervisedTrainer,
+                    "alternating": SelfSupervisedAlternatingTrainer,
                     "autoencoder": SelfSupervisedAETrainer,
+                    "noisy_negatives": NoisyNegativesTrainer,
                     "byol": BYOLTrainer,
+                    "philosophy": PhilosophyTrainer,
                     "graphcl_trainer": GraphCLTrainer,
                     "distance_predictor": DistancePredictorTrainer,
                     "optimal_transport": OptimalTransportTrainer}
 
-# the JAX package's other trainer flavours (ROADMAP queue 1, item 8b)
-NOT_PORTED = ("alternating", "philosophy", "noisy_negatives")
-
 
 def get_trainer_class(name: str):
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"trainer '{name}' is not ported yet (ROADMAP queue 1, item 8b)")
     if name not in TRAINER_REGISTRY:
         raise KeyError(f"unknown trainer '{name}'")
     return TRAINER_REGISTRY[name]

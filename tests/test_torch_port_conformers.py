@@ -721,20 +721,31 @@ def test_resolve_fast_paths_routes_the_flat_net3d():
 
 
 def test_dense_net3d_refuses_node_features():
-    """`use_node_features` is the flat Net3D's: Net3DDense builds the
-    same parameters and raises in its forward rather than ignore them."""
+    """`use_node_features` gives Net3DDense the flat Net3D's parameters
+    (the atom encoder in place of the node embedding), and the dense
+    forward on the same molecules equals the flat one with the same
+    weights (it raised before the dense layout ported the encoder)."""
+    from infomax3d_tpu_torch.graphs.batch import (batch_graphs, bucket_for,
+                                                  to_graph_batch)
     from infomax3d_tpu_torch.graphs.dense import dense_batch, to_dense_batch
     from infomax3d_tpu_torch.models import Net3DDense
     mols = SyntheticMolecules(B, **DATA)
     confs = [mols.graph3d(i) for i in range(B)]
     g = to_dense_batch(dense_batch(
         confs, B, max(m["node_feat"].shape[0] for m in confs)), "cpu")
+    b = bucket_for(confs, B)
+    flat_g = to_graph_batch(batch_graphs(confs, b), b, "cpu")
     mp = dict(MODEL3D, use_node_features=True)
     dense, flat = Net3DDense.from_config(mp), Net3D.from_config(mp)
     assert dict(dense.named_parameters()).keys() == \
         dict(flat.named_parameters()).keys()
-    with pytest.raises(NotImplementedError, match="use_node_features"):
-        dense(g)
+    assert hasattr(dense, "atom_encoder")
+    dense.load_state_dict(flat.state_dict())
+    with torch.no_grad():
+        want = flat.eval()(flat_g)
+        got = dense.eval()(g)
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
 
 
 def test_chip_smoke_trains_the_conformer_configs():

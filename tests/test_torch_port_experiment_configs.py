@@ -4,19 +4,21 @@
 torch's meta device, so no weights are made), `get_loss`, `get_collate`,
 the trainer class and `build_metrics`.  No model is trained.
 
-Each config's outcome is set by a table: it resolves, or it raises what
-the port does not have yet (the `NotImplementedError` of its ROADMAP queue
-1 item: 7g for `GeomolGNNWrapper`; item 8's trainers, none of which a
-config names, raise 8b), or it fails as the JAX package fails on
-it: `pnatransformersimple_ogbg.yml`'s width 80 is no multiple of its 32
+Each config's outcome is set by a table: it resolves (every model,
+loss and trainer a config names is ported; the tables of what raises a
+ROADMAP queue 1 item, `ITEM_7` and `ITEM_8`, are empty), or it fails as
+the JAX package fails on it: `pnatransformersimple_ogbg.yml`'s width 80 is no multiple of its 32
 heads; `PNASelfAttentionReadout` is registered in neither package
 (`KeyError`); the checkpoint pointers (`1.yml` to `8.yml`) carry no
 model parameters, so both packages' `PNA` lacks its required arguments
 (`TypeError`).  The JAX test's `SKIP` entry for `continue.yml` is kept.
+`GeomolGNNWrapper` reads its `node_dim` / `edge_dim` off the dataset, as
+in JAX: its config resolves against one float-featured molecule.
 """
 import glob
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,16 +36,20 @@ ALL_CONFIGS = sorted(os.path.basename(p) for p in
 SKIP = {"continue.yml": "bare checkpoint pointer into a run dir the "
                         "reference does not ship (reference "
                         "configs/continue.yml)"}
-# the models the port has not ported yet, by ROADMAP queue 1 item
-ITEM_7 = {"tune_from_ot_geomoL_feat.yml": "7g"}
+# the models the port has not ported yet, by ROADMAP queue 1 item: none
+ITEM_7 = {}
 ITEM_8 = set()
 # what fails in the JAX package too
 WIDTH = {"pnatransformersimple_ogbg.yml"}
 UNKNOWN = {"contrastive_training_pna_self_attention_readout.yml"}
 POINTERS = {f"{i}.yml" for i in range(1, 9)}
-# the configs this slice opens (BYOL, 8a; SAN, 7e; EGNN, 7f): none of
-# them raises
-SLICE = ("byol.yml", "san.yml", "san_ogbg.yml", "0.yml")
+# the configs the last slices opened (BYOL, 8a; SAN, 7e; EGNN, 7f; the
+# GeoMol wrapper, 7g): none of them raises
+SLICE = ("byol.yml", "san.yml", "san_ogbg.yml", "0.yml",
+         "tune_from_ot_geomoL_feat.yml")
+# one molecule of `qm9_geomol`'s float features (the chemprop widths)
+FLOAT_FEATURES = [{"graph2d": {"node_feat": np.zeros((3, 44), np.float32),
+                               "edge_feat": np.zeros((4, 4), np.float32)}}]
 # as the JAX test: metrics that need a dataset in hand, and one that the
 # reference's own lookup fails on
 DATASET_DEPENDENT_METRICS = {"qm9_properties", "mae_denormalized",
@@ -55,8 +61,9 @@ def resolve(name):
     """The port's resolution of config `name`; raises where it stops."""
     args = load_config(os.path.join(CONFIG_DIR, name))
     port_cli.resolve_collate(args)
+    dataset = FLOAT_FEATURES if args["dataset"] == "qm9_geomol" else None
     with torch.device("meta"):
-        models = port_cli.build_models(args)
+        models = port_cli.build_models(args, dataset)
     if args["loss_func"] not in SUPERVISED_LOSSES:
         get_loss(args["loss_func"], **(args.get("loss_params") or {}))
     get_collate(args["collate_function"])
@@ -71,26 +78,40 @@ def resolve(name):
 
 def test_outcome_table():
     """The table's counts after this slice, each name a config of
-    `configs/`, no config in two rows: 78 configs resolve, the slice's
-    four among them; item 7 raises for one (7g), item 8 for none."""
+    `configs/`, no config in two rows: 79 configs resolve, the last
+    slices' five among them; no config raises a queue 1 item."""
     assert len(ALL_CONFIGS) == 90
-    assert len(ITEM_7) == 1 and len(ITEM_8) == 0
-    assert sorted(ITEM_7.values()) == ["7g"]
+    assert len(ITEM_7) == 0 and len(ITEM_8) == 0
     rows = [set(ITEM_7), ITEM_8, WIDTH, UNKNOWN, POINTERS, set(SKIP),
             set(SLICE)]
     assert sum(len(r) for r in rows) == len(set().union(*rows))
     assert set().union(*rows) <= set(ALL_CONFIGS)
-    assert len(ALL_CONFIGS) - len(set().union(*rows)) + len(SLICE) == 78
+    assert len(ALL_CONFIGS) - len(set().union(*rows)) + len(SLICE) == 79
 
 
 def test_critic_type_names_item_8b():
-    """A config's `critic_type` (the philosophy trainer's critic) raises
-    naming ROADMAP queue 1, item 8b."""
-    args = load_config(os.path.join(CONFIG_DIR, "0.yml"),
-                       {"critic_type": "Critic"})
-    with pytest.raises(NotImplementedError, match=r"item 8b\)"):
+    """A config's `critic_type` (the philosophy trainer's critic, ROADMAP
+    queue 1 item 8b, ported) builds the critic from `critic_parameters`,
+    its input `critic_in_dim` wide (default 256, the JAX trainer's), as
+    the JAX CLI builds it; `BasicCritic` names the same class."""
+    for name in ("Critic", "BasicCritic"):
+        args = load_config(os.path.join(CONFIG_DIR, "0.yml"),
+                           {"critic_type": name, "trainer": "philosophy",
+                            "critic_parameters": {"metric_dim": 16,
+                                                  "repeats": 2}})
         with torch.device("meta"):
-            port_cli.build_models(args)
+            critic = port_cli.build_models(args)["critic"]
+        jax_critic = jax_cli.build_models(
+            jax_load_config(os.path.join(CONFIG_DIR, "0.yml"),
+                            {"critic_type": name,
+                             "critic_parameters": {"metric_dim": 16,
+                                                   "repeats": 2}}))["critic"]
+        assert type(critic).__name__ == type(jax_critic).__name__ == "Critic"
+        first = critic.mlp.fully_connected[0].linear
+        last = critic.mlp.fully_connected[-1].linear
+        assert (first.in_features, last.out_features) == (256, 32)
+        assert (jax_critic.metric_dim, jax_critic.repeats) == (16, 2)
+        get_trainer_class(args["trainer"])
 
 
 @pytest.mark.parametrize("name", ALL_CONFIGS)
