@@ -81,7 +81,7 @@ its seconds:
    `configs_clean/pre-train_Optimal_Transport_baseline.yml`
    (OptimalTransportModel over PNAGNNRandomEdgeUpdate 50x3, 10 model and
    10 true conformers, exact EMD, Adam lr 1e-3, clip 10, batch 16) through
-   `ot()`, 20 float32 steps: launches per step, loss over the steps; one
+   `ot()`, 10 float32 steps: launches per step, loss over the steps; one
    step on the card against the same step on the CPU with the same draws
    and plans (cost, loss, every gradient leaf), and two planted faults (a
    zeroed receiver-gather backward; the torsion head's gradient alone
@@ -292,6 +292,26 @@ its seconds:
    `configs/tune_from_ot_geomoL_feat.yml` through the CLI on a synthetic
    `qm9_geomol` cache of float features, from scratch and again from the
    first run's checkpoint (its transfer moves nothing, as the JAX CLI's).
+27. Data parallelism (`n_shards: 2`, `infomax3d_tpu_torch/parallel/`),
+   the kernels built once (phase 2) before any rank starts: (a) the bf16
+   pre-training step of `configs_clean/pre-train_QM9.yml` (PNA 200x7 +
+   Net3DDense, batch 500) through a one-rank NCCL group, bit for bit the
+   step without a group; (b) two ranks on the one card over gloo (named:
+   NCCL refuses two ranks on one card), each on its half of the batch
+   (250 molecules; `configs/30.yml`'s GIN step, 64 of 128), float32 and
+   bf16, against one process on the whole batch on the card: float32
+   within phase 8's STEP_TOL, bf16 within `_bf16_limits` of two rounding
+   witnesses of the one-process bf16 step (its weights scaled by 1 + j *
+   2^-16 U(-1, 1)); the ranks bit-equal, launches per rank and step
+   exact; the all-reduce and all-gather calls of a step with their host
+   ms, and ms per step of the two ranks time-sliced on one card (not a
+   measure of data-parallel speed); (c) the training CLI on
+   `pre-train_QM9.yml` with `n_shards: 2` as torchrun starts it (1 epoch
+   of 2 steps on 5000 synthetic molecules): one run directory, the ranks'
+   results equal, launches exact; (d) three planted faults (BatchNorm
+   statistics left local; the contrastive loss on the local rows; the
+   gradients summed, not averaged) that must each fail (b)'s float32
+   check.
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 """
@@ -7038,6 +7058,426 @@ def phase_slice19(smi: str, out_dir: Path) -> dict:
     return {"launches": launches, "errs": errs}
 
 
+# ------------------------------------------------ phase 27: data parallel
+
+# configs_clean/pre-train_QM9.yml's step (phase 8) and configs/30.yml's GIN
+# step (phase 12) with `n_shards: 2`: each rank takes its half of the
+# batch (250 and 64 molecules), both ranks on the one card over gloo
+# (named: NCCL refuses two ranks on one card).  The ranks build what
+# `spec` says (`_dp_spec`), so that a rehearsal can shrink it.
+DP_RANKS = 2
+DP_TIMED = 5
+# (c): 1 epoch of 2 steps of 500 (250 per rank), one validation batch and
+# the best checkpoint's, on 5000 synthetic molecules
+DP_CLI = {"dataset": "synthetic", "dataset_params": {"num": 5000},
+          "num_train": 1000, "num_epochs": 1, "eval_on_test": False,
+          "use_tensorboard": False, "log_iterations": 1,
+          "n_shards": DP_RANKS, "dist_backend": "gloo"}
+DP_CLI_STEPS, DP_CLI_EVALS = 2, 2
+DP_FAULTS = ("BatchNorm statistics local", "loss on local rows",
+             "gradients summed")
+DP_SIDES = {"pre": ("model", "model3d"), "gin": ("model",)}
+
+
+def _dp_spec() -> dict:
+    return {"device": "cuda", "ranks": DP_RANKS, "backend": "gloo",
+            "timed": DP_TIMED,
+            "pre": {bf16: _train_args(bf16) for bf16 in (False, True)},
+            "gin": {bf16: _gin_args(bf16) for bf16 in (False, True)},
+            "pre_data": {"seed": 0, "n_min": DATA["n_min"],
+                         "n_max": DATA["n_max"]},
+            "gin_data": GIN_DATA, "cli": (TRAINER_PRE, DP_CLI),
+            "expect": {("pre", False): EXPECTED_STEP[False],
+                       ("pre", True): EXPECTED_STEP[True],
+                       ("gin", False): EXPECTED_GIN_STEP,
+                       ("gin", True): EXPECTED_GIN_STEP,
+                       "cli": _expect(EXPECTED_STEP[True], EXPECTED[True],
+                                      DP_CLI_STEPS, DP_CLI_EVALS)}}
+
+
+def _dp_batches(spec: dict, rank: int, k: int, device) -> dict:
+    """Shard `rank` of `k` of phase 8's flagship batch (the CSR 2D batch
+    and the dense 3D batch on the whole batch's largest molecule) and of
+    phase 12's GIN batch; the whole batches for k = 1."""
+    from infomax3d_tpu_torch.graphs.dense import dense_batch, to_dense_batch
+    n, d = spec["pre"][True]["batch_size"], spec["pre_data"]
+    ds = SyntheticMolecules(n, **d)
+    per = n // k
+    idx = range(rank * per, (rank + 1) * per)
+    mols2 = [ds.graph2d(i) for i in idx]
+    mols3 = [ds.graph3d(i) for i in idx]
+    nmax3 = max(ds.graph3d(i)["node_feat"].shape[0] for i in range(n))
+    b2 = bucket_for(mols2, per)
+    gn = spec["gin"][True]["batch_size"]
+    gds = SyntheticMolecules(gn, num_targets=1, **spec["gin_data"])
+    labels = (gds.targets > 0).astype(np.float32)
+    per_g = gn // k
+    mols = [dict(gds.graph2d(i), targets=labels[i])
+            for i in range(rank * per_g, (rank + 1) * per_g)]
+    bg = bucket_for(mols, per_g)
+    return {"pre": (to_graph_batch(batch_graphs(mols2, b2), b2, device),
+                    to_dense_batch(dense_batch(mols3, per, nmax3), device)),
+            "gin": (to_graph_batch(batch_graphs(mols, bg), bg, device),)}
+
+
+# what wraps the contrastive loss under a group (a planted fault swaps it)
+_DP_LOSS = {"wrap": None}
+# each process's steps by (kind, bf16): built once (a PNA 200x7 step takes
+# seconds to build), their weights and statistics restored for each use
+_DP_STEPS = {}
+
+
+def _dp_fresh(spec: dict, kind: str, bf16: bool, dev):
+    """The seeded step of `kind` ("pre", "gin") at its initial weights and
+    running statistics, its models and its own loss."""
+    key = (kind, bf16)
+    if key not in _DP_STEPS:
+        if kind == "pre":
+            step = build_step(spec["pre"][bf16], dev)
+            models = {"model": step.model, "model3d": step.model3d}
+        else:
+            step = build_supervised_step(spec["gin"][bf16], dev)
+            models = {"model": step.model}
+        state = {n: {k: v.clone() for k, v in m.state_dict().items()}
+                 for n, m in models.items()}
+        _DP_STEPS[key] = (step, models, state, getattr(step, "loss_fn",
+                                                       None))
+    step, models, state, loss = _DP_STEPS[key]
+    for n, m in models.items():
+        m.load_state_dict(state[n])
+    if loss is not None:
+        step.loss_fn = loss
+    return step, models
+
+
+def _dp_step(spec: dict, kind: str, bf16: bool, batches, group,
+             perturb: float = 0.0, timed: bool = False):
+    """`_measure_step` of one seeded step of `kind` ("pre", "gin") on
+    `batches` under the data-parallel `group` (the contrastive loss
+    through `CrossDeviceLoss`), or in one process with None; with
+    `timed`, ms per step instead (CUDA events over `spec["timed"]` warm
+    steps, which move the step's weights: the last use of its step)."""
+    from infomax3d_tpu_torch.parallel import (CrossDeviceLoss,
+                                              using_data_parallel_group)
+    step, models = _dp_fresh(spec, kind, bf16, batches[0].node_feat.device)
+    if group is not None and kind == "pre":
+        wrap = _DP_LOSS["wrap"] or CrossDeviceLoss
+        step.loss_fn = wrap(step.loss_fn, group)
+    prepared = step.prepare(*batches)
+    if not isinstance(prepared, tuple):
+        prepared = (prepared,)
+    with using_data_parallel_group(group):
+        if timed:
+            return cuda_ms(lambda: step.step(*prepared),
+                           iters=spec["timed"], warmup=1)
+        return _measure_step(step, models, prepared, perturb=perturb)
+
+
+def _dp_sum_over_ranks(tensors, group):
+    """The gradient mean without its division (a planted fault)."""
+    from infomax3d_tpu_torch.parallel.collectives import all_reduce_
+    for t in tensors:
+        all_reduce_(t, group)
+    return list(tensors)
+
+
+def _dp_plant(name: str):
+    """Plant the data-parallel fault `name` in this process (BatchNorm
+    statistics left local; the contrastive loss on the local rows; the
+    gradients summed over the ranks, not averaged); returns the undo."""
+    if name == "loss on local rows":
+        _DP_LOSS["wrap"] = lambda loss, group: loss
+        return lambda: _DP_LOSS.update(wrap=None)
+    mod, attr, fake = {
+        "BatchNorm statistics local": (
+            "infomax3d_tpu_torch.models.base", "data_parallel_group",
+            lambda: None),
+        "gradients summed": ("infomax3d_tpu_torch.train.supervised",
+                             "mean_over_ranks", _dp_sum_over_ranks)}[name]
+    mod = importlib.import_module(mod)
+    real = getattr(mod, attr)
+    setattr(mod, attr, fake)
+    return lambda: setattr(mod, attr, real)
+
+
+def _dp_collectives(spec: dict, kind: str, batches, group) -> dict:
+    """The collectives of one bf16 step of `kind` under `group`: per kind
+    (all-reduce, all-gather) the calls, the elements and the host ms
+    between a synchronization before and one after each."""
+    from infomax3d_tpu_torch.parallel import collectives as C
+    seen = {"all_reduce": [0, 0, 0.0], "all_gather": [0, 0, 0.0]}
+    real = {"all_reduce_": C.all_reduce_, "gather_rows": C.gather_rows}
+    cuda = spec["device"] == "cuda"
+
+    def timed(name, key):
+        def fn(t, group):
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](t, group)
+            if cuda:
+                torch.cuda.synchronize()
+            s = seen[key]
+            s[0] += 1
+            s[1] += t.numel()
+            s[2] += (time.perf_counter() - t0) * 1e3
+            return out
+        return fn
+    C.all_reduce_ = timed("all_reduce_", "all_reduce")
+    C.gather_rows = timed("gather_rows", "all_gather")
+    try:
+        _dp_step(spec, kind, True, batches, group)
+    finally:
+        C.all_reduce_, C.gather_rows = real["all_reduce_"], \
+            real["gather_rows"]
+    return seen
+
+
+def _dp_rank(rank: int, spec: dict, out: str, port: int):
+    """One rank of phase 27 (b) and (c): the steps on its shards under the
+    group (`spec["backend"]`, rendezvous in a file store), each step's
+    launches, the
+    planted faults, the collectives and the timings; then (c), the CLI as
+    torchrun starts it (the launch in the environment, rendezvous on
+    localhost).  Writes its results to `out`/rank{rank}.pt."""
+    from datetime import timedelta
+    from infomax3d_tpu_torch.cli.config import load_config
+    from infomax3d_tpu_torch.cli.train import train as cli_train
+    from infomax3d_tpu_torch.parallel import close_group, make_group
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    k, res = spec["ranks"], {}
+    group, dev = make_group(k, rank, f"file://{out}/store", spec["backend"],
+                            spec["device"], timeout=timedelta(minutes=5))
+    try:
+        batches = _dp_batches(spec, rank, k, dev)
+        _reset_counts()
+        for kind in ("pre", "gin"):
+            for bf16 in (False, True):
+                before = _counts()
+                res[(kind, bf16)] = _dp_step(spec, kind, bf16,
+                                             batches[kind], group)
+                res[(kind, bf16, "launches")] = {
+                    n: c - before[n] for n, c in _counts().items()}
+        res["launches"] = _counts()
+        for name in DP_FAULTS:
+            undo = _dp_plant(name)
+            try:
+                res[("fault", name)] = _dp_step(spec, "pre", False,
+                                                batches["pre"], group)
+            finally:
+                undo()
+        for kind in ("pre", "gin"):
+            res[(kind, "collectives")] = _dp_collectives(
+                spec, kind, batches[kind], group)
+            if spec["device"] == "cuda":
+                res[(kind, "ms")] = _dp_step(spec, kind, True, batches[kind],
+                                             group, timed=True)
+    finally:
+        close_group()
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(k),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(k))
+    config, overrides = spec["cli"]
+    args = load_config(config, dict(overrides, logdir=f"{out}/cli"))
+    _reset_counts()
+    t0 = time.perf_counter()
+    res["cli"] = cli_train(args, device=spec["device"])
+    res["cli_s"] = time.perf_counter() - t0
+    res["cli_launches"] = _counts()
+    torch.save(res, f"{out}/rank{rank}.pt")
+
+
+def _dp_same(a, b) -> bool:
+    """Two `_measure_step` results equal bit for bit."""
+    return a[0] == b[0] and a[1].keys() == b[1].keys() and all(
+        (x is None and y is None) or (x is not None and y is not None
+                                      and torch.equal(x, y))
+        for x, y in ((a[1][k], b[1][k]) for k in a[1]))
+
+
+def _dp_one_rank(spec: dict, whole: dict, out: Path) -> dict:
+    """(a) The bf16 pre-training step through a one-rank NCCL group, bit
+    for bit the step without a group; returns the group step's
+    launches."""
+    from infomax3d_tpu_torch.parallel import close_group, make_group
+    store = out / "dp_one_rank_store"
+    store.unlink(missing_ok=True)
+    make_group(1, 0, f"file://{store}",
+               "nccl" if spec["device"] == "cuda" else "gloo",
+               spec["device"])
+    try:
+        import torch.distributed as dist
+        group = dist.group.WORLD
+        alone = _dp_step(spec, "pre", True, whole["pre"], None)
+        before = _counts()
+        grouped = _dp_step(spec, "pre", True, whole["pre"], group)
+        launches = {n: c - before[n] for n, c in _counts().items()}
+        backend = dist.get_backend(group)
+    finally:
+        close_group()
+    _check(_dp_same(alone, grouped),
+           "the step through a one-rank group is not the step without one")
+    _check(launches == spec["expect"][("pre", True)],
+           f"(a) launches {launches}")
+    print(f"[dp] (a) bf16 pre-training step through a one-rank {backend} "
+          f"group: loss {grouped[0]:.6f}, loss, every gradient and running "
+          f"statistic bit for bit the step without a group")
+    return launches
+
+
+def _dp_limits(spec: dict, kind: str, whole: dict) -> tuple:
+    """The one-process steps on the whole batch (float32, bf16) and the
+    bf16 check's limits: `_bf16_limits` of the largest distance of two
+    witnesses (the bf16 step at weights scaled by 1 + j * 2^-16 U(-1, 1),
+    j = 1, 2, against the bf16 step at the seeded weights)."""
+    f32 = _dp_step(spec, kind, False, whole[kind], None)
+    b16 = _dp_step(spec, kind, True, whole[kind], None)
+    own, own_loss = None, 0.0
+    for j in (1, 2):
+        lw, w = _dp_step(spec, kind, True, whole[kind], None,
+                         perturb=j * 2.0 ** -16)
+        rw = _readings(w, b16[1], DP_SIDES[kind])
+        own_loss = max(own_loss, abs(lw - b16[0]) / abs(b16[0]))
+        if own is None:
+            own = rw
+        else:
+            _merge_own(own, rw)
+    _print_readings(f"({kind}) bf16 witnesses vs bf16 one process", own,
+                    {s: d["l2"] for s, d in own.items()}, "dp")
+    return f32, b16, _bf16_limits(own, own_loss)
+
+
+def _dp_held(got, ref, sides, tol, l2_tol, leaf_tol=None) -> tuple:
+    r = _readings(got[1], ref[1], sides)
+    rel = abs(got[0] - ref[0]) / abs(ref[0])
+    bad = ([f"loss {rel:.3g}"] if rel > tol["loss"] else []) + \
+        _violations(r, tol, l2_tol, leaf_tol)
+    return r, rel, bad
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_data_parallel(smi: str, out_dir: Path, spec: dict = None) -> dict:
+    """Phase 27: data parallelism (`n_shards: 2`).  (a) the bf16
+    pre-training step through a one-rank NCCL group, bit for bit the step
+    without one; (b) two ranks on the card over gloo: the pre-training
+    and GIN steps (float32, bf16) on their halves of the batch against
+    one process on the whole batch on the card, float32 within STEP_TOL,
+    bf16 within `_bf16_limits` of the bf16 step's own rounding witnesses,
+    the ranks bit-equal, launches per step exact; three planted faults
+    that must each fail the float32 check; the collectives per step and
+    the ms per step of two ranks time-sliced on one card; (c) the CLI,
+    `pre-train_QM9.yml` with `n_shards: 2` through torchrun's launch
+    environment.  Returns the main path's launches ((a), the ranks' steps
+    and CLI runs)."""
+    import shutil
+    spec = spec or _dp_spec()
+    k = spec["ranks"]
+    t = [time.perf_counter()]
+    whole = _dp_batches(spec, 0, 1, torch.device(spec["device"]))
+    _reset_counts()
+    launches = _dp_one_rank(spec, whole, out_dir)
+    t.append(time.perf_counter())
+    refs = {kind: _dp_limits(spec, kind, whole) for kind in ("pre", "gin")}
+    one_ms = {kind: _dp_step(spec, kind, True, whole[kind], None, timed=True)
+              for kind in ("pre", "gin") if spec["device"] == "cuda"}
+    t.append(time.perf_counter())
+    run = out_dir / "data_parallel"
+    shutil.rmtree(run, ignore_errors=True)
+    run.mkdir(parents=True)
+    torch.multiprocessing.start_processes(
+        _dp_rank, args=(spec, str(run), _free_port()), nprocs=k,
+        start_method="spawn")
+    ranks = [torch.load(run / f"rank{r}.pt", weights_only=False)
+             for r in range(k)]
+    t.append(time.perf_counter())
+    for kind in ("pre", "gin"):
+        f32, b16, limits = refs[kind]
+        for bf16 in (False, True):
+            got = ranks[0][(kind, bf16)]
+            _check(all(_dp_same(got, r[(kind, bf16)]) for r in ranks[1:]),
+                   f"({kind}, bf16={bf16}) the ranks differ")
+            for r in ranks:
+                per = r[(kind, bf16, "launches")]
+                _check(per == spec["expect"][(kind, bf16)],
+                       f"({kind}, bf16={bf16}) launches per rank {per}")
+            held = limits if bf16 else (
+                STEP_TOL[False], {s: STEP_TOL[False]["l2"]
+                                  for s in DP_SIDES[kind]})
+            r, rel, bad = _dp_held(got, b16 if bf16 else f32,
+                                   DP_SIDES[kind], *held)
+            print(f"[dp] (b) {kind} bf16={bf16}: {k} ranks "
+                  f"({spec['backend']}) vs one process "
+                  f"on the whole batch: loss {got[0]:.6f} vs "
+                  f"{(b16 if bf16 else f32)[0]:.6f}, {rel:.3g} (tol "
+                  f"{held[0]['loss']:.3g}); the ranks bit-equal")
+            _print_readings(f"({kind}) bf16={bf16} {k} ranks vs one process",
+                            r, held[1], "dp")
+            _check(not bad, f"({kind}, bf16={bf16}) {k} ranks vs one "
+                            f"process: {bad}")
+    f32 = refs["pre"][0]
+    for name in DP_FAULTS:
+        r, rel, bad = _dp_held(ranks[0][("fault", name)], f32,
+                               DP_SIDES["pre"], STEP_TOL[False],
+                               {s: STEP_TOL[False]["l2"]
+                                for s in DP_SIDES["pre"]})
+        print(f"[dp] (d) planted fault ({name}), float32: loss {rel:.3g}, "
+              f"{len(bad)} violations, e.g. {bad[:2]}")
+        _check(bool(bad), f"the data-parallel check passed a planted fault "
+                          f"({name})")
+    for kind in ("pre", "gin"):
+        seen = ranks[0][(kind, "collectives")]
+        how = ("gloo, host-staged" if spec["backend"] == "gloo"
+               else spec["backend"])
+        print(f"[dp] ({kind}) collectives of one bf16 step per rank: "
+              + ", ".join(f"{n} {c} calls of {e} elements in all, {ms:.3f} "
+                          f"ms host ({how}, synchronized)"
+                          for n, (c, e, ms) in seen.items()))
+        if (kind, "ms") in ranks[0]:
+            where = ("time-sliced on one card" if torch.cuda.device_count()
+                     < k else "one card each")
+            print(f"[dp] ({kind}) {k} ranks {where}, {spec['backend']}: "
+                  f"{ranks[0][(kind, 'ms')]:.3f} ms per bf16 step (rank 0's "
+                  f"CUDA events over {spec['timed']} warm steps); one "
+                  f"process on the whole batch {one_ms[kind]:.3f} ms"
+                  + ("; not a measure of data-parallel speed"
+                     if where != "one card each" else "") + f"; {smi}")
+    results = [r["cli"] for r in ranks]
+    _check(all(res == results[0] for res in results[1:]),
+           "(c) the ranks' CLI results differ")
+    _check(all(np.isfinite(v) for v in results[0].values()),
+           f"(c) non-finite metrics {results[0]}")
+    cli_dir = _run_dir(run / "cli")
+    for name in ("best_checkpoint.pt", "last_checkpoint.pt",
+                 "train_arguments.yaml", "metrics.jsonl", "timing.json",
+                 "evaluation_val_best_checkpoint.txt"):
+        _check((cli_dir / name).exists(), f"(c) no {name}")
+    for r in ranks:
+        _check(r["cli_launches"] == spec["expect"]["cli"],
+               f"(c) launches per rank {r['cli_launches']}")
+    loss_key = next(key for key in results[0] if "NTXent" in key)
+    print(f"[dp] (c) CLI {spec['cli'][0]} with n_shards {k} (torchrun's "
+          f"environment, {spec['cli'][1]['dist_backend']}): "
+          f"{ranks[0]['cli_s']:.1f} s, {loss_key} "
+          f"{results[0][loss_key]:.6f}, the ranks' results equal")
+    for r in ranks:
+        for n in NONE:
+            launches[n] += r["launches"][n] + r["cli_launches"][n]
+    t.append(time.perf_counter())
+    print(f"[dp] data-parallel main-path launches: {launches}")
+    print("[dp] seconds: " + ", ".join(
+        f"{name} {b - a:.1f}" for name, a, b in zip(
+            ("(a) one-rank group", "one-process references",
+             "the ranks (b, c)", "checks"), t, t[1:])))
+    return {"launches": launches}
+
+
 class _Phase:
     """Prints a phase's seconds when it ends (and lets its error pass)."""
 
@@ -7113,13 +7553,16 @@ def main() -> int:
     with _Phase("26 the last trainers and model names"):
         s19 = phase_slice19(smi, out_dir)
         _merge_errs(errs, s19["errs"])
-    # every kernel's launches over the fourteen main paths (serving,
+    with _Phase("27 data parallel"):
+        dp = phase_data_parallel(smi, out_dir)
+    # every kernel's launches over the fifteen main paths (serving,
     # pre-training, GIN training, OT training, the trainer CLI,
     # multi-conformer pre-training, the data layer, the serving CLI, the
     # baselines' CLI runs, the OT family's CLI runs, the supervised CLI
     # runs of the GIN's options and the transformers, those of
     # PNAOriginal and SMP, those of BYOL, EGNN and SAN, those of the
-    # philosophy trainer and the GeoMol fine-tune)
+    # philosophy trainer and the GeoMol fine-tune, and the data-parallel
+    # steps and CLI run)
     launches = {n: serve_launches[n] + train["launches"][n]
                 + gin["launches"][n] + ot_run["launches"][n]
                 + trainer["launches"][n] + conf["launches"][n]
@@ -7127,6 +7570,7 @@ def main() -> int:
                 + base["launches"][n] + family["launches"][n]
                 + s16["launches"][n] + s17["launches"][n]
                 + s18["launches"][n] + s19["launches"][n]
+                + dp["launches"][n]
                 for n in serve_launches}
     with _Phase("6 kernel times"):
         rows = phase_kernel_times(g, launches, errs)

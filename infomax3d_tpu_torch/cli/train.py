@@ -15,19 +15,35 @@ synthetic` runs everything without chemistry data.
 The run goes to the CUDA card unless `--device` (or the config's `device`)
 says "cpu"; with neither set and no card, it raises.  What the port has
 not ported yet raises `NotImplementedError` naming its ROADMAP queue 1
-item: the non-CSR batch (`csr_buckets: False`, item 7), shards (item 9).
+item: the non-CSR batch (`csr_buckets: False`, `bucket_ladder`, item 7),
+the edge- and node-partitioned modes (`graph_shards`, `node_shards`, item
+9b), tensor parallelism (`model_shards`, item 9c).
+
+Data parallelism (`n_shards: k`, item 9a) runs k ranks, one per shard
+(`parallel/`), with the same command: without a launch in the environment
+the CLI starts the k ranks itself on this host (rendezvous in a temporary
+file store) and returns rank 0's results; under torchrun (or the JAX
+package's COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID) each process
+is one rank, and the world size must be k.  The backend is NCCL, one card
+per rank; `--dist_backend=gloo` names gloo (ranks on the CPU with
+`--device=cpu`, or several ranks sharing the cards).
+
+    torchrun --nproc_per_node=4 -m infomax3d_tpu_torch.cli.train --config=configs_clean/pre-train_QM9.yml --n_shards=4
 """
 from __future__ import annotations
 
 import argparse
 import ast
 import os
+import pickle
+import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from datetime import datetime
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from infomax3d_tpu_torch.cli.config import check_device, load_config
 from infomax3d_tpu_torch.data.splits import (get_idx_split,
@@ -246,11 +262,11 @@ def resolve_fast_paths(args: Dict[str, Any]) -> None:
       Net3DDense 3D model with `contrastive_collate`, unless the config
       sets ``dense_3d: False``, which runs the flat Net3D on the CSR
       complete graph; `conformer_collate` always runs the flat Net3D.
-    Graph- and node-sharded modes (item 9) raise."""
+    Graph- and node-sharded modes (item 9b) raise."""
     if args.get("graph_shards", 1) > 1 or args.get("node_shards", 1) > 1:
         raise NotImplementedError(
             "graph_shards / node_shards are not ported yet (ROADMAP queue "
-            "1, item 9)")
+            "1, item 9b)")
     if args.get("csr_buckets", "auto") is False:
         raise NotImplementedError(
             "csr_buckets: False (the non-CSR batch) is not ported yet "
@@ -424,8 +440,9 @@ def make_splits(args: Dict[str, Any], dataset):
     return reference_split_indices(args, n)
 
 
-def make_loaders(args: Dict[str, Any], dataset):
-    """Train / validation / test `GraphDataLoader`s: one static CSR bucket
+def make_loaders(args: Dict[str, Any], dataset, rank: int = 0):
+    """Train / validation / test `GraphDataLoader`s of data-parallel shard
+    `rank` (of `n_shards`; the whole batch for one): one static CSR bucket
     sized to cover a random batch with overwhelming probability (`_cap`),
     and for a flat 3D side or a pair view one for its complete graphs
     (`max_deg` the largest n - 1; C times as large for
@@ -435,7 +452,9 @@ def make_loaders(args: Dict[str, Any], dataset):
     contrastive collates.  The dense collates take the bucket's graph
     count and `max_nodes` slots per graph; `smp_collate` takes a radius
     graph bucket (in-degree below the largest molecule) and a triplet
-    count sized from a sample."""
+    count sized from a sample.  With `n_shards` > 1 every loader drops
+    partial batches and each shard collates its slice into the buckets
+    cut `n_shards` ways (`GraphDataLoader`)."""
     from infomax3d_tpu_torch.data.loader import (DENSE_COLLATES,
                                                  GraphDataLoader)
     from infomax3d_tpu_torch.graphs.batch import BucketSpec
@@ -520,12 +539,15 @@ def make_loaders(args: Dict[str, Any], dataset):
             "bucket_ladder (per-batch non-CSR buckets) is not ported yet "
             "(ROADMAP queue 1, item 7)")
 
+    n_shards = int(args.get("n_shards", 1))
+
     def mk(indices, shuffle, seed, batch_sampler=None):
         return GraphDataLoader(dataset, bs, collate, bucket=bucket,
                                shuffle=shuffle, drop_last=contrastive,
                                seed=seed, indices=indices,
                                collate_kwargs=ckw,
-                               batch_sampler=batch_sampler)
+                               batch_sampler=batch_sampler,
+                               n_shards=n_shards, shard=rank)
 
     sampler = None
     if args.get("train_sampler"):
@@ -536,7 +558,8 @@ def make_loaders(args: Dict[str, Any], dataset):
         if sampler_cls is None:
             raise KeyError(f"unknown train_sampler '{args['train_sampler']}'")
         sampler = sampler_cls(nodes, bs, indices=train_idx,
-                              seed=args["seed"], drop_last=contrastive)
+                              seed=args["seed"],
+                              drop_last=contrastive or n_shards > 1)
 
     return (mk(train_idx, True, args["seed"], batch_sampler=sampler),
             mk(val_idx, False, args["seed"] + 1),
@@ -562,58 +585,63 @@ def resolve_collate(args: Dict[str, Any]) -> None:
         args["collate_function"] = "smp_collate"
 
 
+def trainer_class(args: Dict[str, Any]):
+    """The trainer class of a resolved config (reference get_trainer,
+    train.py:166-204): the SSL flavour only applies with a 3D model;
+    otherwise the supervised Trainer."""
+    from infomax3d_tpu_torch.train.trainer import get_trainer_class
+    if args.get("model3d_type"):
+        return get_trainer_class(args["trainer"])
+    if args["trainer"] in ("graphcl_trainer", "distance_predictor",
+                           "optimal_transport"):
+        return get_trainer_class(args["trainer"])
+    if args["collate_function"] == "pairwise_distance_collate":
+        return get_trainer_class("distance_predictor")
+    return get_trainer_class("default")
+
+
 def run_training(args: Dict[str, Any], device=None,
-                 init_variables: Optional[Mapping[str, Mapping]] = None
-                 ) -> Dict[str, float]:
+                 init_variables: Optional[Mapping[str, Mapping]] = None,
+                 group=None) -> Dict[str, float]:
     """One training run.  `device` wins over `args["device"]`; with both
     None the run goes to the CUDA card (and raises without one).
     `init_variables` maps model keys to flax numpy trees to start from
-    (otherwise torch's default initialization, seeded by `seed`)."""
+    (otherwise torch's default initialization, seeded by `seed`).  With
+    `n_shards` > 1 and no `group`, `run_data_parallel` starts (or joins)
+    the ranks; given the data-parallel `group`, this is one rank's run
+    (`device` its device), and only rank 0 writes the run directory."""
+    if args.get("model_shards", 1) > 1:
+        raise NotImplementedError(
+            "model_shards (tensor parallelism) is not ported yet (ROADMAP "
+            "queue 1, item 9c)")
+    if int(args.get("n_shards", 1)) > 1 and group is None:
+        return run_data_parallel(args, device, init_variables)
     check_device(args.get("device"))
-    check_device(device)
+    if group is None:
+        check_device(device)
     device = resolve_device(device if device is not None
                             else args.get("device"))
     seed_all(args["seed"])
     from infomax3d_tpu_torch.losses import SUPERVISED_LOSSES, get_loss
-    from infomax3d_tpu_torch.train.trainer import get_trainer_class
 
     resolve_collate(args)
     dataset = build_dataset(args)
     apply_dataset_protocol(args, dataset)
     metrics = build_metrics(args, dataset)
     resolve_fast_paths(args)
-    if args.get("n_shards", 1) > 1 or args.get("model_shards", 1) > 1:
-        raise NotImplementedError(
-            "n_shards / model_shards are not ported yet (ROADMAP queue 1, "
-            "item 9)")
     loss_name = args["loss_func"]
     loss_func = None if loss_name in SUPERVISED_LOSSES else \
         get_loss(loss_name, **(args.get("loss_params") or {}))
-    # reference get_trainer (train.py:166-204): the SSL flavour only
-    # applies with a 3D model; otherwise the supervised Trainer
-    if args.get("model3d_type"):
-        trainer_cls = get_trainer_class(args["trainer"])
-    elif args["trainer"] in ("graphcl_trainer", "distance_predictor",
-                             "optimal_transport"):
-        trainer_cls = get_trainer_class(args["trainer"])
-    elif args["collate_function"] == "pairwise_distance_collate":
-        trainer_cls = get_trainer_class("distance_predictor")
-    else:
-        trainer_cls = get_trainer_class("default")
+    trainer_cls = trainer_class(args)
     models = build_models(args, dataset)
-    run_dir = os.path.join(
-        args["logdir"],
-        f"{args['model_type']}_{args['dataset']}_{args['experiment_name']}_"
-        f"{args['seed']}_{datetime.now().strftime('%d-%m_%H-%M-%S')}")
-    # claim a unique dir atomically (same-second runs would collide)
-    base_run_dir, n_dup = run_dir, 1
-    while True:
-        try:
-            os.makedirs(run_dir)
-            break
-        except FileExistsError:
-            run_dir = f"{base_run_dir}_{n_dup}"
-            n_dup += 1
+    rank = 0 if group is None else dist.get_rank(group)
+    run_dir = [None]
+    if rank == 0:
+        run_dir[0] = _claim_run_dir(args)
+    if group is not None:
+        dist.broadcast_object_list(run_dir, src=dist.get_global_rank(
+            group, 0), group=group)
+    run_dir = run_dir[0]
     kw: Dict[str, Any] = {}
     if args["trainer"] == "philosophy":
         kw["critic_loss"] = get_loss(args["critic_loss"],
@@ -630,8 +658,9 @@ def run_training(args: Dict[str, Any], device=None,
         main_metric_goal=args["main_metric_goal"],
         scheduler_step_per_batch=args["scheduler_step_per_batch"],
         device=device, use_tensorboard=args.get("use_tensorboard", True),
-        init_variables=init_variables, **kw)
-    train_loader, val_loader, test_loader = make_loaders(args, dataset)
+        init_variables=init_variables, group=group, **kw)
+    train_loader, val_loader, test_loader = make_loaders(args, dataset,
+                                                         rank)
     if args.get("pretrain_checkpoint"):
         trainer.init_state(next(iter(train_loader)))
         transfer_pretrained(trainer, args)
@@ -645,6 +674,87 @@ def run_training(args: Dict[str, Any], device=None,
     return result
 
 
+def _claim_run_dir(args: Dict[str, Any]) -> str:
+    """Create the run's directory, named by model, dataset, experiment,
+    seed and time, atomically (same-second runs would collide)."""
+    run_dir = os.path.join(
+        args["logdir"],
+        f"{args['model_type']}_{args['dataset']}_{args['experiment_name']}_"
+        f"{args['seed']}_{datetime.now().strftime('%d-%m_%H-%M-%S')}")
+    base_run_dir, n_dup = run_dir, 1
+    while True:
+        try:
+            os.makedirs(run_dir)
+            return run_dir
+        except FileExistsError:
+            run_dir = f"{base_run_dir}_{n_dup}"
+            n_dup += 1
+
+
+def run_data_parallel(args: Dict[str, Any], device=None,
+                      init_variables: Optional[Mapping[str, Mapping]] = None
+                      ) -> Dict[str, float]:
+    """`n_shards` k ranks of one run (module docstring).  Under a launch
+    in the environment (`parallel.multihost.launch_environment`) this
+    process is one rank and the world size must be k; otherwise the k
+    ranks start here, one process each, after the kernels are built once,
+    and rank 0's results are returned.  `dist_backend` (default "nccl")
+    names the backend; NCCL with fewer cards than ranks raises."""
+    from infomax3d_tpu_torch.parallel import (close_group,
+                                              initialize_multihost,
+                                              rank_devices)
+    from infomax3d_tpu_torch.parallel.multihost import launch_environment
+    k = int(args["n_shards"])
+    backend = args.get("dist_backend", "nccl")
+    check_device(args.get("device"))
+    check_device(device)
+    dev = resolve_device(device if device is not None else args.get("device"))
+    resolve_collate(args)
+    refusal = trainer_class(args).NO_DATA_PARALLEL
+    if refusal:
+        raise NotImplementedError(refusal)
+    launch = launch_environment()
+    if launch is not None:
+        if launch["world"] != k:
+            raise ValueError(f"the launch has {launch['world']} processes, "
+                             f"the config n_shards {k}: they must be equal")
+        group, rank_dev = initialize_multihost(backend, dev.type)
+        try:
+            return run_training(args, rank_dev, init_variables, group=group)
+        finally:
+            close_group()
+    rank_devices(k, backend, dev.type)
+    if dev.type == "cuda":
+        from infomax3d_tpu_torch.ops.kernels import _build
+        _build.build_all()          # once, before the ranks start
+    threads = max(1, torch.get_num_threads() // k)
+    with tempfile.TemporaryDirectory(prefix="infomax3d_dp_") as tmp:
+        torch.multiprocessing.start_processes(
+            _rank_main, args=(k, backend, dev.type, args, init_variables,
+                              tmp, threads),
+            nprocs=k, start_method="spawn")
+        with open(os.path.join(tmp, "result.pkl"), "rb") as f:
+            return pickle.load(f)
+
+
+def _rank_main(rank: int, k: int, backend: str, device_type: str,
+               args: Dict[str, Any], init_variables, tmp: str,
+               threads: int) -> None:
+    """One rank started by `run_data_parallel` (rendezvous in a file store
+    under `tmp`; rank 0 leaves its results there)."""
+    from infomax3d_tpu_torch.parallel import close_group, make_group
+    torch.set_num_threads(threads)
+    group, dev = make_group(k, rank, f"file://{tmp}/store", backend,
+                            device_type)
+    try:
+        result = run_training(dict(args), dev, init_variables, group=group)
+    finally:
+        close_group()
+    if rank == 0:
+        with open(os.path.join(tmp, "result.pkl"), "wb") as f:
+            pickle.dump(result, f)
+
+
 def train(args: Dict[str, Any], device=None,
           init_variables: Optional[Mapping[str, Mapping]] = None):
     """Reference __main__ behaviour incl. the multi-seed thread pool
@@ -652,6 +762,10 @@ def train(args: Dict[str, Any], device=None,
     seeds = args.get("multithreaded_seeds") or []
     if not seeds:
         return run_training(args, device, init_variables)
+    if int(args.get("n_shards", 1)) > 1:
+        raise NotImplementedError(
+            "multithreaded_seeds with n_shards > 1: each seed's ranks would "
+            "claim the same cards; run the seeds one after the other")
     with ThreadPoolExecutor(max_workers=len(seeds)) as ex:
         futures = []
         for s in seeds:

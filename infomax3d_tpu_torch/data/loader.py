@@ -627,23 +627,52 @@ def to_device(view: Dict[str, np.ndarray], device):
 
 # ----------------------------------------------------------------- loader
 
+def shard_bucket(bucket: Optional[BucketSpec], n_shards: int
+                 ) -> Optional[BucketSpec]:
+    """One data-parallel shard's bucket: graphs, nodes and edges cut
+    `n_shards` ways, `max_deg`, `csr` and `nmax` kept (the JAX loader's
+    `_shard_bucket`: dropping them would take the shards off the CSR
+    path)."""
+    if bucket is None:
+        return None
+    return BucketSpec(bucket.n_graphs // n_shards, bucket.n_nodes // n_shards,
+                      bucket.n_edges // n_shards, max_deg=bucket.max_deg,
+                      csr=bucket.csr, nmax=bucket.nmax)
+
+
 class GraphDataLoader:
     """Shuffling, prefetching loader over a dataset of item dicts
     (`__len__`, `__getitem__(i)`), one static bucket per loader; a
     `batch_sampler` (an iterable of index lists with `__len__`) replaces
     the shuffle.  The JAX package's bucket ladder (non-CSR buckets) is
-    ROADMAP queue 1, item 7, its data-parallel shards item 9."""
+    ROADMAP queue 1, item 7.
+
+    Data parallel (`n_shards` k > 1, the JAX loader's shards): the batch
+    size must divide by k and partial batches are dropped; every shard
+    shuffles (or samples) the same way, and shard `shard` collates only
+    its slice ``items[shard * per:(shard + 1) * per]`` of each batch into
+    the bucket cut k ways (`shard_bucket`; `csr` and `max_deg` kept), as
+    is a ``bucket3d`` collate argument."""
 
     def __init__(self, dataset, batch_size: int, collate,
                  bucket: Optional[BucketSpec] = None, shuffle: bool = True,
                  drop_last: bool = False, seed: int = 0,
                  indices: Optional[Sequence[int]] = None, prefetch: int = 2,
-                 collate_kwargs: Optional[Dict] = None, batch_sampler=None):
+                 collate_kwargs: Optional[Dict] = None, batch_sampler=None,
+                 n_shards: int = 1, shard: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate = collate if callable(collate) else get_collate(collate)
         self.bucket = bucket
         self.shuffle = shuffle
+        self.n_shards, self.shard = n_shards, shard
+        if n_shards > 1:
+            if batch_size % n_shards:
+                raise ValueError(f"batch_size {batch_size} not divisible by "
+                                 f"n_shards {n_shards}")
+            if not 0 <= shard < n_shards:
+                raise ValueError(f"shard {shard} outside 0..{n_shards - 1}")
+            drop_last = True  # every shard must be full
         self.drop_last = drop_last
         self.rng = np.random.default_rng(seed)
         self.indices = np.asarray(indices if indices is not None
@@ -681,11 +710,21 @@ class GraphDataLoader:
             yield idx[i:i + self.batch_size]
 
     def _batches(self) -> Iterator:
+        if self.n_shards == 1:
+            bucket, kw = self.bucket, self.collate_kwargs
+        else:
+            bucket = shard_bucket(self.bucket, self.n_shards)
+            kw = dict(self.collate_kwargs)
+            if isinstance(kw.get("bucket3d"), BucketSpec):
+                kw["bucket3d"] = shard_bucket(kw["bucket3d"], self.n_shards)
         for chunk in self._index_batches():
             if len(chunk) < self.batch_size and self.drop_last:
                 continue
+            if self.n_shards > 1:
+                per = len(chunk) // self.n_shards
+                chunk = chunk[self.shard * per:(self.shard + 1) * per]
             items = [self.dataset[int(j)] for j in chunk]
-            yield self.collate(items, self.bucket, **self.collate_kwargs)
+            yield self.collate(items, bucket, **kw)
 
     def __iter__(self):
         if self.prefetch <= 0:

@@ -22,6 +22,8 @@ from infomax3d_tpu_torch.data.synthetic import (FULL_ATOM_FEATURE_DIMS,
 from infomax3d_tpu_torch.models.noise import dropout as drop
 from infomax3d_tpu_torch.ops.aggregate import AffinePart
 from infomax3d_tpu_torch.ops.kernels import edge_combine
+from infomax3d_tpu_torch.parallel.collectives import all_reduce_sum
+from infomax3d_tpu_torch.parallel.context import data_parallel_group
 
 ACTIVATIONS = {
     "relu": F.relu,
@@ -59,7 +61,10 @@ class MaskedBatchNorm(nn.Module):
     autograd.  Eval: the running statistics normalize.  ``y = (x - mean) ·
     rsqrt(var + eps) · weight + bias`` is computed in float32 (float64 for
     float64 inputs) and returned in x's dtype; the running statistics stay
-    float32 under the bf16 recipe."""
+    float32 under the bf16 recipe.  Under a data-parallel group
+    (`parallel.context`) the count and the sums are all-reduced first, so
+    the statistics, the unbiased correction and the running statistics are
+    the global batch's."""
 
     def __init__(self, num_features: int, momentum: float = 0.1,
                  eps: float = 1e-5):
@@ -92,6 +97,14 @@ class MaskedBatchNorm(nn.Module):
                                  device=x.device)
             s1 = xf.sum(dim=red)
             s2 = (xf * xf).sum(dim=red)
+        group = data_parallel_group()
+        if group is not None:
+            # data parallel: statistics over the global batch, one
+            # all-reduce of [count, s1, s2]
+            both = all_reduce_sum(torch.cat(
+                [count.to(s1.dtype).reshape(1), s1, s2]), group)
+            count, s1, s2 = both[0], both[1:1 + s1.shape[0]], \
+                both[1 + s1.shape[0]:]
         count = count.clamp(min=1.0)
         mean = s1 / count
         var = (s2 / count - mean * mean).clamp(min=0.0)

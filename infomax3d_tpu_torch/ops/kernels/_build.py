@@ -7,11 +7,15 @@ the root of the checkout, named by a hash of their sources and flags, so a
 changed source is rebuilt and an unchanged one is built once.  The build
 happens at first use, all missing libraries at once (one `nvcc` process per
 source, started together).  Nothing is compiled when the module is imported:
-the CPU path needs no `nvcc`.
+the CPU path needs no `nvcc`.  The build holds a file lock in the build
+directory, so processes that start together (the ranks of a data-parallel
+run) build each library once and the others load it.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -49,15 +53,35 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on the build directory, across processes."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all() -> Dict[str, str]:
-    """Compile every kernel library that is not built yet, all in parallel.
-    Returns nvcc's output (ptxas register / spill report) per built name;
-    raises with nvcc's output if any build fails."""
+    """Compile every kernel library that is not built yet, all in parallel,
+    under the build directory's lock (a process that waited for another's
+    build finds the libraries and builds nothing).  Returns nvcc's output
+    (ptxas register / spill report) per built name; raises with nvcc's
+    output if any build fails."""
+    if all(library_path(n).exists() for n in KERNELS):
+        return {}
+    with _build_lock():
+        return _build_missing()
+
+
+def _build_missing() -> Dict[str, str]:
     todo = {n: library_path(n) for n in KERNELS
             if not library_path(n).exists()}
     if not todo:
         return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     for name, path in todo.items():

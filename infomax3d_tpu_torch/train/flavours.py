@@ -11,7 +11,11 @@ under the training recipe, with its own loss and backward.
 * `NoisyNegativesStep`: the 3D model also reads noised copies of the 3D
   view (`noised_distances_collate`); their embeddings are appended to the
   3D side, for `NTXentExtraNegatives` to take as extra negatives.  The
-  second 3D forward continues the first's running statistics.
+  second 3D forward continues the first's running statistics.  Under a
+  data-parallel group the 3D side is gathered block by block, so the
+  global [z2; z_noisy] is the concatenated batch's (the JAX package's
+  `CrossDeviceLoss` gathers [z2_r; zn_r] rank by rank, which pairs a
+  rank's 2D rows with another rank's noised rows as positives).
 * `PhilosophyStep`: the critic reconstructs the 3D embedding; the peasant
   loss (the contrastive loss) trains the 2D model, the philosopher loss
   (peasant minus critic loss) the 3D model and the critic loss the
@@ -26,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from infomax3d_tpu_torch.parallel.context import data_parallel_group
 from infomax3d_tpu_torch.train.optim import OptimizerSet
 from infomax3d_tpu_torch.train.precision import cast_batch, forward_in
 from infomax3d_tpu_torch.train.pretrain import (PretrainStep, loss_kwargs,
@@ -50,6 +55,8 @@ class NoisyNegativesStep(PretrainStep):
     """`PretrainStep` over the 2D view, the 3D view and its noised copy
     (one copy: the JAX trainer reads a single `noisy3d` batch)."""
 
+    Z2_BLOCKS = 2           # the 3D side [z2; z_noisy]
+
     def prepare(self, g2, g3, noisy):
         g2, g3 = super().prepare(g2, g3)
         return g2, g3, cast_batch(noisy.to(self.device), self.compute_dtype)
@@ -60,8 +67,10 @@ class NoisyNegativesStep(PretrainStep):
         zn = forward_in(self.model3d, self.compute_dtype, noisy,
                         **noise_kw(noise))
         z2 = torch.cat([z2, zn], dim=0)
-        return self.loss_fn(z1, z2, **loss_kwargs(self.loss_fn, g2)), \
-            (z1, z2)
+        kw = loss_kwargs(self.loss_fn, g2)
+        if data_parallel_group() is not None:
+            kw["z2_blocks"] = self.Z2_BLOCKS
+        return self.loss_fn(z1, z2, **kw), (z1, z2)
 
 
 class PhilosophyStep(PretrainStep):

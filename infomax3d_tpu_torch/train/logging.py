@@ -75,6 +75,20 @@ class RunLogger:
             self._tb.close()
 
 
+class NullLogger:
+    """`RunLogger`'s interface writing nothing: the data-parallel ranks
+    other than rank 0 log nothing."""
+
+    def log(self, *a, **kw):
+        pass
+
+    def log_spectrum(self, *a, **kw):
+        pass
+
+    def close(self):
+        pass
+
+
 def tensorboard_singular_value_plot(predictions, targets, logger: RunLogger,
                                     step: int, data_split: str):
     """Singular-value spectrum of the prediction / embedding matrix as % of

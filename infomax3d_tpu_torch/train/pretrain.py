@@ -37,6 +37,8 @@ from infomax3d_tpu_torch.interop import (flax_paths, init_jax_variables,
                                          load_variables)
 from infomax3d_tpu_torch.losses import get_loss
 from infomax3d_tpu_torch.models.registry import build_model
+from infomax3d_tpu_torch.parallel.collectives import CrossDeviceLoss
+from infomax3d_tpu_torch.parallel.context import data_parallel_group
 from infomax3d_tpu_torch.train.optim import build_adam, label_params
 from infomax3d_tpu_torch.train.precision import (cast_batch, forward_in,
                                                  resolve_compute_dtype)
@@ -142,10 +144,17 @@ def noise_kw(noise) -> Dict[str, Any]:
 def loss_kwargs(loss_fn, g2: GraphBatch) -> Dict[str, Any]:
     """The 2D batch's node-to-graph ids and node mask for a node-level
     ("Local") loss, or the one `SampleLossWrapper` wraps (the JAX
-    `SelfSupervisedTrainer._loss_kwargs`); nothing for the others."""
+    `SelfSupervisedTrainer._loss_kwargs`), with the batch's graph count
+    (`n_graphs_local`, for `CrossDeviceLoss`'s offset) under a
+    data-parallel group; nothing for the others."""
+    if isinstance(loss_fn, CrossDeviceLoss):
+        loss_fn = loss_fn.loss
     inner = getattr(loss_fn, "loss", loss_fn)
     if "Local" in type(inner).__name__:
-        return dict(node_graph=g2.node_graph, node_mask=g2.node_mask)
+        kw = dict(node_graph=g2.node_graph, node_mask=g2.node_mask)
+        if data_parallel_group() is not None:
+            kw["n_graphs_local"] = g2.graph_mask.shape[0]
+        return kw
     return {}
 
 

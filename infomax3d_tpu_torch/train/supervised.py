@@ -17,8 +17,9 @@ Precision follows the JAX package's recipe: float32 master parameters and
 optimizer state, the forward on bf16 copies of the parameters and of the
 batch's float fields, the model output cast to float32 for the loss.  The
 labels reach the loss in float32 (the JAX trainer reads them from the
-uncast batch).  The cross-replica sum of the loss belongs to the parallel
-layer and is not here.
+uncast batch).  Under a data-parallel group (`parallel.context`) the
+masked loss sums its total and count over the ranks, and `TrainStep`
+averages the gradients and the loss over them.
 
 `SupervisedStep` is the step of the supervised trainer
 (`train/trainer.py::Trainer`, built there by `from_modules` over the
@@ -46,6 +47,9 @@ from infomax3d_tpu_torch.interop import (flax_paths, init_jax_variables,
                                          load_variables)
 from infomax3d_tpu_torch.models.noise import GeneratorNoise, MasksOnly
 from infomax3d_tpu_torch.models.registry import build_model
+from infomax3d_tpu_torch.parallel.collectives import (all_reduce_sum,
+                                                      mean_over_ranks)
+from infomax3d_tpu_torch.parallel.context import data_parallel_group
 from infomax3d_tpu_torch.train.optim import build_adam, label_params
 from infomax3d_tpu_torch.train.precision import (cast_batch, forward_in,
                                                  resolve_compute_dtype)
@@ -55,7 +59,8 @@ def supervised_loss(name: str, pred: torch.Tensor, target: torch.Tensor,
                     valid: torch.Tensor) -> torch.Tensor:
     """The mean of the per-element loss `name` over the entries where
     `valid` is true (padding graphs and NaN labels excluded), the JAX
-    package's `_elementwise_supervised_loss` on one device."""
+    package's `_elementwise_supervised_loss`: under a data-parallel group
+    the total and the count are summed over the ranks first."""
     t = torch.where(valid, target, torch.zeros((), device=target.device))
     if name in ("L1Loss", "MAE"):
         per = (pred - t).abs()
@@ -66,7 +71,14 @@ def supervised_loss(name: str, pred: torch.Tensor, target: torch.Tensor,
     else:
         raise KeyError(f"unsupported supervised loss '{name}'")
     total = torch.where(valid, per, torch.zeros((), device=per.device)).sum()
-    return total / valid.sum().clamp(min=1)
+    count = valid.sum()
+    group = data_parallel_group()
+    if group is not None:
+        # data parallel: the global batch's total and count
+        both = all_reduce_sum(torch.stack([total, count.to(total.dtype)]),
+                              group)
+        total, count = both[0], both[1]
+    return total / count.clamp(min=1)
 
 
 def detached(out):
@@ -92,11 +104,20 @@ class TrainStep:
         self.optimizer.zero_grad(set_to_none=True)
         loss, out = self.loss(*batches, **kw)
         loss.backward()
-        self.fill_missing_grads(p for group in self.optimizer.param_groups
-                                for p in group["params"])
+        grads = self.fill_missing_grads(
+            p for group in self.optimizer.param_groups
+            for p in group["params"])
+        loss = loss.detach()
+        group = data_parallel_group()
+        if group is not None:
+            # data parallel: the loss is already the global batch's on
+            # every rank, and the mean over ranks of the gradients of the
+            # per-rank sum of those equal losses is d(loss)/d(params)
+            # (`parallel/collectives.py`)
+            mean_over_ranks(grads, group)
         if return_outputs:
-            return loss.detach(), detached(out)
-        return loss.detach()
+            return loss, detached(out)
+        return loss
 
     @staticmethod
     def fill_missing_grads(params) -> list:

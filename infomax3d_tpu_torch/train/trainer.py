@@ -34,6 +34,20 @@ device before reading results (a synchronize, so the metrics' seconds are
 the host's own), in metrics, in checkpoints and in logging, the wall seconds of each epoch's training and
 validation, and (on CUDA) the device milliseconds of each train step
 between CUDA events, so a caller can account for a loop's time.
+
+Data parallelism (the JAX package's ``n_shards`` mode, `parallel/`): given
+a process `group`, each rank trains on its shard of every batch
+(`GraphDataLoader(n_shards=k, shard=r)`).  The loss is wrapped in
+`CrossDeviceLoss`, every rank starts from rank 0's weights (broadcast
+once), each rank's dropout generator is seeded from (seed, rank), the
+steps run under `parallel.context.using_data_parallel_group` (global
+BatchNorm statistics and supervised loss, the gradient mean).  Every
+rank's loss, and each of its logged parts, is then the global batch's
+(the JAX step's ``pmean`` of equal losses), and the predictions and
+targets the metrics read are gathered, so every rank takes the same
+early-stopping and best-checkpoint decisions.  Only rank 0 writes the run directory.  The
+philosophy and OT trainers refuse a group, as the JAX package has no
+data-parallel step for them.
 """
 from __future__ import annotations
 
@@ -48,11 +62,16 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from infomax3d_tpu_torch.cli import yaml_lite
 from infomax3d_tpu_torch.data.loader import to_device, to_ot_batch
 from infomax3d_tpu_torch.device import resolve_device
 from infomax3d_tpu_torch.interop import flax_paths, load_variables
+from infomax3d_tpu_torch.parallel.collectives import (CrossDeviceLoss,
+                                                      broadcast_,
+                                                      gather_host)
+from infomax3d_tpu_torch.parallel.context import using_data_parallel_group
 from infomax3d_tpu_torch.train import checkpoint
 from infomax3d_tpu_torch.train.baselines import (AEStep, DistanceStep,
                                                 GraphCLStep)
@@ -60,7 +79,8 @@ from infomax3d_tpu_torch.train.byol import BYOLStep
 from infomax3d_tpu_torch.train.flavours import (AlternatingStep,
                                                 NoisyNegativesStep,
                                                 PhilosophyStep)
-from infomax3d_tpu_torch.train.logging import TENSORBOARD_FUNCTIONS, RunLogger
+from infomax3d_tpu_torch.train.logging import (TENSORBOARD_FUNCTIONS,
+                                               NullLogger, RunLogger)
 from infomax3d_tpu_torch.train.optim import (OptimizerSet, build_optimizer,
                                              label_params)
 from infomax3d_tpu_torch.train.ot import OTStep
@@ -74,18 +94,35 @@ TIMERS = ("loader", "to_device", "step", "device_wait", "metrics",
           "checkpoint", "logging")
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """The dropout generator's seed of data-parallel rank `rank`: `seed`
+    itself on rank 0 (so one rank draws as one process does), another
+    stream per rank from (seed, rank) (the JAX step's ``fold_in``)."""
+    if rank == 0:
+        return int(seed)
+    return int(np.random.SeedSequence([int(seed), int(rank)])
+               .generate_state(1, np.uint64)[0] & (2 ** 63 - 1))
+
+
 class Trainer:
     """Supervised trainer (reference base `Trainer`).  `models` maps
     ``model`` to the port's module; `init_variables` optionally maps it to
     flax numpy trees (``params``, ``batch_stats``) loaded before training,
     e.g. another implementation's initial weights.  `generator` (on the
-    device, seeded with `seed`) draws the dropout masks and, for the OT
-    trainer, the noise."""
+    device, seeded with `seed`, `rank_seed` under a group) draws the
+    dropout masks and, for the OT trainer, the noise.  `group` is the
+    data-parallel process group (module docstring), None for one
+    process."""
 
     MODEL_KEYS = ("model",)
     # each training step gets a source of dropout masks (the supervised
     # step; the other flavours' steps take none)
     DRAWS_MASKS = True
+    # why a trainer refuses a data-parallel group (None: it takes one)
+    NO_DATA_PARALLEL: Optional[str] = None
+    # the equal blocks of rows of the targets the metrics read, each
+    # gathered over the ranks in turn
+    TARGET_BLOCKS = 1
 
     def __init__(self, models: Dict[str, torch.nn.Module], args: Dict,
                  metrics: Dict[str, Any], main_metric: str, run_dir: str,
@@ -93,11 +130,18 @@ class Trainer:
                  main_metric_goal: str = "min",
                  scheduler_step_per_batch: bool = True, device=None,
                  use_tensorboard: bool = True,
-                 init_variables: Optional[Mapping[str, Mapping]] = None):
+                 init_variables: Optional[Mapping[str, Mapping]] = None,
+                 group: Optional[dist.ProcessGroup] = None):
+        if group is not None and self.NO_DATA_PARALLEL:
+            raise NotImplementedError(self.NO_DATA_PARALLEL)
         self.device = resolve_device(device)
+        self.group = group
+        self.rank = 0 if group is None else dist.get_rank(group)
         self.models = models
         self.args = args
         self.metrics = metrics
+        if group is not None and loss_func is not None:
+            loss_func = CrossDeviceLoss(loss_func, group)
         self.loss_func = loss_func
         self.loss_name = loss_name
         self.main_metric = loss_name if main_metric == "loss" else main_metric
@@ -106,8 +150,11 @@ class Trainer:
             args.get("bf16_compute", "auto"), self.device)
         self.run_dir = run_dir
         self.init_variables = init_variables
-        os.makedirs(run_dir, exist_ok=True)
-        self.logger = RunLogger(run_dir, use_tensorboard=use_tensorboard)
+        if self.rank == 0:
+            os.makedirs(run_dir, exist_ok=True)
+            self.logger = RunLogger(run_dir, use_tensorboard=use_tensorboard)
+        else:
+            self.logger = NullLogger()
         self.tensorboard_functions = {
             name: TENSORBOARD_FUNCTIONS[name]
             for name in (args.get("tensorboard_functions") or [])
@@ -125,7 +172,7 @@ class Trainer:
         self.timing.update(step_ms=[], train_epoch_s=[], eval_s=[])
         self._events = []
         self.generator = torch.Generator(device=self.device).manual_seed(
-            int(args.get("seed", 0)))
+            rank_seed(args.get("seed", 0), self.rank))
 
     # ------------------------------------------------------------------ init
     def init_state(self, example_batch=None):
@@ -138,6 +185,7 @@ class Trainer:
             if self.init_variables is not None:
                 load_variables(self.models[key], self.init_variables[key])
             self.models[key].to(self.device).train()
+        self._broadcast_state()
         self._build_optimizer()
         self.step = self._make_step()
         self._snapshot_model_source()
@@ -180,9 +228,22 @@ class Trainer:
             self.models["model"], self.device, self.compute_dtype,
             self.loss_name, self.optimizer)
 
+    def _broadcast_state(self):
+        """Under a group: every model's parameters and buffers (and BYOL's
+        teachers) from rank 0, so the ranks hold the same weights."""
+        if self.group is None:
+            return
+        modules = [self.models[k] for k in self.MODEL_KEYS] + list(
+            getattr(self.step, "teachers", {}).values())
+        for m in modules:
+            for t in list(m.parameters()) + list(m.buffers()):
+                broadcast_(t, self.group)
+
     def _snapshot_model_source(self):
         """Copy each model class's source into the run dir (reference
-        trainer.py:264-270)."""
+        trainer.py:264-270); rank 0 only."""
+        if self.rank != 0:
+            return
         for key in self.MODEL_KEYS:
             cls = type(self.models[key])
             try:
@@ -244,8 +305,9 @@ class Trainer:
         outputs), both detached."""
         if self.DRAWS_MASKS:
             kw["noise"] = masks_source(self.generator)
-        loss, out = self.step.loss_and_grads(*batches, return_outputs=True,
-                                             **kw)
+        with using_data_parallel_group(self.group):
+            loss, out = self.step.loss_and_grads(*batches,
+                                                 return_outputs=True, **kw)
         self.step.optimizer.step()
         return loss, out
 
@@ -262,9 +324,19 @@ class Trainer:
                 self.models[key].train()
 
     def _eval_step(self, batches, **kw):
-        """Loss and outputs in eval mode."""
-        with self._evaluating():
+        """Loss and outputs in eval mode (under a group the loss is the
+        global batch's on every rank)."""
+        with self._evaluating(), using_data_parallel_group(self.group):
             return self.step.loss(*batches, **kw)
+
+    def _rows(self, batch, out):
+        """The predictions and targets the metrics read (`_host_filter`),
+        under a group gathered over the ranks (the global batch's)."""
+        preds, targets = self._host_filter(batch, out)
+        if self.group is None:
+            return preds, targets
+        return (gather_host(preds, self.group),
+                gather_host(targets, self.group, self.TARGET_BLOCKS))
 
     def _host_filter(self, batch, out):
         """Real graphs' predictions and targets as host arrays."""
@@ -321,7 +393,7 @@ class Trainer:
             if self.optim_steps % log_iterations == 0:
                 self._sync()
                 with self._timed("metrics"):
-                    preds, targets = self._host_filter(batch, out)
+                    preds, targets = self._rows(batch, out)
                     m = self._eval_metrics(preds, targets)
                     m[self.loss_name] = float(loss)
                     m.update(self._extra_losses(out))
@@ -362,7 +434,7 @@ class Trainer:
             n_batches += 1
             with self._timed("metrics"):
                 epoch_loss += float(loss)
-                preds, targets = self._host_filter(batch, out)
+                preds, targets = self._rows(batch, out)
             if n_batches == 1:  # reference: figure hooks on the first batch
                 with self._timed("logging"):
                     self.run_tensorboard_functions(preds, targets,
@@ -416,8 +488,9 @@ class Trainer:
             with self._timed("logging"):
                 self.logger.log(metrics, "val", self.optim_steps, epoch)
             val_loss = metrics.get(self.loss_name, float("nan"))
-            print(f"[Epoch {epoch}] {self.main_metric}: {val_score:.6f} "
-                  f"val loss: {val_loss:.6f}")
+            if self.rank == 0:
+                print(f"[Epoch {epoch}] {self.main_metric}: "
+                      f"{val_score:.6f} val loss: {val_loss:.6f}")
             improved = (val_score >= self.best_val_score
                         if self.main_metric_goal == "max"
                         else val_score <= self.best_val_score)
@@ -429,19 +502,28 @@ class Trainer:
                 epochs_no_improve += 1
             self.save_checkpoint(epoch, "last_checkpoint.pt")
             if epochs_no_improve >= patience and epoch >= minimum_epochs:
-                print(f"Early stopping after {epoch} epochs; best epoch was "
-                      f"{epoch - epochs_no_improve}.")
+                if self.rank == 0:
+                    print(f"Early stopping after {epoch} epochs; best epoch "
+                          f"was {epoch - epochs_no_improve}.")
                 break
-            if epoch in models_to_save:
+            if epoch in models_to_save and self.rank == 0:
                 shutil.copyfile(os.path.join(self.run_dir,
                                              "best_checkpoint.pt"),
                                 os.path.join(self.run_dir,
                                              f"best_checkpoint_{epoch}"
                                              f"epochs.pt"))
-        # reload best and evaluate (reference trainer.py:106-109)
+        # reload best and evaluate (reference trainer.py:106-109); under a
+        # group rank 0 reads it and the others take its weights
         best = os.path.join(self.run_dir, "best_checkpoint.pt")
-        if os.path.exists(best):
-            self._load(best, restore_host=False)
+        found = [os.path.exists(best) if self.rank == 0 else None]
+        if self.group is not None:
+            dist.broadcast_object_list(
+                found, src=dist.get_global_rank(self.group, 0),
+                group=self.group)
+        if found[0]:
+            if self.rank == 0:
+                self._load(best, restore_host=False)
+            self._broadcast_state()
         return self.evaluation(val_loader, "val_best_checkpoint")
 
     def run_per_epoch_evaluations(self, loader, epoch: int):
@@ -450,6 +532,8 @@ class Trainer:
 
     def evaluation(self, loader, data_split: str = "") -> Dict[str, float]:
         metrics = self.evaluate_epoch(loader)
+        if self.rank != 0:
+            return metrics
         with open(os.path.join(self.run_dir,
                                f"evaluation_{data_split}.txt"), "w") as f:
             for k, v in metrics.items():
@@ -458,13 +542,18 @@ class Trainer:
 
     def write_timing(self) -> Dict[str, Any]:
         """`timing` into the run dir (`timing.json`): host seconds per
-        part of the loop and the device ms of each train step (CUDA)."""
+        part of the loop and the device ms of each train step (CUDA); rank
+        0 only."""
+        if self.rank != 0:
+            return self.timing
         with open(os.path.join(self.run_dir, "timing.json"), "w") as f:
             json.dump(self.timing, f)
         return self.timing
 
     # ----------------------------------------------------------- checkpoints
     def save_checkpoint(self, epoch: int, name: str):
+        if self.rank != 0:
+            return
         with self._timed("checkpoint"):
             payload = self._model_state_dicts()
             payload.update(
@@ -553,8 +642,11 @@ class SelfSupervisedTrainer(Trainer):
             t = batch["graph2d"].get("targets")
             if t is None:
                 return
+            t = np.asarray(t)[: z.shape[0]]
+            if self.group is not None:
+                z, t = gather_host(z, self.group), gather_host(t, self.group)
             reps.append(z)
-            targets.append(np.asarray(t)[: z.shape[0]])
+            targets.append(t)
             if sum(r.shape[0] for r in reps) >= n_samples:
                 break
         X = np.concatenate(reps, axis=0)
@@ -614,6 +706,8 @@ class NoisyNegativesTrainer(SelfSupervisedTrainer):
     `num_noised` > 1 the collate gives a list, which the JAX trainer's
     3D model cannot read either."""
 
+    TARGET_BLOCKS = NoisyNegativesStep.Z2_BLOCKS
+
     def _make_step(self):
         return NoisyNegativesStep.from_modules(
             self.models["model"], self.models["model3d"], self.device,
@@ -641,6 +735,11 @@ class PhilosophyTrainer(SelfSupervisedTrainer):
     (``critic_state_dict``) and the three optimizers' states."""
 
     MODEL_KEYS = ("model", "model3d", "critic")
+    NO_DATA_PARALLEL = (
+        "n_shards > 1: the philosophy trainer has no data-parallel step "
+        "(the JAX PhilosophyTrainer's _make_train_step, train/trainer.py:"
+        "971, jits its three gradients without the mesh and fails on the "
+        "stacked shard batch)")
 
     def __init__(self, *a, critic_loss=None, **kw):
         super().__init__(*a, **kw)
@@ -797,6 +896,12 @@ class OptimalTransportTrainer(Trainer):
     `torch.Generator` on the trainer's device seeded with `seed`; each
     batch's cost and gradient passes share its noise.  `timing` adds the
     host seconds of the EMDs (`host_emd`, a part of `step`)."""
+
+    NO_DATA_PARALLEL = (
+        "n_shards > 1: the optimal-transport trainer has no data-parallel "
+        "step (the JAX OptimalTransportTrainer's _make_train_step, train/"
+        "trainer.py:1144, jits its step without the mesh; the JAX loader "
+        "cannot stack its shards' ot_collate arrays)")
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
