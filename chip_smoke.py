@@ -312,6 +312,36 @@ its seconds:
    statistics left local; the contrastive loss on the local rows; the
    gradients summed, not averaged) that must each fail (b)'s float32
    check.
+28. `remat`, the non-CSR batch and the partitioned modes: (a) phase 18's
+   QMugs bf16 step (batch 500, C = 3) with and without `remat`: loss,
+   gradients and running statistics bit for bit where the step repeats
+   itself bit for bit, else within `_bf16_limits` of its own run-to-run
+   reading; launches per step of rows 6, 2, 5, 8 and 7 with remat (each
+   forward kernel twice: the recompute), peak `max_memory_allocated`
+   and ms per step of both; (b) `pre-train_QM9.yml`'s PNA 200x7 with the
+   flat Net3D (batch 500) on the non-CSR batch (the segment path, no
+   kernel) against the same step on the CSR batch: float32 within phase
+   8's STEP_TOL, bf16 against the CSR float32 step within `_bf16_limits`
+   of the CSR bf16 step's own distance from it (the witness); ms per bf16
+   step of both; (c) `graph_shards: 2` and
+   `node_shards: 2` of (b)'s float32 and bf16 steps over two gloo ranks
+   on the one card against (b)'s one process on the whole non-CSR batch
+   (float32 within STEP_TOL, the running statistics within the JAX
+   package's own edge-mode bound, 1.2e-2, and the CPU test's node-mode
+   bound, 2e-3: rows whole on every rank count twice in the unbiased
+   correction, as in JAX; bf16 against the float32 one process within
+   `_bf16_limits` of three witnesses: the one-process bf16 step's own
+   distance from it at the seeded weights and at weights scaled by 1 +
+   j * 2^-16 U(-1, 1), j = 1, 2), the ranks
+   bit-equal, three planted
+   faults that must each fail (an edge shard's aggregation not
+   completed; the halo exchange's backward dropping the ghost
+   cotangents; the BatchNorm statistics not completed over the graph
+   group; the halo fault is read on a graph spanning the shards, N =
+   4096, whose halo check in float64 it must fail); the collectives of a
+   step (calls, elements, host ms), the halo rows per round, and ms per
+   bf16 step of the two ranks time-sliced on one card (not a measure of
+   speed).
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 """
@@ -1275,7 +1305,8 @@ def _measure_step(step, models: dict, batches: tuple, perturb: float = 0.0,
         out.update({f"{pre}.{n}": None if p.grad is None
                     else p.grad.float().cpu()
                     for n, p in m.named_parameters()})
-        out.update({f"{pre}.{n}": b.float().cpu()
+        # a copy: a CPU rehearsal's buffers are the live ones
+        out.update({f"{pre}.{n}": b.float().cpu().clone()
                     for n, b in m.named_buffers() if "running" in n})
     return loss, out
 
@@ -7157,8 +7188,7 @@ def _dp_step(spec: dict, kind: str, bf16: bool, batches, group,
     through `CrossDeviceLoss`), or in one process with None; with
     `timed`, ms per step instead (CUDA events over `spec["timed"]` warm
     steps, which move the step's weights: the last use of its step)."""
-    from infomax3d_tpu_torch.parallel import (CrossDeviceLoss,
-                                              using_data_parallel_group)
+    from infomax3d_tpu_torch.parallel import CrossDeviceLoss, using_groups
     step, models = _dp_fresh(spec, kind, bf16, batches[0].node_feat.device)
     if group is not None and kind == "pre":
         wrap = _DP_LOSS["wrap"] or CrossDeviceLoss
@@ -7166,7 +7196,7 @@ def _dp_step(spec: dict, kind: str, bf16: bool, batches, group,
     prepared = step.prepare(*batches)
     if not isinstance(prepared, tuple):
         prepared = (prepared,)
-    with using_data_parallel_group(group):
+    with using_groups(data=group):
         if timed:
             return cuda_ms(lambda: step.step(*prepared),
                            iters=spec["timed"], warmup=1)
@@ -7190,7 +7220,7 @@ def _dp_plant(name: str):
         return lambda: _DP_LOSS.update(wrap=None)
     mod, attr, fake = {
         "BatchNorm statistics local": (
-            "infomax3d_tpu_torch.models.base", "data_parallel_group",
+            "infomax3d_tpu_torch.models.base", "step_group",
             lambda: None),
         "gradients summed": ("infomax3d_tpu_torch.train.supervised",
                              "mean_over_ranks", _dp_sum_over_ranks)}[name]
@@ -7477,6 +7507,530 @@ def phase_data_parallel(smi: str, out_dir: Path, spec: dict = None) -> dict:
              "the ranks (b, c)", "checks"), t, t[1:])))
     return {"launches": launches}
 
+# ----------------------- phase 28: remat, the non-CSR batch, the partitions
+
+S21_TIMED = 5
+# (c)'s timed steps: two ranks time-sliced on one card, ~1.8 s an edge-mode
+# step (NVIDIA H100 80GB HBM3, 700 W), so fewer
+S21_PART_TIMED = 3
+# launches per QMugs bf16 step with remat: the step's, plus one more
+# forward's (the recompute runs every forward kernel again)
+EXPECTED_REMAT_STEP = {n: EXPECTED_CONF_STEP[True][n]
+                       + EXPECTED_CONF_FWD[True][n] for n in NONE}
+S21_RANKS = 2
+S21_FAULTS = ("edge aggregation not completed", "halo backward dropped",
+              "BatchNorm not over the graph group")
+S21_MODES = {"edge": ("edge aggregation not completed",),
+             "node": ("halo backward dropped",
+                      "BatchNorm not over the graph group")}
+# the running statistics of a partitioned float32 step: rows whole on every
+# rank of the group (node-space rows in edge mode, the readout MLP's graph
+# rows in both) count k times in the unbiased correction count / (count -
+# 1), as in the JAX package; edge mode within the JAX package's own bound
+# (tests/test_edge_partition_mode.py), node mode within the CPU test's
+# (tests/test_torch_port_partition.py)
+S21_STATS_TOL = {"edge": 1.2e-2, "node": 2e-3}
+S21_SIDES = ("model", "model3d")
+# (b)'s bf16 witnesses beyond the seeded weights' (`_s21_noncsr`): the
+# PNA's bf16 gradient is ill-conditioned (its L2 0.3 to 0.4 from the
+# float32 step's), and an edge shard's partial sums reorder every
+# aggregation, which one reading at the seeded weights does not span
+S21_WITNESSES = 2
+# the halo check (`_s21_halo`, float64): the same sums in another order
+S21_HALO_TOL = 1e-12
+
+
+def _s21_spec() -> dict:
+    return {"device": "cuda", "ranks": S21_RANKS, "backend": "gloo",
+            "timed": S21_TIMED, "part_timed": S21_PART_TIMED,
+            "batch": BATCH,
+            "data": {"seed": 0, "n_min": DATA["n_min"],
+                     "n_max": DATA["n_max"]},
+            "flat": {bf16: dict(_train_args(bf16), model3d_type="Net3D")
+                     for bf16 in (False, True)},
+            "conf": _conf_args(True, CONF_QMUGS), "conf_data": CONF_DATA,
+            "conf_c": CONF_CONFS[CONF_QMUGS],
+            "expect": {"remat": EXPECTED_REMAT_STEP,
+                       "plain": EXPECTED_CONF_STEP[True],
+                       "csr": {bf16: {n: v + _NET3D_STEP.get(n, 0)
+                                      for n, v in EXPECTED_STEP[bf16].items()}
+                               for bf16 in (False, True)}}}
+
+
+def _s21_views(spec: dict, csr: bool) -> dict:
+    """Phase 8's 500 molecules as host views: the bond graphs and the
+    complete graphs, each in the smallest bucket that holds it
+    (`bucket_for`), with or without the CSR arrays."""
+    ds = SyntheticMolecules(spec["batch"], **spec["data"])
+    views = {}
+    for key, mols in (("graph2d", [ds.graph2d(i) for i in range(len(ds))]),
+                      ("graph3d", [ds.graph3d(i) for i in range(len(ds))])):
+        b = bucket_for(mols, spec["batch"])
+        if not csr:
+            b = dataclasses.replace(b, csr=False, max_deg=0)
+        arrays = batch_graphs(mols, b)
+        arrays["max_deg"] = np.asarray(b.max_deg, np.int64)
+        arrays["nmax"] = np.asarray(b.nmax, np.int64)
+        views[key] = arrays
+    return views
+
+
+def _s21_batches(views: dict, device) -> tuple:
+    from infomax3d_tpu_torch.data.loader import to_device
+    return to_device(views["graph2d"], device), to_device(views["graph3d"],
+                                                         device)
+
+
+# each process's steps by key, built once, their state restored for each use
+_S21_STEPS = {}
+
+
+def _s21_fresh(args: dict, key, dev):
+    """The seeded step of `args` at its initial weights and running
+    statistics, with its models."""
+    if key not in _S21_STEPS:
+        step = build_step(args, dev)
+        models = {"model": step.model, "model3d": step.model3d}
+        state = {n: {k: v.clone() for k, v in m.state_dict().items()}
+                 for n, m in models.items()}
+        _S21_STEPS[key] = (step, models, state)
+    step, models, state = _S21_STEPS[key]
+    for n, m in models.items():
+        m.load_state_dict(state[n])
+    step.remat = False
+    return step, models
+
+
+def _s21_measure(spec: dict, key, batches, remat: bool = False,
+                 perturb: float = 0.0, args: dict = None):
+    """(`_measure_step` of one step of the step `key` from its seeded
+    state, its launches)."""
+    args = args or spec["flat"][key[1]]
+    step, models = _s21_fresh(args, key, batches[0].node_feat.device)
+    step.remat = remat
+    before = _counts()
+    got = _measure_step(step, models, step.prepare(*batches),
+                        perturb=perturb)
+    return got, {n: c - before[n] for n, c in _counts().items()}
+
+
+def _s21_timed(spec: dict, key, batches, remat: bool = False,
+               args: dict = None) -> dict:
+    """ms per step (CUDA events over `spec["timed"]` warm steps) and the
+    peak `max_memory_allocated` over one warm step; moves the step's
+    weights (restored on its next use)."""
+    args = args or spec["flat"][key[1]]
+    step, _ = _s21_fresh(args, key, batches[0].node_feat.device)
+    step.remat = remat
+    prepared = step.prepare(*batches)
+    step.step(*prepared)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step.step(*prepared)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return {"ms": cuda_ms(lambda: step.step(*prepared), iters=spec["timed"],
+                          warmup=1), "peak": peak}
+
+
+def _s21_remat(spec: dict, smi: str) -> dict:
+    """(a) the QMugs bf16 step with and without remat."""
+    dev = torch.device(spec["device"])
+    g2, g3, sizes = conformer_batches(spec["batch"], spec["conf_c"],
+                                      device=dev, **spec["conf_data"])
+    key, args = ("conf", True), spec["conf"]
+    plain, l_plain = _s21_measure(spec, key, (g2, g3), args=args)
+    again, _ = _s21_measure(spec, key, (g2, g3), args=args)
+    remat, l_remat = _s21_measure(spec, key, (g2, g3), remat=True,
+                                  args=args)
+    _check(l_plain == spec["expect"]["plain"],
+           f"(a) launches per step without remat {l_plain}")
+    _check(l_remat == spec["expect"]["remat"],
+           f"(a) launches per step with remat {l_remat}")
+    repeats = _dp_same(plain, again)
+    if repeats:
+        _check(_dp_same(plain, remat), "(a) the remat step is not the step "
+                                       "without remat bit for bit")
+        how = "bit for bit (the step repeats itself bit for bit)"
+    else:
+        own = _readings(again[1], plain[1], S21_SIDES)
+        tol, l2_tol, leaf_tol = _bf16_limits(
+            own, abs(again[0] - plain[0]) / abs(plain[0]))
+        r = _readings(remat[1], plain[1], S21_SIDES)
+        bad = _violations(r, tol, l2_tol, leaf_tol)
+        _print_readings("(a) remat vs plain", r, l2_tol, "s21")
+        _check(not bad, f"(a) remat vs plain: {bad}")
+        how = "within the limits of the step's own run-to-run reading"
+    t = {remat: _s21_timed(spec, key, (g2, g3), remat=remat, args=args)
+         for remat in (False, True)} if dev.type == "cuda" else {}
+    print(f"[s21] (a) QMugs bf16 step (batch {spec['batch']}, C = "
+          f"{spec['conf_c']}, {sizes['edges_3d']} 3D edges) with remat: "
+          f"loss {remat[0]:.6f}, gradients and running statistics {how}; "
+          f"launches per step {l_remat} (without remat {l_plain})")
+    for r, d in t.items():
+        print(f"[s21] (a) remat={r}: {d['ms']:.3f} ms per step (CUDA events "
+              f"over {spec['timed']} warm steps), peak max_memory_allocated "
+              f"{d['peak'] / 2 ** 30:.3f} GiB; {smi}")
+    return {"launches": {n: l_plain[n] + l_remat[n] for n in NONE},
+            "times": t}
+
+
+def _s21_noncsr(spec: dict, smi: str) -> dict:
+    """(b) the flat pre-training step on the non-CSR batch against the CSR
+    batch; returns (b)'s one-process results on the non-CSR batch by bf16
+    (the partitions' references), the witnesses of its bf16 step
+    (`S21_WITNESSES`) and the launches."""
+    dev = torch.device(spec["device"])
+    views = {csr: _s21_views(spec, csr) for csr in (True, False)}
+    batches = {csr: _s21_batches(views[csr], dev) for csr in (True, False)}
+    launches = dict(NONE)
+    out = {}
+    csr_f32 = None
+    for bf16 in (False, True):
+        ref, l_csr = _s21_measure(spec, ("flat", bf16), batches[True])
+        got, l_plain = _s21_measure(spec, ("flat", bf16), batches[False])
+        _check(l_csr == spec["expect"]["csr"][bf16],
+               f"(b) CSR launches per step {l_csr}")
+        _check(l_plain == NONE, f"(b) non-CSR launches per step {l_plain}")
+        for n in NONE:
+            launches[n] += l_csr[n]
+        if bf16:
+            # both bf16 steps against the CSR float32 step: the non-CSR
+            # one within `_bf16_limits` of the CSR one's own distance
+            # (the segment path rounds the pretrans BatchNorm's output to
+            # bf16 before it aggregates; the kernel folds it)
+            own = _readings(ref[1], csr_f32[1], S21_SIDES)
+            held = _bf16_limits(own, abs(ref[0] - csr_f32[0])
+                                / abs(csr_f32[0]))
+            _print_readings("(b) bf16 CSR vs float32 CSR (the witness)", own,
+                            held[1], "s21")
+            ref = csr_f32
+        else:
+            csr_f32 = ref
+            held = (STEP_TOL[False], {s: STEP_TOL[False]["l2"]
+                                      for s in S21_SIDES})
+        r, rel, bad = _dp_held(got, ref, S21_SIDES, *held)
+        print(f"[s21] (b) non-CSR step bf16={bf16} vs the CSR float32 "
+              f"step: loss {got[0]:.6f} vs {ref[0]:.6f}, {rel:.3g} (tol "
+              f"{held[0]['loss']:.3g})")
+        _print_readings(f"(b) bf16={bf16} non-CSR vs CSR float32", r,
+                        held[1], "s21")
+        _check(not bad, f"(b) bf16={bf16} non-CSR vs CSR: {bad}")
+        out[bf16] = got
+    # the bf16 step's own distance from the float32 step, the largest of
+    # the seeded weights' and of weights scaled by 1 + j * 2^-16 U(-1, 1)
+    # (below bf16's resolution: each rounds anew), j = 1 .. S21_WITNESSES
+    own = _readings(out[True][1], out[False][1], S21_SIDES)
+    own_loss = abs(out[True][0] - out[False][0]) / abs(out[False][0])
+    for j in range(1, S21_WITNESSES + 1):
+        lw, w = _s21_measure(spec, ("flat", True), batches[False],
+                             perturb=j * 2.0 ** -16)[0]
+        own_loss = max(own_loss, abs(lw - out[False][0]) / abs(out[False][0]))
+        _merge_own(own, _readings(w, out[False][1], S21_SIDES))
+    _print_readings(f"(b) non-CSR bf16 witnesses ({S21_WITNESSES + 1}) vs "
+                    f"the float32 step", own,
+                    {s: d["l2"] for s, d in own.items()}, "s21")
+    if dev.type == "cuda":
+        for csr in (True, False):
+            t = _s21_timed(spec, ("flat", True), batches[csr])
+            print(f"[s21] (b) bf16 step on the {'CSR' if csr else 'non-CSR'}"
+                  f" batch: {t['ms']:.3f} ms per step (CUDA events over "
+                  f"{spec['timed']} warm steps), peak max_memory_allocated "
+                  f"{t['peak'] / 2 ** 30:.3f} GiB; {smi}")
+    return {"one": out, "own": (own, own_loss), "launches": launches}
+
+
+def _s21_cut(views: dict, grid) -> dict:
+    """This rank's part of the whole batch's non-CSR views."""
+    from infomax3d_tpu_torch.parallel.edge_partition import shard_batch_edges
+    from infomax3d_tpu_torch.parallel.node_partition import shard_graph_batch
+    if grid.mode == "edge":
+        return {k: shard_batch_edges(v, grid.k, grid.graph_index)
+                for k, v in views.items()}
+    return {k: shard_graph_batch(v, grid.k, grid.graph_index)
+            for k, v in views.items()}
+
+
+def _s21_plant(name: str):
+    """Plant the partition fault `name` in this process; returns the
+    undo."""
+    from infomax3d_tpu_torch.models import base
+    from infomax3d_tpu_torch.parallel import edge_partition, node_partition
+    from infomax3d_tpu_torch.parallel.context import data_parallel_group
+
+    def drop_ghosts(ctx, ct):
+        return (ct[:ctx.n_local].clone(), None) + (None,) * len(
+            ctx.saved_tensors)
+    mod, attr, fake = {
+        "edge aggregation not completed": (edge_partition, "all_reduce_sum",
+                                           lambda x, group: x),
+        "halo backward dropped": (node_partition._HaloExchange, "backward",
+                                  staticmethod(drop_ghosts)),
+        "BatchNorm not over the graph group": (
+            base, "step_group", data_parallel_group)}[name]
+    real = mod.__dict__[attr]
+    setattr(mod, attr, fake)
+    return lambda: setattr(mod, attr, real)
+
+
+def _s21_collectives(spec: dict, batches) -> dict:
+    """The collectives of one bf16 step: all-reduce and all-gather calls,
+    elements and host ms (synchronized), and the halo exchange's rounds
+    (sends, rows); with the step's `_measure_step` result."""
+    from infomax3d_tpu_torch.parallel import collectives as C
+    from infomax3d_tpu_torch.parallel import node_partition as NP
+    seen = {"all_reduce": [0, 0, 0.0], "all_gather": [0, 0, 0.0],
+            "halo": [0, 0, 0.0]}
+    real = {"all_reduce_": C.all_reduce_, "gather_rows": C.gather_rows,
+            "_p2p": NP._p2p}
+    cuda = spec["device"] == "cuda"
+
+    def timed(fn, key, rows):
+        def wrapped(t, *a):
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(t, *a)
+            if cuda:
+                torch.cuda.synchronize()
+            s = seen[key]
+            s[0] += 1
+            s[1] += rows(t)
+            s[2] += (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapped
+    C.all_reduce_ = timed(real["all_reduce_"], "all_reduce",
+                          lambda t: t.numel())
+    C.gather_rows = timed(real["gather_rows"], "all_gather",
+                          lambda t: t.numel())
+    NP._p2p = timed(real["_p2p"], "halo",
+                    lambda rounds: sum(r.shape[0] for r in rounds))
+    try:
+        got = _s21_measure(spec, ("flat", True), batches)[0]
+    finally:
+        C.all_reduce_, C.gather_rows, NP._p2p = (
+            real["all_reduce_"], real["gather_rows"], real["_p2p"])
+    return seen, got
+
+
+def _s21_halo(grid, dev) -> float:
+    """The halo exchange on one connected graph spanning the node shards
+    (tests/test_node_partition.py's ring with random chords, at N = 4096
+    with 2400 chords, float64): a message-passing layer ``tanh((h[s] +
+    2 h[r]) W)`` summed at each receiver and read against a fixed
+    cotangent, through `halo_exchange` / `local_segment_reduce` on this
+    rank's shard, against the same layer on the whole graph; returns the
+    largest error of the owned rows' gradient, of its max (a planted fault
+    in the exchange's backward leaves the ghosts' share out)."""
+    from infomax3d_tpu_torch.parallel.node_partition import (
+        build_node_partition, halo_exchange, local_segment_reduce)
+    rng = np.random.default_rng(7)
+    N, D = 4096, 16
+    a, b = rng.integers(0, N, 2400), rng.integers(0, N, 2400)
+    keep = a != b
+    ring = np.arange(N)
+    snd = np.concatenate([ring, (ring + 1) % N, a[keep], b[keep]])
+    rcv = np.concatenate([(ring + 1) % N, ring, b[keep], a[keep]])
+    plan = build_node_partition(snd, rcv, np.ones_like(snd, bool), N, grid.k)
+    h = rng.normal(size=(N, D))
+    w = torch.tensor(rng.normal(size=(D, D)) / D, device=dev)
+    ct = rng.normal(size=(N, D))
+    g = grid.graph_index
+
+    def t(x):
+        return torch.as_tensor(x, device=dev)
+    hf = t(h).requires_grad_()
+    msg = torch.tanh((hf[t(snd)] + 2.0 * hf[t(rcv)]) @ w)
+    full = torch.zeros(N, D, dtype=msg.dtype, device=dev).index_add_(
+        0, t(rcv), msg)
+    (full * t(ct)).sum().backward()
+    rows = np.minimum(plan.node_idx[g], N - 1)
+    owned = plan.node_mask[g]
+    hl = t(h[rows] * owned[:, None]).requires_grad_()
+    ext = halo_exchange(hl, [t(si[g]) for si in plan.send_idx], grid.graph)
+    sl, rl = t(plan.senders_loc[g]).long(), t(plan.receivers_loc[g]).long()
+    msg = torch.tanh((ext[sl] + 2.0 * hl[rl]) @ w)
+    part = local_segment_reduce(msg, rl, t(plan.edge_mask[g]),
+                                plan.n_local)
+    (part * t(ct[rows] * owned[:, None])).sum().backward()
+    ref = hf.grad[t(rows)][t(owned)]
+    got = hl.grad[t(owned)]
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def _s21_rank(rank: int, spec: dict, out: str):
+    """One rank of (c): both modes' float32 and bf16 steps on its part of
+    the batch, the planted faults, the collectives, the halo rows and the
+    timings.  Writes its results to `out`/rank{rank}.pt."""
+    import dataclasses as dc
+    from datetime import timedelta
+    from infomax3d_tpu_torch.parallel import (close_group, make_grid,
+                                              make_group, using_groups)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    k, res = spec["ranks"], {}
+    _, dev = make_group(k, rank, f"file://{out}/store", spec["backend"],
+                        spec["device"], timeout=timedelta(minutes=5))
+    try:
+        grid0 = make_grid(1, k, "edge")
+        views = _s21_views(spec, False)
+        _reset_counts()
+        for mode in ("edge", "node"):
+            grid = dc.replace(grid0, mode=mode)
+            part = _s21_cut(views, grid)
+            if mode == "node":
+                res["halo"] = {key: [int(v.shape[0]) for n, v in sorted(
+                    part[key].items()) if n.startswith("halo_send_")]
+                    for key in part}
+                res["shard"] = {key: (int(part[key]["node_mask"].sum()),
+                                      int(part[key]["edge_mask"].sum()))
+                                for key in part}
+            batches = _s21_batches(part, dev)
+
+            def groups():
+                return using_groups(
+                    data=None, edge=grid.graph if mode == "edge" else None,
+                    node=grid.graph if mode == "node" else None,
+                    step=grid.step)
+            with groups():
+                res[(mode, False)] = _s21_measure(spec, ("flat", False),
+                                                  batches)[0]
+                if mode == "node":
+                    res["halo_err"] = _s21_halo(grid, dev)
+                for name in S21_MODES[mode]:
+                    undo = _s21_plant(name)
+                    try:
+                        res[("fault", name)] = _s21_measure(
+                            spec, ("flat", False), batches)[0]
+                        if name == "halo backward dropped":
+                            res[("halo_err", name)] = _s21_halo(grid, dev)
+                    finally:
+                        undo()
+                res[(mode, "collectives")], res[(mode, True)] = \
+                    _s21_collectives(spec, batches)
+                if spec["device"] == "cuda":
+                    step, _ = _s21_fresh(spec["flat"][True], ("flat", True),
+                                         dev)
+                    prepared = step.prepare(*batches)
+                    res[(mode, "ms")] = cuda_ms(
+                        lambda: step.step(*prepared),
+                        iters=spec["part_timed"], warmup=1)
+        res["launches"] = _counts()
+    finally:
+        close_group()
+    torch.save(res, f"{out}/rank{rank}.pt")
+
+
+def _s21_partitions(spec: dict, b: dict, out_dir: Path, smi: str) -> dict:
+    """(c) the partitioned modes over `spec["ranks"]` ranks against (b)'s
+    one-process steps on the whole non-CSR batch (`b["one"]`, by bf16):
+    the float32 step within STEP_TOL (the statistics within
+    S21_STATS_TOL); the bf16 step against the float32 one process within
+    `_bf16_limits` of the bf16 one process's witnesses (`b["own"]`), as
+    `_hold_step_against_cpu(witnesses=n)` holds ill-conditioned steps
+    (two bf16 steps differ by both their roundings: their distance is
+    printed, not held)."""
+    import shutil
+    k = spec["ranks"]
+    run = out_dir / "partitions"
+    shutil.rmtree(run, ignore_errors=True)
+    run.mkdir(parents=True)
+    torch.multiprocessing.start_processes(
+        _s21_rank, args=(spec, str(run)), nprocs=k, start_method="spawn")
+    ranks = [torch.load(run / f"rank{r}.pt", weights_only=False)
+             for r in range(k)]
+    one = b["one"]
+    limits = _bf16_limits(*b["own"])
+    for mode in ("edge", "node"):
+        tol = dict(STEP_TOL[False], stats=S21_STATS_TOL[mode])
+        l2 = {s: STEP_TOL[False]["l2"] for s in S21_SIDES}
+        for bf16 in (False, True):
+            got = ranks[0][(mode, bf16)]
+            _check(all(_dp_same(got, r[(mode, bf16)]) for r in ranks[1:]),
+                   f"(c) {mode} bf16={bf16}: the ranks differ")
+            held = limits if bf16 else (tol, l2)
+            r, rel, bad = _dp_held(got, one[False], S21_SIDES, *held)
+            print(f"[s21] (c) {mode} partition, {k} ranks "
+                  f"({spec['backend']}) bf16={bf16} vs the float32 one "
+                  f"process on the whole batch: loss {got[0]:.6f} vs "
+                  f"{one[False][0]:.6f}, {rel:.3g} (tol "
+                  f"{held[0]['loss']:.3g}); the ranks bit-equal")
+            _print_readings(f"(c) {mode} bf16={bf16} vs the float32 one "
+                            f"process", r, held[1], "s21")
+            _check(not bad, f"(c) {mode} bf16={bf16} vs one process: {bad}")
+            if bf16:
+                _print_readings(f"(c) {mode} bf16 vs the bf16 one process "
+                                f"(not held)", _readings(
+                                    got[1], one[True][1], S21_SIDES),
+                                held[1], "s21")
+        if mode == "node":
+            errs = [r["halo_err"] for r in ranks]
+            print(f"[s21] (c) halo exchange on a graph spanning the shards "
+                  f"(N = 4096, float64): owned rows' gradient within "
+                  f"{max(errs):.3g} of the whole graph's (tol "
+                  f"{S21_HALO_TOL:g})")
+            _check(max(errs) <= S21_HALO_TOL, f"(c) halo exchange {errs}")
+        for name in S21_MODES[mode]:
+            r, rel, bad = _dp_held(ranks[0][("fault", name)], one[False],
+                                   S21_SIDES, tol, l2)
+            if name == "halo backward dropped":
+                # on the molecular batch the halo carries the one molecule
+                # the cut splits; the graph spanning the shards carries
+                # hundreds of rows per round
+                herr = max(r_[("halo_err", name)] for r_ in ranks)
+                print(f"[s21] (c) planted fault ({name}): the halo check "
+                      f"{herr:.3g} (tol {S21_HALO_TOL:g}); main path: loss "
+                      f"{rel:.3g}, {len(bad)} violations")
+                _check(herr > S21_HALO_TOL, "the halo check passed a planted "
+                                            "fault")
+                continue
+            print(f"[s21] (c) planted fault ({name}): loss {rel:.3g}, "
+                  f"{len(bad)} violations, e.g. {bad[:2]}")
+            _check(bool(bad), f"the partition check passed a planted fault "
+                              f"({name})")
+        seen = ranks[0][(mode, "collectives")]
+        how = ("gloo, host-staged" if spec["backend"] == "gloo"
+               else spec["backend"])
+        print(f"[s21] (c) {mode}: collectives of one bf16 step per rank "
+              f"({how}, host ms between synchronizations): " + ", ".join(
+                  f"{n} {c} calls of {e} {'rows' if n == 'halo' else 'elements'}"
+                  f" in all, {ms:.3f} ms" for n, (c, e, ms) in seen.items()))
+        if (mode, "ms") in ranks[0]:
+            where = ("time-sliced on one card; not a measure of speed"
+                     if torch.cuda.device_count() < k else "one card each")
+            print(f"[s21] (c) {mode}: {ranks[0][(mode, 'ms')]:.3f} ms per "
+                  f"bf16 step (rank 0's CUDA events over {spec['part_timed']}"
+                  f" warm steps), {k} ranks {where} ({spec['backend']}); "
+                  f"{smi}")
+    for key, sizes in ranks[0]["halo"].items():
+        print(f"[s21] (c) node shards of {key}: halo rows per round "
+              f"{sizes} (padded to 8), owned real nodes and edges per rank "
+              f"{[r['shard'][key] for r in ranks]}")
+    return {"launches": {n: sum(r["launches"][n] for r in ranks)
+                         for n in NONE}}
+
+
+def phase_slice21(smi: str, out_dir: Path, spec: dict = None) -> dict:
+    """Phase 28: `remat` (a), the non-CSR batch (b) and the partitioned
+    modes (c) (module docstring).  Returns the main path's launches."""
+    spec = spec or _s21_spec()
+    t = [time.perf_counter()]
+    _reset_counts()
+    a = _s21_remat(spec, smi)
+    t.append(time.perf_counter())
+    b = _s21_noncsr(spec, smi)
+    t.append(time.perf_counter())
+    c = _s21_partitions(spec, b, out_dir, smi)
+    t.append(time.perf_counter())
+    launches = {n: a["launches"][n] + b["launches"][n] + c["launches"][n]
+                for n in NONE}
+    _S21_STEPS.clear()
+    print(f"[s21] main-path launches: {launches}")
+    print("[s21] seconds: " + ", ".join(
+        f"{name} {y - x:.1f}" for name, x, y in zip(
+            ("(a) remat", "(b) non-CSR", "(c) partitions"), t, t[1:])))
+    return {"launches": launches}
+
 
 class _Phase:
     """Prints a phase's seconds when it ends (and lets its error pass)."""
@@ -7555,14 +8109,16 @@ def main() -> int:
         _merge_errs(errs, s19["errs"])
     with _Phase("27 data parallel"):
         dp = phase_data_parallel(smi, out_dir)
-    # every kernel's launches over the fifteen main paths (serving,
+    with _Phase("28 remat, the non-CSR batch, the partitions"):
+        s21 = phase_slice21(smi, out_dir)
+    # every kernel's launches over the sixteen main paths (serving,
     # pre-training, GIN training, OT training, the trainer CLI,
     # multi-conformer pre-training, the data layer, the serving CLI, the
     # baselines' CLI runs, the OT family's CLI runs, the supervised CLI
     # runs of the GIN's options and the transformers, those of
     # PNAOriginal and SMP, those of BYOL, EGNN and SAN, those of the
-    # philosophy trainer and the GeoMol fine-tune, and the data-parallel
-    # steps and CLI run)
+    # philosophy trainer and the GeoMol fine-tune, the data-parallel
+    # steps and CLI run, and phase 28's remat and CSR steps)
     launches = {n: serve_launches[n] + train["launches"][n]
                 + gin["launches"][n] + ot_run["launches"][n]
                 + trainer["launches"][n] + conf["launches"][n]
@@ -7570,7 +8126,7 @@ def main() -> int:
                 + base["launches"][n] + family["launches"][n]
                 + s16["launches"][n] + s17["launches"][n]
                 + s18["launches"][n] + s19["launches"][n]
-                + dp["launches"][n]
+                + dp["launches"][n] + s21["launches"][n]
                 for n in serve_launches}
     with _Phase("6 kernel times"):
         rows = phase_kernel_times(g, launches, errs)

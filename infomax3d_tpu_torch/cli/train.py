@@ -15,9 +15,11 @@ synthetic` runs everything without chemistry data.
 The run goes to the CUDA card unless `--device` (or the config's `device`)
 says "cpu"; with neither set and no card, it raises.  What the port has
 not ported yet raises `NotImplementedError` naming its ROADMAP queue 1
-item: the non-CSR batch (`csr_buckets: False`, `bucket_ladder`, item 7),
-the edge- and node-partitioned modes (`graph_shards`, `node_shards`, item
-9b), tensor parallelism (`model_shards`, item 9c).
+item: tensor parallelism (`model_shards`, item 9c).  `csr_buckets: False`
+runs the flat collates on the non-CSR batch (the segment path);
+`bucket_ladder: true` picks each batch's bucket from a ladder where the
+JAX CLI does, and says so once where it leaves the ladder unused.
+`remat: true` recomputes the training forwards in the backward.
 
 Data parallelism (`n_shards: k`, item 9a) runs k ranks, one per shard
 (`parallel/`), with the same command: without a launch in the environment
@@ -29,6 +31,12 @@ per rank; `--dist_backend=gloo` names gloo (ranks on the CPU with
 `--device=cpu`, or several ranks sharing the cards).
 
     torchrun --nproc_per_node=4 -m infomax3d_tpu_torch.cli.train --config=configs_clean/pre-train_QM9.yml --n_shards=4
+
+The partitioned modes (`graph_shards: k`, the edges of each batch cut
+over k ranks; `node_shards: k`, its nodes) run ``n_shards x k`` ranks the
+same way, on the non-CSR batch (`parallel/`); the JAX CLI's refusals of
+their combinations are reproduced (`check_parallel_modes`).
+`node_el_pad` / `node_halo_pad` override the node shards' pads.
 """
 from __future__ import annotations
 
@@ -249,29 +257,38 @@ FLAT_COLLATES = {
     "noised_distances_collate", "noised_coordinates_collate",
     "pairwise_distance_collate",
 }
+# the flat collates the JAX package batches without CSR arrays where
+# `csr_buckets` is off (its `flat_collates`); the others keep their CSR
+# buckets
+NON_CSR_COLLATES = FLAT_COLLATES - {"pairwise_distance_collate"}
+# the collates the node-sharded mode takes (JAX cli/train.py:690-698)
+NODE_SHARD_COLLATES = ("graph_collate", "graph_only_collate",
+                       "contrastive_collate", "contrastive_collate_ae",
+                       "conformer_collate")
 
 
 def resolve_fast_paths(args: Dict[str, Any]) -> None:
     """Resolve the batch-layout knobs once (read by build_models and
-    make_loaders).  The port has only receiver-sorted CSR batches, so on
-    every device:
+    make_loaders), on every device as the JAX CLI on an accelerator:
 
-    * ``_csr`` is on for the flat collates; ``csr_buckets: False`` (the
-      non-CSR batch) is ROADMAP queue 1, item 7, and raises;
+    * ``_csr`` (receiver-sorted CSR batches, the kernels' path) is on for
+      the flat collates with ``csr_buckets`` 'auto' or True; ``False``
+      turns it off for the JAX package's flat collates
+      (`NON_CSR_COLLATES`), whose batch then takes the segment path;
     * ``_dense_3d`` (Net3DDense on the dense 3D batch) is on for a Net3D /
       Net3DDense 3D model with `contrastive_collate`, unless the config
-      sets ``dense_3d: False``, which runs the flat Net3D on the CSR
-      complete graph; `conformer_collate` always runs the flat Net3D.
-    Graph- and node-sharded modes (item 9b) raise."""
+      sets ``dense_3d: False``, which runs the flat Net3D on the complete
+      graph; `conformer_collate` always runs the flat Net3D.
+    The partitioned modes (``graph_shards``, ``node_shards`` > 1) turn
+    both off, as the JAX CLI does (cli/train.py:252-261): their shards
+    index local orderings, and the segment path carries the completions."""
     if args.get("graph_shards", 1) > 1 or args.get("node_shards", 1) > 1:
-        raise NotImplementedError(
-            "graph_shards / node_shards are not ported yet (ROADMAP queue "
-            "1, item 9b)")
-    if args.get("csr_buckets", "auto") is False:
-        raise NotImplementedError(
-            "csr_buckets: False (the non-CSR batch) is not ported yet "
-            "(ROADMAP queue 1, item 7)")
-    args["_csr"] = args.get("collate_function") in FLAT_COLLATES
+        args["csr_buckets"] = False
+        args["dense_3d"] = False
+    collate = args.get("collate_function")
+    args["_csr"] = collate in FLAT_COLLATES and not (
+        args.get("csr_buckets", "auto") is False
+        and collate in NON_CSR_COLLATES)
     eligible = (args.get("model3d_type") in ("Net3D", "Net3DDense") and
                 args.get("collate_function") == "contrastive_collate")
     args["_dense_3d"] = (eligible
@@ -440,13 +457,13 @@ def make_splits(args: Dict[str, Any], dataset):
     return reference_split_indices(args, n)
 
 
-def make_loaders(args: Dict[str, Any], dataset, rank: int = 0):
+def make_loaders(args: Dict[str, Any], dataset, rank: int = 0, grid=None):
     """Train / validation / test `GraphDataLoader`s of data-parallel shard
-    `rank` (of `n_shards`; the whole batch for one): one static CSR bucket
-    sized to cover a random batch with overwhelming probability (`_cap`),
-    and for a flat 3D side or a pair view one for its complete graphs
-    (`max_deg` the largest n - 1; C times as large for
-    `conformer_collate`); shuffled
+    `rank` (of `n_shards`; the whole batch for one): one static bucket
+    (CSR where ``_csr``, as the JAX CLI sizes it otherwise) sized to cover
+    a random batch with overwhelming probability (`_cap`), and for a flat
+    3D side or a pair view one for its complete graphs (CSR: `max_deg` the
+    largest n - 1; C times as large for `conformer_collate`); shuffled
     train batches (seed `seed`) or, with `train_sampler`, the batches of a
     size-clustered sampler (data/samplers.py); full batches for the
     contrastive collates.  The dense collates take the bucket's graph
@@ -454,10 +471,16 @@ def make_loaders(args: Dict[str, Any], dataset, rank: int = 0):
     graph bucket (in-degree below the largest molecule) and a triplet
     count sized from a sample.  With `n_shards` > 1 every loader drops
     partial batches and each shard collates its slice into the buckets
-    cut `n_shards` ways (`GraphDataLoader`)."""
+    cut `n_shards` ways (`GraphDataLoader`).  `bucket_ladder` replaces the
+    bucket by a ladder where the JAX CLI builds one.  Given a `grid` (the
+    partitioned modes), `rank` is its data index and each rank's graph
+    views are cut to its edge or node shard (`partition_collate`)."""
     from infomax3d_tpu_torch.data.loader import (DENSE_COLLATES,
-                                                 GraphDataLoader)
-    from infomax3d_tpu_torch.graphs.batch import BucketSpec
+                                                 GraphDataLoader,
+                                                 get_collate,
+                                                 partition_collate)
+    from infomax3d_tpu_torch.graphs.batch import (BucketSpec,
+                                                  make_bucket_ladder)
 
     train_idx, val_idx, test_idx = make_splits(args, dataset)
     bs = args["batch_size"]
@@ -474,10 +497,13 @@ def make_loaders(args: Dict[str, Any], dataset, rank: int = 0):
         return int(np.ceil(need / granularity) * granularity)
 
     n_cap, e3_cap = _cap(nodes, 256), _cap(nodes * (nodes - 1), 2048)
-    bucket = BucketSpec(bs, n_cap, _cap(dataset.edge_counts(), 512),
-                        max_deg=int(dataset.max_in_degree()), csr=True,
-                        nmax=max_n)
     collate = args["collate_function"]
+    # the non-flat collates keep their CSR buckets; a non-CSR bucket has
+    # no degree bound (the JAX CLI's BucketSpec(bs, n_cap, e_cap, nmax))
+    csr = args.get("_csr", True) or collate not in FLAT_COLLATES
+    bucket = BucketSpec(bs, n_cap, _cap(dataset.edge_counts(), 512),
+                        max_deg=int(dataset.max_in_degree()) if csr else 0,
+                        csr=csr, nmax=max_n)
     ckw = dict(args.get("collate_params") or {})
     contrastive = collate in ("contrastive_collate", "conformer_collate",
                               "contrastive_collate_ae")
@@ -504,6 +530,11 @@ def make_loaders(args: Dict[str, Any], dataset, rank: int = 0):
         ckw.setdefault("n_triplets", _cap(st, 2048, slack=2.0))
 
     def bucket3d(copies):
+        if not csr:
+            # the JAX CLI's: the readout regroup for one conformer, the
+            # segment readout for C (cli/train.py:505, :547)
+            return BucketSpec(bs * copies, n_cap * copies, e3_cap * copies,
+                              nmax=max_n if copies == 1 else 0)
         return BucketSpec(bs * copies, n_cap * copies, e3_cap * copies,
                           max_deg=max(max_n - 1, 1), csr=True, nmax=max_n)
     if collate == "conformer_collate":
@@ -534,20 +565,52 @@ def make_loaders(args: Dict[str, Any], dataset, rank: int = 0):
         hp = (args.get("model_parameters") or {}).get("hyperparams") or {}
         ckw.setdefault("n_true_confs",
                        int(hp.get("n_true_confs", args["num_conformers"])))
-    if args.get("bucket_ladder"):
-        raise NotImplementedError(
-            "bucket_ladder (per-batch non-CSR buckets) is not ported yet "
-            "(ROADMAP queue 1, item 7)")
-
     n_shards = int(args.get("n_shards", 1))
+    # `bucket_ladder: true`: a per-batch bucket from a small ladder of
+    # non-CSR shapes (less padding), where the JAX CLI builds one
+    # (cli/train.py:567-579); elsewhere it says so once
+    ladder = None
+    if args.get("bucket_ladder"):
+        if not args.get("_csr") and n_shards == 1 and collate in (
+                "graph_collate", "graph_only_collate"):
+            ladder = make_bucket_ladder(bs, nodes, dataset.edge_counts(),
+                                        nmax=max_n)
+            bucket = None
+        else:
+            print("bucket_ladder: unused (the JAX CLI builds the ladder "
+                  "only for graph_collate / graph_only_collate without CSR "
+                  "buckets and without n_shards); one static bucket")
+
+    collate_fn = get_collate(collate)
+    if grid is not None and grid.mode == "edge":
+        from infomax3d_tpu_torch.parallel.edge_partition import \
+            shard_batch_edges
+        collate_fn = partition_collate(
+            collate_fn, lambda v: shard_batch_edges(v, grid.k,
+                                                    grid.graph_index))
+    elif grid is not None:
+        # static pads per bucket, as the JAX CLI's (cli/train.py:581-603):
+        # edges at 1.5x the even split, the halo at one largest molecule
+        # per round
+        from infomax3d_tpu_torch.parallel.node_partition import \
+            shard_graph_batch
+        halo_pad = int(args.get("node_halo_pad") or
+                       int(np.ceil(max_n / 8) * 8))
+
+        def node_cut(v):
+            el_pad = int(args.get("node_el_pad") or int(np.ceil(
+                v["senders"].shape[0] * 1.5 / grid.k / 8) * 8))
+            return shard_graph_batch(v, grid.k, grid.graph_index, el_pad,
+                                     halo_pad)
+        collate_fn = partition_collate(collate_fn, node_cut)
 
     def mk(indices, shuffle, seed, batch_sampler=None):
-        return GraphDataLoader(dataset, bs, collate, bucket=bucket,
+        return GraphDataLoader(dataset, bs, collate_fn, bucket=bucket,
                                shuffle=shuffle, drop_last=contrastive,
                                seed=seed, indices=indices,
                                collate_kwargs=ckw,
                                batch_sampler=batch_sampler,
-                               n_shards=n_shards, shard=rank)
+                               n_shards=n_shards, shard=rank, ladder=ladder)
 
     sampler = None
     if args.get("train_sampler"):
@@ -600,31 +663,71 @@ def trainer_class(args: Dict[str, Any]):
     return get_trainer_class("default")
 
 
+def partition(args: Dict[str, Any]):
+    """(mode, k) of a partitioned run: ("edge", graph_shards), ("node",
+    node_shards), or (None, 1)."""
+    if int(args.get("graph_shards", 1)) > 1:
+        return "edge", int(args["graph_shards"])
+    if int(args.get("node_shards", 1)) > 1:
+        return "node", int(args["node_shards"])
+    return None, 1
+
+
+def check_parallel_modes(args: Dict[str, Any]) -> None:
+    """The JAX CLI's refusals (cli/train.py:686-716), each with its
+    exception type, on a resolved config; then `model_shards` alone, not
+    ported (item 9c)."""
+    graph_shards = int(args.get("graph_shards", 1))
+    node_shards = int(args.get("node_shards", 1))
+    if graph_shards > 1 and node_shards > 1:
+        raise ValueError("graph_shards (edge partitioning) and node_shards "
+                         "(node-sharded halo partitioning) both claim the "
+                         "'graph' axis — pick one")
+    if node_shards > 1:
+        if args.get("collate_function") not in NODE_SHARD_COLLATES:
+            raise ValueError("node_shards currently supports the pure-"
+                             "GraphBatch collates (graph_collate, "
+                             "graph_only_collate, contrastive_collate[_ae], "
+                             "conformer_collate)")
+        if (args.get("model_parameters") or {}).get("pairwise_distances"):
+            raise NotImplementedError(
+                "node_shards: PNA pairwise_distances gathers coords by "
+                "sender inside the model — ghost coordinates are not "
+                "exchanged on that path")
+    if int(args.get("model_shards", 1)) > 1:
+        if graph_shards > 1 or node_shards > 1:
+            raise ValueError("model_shards cannot combine with graph_shards/"
+                             "node_shards — pick one graph-parallel mode")
+        raise NotImplementedError(
+            "model_shards (tensor parallelism) is not ported yet (ROADMAP "
+            "queue 1, item 9c)")
+
+
 def run_training(args: Dict[str, Any], device=None,
                  init_variables: Optional[Mapping[str, Mapping]] = None,
-                 group=None) -> Dict[str, float]:
+                 group=None, grid=None) -> Dict[str, float]:
     """One training run.  `device` wins over `args["device"]`; with both
     None the run goes to the CUDA card (and raises without one).
     `init_variables` maps model keys to flax numpy trees to start from
     (otherwise torch's default initialization, seeded by `seed`).  With
-    `n_shards` > 1 and no `group`, `run_data_parallel` starts (or joins)
-    the ranks; given the data-parallel `group`, this is one rank's run
-    (`device` its device), and only rank 0 writes the run directory."""
-    if args.get("model_shards", 1) > 1:
-        raise NotImplementedError(
-            "model_shards (tensor parallelism) is not ported yet (ROADMAP "
-            "queue 1, item 9c)")
-    if int(args.get("n_shards", 1)) > 1 and group is None:
+    `n_shards` > 1 (or a partitioned mode) and no `group` / `grid`,
+    `run_data_parallel` starts (or joins) the ranks; given the
+    data-parallel `group` or the partitioned run's `grid`, this is one
+    rank's run (`device` its device), and only rank 0 writes the run
+    directory."""
+    resolve_collate(args)
+    check_parallel_modes(args)
+    parallel = int(args.get("n_shards", 1)) > 1 or partition(args)[1] > 1
+    if parallel and group is None and grid is None:
         return run_data_parallel(args, device, init_variables)
     check_device(args.get("device"))
-    if group is None:
+    if group is None and grid is None:
         check_device(device)
     device = resolve_device(device if device is not None
                             else args.get("device"))
     seed_all(args["seed"])
     from infomax3d_tpu_torch.losses import SUPERVISED_LOSSES, get_loss
 
-    resolve_collate(args)
     dataset = build_dataset(args)
     apply_dataset_protocol(args, dataset)
     metrics = build_metrics(args, dataset)
@@ -634,13 +737,14 @@ def run_training(args: Dict[str, Any], device=None,
         get_loss(loss_name, **(args.get("loss_params") or {}))
     trainer_cls = trainer_class(args)
     models = build_models(args, dataset)
-    rank = 0 if group is None else dist.get_rank(group)
+    world = grid.step if grid is not None else group
+    rank = 0 if world is None else dist.get_rank(world)
     run_dir = [None]
     if rank == 0:
         run_dir[0] = _claim_run_dir(args)
-    if group is not None:
+    if world is not None:
         dist.broadcast_object_list(run_dir, src=dist.get_global_rank(
-            group, 0), group=group)
+            world, 0), group=world)
     run_dir = run_dir[0]
     kw: Dict[str, Any] = {}
     if args["trainer"] == "philosophy":
@@ -658,9 +762,9 @@ def run_training(args: Dict[str, Any], device=None,
         main_metric_goal=args["main_metric_goal"],
         scheduler_step_per_batch=args["scheduler_step_per_batch"],
         device=device, use_tensorboard=args.get("use_tensorboard", True),
-        init_variables=init_variables, group=group, **kw)
-    train_loader, val_loader, test_loader = make_loaders(args, dataset,
-                                                         rank)
+        init_variables=init_variables, group=group, grid=grid, **kw)
+    train_loader, val_loader, test_loader = make_loaders(
+        args, dataset, rank if grid is None else grid.data_index, grid)
     if args.get("pretrain_checkpoint"):
         trainer.init_state(next(iter(train_loader)))
         transfer_pretrained(trainer, args)
@@ -694,17 +798,18 @@ def _claim_run_dir(args: Dict[str, Any]) -> str:
 def run_data_parallel(args: Dict[str, Any], device=None,
                       init_variables: Optional[Mapping[str, Mapping]] = None
                       ) -> Dict[str, float]:
-    """`n_shards` k ranks of one run (module docstring).  Under a launch
-    in the environment (`parallel.multihost.launch_environment`) this
-    process is one rank and the world size must be k; otherwise the k
-    ranks start here, one process each, after the kernels are built once,
-    and rank 0's results are returned.  `dist_backend` (default "nccl")
-    names the backend; NCCL with fewer cards than ranks raises."""
+    """The ranks of one run (module docstring): `n_shards` times the
+    partition's k.  Under a launch in the environment
+    (`parallel.multihost.launch_environment`) this process is one rank
+    and the world size must be that count; otherwise the ranks start
+    here, one process each, after the kernels are built once, and rank
+    0's results are returned.  `dist_backend` (default "nccl") names the
+    backend; NCCL with fewer cards than ranks raises."""
     from infomax3d_tpu_torch.parallel import (close_group,
                                               initialize_multihost,
                                               rank_devices)
     from infomax3d_tpu_torch.parallel.multihost import launch_environment
-    k = int(args["n_shards"])
+    k = int(args.get("n_shards", 1)) * partition(args)[1]
     backend = args.get("dist_backend", "nccl")
     check_device(args.get("device"))
     check_device(device)
@@ -717,10 +822,11 @@ def run_data_parallel(args: Dict[str, Any], device=None,
     if launch is not None:
         if launch["world"] != k:
             raise ValueError(f"the launch has {launch['world']} processes, "
-                             f"the config n_shards {k}: they must be equal")
+                             f"the config n_shards x graph / node shards "
+                             f"{k}: they must be equal")
         group, rank_dev = initialize_multihost(backend, dev.type)
         try:
-            return run_training(args, rank_dev, init_variables, group=group)
+            return _run_rank(args, rank_dev, init_variables, group)
         finally:
             close_group()
     rank_devices(k, backend, dev.type)
@@ -737,6 +843,17 @@ def run_data_parallel(args: Dict[str, Any], device=None,
             return pickle.load(f)
 
 
+def _run_rank(args: Dict[str, Any], device, init_variables, group):
+    """This rank's run in the joined default `group`: data parallel, or
+    under the (data, graph) grid of a partitioned mode."""
+    from infomax3d_tpu_torch.parallel import make_grid
+    mode, k = partition(args)
+    if mode is None:
+        return run_training(args, device, init_variables, group=group)
+    grid = make_grid(int(args.get("n_shards", 1)), k, mode)
+    return run_training(args, device, init_variables, grid=grid)
+
+
 def _rank_main(rank: int, k: int, backend: str, device_type: str,
                args: Dict[str, Any], init_variables, tmp: str,
                threads: int) -> None:
@@ -747,7 +864,7 @@ def _rank_main(rank: int, k: int, backend: str, device_type: str,
     group, dev = make_group(k, rank, f"file://{tmp}/store", backend,
                             device_type)
     try:
-        result = run_training(dict(args), dev, init_variables, group=group)
+        result = _run_rank(dict(args), dev, init_variables, group)
     finally:
         close_group()
     if rank == 0:
@@ -762,10 +879,10 @@ def train(args: Dict[str, Any], device=None,
     seeds = args.get("multithreaded_seeds") or []
     if not seeds:
         return run_training(args, device, init_variables)
-    if int(args.get("n_shards", 1)) > 1:
+    if int(args.get("n_shards", 1)) * partition(args)[1] > 1:
         raise NotImplementedError(
-            "multithreaded_seeds with n_shards > 1: each seed's ranks would "
-            "claim the same cards; run the seeds one after the other")
+            "multithreaded_seeds with several ranks: each seed's ranks "
+            "would claim the same cards; run the seeds one after the other")
     with ThreadPoolExecutor(max_workers=len(seeds)) as ex:
         futures = []
         for s in seeds:

@@ -21,9 +21,10 @@ NaN-padded targets) and of the dense EGNN (`egnn_padded_collate`,
 SMP's radius graphs with their triplets (`smp_collate`).  Node ids are
 those of the batch (the CSR sort permutes edges, not nodes), so the OT
 arrays do not depend on the edge order; the graph's edge-keyed arrays
-follow the receiver-sorted order as in every CSR batch.  A CSR view also carries its
-bucket's static bounds (``max_deg``, ``nmax``, 0-d int arrays) so
-`to_device` can rebuild the `GraphBatch`.
+follow the receiver-sorted order as in every CSR batch (a non-CSR bucket
+keeps the collate's edge order).  A graph view also carries its bucket's
+static bounds (``max_deg``, ``nmax``, 0-d int arrays) so `to_device` can
+rebuild the `GraphBatch`.
 
 The augmentations draw from ``np.random.default_rng(0)`` built anew on
 every call when no `rng` is passed, as the JAX package's do (its CLI
@@ -32,7 +33,8 @@ passes none), so every batch of a run gets the same draws.
 `GraphDataLoader` shuffles with `np.random.default_rng(seed)` (one
 permutation per epoch) or takes its index lists from a `batch_sampler`
 (`data/samplers.py`), drops the last partial batch when `drop_last` (the
-contrastive collates need full batches), and collates on a prefetch
+contrastive collates need full batches), picks each batch's bucket from a
+`ladder` when it has no fixed bucket, and collates on a prefetch
 thread whose errors are re-raised on the consuming thread.  Batches leave
 it as numpy arrays; the trainer moves them to its device.
 """
@@ -53,7 +55,8 @@ from infomax3d_tpu_torch.data.smp_featurize import smp_featurize
 from infomax3d_tpu_torch.data.synthetic import complete_graph_from_coords
 from infomax3d_tpu_torch.graphs.batch import (BucketSpec, GraphBatch,
                                               batch_graphs, bucket_for,
-                                              row_pointers, to_graph_batch)
+                                              pick_bucket, row_pointers,
+                                              to_graph_batch)
 from infomax3d_tpu_torch.graphs.dense import dense_batch, to_dense_batch
 
 OT_KEYS = ("nbh_center", "nbh_nbrs", "nbh_perms", "nbh_mask", "nbh_mol",
@@ -214,10 +217,10 @@ def get_collate(name: str):
     return COLLATE_REGISTRY[name]
 
 
-def _csr_view(arrays: Dict[str, np.ndarray], bucket: BucketSpec
-              ) -> Dict[str, np.ndarray]:
-    if not bucket.csr or bucket.nmax <= 0:
-        raise ValueError("the port's batches are CSR buckets with nmax > 0")
+def _batch_view(arrays: Dict[str, np.ndarray], bucket: BucketSpec
+                ) -> Dict[str, np.ndarray]:
+    """A collated batch's arrays with its bucket's static bounds, which
+    `to_device` reads back (a CSR bucket is known by its arrays)."""
     arrays["max_deg"] = np.asarray(bucket.max_deg, np.int64)
     arrays["nmax"] = np.asarray(bucket.nmax, np.int64)
     return arrays
@@ -234,33 +237,33 @@ def graph_collate(items: Sequence[Dict], bucket: BucketSpec):
     """The bond graphs with their targets (custom_collate.py:12-18)."""
     merged = [dict(it["graph2d"], targets=it["targets"]) for it in items]
     arrays = _nan_targets(batch_graphs(merged, bucket), len(items))
-    return {"graph": _csr_view(arrays, bucket)}
+    return {"graph": _batch_view(arrays, bucket)}
 
 
 def _bonds_only(items: Sequence[Dict], bucket: BucketSpec):
-    """The CSR batch of the items' bond graphs, without targets."""
-    return _csr_view(batch_graphs([it["graph2d"] for it in items], bucket),
+    """The batch of the items' bond graphs, without targets."""
+    return _batch_view(batch_graphs([it["graph2d"] for it in items], bucket),
                      bucket)
 
 
 def _graph2d(items: Sequence[Dict], bucket: BucketSpec):
-    """The CSR 2D batch of `items`, with NaN-padded targets when they have
+    """The 2D batch of `items`, with NaN-padded targets when they have
     targets."""
     if "targets" not in items[0]:
         return _bonds_only(items, bucket)
-    return _csr_view(_nan_targets(batch_graphs(
+    return _batch_view(_nan_targets(batch_graphs(
         [dict(it["graph2d"], targets=it["targets"]) for it in items],
         bucket), len(items)), bucket)
 
 
 def complete_graphs(graphs: Sequence[Dict], bucket: Optional[BucketSpec],
                     n_graphs: int) -> Dict[str, np.ndarray]:
-    """The CSR batch of 3D complete graphs (`complete_graph_from_coords`
+    """The batch of 3D complete graphs (`complete_graph_from_coords`
     dicts) in `bucket`, or, without one, in the smallest bucket of
     `n_graphs` graphs that holds them (`bucket_for`: `max_deg` the largest
     n - 1, `nmax` the largest n)."""
     bucket = bucket or bucket_for(graphs, n_graphs)
-    return _csr_view(batch_graphs(graphs, bucket), bucket)
+    return _batch_view(batch_graphs(graphs, bucket), bucket)
 
 
 @register_collate("contrastive_collate")
@@ -416,7 +419,7 @@ def node_drop_2d3d_collate(items, bucket, bucket3d=None,
         n = g3["node_feat"].shape[0]
         keep = np.sort(rng.permutation(n)[: n - int(drop_ratio * n)])
         g3s.append(_node_drop_3d(g3, keep))
-    return {"graph2d": _csr_view(batch_graphs(g2s, bucket), bucket),
+    return {"graph2d": _batch_view(batch_graphs(g2s, bucket), bucket),
             "graph3d": complete_graphs(g3s, bucket3d, bucket.n_graphs)}
 
 
@@ -504,7 +507,7 @@ def smp_collate(items: Sequence[Dict], bucket: Optional[BucketSpec],
                   tri_kj_perm=np.argsort(idx_kj, kind="stable").astype(
                       np.int32),
                   tri_kj_ptr=row_pointers(np.sort(idx_kj), E))
-    return {"graph": _csr_view(arrays, bucket)}
+    return {"graph": _batch_view(arrays, bucket)}
 
 
 @register_collate("graphcl_collate")
@@ -516,8 +519,8 @@ def graphcl_collate(items: Sequence[Dict], bucket: BucketSpec,
     rng = rng or np.random.default_rng(0)
     v1 = [node_drop(it["graph2d"], rng, drop_ratio) for it in items]
     v2 = [node_drop(it["graph2d"], rng, drop_ratio) for it in items]
-    return {"view1": _csr_view(batch_graphs(v1, bucket), bucket),
-            "view2": _csr_view(batch_graphs(v2, bucket), bucket)}
+    return {"view1": _batch_view(batch_graphs(v1, bucket), bucket),
+            "view2": _batch_view(batch_graphs(v2, bucket), bucket)}
 
 
 @register_collate("san_collate")
@@ -609,20 +612,31 @@ def _ot_view(items: Sequence[Dict], bucket: BucketSpec,
              n_true_confs: int = 3):
     """`ot_collate` as the loader's view ``{"graph": arrays}`` (the JAX
     collate's batch), with the bucket's bounds for `to_device`."""
-    return {"graph": _csr_view(ot_collate(items, bucket, n_true_confs),
+    return {"graph": _batch_view(ot_collate(items, bucket, n_true_confs),
                                bucket)}
 
 
 def to_device(view: Dict[str, np.ndarray], device):
-    """One collated view -> its batch on `device`: a `GraphBatch` for a CSR
+    """One collated view -> its batch on `device`: a `GraphBatch` for a graph
     view (targets included), a `DenseBatch` for a dense one."""
     if "senders" not in view:
         return to_dense_batch(view, device)
     G, N = view["graph_mask"].shape[0], view["node_feat"].shape[0]
     bucket = BucketSpec(G, N, view["senders"].shape[0],
-                        max_deg=int(view["max_deg"]), csr=True,
-                        nmax=int(view["nmax"]))
+                        max_deg=int(view["max_deg"]),
+                        csr="csr_row_ptr" in view, nmax=int(view["nmax"]))
     return to_graph_batch(view, bucket, device)
+
+
+def partition_collate(collate: Callable, cut: Callable) -> Callable:
+    """`collate` with each of its graph views (those with edges) passed
+    through `cut` (a rank's edge or node shard of the batch: the
+    partitioned modes, `parallel/edge_partition.py`,
+    `parallel/node_partition.py`); dense views pass as they are."""
+    def cut_collate(items, *args, **kw):
+        return {key: cut(view) if "senders" in view else view
+                for key, view in collate(items, *args, **kw).items()}
+    return cut_collate
 
 
 # ----------------------------------------------------------------- loader
@@ -642,10 +656,11 @@ def shard_bucket(bucket: Optional[BucketSpec], n_shards: int
 
 class GraphDataLoader:
     """Shuffling, prefetching loader over a dataset of item dicts
-    (`__len__`, `__getitem__(i)`), one static bucket per loader; a
+    (`__len__`, `__getitem__(i)`), one static bucket per loader or, with
+    `ladder` and no `bucket`, each batch's smallest bucket of the ladder
+    that holds its 2D graphs (`pick_bucket`, as the JAX loader picks); a
     `batch_sampler` (an iterable of index lists with `__len__`) replaces
-    the shuffle.  The JAX package's bucket ladder (non-CSR buckets) is
-    ROADMAP queue 1, item 7.
+    the shuffle.
 
     Data parallel (`n_shards` k > 1, the JAX loader's shards): the batch
     size must divide by k and partial batches are dropped; every shard
@@ -659,11 +674,13 @@ class GraphDataLoader:
                  drop_last: bool = False, seed: int = 0,
                  indices: Optional[Sequence[int]] = None, prefetch: int = 2,
                  collate_kwargs: Optional[Dict] = None, batch_sampler=None,
-                 n_shards: int = 1, shard: int = 0):
+                 n_shards: int = 1, shard: int = 0,
+                 ladder: Optional[Sequence[BucketSpec]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate = collate if callable(collate) else get_collate(collate)
         self.bucket = bucket
+        self.ladder = list(ladder) if ladder else None
         self.shuffle = shuffle
         self.n_shards, self.shard = n_shards, shard
         if n_shards > 1:
@@ -709,18 +726,27 @@ class GraphDataLoader:
         for i in range(0, len(idx), self.batch_size):
             yield idx[i:i + self.batch_size]
 
+    def _bucket(self, chunk) -> Optional[BucketSpec]:
+        """The whole batch's bucket: the loader's, or its ladder's pick."""
+        if self.bucket is not None or not self.ladder:
+            return self.bucket
+        graphs = [self.dataset[int(j)]["graph2d"] for j in chunk]
+        return pick_bucket(self.ladder,
+                           sum(g["node_feat"].shape[0] for g in graphs),
+                           sum(g["senders"].shape[0] for g in graphs))
+
     def _batches(self) -> Iterator:
-        if self.n_shards == 1:
-            bucket, kw = self.bucket, self.collate_kwargs
-        else:
-            bucket = shard_bucket(self.bucket, self.n_shards)
-            kw = dict(self.collate_kwargs)
+        kw = self.collate_kwargs
+        if self.n_shards > 1:
+            kw = dict(kw)
             if isinstance(kw.get("bucket3d"), BucketSpec):
                 kw["bucket3d"] = shard_bucket(kw["bucket3d"], self.n_shards)
         for chunk in self._index_batches():
             if len(chunk) < self.batch_size and self.drop_last:
                 continue
+            bucket = self._bucket(chunk)
             if self.n_shards > 1:
+                bucket = shard_bucket(bucket, self.n_shards)
                 per = len(chunk) // self.n_shards
                 chunk = chunk[self.shard * per:(self.shard + 1) * per]
             items = [self.dataset[int(j)] for j in chunk]

@@ -1,5 +1,5 @@
-"""Padded, receiver-sorted CSR graph batches (port of
-`infomax3d_tpu/graphs/batch.py`).
+"""Padded graph batches, receiver-sorted CSR or in the collate's edge order
+(port of `infomax3d_tpu/graphs/batch.py`).
 
 `batch_graphs` is a numpy host batcher: it concatenates per-molecule dicts
 into one flat graph padded to a `BucketSpec` and returns numpy arrays with
@@ -22,13 +22,18 @@ receiver N (and distance 0), padding nodes have graph id G.  With
 `csr_row_ptr` indexes each node's incoming edges — the layout the
 aggregation kernels walk;
 `csc_perm` / `csc_row_ptr` give the same edges in sender order, which the
-combine backward walks.  The TPU DMA-window markers and the mailbox arrays
-are not emitted.
+combine backward walks.  With ``csr=False`` the edges keep the collate's
+order and the batch carries no CSR arrays: the aggregations then take the
+segment path (`ops/aggregate.py`).  The TPU DMA-window markers and the
+mailbox arrays are not emitted (the segment path gives the mailbox's
+values).  `make_bucket_ladder` / `pick_bucket` size a per-batch bucket
+from a small ladder of non-CSR shapes, as the JAX package does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -206,14 +211,18 @@ def bucket_for(graphs: Sequence[Dict[str, np.ndarray]],
 
 _TENSOR_FIELDS = ("node_feat", "senders", "receivers", "node_graph",
                   "node_mask", "edge_mask", "graph_mask", "n_nodes",
-                  "csr_row_ptr", "csc_perm", "csc_row_ptr", "in_degree",
-                  "rd_node_idx", "rd_inv_flat")
-# per-batch fields that only some batches carry: bond codes (2D graphs),
-# distances (3D complete graphs), graph labels, coordinates; each node's
-# position in its graph and its graph's 1 / sqrt(n) (`batch_graphs` always
-# emits both); the SMP collate's triplets (`data/loader.py::smp_collate`)
-_OPTIONAL_FIELDS = ("edge_feat", "edge_dist", "targets", "node_pos",
-                    "snorm", "coords")
+                  "in_degree")
+CSR_FIELDS = ("csr_row_ptr", "csc_perm", "csc_row_ptr")
+READOUT_FIELDS = ("rd_node_idx", "rd_inv_flat")
+# per-batch fields that only some batches carry: the CSR arrays, the
+# readout regroup, bond codes (2D graphs), distances (3D complete graphs),
+# graph labels, coordinates; each node's position in its graph and its
+# graph's 1 / sqrt(n) (`batch_graphs` always emits both); the SMP
+# collate's triplets (`data/loader.py::smp_collate`)
+_OPTIONAL_FIELDS = CSR_FIELDS + READOUT_FIELDS + (
+    "edge_feat", "edge_dist", "targets", "node_pos", "snorm", "coords")
+# a node shard's halo send lists travel as halo_send_0, halo_send_1, ...
+HALO_KEY = "halo_send_"
 TRIPLET_FIELDS = ("angle", "torsion", "idx_kj", "idx_ji", "tri_mask",
                   "tri_ji_ptr", "tri_kj_ptr", "tri_kj_perm")
 
@@ -231,14 +240,16 @@ class GraphBatch:
     edge_mask: torch.Tensor       # [E] bool
     graph_mask: torch.Tensor      # [G] bool
     n_nodes: torch.Tensor         # [G] int32
-    csr_row_ptr: torch.Tensor     # [N + 1] int32
-    csc_perm: torch.Tensor        # [E] int32 edges in sender order
-    csc_row_ptr: torch.Tensor     # [N + 1] int32 sender ranges of csc_perm
     in_degree: torch.Tensor       # [N] float32
-    rd_node_idx: torch.Tensor     # [G, nmax] int32 (pad -> N)
-    rd_inv_flat: torch.Tensor     # [N] int32 (pad -> G * nmax)
     max_deg: int
     nmax: int
+    # the CSR arrays (a ``csr=True`` bucket; None on the segment path)
+    csr_row_ptr: Optional[torch.Tensor] = None  # [N + 1] int32
+    csc_perm: Optional[torch.Tensor] = None     # [E] int32 sender order
+    csc_row_ptr: Optional[torch.Tensor] = None  # [N + 1] int32 of csc_perm
+    # the dense readout regroup (``nmax > 0``; None: segment readout)
+    rd_node_idx: Optional[torch.Tensor] = None  # [G, nmax] int32 (pad -> N)
+    rd_inv_flat: Optional[torch.Tensor] = None  # [N] int32 (pad -> G * nmax)
     edge_feat: Optional[torch.Tensor] = None  # [E, 3] int32 bond codes
     edge_dist: Optional[torch.Tensor] = None  # [E] float32 (pad -> 0)
     targets: Optional[torch.Tensor] = None    # [G, T] float32 graph labels
@@ -255,30 +266,80 @@ class GraphBatch:
     tri_ji_ptr: Optional[torch.Tensor] = None   # [E + 1] int32: by idx_ji
     tri_kj_ptr: Optional[torch.Tensor] = None   # [E + 1] int32: by idx_kj
     tri_kj_perm: Optional[torch.Tensor] = None  # [T] int32 idx_kj order
+    # a node shard's halo send lists, one [H_r] int32 per exchange round
+    # (`parallel/node_partition.py::shard_graph_batch`); None elsewhere
+    halo_send: Optional[Tuple[torch.Tensor, ...]] = None
 
     @property
     def num_nodes(self) -> int:
         return self.node_feat.shape[0]
 
+    @property
+    def csr(self) -> bool:
+        """Whether the batch carries the CSR arrays (the kernels' path)."""
+        return self.csr_row_ptr is not None
+
     def to(self, device) -> "GraphBatch":
-        return dataclasses.replace(self, **{
-            k: getattr(self, k).to(device) for k in
-            _TENSOR_FIELDS + _OPTIONAL_FIELDS + TRIPLET_FIELDS
-            if getattr(self, k) is not None})
+        moved = {k: getattr(self, k).to(device) for k in
+                 _TENSOR_FIELDS + _OPTIONAL_FIELDS + TRIPLET_FIELDS
+                 if getattr(self, k) is not None}
+        if self.halo_send is not None:
+            moved["halo_send"] = tuple(t.to(device) for t in self.halo_send)
+        return dataclasses.replace(self, **moved)
 
 
 def to_graph_batch(arrays: Dict[str, np.ndarray], bucket: BucketSpec,
                    device) -> GraphBatch:
-    """Host arrays of a ``csr=True``, ``nmax > 0`` bucket -> `GraphBatch`
-    on `device` (with the optional fields and the triplets when the
-    arrays carry them)."""
-    if not bucket.csr or bucket.nmax <= 0:
-        raise ValueError("the port's batches are CSR buckets with nmax > 0")
+    """Host arrays of a bucket -> `GraphBatch` on `device`: the CSR arrays
+    where the bucket is ``csr``, the readout regroup where ``nmax > 0``,
+    the optional fields and the triplets where the arrays carry them, a
+    node shard's halo send lists where it has them."""
+    if bucket.csr and "csr_row_ptr" not in arrays:
+        raise ValueError("a csr bucket's arrays carry csr_row_ptr")
 
     def tensor(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    halo = []
+    while f"{HALO_KEY}{len(halo)}" in arrays:
+        halo.append(tensor(arrays[f"{HALO_KEY}{len(halo)}"]))
     return GraphBatch(
         **{k: tensor(arrays[k]) for k in _TENSOR_FIELDS},
         **{k: tensor(arrays[k]) for k in _OPTIONAL_FIELDS + TRIPLET_FIELDS
            if k in arrays},
-        max_deg=bucket.max_deg, nmax=bucket.nmax)
+        max_deg=bucket.max_deg, nmax=bucket.nmax,
+        halo_send=tuple(halo) if halo else None)
+
+
+def make_bucket_ladder(batch_size: int, node_counts: Sequence[int],
+                       edge_counts: Sequence[int], n_buckets: int = 3,
+                       node_align: int = 128, edge_align: int = 512,
+                       headroom: float = 1.08, nmax: int = 0
+                       ) -> List[BucketSpec]:
+    """A small ladder of non-CSR buckets from the dataset's per-molecule
+    node and edge counts (the JAX package's `make_bucket_ladder`): for
+    quantiles 0.6 .. 1.0 of the counts, the batch's expected totals with
+    `headroom`, rounded up to the alignments; duplicates dropped."""
+    node_counts = np.asarray(node_counts)
+    edge_counts = np.asarray(edge_counts)
+    ladder, seen = [], set()
+    for q in np.linspace(0.6, 1.0, n_buckets):
+        n_cap = float(np.quantile(node_counts, q)) * batch_size * headroom
+        e_cap = float(np.quantile(edge_counts, q)) * batch_size * headroom
+        b = BucketSpec(batch_size,
+                       int(math.ceil(n_cap / node_align) * node_align),
+                       int(math.ceil(e_cap / edge_align) * edge_align),
+                       nmax=nmax)
+        if (b.n_graphs, b.n_nodes, b.n_edges) not in seen:
+            seen.add((b.n_graphs, b.n_nodes, b.n_edges))
+            ladder.append(b)
+    return ladder
+
+
+def pick_bucket(ladder: Sequence[BucketSpec], n_tot: int, e_tot: int
+                ) -> BucketSpec:
+    """The smallest bucket of `ladder` that holds `n_tot` nodes and
+    `e_tot` edges, else the largest (whose batch then raises)."""
+    for b in ladder:
+        if n_tot <= b.n_nodes and e_tot <= b.n_edges:
+            return b
+    return ladder[-1]

@@ -20,10 +20,11 @@ from torch import nn
 from infomax3d_tpu_torch.data.synthetic import (FULL_ATOM_FEATURE_DIMS,
                                                 FULL_BOND_FEATURE_DIMS)
 from infomax3d_tpu_torch.models.noise import dropout as drop
-from infomax3d_tpu_torch.ops.aggregate import AffinePart
+from infomax3d_tpu_torch.ops.aggregate import AffinePart, combine_plain
 from infomax3d_tpu_torch.ops.kernels import edge_combine
 from infomax3d_tpu_torch.parallel.collectives import all_reduce_sum
-from infomax3d_tpu_torch.parallel.context import data_parallel_group
+from infomax3d_tpu_torch.parallel.context import step_group
+from infomax3d_tpu_torch.train.remat import recomputing
 
 ACTIVATIONS = {
     "relu": F.relu,
@@ -64,7 +65,13 @@ class MaskedBatchNorm(nn.Module):
     float32 under the bf16 recipe.  Under a data-parallel group
     (`parallel.context`) the count and the sums are all-reduced first, so
     the statistics, the unbiased correction and the running statistics are
-    the global batch's."""
+    the global batch's; under a partition group too, over the step's
+    ranks (data and graph), as the JAX package's psum over both axes: on
+    an edge shard the node-space rows, replicated over the graph group,
+    count k times (mean and variance unchanged, the unbiased correction's
+    count k times larger, as in JAX).  The recompute of a `remat` forward
+    (`train/remat.py`) leaves the running statistics where the first pass
+    left them."""
 
     def __init__(self, num_features: int, momentum: float = 0.1,
                  eps: float = 1e-5):
@@ -97,10 +104,10 @@ class MaskedBatchNorm(nn.Module):
                                  device=x.device)
             s1 = xf.sum(dim=red)
             s2 = (xf * xf).sum(dim=red)
-        group = data_parallel_group()
+        group = step_group()
         if group is not None:
-            # data parallel: statistics over the global batch, one
-            # all-reduce of [count, s1, s2]
+            # data parallel (and graph partitions): statistics over the
+            # global batch, one all-reduce of [count, s1, s2]
             both = all_reduce_sum(torch.cat(
                 [count.to(s1.dtype).reshape(1), s1, s2]), group)
             count, s1, s2 = both[0], both[1:1 + s1.shape[0]], \
@@ -108,6 +115,8 @@ class MaskedBatchNorm(nn.Module):
         count = count.clamp(min=1.0)
         mean = s1 / count
         var = (s2 / count - mean * mean).clamp(min=0.0)
+        if recomputing():
+            return mean, var
         with torch.no_grad():
             mom = self.momentum
             unbiased = var * count / (count - 1.0).clamp(min=1.0)
@@ -158,7 +167,10 @@ class EdgeInput(NamedTuple):
     h[senders] ‖ e]`` (the distance nets' other half): the first weight
     columns meet the receivers, the same index arrays serve.  `d` is PNA's
     `pairwise_distances` column [E, 1] (each edge's squared distance),
-    the last weight columns' input, projected beside `e`."""
+    the last weight columns' input, projected beside `e`.  Without
+    `row_ptr` (a batch without CSR arrays) the gathers are plain
+    (`ops/aggregate.py::combine_plain`); `halo` is a node shard's halo
+    send lists, whose exchange extends the sender side."""
     h: torch.Tensor           # [N, Dh]
     senders: torch.Tensor     # [E] int32 (pad -> N)
     receivers: torch.Tensor   # [E] int32 (pad -> N)
@@ -168,6 +180,7 @@ class EdgeInput(NamedTuple):
     csc_perm: Optional[torch.Tensor] = None      # [E] int32
     swap: bool = False
     d: Optional[torch.Tensor] = None             # [E, 1]
+    halo: Optional[tuple] = None                 # [H_r] int32 per round
 
 
 class PairGridInput(NamedTuple):
@@ -232,6 +245,9 @@ class FCLayer(nn.Module):
                 pe = F.linear(x.e.to(dt), w[:, 2 * dh:], bias)
             else:
                 pe = bias.expand(x.e.shape[0], -1).contiguous()
+            if x.row_ptr is None:
+                return combine_plain(hd, hs, pe, x.receivers, x.senders,
+                                     x.halo)
             return edge_combine(hd, hs, pe, x.receivers, x.senders,
                                 x.row_ptr, x.csc_row_ptr, x.csc_perm)
         if isinstance(x, PairGridInput):

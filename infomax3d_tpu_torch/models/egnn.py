@@ -60,7 +60,8 @@ class EGCLayer(nn.Module):
     def forward(self, g, h: torch.Tensor, noise=None) -> torch.Tensor:
         msg = self.message_network(
             EdgeInput(h, g.senders, g.receivers, squared_distances(g),
-                      g.csr_row_ptr, g.csc_row_ptr, g.csc_perm),
+                      g.csr_row_ptr, g.csc_row_ptr, g.csc_perm,
+                      halo=g.halo_send),
             g.edge_mask, noise=noise)
         gated = msg * torch.sigmoid(self.soft_edge_network(msg))
         agg = edge_aggregate(g, gated, self.reduce_func)

@@ -113,7 +113,8 @@ class Net3DLayer(Net3DDenseLayer):
     def forward(self, g, h, e, noise=None):
         message = self.message_network(
             EdgeInput(h, g.senders, g.receivers, e, g.csr_row_ptr,
-                      g.csc_row_ptr, g.csc_perm), g.edge_mask, noise=noise)
+                      g.csc_row_ptr, g.csc_perm, halo=g.halo_send),
+            g.edge_mask, noise=noise)
         e_new = e + message
         gate = torch.sigmoid(self.soft_edge_network(message))
         agg = edge_aggregate(g, message * gate, self.reduce_func)

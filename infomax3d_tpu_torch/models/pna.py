@@ -69,7 +69,7 @@ class PNALayer(nn.Module):
             d = (diff ** 2).sum(dim=-1, keepdim=True)
         msg = self.pretrans(EdgeInput(h, g.senders, g.receivers, e,
                                       g.csr_row_ptr, g.csc_row_ptr,
-                                      g.csc_perm, d=d),
+                                      g.csc_perm, d=d, halo=g.halo_send),
                             g.edge_mask, lazy_out=True, noise=noise)
         parts = pna_aggregate_parts(g, msg, self.aggregators, self.scalers,
                                     self.avg_d_log)

@@ -81,7 +81,8 @@ class PNATower(nn.Module):
                 else h.new_zeros((g.senders.shape[0], 0)))
         msg = self.pretrans(EdgeInput(h, g.senders, g.receivers, edge,
                                       g.csr_row_ptr, g.csc_row_ptr,
-                                      g.csc_perm), g.edge_mask)
+                                      g.csc_perm, halo=g.halo_send),
+                            g.edge_mask)
         parts = pna_aggregate_parts_always_scaled(
             g, msg, self.aggregators, self.scalers, self.avg_d)
         out = self.posttrans(torch.cat([h] + parts, dim=-1), g.node_mask)

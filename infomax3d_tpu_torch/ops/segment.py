@@ -1,7 +1,10 @@
 """Graph readout, the node gathers and plain segment reductions (port of
 `infomax3d_tpu/ops/segment.py`: the dense-regroup path `_regroup` /
-`_graph_readout_dense` / `batch_readout`, `take_rows` over the senders and
-over the receivers, the clipped `take`, `segment_sum` / `segment_mean` /
+`_graph_readout_dense` / `batch_readout`, the segment readout
+`graph_readout` (batches without the regroup, and node shards, whose
+per-shard partials it completes over the node-partition group),
+`take_rows` over the senders and over the receivers, the plain gather
+`gather_rows`, the clipped `take`, `segment_sum` / `segment_mean` /
 `segment_max` / `segment_min` / `segment_softmax`)."""
 from __future__ import annotations
 
@@ -9,10 +12,14 @@ from typing import Optional, Sequence
 
 import torch
 
-from infomax3d_tpu_torch.ops.kernels.csr_segment_sum import csr_segment_sum
-from infomax3d_tpu_torch.ops.kernels.snd_segment_sum import snd_segment_sum
-
+# before the kernel imports: the kernels' modules read it from here
 EPS = 1e-5  # reference models/pna.py:14
+
+from infomax3d_tpu_torch.ops.kernels.csr_segment_sum import csr_segment_sum  # noqa: E402
+from infomax3d_tpu_torch.ops.kernels.snd_segment_sum import snd_segment_sum  # noqa: E402
+from infomax3d_tpu_torch.parallel.collectives import (  # noqa: E402
+    all_gather_rows, all_reduce_sum)
+from infomax3d_tpu_torch.parallel.context import node_partition_group  # noqa: E402
 
 
 def take_clipped(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -50,16 +57,40 @@ def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
         (-1,) + (1,) * (data.ndim - 1))
 
 
+class _SegmentAmax(torch.autograd.Function):
+    """`scatter_reduce` "amax" into a -inf table, with XLA's segment-max
+    gradient: each row that ties its segment's max gets the cotangent
+    times ``1 / (rows tied)``, as the JAX package's `segment_max` (which
+    torch's own backward divides instead, an ulp away)."""
+
+    @staticmethod
+    def forward(ctx, data, ids, rows):
+        out = data.new_full((rows,) + tuple(data.shape[1:]), float("-inf"))
+        out = out.scatter_reduce(0, ids, data, "amax")
+        ctx.save_for_backward(data, ids, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        data, ids, out = ctx.saved_tensors
+        win = data == out.gather(0, ids)
+        ties = torch.zeros_like(out).scatter_add_(0, ids, win.to(out.dtype))
+        coef = torch.where(win, (1.0 / ties).gather(0, ids),
+                           torch.zeros((), dtype=out.dtype,
+                                       device=out.device))
+        return coef * ct.gather(0, ids), None, None
+
+
 def _segment_amax(data: torch.Tensor, segment_ids: torch.Tensor,
                   num_segments: int) -> torch.Tensor:
     """Each segment's max of its rows, -inf for a segment without rows
-    (XLA's segment max); out-of-range ids are dropped."""
+    (XLA's segment max, and its gradient: `_SegmentAmax`); out-of-range
+    ids are dropped."""
     ids = segment_ids.long()
     ids = torch.where((ids >= 0) & (ids < num_segments), ids, num_segments)
     ids = ids.reshape((-1,) + (1,) * (data.ndim - 1)).expand_as(data)
-    out = data.new_full((num_segments + 1,) + tuple(data.shape[1:]),
-                        float("-inf"))
-    return out.scatter_reduce(0, ids, data, "amax")[:num_segments]
+    return _SegmentAmax.apply(data, ids.contiguous(),
+                              num_segments + 1)[:num_segments]
 
 
 def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -102,6 +133,30 @@ def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
                                                 device=expv.device))
     seg_sum = segment_sum(expv, segment_ids, num_segments)
     return expv / take_clipped(seg_sum, segment_ids).clamp(min=1e-16)
+
+
+class GatherRows(torch.autograd.Function):
+    """``nodes[idx.clamp(0, N - 1)]``; the backward adds each row's
+    cotangent into its node (`index_add_`), and drops those of ids outside
+    [0, N) (padding edges), as XLA's scatter drops them."""
+
+    @staticmethod
+    def forward(ctx, nodes, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = nodes.shape[0]
+        return nodes[idx.clamp(0, nodes.shape[0] - 1).long()]
+
+    @staticmethod
+    def backward(ctx, ct):
+        idx, = ctx.saved_tensors
+        return segment_sum(ct, idx, ctx.n), None
+
+
+def gather_rows(nodes: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """`nodes [N, D]` gathered at `idx [E]` (padding -> N) -> [E, D], the
+    gradient summed back by `index_add_` (the segment path's gather: the
+    JAX package's `jnp.take` on a batch without CSR arrays)."""
+    return GatherRows.apply(nodes, idx)
 
 
 class TakeRowsRecv(torch.autograd.Function):
@@ -214,8 +269,62 @@ def graph_readout_dense(node_feat: torch.Tensor, idx2d: torch.Tensor,
     return torch.cat([outs[a] for a in aggregators], dim=-1)
 
 
+def _gathered_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max over the ranks of `group` (differentiable: an
+    all-gather, then the max, whose gradient routes to the winning rank's
+    rows, as the JAX package's ``max(all_gather(...))``)."""
+    return all_gather_rows(x[None], group).amax(dim=0)
+
+
+def graph_readout(node_feat: torch.Tensor, node_graph: torch.Tensor,
+                  num_graphs: int, aggregators: Sequence[str]
+                  ) -> torch.Tensor:
+    """The segment readout (the JAX package's `graph_readout` without the
+    dense regroup): the concat of `aggregators` (sum / mean / max / min)
+    of each graph's node rows (`node_graph`, padding -> G).  Empty graphs
+    give 0.  Under a node-partition group (a node shard) the sums, the
+    node counts and the extrema are completed over the group (an
+    all-reduce; a gathered max) before any mean or mask."""
+    group = node_partition_group()
+    D = node_feat.shape[-1]
+    sizes = degree(node_graph, num_graphs)
+    if group is not None:
+        sizes = all_reduce_sum(sizes, group)
+    sizes_f = sizes.to(node_feat.dtype)
+    has = (sizes_f > 0)[:, None]
+    zero = torch.zeros((), dtype=node_feat.dtype, device=node_feat.device)
+    outs = {}
+    if "sum" in aggregators or "mean" in aggregators:
+        s = segment_sum(node_feat, node_graph, num_graphs)
+        if group is not None:
+            s = all_reduce_sum(s, group)
+        outs["sum"] = s
+        outs["mean"] = torch.where(has, s / sizes_f.clamp(min=1.0)[:, None],
+                                   zero)
+    want = [a for a in ("max", "min") if a in aggregators]
+    if want:
+        # one shared max over [h, -h]; empty graphs hold -inf until masked
+        both = _segment_amax(torch.cat(
+            [node_feat if a == "max" else -node_feat for a in want],
+            dim=-1), node_graph, num_graphs)
+        if group is not None:
+            both = _gathered_max(both, group)
+        for j, a in enumerate(want):
+            part = both[:, j * D:(j + 1) * D]
+            outs[a] = torch.where(has, part if a == "max" else -part, zero)
+    for a in aggregators:
+        if a not in outs:
+            raise ValueError(f"unknown readout aggregator: {a}")
+    return torch.cat([outs[a] for a in aggregators], dim=-1)
+
+
 def batch_readout(g, node_feat: torch.Tensor,
                   aggregators: Sequence[str]) -> torch.Tensor:
-    """`graph_readout_dense` over a `GraphBatch`, sized by its `n_nodes`."""
-    return graph_readout_dense(node_feat, g.rd_node_idx, g.rd_inv_flat,
-                               aggregators, g.n_nodes)
+    """The readout of a `GraphBatch`: `graph_readout_dense`, sized by its
+    `n_nodes`, where the batch carries the regroup (``nmax > 0``), else
+    the segment readout `graph_readout` (as the JAX `batch_readout`)."""
+    if g.rd_node_idx is not None:
+        return graph_readout_dense(node_feat, g.rd_node_idx, g.rd_inv_flat,
+                                   aggregators, g.n_nodes)
+    return graph_readout(node_feat, g.node_graph, g.graph_mask.shape[0],
+                         aggregators)

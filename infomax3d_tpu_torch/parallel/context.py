@@ -1,12 +1,30 @@
-"""Which data-parallel process group (if any) the current step runs under
-(port of `infomax3d_tpu/parallel/context.py`'s `cross_replica_axis`).
+"""Which process groups (if any) the current step runs under (port of
+`infomax3d_tpu/parallel/context.py`: `cross_replica_axis`,
+`edge_partition_axis`, `node_partition_axis`).
 
-Modules that aggregate across data shards (masked BatchNorm statistics,
-the masked supervised loss) and the step's gradient mean read this while
-the step runs, instead of threading a group argument through every model
-signature.  The trainer sets it around each train and eval step.  The
-edge- and node-partition axes of the JAX package belong to ROADMAP queue 1,
-item 9b, and are not here.
+Modules that aggregate across ranks read these while the step runs,
+instead of threading a group argument through every model signature; the
+trainer sets them around each train and eval step.
+
+* `data_parallel_group()`: the ranks holding the other data shards
+  (``n_shards``): masked BatchNorm statistics, the masked supervised loss
+  and `CrossDeviceLoss` complete over it.
+* `edge_partition_group()`: the ranks holding the other edge shards of the
+  same batch (``graph_shards``, `parallel/edge_partition.py`): the
+  edge -> node aggregations complete their local partials over it (sums
+  by an all-reduce, extrema by a gathered max), as do the BatchNorm
+  statistics (node-space rows, replicated over the group, then count k
+  times, as in the JAX package).
+* `node_partition_group()`: the ranks holding the other node shards of
+  the same batch (``node_shards``, `parallel/node_partition.py`): sender
+  gathers exchange halo rows over it, the graph readout completes its
+  per-shard partials over it, and so do the BatchNorm statistics;
+  receiver-side aggregations complete locally (every edge lives with its
+  receiver).
+* `step_group()`: every rank of the step (the data and the graph groups
+  together): the BatchNorm statistics under both, and the gradient mean.
+
+At most one of the two partition groups is set.
 """
 from __future__ import annotations
 
@@ -18,6 +36,12 @@ import torch.distributed as dist
 
 _GROUP: ContextVar[Optional[dist.ProcessGroup]] = ContextVar(
     "data_parallel_group", default=None)
+_EDGE: ContextVar[Optional[dist.ProcessGroup]] = ContextVar(
+    "edge_partition_group", default=None)
+_NODE: ContextVar[Optional[dist.ProcessGroup]] = ContextVar(
+    "node_partition_group", default=None)
+_STEP: ContextVar[Optional[dist.ProcessGroup]] = ContextVar(
+    "step_group", default=None)
 
 
 def data_parallel_group() -> Optional[dist.ProcessGroup]:
@@ -25,10 +49,38 @@ def data_parallel_group() -> Optional[dist.ProcessGroup]:
     return _GROUP.get()
 
 
+def edge_partition_group() -> Optional[dist.ProcessGroup]:
+    """The edge-partition group of the running step, or None."""
+    return _EDGE.get()
+
+
+def node_partition_group() -> Optional[dist.ProcessGroup]:
+    """The node-partition group of the running step, or None."""
+    return _NODE.get()
+
+
+def step_group() -> Optional[dist.ProcessGroup]:
+    """Every rank of the running step: the group spanning the data and
+    the partition groups when a partition group is set, else the
+    data-parallel group (or None)."""
+    return _STEP.get() or _GROUP.get()
+
+
 @contextlib.contextmanager
-def using_data_parallel_group(group: Optional[dist.ProcessGroup]):
-    token = _GROUP.set(group)
+def using_groups(data: Optional[dist.ProcessGroup] = None,
+                 edge: Optional[dist.ProcessGroup] = None,
+                 node: Optional[dist.ProcessGroup] = None,
+                 step: Optional[dist.ProcessGroup] = None):
+    """Set the four groups for the block (None: not set).  `step` spans
+    `data` and the partition group (required with a partition group)."""
+    if edge is not None and node is not None:
+        raise ValueError("edge and node partitioning exclude each other")
+    if (edge is not None or node is not None) and step is None:
+        raise ValueError("a partition group needs the step's group")
+    tokens = [(_GROUP, _GROUP.set(data)), (_EDGE, _EDGE.set(edge)),
+              (_NODE, _NODE.set(node)), (_STEP, _STEP.set(step))]
     try:
         yield
     finally:
-        _GROUP.reset(token)
+        for var, token in reversed(tokens):
+            var.reset(token)

@@ -1,6 +1,7 @@
-"""The data-parallel process group of one host (port of
-`infomax3d_tpu/parallel/mesh.py`'s one-axis ``data`` mesh): one process per
-shard (rank), each on its own device.
+"""The process groups of one host (port of `infomax3d_tpu/parallel/
+mesh.py`): the one-axis ``data`` mesh (`make_group`: one process per
+shard, each on its own device) and the (data, graph) grid of the
+partitioned modes (`make_grid`).
 
 * NCCL (the default): every rank needs a CUDA card of its own, and NCCL
   refuses two ranks on one card, so fewer cards than ranks raises.
@@ -11,6 +12,7 @@ Nothing switches backend or device on its own.
 """
 from __future__ import annotations
 
+import dataclasses
 from datetime import timedelta
 from typing import List, Optional, Tuple, Union
 
@@ -77,3 +79,49 @@ def close_group() -> None:
     """Leave the default process group (if this process joined one)."""
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+PARTITION_MODES = ("edge", "node")
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """This rank's place in the (data, graph) grid of ``n_data x k`` ranks
+    of a partitioned run (the JAX package's ``("data", "graph")`` mesh):
+    rank ``d * k + g`` holds data shard d and graph part g.  `data` is the
+    group of the ranks of graph part g (None for one data shard), `graph`
+    the group of the ranks of data shard d, `step` every rank; `mode`
+    "edge" (``graph_shards``) or "node" (``node_shards``)."""
+    n_data: int
+    k: int
+    mode: str
+    data_index: int
+    graph_index: int
+    data: Optional[dist.ProcessGroup]
+    graph: dist.ProcessGroup
+    step: dist.ProcessGroup
+
+
+def make_grid(n_data: int, k: int, mode: str) -> Grid:
+    """Split the joined default group of ``n_data * k`` ranks into the
+    grid's groups.  Every rank calls it with the same arguments, since
+    each `new_group` is collective: one group per graph part (the data
+    groups, when ``n_data > 1``), then one per data shard (the graph
+    groups), in the same order on every rank."""
+    if mode not in PARTITION_MODES:
+        raise ValueError(f"partition mode {mode!r}: one of {PARTITION_MODES}")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world != n_data * k:
+        raise ValueError(f"{world} ranks for a grid of {n_data} x {k}")
+    d, g = divmod(rank, k)
+    data = graph = None
+    if n_data > 1:
+        for gi in range(k):
+            grp = dist.new_group([di * k + gi for di in range(n_data)])
+            if gi == g:
+                data = grp
+    for di in range(n_data):
+        grp = dist.new_group([di * k + gi for gi in range(k)])
+        if di == d:
+            graph = grp
+    return Grid(n_data, k, mode, d, g, data, graph, dist.group.WORLD)

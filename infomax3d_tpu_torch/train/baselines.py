@@ -135,7 +135,7 @@ def build_baseline_step(args: Mapping[str, Any], device: torch.device):
     """The step of one baseline from a config-like dict with the YAML keys
     `trainer`, `model_type`, `model_parameters`, `model3d_type`,
     `model3d_parameters`, `loss_func`, `loss_params`, `optimizer_params`
-    and `bf16_compute` (default "auto"): `GraphCLStep` for
+    `bf16_compute` (default "auto") and `remat`: `GraphCLStep` for
     ``trainer: graphcl_trainer``, `AEStep` with a 3D model, else
     `DistanceStep`.  Weights are seeded numpy trees in the flax layout
     (`seed`, default 0; the 3D model takes `seed + 1`); Adam's groups are
@@ -169,6 +169,7 @@ def build_baseline_step(args: Mapping[str, Any], device: torch.device):
                  for n, p in flax_paths(model).items()}
     step.optimizer = build_adam(named, labels=label_params(paths)[0],
                                 **dict(args.get("optimizer_params") or {}))
+    step.remat = bool(args.get("remat", False))
     return step
 
 

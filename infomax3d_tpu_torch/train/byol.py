@@ -105,7 +105,7 @@ def build_byol_step(args: Mapping[str, Any], device: torch.device
     `model3d_parameters` (each a BYOL wrapper's: its `model_type` and
     `model_parameters`, the predictor's fields), `loss_func` (default
     "CosineSimilarityLoss"), `loss_params`, `optimizer_params`,
-    `bf16_compute` (default "auto"), `byol_ema_all`, and seeded numpy
+    `bf16_compute` (default "auto"), `byol_ema_all`, `remat`, and seeded numpy
     weights in the flax layout (`seed`; the 3D wrapper takes `seed + 1`);
     the EMA's decay is the 2D wrapper's `ma_decay` (default 0.99), as the
     CLI reads it."""
@@ -126,4 +126,5 @@ def build_byol_step(args: Mapping[str, Any], device: torch.device
     step.optimizer = build_adam(step.named_parameters(),
                                 labels=label_params(step.paths())[0],
                                 **dict(args.get("optimizer_params") or {}))
+    step.remat = bool(args.get("remat", False))
     return step

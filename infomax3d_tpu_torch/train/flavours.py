@@ -33,6 +33,7 @@ import torch
 from infomax3d_tpu_torch.parallel.context import data_parallel_group
 from infomax3d_tpu_torch.train.optim import OptimizerSet
 from infomax3d_tpu_torch.train.precision import cast_batch, forward_in
+from infomax3d_tpu_torch.train.remat import using_remat
 from infomax3d_tpu_torch.train.pretrain import (PretrainStep, loss_kwargs,
                                                 noise_kw)
 
@@ -115,7 +116,8 @@ class PhilosophyStep(PretrainStep):
         philosopher loss's over the 3D model, the critic loss's over the
         critic (zero where a loss does not reach a parameter)."""
         self.optimizer.zero_grad(set_to_none=True)
-        peasant, out = self.loss(*batches, **kw)
+        with using_remat(self.remat):
+            peasant, out = self.loss(*batches, **kw)
         losses = {"model": peasant,
                   "model3d": out[2]["philosopher_loss"],
                   "critic": out[2][self.critic_loss_name]}

@@ -49,6 +49,7 @@ from infomax3d_tpu_torch.interop import init_jax_variables, load_variables
 from infomax3d_tpu_torch.models.optimal_transport import OptimalTransportModel
 from infomax3d_tpu_torch.models.noise import GeneratorNoise, ReplayNoise
 from infomax3d_tpu_torch.train.optim import build_adam
+from infomax3d_tpu_torch.train.remat import rematerialized, using_remat
 from infomax3d_tpu_torch.train.supervised import TrainStep
 
 GRAD_CLIP = 10.0
@@ -101,6 +102,7 @@ class OTStep:
     every pass until changed."""
 
     ignore_neighbors = False
+    remat = False
 
     def __init__(self, model_parameters: Mapping, variables: Mapping,
                  device: torch.device,
@@ -155,8 +157,8 @@ class OTStep:
         (`TrainStep.fill_missing_grads`; with `ignore_neighbors` ``gnn2``
         reaches no term of the cost)."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.model(batch, noise, ignore_neighbors=self.ignore_neighbors,
-                          ot_plans=plans)
+        with using_remat(self.remat):
+            loss = rematerialized(self._loss_pass, batch, plans, noise=noise)
         loss.backward()
         grads = TrainStep.fill_missing_grads(self.model.parameters())
         norm = torch.sqrt(sum((g * g).sum() for g in grads))
@@ -164,6 +166,10 @@ class OTStep:
         for g in grads:
             g.mul_(scale)
         return loss.detach()
+
+    def _loss_pass(self, batch: OTBatch, plans, noise) -> torch.Tensor:
+        return self.model(batch, noise, ignore_neighbors=self.ignore_neighbors,
+                          ot_plans=plans)
 
     def _passes(self, batch: OTBatch, generator: torch.Generator):
         """(plans or None, the loss pass's noise): with `ot_emd` the cost
@@ -223,13 +229,15 @@ def ot_batch(batch_size: int, n_true_confs: int, seed: int = 0,
 
 def build_ot_step(args: Mapping[str, Any], device: torch.device) -> OTStep:
     """`OTStep` from a config-like dict with the YAML keys
-    `model_parameters` and `optimizer_params`, and seeded numpy weights in
-    the flax layout (`seed`, default 0)."""
+    `model_parameters`, `optimizer_params` and `remat`, and seeded numpy
+    weights in the flax layout (`seed`, default 0)."""
     mp = args["model_parameters"]
     params, stats = init_jax_variables(mp, args.get("seed", 0),
                                        "OptimalTransportModel")
-    return OTStep(mp, {"params": params, "batch_stats": stats}, device,
+    step = OTStep(mp, {"params": params, "batch_stats": stats}, device,
                   args.get("optimizer_params"))
+    step.remat = bool(args.get("remat", False))
+    return step
 
 
 def ot(args: Dict[str, Any], steps: int = 1,

@@ -10,7 +10,9 @@ Training keeps float32 master parameters and runs the forward on bf16
 copies made inside the differentiated function (`compute_params` with
 `torch.func.functional_call`), so the gradients reach the masters through
 the cast, as the JAX package's `cast_floats` around `apply` does; the batch's
-float fields are cast too (`cast_batch`).
+float fields are cast too (`cast_batch`).  A training forward under
+`remat` (`train/remat.py`) is recomputed in the backward, the casts with
+it.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 from torch.func import functional_call
+
+from infomax3d_tpu_torch.train.remat import rematerialized
 
 
 def cast_parameters(module: nn.Module, dtype: Optional[torch.dtype]
@@ -63,14 +67,20 @@ def forward_in(model: nn.Module, dtype: Optional[torch.dtype], *inputs,
     (bf16) on copies of the float32 master parameters cast to it
     (`compute_params`), the output (a tensor or a tuple of them) cast to
     float32 for the loss; `None` runs float32 as it is.  The keyword
-    arguments (a model's noise source) pass through as they are."""
-    if dtype is None:
-        return model(*inputs, **kwargs)
-    out = functional_call(model, compute_params(model, dtype), inputs,
-                          kwargs)
-    if isinstance(out, tuple):
-        return tuple(o.float() for o in out)
-    return out.float()
+    arguments (a model's noise source) pass through as they are.  A model
+    in training mode runs under the step's `remat` setting
+    (`train/remat.py::rematerialized`)."""
+    def run(*inputs, **kwargs):
+        if dtype is None:
+            return model(*inputs, **kwargs)
+        out = functional_call(model, compute_params(model, dtype), inputs,
+                              kwargs)
+        if isinstance(out, tuple):
+            return tuple(o.float() for o in out)
+        return out.float()
+    if model.training:
+        return rematerialized(run, *inputs, **kwargs)
+    return run(*inputs, **kwargs)
 
 
 def cast_batch(batch, dtype: Optional[torch.dtype]):

@@ -207,8 +207,9 @@ def build_step(args: Mapping[str, Any], device: torch.device) -> PretrainStep:
     "PNA"), `model_parameters`, `model3d_type` (default "Net3DDense"),
     `model3d_parameters`,
     `loss_func` (default "NTXent"), `loss_params`, `optimizer_params` (the
-    YAML keys), `bf16_compute` (default "auto"), and seeded numpy weights
-    in the flax layout (`seed`, default 0; the 3D model takes `seed + 1`)."""
+    YAML keys), `bf16_compute` (default "auto"), `remat`, and seeded numpy
+    weights in the flax layout (`seed`, default 0; the 3D model takes
+    `seed + 1`)."""
     seed = args.get("seed", 0)
     m_type = args.get("model_type", "PNA")
     m3_type = args.get("model3d_type", "Net3DDense")
@@ -217,12 +218,14 @@ def build_step(args: Mapping[str, Any], device: torch.device) -> PretrainStep:
             args["model_parameters"], seed, m_type))),
         "model3d": dict(zip(("params", "batch_stats"), init_jax_variables(
             args["model3d_parameters"], seed + 1, m3_type)))}
-    return PretrainStep(
+    step = PretrainStep(
         args["model_parameters"], args["model3d_parameters"], variables,
         device, resolve_compute_dtype(args.get("bf16_compute", "auto"),
                                       device),
         args.get("loss_params"), args.get("optimizer_params"),
         args.get("loss_func", "NTXent"), m3_type, m_type)
+    step.remat = bool(args.get("remat", False))
+    return step
 
 
 def pretrain(args: Dict[str, Any], steps: int = 1,

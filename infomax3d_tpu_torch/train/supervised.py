@@ -49,10 +49,12 @@ from infomax3d_tpu_torch.models.noise import GeneratorNoise, MasksOnly
 from infomax3d_tpu_torch.models.registry import build_model
 from infomax3d_tpu_torch.parallel.collectives import (all_reduce_sum,
                                                       mean_over_ranks)
-from infomax3d_tpu_torch.parallel.context import data_parallel_group
+from infomax3d_tpu_torch.parallel.context import (data_parallel_group,
+                                                  step_group)
 from infomax3d_tpu_torch.train.optim import build_adam, label_params
 from infomax3d_tpu_torch.train.precision import (cast_batch, forward_in,
                                                  resolve_compute_dtype)
+from infomax3d_tpu_torch.train.remat import using_remat
 
 
 def supervised_loss(name: str, pred: torch.Tensor, target: torch.Tensor,
@@ -92,7 +94,11 @@ def detached(out):
 
 class TrainStep:
     """Backward and update over a step's ``loss(*batches, **kw) -> (loss,
-    outputs)`` on prepared batches; the steps set `optimizer`."""
+    outputs)`` on prepared batches; the steps set `optimizer`.  With
+    `remat` (the config's ``remat: true``) the training forwards are
+    recomputed in the backward (`train/remat.py`)."""
+
+    remat = False
 
     def loss_and_grads(self, *batches, return_outputs: bool = False, **kw):
         """Forward and backward on prepared batches (`kw` to the step's
@@ -102,17 +108,28 @@ class TrainStep:
         loss does not reach (e.g. the last layer under "sum" jumping
         knowledge) gets a zero gradient (`fill_missing_grads`)."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss, out = self.loss(*batches, **kw)
+        with using_remat(self.remat):
+            loss, out = self.loss(*batches, **kw)
         loss.backward()
         grads = self.fill_missing_grads(
             p for group in self.optimizer.param_groups
             for p in group["params"])
         loss = loss.detach()
-        group = data_parallel_group()
+        group = step_group()
         if group is not None:
-            # data parallel: the loss is already the global batch's on
-            # every rank, and the mean over ranks of the gradients of the
-            # per-rank sum of those equal losses is d(loss)/d(params)
+            # the loss is already the global batch's on every rank, and
+            # each collective's backward is its transpose (an all-reduce's
+            # an all-reduce, an all-gather's the sum over ranks of the
+            # cotangents of this rank's rows; the halo exchange's sends
+            # the ghosts' cotangents home): each rank's gradient is then
+            # that of the SUM over all the step's ranks of their equal
+            # losses with respect to its own copy of the parameters.  The
+            # copies are tied, so these gradients sum to (ranks) x
+            # d(loss)/d(params), and one mean over every rank (data and
+            # graph) is exact: on an edge shard the edge network's
+            # gradient is k times its partial share and the node-space
+            # parameters' is whole, and the mean over the k parts gives
+            # the whole batch's gradient for both
             # (`parallel/collectives.py`)
             mean_over_ranks(grads, group)
         if return_outputs:
@@ -234,16 +251,18 @@ def build_supervised_step(args: Mapping[str, Any], device: torch.device
                           ) -> SupervisedStep:
     """`SupervisedStep` from a config-like dict with the YAML keys
     `model_type`, `model_parameters`, `loss_func`, `optimizer_params`,
-    `bf16_compute` (default "auto"), and seeded numpy weights in the flax
-    layout (`seed`, default 0)."""
+    `bf16_compute` (default "auto"), `remat`, and seeded numpy weights in
+    the flax layout (`seed`, default 0)."""
     mp = args["model_parameters"]
     params, stats = init_jax_variables(mp, args.get("seed", 0),
                                        args["model_type"])
-    return SupervisedStep(
+    step = SupervisedStep(
         args["model_type"], mp, {"params": params, "batch_stats": stats},
         device, resolve_compute_dtype(args.get("bf16_compute", "auto"),
                                       device),
         args.get("loss_func", "MSELoss"), args.get("optimizer_params"))
+    step.remat = bool(args.get("remat", False))
+    return step
 
 
 def masks_source(generator: torch.Generator) -> MasksOnly:

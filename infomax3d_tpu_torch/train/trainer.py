@@ -40,7 +40,7 @@ a process `group`, each rank trains on its shard of every batch
 (`GraphDataLoader(n_shards=k, shard=r)`).  The loss is wrapped in
 `CrossDeviceLoss`, every rank starts from rank 0's weights (broadcast
 once), each rank's dropout generator is seeded from (seed, rank), the
-steps run under `parallel.context.using_data_parallel_group` (global
+steps run under `parallel.context.using_groups(data=group)` (global
 BatchNorm statistics and supervised loss, the gradient mean).  Every
 rank's loss, and each of its logged parts, is then the global batch's
 (the JAX step's ``pmean`` of equal losses), and the predictions and
@@ -48,6 +48,20 @@ targets the metrics read are gathered, so every rank takes the same
 early-stopping and best-checkpoint decisions.  Only rank 0 writes the run directory.  The
 philosophy and OT trainers refuse a group, as the JAX package has no
 data-parallel step for them.
+
+The partitioned modes (``graph_shards``, ``node_shards``): given a `grid`
+(`parallel/mesh.py::Grid`, n data shards x k graph parts), each rank
+trains on its part of its data shard's batch (the loader cuts it,
+`parallel/edge_partition.py`, `parallel/node_partition.py`), the steps
+run under `parallel.context.using_groups` (the partition group for the
+aggregations' completions and halo exchanges, every rank for the
+BatchNorm statistics and the gradient mean), the loss is wrapped over
+the data group alone, and the dropout generator is seeded from the data
+index alone, so the ranks of one batch draw the same masks (the JAX
+step's ``fold_in`` of the data index).  The predictions are whole on
+every rank of a batch (the readouts are completed), so the metrics
+gather them over the data group.  The philosophy and OT trainers refuse a
+grid too.
 """
 from __future__ import annotations
 
@@ -71,7 +85,7 @@ from infomax3d_tpu_torch.interop import flax_paths, load_variables
 from infomax3d_tpu_torch.parallel.collectives import (CrossDeviceLoss,
                                                       broadcast_,
                                                       gather_host)
-from infomax3d_tpu_torch.parallel.context import using_data_parallel_group
+from infomax3d_tpu_torch.parallel.context import using_groups
 from infomax3d_tpu_torch.train import checkpoint
 from infomax3d_tpu_torch.train.baselines import (AEStep, DistanceStep,
                                                 GraphCLStep)
@@ -112,7 +126,8 @@ class Trainer:
     device, seeded with `seed`, `rank_seed` under a group) draws the
     dropout masks and, for the OT trainer, the noise.  `group` is the
     data-parallel process group (module docstring), None for one
-    process."""
+    process; `grid` the (data, graph) grid of a partitioned run, whose
+    data group replaces `group`."""
 
     MODEL_KEYS = ("model",)
     # each training step gets a source of dropout masks (the supervised
@@ -131,12 +146,17 @@ class Trainer:
                  scheduler_step_per_batch: bool = True, device=None,
                  use_tensorboard: bool = True,
                  init_variables: Optional[Mapping[str, Mapping]] = None,
-                 group: Optional[dist.ProcessGroup] = None):
-        if group is not None and self.NO_DATA_PARALLEL:
+                 group: Optional[dist.ProcessGroup] = None, grid=None):
+        if (group is not None or grid is not None) and self.NO_DATA_PARALLEL:
             raise NotImplementedError(self.NO_DATA_PARALLEL)
         self.device = resolve_device(device)
-        self.group = group
-        self.rank = 0 if group is None else dist.get_rank(group)
+        if grid is not None:
+            group = grid.data
+        self.group = group          # the data-parallel group
+        self.grid = grid
+        # every rank of the run
+        self.world = grid.step if grid is not None else group
+        self.rank = 0 if self.world is None else dist.get_rank(self.world)
         self.models = models
         self.args = args
         self.metrics = metrics
@@ -172,7 +192,8 @@ class Trainer:
         self.timing.update(step_ms=[], train_epoch_s=[], eval_s=[])
         self._events = []
         self.generator = torch.Generator(device=self.device).manual_seed(
-            rank_seed(args.get("seed", 0), self.rank))
+            rank_seed(args.get("seed", 0), self.rank if grid is None
+                      else grid.data_index))
 
     # ------------------------------------------------------------------ init
     def init_state(self, example_batch=None):
@@ -188,6 +209,7 @@ class Trainer:
         self._broadcast_state()
         self._build_optimizer()
         self.step = self._make_step()
+        self.step.remat = bool(self.args.get("remat", False))
         self._snapshot_model_source()
         if self.args.get("checkpoint"):
             self._load(self.args["checkpoint"])
@@ -231,13 +253,13 @@ class Trainer:
     def _broadcast_state(self):
         """Under a group: every model's parameters and buffers (and BYOL's
         teachers) from rank 0, so the ranks hold the same weights."""
-        if self.group is None:
+        if self.world is None:
             return
         modules = [self.models[k] for k in self.MODEL_KEYS] + list(
             getattr(self.step, "teachers", {}).values())
         for m in modules:
             for t in list(m.parameters()) + list(m.buffers()):
-                broadcast_(t, self.group)
+                broadcast_(t, self.world)
 
     def _snapshot_model_source(self):
         """Copy each model class's source into the run dir (reference
@@ -300,12 +322,22 @@ class Trainer:
                              self.lr_controllers["main"].lrs):
             group["lr"] = lr
 
+    def _groups(self):
+        """The context of a step: the data-parallel group, or the grid's
+        groups."""
+        grid = self.grid
+        if grid is None:
+            return using_groups(data=self.group)
+        part = {grid.mode: grid.graph}
+        return using_groups(data=grid.data, edge=part.get("edge"),
+                            node=part.get("node"), step=grid.step)
+
     def _train_step(self, batches, **kw):
         """One optimizer step (`kw` to the step's loss); returns (loss,
         outputs), both detached."""
         if self.DRAWS_MASKS:
             kw["noise"] = masks_source(self.generator)
-        with using_data_parallel_group(self.group):
+        with self._groups():
             loss, out = self.step.loss_and_grads(*batches,
                                                  return_outputs=True, **kw)
         self.step.optimizer.step()
@@ -326,7 +358,7 @@ class Trainer:
     def _eval_step(self, batches, **kw):
         """Loss and outputs in eval mode (under a group the loss is the
         global batch's on every rank)."""
-        with self._evaluating(), using_data_parallel_group(self.group):
+        with self._evaluating(), self._groups():
             return self.step.loss(*batches, **kw)
 
     def _rows(self, batch, out):
@@ -516,10 +548,10 @@ class Trainer:
         # group rank 0 reads it and the others take its weights
         best = os.path.join(self.run_dir, "best_checkpoint.pt")
         found = [os.path.exists(best) if self.rank == 0 else None]
-        if self.group is not None:
+        if self.world is not None:
             dist.broadcast_object_list(
-                found, src=dist.get_global_rank(self.group, 0),
-                group=self.group)
+                found, src=dist.get_global_rank(self.world, 0),
+                group=self.world)
         if found[0]:
             if self.rank == 0:
                 self._load(best, restore_host=False)

@@ -96,5 +96,11 @@ def test_graph_batch_tensors():
     assert g.senders.dtype == torch.int32 and g.node_mask.dtype == torch.bool
     np.testing.assert_array_equal(g.csr_row_ptr.numpy(), arr["csr_row_ptr"])
     assert g.to("cpu").rd_node_idx.shape == (5, b.nmax)
-    with pytest.raises(ValueError, match="CSR buckets"):
-        to_graph_batch(arr, BucketSpec(5, b.n_nodes, b.n_edges), "cpu")
+    # a non-CSR bucket (the segment path's batch) carries no CSR arrays
+    # and, without nmax, no readout regroup; a CSR bucket needs its arrays
+    plain = BucketSpec(5, b.n_nodes, b.n_edges)
+    g = to_graph_batch(batch_graphs(graphs, plain), plain, "cpu")
+    assert not g.csr and g.csc_perm is None and g.rd_node_idx is None
+    np.testing.assert_array_equal(g.in_degree.numpy(), arr["in_degree"])
+    with pytest.raises(ValueError, match="carry csr_row_ptr"):
+        to_graph_batch(batch_graphs(graphs, plain), b, "cpu")

@@ -448,10 +448,12 @@ def test_cli_starts_two_ranks(tmp_path, monkeypatch):
 
 def test_cli_refusals(tmp_path, monkeypatch):
     """Philosophy and OT refuse `n_shards: 2` (the JAX package fails
-    there: test_jax_has_no_dp_step_for_philosophy_or_ot), as do
-    `model_shards` (item 9c), `graph_shards` / `node_shards` (9b) and
-    `bucket_ladder` (7) still, each before any rank starts; a launch
-    whose world size is not `n_shards` raises."""
+    there: test_jax_has_no_dp_step_for_philosophy_or_ot), as does
+    `model_shards` (item 9c), each before any rank starts; `graph_shards`
+    / `node_shards` no longer raise but turn the CSR batch and the dense
+    3D batch off, as the JAX CLI does; `bucket_ladder` with a contrastive
+    collate runs on one static bucket (the JAX CLI builds no ladder
+    there); a launch whose world size is not `n_shards` raises."""
     from infomax3d_tpu_torch.cli import train as cli
     from infomax3d_tpu_torch.train.trainer import (OptimalTransportTrainer,
                                                    PhilosophyTrainer)
@@ -469,10 +471,13 @@ def test_cli_refusals(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="item 9c"):
         cli.train(_cli_args(tmp_path, model_shards=2))
     for knob in ("graph_shards", "node_shards"):
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            cli.resolve_fast_paths({knob: 2})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cli.train(_cli_args(tmp_path, bucket_ladder=True))
+        args = {knob: 2, "collate_function": "contrastive_collate",
+                "model3d_type": "Net3D"}
+        cli.resolve_fast_paths(args)
+        assert args["csr_buckets"] is False and args["dense_3d"] is False
+        assert not args["_csr"] and not args["_dense_3d"]
+    assert np.isfinite(cli.train(_cli_args(tmp_path / "ladder",
+                                           bucket_ladder=True))["NTXent"])
     monkeypatch.setenv("WORLD_SIZE", "3")
     with pytest.raises(ValueError, match="must be equal"):
         cli.train(_cli_args(tmp_path, n_shards=2, dist_backend="gloo"))

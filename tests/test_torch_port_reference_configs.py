@@ -415,7 +415,8 @@ def test_real_slice_pretrain_and_finetune(qm9_root, tmp_path, monkeypatch):
                                      "ConstantNumberAtomsChunks"])
 def test_train_sampler_batches_match_jax(sampler, data_root, monkeypatch):
     """`train_sampler` gives the train loader the JAX loader's batches;
-    `bucket_ladder` names its queue item."""
+    `bucket_ladder` leaves this contrastive config on its static bucket,
+    as the JAX CLI builds no ladder for its collate."""
     from infomax3d_tpu.cli import train as jax_cli
     from infomax3d_tpu_torch.cli import train as port_cli
     monkeypatch.setenv("INFOMAX3D_DATA", str(data_root))
@@ -432,5 +433,8 @@ def test_train_sampler_batches_match_jax(sampler, data_root, monkeypatch):
         assert list(tr.batch_sampler) == list(ref_tr.batch_sampler)
     batch = next(iter(tr))
     assert batch["graph2d"]["graph_mask"].sum() == 16
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port_cli.make_loaders(dict(args, bucket_ladder=True), ds)
+    laddered = port_cli.make_loaders(dict(args, bucket_ladder=True), ds)[0]
+    ref_laddered = jax_cli.make_loaders(dict(ref_args, bucket_ladder=True),
+                                        ref)[0]
+    assert laddered.ladder is None and ref_laddered.ladder is None
+    assert laddered.bucket == tr.bucket

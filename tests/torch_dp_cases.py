@@ -3,11 +3,19 @@ of the port from seeded numpy weights and batches, runs it once and
 returns its loss, gradients and running statistics as numpy arrays.
 
 Every case runs twice: in two gloo ranks on the CPU (this file as a
-script, ``python tests/torch_dp_cases.py RANK WORLD DIR``, rendezvous in a
-file store under DIR, each rank's results pickled to DIR/rank{RANK}.pkl),
+script, ``python tests/torch_dp_cases.py RANK WORLD DIR [SUITE]``,
+rendezvous in a file store under DIR, each rank's results pickled to
+DIR/rank{RANK}.pkl),
 each rank collating its shard (`GraphDataLoader(n_shards=2, shard=r)`),
 and in one process on the whole batch (`run(name, None, 0, 1)`).  Nothing
 here imports JAX: the ranks start in a few seconds.
+
+The suites: "dp" (the default, `CASES` and `FAULTS`: data parallelism
+over two ranks), "partition" (`PARTITION_CASES` and `PARTITION_FAULTS`
+over two ranks: ``graph_shards: 2`` and ``node_shards: 2`` on the
+non-CSR batch) and "grid" (`GRID_CASES` over four ranks: ``n_shards: 2``
+x ``graph_shards: 2``).  A partition case's one-process counterpart is
+`partition(name, None)`.
 """
 import os
 import pickle
@@ -19,7 +27,11 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from infomax3d_tpu_torch.data.loader import GraphDataLoader, to_device  # noqa: E402
+import dataclasses  # noqa: E402
+
+from infomax3d_tpu_torch.data.loader import (GraphDataLoader,  # noqa: E402
+                                             get_collate, partition_collate,
+                                             to_device)
 from infomax3d_tpu_torch.data.synthetic import SyntheticMolecules  # noqa: E402
 from infomax3d_tpu_torch.graphs.batch import BucketSpec, bucket_for  # noqa: E402
 from infomax3d_tpu_torch.interop import init_jax_variables  # noqa: E402
@@ -27,9 +39,14 @@ from infomax3d_tpu_torch.losses import get_loss  # noqa: E402
 from infomax3d_tpu_torch.models import base  # noqa: E402
 from infomax3d_tpu_torch.models.registry import build_model  # noqa: E402
 from infomax3d_tpu_torch.parallel import (CrossDeviceLoss, close_group,  # noqa: E402
-                                          make_group,
-                                          using_data_parallel_group)
+                                          make_grid, make_group,
+                                          using_groups)
+from infomax3d_tpu_torch.parallel import (edge_partition,  # noqa: E402
+                                          node_partition)
+from infomax3d_tpu_torch.parallel.edge_partition import \
+    shard_batch_edges  # noqa: E402
 from infomax3d_tpu_torch.parallel.collectives import all_reduce_  # noqa: E402
+from infomax3d_tpu_torch.parallel.context import data_parallel_group  # noqa: E402
 from infomax3d_tpu_torch.train import supervised as supervised_mod  # noqa: E402
 from infomax3d_tpu_torch.train import trainer as port_trainer  # noqa: E402
 from infomax3d_tpu_torch.train.pretrain import PretrainStep  # noqa: E402
@@ -137,14 +154,30 @@ def buckets(items):
                           b3.nmax)
 
 
-def loader(collate, n_shards, shard, **kw):
+def tight_buckets(items):
+    """The whole batch's smallest buckets (`bucket_for`; the complete
+    graphs on the 2D node count), so that a cut of the nodes in two
+    halves falls inside the real nodes."""
+    b2 = bucket_for([it["graph2d"] for it in items], B)
+    b3 = bucket_for([it["graph3d"] for it in items], B)
+    return b2, dataclasses.replace(b3, n_nodes=b2.n_nodes)
+
+
+def loader(collate, n_shards, shard, csr=True, cut=None, tight=False,
+           **kw):
     """The first batch of shard `shard` of `n_shards` (the whole batch
-    for 1), unshuffled."""
+    for 1), unshuffled; with `csr` False in the non-CSR buckets (the
+    partitioned modes' batch), `tight` in `tight_buckets`, each graph view
+    passed through `cut`."""
     ds = Molecules()
-    b2, b3 = buckets(ds.items)
+    b2, b3 = (dataclasses.replace(b, csr=csr) for b in (
+        tight_buckets(ds.items) if tight else buckets(ds.items)))
     if collate != "graphcl_collate" and collate != "graph_collate":
         kw["bucket3d"] = b3
-    return next(iter(GraphDataLoader(ds, B, collate, bucket=b2,
+    fn = get_collate(collate)
+    if cut is not None:
+        fn = partition_collate(fn, cut)
+    return next(iter(GraphDataLoader(ds, B, fn, bucket=b2,
                                      shuffle=False, prefetch=0,
                                      collate_kwargs=kw, n_shards=n_shards,
                                      shard=shard)))
@@ -177,7 +210,7 @@ def contrastive(group, rank, k):
     view = loader("contrastive_collate", k, rank)
     g2, g3 = step.prepare(to_device(view["graph2d"], "cpu"),
                           to_device(view["graph3d"], "cpu"))
-    with using_data_parallel_group(group):
+    with using_groups(data=group):
         loss = step.loss_and_grads(g2, g3)
     return _record(loss, step.named_parameters(),
                    {"model": step.model, "model3d": step.model3d})
@@ -191,7 +224,7 @@ def supervised(group, rank, k):
                           "BCEWithLogitsLoss", {"lr": 1e-3})
     g = step.prepare(to_device(loader("graph_collate", k, rank)["graph"],
                                "cpu"))
-    with using_data_parallel_group(group):
+    with using_groups(data=group):
         loss = step.loss_and_grads(g)
     return _record(loss, (("model." + n, p) for n, p in
                           step.model.named_parameters()),
@@ -288,11 +321,109 @@ def _sum_over_ranks(tensors, group):
 # case: BatchNorm statistics left local, the loss on the local rows only,
 # the gradients summed over the ranks instead of averaged
 FAULTS = {
-    "bn_local": (base, "data_parallel_group", lambda: None),
+    "bn_local": (base, "step_group", lambda: None),
     "loss_local": (sys.modules[__name__], "CrossDeviceLoss",
                    lambda loss, group: loss),
     "grad_sum": (supervised_mod, "mean_over_ranks", _sum_over_ranks),
 }
+
+
+# the partitioned modes: (mode, case) on the non-CSR batch
+PARTITION_CASES = {"edge_contrastive": ("edge", "contrastive"),
+                   "node_contrastive": ("node", "contrastive"),
+                   "edge_supervised": ("edge", "supervised"),
+                   "node_supervised": ("node", "supervised"),
+                   # the same step under remat: its recompute repeats the
+                   # halo exchanges and the BatchNorm all-reduces
+                   "node_contrastive_remat": ("node", "contrastive")}
+GRID_CASES = {"grid_supervised": ("edge", "supervised")}
+
+
+def _drop_ghost_cotangents(ctx, ct):
+    """The halo exchange's backward without the ghosts' cotangents sent
+    home (a planted fault)."""
+    return (ct[:ctx.n_local].clone(), None) + (None,) * len(
+        ctx.saved_tensors)
+
+
+# planted faults of the partitioned steps: the edge shards' aggregations
+# not completed, the halo exchange's backward dropping the ghost
+# cotangents, the BatchNorm statistics not completed over the graph group
+PARTITION_FAULTS = {
+    "edge_no_completion": ("edge_contrastive", edge_partition,
+                           "all_reduce_sum", lambda x, group: x),
+    "halo_backward_dropped": ("node_contrastive",
+                              node_partition._HaloExchange, "backward",
+                              staticmethod(_drop_ghost_cotangents)),
+    "bn_not_over_graph": ("node_contrastive", base, "step_group",
+                          data_parallel_group),
+}
+
+
+def partition(name, grid):
+    """Case `name` of `PARTITION_CASES` / `GRID_CASES` on this rank's part
+    of its data shard's batch (`grid`), or, for None, in one process on
+    the whole batch; one float32 step under the grid's groups.  One data
+    shard takes `tight_buckets`, so each node shard holds real nodes and
+    the cut splits a molecule."""
+    mode, case = {**PARTITION_CASES, **GRID_CASES}[name]
+    n_data, d = (1, 0) if grid is None else (grid.n_data, grid.data_index)
+    cut = None
+    if grid is not None and mode == "edge":
+        def cut(v):
+            return shard_batch_edges(v, grid.k, grid.graph_index)
+    elif grid is not None:
+        def cut(v):
+            return node_partition.shard_graph_batch(v, grid.k,
+                                                    grid.graph_index)
+    ctx = using_groups() if grid is None else using_groups(
+        data=grid.data, edge=grid.graph if mode == "edge" else None,
+        node=grid.graph if mode == "node" else None, step=grid.step)
+    if case == "contrastive":
+        var = variables({"model": ("PNA", PNA), "model3d": ("Net3D", NET3D)})
+        step = PretrainStep(PNA, NET3D, var, "cpu", None, {"tau": 0.1},
+                            {"lr": 1e-3}, "NTXent", "Net3D", "PNA")
+        if grid is not None and grid.data is not None:
+            step.loss_fn = CrossDeviceLoss(step.loss_fn, grid.data)
+        view = loader("contrastive_collate", n_data, d, csr=False, cut=cut,
+                      tight=n_data == 1)
+        batches = step.prepare(to_device(view["graph2d"], "cpu"),
+                               to_device(view["graph3d"], "cpu"))
+        named = list(step.named_parameters())
+        modules = {"model": step.model, "model3d": step.model3d}
+    else:
+        var = variables({"model": ("OGBGNN", GIN)})["model"]
+        step = SupervisedStep("OGBGNN", GIN, var, "cpu", None,
+                              "BCEWithLogitsLoss", {"lr": 1e-3})
+        view = loader("graph_collate", n_data, d, csr=False, cut=cut,
+                      tight=n_data == 1)
+        batches = (step.prepare(to_device(view["graph"], "cpu")),)
+        named = [("model." + n, p) for n, p in step.model.named_parameters()]
+        modules = {"model": step.model}
+    step.remat = name.endswith("_remat")
+    with ctx:
+        loss = step.loss_and_grads(*batches)
+    return _record(loss, named, modules)
+
+
+def run_partition_suite(names, grid):
+    """Every case of `names` and, on two ranks, each planted fault."""
+    out = {}
+    for name in names:
+        torch.manual_seed(0)
+        mode = {**PARTITION_CASES, **GRID_CASES}[name][0]
+        out[name] = partition(name, dataclasses.replace(grid, mode=mode))
+    if grid.n_data == 1:
+        for fault, (name, module, attr, plant) in PARTITION_FAULTS.items():
+            kept = module.__dict__[attr]
+            setattr(module, attr, plant)
+            try:
+                mode = PARTITION_CASES[name][0]
+                out[fault] = partition(name, dataclasses.replace(
+                    grid, mode=mode))
+            finally:
+                setattr(module, attr, kept)
+    return out
 
 
 def run(name, group, rank, k, run_dir):
@@ -310,14 +441,21 @@ def run(name, group, rank, k, run_dir):
     return globals()[name](group, rank, k)
 
 
-def main(rank: int, world: int, out_dir: str) -> None:
+def main(rank: int, world: int, out_dir: str, suite: str = "dp") -> None:
     torch.set_num_threads(1)
     group, _ = make_group(world, rank, f"file://{out_dir}/store", "gloo",
                           "cpu")
     try:
-        results = {name: run(name, group, rank, world,
-                             os.path.join(out_dir, f"run{rank}"))
-                   for name in CASES + tuple(FAULTS)}
+        if suite == "dp":
+            results = {name: run(name, group, rank, world,
+                                 os.path.join(out_dir, f"run{rank}"))
+                       for name in CASES + tuple(FAULTS)}
+        elif suite == "partition":
+            results = run_partition_suite(PARTITION_CASES,
+                                          make_grid(1, world, "edge"))
+        else:
+            results = run_partition_suite(GRID_CASES,
+                                          make_grid(2, world // 2, "edge"))
     finally:
         close_group()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
@@ -325,4 +463,4 @@ def main(rank: int, world: int, out_dir: str) -> None:
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], *sys.argv[4:])

@@ -13,8 +13,11 @@ STEP_TOL, bf16 within the witnesses' limits), the planted faults, the
 all-reduce and all-gather calls of a step with their host milliseconds,
 ms per bf16 step with one card per rank beside one process on the whole
 batch, and the CLI's run under torchrun's environment; then the CLI's run
-with the ranks it starts itself (NCCL, its default backend), and every
-card's name and power limit.
+with the ranks it starts itself (NCCL, its default backend); then phase
+28's partitioned modes (c) with one NCCL rank per card, `graph_shards: k`
+and `node_shards: k` of the flat pre-training step against one process
+on the whole non-CSR batch (with (b), which gives that one-process step);
+and every card's name and power limit.
 """
 import subprocess
 import sys
@@ -54,6 +57,12 @@ def main() -> int:
     print(f"[dp-nccl] CLI {config} with n_shards {k}, the ranks started by "
           f"the CLI (NCCL, one card each): {time.perf_counter() - t0:.1f} "
           f"s, {loss} {result[loss]:.6f}")
+    spec21 = cs._s21_spec()
+    spec21.update(ranks=k, backend="nccl")
+    with cs._Phase(f"28 (b, c) non-CSR batch and partitions, {k} cards, "
+                   f"NCCL"):
+        b = cs._s21_noncsr(spec21, smi)
+        cs._s21_partitions(spec21, b, out, smi)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
