@@ -342,6 +342,23 @@ its seconds:
    step (calls, elements, host ms), the halo rows per round, and ms per
    bf16 step of the two ranks time-sliced on one card (not a measure of
    speed).
+29. Tensor parallelism and the native host collate: four gloo ranks on
+   the one card form a 2 x 2 (data, model) grid; (a) ranks 0 and 1 run
+   phase 27's pre-training step (float32, bf16) and GIN step (float32)
+   with `model_shards: 2` on the whole batch against phase 27's one
+   process (float32 within STEP_TOL, bf16 within its `_bf16_limits`),
+   launches per rank those of one process, the model ranks bit-equal
+   after three steps, the bytes of masters and Adam moments per rank,
+   the shard gathers of a step with their host ms, ms per bf16 step
+   (not a measure of speed); (b) every rank runs the pre-training step
+   of `n_shards: 2` x `model_shards: 2` against phase 27's data-parallel
+   ranks; (c) ranks 0 and 1 run the CLI with `model_shards: 2`, whose
+   checkpoint loads strictly into the one-process models; (d) three
+   planted faults (the gather's backward summed over the model ranks,
+   the shards gathered in reversed rank order, the gradient mean over
+   the model ranks) that must each fail (a)'s float32 check.  Meanwhile
+   the host collates phase 18's QMugs batch natively and with numpy:
+   every array equal, host ms of each.
 It prints a `{"kernels": [...]}` line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`.
 """
@@ -2796,9 +2813,9 @@ def _no_running_stats_checkpoint():
     ck = importlib.import_module("infomax3d_tpu_torch.train.checkpoint")
     real_save, real_load = ck.state_dicts, ck.load_state_dicts
 
-    def save(models):
+    def save(models, *args):
         return {k: {n: t for n, t in sd.items() if "running" not in n}
-                for k, sd in real_save(models).items()}
+                for k, sd in real_save(models, *args).items()}
 
     def load(models, payload):
         for k, m in models.items():
@@ -3725,6 +3742,7 @@ def phase_data(smi: str, out_dir: Path, synthetic: dict = None) -> dict:
             "num": OGB_MOLECULES, "n_min": 4, "n_max": 28},
             num_train=len(hiv_split[0])), root / "syn_hiv", device),
         ogb_steps)
+    loader = {}
     for name, syn_name in (("qm9 pre f32", "pre_f32"), ("qm9 pre bf16", "pre"),
                            ("qmugs", "qmugs"),
                            ("ogbg-molhiv", "ogbg-molhiv")):
@@ -3732,12 +3750,13 @@ def phase_data(smi: str, out_dir: Path, synthetic: dict = None) -> dict:
         total, per = _loader_s(runs[name], steps)
         syn_run, syn_steps = synthetic[syn_name]
         syn_total, syn_per = _loader_s(syn_run, syn_steps)
+        loader[name] = (per, syn_per)
         print(f"[data] {name} loader host s per train step (waits on the "
               f"prefetch thread, train and eval batches): cache "
               f"{per:.6f} ({total:.6f} s / {steps} steps) against "
               f"synthetic {syn_per:.6f} ({syn_total:.6f} s / {syn_steps} "
               f"steps); {smi}")
-    return {"launches": launches, "caches": caches,
+    return {"launches": launches, "caches": caches, "loader": loader,
             "gin_ckpt": runs["ogbg-molhiv"]["dir"] / "best_checkpoint.pt"}
 
 
@@ -7499,6 +7518,7 @@ def phase_data_parallel(smi: str, out_dir: Path, spec: dict = None) -> dict:
     for r in ranks:
         for n in NONE:
             launches[n] += r["launches"][n] + r["cli_launches"][n]
+    _DP_CACHE.update(refs=refs, ranks=ranks)
     t.append(time.perf_counter())
     print(f"[dp] data-parallel main-path launches: {launches}")
     print("[dp] seconds: " + ", ".join(
@@ -8032,6 +8052,459 @@ def phase_slice21(smi: str, out_dir: Path, spec: dict = None) -> dict:
     return {"launches": launches}
 
 
+# --------------- phase 29: tensor parallelism, the native host collate
+
+# phase 27's step and spec with `model_shards`: four gloo ranks on the
+# one card form the (data, model) grid of 2 x 2 (rank d * 2 + m); the first
+# `TP_ALONE` of them also run `model_shards: TP_ALONE` alone on the whole
+# batch over a model group of their own, and then the CLI.  Phase 27's
+# one-process references and its two data-parallel ranks (`_DP_CACHE`)
+# are the yardsticks.
+TP_RANKS = 4
+TP_ALONE = 2
+TP_STEPS = 3
+TP_CLI = dict(DP_CLI, n_shards=1, model_shards=TP_ALONE)
+TP_FAULTS = ("backward summed over the model ranks",
+             "shards gathered in reversed rank order",
+             "gradient mean over the model ranks")
+# what phase 27 leaves for phase 29: its one-process references and the
+# ranks' results
+_DP_CACHE = {}
+
+
+def _tp_fresh(spec: dict, kind: str, bf16: bool, dev, grid, cache: dict):
+    """The seeded step of `kind` ("pre", "gin") sharded for this rank's
+    part of `grid`'s model group, at its initial shards and running
+    statistics, its optimizer without state and its own loss; built once
+    per process and model group size."""
+    from infomax3d_tpu_torch.parallel import tp
+    key = (kind, bf16, grid.k)
+    if key not in cache:
+        if kind == "pre":
+            step = build_step(spec["pre"][bf16], dev)
+            models = {"model": step.model, "model3d": step.model3d}
+        else:
+            step = build_supervised_step(spec["gin"][bf16], dev)
+            models = {"model": step.model}
+        whole = sum(p.numel() for m in models.values()
+                    for p in m.parameters())
+        tp.shard_step(step, grid.k, grid.graph_index)
+        state = {n: {k: v.clone() for k, v in m.state_dict().items()}
+                 for n, m in models.items()}
+        cache[key] = (step, models, state, getattr(step, "loss_fn", None),
+                      whole)
+    step, models, state, loss, _ = cache[key]
+    for n, m in models.items():
+        m.load_state_dict(state[n])
+    step.optimizer.state.clear()
+    if loss is not None:
+        step.loss_fn = loss
+    return step, models
+
+
+def _tp_measure(step, models: dict, batches, grid, data=None) -> tuple:
+    """`_measure_step` under the model group (and `data`), the sharded
+    leaves' gradients gathered whole over the model ranks."""
+    from infomax3d_tpu_torch.parallel import tp, using_groups
+    from infomax3d_tpu_torch.parallel.collectives import gather_leaves
+    with using_groups(data=data, model=grid.model):
+        loss, out = _measure_step(step, models, batches)
+    for pre, m in models.items():
+        sh = tp.sharded_leaves(m)
+        names = list(sh)
+        whole = gather_leaves([m.get_parameter(n).grad for n in names],
+                              [sh[n].dim for n in names], grid.model)
+        out.update({f"{pre}.{n}": w.float().cpu()
+                    for n, w in zip(names, whole)})
+    return loss, out
+
+
+def _tp_digest(models: dict, grid) -> str:
+    """A digest of the models' whole parameters (gathered) and running
+    statistics, for the model ranks' bit-equality."""
+    import hashlib
+    from infomax3d_tpu_torch.parallel import tp
+    h = hashlib.sha256()
+    for m in models.values():
+        for n, t in sorted(tp.full_state_dict(m, grid.model).items()):
+            h.update(n.encode())
+            h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _tp_plant(name: str, grid):
+    """Plant the tensor-parallel fault `name`; returns the undo."""
+    from infomax3d_tpu_torch.parallel import collectives as C
+    from infomax3d_tpu_torch.train import supervised as S
+    if name == TP_FAULTS[0]:
+        def summed(ctx, *cts):
+            return (None, None) + tuple(
+                C.all_reduce_(ct.contiguous().clone(), ctx.group).chunk(
+                    ctx.k, d)[ctx.index].contiguous()
+                for ct, d in zip(cts, ctx.dims))
+        obj, attr, fake = C._GatherShards, "backward", staticmethod(summed)
+    elif name == TP_FAULTS[1]:
+        real_gather = C._gather_flat
+        obj, attr = C, "_gather_flat"
+
+        def fake(flat, group):
+            return real_gather(flat, group).flip(0)
+    else:
+        obj, attr, fake = S, "step_group", lambda: grid.model
+    real = obj.__dict__[attr]
+    setattr(obj, attr, fake)
+    return lambda: setattr(obj, attr, real)
+
+
+def _tp_gathers(step, batches, grid, cuda: bool) -> list:
+    """[calls, elements, host ms] of the shard gathers of one step (a
+    synchronization before and after each)."""
+    from infomax3d_tpu_torch.parallel import collectives as C
+    from infomax3d_tpu_torch.parallel import using_groups
+    seen = [0, 0, 0.0]
+    real = C._gather_flat
+
+    def timed(flat, group):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(flat, group)
+        if cuda:
+            torch.cuda.synchronize()
+        seen[0] += 1
+        seen[1] += out.numel()
+        seen[2] += (time.perf_counter() - t0) * 1e3
+        return out
+    C._gather_flat = timed
+    try:
+        with using_groups(model=grid.model):
+            step.loss_and_grads(*batches)
+    finally:
+        C._gather_flat = real
+    return seen
+
+
+def _tp_rank(rank: int, spec: dict, out: str, port: int):
+    """One rank of phase 29: `model_shards: spec["alone"]` alone (the
+    first that many ranks, the whole batch; the planted faults, three
+    steps' bit-equality, the bytes, gathers and ms), the grid of 2 data
+    shards (every rank, its data shard); then the CLI with that
+    `model_shards` (the same ranks, torchrun's environment).  Writes its
+    results to `out`/rank{rank}.pt."""
+    import torch.distributed as dist
+    from datetime import timedelta
+    from infomax3d_tpu_torch.cli.config import load_config
+    from infomax3d_tpu_torch.cli.train import train as cli_train
+    from infomax3d_tpu_torch.parallel import (CrossDeviceLoss, Grid,
+                                              close_group, make_group,
+                                              make_tp_grid, tp, using_groups)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res, cache = {}, {}
+    group, dev = make_group(spec["ranks"], rank, f"file://{out}/store",
+                            spec["backend"], spec["device"],
+                            timeout=timedelta(minutes=5))
+    cuda = spec["device"] == "cuda"
+    ka = spec["alone"]
+    try:
+        grid = make_tp_grid(2, spec["ranks"] // 2)
+        d = grid.data_index
+        own = dist.new_group(list(range(ka)))
+        if rank < ka:
+            alone = Grid(1, ka, "model", 0, rank, None, own, own)
+            whole = _dp_batches(spec, 0, 1, dev)
+            _reset_counts()
+            for kind, bf16 in (("pre", False), ("pre", True),
+                               ("gin", False)):
+                step, models = _tp_fresh(spec, kind, bf16, dev, alone, cache)
+                before = _counts()
+                res[("alone", kind, bf16)] = _tp_measure(
+                    step, models, step.prepare(*whole[kind])
+                    if kind == "pre" else (step.prepare(*whole[kind]),),
+                    alone)
+                res[("alone", kind, bf16, "launches")] = {
+                    n: c - before[n] for n, c in _counts().items()}
+            res["launches"] = _counts()
+            for name in TP_FAULTS:
+                step, models = _tp_fresh(spec, "pre", False, dev, alone, cache)
+                undo = _tp_plant(name, alone)
+                try:
+                    res[("fault", name)] = _tp_measure(
+                        step, models, step.prepare(*whole["pre"]), alone)
+                finally:
+                    undo()
+            step, models = _tp_fresh(spec, "pre", False, dev, alone, cache)
+            batches = step.prepare(*whole["pre"])
+            with using_groups(model=alone.model):
+                res["losses"] = [float(step.step(*batches))
+                                 for _ in range(spec["steps"])]
+            res["digest"] = _tp_digest(models, alone)
+            params = [p for g in step.optimizer.param_groups
+                      for p in g["params"]]
+            res["bytes"] = tp.master_bytes(params, step.optimizer)
+            res["whole_elements"] = cache[("pre", False, ka)][4]
+            step, models = _tp_fresh(spec, "pre", True, dev, alone, cache)
+            batches = step.prepare(*whole["pre"])
+            res["gathers"] = _tp_gathers(step, batches, alone, cuda)
+            if cuda:
+                with using_groups(model=alone.model):
+                    res["ms"] = cuda_ms(lambda: step.step(*batches),
+                                        iters=spec["timed"], warmup=1)
+        shard = _dp_batches(spec, d, 2, dev)
+        before = _counts()
+        for bf16 in (False, True):
+            step, models = _tp_fresh(spec, "pre", bf16, dev, grid, cache)
+            step.loss_fn = CrossDeviceLoss(step.loss_fn, grid.data)
+            res[("grid", bf16)] = _tp_measure(
+                step, models, step.prepare(*shard["pre"]), grid, grid.data)
+        res["grid_launches"] = {n: c - before[n] for n, c in _counts().items()}
+    finally:
+        close_group()
+    if rank < ka:
+        os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                          RANK=str(rank), WORLD_SIZE=str(ka),
+                          LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(ka))
+        config, overrides = spec["cli"]
+        args = load_config(config, dict(overrides, logdir=f"{out}/cli"))
+        _reset_counts()
+        t0 = time.perf_counter()
+        res["cli"] = cli_train(args, device=spec["device"])
+        res["cli_s"] = time.perf_counter() - t0
+        res["cli_launches"] = _counts()
+    torch.save(res, f"{out}/rank{rank}.pt")
+
+
+def _tp_spec() -> dict:
+    return dict(_dp_spec(), ranks=TP_RANKS, alone=TP_ALONE, steps=TP_STEPS,
+                cli=(TRAINER_PRE, TP_CLI))
+
+
+def _native_collate(smi: str) -> dict:
+    """The native collate against numpy on phase 18's QMugs batch (500
+    molecules x 3 conformers of 20 to 70 atoms through
+    `conformer_collate`): every array equal, host ms per collate of each
+    (the best of a few)."""
+    from infomax3d_tpu_torch.data.loader import conformer_collate
+    c = CONF_CONFS[CONF_QMUGS]
+    ds = SyntheticMolecules(BATCH, num_conformers=c, **CONF_DATA)
+    items = [{"graph2d": ds.graph2d(i),
+              "conformers3d": [ds.graph3d(i, conformer=j) for j in range(c)]}
+             for i in range(BATCH)]
+    bucket = bucket_for([it["graph2d"] for it in items], BATCH)
+    ms = {}
+    views = {}
+    for path, env in (("native", None), ("numpy", "1")):
+        if env:
+            os.environ["INFOMAX3D_NO_NATIVE"] = env
+        try:
+            best = None
+            for _ in range(2):
+                t0 = time.perf_counter()
+                views[path] = conformer_collate(items, bucket)
+                s = (time.perf_counter() - t0) * 1e3
+                best = s if best is None else min(best, s)
+            ms[path] = best
+        finally:
+            os.environ.pop("INFOMAX3D_NO_NATIVE", None)
+    bad = [f"{v}.{k}" for v in views["numpy"] for k in views["numpy"][v]
+           if not (views["native"][v][k].dtype == views["numpy"][v][k].dtype
+                   and np.array_equal(views["native"][v][k],
+                                      views["numpy"][v][k]))]
+    _check(not bad and views["native"].keys() == views["numpy"].keys(),
+           f"native collate differs from numpy: {bad}")
+    edges = int(views["native"]["graph3d"]["csr_row_ptr"][-1])
+    print(f"[tp] native collate of the QMugs batch ({BATCH} molecules x "
+          f"{c} conformers, {edges} 3D edges): every array of "
+          f"{sum(len(v) for v in views['numpy'].values())} equal to "
+          f"numpy's; host ms per collate {ms['native']:.3f} native against "
+          f"{ms['numpy']:.3f} numpy (best of 2; {smi})")
+    return ms
+
+
+def phase_slice22(smi: str, out_dir: Path, loader: dict = None,
+                  spec: dict = None) -> dict:
+    """Phase 29: tensor parallelism (`model_shards`) and the native host
+    collate.  Four gloo ranks on the card: (a) `model_shards: 2` alone
+    (ranks 0, 1) on phase 27's whole batch, the float32 pre-training and
+    GIN steps within STEP_TOL of phase 27's one process, the bf16
+    pre-training step within its `_bf16_limits`, launches per rank those
+    of one process; the model ranks bit-equal after three steps; the
+    bytes of masters and Adam moments per rank; the shard gathers of a
+    step with their host ms; ms per bf16 step; three planted faults that
+    must fail; (b) `n_shards: 2` x `model_shards: 2`, the pre-training
+    step against phase 27's data-parallel ranks (float32 STEP_TOL, bf16
+    its limits); (c) the CLI with `model_shards: 2` (ranks 0, 1): one run
+    directory, whose checkpoint holds the one-process layout and loads
+    strictly into the one-process models.  Meanwhile, on the host, the
+    native collate against numpy; with `loader` (phase 19's QMugs loader
+    waits), those too.  Without phase 27 before it, the yardsticks are
+    one process's steps, computed here.  Returns the main path's
+    launches."""
+    import shutil
+    from infomax3d_tpu_torch.cli.config import load_config
+    from infomax3d_tpu_torch.cli.train import (build_models, resolve_collate,
+                                               resolve_fast_paths)
+    from infomax3d_tpu_torch.train.checkpoint import load_checkpoint
+    spec = spec or _tp_spec()
+    t = [time.perf_counter()]
+    if "refs" not in _DP_CACHE:
+        # phase 29 alone: the one-process references of its own
+        whole = _dp_batches(spec, 0, 1, torch.device(spec["device"]))
+        _DP_CACHE.update(refs={kind: _dp_limits(spec, kind, whole)
+                               for kind in ("pre", "gin")}, ranks=[])
+    refs, dp_ranks = _DP_CACHE["refs"], _DP_CACHE["ranks"]
+    ka = spec["alone"]
+    # the grid's yardstick: phase 27's ranks where they were two data
+    # shards, else its one process on the whole batch
+    dp_ref = len(dp_ranks) == 2
+    run = out_dir / "tensor_parallel"
+    shutil.rmtree(run, ignore_errors=True)
+    run.mkdir(parents=True)
+    ctx = torch.multiprocessing.start_processes(
+        _tp_rank, args=(spec, str(run), _free_port()), nprocs=spec["ranks"],
+        start_method="spawn", join=False)
+    collate_ms = _native_collate(smi)
+    while not ctx.join():
+        pass
+    ranks = [torch.load(run / f"rank{r}.pt", weights_only=False)
+             for r in range(spec["ranks"])]
+    t.append(time.perf_counter())
+    for kind, bf16 in (("pre", False), ("pre", True), ("gin", False)):
+        f32, b16, limits = refs[kind]
+        got = ranks[0][("alone", kind, bf16)]
+        _check(all(_dp_same(got, r[("alone", kind, bf16)])
+                   for r in ranks[1:ka]),
+               f"(a) {kind} bf16={bf16}: the model ranks differ")
+        for r in ranks[:ka]:
+            per = r[("alone", kind, bf16, "launches")]
+            _check(per == spec["expect"][(kind, bf16)],
+                   f"(a) {kind} bf16={bf16}: launches per rank {per}")
+        held = limits if bf16 else (STEP_TOL[False], {
+            s: STEP_TOL[False]["l2"] for s in DP_SIDES[kind]})
+        r, rel, bad = _dp_held(got, b16 if bf16 else f32, DP_SIDES[kind],
+                               *held)
+        print(f"[tp] (a) {kind} bf16={bf16}: model_shards {ka} "
+              f"({spec['backend']}) vs one process: loss {got[0]:.6f} vs "
+              f"{(b16 if bf16 else f32)[0]:.6f}, {rel:.3g} (tol "
+              f"{held[0]['loss']:.3g}); the model ranks bit-equal")
+        _print_readings(f"(a) {kind} bf16={bf16} model_shards {ka} vs one "
+                        f"process", r, held[1], "tp")
+        _check(not bad, f"(a) {kind} bf16={bf16} vs one process: {bad}")
+    _check(all(r["digest"] == ranks[0]["digest"]
+               and r["losses"] == ranks[0]["losses"] for r in ranks[1:ka]),
+           "(a) the model ranks differ after three steps")
+    print(f"[tp] (a) {spec['steps']} float32 steps: losses "
+          f"{ranks[0]['losses']}, the model ranks' losses and gathered "
+          f"parameters and statistics bit-equal")
+    for name in TP_FAULTS:
+        r, rel, bad = _dp_held(ranks[0][("fault", name)], refs["pre"][0],
+                               DP_SIDES["pre"], STEP_TOL[False],
+                               {s: STEP_TOL[False]["l2"]
+                                for s in DP_SIDES["pre"]})
+        print(f"[tp] (d) planted fault ({name}), float32: loss {rel:.3g}, "
+              f"{len(bad)} violations, e.g. {bad[:2]}")
+        _check(bool(bad), f"the tensor-parallel check passed a planted "
+                          f"fault ({name})")
+    whole_b = 12 * ranks[0]["whole_elements"]
+    for i, r in enumerate(ranks[:ka]):
+        print(f"[tp] (a) rank {i}: {r['bytes']} bytes of float32 masters "
+              f"and Adam moments ({r['bytes'] / whole_b:.4f} of one "
+              f"process's {ranks[0]['whole_elements']} elements x 12 B = "
+              f"{whole_b} B)")
+    _check(ranks[0]["bytes"] < (1 / ka + 0.05) * whole_b,
+           f"(a) a rank holds {ranks[0]['bytes']} of {whole_b} bytes")
+    calls, elems, gms = ranks[0]["gathers"]
+    how = "gloo, host-staged" if spec["backend"] == "gloo" else "nccl"
+    print(f"[tp] (a) shard gathers of one bf16 pre-training step per rank: "
+          f"{calls} all-gathers of {elems} elements in all ({how}, "
+          f"synchronized), {gms:.3f} ms host")
+    if "ms" in ranks[0]:
+        where = ("time-sliced on one card" if torch.cuda.device_count()
+                 < ka else "one card each")
+        print(f"[tp] (a) model_shards {ka}, {ka} ranks {where} "
+              f"({spec['backend']}): {ranks[0]['ms']:.3f} ms per bf16 "
+              f"pre-training step (rank 0's CUDA events over "
+              f"{spec['timed']} warm steps); not a measure of speed; {smi}")
+    for bf16 in (False, True):
+        f32, b16, limits = refs["pre"]
+        km = spec["ranks"] // 2
+        for r in range(spec["ranks"]):
+            got = ranks[r][("grid", bf16)]
+            ref = dp_ranks[r // km][("pre", bf16)] if dp_ref else \
+                (b16 if bf16 else f32)
+            _check(_dp_same(got, ranks[r - r % km][("grid", bf16)]),
+                   f"(b) bf16={bf16}: the model ranks of data shard "
+                   f"{r // km} differ")
+            held = limits if bf16 else (STEP_TOL[False], {
+                s: STEP_TOL[False]["l2"] for s in DP_SIDES["pre"]})
+            rd, rel, bad = _dp_held(got, ref, DP_SIDES["pre"], *held)
+            if r % km == 0:
+                what = (f"phase 27's data-parallel rank {r // km}" if dp_ref
+                        else "one process on the whole batch")
+                print(f"[tp] (b) bf16={bf16} rank {r}: 2 x {km} grid vs "
+                      f"{what}: loss {got[0]:.6f} vs {ref[0]:.6f}, {rel:.3g}")
+                _print_readings(f"(b) bf16={bf16} grid vs data parallel",
+                                rd, held[1], "tp")
+            _check(not bad, f"(b) bf16={bf16} rank {r} vs data parallel: "
+                            f"{bad}")
+    for r in ranks:
+        _check(r["grid_launches"] == {
+            n: spec["expect"][("pre", False)][n]
+            + spec["expect"][("pre", True)][n] for n in NONE},
+            f"(b) launches per rank {r['grid_launches']}")
+    results = [r["cli"] for r in ranks[:ka]]
+    _check(all(res == results[0] for res in results[1:]),
+           "(c) the ranks' CLI results differ")
+    _check(all(np.isfinite(v) for v in results[0].values()),
+           f"(c) non-finite metrics {results[0]}")
+    cli_dir = _run_dir(run / "cli")
+    for name in ("best_checkpoint.pt", "last_checkpoint.pt",
+                 "train_arguments.yaml", "metrics.jsonl", "timing.json"):
+        _check((cli_dir / name).exists(), f"(c) no {name}")
+    for r in ranks[:ka]:
+        _check(r["cli_launches"] == spec["expect"]["cli"],
+               f"(c) launches per rank {r['cli_launches']}")
+    args = load_config(spec["cli"][0], dict(spec["cli"][1]))
+    resolve_collate(args)
+    resolve_fast_paths(args)
+    one = build_models(args)
+    payload = load_checkpoint(str(cli_dir / "best_checkpoint.pt"))
+    for key, mod in one.items():
+        mod.load_state_dict(payload[f"{key}_state_dict"], strict=True)
+        for n, p in mod.named_parameters():
+            _check(torch.equal(p.detach(), payload[f"{key}_state_dict"][n]),
+                   f"(c) {key}.{n} differs after the load")
+    moments = payload["optimizer_state_dict"]["state"].values()
+    _check(sorted(tuple(v["exp_avg"].shape) for v in moments) == sorted(
+        tuple(p.shape) for mod in one.values() for p in mod.parameters()),
+        "(c) the checkpoint's Adam moments are not whole")
+    loss_key = next(key for key in results[0] if "NTXent" in key)
+    print(f"[tp] (c) CLI {spec['cli'][0]} with model_shards {ka} "
+          f"(torchrun's environment, {spec['cli'][1]['dist_backend']}): "
+          f"{ranks[0]['cli_s']:.1f} s, {loss_key} "
+          f"{results[0][loss_key]:.6f}, the ranks' results equal; its best "
+          f"checkpoint ({len(payload['model_state_dict'])} + "
+          f"{len(payload['model3d_state_dict'])} tensors, whole) loads "
+          f"strictly into the one-process models, Adam's moments whole")
+    if loader:
+        cache, syn = loader
+        print(f"[tp] QMugs loader host s per train step with the native "
+              f"collate (phase 19 of this run): cache {cache:.6f}, synthetic "
+              f"{syn:.6f}; native collate {collate_ms['native']:.3f} ms "
+              f"against numpy {collate_ms['numpy']:.3f} ms a batch")
+    launches = dict(NONE)
+    for r in ranks:
+        for n in NONE:
+            launches[n] += r.get("launches", NONE)[n] + \
+                r["grid_launches"][n] + r.get("cli_launches", NONE)[n]
+    t.append(time.perf_counter())
+    print(f"[tp] tensor-parallel main-path launches: {launches}")
+    print("[tp] seconds: " + ", ".join(
+        f"{name} {b - a:.1f}" for name, a, b in zip(
+            ("the ranks and the native collate", "checks"), t, t[1:])))
+    return {"launches": launches}
+
+
 class _Phase:
     """Prints a phase's seconds when it ends (and lets its error pass)."""
 
@@ -8111,14 +8584,17 @@ def main() -> int:
         dp = phase_data_parallel(smi, out_dir)
     with _Phase("28 remat, the non-CSR batch, the partitions"):
         s21 = phase_slice21(smi, out_dir)
-    # every kernel's launches over the sixteen main paths (serving,
+    with _Phase("29 tensor parallelism, the native collate"):
+        s22 = phase_slice22(smi, out_dir, data["loader"]["qmugs"])
+    # every kernel's launches over the seventeen main paths (serving,
     # pre-training, GIN training, OT training, the trainer CLI,
     # multi-conformer pre-training, the data layer, the serving CLI, the
     # baselines' CLI runs, the OT family's CLI runs, the supervised CLI
     # runs of the GIN's options and the transformers, those of
     # PNAOriginal and SMP, those of BYOL, EGNN and SAN, those of the
     # philosophy trainer and the GeoMol fine-tune, the data-parallel
-    # steps and CLI run, and phase 28's remat and CSR steps)
+    # steps and CLI run, phase 28's remat and CSR steps, and phase 29's
+    # tensor-parallel steps and CLI run)
     launches = {n: serve_launches[n] + train["launches"][n]
                 + gin["launches"][n] + ot_run["launches"][n]
                 + trainer["launches"][n] + conf["launches"][n]
@@ -8127,6 +8603,7 @@ def main() -> int:
                 + s16["launches"][n] + s17["launches"][n]
                 + s18["launches"][n] + s19["launches"][n]
                 + dp["launches"][n] + s21["launches"][n]
+                + s22["launches"][n]
                 for n in serve_launches}
     with _Phase("6 kernel times"):
         rows = phase_kernel_times(g, launches, errs)

@@ -13,9 +13,7 @@ with substring filtering, multi-seed runs and test evaluation.  `dataset:
 synthetic` runs everything without chemistry data.
 
 The run goes to the CUDA card unless `--device` (or the config's `device`)
-says "cpu"; with neither set and no card, it raises.  What the port has
-not ported yet raises `NotImplementedError` naming its ROADMAP queue 1
-item: tensor parallelism (`model_shards`, item 9c).  `csr_buckets: False`
+says "cpu"; with neither set and no card, it raises.  `csr_buckets: False`
 runs the flat collates on the non-CSR batch (the segment path);
 `bucket_ladder: true` picks each batch's bucket from a ladder where the
 JAX CLI does, and says so once where it leaves the ladder unused.
@@ -37,6 +35,15 @@ over k ranks; `node_shards: k`, its nodes) run ``n_shards x k`` ranks the
 same way, on the non-CSR batch (`parallel/`); the JAX CLI's refusals of
 their combinations are reproduced (`check_parallel_modes`).
 `node_el_pad` / `node_halo_pad` override the node shards' pads.
+
+Tensor parallelism (`model_shards: k`, `parallel/tp.py`) runs ``n_shards
+x k`` ranks the same way on one (data, model) grid: each rank holds the
+column shards of the sharded parameters, their masters and Adam moments,
+and every model rank of a data shard runs the whole forward on the same
+batch, so it saves memory per rank and does not make a step faster.  It
+excludes the partitioned modes (ValueError, as the JAX CLI).
+
+    python -m infomax3d_tpu_torch.cli.train --config=configs_clean/pre-train_synthetic.yml --device=cpu --model_shards=2 --dist_backend=gloo
 """
 from __future__ import annotations
 
@@ -401,6 +408,7 @@ def transfer_pretrained(trainer, args: Dict[str, Any]) -> int:
     'MaskedBatchNorm' and 'batch_norm'), so the selection equals the JAX
     package's.  `transfer_3d` takes the source's 3D network.  Prints and
     returns the number of parameter tensors transferred."""
+    from infomax3d_tpu_torch.parallel import tp
     from infomax3d_tpu_torch.train import torch_interop as ti
     from infomax3d_tpu_torch.train.checkpoint import load_checkpoint
     path = args["pretrain_checkpoint"]
@@ -426,8 +434,11 @@ def transfer_pretrained(trainer, args: Dict[str, Any]) -> int:
                     and not any(x in s for x in exclude)):
                 continue
             dst = tensors[name]
-            if name in src and tuple(src[name].shape) == tuple(dst.shape):
-                dst.copy_(src[name].to(dst.device, dst.dtype))
+            # a tensor-parallel rank copies its part of each sharded leaf
+            if name in src and tuple(src[name].shape) == tp.whole_shape(
+                    model, name, dst):
+                dst.copy_(tp.shard_of(model, name, src[name]).to(
+                    dst.device, dst.dtype))
                 n_hit += name in params
     print(f"transferred {n_hit} parameter tensors from {path}")
     return n_hit
@@ -588,7 +599,7 @@ def make_loaders(args: Dict[str, Any], dataset, rank: int = 0, grid=None):
         collate_fn = partition_collate(
             collate_fn, lambda v: shard_batch_edges(v, grid.k,
                                                     grid.graph_index))
-    elif grid is not None:
+    elif grid is not None and grid.mode == "node":
         # static pads per bucket, as the JAX CLI's (cli/train.py:581-603):
         # edges at 1.5x the even split, the halo at one largest molecule
         # per round
@@ -663,20 +674,23 @@ def trainer_class(args: Dict[str, Any]):
     return get_trainer_class("default")
 
 
-def partition(args: Dict[str, Any]):
-    """(mode, k) of a partitioned run: ("edge", graph_shards), ("node",
-    node_shards), or (None, 1)."""
+def grid_mode(args: Dict[str, Any]):
+    """(mode, k) of the grid's second axis: ("edge", graph_shards),
+    ("node", node_shards), ("model", model_shards), or (None, 1)."""
     if int(args.get("graph_shards", 1)) > 1:
         return "edge", int(args["graph_shards"])
     if int(args.get("node_shards", 1)) > 1:
         return "node", int(args["node_shards"])
+    if int(args.get("model_shards", 1)) > 1:
+        return "model", int(args["model_shards"])
     return None, 1
 
 
 def check_parallel_modes(args: Dict[str, Any]) -> None:
     """The JAX CLI's refusals (cli/train.py:686-716), each with its
-    exception type, on a resolved config; then `model_shards` alone, not
-    ported (item 9c)."""
+    exception type, on a resolved config: the two partitions together,
+    `node_shards`' collates and pairwise distances, `model_shards` with a
+    partition."""
     graph_shards = int(args.get("graph_shards", 1))
     node_shards = int(args.get("node_shards", 1))
     if graph_shards > 1 and node_shards > 1:
@@ -698,9 +712,6 @@ def check_parallel_modes(args: Dict[str, Any]) -> None:
         if graph_shards > 1 or node_shards > 1:
             raise ValueError("model_shards cannot combine with graph_shards/"
                              "node_shards — pick one graph-parallel mode")
-        raise NotImplementedError(
-            "model_shards (tensor parallelism) is not ported yet (ROADMAP "
-            "queue 1, item 9c)")
 
 
 def run_training(args: Dict[str, Any], device=None,
@@ -717,7 +728,7 @@ def run_training(args: Dict[str, Any], device=None,
     directory."""
     resolve_collate(args)
     check_parallel_modes(args)
-    parallel = int(args.get("n_shards", 1)) > 1 or partition(args)[1] > 1
+    parallel = int(args.get("n_shards", 1)) > 1 or grid_mode(args)[1] > 1
     if parallel and group is None and grid is None:
         return run_data_parallel(args, device, init_variables)
     check_device(args.get("device"))
@@ -809,14 +820,15 @@ def run_data_parallel(args: Dict[str, Any], device=None,
                                               initialize_multihost,
                                               rank_devices)
     from infomax3d_tpu_torch.parallel.multihost import launch_environment
-    k = int(args.get("n_shards", 1)) * partition(args)[1]
+    k = int(args.get("n_shards", 1)) * grid_mode(args)[1]
     backend = args.get("dist_backend", "nccl")
     check_device(args.get("device"))
     check_device(device)
     dev = resolve_device(device if device is not None else args.get("device"))
     resolve_collate(args)
     refusal = trainer_class(args).NO_DATA_PARALLEL
-    if refusal:
+    if refusal and (int(args.get("n_shards", 1)) > 1
+                    or grid_mode(args)[0] != "model"):
         raise NotImplementedError(refusal)
     launch = launch_environment()
     if launch is not None:
@@ -845,9 +857,10 @@ def run_data_parallel(args: Dict[str, Any], device=None,
 
 def _run_rank(args: Dict[str, Any], device, init_variables, group):
     """This rank's run in the joined default `group`: data parallel, or
-    under the (data, graph) grid of a partitioned mode."""
+    under the (data, graph) grid of a partitioned mode or the (data,
+    model) grid of tensor parallelism."""
     from infomax3d_tpu_torch.parallel import make_grid
-    mode, k = partition(args)
+    mode, k = grid_mode(args)
     if mode is None:
         return run_training(args, device, init_variables, group=group)
     grid = make_grid(int(args.get("n_shards", 1)), k, mode)
@@ -879,7 +892,7 @@ def train(args: Dict[str, Any], device=None,
     seeds = args.get("multithreaded_seeds") or []
     if not seeds:
         return run_training(args, device, init_variables)
-    if int(args.get("n_shards", 1)) * partition(args)[1] > 1:
+    if int(args.get("n_shards", 1)) * grid_mode(args)[1] > 1:
         raise NotImplementedError(
             "multithreaded_seeds with several ranks: each seed's ranks "
             "would claim the same cards; run the seeds one after the other")

@@ -1,9 +1,11 @@
 """Padded graph batches, receiver-sorted CSR or in the collate's edge order
 (port of `infomax3d_tpu/graphs/batch.py`).
 
-`batch_graphs` is a numpy host batcher: it concatenates per-molecule dicts
+`batch_graphs` is the host batcher: it concatenates per-molecule dicts
 into one flat graph padded to a `BucketSpec` and returns numpy arrays with
-the JAX package's names and values.  `to_graph_batch` wraps them as a
+the JAX package's names and values.  Its index arrays come from the native
+C core (`native/batcher.c`) unless ``INFOMAX3D_NO_NATIVE=1``;
+`batch_graphs_numpy` is the numpy path, the oracle.  `to_graph_batch` wraps them as a
 `GraphBatch` of torch tensors on a device.
 
 A 3D complete graph (`data/synthetic.py::complete_graph_from_coords`,
@@ -71,6 +73,19 @@ def _check_degree(indices: np.ndarray, num_nodes: int, max_deg: int):
 
 def batch_graphs(graphs: Sequence[Dict[str, np.ndarray]],
                  bucket: BucketSpec) -> Dict[str, np.ndarray]:
+    """`batch_graphs_numpy`'s batch, built by the native C core
+    (`native/batcher.c`, compiled at first use), as the JAX batcher does;
+    ``INFOMAX3D_NO_NATIVE=1`` takes the numpy path.  A failed build raises
+    (no fallback); both paths give the same arrays."""
+    from infomax3d_tpu_torch import native
+    if native.disabled():
+        return batch_graphs_numpy(graphs, bucket)
+    from infomax3d_tpu_torch.native.batcher import pack_batch
+    return pack_batch(graphs, bucket)
+
+
+def batch_graphs_numpy(graphs: Sequence[Dict[str, np.ndarray]],
+                       bucket: BucketSpec) -> Dict[str, np.ndarray]:
     """Concatenate per-molecule numpy graphs (``node_feat``, ``senders``,
     ``receivers``, optional ``edge_feat``, ``edge_dist`` and ``targets``)
     into one padded flat batch.  ``targets`` (per graph, [T]) become

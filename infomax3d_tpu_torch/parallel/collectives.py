@@ -21,6 +21,14 @@ With every rank's loss equal, each rank's gradient is then k times its
 share of d(loss)/d(params), and the mean over ranks (`mean_over_ranks`, one
 all-reduce of the flat gradients) is exactly d(loss)/d(params).
 
+Tensor parallelism (`parallel/tp.py`) adds `gather_shards`: the whole
+leaves from the model ranks' column shards, one flat all-gather per dtype.
+Its backward is NOT `all_gather_rows`': every model rank of a data shard
+runs the same forward on the same batch, so the cotangent of a whole leaf
+is already the same on each of them, and its backward takes this rank's
+slice of it with no collective.  Summing over the model ranks there, as
+the data-parallel transpose does, would count the loss k times.
+
 Under gloo a CUDA tensor goes through a host copy for the collective (the
 two ranks of one card in `chip_smoke.py`); NCCL reduces on the card.  The
 port does not use `torch.distributed.nn.functional`.
@@ -137,6 +145,86 @@ def mean_over_ranks(tensors: Sequence[torch.Tensor], group
         for t, v in zip(ts, flat.split([t.numel() for t in ts])):
             t.copy_(v.view_as(t))
     return list(tensors)
+
+
+def _gather_flat(flat: torch.Tensor, group) -> torch.Tensor:
+    """[k, n]: every rank's 1D `flat` in group-rank order, moved as bytes
+    (any float dtype, on either backend), one all-gather."""
+    k = dist.get_world_size(group)
+    src = flat.contiguous().view(torch.uint8)
+    if _host_staged(group, src):
+        src = src.cpu()
+    out = torch.empty((k, src.numel()), dtype=torch.uint8, device=src.device)
+    dist.all_gather(list(out.unbind(0)), src, group=group)
+    return out.to(flat.device).view(flat.dtype)
+
+
+def _whole(parts: torch.Tensor, shape, dim: int) -> torch.Tensor:
+    """[k, *shape] shards in rank order -> one tensor concatenated along
+    `dim`."""
+    k = parts.shape[0]
+    full = list(shape)
+    full[dim] *= k
+    return parts.movedim(0, dim).reshape(full)
+
+
+def gather_leaves(shards: Sequence[torch.Tensor], dims: Sequence[int],
+                  group) -> List[torch.Tensor]:
+    """Each of `shards` whole: the model ranks' shards concatenated along
+    its dim in group-rank order (no autograd); one flat all-gather per
+    dtype."""
+    out: List[Optional[torch.Tensor]] = [None] * len(shards)
+    by_dtype = {}
+    for i, t in enumerate(shards):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([shards[i].detach().reshape(-1) for i in idx])
+        parts = _gather_flat(flat, group)
+        sizes = [shards[i].numel() for i in idx]
+        for i, p in zip(idx, parts.split(sizes, dim=1)):
+            out[i] = _whole(p.reshape((parts.shape[0],)
+                                      + tuple(shards[i].shape)),
+                            shards[i].shape, dims[i])
+    return out
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, dims, *shards):
+        ctx.group, ctx.dims = group, dims
+        ctx.k, ctx.index = dist.get_world_size(group), dist.get_rank(group)
+        return tuple(gather_leaves(shards, dims, group))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        # every model rank holds the same whole cotangent: its slice, no
+        # collective
+        return (None, None) + tuple(
+            None if ct is None else
+            ct.chunk(ctx.k, d)[ctx.index].contiguous()
+            for ct, d in zip(cts, ctx.dims))
+
+
+def gather_shards(shards: Sequence[torch.Tensor], dims: Sequence[int],
+                  group) -> List[torch.Tensor]:
+    """The whole leaves of the model ranks' `shards` (each cut along its
+    entry of `dims`), differentiable: the backward takes this rank's slice
+    of each cotangent (module docstring)."""
+    return list(_GatherShards.apply(group, tuple(dims), *shards))
+
+
+def broadcast_flat_(tensors: Sequence[torch.Tensor], group, src: int = 0
+                    ) -> None:
+    """Overwrite each of `tensors` with group rank `src`'s, in place: one
+    broadcast per dtype of their concatenation (no autograd)."""
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        broadcast_(flat, group, src)
+        for t, v in zip(ts, flat.split([t.numel() for t in ts])):
+            t.copy_(v.view_as(t))
 
 
 # the row-aligned keywords gathered with z1 and z2: the Local losses' node

@@ -1,6 +1,7 @@
 """Which process groups (if any) the current step runs under (port of
 `infomax3d_tpu/parallel/context.py`: `cross_replica_axis`,
-`edge_partition_axis`, `node_partition_axis`).
+`edge_partition_axis`, `node_partition_axis`; the ``model`` axis of the
+JAX package's tensor parallelism, which GSPMD reads from the layouts).
 
 Modules that aggregate across ranks read these while the step runs,
 instead of threading a group argument through every model signature; the
@@ -21,10 +22,17 @@ trainer sets them around each train and eval step.
   per-shard partials over it, and so do the BatchNorm statistics;
   receiver-side aggregations complete locally (every edge lives with its
   receiver).
-* `step_group()`: every rank of the step (the data and the graph groups
-  together): the BatchNorm statistics under both, and the gradient mean.
+* `model_group()`: the ranks holding the other column shards of the same
+  parameters (``model_shards``, `parallel/tp.py`): the forward gathers
+  the full parameters over it; every rank of it runs the same forward on
+  the same batch.
+* `step_group()`: the ranks whose gradients are averaged: the data and
+  the graph groups together under a partition group (the BatchNorm
+  statistics complete over both), else the data-parallel group.  It never
+  spans the model group: the model ranks hold different shards, and
+  their BatchNorm statistics are already whole.
 
-At most one of the two partition groups is set.
+At most one of the partition and model groups is set.
 """
 from __future__ import annotations
 
@@ -42,6 +50,8 @@ _NODE: ContextVar[Optional[dist.ProcessGroup]] = ContextVar(
     "node_partition_group", default=None)
 _STEP: ContextVar[Optional[dist.ProcessGroup]] = ContextVar(
     "step_group", default=None)
+_MODEL: ContextVar[Optional[dist.ProcessGroup]] = ContextVar(
+    "model_group", default=None)
 
 
 def data_parallel_group() -> Optional[dist.ProcessGroup]:
@@ -59,6 +69,11 @@ def node_partition_group() -> Optional[dist.ProcessGroup]:
     return _NODE.get()
 
 
+def model_group() -> Optional[dist.ProcessGroup]:
+    """The tensor-parallel group of the running step, or None."""
+    return _MODEL.get()
+
+
 def step_group() -> Optional[dist.ProcessGroup]:
     """Every rank of the running step: the group spanning the data and
     the partition groups when a partition group is set, else the
@@ -70,15 +85,22 @@ def step_group() -> Optional[dist.ProcessGroup]:
 def using_groups(data: Optional[dist.ProcessGroup] = None,
                  edge: Optional[dist.ProcessGroup] = None,
                  node: Optional[dist.ProcessGroup] = None,
-                 step: Optional[dist.ProcessGroup] = None):
-    """Set the four groups for the block (None: not set).  `step` spans
-    `data` and the partition group (required with a partition group)."""
+                 step: Optional[dist.ProcessGroup] = None,
+                 model: Optional[dist.ProcessGroup] = None):
+    """Set the five groups for the block (None: not set).  `step` spans
+    `data` and the partition group (required with a partition group);
+    `model` excludes the partition groups and `step` (the JAX CLI refuses
+    ``model_shards`` with ``graph_shards`` / ``node_shards``)."""
     if edge is not None and node is not None:
         raise ValueError("edge and node partitioning exclude each other")
     if (edge is not None or node is not None) and step is None:
         raise ValueError("a partition group needs the step's group")
+    if model is not None and (edge is not None or node is not None
+                              or step is not None):
+        raise ValueError("the model group excludes the partition groups")
     tokens = [(_GROUP, _GROUP.set(data)), (_EDGE, _EDGE.set(edge)),
-              (_NODE, _NODE.set(node)), (_STEP, _STEP.set(step))]
+              (_NODE, _NODE.set(node)), (_STEP, _STEP.set(step)),
+              (_MODEL, _MODEL.set(model))]
     try:
         yield
     finally:

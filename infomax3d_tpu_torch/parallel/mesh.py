@@ -1,7 +1,8 @@
 """The process groups of one host (port of `infomax3d_tpu/parallel/
 mesh.py`): the one-axis ``data`` mesh (`make_group`: one process per
-shard, each on its own device) and the (data, graph) grid of the
-partitioned modes (`make_grid`).
+shard, each on its own device) and the two-axis grid (`make_grid`) of
+the partitioned modes, (data, graph), and of tensor parallelism, (data,
+model): `make_tp_mesh`'s ``reshape(n_data, n_model)`` order.
 
 * NCCL (the default): every rank needs a CUDA card of its own, and NCCL
   refuses two ranks on one card, so fewer cards than ranks raises.
@@ -82,16 +83,21 @@ def close_group() -> None:
 
 
 PARTITION_MODES = ("edge", "node")
+# the grid's modes: the two partitions, and tensor parallelism
+GRID_MODES = PARTITION_MODES + ("model",)
 
 
 @dataclasses.dataclass(frozen=True)
 class Grid:
-    """This rank's place in the (data, graph) grid of ``n_data x k`` ranks
-    of a partitioned run (the JAX package's ``("data", "graph")`` mesh):
-    rank ``d * k + g`` holds data shard d and graph part g.  `data` is the
-    group of the ranks of graph part g (None for one data shard), `graph`
-    the group of the ranks of data shard d, `step` every rank; `mode`
-    "edge" (``graph_shards``) or "node" (``node_shards``)."""
+    """This rank's place in the grid of ``n_data x k`` ranks of a
+    partitioned or tensor-parallel run (the JAX package's ``("data",
+    "graph")`` or ``("data", "model")`` mesh): rank ``d * k + g`` holds
+    data shard d and part g.  `data` is the group of the ranks of part g
+    (None for one data shard), `graph` the group of the ranks of data
+    shard d, `step` every rank; `mode` "edge" (``graph_shards``), "node"
+    (``node_shards``) or "model" (``model_shards``: `graph` is then the
+    model group, whose ranks hold the column shards of the parameters,
+    `parallel/tp.py`)."""
     n_data: int
     k: int
     mode: str
@@ -101,15 +107,20 @@ class Grid:
     graph: dist.ProcessGroup
     step: dist.ProcessGroup
 
+    @property
+    def model(self) -> Optional[dist.ProcessGroup]:
+        """The model group of a tensor-parallel grid, else None."""
+        return self.graph if self.mode == "model" else None
+
 
 def make_grid(n_data: int, k: int, mode: str) -> Grid:
     """Split the joined default group of ``n_data * k`` ranks into the
     grid's groups.  Every rank calls it with the same arguments, since
     each `new_group` is collective: one group per graph part (the data
-    groups, when ``n_data > 1``), then one per data shard (the graph
-    groups), in the same order on every rank."""
-    if mode not in PARTITION_MODES:
-        raise ValueError(f"partition mode {mode!r}: one of {PARTITION_MODES}")
+    groups, when ``n_data > 1``), then one per data shard (the graph or
+    model groups), in the same order on every rank."""
+    if mode not in GRID_MODES:
+        raise ValueError(f"grid mode {mode!r}: one of {GRID_MODES}")
     world, rank = dist.get_world_size(), dist.get_rank()
     if world != n_data * k:
         raise ValueError(f"{world} ranks for a grid of {n_data} x {k}")

@@ -17,7 +17,10 @@ the reference does (byol_trainer.py:24), both with `ema_all`.  The
 outputs the metrics read are the students' predictions.
 
 Precision is the contrastive step's: the bf16 recipe runs the students
-and the teachers on bf16 copies of their float32 parameters.
+and the teachers on bf16 copies of their float32 parameters.  Under
+tensor parallelism (`parallel/tp.py`) a teacher is a copy of its sharded
+student: its forward gathers like the student's, and the EMA runs shard
+by shard, so it equals one process's.
 """
 from __future__ import annotations
 

@@ -28,6 +28,11 @@ of a step come from one `torch.Generator` on the step's device, so the
 card draws its own noise.  `eval_loss` is the validation step: plans from
 an eval-mode cost pass, then the loss in eval mode with the same noise.
 
+Every pass calls the model through `train/precision.py::call_model`, so
+a tensor-parallel model (`parallel/tp.py`) runs on its gathered
+parameters; its clip then reads the norm of the whole gradient (the
+shards' squares summed over the model ranks).
+
 `ot()` runs a few steps on one fixed synthetic batch with true conformers,
 on the CUDA card unless asked for the CPU; the epoch loop, the learning-
 rate schedule, validation and checkpoints are `OptimalTransportTrainer`'s
@@ -48,7 +53,10 @@ from infomax3d_tpu_torch.graphs.batch import bucket_for
 from infomax3d_tpu_torch.interop import init_jax_variables, load_variables
 from infomax3d_tpu_torch.models.optimal_transport import OptimalTransportModel
 from infomax3d_tpu_torch.models.noise import GeneratorNoise, ReplayNoise
+from infomax3d_tpu_torch.parallel import tp
+from infomax3d_tpu_torch.parallel.context import model_group
 from infomax3d_tpu_torch.train.optim import build_adam
+from infomax3d_tpu_torch.train.precision import call_model
 from infomax3d_tpu_torch.train.remat import rematerialized, using_remat
 from infomax3d_tpu_torch.train.supervised import TrainStep
 
@@ -129,7 +137,7 @@ class OTStep:
         self.model.eval()
         try:
             with torch.no_grad():
-                return self.model(batch, noise,
+                return call_model(self.model, None, batch, noise,
                                   ignore_neighbors=self.ignore_neighbors,
                                   return_cost_matrix=True)
         finally:
@@ -160,15 +168,24 @@ class OTStep:
         with using_remat(self.remat):
             loss = rematerialized(self._loss_pass, batch, plans, noise=noise)
         loss.backward()
-        grads = TrainStep.fill_missing_grads(self.model.parameters())
-        norm = torch.sqrt(sum((g * g).sum() for g in grads))
+        params = list(self.model.parameters())
+        grads = TrainStep.fill_missing_grads(params)
+        group = model_group()
+        if group is None:
+            norm = torch.sqrt(sum((g * g).sum() for g in grads))
+        else:
+            # tensor parallel: the shards' squares summed over the model
+            # ranks, the replicated leaves' (model rank 0's) once
+            tp.broadcast_replicated_grads(params, group)
+            norm = tp.grad_norm(params, group)
         scale = (GRAD_CLIP / (norm + 1e-6)).clamp(max=1.0)
         for g in grads:
             g.mul_(scale)
         return loss.detach()
 
     def _loss_pass(self, batch: OTBatch, plans, noise) -> torch.Tensor:
-        return self.model(batch, noise, ignore_neighbors=self.ignore_neighbors,
+        return call_model(self.model, None, batch, noise,
+                          ignore_neighbors=self.ignore_neighbors,
                           ot_plans=plans)
 
     def _passes(self, batch: OTBatch, generator: torch.Generator):
@@ -198,7 +215,7 @@ class OTStep:
         self.model.eval()
         try:
             with torch.no_grad():
-                return self.model(batch, noise,
+                return call_model(self.model, None, batch, noise,
                                   ignore_neighbors=self.ignore_neighbors,
                                   ot_plans=plans)
         finally:

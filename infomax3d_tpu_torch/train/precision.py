@@ -23,6 +23,8 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from infomax3d_tpu_torch.parallel import tp
+from infomax3d_tpu_torch.parallel.context import model_group
 from infomax3d_tpu_torch.train.remat import rematerialized
 
 
@@ -54,30 +56,52 @@ def compute_params(module: nn.Module, dtype: Optional[torch.dtype]
                    ) -> Dict[str, torch.Tensor]:
     """The module's parameters as the forward should see them: float32
     ones cast to `dtype` (differentiably, so gradients flow back to the
-    float32 masters), the others as they are.  For
+    float32 masters), the others as they are; a tensor-parallel module's
+    shards then gathered whole over the model group (differentiably: the
+    gradient of each shard is its slice of the whole leaf's).  For
     `torch.func.functional_call`; the buffers stay the module's own, so the
     BatchNorm running statistics stay float32 and update in place."""
-    return {n: (p.to(dtype) if dtype is not None and p.dtype == torch.float32
-                else p) for n, p in module.named_parameters()}
+    params = {n: (p.to(dtype) if dtype is not None
+                  and p.dtype == torch.float32 else p)
+              for n, p in module.named_parameters()}
+    if not tp.is_sharded(module):
+        return params
+    group = model_group()
+    if group is None:
+        raise RuntimeError("a tensor-parallel module runs under its model "
+                           "group (parallel.context.using_groups(model=...))")
+    return tp.full_parameters(module, params, group)
+
+
+def call_model(model: nn.Module, dtype: Optional[torch.dtype], *inputs,
+               **kwargs):
+    """`model(*inputs, **kwargs)` on its compute parameters
+    (`compute_params`): with `dtype` (bf16) the output (a tensor or a
+    tuple of them) cast to float32; a float32 module that is not
+    tensor-parallel runs as it is."""
+    if dtype is None and not tp.is_sharded(model):
+        return model(*inputs, **kwargs)
+    out = functional_call(model, compute_params(model, dtype), inputs,
+                          kwargs)
+    if dtype is None:
+        return out
+    if isinstance(out, tuple):
+        return tuple(o.float() for o in out)
+    return out.float()
 
 
 def forward_in(model: nn.Module, dtype: Optional[torch.dtype], *inputs,
                **kwargs):
-    """`model(*inputs, **kwargs)` under the training recipe: with `dtype`
-    (bf16) on copies of the float32 master parameters cast to it
-    (`compute_params`), the output (a tensor or a tuple of them) cast to
-    float32 for the loss; `None` runs float32 as it is.  The keyword
+    """`model(*inputs, **kwargs)` under the training recipe (`call_model`):
+    with `dtype` (bf16) on copies of the float32 master parameters cast to
+    it, the output cast to float32 for the loss; `None` runs float32 (on
+    the gathered parameters under tensor parallelism).  The keyword
     arguments (a model's noise source) pass through as they are.  A model
     in training mode runs under the step's `remat` setting
-    (`train/remat.py::rematerialized`)."""
+    (`train/remat.py::rematerialized`): its recompute gathers again, in
+    the same order on every rank."""
     def run(*inputs, **kwargs):
-        if dtype is None:
-            return model(*inputs, **kwargs)
-        out = functional_call(model, compute_params(model, dtype), inputs,
-                              kwargs)
-        if isinstance(out, tuple):
-            return tuple(o.float() for o in out)
-        return out.float()
+        return call_model(model, dtype, *inputs, **kwargs)
     if model.training:
         return rematerialized(run, *inputs, **kwargs)
     return run(*inputs, **kwargs)

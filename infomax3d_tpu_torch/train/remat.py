@@ -21,11 +21,12 @@ things would differ in a bare recompute, and each is handled here:
   and leaves them alone in the recompute.
 * **Collectives and context.**  The recompute runs in the backward,
   possibly on another thread, so it runs inside a copy of the context the
-  forward ran in (`contextvars`): the data-parallel and partition groups
-  are the forward's, and every rank recomputes, so the BatchNorm
-  all-reduces, the aggregations' completions and the halo exchanges of
-  the recompute stay matched across ranks.  Early stopping of the
-  recompute is off, so each rank runs the whole forward again.
+  forward ran in (`contextvars`): the data-parallel, partition and model
+  groups are the forward's, and every rank recomputes, so the BatchNorm
+  all-reduces, the aggregations' completions, the halo exchanges and the
+  tensor-parallel shard gathers of the recompute stay matched across
+  ranks.  Early stopping of the recompute is off, so each rank runs the
+  whole forward again.
 
 Kernel launch counters count the recompute's launches too.
 """

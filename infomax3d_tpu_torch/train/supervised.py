@@ -19,7 +19,9 @@ batch's float fields, the model output cast to float32 for the loss.  The
 labels reach the loss in float32 (the JAX trainer reads them from the
 uncast batch).  Under a data-parallel group (`parallel.context`) the
 masked loss sums its total and count over the ranks, and `TrainStep`
-averages the gradients and the loss over them.
+averages the gradients and the loss over them; under a model group
+(tensor parallelism, `parallel/tp.py`) each rank's gradients are its
+shards', and the replicated leaves' are model rank 0's.
 
 `SupervisedStep` is the step of the supervised trainer
 (`train/trainer.py::Trainer`, built there by `from_modules` over the
@@ -49,8 +51,9 @@ from infomax3d_tpu_torch.models.noise import GeneratorNoise, MasksOnly
 from infomax3d_tpu_torch.models.registry import build_model
 from infomax3d_tpu_torch.parallel.collectives import (all_reduce_sum,
                                                       mean_over_ranks)
+from infomax3d_tpu_torch.parallel import tp
 from infomax3d_tpu_torch.parallel.context import (data_parallel_group,
-                                                  step_group)
+                                                  model_group, step_group)
 from infomax3d_tpu_torch.train.optim import build_adam, label_params
 from infomax3d_tpu_torch.train.precision import (cast_batch, forward_in,
                                                  resolve_compute_dtype)
@@ -130,8 +133,15 @@ class TrainStep:
             # gradient is k times its partial share and the node-space
             # parameters' is whole, and the mean over the k parts gives
             # the whole batch's gradient for both
-            # (`parallel/collectives.py`)
+            # (`parallel/collectives.py`).  Under tensor parallelism this
+            # is the data group alone: the model ranks hold different
+            # shards, each gradient already whole for its own
             mean_over_ranks(grads, group)
+        model = model_group()
+        if model is not None:
+            tp.broadcast_replicated_grads(
+                (p for g in self.optimizer.param_groups
+                 for p in g["params"]), model)
         if return_outputs:
             return loss, detached(out)
         return loss

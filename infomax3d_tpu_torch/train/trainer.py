@@ -62,6 +62,20 @@ step's ``fold_in`` of the data index).  The predictions are whole on
 every rank of a batch (the readouts are completed), so the metrics
 gather them over the data group.  The philosophy and OT trainers refuse a
 grid too.
+
+Tensor parallelism (``model_shards``, `parallel/tp.py`): given a grid in
+mode "model" (n data shards x k model parts), each model is sharded after
+its weights are set (`init_variables`, the broadcast from rank 0) and
+before the optimizer is built, so each rank's optimizer holds its shards'
+masters and moments; the steps and the evaluation forwards run under the
+model group (the forwards gather the shards), the ranks of one data shard
+read the same batch and draw the same dropout masks (the generator seeded
+from the data index), and the gradient mean, the loss's gathers and the
+BatchNorm statistics span the data group alone.  A checkpoint holds whole
+tensors: every rank gathers its shards, rank 0 writes; a load (resume,
+the best checkpoint's reload, the pre-trained transfer) cuts each leaf to
+the rank's part, so a tensor-parallel checkpoint loads into a
+one-process run and the other way round.
 """
 from __future__ import annotations
 
@@ -85,6 +99,7 @@ from infomax3d_tpu_torch.interop import flax_paths, load_variables
 from infomax3d_tpu_torch.parallel.collectives import (CrossDeviceLoss,
                                                       broadcast_,
                                                       gather_host)
+from infomax3d_tpu_torch.parallel import tp
 from infomax3d_tpu_torch.parallel.context import using_groups
 from infomax3d_tpu_torch.train import checkpoint
 from infomax3d_tpu_torch.train.baselines import (AEStep, DistanceStep,
@@ -126,14 +141,16 @@ class Trainer:
     device, seeded with `seed`, `rank_seed` under a group) draws the
     dropout masks and, for the OT trainer, the noise.  `group` is the
     data-parallel process group (module docstring), None for one
-    process; `grid` the (data, graph) grid of a partitioned run, whose
-    data group replaces `group`."""
+    process; `grid` the (data, graph) grid of a partitioned run or the
+    (data, model) grid of a tensor-parallel one, whose data group
+    replaces `group`."""
 
     MODEL_KEYS = ("model",)
     # each training step gets a source of dropout masks (the supervised
     # step; the other flavours' steps take none)
     DRAWS_MASKS = True
-    # why a trainer refuses a data-parallel group (None: it takes one)
+    # why a trainer refuses a data-parallel group or a partitioned grid
+    # (None: it takes them); tensor parallelism alone it takes
     NO_DATA_PARALLEL: Optional[str] = None
     # the equal blocks of rows of the targets the metrics read, each
     # gathered over the ranks in turn
@@ -147,13 +164,19 @@ class Trainer:
                  use_tensorboard: bool = True,
                  init_variables: Optional[Mapping[str, Mapping]] = None,
                  group: Optional[dist.ProcessGroup] = None, grid=None):
-        if (group is not None or grid is not None) and self.NO_DATA_PARALLEL:
+        # a tensor-parallel grid of one data shard is no data parallelism
+        tp_alone = (getattr(grid, "mode", None) == "model"
+                    and grid.data is None)
+        if (group is not None or (grid is not None and not tp_alone)) \
+                and self.NO_DATA_PARALLEL:
             raise NotImplementedError(self.NO_DATA_PARALLEL)
         self.device = resolve_device(device)
         if grid is not None:
             group = grid.data
         self.group = group          # the data-parallel group
         self.grid = grid
+        # the tensor-parallel model group (None without model_shards)
+        self.model_group = None if grid is None else grid.model
         # every rank of the run
         self.world = grid.step if grid is not None else group
         self.rank = 0 if self.world is None else dist.get_rank(self.world)
@@ -207,6 +230,7 @@ class Trainer:
                 load_variables(self.models[key], self.init_variables[key])
             self.models[key].to(self.device).train()
         self._broadcast_state()
+        self._shard_models()
         self._build_optimizer()
         self.step = self._make_step()
         self.step.remat = bool(self.args.get("remat", False))
@@ -260,6 +284,15 @@ class Trainer:
         for m in modules:
             for t in list(m.parameters()) + list(m.buffers()):
                 broadcast_(t, self.world)
+
+    def _shard_models(self):
+        """Under a model group: each model's sharded leaves cut to this
+        rank's column shard (`parallel/tp.py::shard_module`)."""
+        if self.model_group is None:
+            return
+        for key in self.MODEL_KEYS:
+            tp.shard_module(self.models[key], self.grid.k,
+                            self.grid.graph_index)
 
     def _snapshot_model_source(self):
         """Copy each model class's source into the run dir (reference
@@ -328,6 +361,8 @@ class Trainer:
         grid = self.grid
         if grid is None:
             return using_groups(data=self.group)
+        if grid.mode == "model":
+            return using_groups(data=grid.data, model=grid.graph)
         part = {grid.mode: grid.graph}
         return using_groups(data=grid.data, edge=part.get("edge"),
                             node=part.get("node"), step=grid.step)
@@ -552,7 +587,15 @@ class Trainer:
             dist.broadcast_object_list(
                 found, src=dist.get_global_rank(self.world, 0),
                 group=self.world)
-        if found[0]:
+        if found[0] and self.model_group is not None:
+            # each rank cuts its own shards from rank 0's whole tensors
+            payload = [checkpoint.load_checkpoint(best) if self.rank == 0
+                       else None]
+            dist.broadcast_object_list(
+                payload, src=dist.get_global_rank(self.world, 0),
+                group=self.world)
+            self._load_payload(payload[0], restore_host=False)
+        elif found[0]:
             if self.rank == 0:
                 self._load(best, restore_host=False)
             self._broadcast_state()
@@ -584,12 +627,20 @@ class Trainer:
 
     # ----------------------------------------------------------- checkpoints
     def save_checkpoint(self, epoch: int, name: str):
-        if self.rank != 0:
+        """Rank 0 writes `name`; under a model group the ranks of data
+        shard 0 gather their shards first (whole tensors, models and
+        optimizer state alike)."""
+        if self.rank != 0 and (self.model_group is None
+                               or self.grid.data_index != 0):
             return
         with self._timed("checkpoint"):
             payload = self._model_state_dicts()
+            optimizer = tp.full_optimizer_state(self.optimizer,
+                                                self.model_group)
+            if self.rank != 0:
+                return
             payload.update(
-                optimizer_state_dict=self.optimizer.state_dict(),
+                optimizer_state_dict=optimizer,
                 scheduler_state_dict={k: c.state_dict() for k, c in
                                       self.lr_controllers.items()},
                 epoch=epoch, best_val_score=self.best_val_score,
@@ -603,7 +654,8 @@ class Trainer:
     def _model_state_dicts(self) -> Dict[str, Any]:
         """The checkpoint's model entries (`checkpoint.state_dicts`)."""
         return checkpoint.state_dicts({k: self.models[k]
-                                       for k in self.MODEL_KEYS})
+                                       for k in self.MODEL_KEYS},
+                                      self.model_group)
 
     def _load_model_state_dicts(self, payload: Mapping[str, Any]) -> None:
         checkpoint.load_state_dicts({k: self.models[k]
@@ -612,8 +664,14 @@ class Trainer:
     def _load(self, path: str, restore_host: bool = True):
         with self._timed("checkpoint"):
             payload = checkpoint.load_checkpoint(path, self.device)
+        self._load_payload(payload, restore_host)
+
+    def _load_payload(self, payload: Mapping[str, Any],
+                      restore_host: bool = True):
+        with self._timed("checkpoint"):
             self._load_model_state_dicts(payload)
-            self.optimizer.load_state_dict(payload["optimizer_state_dict"])
+            self.optimizer.load_state_dict(tp.shard_optimizer_state(
+                self.optimizer, payload["optimizer_state_dict"]))
         if restore_host:
             self.start_epoch = payload.get("epoch", 0) + 1
             self.best_val_score = payload.get("best_val_score",
@@ -852,8 +910,8 @@ class BYOLTrainer(SelfSupervisedTrainer):
         payload = super()._model_state_dicts()
         for k, teacher in self.step.teachers.items():
             payload[checkpoint.STATE_DICT_KEYS[k]].update(
-                {self.TEACHER + n: t.detach().cpu()
-                 for n, t in teacher.state_dict().items()})
+                {self.TEACHER + n: t.detach().cpu() for n, t in
+                 tp.full_state_dict(teacher, self.model_group).items()})
         return payload
 
     def _load_model_state_dicts(self, payload: Mapping[str, Any]) -> None:
@@ -861,10 +919,9 @@ class BYOLTrainer(SelfSupervisedTrainer):
         for k, teacher in self.step.teachers.items():
             key = checkpoint.STATE_DICT_KEYS[k]
             n = len(self.TEACHER)
-            teacher.load_state_dict({name[n:]: t for name, t in
-                                     payload[key].items()
-                                     if name.startswith(self.TEACHER)},
-                                    strict=True)
+            teacher.load_state_dict(tp.shard_state_dict(teacher, {
+                name[n:]: t for name, t in payload[key].items()
+                if name.startswith(self.TEACHER)}), strict=True)
             own[key] = {name: t for name, t in payload[key].items()
                         if not name.startswith(self.TEACHER)}
         super()._load_model_state_dicts(own)
@@ -970,7 +1027,8 @@ class OptimalTransportTrainer(Trainer):
                     start = torch.cuda.Event(enable_timing=True)
                     end = torch.cuda.Event(enable_timing=True)
                     start.record()
-                loss = self.step.step(ob, self.generator)
+                with self._groups():
+                    loss = self.step.step(ob, self.generator)
                 if cuda:
                     end.record()
                     self._events.append((start, end))
@@ -992,7 +1050,7 @@ class OptimalTransportTrainer(Trainer):
         total, n = 0.0, 0
         for batch in self._timed_iter(loader):
             ob = self._prepare(batch)
-            with self._timed("step"):
+            with self._timed("step"), self._groups():
                 loss = self.step.eval_loss(ob, self.generator)
             self._sync()
             with self._timed("metrics"):

@@ -448,8 +448,10 @@ def test_cli_starts_two_ranks(tmp_path, monkeypatch):
 
 def test_cli_refusals(tmp_path, monkeypatch):
     """Philosophy and OT refuse `n_shards: 2` (the JAX package fails
-    there: test_jax_has_no_dp_step_for_philosophy_or_ot), as does
-    `model_shards` (item 9c), each before any rank starts; `graph_shards`
+    there: test_jax_has_no_dp_step_for_philosophy_or_ot), each before any
+    rank starts; `model_shards` (item 9c, ported: tests/
+    test_torch_port_tp.py) starts its ranks as `n_shards` does, so on the
+    CPU it needs gloo named; `graph_shards`
     / `node_shards` no longer raise but turn the CSR batch and the dense
     3D batch off, as the JAX CLI does; `bucket_ladder` with a contrastive
     collate runs on one static bucket (the JAX CLI builds no ladder
@@ -468,7 +470,7 @@ def test_cli_refusals(tmp_path, monkeypatch):
         cli.train(_cli_args(tmp_path, n_shards=2, dist_backend="gloo",
                             trainer="optimal_transport",
                             model3d_type=None))
-    with pytest.raises(NotImplementedError, match="item 9c"):
+    with pytest.raises(ValueError, match="gloo"):
         cli.train(_cli_args(tmp_path, model_shards=2))
     for knob in ("graph_shards", "node_shards"):
         args = {knob: 2, "collate_function": "contrastive_collate",

@@ -481,14 +481,21 @@ def test_refuses_model_shards_with_a_partition(tmp_path, knob):
 
 def test_model_shards_alone_names_item_9c_and_trainers_refuse_a_grid(
         tmp_path):
-    """`model_shards` alone is not ported (item 9c); the philosophy and OT
-    trainers refuse a grid as they refuse a data-parallel group."""
+    """`model_shards` alone, item 9c, is ported (tests/
+    test_torch_port_tp.py): it starts its ranks as `n_shards` does, so on
+    the CPU it needs gloo named.  The philosophy and OT trainers refuse a
+    partitioned grid as they refuse a data-parallel group, and a
+    tensor-parallel grid of two data shards; one of one data shard they
+    take (the JAX package runs both under `model_shards` alone)."""
     from infomax3d_tpu_torch.cli.train import train
+    from infomax3d_tpu_torch.parallel.mesh import Grid
     from infomax3d_tpu_torch.train.trainer import (OptimalTransportTrainer,
                                                    PhilosophyTrainer)
-    with pytest.raises(NotImplementedError, match="item 9c"):
+    with pytest.raises(ValueError, match="gloo"):
         train(_cli_args(tmp_path, model_shards=2))
+    two_data = Grid(2, 2, "model", 0, 0, object(), object(), object())
     for cls in (PhilosophyTrainer, OptimalTransportTrainer):
-        with pytest.raises(NotImplementedError, match="n_shards"):
-            cls({}, {}, {}, "loss", str(tmp_path), device="cpu",
-                grid=object())
+        for grid in (object(), two_data):
+            with pytest.raises(NotImplementedError, match="n_shards"):
+                cls({}, {}, {}, "loss", str(tmp_path), device="cpu",
+                    grid=grid)
