@@ -4921,9 +4921,9 @@ def _family_timed(smi: str):
             continue
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        step.emd_s = 0.0
+        step.timing["host_emd"] = 0.0
         ms = cuda_ms(one, iters=OT_FAMILY_TIMED, warmup=1)
-        emd_ms = step.emd_s * 1e3 / (OT_FAMILY_TIMED + 1)
+        emd_ms = step.timing["host_emd"] * 1e3 / (OT_FAMILY_TIMED + 1)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:

@@ -56,7 +56,7 @@ from infomax3d_tpu_torch.data.synthetic import complete_graph_from_coords
 from infomax3d_tpu_torch.graphs.batch import (BucketSpec, GraphBatch,
                                               batch_graphs, bucket_for,
                                               pick_bucket, row_pointers,
-                                              to_graph_batch)
+                                              to_graph_batch, to_tensors)
 from infomax3d_tpu_torch.graphs.dense import dense_batch, to_dense_batch
 
 OT_KEYS = ("nbh_center", "nbh_nbrs", "nbh_perms", "nbh_mask", "nbh_mol",
@@ -164,8 +164,7 @@ def to_ot_batch(arrays: Dict[str, np.ndarray], bucket: Optional[BucketSpec],
     the arrays are the loader's view and carry its bounds (`to_device`)."""
     graph = to_device(arrays, device) if bucket is None else \
         to_graph_batch(arrays, bucket, device)
-    return OTBatch(graph, {k: torch.from_numpy(np.ascontiguousarray(
-        arrays[k])).to(device) for k in OT_KEYS})
+    return OTBatch(graph, to_tensors(arrays, OT_KEYS, device))
 
 
 # --------------------------------------------------------------- collates

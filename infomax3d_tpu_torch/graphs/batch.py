@@ -6,7 +6,8 @@ into one flat graph padded to a `BucketSpec` and returns numpy arrays with
 the JAX package's names and values.  Its index arrays come from the native
 C core (`native/batcher.c`) unless ``INFOMAX3D_NO_NATIVE=1``;
 `batch_graphs_numpy` is the numpy path, the oracle.  `to_graph_batch` wraps them as a
-`GraphBatch` of torch tensors on a device.
+`GraphBatch` of torch tensors on a device (through `to_tensors`, which
+counts the bytes and arrays handed over).
 
 A 3D complete graph (`data/synthetic.py::complete_graph_from_coords`,
 every ordered pair of distinct atoms with its distance ``edge_dist``) is
@@ -39,6 +40,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from infomax3d_tpu_torch.utils.spans import count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,18 +314,31 @@ def to_graph_batch(arrays: Dict[str, np.ndarray], bucket: BucketSpec,
     node shard's halo send lists where it has them."""
     if bucket.csr and "csr_row_ptr" not in arrays:
         raise ValueError("a csr bucket's arrays carry csr_row_ptr")
-
-    def tensor(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
     halo = []
     while f"{HALO_KEY}{len(halo)}" in arrays:
-        halo.append(tensor(arrays[f"{HALO_KEY}{len(halo)}"]))
-    return GraphBatch(
-        **{k: tensor(arrays[k]) for k in _TENSOR_FIELDS},
-        **{k: tensor(arrays[k]) for k in _OPTIONAL_FIELDS + TRIPLET_FIELDS
-           if k in arrays},
-        max_deg=bucket.max_deg, nmax=bucket.nmax,
-        halo_send=tuple(halo) if halo else None)
+        halo.append(f"{HALO_KEY}{len(halo)}")
+    fields = _TENSOR_FIELDS + tuple(k for k in _OPTIONAL_FIELDS +
+                                    TRIPLET_FIELDS if k in arrays)
+    t = to_tensors(arrays, fields + tuple(halo), device)
+    return GraphBatch(**{k: t[k] for k in fields},
+                      max_deg=bucket.max_deg, nmax=bucket.nmax,
+                      halo_send=tuple(t[k] for k in halo) if halo else None)
+
+
+def to_tensors(arrays: Dict[str, np.ndarray], keys: Sequence[str],
+               device) -> Dict[str, torch.Tensor]:
+    """The host arrays of `keys` as tensors on `device`, by key: where a
+    batch's arrays become the step's tensors.  Their bytes and number go
+    to the counters ``h2d_bytes`` and ``h2d_copies`` (`utils/spans.py`;
+    counted whatever the device)."""
+    out, nbytes = {}, 0
+    for k in keys:
+        a = np.ascontiguousarray(arrays[k])
+        nbytes += a.nbytes
+        out[k] = torch.from_numpy(a).to(device)
+    count("h2d_bytes", nbytes)
+    count("h2d_copies", len(out))
+    return out
 
 
 def make_bucket_ladder(batch_size: int, node_counts: Sequence[int],

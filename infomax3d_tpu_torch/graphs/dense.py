@@ -17,6 +17,8 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from infomax3d_tpu_torch.graphs.batch import to_tensors
+
 
 def dense_batch(graphs: Sequence[Dict[str, np.ndarray]], n_graphs: int,
                 max_nodes: int, extras_keys: Sequence[str] = (),
@@ -108,8 +110,8 @@ class DenseBatch:
 
 
 def to_dense_batch(arrays: Dict[str, np.ndarray], device) -> DenseBatch:
-    """Host arrays of `dense_batch` -> `DenseBatch` on `device`."""
-    return DenseBatch(**{
-        f.name: torch.from_numpy(np.ascontiguousarray(arrays[f.name])).to(
-            device) for f in dataclasses.fields(DenseBatch)
-        if f.name in arrays})
+    """Host arrays of `dense_batch` -> `DenseBatch` on `device` (through
+    `graphs/batch.py::to_tensors`, which counts what it hands over)."""
+    return DenseBatch(**to_tensors(
+        arrays, [f.name for f in dataclasses.fields(DenseBatch)
+                 if f.name in arrays], device))

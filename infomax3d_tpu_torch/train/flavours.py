@@ -36,6 +36,7 @@ from infomax3d_tpu_torch.train.precision import cast_batch, forward_in
 from infomax3d_tpu_torch.train.remat import using_remat
 from infomax3d_tpu_torch.train.pretrain import (PretrainStep, loss_kwargs,
                                                 noise_kw)
+from infomax3d_tpu_torch.utils.spans import span
 
 
 class AlternatingStep(PretrainStep):
@@ -116,18 +117,20 @@ class PhilosophyStep(PretrainStep):
         philosopher loss's over the 3D model, the critic loss's over the
         critic (zero where a loss does not reach a parameter)."""
         self.optimizer.zero_grad(set_to_none=True)
-        with using_remat(self.remat):
+        with span("step.forward"), using_remat(self.remat):
             peasant, out = self.loss(*batches, **kw)
         losses = {"model": peasant,
                   "model3d": out[2]["philosopher_loss"],
                   "critic": out[2][self.critic_loss_name]}
         keys = list(self.optimizer.optimizers)
-        for i, key in enumerate(keys):
-            params = [p for g in self.optimizer.optimizers[key].param_groups
-                      for p in g["params"]]
-            torch.autograd.backward(losses[key], inputs=params,
-                                    retain_graph=i < len(keys) - 1)
-            self.fill_missing_grads(params)
+        with span("step.backward"):
+            for i, key in enumerate(keys):
+                params = [p for g in
+                          self.optimizer.optimizers[key].param_groups
+                          for p in g["params"]]
+                torch.autograd.backward(losses[key], inputs=params,
+                                        retain_graph=i < len(keys) - 1)
+                self.fill_missing_grads(params)
         if return_outputs:
             return peasant.detach(), (out[0].detach(), out[1].detach(),
                                       {k: v.detach()

@@ -40,7 +40,6 @@ rate schedule, validation and checkpoints are `OptimalTransportTrainer`'s
 """
 from __future__ import annotations
 
-import time
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -59,6 +58,7 @@ from infomax3d_tpu_torch.train.optim import build_adam
 from infomax3d_tpu_torch.train.precision import call_model
 from infomax3d_tpu_torch.train.remat import rematerialized, using_remat
 from infomax3d_tpu_torch.train.supervised import TrainStep
+from infomax3d_tpu_torch.utils.spans import span
 
 GRAD_CLIP = 10.0
 
@@ -107,7 +107,9 @@ class OTStep:
     model on one batch.  `variables` holds the model's flax numpy trees
     (`interop.init_jax_variables` layout); `from_modules` takes a built
     model and optimizer (the trainer's).  `ignore_neighbors` applies to
-    every pass until changed."""
+    every pass until changed.  `timing["host_emd"]` accumulates the host
+    seconds of the EMDs (the ``step.emd`` spans; the OT trainer hands the
+    step its own `timing`)."""
 
     ignore_neighbors = False
     remat = False
@@ -121,6 +123,7 @@ class OTStep:
         self.model.to(self.device).train()
         self.optimizer = build_adam(self.model.named_parameters(),
                                     **dict(optimizer_params or {}))
+        self.timing = {"host_emd": 0.0}
 
     @classmethod
     def from_modules(cls, model: torch.nn.Module, device: torch.device,
@@ -128,6 +131,7 @@ class OTStep:
         step = cls.__new__(cls)
         step.device, step.model, step.optimizer = (torch.device(device),
                                                    model, optimizer)
+        step.timing = {"host_emd": 0.0}
         return step
 
     def cost(self, batch: OTBatch, noise) -> torch.Tensor:
@@ -143,17 +147,14 @@ class OTStep:
         finally:
             self.model.train(was_training)
 
-    emd_s = 0.0
-
     def plans(self, cost: torch.Tensor, batch: OTBatch) -> torch.Tensor:
         """`ot_plans` of the cost on the host, back on the step's device;
-        the host seconds of the EMDs accumulate in `emd_s`."""
+        the host seconds of the EMDs accumulate in `timing["host_emd"]`."""
         g = batch.graph
         arrays = (cost.cpu().numpy(), batch.ex["pos_mask"].cpu().numpy(),
                   g.graph_mask.cpu().numpy())
-        t0 = time.perf_counter()
-        plans = ot_plans(*arrays)
-        self.emd_s += time.perf_counter() - t0
+        with span("step.emd", self.timing, "host_emd"):
+            plans = ot_plans(*arrays)
         return torch.from_numpy(plans).to(self.device)
 
     def loss_and_grads(self, batch: OTBatch, noise,
@@ -165,22 +166,23 @@ class OTStep:
         (`TrainStep.fill_missing_grads`; with `ignore_neighbors` ``gnn2``
         reaches no term of the cost)."""
         self.optimizer.zero_grad(set_to_none=True)
-        with using_remat(self.remat):
+        with span("step.forward"), using_remat(self.remat):
             loss = rematerialized(self._loss_pass, batch, plans, noise=noise)
-        loss.backward()
-        params = list(self.model.parameters())
-        grads = TrainStep.fill_missing_grads(params)
-        group = model_group()
-        if group is None:
-            norm = torch.sqrt(sum((g * g).sum() for g in grads))
-        else:
-            # tensor parallel: the shards' squares summed over the model
-            # ranks, the replicated leaves' (model rank 0's) once
-            tp.broadcast_replicated_grads(params, group)
-            norm = tp.grad_norm(params, group)
-        scale = (GRAD_CLIP / (norm + 1e-6)).clamp(max=1.0)
-        for g in grads:
-            g.mul_(scale)
+        with span("step.backward"):
+            loss.backward()
+            params = list(self.model.parameters())
+            grads = TrainStep.fill_missing_grads(params)
+            group = model_group()
+            if group is None:
+                norm = torch.sqrt(sum((g * g).sum() for g in grads))
+            else:
+                # tensor parallel: the shards' squares summed over the
+                # model ranks, the replicated leaves' (model rank 0's) once
+                tp.broadcast_replicated_grads(params, group)
+                norm = tp.grad_norm(params, group)
+            scale = (GRAD_CLIP / (norm + 1e-6)).clamp(max=1.0)
+            for g in grads:
+                g.mul_(scale)
         return loss.detach()
 
     def _loss_pass(self, batch: OTBatch, plans, noise) -> torch.Tensor:
@@ -203,7 +205,8 @@ class OTStep:
         draws from `generator` (on the same device); returns the loss."""
         plans, noise = self._passes(batch, generator)
         loss = self.loss_and_grads(batch, noise, plans)
-        self.optimizer.step()
+        with span("step.optimizer"):
+            self.optimizer.step()
         return loss
 
     def eval_loss(self, batch: OTBatch, generator: torch.Generator

@@ -58,6 +58,7 @@ from infomax3d_tpu_torch.train.optim import build_adam, label_params
 from infomax3d_tpu_torch.train.precision import (cast_batch, forward_in,
                                                  resolve_compute_dtype)
 from infomax3d_tpu_torch.train.remat import using_remat
+from infomax3d_tpu_torch.utils.spans import span
 
 
 def supervised_loss(name: str, pred: torch.Tensor, target: torch.Tensor,
@@ -109,42 +110,44 @@ class TrainStep:
         the running statistics and returns the float32 loss (detached),
         with the outputs (detached) when `return_outputs`.  A parameter the
         loss does not reach (e.g. the last layer under "sum" jumping
-        knowledge) gets a zero gradient (`fill_missing_grads`)."""
+        knowledge) gets a zero gradient (`fill_missing_grads`).  The spans
+        ``step.forward`` (the step's `loss`) and ``step.backward`` (the
+        rest) cover it (`utils/spans.py`)."""
         self.optimizer.zero_grad(set_to_none=True)
-        with using_remat(self.remat):
+        with span("step.forward"), using_remat(self.remat):
             loss, out = self.loss(*batches, **kw)
-        loss.backward()
-        grads = self.fill_missing_grads(
-            p for group in self.optimizer.param_groups
-            for p in group["params"])
-        loss = loss.detach()
-        group = step_group()
-        if group is not None:
-            # the loss is already the global batch's on every rank, and
-            # each collective's backward is its transpose (an all-reduce's
-            # an all-reduce, an all-gather's the sum over ranks of the
-            # cotangents of this rank's rows; the halo exchange's sends
-            # the ghosts' cotangents home): each rank's gradient is then
-            # that of the SUM over all the step's ranks of their equal
-            # losses with respect to its own copy of the parameters.  The
-            # copies are tied, so these gradients sum to (ranks) x
-            # d(loss)/d(params), and one mean over every rank (data and
-            # graph) is exact: on an edge shard the edge network's
-            # gradient is k times its partial share and the node-space
-            # parameters' is whole, and the mean over the k parts gives
-            # the whole batch's gradient for both
-            # (`parallel/collectives.py`).  Under tensor parallelism this
-            # is the data group alone: the model ranks hold different
-            # shards, each gradient already whole for its own
-            mean_over_ranks(grads, group)
-        model = model_group()
-        if model is not None:
-            tp.broadcast_replicated_grads(
-                (p for g in self.optimizer.param_groups
-                 for p in g["params"]), model)
+        with span("step.backward"):
+            loss.backward()
+            grads = self.fill_missing_grads(
+                p for group in self.optimizer.param_groups
+                for p in group["params"])
+            group = step_group()
+            if group is not None:
+                # the loss is already the global batch's on every rank, and
+                # each collective's backward is its transpose (an all-reduce's
+                # an all-reduce, an all-gather's the sum over ranks of the
+                # cotangents of this rank's rows; the halo exchange's sends
+                # the ghosts' cotangents home): each rank's gradient is then
+                # that of the SUM over all the step's ranks of their equal
+                # losses with respect to its own copy of the parameters.  The
+                # copies are tied, so these gradients sum to (ranks) x
+                # d(loss)/d(params), and one mean over every rank (data and
+                # graph) is exact: on an edge shard the edge network's
+                # gradient is k times its partial share and the node-space
+                # parameters' is whole, and the mean over the k parts gives
+                # the whole batch's gradient for both
+                # (`parallel/collectives.py`).  Under tensor parallelism this
+                # is the data group alone: the model ranks hold different
+                # shards, each gradient already whole for its own
+                mean_over_ranks(grads, group)
+            model = model_group()
+            if model is not None:
+                tp.broadcast_replicated_grads(
+                    (p for g in self.optimizer.param_groups
+                     for p in g["params"]), model)
         if return_outputs:
-            return loss, detached(out)
-        return loss
+            return loss.detach(), detached(out)
+        return loss.detach()
 
     @staticmethod
     def fill_missing_grads(params) -> list:
@@ -162,7 +165,8 @@ class TrainStep:
     def step(self, *batches, **kw) -> torch.Tensor:
         """One training step on prepared batches; returns the loss."""
         loss = self.loss_and_grads(*batches, **kw)
-        self.optimizer.step()
+        with span("step.optimizer"):
+            self.optimizer.step()
         return loss
 
 

@@ -33,7 +33,15 @@ on the loader, moving batches, in the steps' launches, waiting for the
 device before reading results (a synchronize, so the metrics' seconds are
 the host's own), in metrics, in checkpoints and in logging, the wall seconds of each epoch's training and
 validation, and (on CUDA) the device milliseconds of each train step
-between CUDA events, so a caller can account for a loop's time.
+between CUDA events, so a caller can account for a loop's time.  Each
+host part is a span of `utils/spans.py` that feeds its `timing` key:
+``loop.loader``, ``loop.to_device``, ``loop.step``, ``loop.device_wait``,
+``loop.metrics``, ``loop.logging`` and ``loop.checkpoint`` (the OT
+trainer's ``step.emd`` feeds ``host_emd``); inside a training step the
+spans ``step.forward``, ``step.backward`` and ``step.optimizer`` feed no
+key.  While a torch profiler records, every span also lands in its trace
+and in `spans.tally()`, with the host-to-device counters ``h2d_bytes``
+and ``h2d_copies`` of `graphs/batch.py`.
 
 Data parallelism (the JAX package's ``n_shards`` mode, `parallel/`): given
 a process `group`, each rank trains on its shard of every batch
@@ -118,6 +126,7 @@ from infomax3d_tpu_torch.train.pretrain import PretrainStep
 from infomax3d_tpu_torch.train.schedulers import LRController
 from infomax3d_tpu_torch.train.supervised import (SupervisedStep,
                                                   masks_source)
+from infomax3d_tpu_torch.utils.spans import span
 
 TIMERS = ("loader", "to_device", "step", "device_wait", "metrics",
           "checkpoint", "logging")
@@ -315,25 +324,19 @@ class Trainer:
             fn(preds, targets, self.logger, step, data_split)
 
     # ------------------------------------------------------------ host time
-    @contextmanager
-    def _timed(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.timing[name] += time.perf_counter() - t0
+    def _timed(self, name: str) -> span:
+        """The span ``loop.<name>``, feeding ``timing[name]``."""
+        return span("loop." + name, self.timing, name)
 
     def _timed_iter(self, loader):
         """`loader`'s batches, each wait counted as loader time."""
         it = iter(loader)
         while True:
-            t0 = time.perf_counter()
-            try:
-                batch = next(it)
-            except StopIteration:
-                return
-            finally:
-                self.timing["loader"] += time.perf_counter() - t0
+            with self._timed("loader"):
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
             yield batch
 
     # ------------------------------------------------------------- the steps
@@ -375,7 +378,8 @@ class Trainer:
         with self._groups():
             loss, out = self.step.loss_and_grads(*batches,
                                                  return_outputs=True, **kw)
-        self.step.optimizer.step()
+        with span("step.optimizer"):
+            self.step.optimizer.step()
         return loss, out
 
     @contextmanager
@@ -984,7 +988,8 @@ class OptimalTransportTrainer(Trainer):
     each batch with its own plans.  The random draws come from one
     `torch.Generator` on the trainer's device seeded with `seed`; each
     batch's cost and gradient passes share its noise.  `timing` adds the
-    host seconds of the EMDs (`host_emd`, a part of `step`)."""
+    host seconds of the EMDs (`host_emd`, a part of `step`: the step's
+    ``step.emd`` spans feed it)."""
 
     NO_DATA_PARALLEL = (
         "n_shards > 1: the optimal-transport trainer has no data-parallel "
@@ -1003,16 +1008,14 @@ class OptimalTransportTrainer(Trainer):
         return self._epoch < self.args.get("num_epochs_local_only", 1)
 
     def _make_step(self):
-        return OTStep.from_modules(self.models["model"], self.device,
+        step = OTStep.from_modules(self.models["model"], self.device,
                                    self.optimizer)
+        step.timing = self.timing
+        return step
 
     def _prepare(self, batch):
         with self._timed("to_device"):
             return to_ot_batch(batch["graph"], None, self.device)
-
-    def _collect_emd(self):
-        self.timing["host_emd"] += self.step.emd_s
-        self.step.emd_s = 0.0
 
     def train_epoch(self, loader, epoch: int) -> None:
         self._epoch = epoch
@@ -1039,7 +1042,6 @@ class OptimalTransportTrainer(Trainer):
                 with self._timed("logging"):
                     self.logger.log({self.loss_name: float(loss)}, "train",
                                     self.optim_steps, epoch)
-        self._collect_emd()
         if self._events:
             torch.cuda.synchronize(self.device)
             self.timing["step_ms"] += [s.elapsed_time(e)
@@ -1056,7 +1058,6 @@ class OptimalTransportTrainer(Trainer):
             with self._timed("metrics"):
                 total += float(loss)
             n += 1
-        self._collect_emd()
         return {self.loss_name: total / max(n, 1)}
 
 

@@ -16,7 +16,11 @@ debug.py`).
 * `debug_mode`: both, undone on exit.
 * `profile_trace(log_dir)`: `torch.profiler` around a block (CPU, and the
   card's kernels where CUDA is available), written as a Chrome trace to
-  ``log_dir/trace.json``.
+  ``log_dir/trace.json``, with the port's spans and counters over the
+  block (`utils/spans.py::tally`: calls, host and self seconds of
+  ``loop.*`` / ``step.*``, the host-to-device bytes and copies; the
+  whole block is the span ``debug.profile_trace``) in
+  ``log_dir/spans.json``.
 
 The JAX package's `disable_jit` has no counterpart: the port runs
 eagerly.  Nor does `pallas_interpret_mode`: no switch here routes a
@@ -28,11 +32,14 @@ from __future__ import annotations
 
 import contextlib
 import faulthandler
+import json
 import os
 from typing import Optional
 
 import torch
 from torch.nn.modules.module import register_module_forward_hook
+
+from infomax3d_tpu_torch.utils import spans
 
 _HOOK: Optional[torch.utils.hooks.RemovableHandle] = None
 
@@ -92,11 +99,17 @@ def debug_mode(nan_checks: bool = True):
 @contextlib.contextmanager
 def profile_trace(log_dir: str):
     """`torch.profiler` around the block; the Chrome trace goes to
-    ``log_dir/trace.json`` (open it in Perfetto or chrome://tracing)."""
+    ``log_dir/trace.json`` (open it in Perfetto or chrome://tracing), the
+    spans' and counters' tally to ``log_dir/spans.json``."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     with torch.profiler.profile(activities=activities) as prof:
-        yield prof
+        # a span around the block starts the tally afresh (unless the
+        # last span before it ran under a profiler too: `utils/spans.py`)
+        with spans.span("debug.profile_trace"):
+            yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    with open(os.path.join(log_dir, "spans.json"), "w") as f:
+        json.dump(spans.tally(), f, indent=1)

@@ -21,7 +21,7 @@ from infomax3d_tpu_torch.data.synthetic import SyntheticMolecules
 from infomax3d_tpu_torch.graphs.batch import (BucketSpec, batch_graphs,
                                               batch_graphs_numpy, bucket_for)
 from infomax3d_tpu_torch.native.batcher import pack_batch
-from infomax3d_tpu_torch.utils import debug
+from infomax3d_tpu_torch.utils import debug, spans
 
 
 def _mols(seed=0, n_graphs=24, with_zero_edge=True, targets=True):
@@ -207,8 +207,24 @@ def test_nan_checks_raise_on_a_planted_nan():
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
+    with spans.span("before the trace"):     # no profiler: a fresh tally
+        pass
     with debug.profile_trace(str(tmp_path / "trace")):
-        torch.nn.Linear(8, 8)(torch.ones(4, 8)).sum()
+        with spans.span("step.forward"):
+            torch.nn.Linear(8, 8)(torch.ones(4, 8)).sum()
+        spans.count("h2d_bytes", 128)
     with open(tmp_path / "trace" / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any("linear" in str(e.get("name", "")).lower() for e in events)
+    names = {e.get("name") for e in events}
+    assert {"debug.profile_trace", "step.forward"} <= names
+    with open(tmp_path / "trace" / "spans.json") as f:
+        tally = json.load(f)
+    assert set(tally["spans"]) == {"debug.profile_trace", "step.forward"}
+    whole, forward = (tally["spans"]["debug.profile_trace"],
+                      tally["spans"]["step.forward"])
+    assert whole["calls"] == forward["calls"] == 1
+    assert 0 < forward["host_s"] <= whole["host_s"]
+    assert whole["self_s"] == pytest.approx(
+        whole["host_s"] - forward["host_s"], abs=1e-9)
+    assert tally["counters"] == {"h2d_bytes": 128}
