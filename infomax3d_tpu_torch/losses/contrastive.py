@@ -17,12 +17,17 @@ import torch.nn.functional as F
 
 def uniformity_loss(x1: torch.Tensor, x2: torch.Tensor,
                     t: float = 2.0) -> torch.Tensor:
+    """Mean over x1 and x2 of log mean_{i<j} exp(-t |x_i - x_j|^2).
+
+    The squared distances of the pairs i < j come from `torch.pdist`, as
+    the original computes them: N (N - 1) / 2 values and no [N, N, D]
+    difference tensor, so the memory is O(N^2) on the host (the metric)
+    and on the card under autograd (the regularizer); the JAX twin builds
+    the [N, N, D] differences and gives the same value.  A duplicated row
+    is a zero distance with a zero gradient; spread-out rows give -inf."""
     def _u(x):
-        x = x.reshape(x.shape[0], -1)
-        sq = ((x[:, None, :] - x[None, :, :]) ** 2).sum(dim=-1)
-        iu = torch.triu_indices(x.shape[0], x.shape[0], offset=1,
-                                device=x.device)
-        return torch.log(torch.exp(-t * sq[iu[0], iu[1]]).mean())
+        sq = torch.pdist(x.reshape(x.shape[0], -1)).pow(2)
+        return torch.log(torch.exp(-t * sq).mean())
     return (_u(x1) + _u(x2)) / 2.0
 
 

@@ -5,7 +5,10 @@ PCQM4M evaluators of the JAX package's `build_metrics` table.
 They run on the host, as the JAX trainer runs its metrics (on its CPU
 backend, `trainer.py:503-515`): each takes the epoch's or batch's
 predictions and targets as numpy arrays or CPU tensors and computes in
-float32 torch, the evaluators in float64 numpy.
+float32 torch, the evaluators in float64 numpy.  `Uniformity` takes the
+pairwise squared distances from `torch.pdist` (`uniformity_loss`), in
+O(N^2) host memory: at the QMugs batch (1,500 conformer rows of 256) no
+op allocates more than 4.5 MB, where the [N, N, D] differences took 2.3 GB.
 """
 from __future__ import annotations
 
