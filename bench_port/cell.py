@@ -5,13 +5,14 @@ The run builds the trainer as the port's `cli/train.py::run_training`
 builds it, loads the weights made from the seed, and collates a pool of
 distinct batches with the loader, buckets and collate arguments that the
 port's `cli/train.py::make_loaders` sets for the pool's molecules.  It
-runs the trainer's own `SelfSupervisedTrainer.train_epoch` on the
-loader's host batches as they come (numpy in pageable memory, copied to
-the card by each step's `_prepare`), with torch's host threads as the
-CLI leaves them: first three steps on three distinct batches, whose
-losses, outputs, first gradient and parameter change the reference
-follows, one more warm step, then the window, which cycles the pool
-through the same call until the first log boundary after `seconds`.
+runs the trainer's own `train_epoch` (`SelfSupervisedTrainer`'s with a 3D
+model, the supervised `Trainer`'s without) on the loader's host batches
+as they come (numpy in pageable memory, copied to the card by each
+step's `_prepare`), with torch's host threads as the CLI leaves them:
+first three steps on three distinct batches, whose losses, outputs,
+first gradient and parameter change the reference follows, one more
+warm step, then the window, which cycles the pool through the same call
+until the first log boundary after `seconds`.
 With `trace` the profiler covers the window's first whole log period.
 The program is then freed, the reference runs on the same molecules and
 weights, and `compare` decides `correct`."""
@@ -83,7 +84,7 @@ def collate_pool(args: Dict, traffic: Dict, seed: int):
     builds for the pool's molecules."""
     from infomax3d_tpu_torch.cli.train import make_loaders
     from infomax3d_tpu_torch.data.loader import GraphDataLoader
-    B, C = int(args["batch_size"]), int(args["num_conformers"])
+    B, C = int(args["batch_size"]), int(args.get("num_conformers", 1))
     dataset = PoolDataset(MoleculePool(seed, traffic, B, C),
                           int(traffic["pool_batches"]) * B)
     cli = make_loaders(args, dataset)[0]
@@ -94,28 +95,39 @@ def collate_pool(args: Dict, traffic: Dict, seed: int):
 
 
 def real_counts(batches) -> Dict[str, Dict[str, float]]:
-    """The mean real atoms, edges and graphs of each view over `batches`."""
-    return {v: {"nodes": mean(float(b[v]["node_mask"].sum()) for b in batches),
-                "edges": mean(float(b[v]["edge_mask"].sum()) for b in batches),
-                "graphs": mean(float(b[v]["graph_mask"].sum())
-                               for b in batches)}
-            for v in ("graph2d", "graph3d")}
+    """The mean real atoms, edges and graphs (and triplets, where a view has
+    them) of each graph view of the collated `batches`, by the view's key
+    (``graph2d`` / ``graph3d``, or ``graph`` in a supervised batch)."""
+    views = [v for v, arrays in batches[0].items()
+             if isinstance(arrays, dict) and "node_mask" in arrays]
+    masks = {"nodes": "node_mask", "edges": "edge_mask",
+             "graphs": "graph_mask", "triplets": "tri_mask"}
+    return {v: {name: mean(float(b[v][mask].sum()) for b in batches)
+                for name, mask in masks.items() if mask in batches[0][v]}
+            for v in views}
+
+
+# the view of a collated batch that each model reads: the 2D model's is
+# ``graph2d`` beside a 3D model, ``graph`` in a supervised batch
+VIEWS = {"model": ("graph2d", "graph"), "model3d": ("graph3d",)}
 
 
 def step_flops(args: Dict, counts: Dict) -> float:
-    """Model FLOPs of one step: 3 x the forward matrix products of both
-    models (`flops/<model>.py`) and of the loss on the batch."""
+    """Model FLOPs of one step: 3 x the forward matrix products of the
+    configuration's models (`flops/<model_type>.py`, on the counts of the
+    view each reads) and of its loss (`flops/<loss_func>.py`, on the
+    counts by model key)."""
+    from bench_port.reference.run import model_keys
+
     def counter(name):
         return trace.load_file(os.path.join(manifest.BENCH, "flops",
                                             f"{name}.py"),
                                f"bench_port_flops_{name}").forward_flops
-    models = (counter(args["model_type"])(args["model_parameters"],
-                                          counts["graph2d"])
-              + counter(args["model3d_type"])(args["model3d_parameters"],
-                                              counts["graph3d"]))
-    loss = counter(args["loss_func"])(
-        int(args["model_parameters"]["target_dim"]),
-        counts["graph2d"]["graphs"], int(args["num_conformers"]))
+    by_model = {k: next(counts[v] for v in VIEWS[k] if v in counts)
+                for k in model_keys(args)}
+    models = sum(counter(args[f"{k}_type"])(args[f"{k}_parameters"], c)
+                 for k, c in by_model.items())
+    loss = counter(args["loss_func"])(args, by_model)
     return 3.0 * (models + loss)
 
 
@@ -179,8 +191,8 @@ class Program:
             self.torch.cuda.synchronize(self.dev)
 
     def leaves(self) -> Dict:
-        """Both models' parameters and float BatchNorm statistics, by
-        ``model.<name>`` / ``model3d.<name>``."""
+        """The models' parameters and float BatchNorm statistics, by
+        ``<key>.<name>``."""
         tr = self.trainer
         out = dict(tr.named_parameters())
         for key in tr.MODEL_KEYS:
@@ -220,11 +232,12 @@ class Program:
             return log(m, split, step, epoch)
 
         def first_rows(batch, out):
-            # both models' outputs of the first step, as the metrics read
-            # them
+            # the models' outputs of the first step, as the metrics read
+            # them (a supervised trainer's rows end with the targets)
             rows = Trainer._rows(tr, batch, out)
             if not outputs:
-                outputs.extend(np.array(r, np.float32) for r in rows)
+                outputs.extend(np.array(r, np.float32)
+                               for r in rows[:len(tr.MODEL_KEYS)])
             return rows
         tr.logger.log, tr.args["log_iterations"] = capture, 1
         tr._rows = first_rows
@@ -405,16 +418,17 @@ def reference_record(cell: manifest.Cell, seed: int, dev, q=None,
     molecules to those the reference reads (a fault planted in the
     reference put in the program's place)."""
     from bench_port.reference.nn import identity
-    from bench_port.reference.run import ReferenceRun, reference_batches
+    from bench_port.reference.run import ReferenceRun
     from infomax3d_tpu_torch.cli.config import load_config
     args = load_config(cell.config_path)
-    B, C = int(args["batch_size"]), int(args["num_conformers"])
+    B, C = int(args["batch_size"]), int(args.get("num_conformers", 1))
     pool = MoleculePool(seed, cell.traffic, B, C)
+    run = ReferenceRun(args, make_weights(args, seed, dev),
+                       manifest.reference_parts(args), q or identity)
     batches = []
     for j in range(CHECKED_STEPS):
         mols = [pool.molecule(i) for i in range(j * B, (j + 1) * B)]
-        batches.append(reference_batches(take(mols) if take else mols, dev))
-    run = ReferenceRun(args, make_weights(args, seed, dev), q or identity)
+        batches.append(run.batch(take(mols) if take else mols, dev))
     return run.run(batches)
 
 

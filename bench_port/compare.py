@@ -4,9 +4,9 @@ steps against the reference's, by three numbers, each held to its limit
 
 - ``loss_gap``: the largest relative gap of a step's loss, over the
   checked steps.
-- ``out_gap``: both models' outputs at the first step (the embeddings the
-  loss reads): the larger relative gap
-  ``|z_program - z_reference| / |z_reference|`` of the two.
+- ``out_gap``: the models' outputs at the first step (what the loss
+  reads): the largest relative gap
+  ``|z_program - z_reference| / |z_reference|`` over the models.
 - ``change_gap``: each leaf's change over the checked steps (parameters
   and BatchNorm running statistics), by the worst leaf:
   ``| |d_program| - |d_reference| |`` over the larger of the reference

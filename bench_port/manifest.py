@@ -1,14 +1,16 @@
 """`BENCHMARK.json` and the files it names, found by name: a cell's
 configuration (`configs/<config>.yml`, read by the port's `load_config`),
 its traffic (`workloads/<traffic>.json`), its limits
-(`limits/<workload>.json`) and the readers of its metrics
-(`metrics/<metric>.py`)."""
+(`limits/<workload>.json`), the readers of its metrics
+(`metrics/<metric>.py`) and the reference's files of its configuration
+(`reference/models/<model_type>.py`, `reference/losses/<loss_func>.py`,
+`reference/schedules/<lr_scheduler>.py`)."""
 from __future__ import annotations
 
 import json
 import os
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Mapping
 
 BENCH = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH)
@@ -52,3 +54,21 @@ def cell(name: str, root: str = ROOT) -> Cell:
              if (name in m["workloads"] if "workloads" in m
                  else m["moves"] in e2e)]
     return Cell(name, config_path, traffic, int(w["chips"]), e2e, layer)
+
+
+def reference_file(kind: str, name: str):
+    """The reference's file `name` of `kind` (``models``, ``losses`` or
+    ``schedules``), loaded from `BENCH`; NotImplementedError where there is
+    none."""
+    from bench_port.trace import load_file
+    path = os.path.join(BENCH, "reference", kind, f"{name}.py")
+    if not os.path.isfile(path):
+        raise NotImplementedError(f"no reference for {name} "
+                                  f"(reference/{kind}/{name}.py)")
+    return load_file(path, f"bench_port_reference_{kind}_{name}")
+
+
+def reference_parts(config: Mapping):
+    """The reference's files of a configuration (`reference.run.Parts`)."""
+    from bench_port.reference.run import Parts
+    return Parts(config, reference_file)

@@ -4,16 +4,17 @@ the yardstick does not move when the port does.
 
 A molecule is a valence-capped random spanning tree (at most 4 bonds per
 atom) plus a few ring closures, with OGB-coded atom features [n, 9], bond
-features [e, 3] (both directions of a bond share them), coordinates and C
-conformers (the coordinates plus Gaussian noise).  Its 3D view per
-conformer is the complete graph: every ordered pair of distinct atoms,
-sender-major, with its distance.
+features [e, 3] (both directions of a bond share them), coordinates, C
+conformers (the coordinates plus Gaussian noise) and, where the traffic's
+``targets`` asks for T > 0, T standard normal float32 targets.  Its 3D
+view per conformer is the complete graph: every ordered pair of distinct
+atoms, sender-major, with its distance.
 
 Every seed gives the same atoms and complete-graph edges: the atom counts
 of each block of `block` molecules (one batch) are the same fixed list
 (the traffic's `n_min` .. `n_max` in turn), in an order drawn from the
-seed; the bonds (a few ring closures more or less), codes and coordinates
-are drawn from the seed and the molecule's index.
+seed; the bonds (a few ring closures more or less), codes, coordinates
+and then the targets are drawn from the seed and the molecule's index.
 Molecule i is made on demand from ``(seed, i)`` alone.
 """
 from __future__ import annotations
@@ -79,17 +80,19 @@ def complete_pairs(n: int):
 class MoleculePool:
     """The molecules of one run, made on demand from `seed` (see the
     module docstring).  `traffic` gives ``n_min``, ``n_max``,
-    ``coord_scale`` and ``conformer_noise``; `block` is one card's batch,
-    the unit whose atom counts are fixed; `num_conformers` is C."""
+    ``coord_scale``, ``conformer_noise`` and optionally ``targets`` (T,
+    default 0); `block` is one card's batch, the unit whose atom counts
+    are fixed; `num_conformers` is C (default 1)."""
 
     def __init__(self, seed: int, traffic: Dict, block: int,
-                 num_conformers: int):
+                 num_conformers: int = 1):
         self.seed = int(seed)
         self.n_min, self.n_max = int(traffic["n_min"]), int(traffic["n_max"])
         self.coord_scale = float(traffic["coord_scale"])
         self.noise = float(traffic["conformer_noise"])
         self.block = int(block)
         self.C = int(num_conformers)
+        self.n_targets = int(traffic.get("targets", 0))
         self._sizes = block_sizes(self.block, self.n_min, self.n_max)
         self._orders: Dict[int, np.ndarray] = {}
         self._pairs: Dict[int, tuple] = {}
@@ -108,7 +111,8 @@ class MoleculePool:
         """The raw molecule i: ``node_feat`` [n, 9] int32 atom codes,
         ``senders`` / ``receivers`` [e] int32 (both bond directions),
         ``edge_feat`` [e, 3] int32 bond codes, ``conformers`` [C, n, 3]
-        float32.  Made once and kept."""
+        float32 and, with T targets, ``targets`` [T] float32.  Made once
+        and kept."""
         i = int(i)
         if i not in self._mols:
             self._mols[i] = self._make(i)
@@ -126,11 +130,15 @@ class MoleculePool:
         coords = rng.normal(scale=self.coord_scale, size=(n, 3))
         confs = coords[None] + rng.normal(scale=self.noise,
                                           size=(self.C, n, 3))
-        return {"node_feat": node_feat,
-                "senders": np.concatenate([src, dst]),
-                "receivers": np.concatenate([dst, src]),
-                "edge_feat": np.concatenate([half, half]),
-                "conformers": confs.astype(np.float32)}
+        mol = {"node_feat": node_feat,
+               "senders": np.concatenate([src, dst]),
+               "receivers": np.concatenate([dst, src]),
+               "edge_feat": np.concatenate([half, half]),
+               "conformers": confs.astype(np.float32)}
+        if self.n_targets:
+            mol["targets"] = rng.normal(size=self.n_targets).astype(
+                np.float32)
+        return mol
 
     def pairs(self, n: int):
         if n not in self._pairs:
@@ -138,8 +146,11 @@ class MoleculePool:
         return self._pairs[n]
 
     def item(self, i: int) -> Dict:
-        """Molecule i as the port's `conformer_collate` reads it: the bond
-        graph and one complete graph per conformer with its distances."""
+        """Molecule i as the port's datasets serve it (`data/cached.py`):
+        ``graph2d``, the bond graph; ``conformers3d``, one complete graph
+        per conformer with its distances and coordinates (what
+        `conformer_collate` reads); ``graph3d``, the first of them; and
+        ``targets`` where the molecule has them."""
         mol = self.molecule(i)
         src, dst = self.pairs(mol["node_feat"].shape[0])
         views = []
@@ -151,7 +162,11 @@ class MoleculePool:
                           "coords": coords})
         graph2d = {k: mol[k] for k in ("node_feat", "senders", "receivers",
                                        "edge_feat")}
-        return {"graph2d": graph2d, "conformers3d": views}
+        item = {"graph2d": graph2d, "graph3d": views[0],
+                "conformers3d": views}
+        if "targets" in mol:
+            item["targets"] = mol["targets"]
+        return item
 
 
 class PoolDataset:

@@ -112,3 +112,28 @@ def test_record_matches_the_kernel_entry(kernel):
     assert params[:len(named)] == named
     if len(named) < len(params):
         assert any(v.kind == v.VAR_POSITIONAL for v in rec.values())
+
+
+def test_real_counts_of_a_radius_graph_pool(tmp_path):
+    """A pool collated for SMP's `smp_collate` (the items' `graph3d`
+    coordinates, their targets) counts its triplets beside its atoms,
+    edges and graphs."""
+    import json
+    from bench_port.cell import collate_pool, real_counts
+    from infomax3d_tpu_torch.cli.config import load_config
+    from infomax3d_tpu_torch.cli.train import resolve_collate
+    (tmp_path / "smp.yml").write_text(
+        "model_type: SMP\nbatch_size: 4\nnum_conformers: 1\n"
+        "loss_func: L1Loss\ncollate_function: graph_collate\n")
+    args = load_config(str(tmp_path / "smp.yml"))
+    resolve_collate(args)
+    with open(os.path.join(manifest.BENCH, "workloads",
+                           "drug_size_closed.json")) as f:
+        traffic = dict(json.load(f), n_min=8, n_max=12, targets=1)
+    batches = collate_pool(args, traffic, 5)
+    graph = batches[0]["graph"]
+    assert graph["targets"].shape[1] == 1
+    counts = real_counts(batches)["graph"]
+    assert counts["graphs"] == 4
+    assert counts["triplets"] == sum(float(b["graph"]["tri_mask"].sum())
+                                     for b in batches) / len(batches) > 0

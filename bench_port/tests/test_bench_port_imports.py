@@ -31,7 +31,10 @@ def test_sources_import_nothing_forbidden():
 
 
 def test_reference_sources_import_no_port():
-    for path in glob.glob(os.path.join(manifest.BENCH, "reference", "*.py")):
+    """The reference's modules and its files found by name (models,
+    losses, schedules) import only torch, numpy and the reference."""
+    for path in glob.glob(os.path.join(manifest.BENCH, "reference", "**",
+                                       "*.py"), recursive=True):
         for name in _imports(path):
             assert name.split(".")[0] in ("torch", "numpy", "math",
                                           "typing", "__future__",
@@ -60,8 +63,9 @@ def test_reference_run_loads_no_port():
 import json, sys
 sys.path.insert(0, %r)
 import numpy as np, torch
+from bench_port import manifest
 from bench_port.molecules import MoleculePool
-from bench_port.reference.run import ReferenceRun, reference_batches
+from bench_port.reference.run import ReferenceRun
 from bench_port.weights import make_weights
 config = {"model_type": "PNA", "model3d_type": "Net3D",
           "loss_func": "NTXentMultiplePositives", "loss_params": {"tau": 0.1},
@@ -78,8 +82,9 @@ config = {"model_type": "PNA", "model3d_type": "Net3D",
 pool = MoleculePool(5, {"n_min": 4, "n_max": 6, "coord_scale": 2.0,
                         "conformer_noise": 0.3}, 4, 2)
 mols = [pool.molecule(i) for i in range(4)]
-run = ReferenceRun(config, make_weights(config, 5, "cpu"))
-rec = run.run([reference_batches(mols, "cpu")] * 2)
+run = ReferenceRun(config, make_weights(config, 5, "cpu"),
+                   manifest.reference_parts(config))
+rec = run.run([run.batch(mols, "cpu")] * 2)
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
 """ % manifest.ROOT
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -1,5 +1,6 @@
 """The weights of a run, made from its seed: every tensor the reference's
-`parameter_spec` names, drawn on the device with one `torch.Generator` in
+`parameter_spec` names (each model file's spec, in the order of the
+configuration's model keys), drawn on the device with one `torch.Generator` in
 two calls (one uniform, one normal draw) in float32, then scaled per
 tensor.  The program loads them into its modules (`load_state_dict`,
 strict); the reference makes them again from the same seed."""
@@ -11,6 +12,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from bench_port import manifest
 from bench_port.reference.run import parameter_spec
 
 
@@ -21,11 +23,12 @@ def weight_seed(seed: int) -> int:
 
 
 def make_weights(config: Mapping, seed: int, device) -> Dict[str, torch.Tensor]:
-    """``model.<name>`` / ``model3d.<name>`` -> tensor on `device`:
-    linear layers uniform in +-1/sqrt(fan_in), embeddings uniform in
-    +-sqrt(6 / (vocab + width)), Net3D's node embedding standard normal,
-    BatchNorm weight 1, bias 0, running mean 0, running variance 1."""
-    spec = parameter_spec(config)
+    """``<key>.<name>`` -> tensor on `device`, each as its model file's
+    spec says: linear layers uniform in +-1/sqrt(fan_in), embeddings
+    uniform in +-sqrt(6 / (vocab + width)), Net3D's node embedding standard
+    normal, BatchNorm weight 1, bias 0, running mean 0, running variance
+    1."""
+    spec = parameter_spec(manifest.reference_parts(config))
     sizes = {k: sum(math.prod(s) for _, s, kind, _ in spec if kind == k)
              for k in ("uniform", "normal")}
     gen = torch.Generator(device=device).manual_seed(weight_seed(seed))
@@ -50,6 +53,6 @@ def make_weights(config: Mapping, seed: int, device) -> Dict[str, torch.Tensor]:
 
 def model_state(weights: Mapping[str, torch.Tensor], key: str
                 ) -> Dict[str, torch.Tensor]:
-    """The state dict of model `key` ("model" or "model3d")."""
+    """The state dict of model `key` (``model``, ``model3d``)."""
     return {n[len(key) + 1:]: t for n, t in weights.items()
             if n.startswith(key + ".")}
