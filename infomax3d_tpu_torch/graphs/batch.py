@@ -41,7 +41,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from infomax3d_tpu_torch.utils.spans import count
+from infomax3d_tpu_torch.utils.spans import count, recording
 
 
 @dataclasses.dataclass(frozen=True)
@@ -330,7 +330,9 @@ def to_tensors(arrays: Dict[str, np.ndarray], keys: Sequence[str],
     """The host arrays of `keys` as tensors on `device`, by key: where a
     batch's arrays become the step's tensors.  Their bytes and number go
     to the counters ``h2d_bytes`` and ``h2d_copies`` (`utils/spans.py`;
-    counted whatever the device)."""
+    counted whatever the device), and where they hold SMP's triplets the
+    host ``tri_mask``'s real triplets and rows to ``smp_triplets`` and
+    ``smp_triplet_rows``."""
     out, nbytes = {}, 0
     for k in keys:
         a = np.ascontiguousarray(arrays[k])
@@ -338,6 +340,9 @@ def to_tensors(arrays: Dict[str, np.ndarray], keys: Sequence[str],
         out[k] = torch.from_numpy(a).to(device)
     count("h2d_bytes", nbytes)
     count("h2d_copies", len(out))
+    if "tri_mask" in out and recording():
+        count("smp_triplets", int(np.count_nonzero(arrays["tri_mask"])))
+        count("smp_triplet_rows", len(arrays["tri_mask"]))
     return out
 
 

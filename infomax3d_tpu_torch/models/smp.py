@@ -21,6 +21,10 @@ are sorted by their edge j -> i, so the sums run on the port's kernels:
   x in node space and gathers: the backward of the receiver gather is the
   CSR segment sum, of the sender gather the sender-keyed one.
 
+The spans ``smp.bases`` (the bases, once a forward) and ``smp.triplets``
+(each block's triplet message, from the gather through the CSR sum)
+mark the model's host work in a profiler's trace (`utils/spans.py`).
+
 Padded edges take ``dist = cutoff``, where the envelope vanishes (the
 Bessel bases are NaN at 0), and padded edges' and triplets' bases are
 zeroed.  Linears are initialized as PyG's ``glorot_orthogonal`` (scale
@@ -42,6 +46,7 @@ from infomax3d_tpu_torch.ops.kernels import csr_sum
 from infomax3d_tpu_torch.ops.segment import segment_sum, take_rows
 from infomax3d_tpu_torch.ops.spherical import (angle_emb, dist_emb,
                                                torsion_emb)
+from infomax3d_tpu_torch.utils.spans import span
 
 
 def glorot_orthogonal_(weight: torch.Tensor, scale: float = 2.0
@@ -152,10 +157,12 @@ class SMPUpdateE(nn.Module):
         x_kj = F.silu(self.lin_kj(x1))
         x_kj = x_kj * self.lin_rbf2(self.lin_rbf1(rbf0))
         x_kj = F.silu(self.lin_down(x_kj))
-        x_kj = take_rows(x_kj, g.idx_kj, g.tri_kj_ptr, g.tri_kj_perm) * \
-            self.lin_sbf2(self.lin_sbf1(sbf))
-        x_kj = x_kj * self.lin_t2(self.lin_t1(t))
-        x_kj = csr_sum(x_kj, g.tri_ji_ptr, g.idx_ji).to(x_kj.dtype)
+        with span("smp.triplets"):
+            x_kj = take_rows(x_kj, g.idx_kj, g.tri_kj_ptr,
+                             g.tri_kj_perm) * \
+                self.lin_sbf2(self.lin_sbf1(sbf))
+            x_kj = x_kj * self.lin_t2(self.lin_t1(t))
+            x_kj = csr_sum(x_kj, g.tri_ji_ptr, g.idx_ji).to(x_kj.dtype)
         x_kj = F.silu(self.lin_up(x_kj))
         e1 = x_ji + x_kj
         for b in range(self.num_before_skip):
@@ -242,7 +249,8 @@ class SMP(nn.Module):
 
     def forward(self, g, noise=None) -> torch.Tensor:
         G = g.graph_mask.shape[0]
-        rbf0, sbf, t = self.bases(g)
+        with span("smp.bases"):
+            rbf0, sbf, t = self.bases(g)
         e1, e2 = self.init_e(g, rbf0)
         u = segment_sum(self.init_v(g, e2), g.node_graph, G)
         for layer in range(self.depth):

@@ -35,8 +35,13 @@ The port's names: the training loop's spans ``loop.loader``,
 ``loop.logging`` and ``loop.checkpoint`` (`train/trainer.py`, each feeding
 the `timing` key of its suffix); inside a training step ``step.forward``,
 ``step.backward``, ``step.optimizer`` and the OT step's ``step.emd``
-(feeding ``host_emd``); the counters ``h2d_bytes`` and ``h2d_copies``
-where host arrays become a step's tensors (`graphs/batch.py::to_tensors`).
+(feeding ``host_emd``); inside SMP's forward ``smp.bases`` (the bases,
+once a forward) and ``smp.triplets`` (each block's triplet message,
+`propagation_depth` times a forward: `models/smp.py`); the counters
+``h2d_bytes`` and ``h2d_copies`` where host arrays become a step's
+tensors, and there ``smp_triplets`` and ``smp_triplet_rows`` (the real
+triplets and the triplet rows of a batch that carries ``tri_mask``:
+`graphs/batch.py::to_tensors`).
 """
 from __future__ import annotations
 
@@ -121,6 +126,12 @@ class span:
                 children[-1] += dt
             _TALLY.add(self.name, dt, dt - inner)
         return False
+
+
+def recording() -> bool:
+    """Whether a profiler records now: a counter whose value costs work
+    to find is found only then."""
+    return _TALLY.recording()
 
 
 def count(name: str, n) -> None:
